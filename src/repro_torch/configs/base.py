@@ -1,0 +1,249 @@
+"""Typed configuration tree of the port (counterpart of
+``repro/configs/base.py``).
+
+The dataclasses keep the reference's field names and defaults for every
+knob this slice runs.  Knobs of features not yet ported stay settable so
+that a config written for the reference reads the same here, but a
+non-default value raises ``NotImplementedError`` naming the ROADMAP item
+that ports it — the port never degrades silently.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Block-pattern vocabulary (same as the reference)
+# ---------------------------------------------------------------------------
+MIXERS = ("attn", "attn_sw", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
+BlockSpec = Tuple[str, str]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense|encoder|moe|vlm|ssm|hybrid
+    citation: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None   # None => d_model // n_heads
+    pattern: Tuple[BlockSpec, ...] = (("attn", "dense"),)
+    prefix_pattern: Tuple[BlockSpec, ...] = ()
+    causal: bool = True
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    post_block_norm: bool = False
+    moe: Optional[Any] = None        # family sub-configs: not ported yet
+    mla: Optional[Any] = None
+    ssm: Optional[Any] = None
+    vision: Optional[Any] = None
+    audio: Optional[Any] = None
+    dtype: str = "bfloat16"          # activation/compute dtype
+    param_dtype: str = "float32"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return (self.head_dim if self.head_dim is not None
+                else self.d_model // self.n_heads)
+
+    @property
+    def layers(self) -> Tuple[BlockSpec, ...]:
+        body = self.n_layers - len(self.prefix_pattern)
+        if body < 0 or (len(self.pattern) and body % len(self.pattern) != 0):
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} incompatible with "
+                f"prefix={len(self.prefix_pattern)} "
+                f"pattern={len(self.pattern)}")
+        reps = body // len(self.pattern)
+        return self.prefix_pattern + self.pattern * reps
+
+    @property
+    def n_scan_blocks(self) -> int:
+        return (self.n_layers - len(self.prefix_pattern)) // len(self.pattern)
+
+    def validate(self) -> "ModelConfig":
+        for mixer, ffn in self.layers:
+            if mixer not in MIXERS:
+                raise ValueError(f"unknown mixer {mixer!r}")
+            if ffn not in FFNS:
+                raise ValueError(f"unknown ffn {ffn!r}")
+            if ffn == "moe" and self.moe is None:
+                raise ValueError("moe block requires MoEConfig")
+            if mixer in ("mamba", "mlstm", "slstm") and self.ssm is None:
+                raise ValueError(f"{mixer} block requires SSMConfig")
+        if self.n_heads % self.n_kv_heads != 0:
+            raise ValueError("n_heads must be divisible by n_kv_heads")
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Distribution / decentralized-training config (the paper's knobs)
+# ---------------------------------------------------------------------------
+TOPOLOGIES = ("ring", "grid", "exp", "one_peer_exp", "full", "disconnected",
+              "directed_ring", "directed_exp")
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"repro_torch: {what} is not ported yet (ROADMAP {item})")
+
+
+@dataclass(frozen=True)
+class DistConfig:
+    algorithm: str = "gossip_pga"
+    topology: str = "one_peer_exp"
+    H: int = 6                       # global averaging period
+    node_axis: str = "data"
+    n_pods: int = 2                  # pod blocks of the pod_avg round
+    comm_dtype: str = "float32"      # "bfloat16": bf16 wire cast
+    comm_backend: str = "reference"  # "reference": roll/mean mixing
+                                     # "pallas": the fused hand-written
+                                     # CUDA kernel (kernels/mixing_cuda)
+    comm_compression: str = "none"
+    comm_global_compression: str = "none"
+    comm_error_feedback: bool = False
+    comm_shard_mode: str = "auto"    # one device: "auto" == "stacked"
+    pallas_leaf_threshold: int = 262_144
+                                     # per-node elements at which a leaf gets
+                                     # its own kernel launch instead of the
+                                     # concat staging buffer
+    push_sum: bool = False
+    comm_overlap: bool = False
+    remat: str = "block"             # "none" | "block" (checkpoint per block)
+    remat_policy: str = "nothing"
+    fsdp: bool = False
+
+    def validate(self) -> "DistConfig":
+        from repro_torch.core.algo import algorithm_names, get_algorithm
+        if self.algorithm not in algorithm_names():
+            raise ValueError(
+                f"DistConfig.validate: unknown algorithm "
+                f"{self.algorithm!r} (expected one of {algorithm_names()})")
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"unknown topology {self.topology!r}")
+        if self.H < 1:
+            raise ValueError("H must be >= 1")
+        if self.node_axis not in ("data", "pod"):
+            raise ValueError("node_axis must be 'data' or 'pod'")
+        if self.comm_backend not in ("reference", "pallas"):
+            raise ValueError("comm_backend must be 'reference' or 'pallas'")
+        if self.comm_dtype not in ("float32", "bfloat16"):
+            raise ValueError("comm_dtype must be 'float32' or 'bfloat16'")
+        if self.n_pods < 1:
+            raise ValueError("n_pods must be >= 1")
+        if self.comm_shard_mode not in ("auto", "stacked", "sharded"):
+            raise ValueError("comm_shard_mode must be 'auto', 'stacked', "
+                             "or 'sharded'")
+        if self.pallas_leaf_threshold < 1:
+            raise ValueError("pallas_leaf_threshold must be >= 1")
+        if self.remat not in ("none", "block"):
+            raise ValueError("remat must be 'none' or 'block'")
+        get_algorithm(self.algorithm, caller="DistConfig.validate")
+        if self.comm_compression != "none" \
+                or self.comm_global_compression != "none" \
+                or self.comm_error_feedback:
+            raise not_ported("wire compression / error feedback", "A.3")
+        if self.push_sum or self.topology in ("directed_ring",
+                                              "directed_exp"):
+            raise not_ported("push-sum and directed topologies", "A.4")
+        if self.comm_overlap:
+            raise not_ported("overlapped gossip (comm_overlap)", "A.5")
+        if self.comm_shard_mode == "sharded" or self.node_axis != "data" \
+                or self.fsdp:
+            raise not_ported("meshes and sharded communication", "A.10")
+        if self.remat_policy != "nothing":
+            raise not_ported(f"remat_policy={self.remat_policy!r}", "A.8")
+        return self
+
+    def comm_spec(self, n_nodes: int):
+        """The port's :class:`repro_torch.core.mixing.CommSpec` (no mesh
+        fields: one device holds every node)."""
+        import torch
+
+        from repro_torch.core.mixing import CommSpec
+        return CommSpec(
+            topology=self.topology,
+            n_nodes=n_nodes,
+            n_pods=self.n_pods,
+            backend=self.comm_backend,
+            leaf_threshold=self.pallas_leaf_threshold,
+            comm_dtype=(torch.bfloat16 if self.comm_dtype == "bfloat16"
+                        else None)).validate()
+
+    def validate_nodes(self, n_nodes: int) -> "DistConfig":
+        """Checks that need the runtime node count (the reference's
+        hier_pga pod check; that algorithm is not ported, so this only
+        rejects a node count below one)."""
+        if n_nodes < 1:
+            raise ValueError(f"DistConfig: n_nodes={n_nodes} must be >= 1")
+        return self
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "sgd"                # sgd | adamw (lamb: not ported)
+    lr: float = 0.1
+    momentum: float = 0.9
+    nesterov: bool = True
+    weight_decay: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: Optional[float] = 1.0
+    schedule: str = "warmup_cosine"  # constant | warmup_cosine |
+                                     # warmup_poly | step
+    warmup_steps: int = 100
+    decay_steps: Tuple[int, ...] = ()
+    decay_factor: float = 0.1
+    total_steps: int = 1000
+    min_lr_ratio: float = 0.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    kind: str = "synthetic_lm"
+    non_iid: bool = True
+    non_iid_alpha: float = 0.5
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    dist: DistConfig = field(default_factory=DistConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    global_batch: int = 256
+    seq_len: int = 4096
+    microbatches: int = 1
+    steps: int = 200
+    log_every: int = 10
+    ckpt_every: int = 0              # checkpoints: not ported (must be 0)
+    seed: int = 0
+    z_loss: float = 0.0
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self) -> "TrainConfig":
+        self.dist.validate()
+        if self.microbatches != 1:
+            raise not_ported("gradient accumulation (microbatches)",
+                              "A.8")
+        if self.ckpt_every:
+            raise not_ported("checkpoints", "A.7")
+        if self.data.kind != "synthetic_lm":
+            raise not_ported(f"data kind {self.data.kind!r}", "A.1")
+        return self

@@ -1,0 +1,156 @@
+"""Shared building blocks (counterpart of ``repro/models/layers.py``):
+parameter builder, RMSNorm, rotary embedding, gated MLP, embedding.
+
+Parameters are nested dicts of tensors in the reference's layout.  Every
+function below takes tensors that carry the leading node axis ``n`` of
+the decentralized layout — activations ``(n, B, S, …)``, weights
+``(n, …)`` — so the n node replicas run as batched matrix products (the
+reference ``vmap``s one node's function instead).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+PyTree = Any
+
+
+class ParamBuilder:
+    """Creates parameters with the reference's init rules: ``normal``
+    (std ``scale`` or 0.02), ``fan_in`` (std ``scale/√fan_in``, fan_in the
+    product of all but the last dim), ``zeros``, ``ones``, ``constant``.
+
+    Values are drawn in fp32 from one CPU ``torch.Generator`` in
+    creation order and moved to ``device``, so an init is the same on
+    every device.  The reference draws from split ``jax.random`` keys:
+    the two give different numbers, so cross-package comparisons start
+    from weights carried across (``repro_torch.interop``).
+    """
+
+    def __init__(self, generator: torch.Generator, param_dtype: torch.dtype,
+                 device):
+        self.generator = generator
+        self.param_dtype = param_dtype
+        self.device = torch.device(device)
+        self.params: Dict[str, Any] = {}
+
+    def _normal(self, shape, std: float) -> torch.Tensor:
+        val = torch.randn(shape, generator=self.generator,
+                          dtype=torch.float32)
+        return (std * val).to(self.param_dtype)
+
+    def add(self, name: str, shape: Sequence[int], init: str = "fan_in",
+            scale: Optional[float] = None) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        if init == "zeros":
+            val = torch.zeros(shape, dtype=self.param_dtype)
+        elif init == "ones":
+            val = torch.ones(shape, dtype=self.param_dtype)
+        elif init == "normal":
+            val = self._normal(shape, scale if scale is not None else 0.02)
+        elif init == "fan_in":
+            fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
+            std = ((scale if scale is not None else 1.0)
+                   / math.sqrt(max(fan_in, 1)))
+            val = self._normal(shape, std)
+        elif init == "constant":
+            val = torch.full(shape, scale, dtype=self.param_dtype)
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        val = val.to(self.device)
+        self.params[name] = val
+        return val
+
+    def attach(self, name: str, params: PyTree) -> None:
+        self.params[name] = params
+
+
+# ---------------------------------------------------------------------------
+# Functional layers
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation; ``weight`` is ``(n, D)`` and
+    broadcasts over the activation's middle dims."""
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    w = weight.to(torch.float32)
+    w = w.reshape(w.shape[:1] + (1,) * (x.dim() - 2) + w.shape[1:])
+    return (y * (offset + w)).to(dtype)
+
+
+def init_rms_norm(b: ParamBuilder, name: str, dim: int) -> None:
+    b.add(name, (dim,), init="ones")
+
+
+def make_rope(positions: torch.Tensor, head_dim: int, theta: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 cos/sin tables for rotary embedding; positions (..., S)."""
+    half = head_dim // 2
+    expo = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), expo)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); cos/sin: (..., S, head_dim//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def node_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-node ``x @ w``: x ``(n, …, d)``, w ``(n, d, f)`` → ``(n, …, f)``
+    as one batched product."""
+    lead = x.shape[1:-1]
+    y = torch.matmul(x.reshape(x.shape[0], -1, x.shape[-1]), w)
+    return y.reshape((x.shape[0],) + tuple(lead) + (w.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+def init_mlp(b: ParamBuilder, d_model: int, d_ff: int) -> None:
+    b.add("w_gate", (d_model, d_ff))
+    b.add("w_up", (d_model, d_ff))
+    b.add("w_down", (d_ff, d_model))
+
+
+def apply_mlp(params: PyTree, x: torch.Tensor, *, act=F.silu) -> torch.Tensor:
+    h = (act(node_matmul(x, params["w_gate"].to(x.dtype)))
+         * node_matmul(x, params["w_up"].to(x.dtype)))
+    return node_matmul(h, params["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (tied)
+# ---------------------------------------------------------------------------
+def init_embedding(b: ParamBuilder, vocab: int, d_model: int) -> None:
+    b.add("embedding", (vocab, d_model), init="normal", scale=0.02)
+
+
+def embed_tokens(params: PyTree, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """tokens (n, B, S) → (n, B, S, d): each node looks up its own
+    table."""
+    emb = params["embedding"].to(dtype)
+    n = tokens.shape[0]
+    node = torch.arange(n, device=tokens.device).reshape(
+        (n,) + (1,) * (tokens.dim() - 1))
+    return emb[node, tokens.long()]
+
+
+def unembed(params: PyTree, h: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding ``h @ Eᵀ`` per node; fp32 logits."""
+    emb = params["embedding"].to(h.dtype)
+    return node_matmul(h, emb.transpose(1, 2)).to(torch.float32)

@@ -1,0 +1,104 @@
+"""Optimizers: SGD (+Nesterov momentum) and AdamW as functional
+``(init, update)`` pairs over node-stacked dict trees (counterpart of
+``repro/optim/optimizers.py``).
+
+Elementwise updates vectorise over the leading node axis unchanged.  Like
+the reference, ``update`` returns new tensors and leaves its inputs as they
+were.  LAMB is not ported yet (ROADMAP A.8).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig, not_ported
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_unflatten)
+
+PyTree = Any
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[PyTree], PyTree]
+    update: Callable[[PyTree, PyTree, PyTree, Any], Tuple[PyTree, PyTree]]
+    # update(grads, opt_state, params, lr) -> (new_params, new_opt_state)
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+    """Scale every leaf by ``min(1, max_norm/‖g‖)`` where ``‖g‖`` is the
+    norm over **all nodes' grads jointly**, as the reference clips."""
+    leaves = tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+
+
+def sgd(cfg: OptimizerConfig) -> Optimizer:
+    def init(params):
+        return {"momentum": tree_map(torch.zeros_like, params)}
+
+    def update(grads, state, params, lr):
+        gl, treedef = tree_flatten(grads)
+        new_p, new_m = [], []
+        for g, m, p in zip(gl, tree_leaves(state["momentum"]),
+                           tree_leaves(params)):
+            g32 = g.to(torch.float32)
+            if cfg.weight_decay:
+                g32 = g32 + cfg.weight_decay * p.to(torch.float32)
+            m_new = cfg.momentum * m.to(torch.float32) + g32
+            step = (g32 + cfg.momentum * m_new) if cfg.nesterov else m_new
+            new_p.append((p.to(torch.float32) - lr * step).to(p.dtype))
+            new_m.append(m_new.to(m.dtype))
+        return (tree_unflatten(treedef, new_p),
+                {"momentum": tree_unflatten(treedef, new_m)})
+
+    return Optimizer(init, update)
+
+
+def adamw(cfg: OptimizerConfig) -> Optimizer:
+    def init(params):
+        return {"m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=tree_leaves(params)[0].device)}
+
+    def update(grads, state, params, lr):
+        # int32 step count; the bias corrections are fp32 powers of it
+        count = state["count"] + 1
+        c32 = count.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), c32)
+        bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), c32)
+
+        gl, treedef = tree_flatten(grads)
+        ms, vs, ps = [], [], []
+        for g, m, v, p in zip(gl, tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            g32 = g.to(torch.float32)
+            m = cfg.b1 * m + (1 - cfg.b1) * g32
+            v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            u = u + cfg.weight_decay * p.to(torch.float32)
+            ps.append((p.to(torch.float32) - lr * u).to(p.dtype))
+            ms.append(m)
+            vs.append(v)
+        return tree_unflatten(treedef, ps), {
+            "m": tree_unflatten(treedef, ms),
+            "v": tree_unflatten(treedef, vs), "count": count}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
+    if cfg.name == "sgd":
+        return sgd(cfg)
+    if cfg.name == "adamw":
+        return adamw(cfg)
+    if cfg.name == "lamb":
+        raise not_ported("the LAMB optimizer", "A.8")
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

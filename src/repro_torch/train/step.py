@@ -1,0 +1,112 @@
+"""Training-step builder (counterpart of the sync mode of
+``repro/train/step.py``): per-node forward/backward over the stacked node
+axis → per-node optimizer update → one communication round (the paper's
+Alg. 1).
+
+One step body; algorithm differences enter through the
+``repro_torch.core.algo`` hooks.  With ``comm_backend="pallas"`` and
+``with_consensus`` the fused kernel emits the consensus residual in the
+same pass that mixes the parameters (``mixing_cuda.mix_residual``), so the
+step never re-reads the parameters it just wrote.  Overlap and push-sum
+step modes are not ported yet (ROADMAP A.4, A.5).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core import algo as algo_lib
+from repro_torch.core import mixing
+from repro_torch.kernels import mixing_cuda
+from repro_torch.models.model import Model
+from repro_torch.optim import clip_by_global_norm, make_optimizer
+from repro_torch.train.state import TrainState, consensus_distance
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+PyTree = Any
+
+
+def _grad_global_norm(grads: PyTree) -> torch.Tensor:
+    """Global L2 norm over all nodes' grads (an on-device monitor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree_leaves(grads)))
+
+
+def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
+                     phase: str, shift_step: int = 0,
+                     with_consensus: bool = False) -> Callable:
+    """Returns ``step(state, batch, lr) -> (state, metrics)``.
+
+    ``phase``: one of ``phases_for_algorithm(dist.algorithm)``; batch
+    leaves carry leading ``(n_nodes, per_node_batch, …)``.  ``metrics``
+    holds device scalars (no host sync): the node-mean ``loss``/``ce``/
+    ``lb_loss`` and, with ``with_consensus``, ``grad_norm`` and
+    ``consensus`` (``(1/n) Σ_i ‖x_i − x̄‖²`` of the mixed params).
+    """
+    tcfg.validate()
+    dist = tcfg.dist
+    dist.validate_nodes(n_nodes)
+    algo = algo_lib.get_algorithm(dist.algorithm, caller="build_train_step")
+    if phase not in algo.phases:
+        raise ValueError(f"build_train_step: phase {phase!r} is not one of "
+                         f"{dist.algorithm}'s phases {algo.phases}")
+    spec = dist.comm_spec(n_nodes)
+    opt = make_optimizer(tcfg.optimizer)
+    remat = "none" if dist.remat == "none" else "default"
+    fused_consensus_round = (dist.comm_backend == "pallas" and with_consensus
+                             and n_nodes > 1
+                             and phase in mixing_cuda.KERNEL_PHASES)
+
+    def grad_fn(params: PyTree, batch: PyTree):
+        leaves, treedef = tree_flatten(params)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            losses, metrics = model.node_losses(
+                tree_unflatten(treedef, live), batch, remat=remat,
+                z_loss=tcfg.z_loss)
+            # sum over nodes => grads land per node, unscaled (Alg. 1)
+            grads = torch.autograd.grad(losses.sum(), live)
+        metrics = {k: v.detach().mean() for k, v in metrics.items()}
+        return tree_unflatten(treedef, list(grads)), metrics
+
+    def _sync_round(extras, params_half):
+        payload = algo.comm_payload(extras, params_half)
+        has_payload = bool(payload)
+        if fused_consensus_round and not has_payload:
+            mixed, _xbar, resid = mixing_cuda.mix_residual(
+                params_half, phase=phase, topology=dist.topology,
+                n_nodes=n_nodes, step=shift_step,
+                comm_dtype=spec.comm_dtype, n_pods=dist.n_pods,
+                leaf_threshold=dist.pallas_leaf_threshold)
+            return algo_lib.wrap_mixed(mixed, False), resid / n_nodes
+        joint = algo_lib.join_payload(payload, params_half)
+        mixed = mixing.communicate(joint, spec, phase=phase,
+                                   step=shift_step)
+        return algo_lib.wrap_mixed(mixed, has_payload), None
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: PyTree, lr
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        extras = dict(state.extras)
+        grads, metrics = grad_fn(state.params, batch)
+        if with_consensus:
+            metrics["grad_norm"] = _grad_global_norm(grads)
+        if tcfg.optimizer.grad_clip:
+            grads = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
+        upd, extras = algo.pre_update(extras, grads)
+        params_half, opt_state = opt.update(upd, state.opt_state,
+                                            state.params, lr)
+        del grads, upd
+        mixed, fused_consensus = _sync_round(extras, params_half)
+        sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr)
+        new_params, extras = algo.post_round(extras, mixed, phase, sctx)
+        if with_consensus:
+            metrics["consensus"] = (fused_consensus
+                                    if fused_consensus is not None
+                                    else consensus_distance(new_params))
+        return TrainState(params=new_params, opt_state=opt_state,
+                          step=state.step + 1, extras=extras), metrics
+
+    return step

@@ -1,0 +1,194 @@
+"""Port parity: optimizers, synthetic data and multi-step training, JAX vs
+``repro_torch`` on the CPU.
+
+Tolerances, with their reasons:
+* optimizer updates are elementwise fp32 arithmetic on the same inputs:
+  rtol 1e-6.  AdamW's bias correction ``1 − 0.999^count`` cancels, and
+  XLA's fp32 pow and PyTorch's differ by an ulp (up to 6e-5 relative in
+  ``1 − 0.999``), so AdamW params also get atol 1e-4·lr;
+* training runs 4 steps of Gossip-PGA (H = 2: gossip and global rounds)
+  at fp32 compute from shared params.  Forward/backward reductions sum in
+  another order.  With SGD that stays at rounding level: params rtol
+  1e-5, atol 1e-7, metrics rtol 1e-5 (measured: 6e-8 and 3.3e-6).  AdamW
+  divides each coordinate by sqrt(v) + eps, so where a gradient entry is
+  within ~eps of zero its update swings with that summation noise: params
+  atol 5e-2·lr, metrics rtol 1e-4 (measured: 1.6e-2·lr and 7.4e-6).
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jcfg
+from repro.core import schedule as jsched
+from repro.data import make_stream as jstream
+from repro.models.model import make_model as jmake
+from repro.optim import optimizers as jopt
+from repro.train import state as jstate
+from repro.train.step import build_train_step as jbuild
+from repro_torch import interop
+from repro_torch.configs import base as tcfg_mod
+from repro_torch.data import make_stream as tstream
+from repro_torch.optim import optimizers as topt
+from repro_torch.train.state import TrainState, stack_for_nodes
+from repro_torch.train.step import build_train_step as tbuild
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+LR = 1e-3
+TINY = dict(name="tiny", family="dense", citation="test", n_layers=2,
+            d_model=64, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
+            vocab_size=256, tie_embeddings=True, dtype="float32")
+
+
+def _trees(seed):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((4, 6, 5)).astype(np.float32),
+            "b": rng.standard_normal((4, 7)).astype(np.float32)}
+
+
+def _close(jtree, ttree, rtol, atol=0.0):
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(ttree)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("name", ("sgd", "adamw"))
+@pytest.mark.parametrize("nesterov", (True, False))
+def test_optimizer_updates_match(name, nesterov):
+    kw = dict(name=name, lr=0.05, nesterov=nesterov, weight_decay=0.01)
+    jo = jopt.make_optimizer(jcfg.OptimizerConfig(**kw))
+    to = topt.make_optimizer(tcfg_mod.OptimizerConfig(**kw))
+    params = _trees(0)
+    jp, tp = jax.tree.map(jnp.asarray, params), interop.from_numpy(params,
+                                                                   "cpu")
+    js, ts = jo.init(jp), to.init(tp)
+    for k in range(3):
+        grads = _trees(10 + k)
+        jp, js = jo.update(jax.tree.map(jnp.asarray, grads), js, jp, 0.05)
+        tp, ts = to.update(interop.from_numpy(grads, "cpu"), ts, tp, 0.05)
+        _close(jp, tp, rtol=1e-6, atol=1e-4 * 0.05 if name == "adamw"
+               else 1e-7)
+    if name == "adamw":
+        assert ts["count"].dtype == torch.int32 and int(ts["count"]) == 3
+
+
+def test_clip_is_joint_over_nodes():
+    grads = _trees(3)
+    jc = jopt.clip_by_global_norm(jax.tree.map(jnp.asarray, grads), 0.5)
+    tc = topt.clip_by_global_norm(interop.from_numpy(grads, "cpu"), 0.5)
+    _close(jc, tc, rtol=1e-6)
+    total = np.sqrt(sum(float(np.sum(np.square(t.numpy())))
+                        for t in jax.tree.leaves(tc)))
+    assert abs(total - 0.5) < 1e-5      # one norm over all nodes' grads
+
+
+@pytest.mark.parametrize("iid", (False, True))
+def test_synthetic_batches_bit_identical(iid):
+    from repro.configs import pga_lm_100m as jarch
+    from repro_torch.configs import pga_lm_100m as tarch
+    js = jstream(jarch.reduced_config(), jcfg.DataConfig(non_iid=not iid),
+                 n_nodes=4, global_batch=8, seq_len=32)
+    ts = tstream(tarch.reduced_config(),
+                 tcfg_mod.DataConfig(non_iid=not iid), n_nodes=4,
+                 global_batch=8, seq_len=32)
+    for k in (0, 1, 7):
+        jb, tb = js.get_batch(k), ts.get_batch(k)
+        assert sorted(jb) == sorted(tb)
+        for key in jb:
+            assert tb[key].dtype == jb[key].dtype == np.int32
+            np.testing.assert_array_equal(tb[key], jb[key])
+
+
+def _configs(backend, optimizer):
+    dist = dict(algorithm="gossip_pga", topology="one_peer_exp", H=2,
+                comm_backend=backend, pallas_leaf_threshold=4096)
+    opt = dict(name=optimizer, lr=LR, schedule="constant", warmup_steps=0)
+    common = dict(global_batch=8, seq_len=16)
+    j = jcfg.TrainConfig(model=jcfg.ModelConfig(**TINY),
+                         dist=jcfg.DistConfig(**dist),
+                         optimizer=jcfg.OptimizerConfig(**opt), **common)
+    t = tcfg_mod.TrainConfig(model=tcfg_mod.ModelConfig(**TINY),
+                             dist=tcfg_mod.DistConfig(**dist),
+                             optimizer=tcfg_mod.OptimizerConfig(**opt),
+                             **common)
+    return j, t
+
+
+@pytest.mark.parametrize("optimizer", ("sgd", "adamw"))
+@pytest.mark.parametrize("backend", ("reference", "pallas"))
+def test_train_steps_match_reference(backend, optimizer):
+    """4 steps of build_train_step (gossip, global, gossip, global) from
+    shared params: the port tracks the JAX trainer step."""
+    n = 4
+    jt, tt = _configs(backend, optimizer)
+    p_tol = (dict(rtol=1e-5, atol=1e-7) if optimizer == "sgd"
+             else dict(rtol=1e-5, atol=5e-2 * LR))
+    m_rtol = 1e-5 if optimizer == "sgd" else 1e-4
+    jm = jmake(jt.model)
+    params, _ = jm.init(jax.random.PRNGKey(0))
+    jparams = jstate.stack_for_nodes(params, n)
+    jo = jopt.make_optimizer(jt.optimizer)
+    jst = jstate.TrainState(params=jparams, opt_state=jo.init(jparams),
+                            step=jnp.zeros((), jnp.int32), extras={})
+    from repro_torch.models.model import make_model as tmake
+    tm = tmake(tt.model)
+    tparams = stack_for_nodes(
+        interop.from_numpy(jax.device_get(params), "cpu"), n)
+    tst = TrainState(params=tparams,
+                     opt_state=topt.make_optimizer(tt.optimizer).init(
+                         tparams), step=0)
+    sched = jsched.PGASchedule(H=2)
+    stream = jstream(jt.model, jt.data, n_nodes=n, global_batch=8,
+                     seq_len=16)
+    phases, jsteps = [], {}
+    for k in range(4):
+        phase, shift = sched.peek_phase(k), k % 2
+        phases.append(phase)
+        batch = stream.get_batch(k)
+        if (phase, shift) not in jsteps:
+            jsteps[phase, shift] = jax.jit(jbuild(
+                jm, jt, n, phase=phase, shift_step=shift,
+                with_consensus=True))
+        jst, jmet = jsteps[phase, shift](
+            jst, jax.tree.map(jnp.asarray, batch), jnp.float32(LR))
+        tstep = tbuild(tm, tt, n, phase=phase, shift_step=shift,
+                       with_consensus=True)
+        tst, tmet = tstep(tst, interop.from_numpy(batch, "cpu"), LR)
+        for key in ("loss", "grad_norm", "consensus"):
+            np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
+                                       rtol=m_rtol)
+        _close(jst.params, tst.params, **p_tol)
+    assert phases == ["gossip", "global", "gossip", "global"]
+    assert float(tmet["consensus"]) == 0.0
+    assert tst.step == 4
+
+
+def test_cli_runs_on_cpu_when_asked():
+    """``python -m repro_torch.launch.train --device cpu``: the reference's
+    per-step line, exact consensus 0 after each global round."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         "--arch", "pga-lm-100m", "--nodes", "4", "--steps", "4",
+         "--global-batch", "8", "--seq-len", "16", "--H", "2",
+         "--comm-backend", "pallas", "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if "] step" in ln]
+    assert len(lines) == 4
+    for k, line in enumerate(lines):
+        assert line.startswith(f"[gossip_pga] step     {k} loss=")
+        loss = float(line.split("loss=")[1].split()[0])
+        assert np.isfinite(loss)
+        if k % 2 == 1:
+            assert "phase=global consensus=0.000e+00" in line
+        else:
+            assert "phase=gossip" in line
