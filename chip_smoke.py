@@ -9,21 +9,27 @@ Phases (any failure raises, so the run exits non-zero and prints no ok
 line):
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions, and the mixing kernel built from ``csrc/mix.cu`` with its
-   ``-Xptxas -v`` report;
+   versions, and the three kernels built from ``src/repro_torch/csrc/``
+   (``mix.cu``, ``cmix.cu``, ``collective.cu``; one nvcc each, all at
+   once) with their ``-Xptxas -v`` reports;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, with the tolerances stated in
-   :func:`check_mix_kernel`; timing by CUDA events against the kernel's
-   memory bound and one PyTorch library call;
-3. the main path: the decentralized ``Trainer`` on pga-lm-100m at full
-   width (8 nodes stacked on the card, Gossip-PGA with H = 3 over the
-   one-peer exponential graph, fused kernel mixing with the consensus
+   :func:`check_mix_kernel`, :func:`check_cmix_kernel` and
+   :func:`check_collective_kernel`; timing by CUDA events against the
+   kernel's memory bound and one PyTorch library call;
+3. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
+   full width (8 nodes stacked on the card, Gossip-PGA with H = 3 over
+   the one-peer exponential graph, fused kernel mixing with the consensus
    residual, AdamW, global batch 32 × seq 512, 6 steps), with every
-   kernel's launch count read around it;
+   kernel's launch count set to 0 just before it and read just after;
    then one fused round timed alone and one more step under
    ``torch.profiler`` (where the device time goes);
-4. the same trainer at the reduced config with fp32 compute, on the card
-   (kernel) and on the CPU (plain versions) from one init, compared.
+4. slice 2's main path: the same trainer with compressed Gossip-PGA
+   (int8 gossip rounds and int8 compressed collective, error feedback),
+   its launch counts read the same way, then one compressed gossip round
+   and one compressed global round timed alone;
+5. both trainers at the reduced config with fp32 compute, on the card
+   (kernels) and on the CPU (plain versions) from one init, compared.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernel records, and the ok line.  The
@@ -51,6 +57,7 @@ MAIN_N, MAIN_D = 8, 25_165_824      # the embedding leaf of pga-lm-100m
 # norms, the attention projections, the embedding, the MLP matrices
 MAIN_WIDTHS = (19_200, 7_077_888, MAIN_D, 28_311_552)
 RAGGED_D = 1_000_003
+MAIN_PACKED_D = 138_431_232         # every parameter of one node, packed
 
 
 def smi() -> str:
@@ -74,6 +81,14 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(bytes_moved: float, flops: float):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the HBM rate
+    and the fp32 operations over the card's fp32 rate."""
+    b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    f = flops / FP32_FLOP_PER_S * 1e3
+    return max(b, f), "bytes" if b >= f else "operations"
 
 
 def check_mix_kernel(torch, mc) -> dict:
@@ -159,11 +174,10 @@ def check_mix_kernel(torch, mc) -> dict:
     n, D = MAIN_N, MAIN_D
     bytes_moved = 4 * (n * D + n * D + D)      # read x, write o and x̄
     flops = 2 * n * n * D + 4 * n * D           # mix + mean + residual
-    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_flops = flops / FP32_FLOP_PER_S * 1e3
+    bound_ms, bound_by = _bound(bytes_moved, flops)
     print(f"[kernel] mix n={n} D={D} residual: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, torch.matmul(W, x) {library_ms:.4f} ms, "
-          f"bound {max(bound_bytes, bound_flops):.4f} ms "
+          f"bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
           flush=True)
     print(f"[kernel] {cases} kernel-vs-plain cases within tolerance, "
@@ -172,24 +186,250 @@ def check_mix_kernel(torch, mc) -> dict:
             "source": "src/repro_torch/csrc/mix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:215",
             "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_flops),
-            "bound_by": "bytes" if bound_bytes >= bound_flops
-            else "operations",
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
-def run_main_path(torch, mc):
+def check_cmix_kernel(torch, mc) -> dict:
+    """cmix kernel vs its plain twin on the card, every kind (int8, fp8 with
+    error feedback on and off; q precomputed from topk and randk), every
+    phase (gossip, global with and without the bf16 wire, pod_avg), n in
+    {4, 8, 32} at D = 1,000,003 and n = 8 at the embedding leaf.  The two
+    do the same IEEE operations in the same order on the same scale tensor
+    (the wrapper computes it), so the tolerance is 1e-6·max|x| on o and on
+    the new EF and the measured error is expected to be 0.  Constant
+    fixed point: the rows of an equal-row state stay bitwise equal in every
+    case, and one-peer gossip returns the state bitwise, for every kind."""
+    from repro_torch import compress as C
+    from repro_torch.compress import quantize as cq
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst, cases = 0.0, 0
+    phases = (("gossip", "one_peer_exp", 1, False), ("global", "ring", 1,
+                                                     False),
+              ("global", "ring", 1, True), ("pod_avg", "ring", 2, False))
+
+    def run(x, e, kind, phase, topo, pods, wire, seed, q=None):
+        n = x.shape[0]
+        w, M = mc._device_compensated(phase, topo, n, 1, pods,
+                                      torch.device("cuda"))
+        scale = None
+        if q is None:
+            y = x if e is None else x + e
+            scale = cq.int8_scale(y) if kind == "int8" else cq.fp8_scale(y)
+            del y
+        args = (x, e, q, seed, scale, w, M)
+        kw = dict(kind=kind, with_ef=e is not None, wire=wire)
+        return mc.cmix_flat(*args, **kw), mc.cmix_flat_plain(*args, **kw)
+
+    def compare(x, e, kind, phase, topo, pods, wire, seed=7, q=None):
+        nonlocal worst, cases
+        (o, ef), (po, pef) = run(x, e, kind, phase, topo, pods, wire, seed,
+                                 q)
+        torch.cuda.synchronize()
+        err = float((o - po).abs().max())
+        if ef is not None:
+            err = max(err, float((ef - pef).abs().max()))
+        tol = 1e-6 * float(x.abs().max())
+        if err > tol:
+            raise AssertionError(
+                f"cmix n={x.shape[0]} D={x.shape[1]} kind={kind} "
+                f"phase={phase} wire={wire} ef={e is not None}: max abs err "
+                f"{err:.3e} > {tol:.3e}")
+        worst = max(worst, err)
+        cases += 1
+
+    def fixed_point(n, D, kind, comp=None):
+        row = torch.randn(1, D, device="cuda", generator=gen)
+        x = row.expand(n, D).contiguous()
+        for phase, topo, pods, wire in phases:
+            q = None
+            if comp is not None:
+                q = C.apply_tree(comp, {"w": x}, None, 5)[0]["w"]
+            (o, _), _ = run(x, None, kind, phase, topo, pods, wire, 5, q)
+            assert torch.equal(o, o[:1].expand_as(o)), (kind, phase)
+            if topo == "one_peer_exp":
+                assert torch.equal(o, x), (kind, phase)
+
+    for n, width in ((4, RAGGED_D), (8, RAGGED_D), (32, RAGGED_D),
+                     (MAIN_N, MAIN_D)):
+        x = torch.randn(n, width, device="cuda", generator=gen)
+        e = 0.01 * torch.randn(n, width, device="cuda", generator=gen)
+        for kind in ("int8", "fp8"):
+            for phase, topo, pods, wire in phases:
+                for ef in (None, e):
+                    compare(x, ef, kind, phase, topo, pods, wire)
+        for name in ("topk", "randk"):
+            comp = C.make_compressor(name, k=32)
+            q = C.apply_tree(comp, {"w": x}, {"w": e}, 11)[0]["w"]
+            for phase, topo, pods, wire in phases:
+                compare(x, None, "precomputed", phase, topo, pods, wire,
+                        q=q)
+        del x, e
+    for kind, name in (("int8", None), ("fp8", None),
+                       ("precomputed", "topk"), ("precomputed", "randk")):
+        comp = None if name is None else C.make_compressor(name, k=32)
+        fixed_point(8, RAGGED_D, kind, comp)
+
+    # the main path's call timed at the embedding leaf: int8, EF, gossip
+    n, D = MAIN_N, MAIN_D
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+    w, M = mc._device_compensated("gossip", "one_peer_exp", n, 1, 1,
+                                  torch.device("cuda"))
+    scale = cq.int8_scale(x + e)
+    args = (x, e, None, 7, scale, w, M)
+    kw = dict(kind="int8", with_ef=True, wire=False)
+    ms = cuda_ms(torch, lambda: mc.cmix_flat(*args, **kw))
+    plain_ms = cuda_ms(torch, lambda: mc.cmix_flat_plain(*args, **kw),
+                       iters=5, warmup=1)
+    # the yardstick covers the mix part only: M·q at the same shape
+    library_ms = cuda_ms(torch, lambda: torch.matmul(M, x))
+    bytes_moved = 4 * 4 * n * D                 # read x, e; write o, ef
+    flops = (2 * n + 12) * n * D                # codec + mix per element
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    print(f"[kernel] cmix int8+EF n={n} D={D}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul(M, q) (the mix part only) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
+          flush=True)
+    print(f"[kernel] cmix: {cases} kernel-vs-plain cases within tolerance, "
+          f"max abs err {worst:.3e}; constant fixed point bitwise for int8, "
+          f"fp8, topk, randk", flush=True)
+    return {"name": "cmix_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/cmix.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:504",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_collective_kernel(torch, mc) -> dict:
+    """collective kernel vs its plain twin on the card: int8 and fp8,
+    global and pod_avg (2 pods), error feedback on and off, n = 8 at
+    D = 1,000,003 (a ragged last block, masked in the kernel and padded in
+    the twin) and at the packed main-path width (int8 + EF, global: the
+    main path's call).  The pod sum runs in one order in both and the
+    scales are powers of two, so the tolerance is 1e-6·max|x| (measured
+    error expected 0).  A constant state comes back bitwise for every
+    kind and phase."""
+    from repro_torch.compress import collective as ccol
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst, cases = 0.0, 0
+    n = MAIN_N
+    s1, s2 = ccol.stage_seeds(7)
+
+    def compare(x, e, kind, pods):
+        nonlocal worst, cases
+        kw = dict(kind=kind, with_ef=e is not None, n_pods=pods,
+                  qblock=ccol.QBLOCK)
+        o, ef = mc.collective_flat(x, e, s1, s2, **kw)
+        po, pef = mc.collective_flat_plain(x, e, s1, s2, **kw)
+        torch.cuda.synchronize()
+        err = float((o - po).abs().max())
+        if ef is not None:
+            err = max(err, float((ef - pef).abs().max()))
+        del po, pef
+        tol = 1e-6 * float(x.abs().max())
+        if err > tol:
+            raise AssertionError(f"collective D={x.shape[1]} kind={kind} "
+                                 f"pods={pods} ef={e is not None}: max abs "
+                                 f"err {err:.3e} > {tol:.3e}")
+        worst = max(worst, err)
+        cases += 1
+        return o, ef
+
+    x = torch.randn(n, RAGGED_D, device="cuda", generator=gen)
+    e = 0.01 * torch.randn(n, RAGGED_D, device="cuda", generator=gen)
+    for kind in ("int8", "fp8"):
+        for pods in (1, 2):
+            for ef in (None, e):
+                compare(x, ef, kind, pods)
+        const = x[:1].expand(n, RAGGED_D).contiguous()
+        for pods in (1, 2):
+            o, _ = mc.collective_flat(const, None, s1, s2, kind=kind,
+                                      with_ef=False, n_pods=pods,
+                                      qblock=ccol.QBLOCK)
+            assert torch.equal(o, const), (kind, pods)
+        # written in place into a private buffer
+        stage, stage_e = x.clone(), e.clone()
+        o, ef = mc.collective_flat(stage, stage_e, s1, s2, kind=kind,
+                                   with_ef=True, n_pods=1,
+                                   qblock=ccol.QBLOCK, inplace=True)
+        po, pef = mc.collective_flat_plain(x, e, s1, s2, kind=kind,
+                                           with_ef=True, n_pods=1,
+                                           qblock=ccol.QBLOCK)
+        assert o.data_ptr() == stage.data_ptr()
+        assert ef.data_ptr() == stage_e.data_ptr()
+        assert torch.equal(o, po) and torch.equal(ef, pef)
+        del const, stage, stage_e, o, ef, po, pef
+    del x, e
+    torch.cuda.empty_cache()
+
+    D = MAIN_PACKED_D
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+    compare(x, e, "int8", 1)
+    torch.cuda.empty_cache()
+    kw = dict(kind="int8", with_ef=True, n_pods=1, qblock=ccol.QBLOCK)
+    ms = cuda_ms(torch, lambda: mc.collective_flat(x, e, s1, s2, **kw),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: mc.collective_flat_plain(
+        x, e, s1, s2, **kw), iters=2, warmup=1)
+    bytes_moved = 4 * 4 * n * D                 # read x, e; write o, ef
+    flops = 60 * n * D                          # two codecs, pod mean
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    print(f"[kernel] collective int8+EF n={n} D={D}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, no single PyTorch call computes it, "
+          f"bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
+          flush=True)
+    print(f"[kernel] collective: {cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err {worst:.3e}; constant fixed point bitwise "
+          f"for int8 and fp8, global and 2 pods; in place matches", flush=True)
+    del x, e
+    torch.cuda.empty_cache()
+    return {"name": "collective_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/collective.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:765",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+COMPRESSED = dict(comm_compression="int8", comm_global_compression="int8",
+                  comm_error_feedback=True)
+
+
+def counts(mc) -> dict:
+    return {"mix": mc.mix_flat.launches, "cmix": mc.cmix_flat.launches,
+            "collective": mc.collective_flat.launches}
+
+
+def reset_counts(mc) -> None:
+    mc.mix_flat.launches = 0
+    mc.cmix_flat.launches = 0
+    mc.collective_flat.launches = 0
+
+
+def run_main_path(torch, mc, compressed: bool = False):
+    """One main path at full width for 6 steps; returns ``(launches per
+    kernel, trainer, state)``.  Slice 1: fused rounds with the consensus
+    residual.  Slice 2 (``compressed``): int8 gossip + int8 collective
+    with error feedback."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
     from repro_torch.train import Trainer
     from repro_torch.tree import tree_leaves
 
     steps, n_nodes = 6, 8
+    tag = "[cmain]" if compressed else "[main]"
     tcfg = TrainConfig(
         model=get_model_config("pga-lm-100m"),
         dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
-                        H=3, comm_backend="pallas"),
+                        H=3, comm_backend="pallas",
+                        **(COMPRESSED if compressed else {})),
         # total_steps covers the profiled step after the 6 (lr > 0 there)
         optimizer=OptimizerConfig(name="adamw", lr=3e-4,
                                   schedule="warmup_cosine", warmup_steps=2,
@@ -200,15 +440,21 @@ def run_main_path(torch, mc):
     leaves = tree_leaves(state.params)
     per_node = sum(p.numel() for p in leaves) // n_nodes
     groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
-    print(f"[main] pga-lm-100m: {per_node:,} params per node, {n_nodes} "
-          f"nodes, {len(groups)} kernel launches per round (group widths "
-          f"{[sum(leaves[i][0].numel() for i in g) for g in groups]})",
-          flush=True)
+    if compressed:
+        print(f"{tag} pga-lm-100m compressed: {per_node:,} params per node,"
+              f" {n_nodes} nodes, {len(leaves)} leaves (one cmix launch "
+              f"each per gossip round), one collective launch per global "
+              f"round over {per_node:,} packed columns", flush=True)
+    else:
+        widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+        print(f"{tag} pga-lm-100m: {per_node:,} params per node, {n_nodes} "
+              f"nodes, {len(groups)} kernel launches per round (group "
+              f"widths {widths})", flush=True)
     tokens = tcfg.global_batch * tcfg.seq_len
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mc.mix_flat.launches = 0
-    times = []
+    reset_counts(mc)
+    times, phases = [], []
     for k in range(steps):
         t0 = time.perf_counter()
         state = tr.run(state, steps=1, log_every=1)
@@ -216,24 +462,37 @@ def run_main_path(torch, mc):
         dt = time.perf_counter() - t0
         times.append(dt)
         rec = tr.history[-1]
-        print(f"[main] step {k} phase={rec['phase']} loss={rec['loss']:.4f}"
+        phases.append(rec["phase"])
+        print(f"{tag} step {k} phase={rec['phase']} loss={rec['loss']:.4f}"
               f" consensus={rec['consensus']:.6e} step_ms={dt * 1e3:.1f} "
               f"tokens/s={tokens / dt:.0f} max_mem_GB="
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches="
+              f"{counts(mc)}", flush=True)
         if not math.isfinite(rec["loss"]):
             raise AssertionError(f"step {k}: loss {rec['loss']}")
-        if rec["phase"] == "global":
+        if rec["phase"] == "global" and not compressed:
             assert rec["consensus"] == 0.0, rec
         else:
+            # a compressed global round keeps each node's own state at full
+            # precision: the nodes differ by their stage-1 residuals
             assert rec["consensus"] > 0.0, rec
-    launches = mc.mix_flat.launches
-    expected = len(groups) * steps
+    launches = counts(mc)
+    gossip, glob = phases.count("gossip"), phases.count("global")
+    expected = ({"mix": 0, "cmix": gossip * len(leaves), "collective": glob}
+                if compressed else
+                {"mix": len(groups) * steps, "cmix": 0, "collective": 0})
     if launches != expected:
-        raise AssertionError(f"mix kernel launched {launches} times on the "
-                             f"main path, expected {expected}")
+        raise AssertionError(f"{tag} launches {launches} on the main path, "
+                             f"expected {expected} ({gossip} gossip and "
+                             f"{glob} global steps)")
+    if compressed:
+        ef_abs = sum(float(e.abs().sum()) for e in tree_leaves(state.ef_state))
+        assert ef_abs > 0.0 and math.isfinite(ef_abs), ef_abs
+        print(f"{tag} ef_state sum |e| = {ef_abs:.6e} (non-zero, finite)",
+              flush=True)
     steady = statistics.median(times[1:])
-    print(f"[main] {steps} steps through the kernel ({launches} launches); "
-          f"steady step {steady * 1e3:.1f} ms (median of steps 1-5), "
+    print(f"{tag} {steps} steps through the kernels ({launches}); steady "
+          f"step {steady * 1e3:.1f} ms (median of steps 1-5), "
           f"{tokens / steady:.0f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches, tr, state
@@ -328,61 +587,139 @@ def where_time_goes(torch, mc, tr, state) -> None:
         print(f"[profile] {t:9.3f} ms {c:5d}x {name[:100]}", flush=True)
 
 
-def cross_check(torch) -> None:
+def compressed_round_times(torch, mc, tr, state) -> None:
+    """One compressed gossip round (int8 + EF, one cmix launch per leaf)
+    and one compressed global round (packing, one collective launch,
+    unpacking), each timed alone by CUDA events against the bytes bound
+    of its kernels (read x and e, write o and e')."""
+    from repro_torch import compress as C
+    from repro_torch.tree import tree_leaves
+
+    dist = tr.tcfg.dist
+    comp = C.make_compressor(dist.comm_compression)
+    gcomp = C.make_compressor(dist.comm_global_compression)
+    leaves = tree_leaves(state.params)
+    moved = sum(4 * 4 * p.numel() for p in leaves)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+
+    def gossip():
+        mc.compressed_step_mix(state.params, compressor=comp,
+                               ef_state=state.ef_state, seed=3,
+                               phase="gossip", topology=dist.topology,
+                               n_nodes=tr.n_nodes, step=1)
+
+    def global_round():
+        mc.collective_step_mix(state.params, compressor=gcomp,
+                               ef_state=state.ef_state, seed=3,
+                               phase="global", n_nodes=tr.n_nodes)
+
+    g_ms = cuda_ms(torch, gossip, iters=5, warmup=1)
+    c_ms = cuda_ms(torch, global_round, iters=5, warmup=1)
+    print(f"[cround] one compressed gossip round (int8+EF, {len(leaves)} "
+          f"cmix launches): {g_ms:.3f} ms; one compressed global round "
+          f"(pack, collective, unpack): {c_ms:.3f} ms; bound of each "
+          f"{bound:.3f} ms ({moved / 1e9:.2f} GB)", flush=True)
+
+
+def _cross_config(compressed: bool):
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+
+    model = dataclasses.replace(
+        get_model_config("pga-lm-100m", reduced=True), dtype="float32")
+    return TrainConfig(
+        model=model,
+        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
+                        H=2, comm_backend="pallas",
+                        **(COMPRESSED if compressed else {})),
+        optimizer=OptimizerConfig(name="sgd", lr=0.05, schedule="constant",
+                                  warmup_steps=0),
+        global_batch=8, seq_len=64, log_every=1)
+
+
+def cross_check(torch, compressed: bool = False) -> None:
     """Reduced config at fp32 compute, 4 nodes, 3 steps (gossip, global,
-    gossip), card (kernel) vs CPU (plain versions) from one init.  Nesterov
-    SGD keeps the update linear in the gradient, so the two runs differ
-    only by fp32 summation order: params agree to rtol 1e-4, atol 1e-6,
-    per-step loss/consensus to rtol 1e-4.  (AdamW's sqrt(v) + eps
+    gossip), card (kernels) vs CPU (plain versions) from one init.
+    Nesterov SGD keeps the update linear in the gradient, so the two runs
+    differ only by fp32 summation order: params agree to rtol 1e-4, atol
+    1e-6, per-step loss/consensus to rtol 1e-4.  (AdamW's sqrt(v) + eps
     normalisation would turn near-zero gradient noise into updates of up
     to lr; its port is checked against JAX in tests/test_torch_train.py.)
+
+    Compressed (int8 gossip and collective, EF): stochastic rounding turns
+    a summation-order difference that lands on a code boundary into one
+    code step of the leaf (its absmax/127; a power-of-two step of the
+    collective is up to two of them), which error feedback and the next
+    rounds carry on.  So all but 1e-4 of the params and EF elements agree
+    to rtol 1e-4, atol 1e-6, and every one is finite and within 8 code
+    steps of its leaf (steps from the CPU run's params); loss rtol 1e-4;
+    consensus rtol 1e-2 (each flipped code moves it by about a squared code
+    step, and a few dozen flips of a reduced run's 1e-2 consensus reach
+    1e-3).
     """
     import numpy as np
 
     from repro_torch import interop
-    from repro_torch.configs import (DistConfig, OptimizerConfig,
-                                     TrainConfig, get_model_config)
     from repro_torch.models.model import make_model
     from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
 
-    lr = 0.05
-    model = dataclasses.replace(
-        get_model_config("pga-lm-100m", reduced=True), dtype="float32")
-    tcfg = TrainConfig(
-        model=model,
-        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
-                        H=2, comm_backend="pallas"),
-        optimizer=OptimizerConfig(name="sgd", lr=lr, schedule="constant",
-                                  warmup_steps=0),
-        global_batch=8, seq_len=64, log_every=1)
-    init = interop.to_numpy(make_model(model).init(
+    tcfg = _cross_config(compressed)
+    init = interop.to_numpy(make_model(tcfg.model).init(
         torch.Generator().manual_seed(1), "cpu"))
     runs = {}
     for dev in ("cuda", "cpu"):
         tr = Trainer(tcfg, n_nodes=4, with_consensus=True, device=dev)
         st = tr.init_state(params=interop.from_numpy(init, dev))
         st = tr.run(st, steps=3, log_every=1)
-        runs[dev] = (interop.to_numpy(st.params), tr.history)
-    worst = 0.0
-    from repro_torch.tree import tree_leaves
-    for a, b in zip(tree_leaves(runs["cuda"][0]),
-                    tree_leaves(runs["cpu"][0])):
-        worst = max(worst, float(np.abs(a - b).max()))
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+        trees = [st.params] + ([st.ef_state] if compressed else [])
+        runs[dev] = ([interop.to_numpy(t) for t in trees], tr.history)
+    worst, off, size, steps = 0.0, 0, 0, 0.0
+    cpu_params = tree_leaves(runs["cpu"][0][0])
+    for ta, tb in zip(runs["cuda"][0], runs["cpu"][0]):
+        for a, b, p in zip(tree_leaves(ta), tree_leaves(tb), cpu_params):
+            assert np.isfinite(a).all() and np.isfinite(b).all()
+            d = np.abs(a - b)
+            worst = max(worst, float(d.max()))
+            size += a.size
+            if compressed:
+                off += int((d > 1e-6 + 1e-4 * np.abs(b)).sum())
+                steps = max(steps, float(d.max()) / (
+                    float(np.abs(p).max()) / 127.0))
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+    if compressed and (off > 1e-4 * size or steps > 8.0):
+        raise AssertionError(f"compressed cross-check: {off} of {size} "
+                             f"elements off, max abs diff {worst:.3e} = "
+                             f"{steps:.2f} code steps")
     for ra, rb in zip(runs["cuda"][1], runs["cpu"][1]):
         assert ra["phase"] == rb["phase"]
-        for key in ("loss", "consensus"):
-            np.testing.assert_allclose(ra[key], rb[key], rtol=1e-4)
-    print(f"[cross] reduced fp32 trainer, cuda vs cpu over 3 steps: params "
-          f"max abs diff {worst:.3e} (atol 1e-6), losses "
-          f"{[round(r['loss'], 6) for r in runs['cuda'][1]]}", flush=True)
+        np.testing.assert_allclose(ra["loss"], rb["loss"], rtol=1e-4)
+        np.testing.assert_allclose(ra["consensus"], rb["consensus"],
+                                   rtol=1e-2 if compressed else 1e-4)
+    what = ("compressed int8+EF trainer (params and EF)" if compressed
+            else "trainer")
+    print(f"[cross] reduced fp32 {what}, cuda vs cpu over 3 steps: max abs "
+          f"diff {worst:.3e} ({steps:.2f} code steps of its leaf), {off} of "
+          f"{size} elements beyond rtol 1e-4 + "
+          f"atol 1e-6; losses {[round(r['loss'], 6) for r in runs['cuda'][1]]}"
+          f", consensus cuda {[r['consensus'] for r in runs['cuda'][1]]} cpu "
+          f"{[r['consensus'] for r in runs['cpu'][1]]}", flush=True)
 
 
 def main() -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and check the kernels, then stop (no main "
+                         "paths, no ok line)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels import cuda_build
     from repro_torch.kernels import mixing_cuda as mc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -392,19 +729,36 @@ def main() -> int:
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    mc.build()
-    print(f"[build] mix.cu in {time.perf_counter() - t0:.1f} s (nvcc "
-          f"{mc._Lib.build_seconds:.1f} s)\n{mc._Lib.build_log.strip()}",
-          flush=True)
-    record = check_mix_kernel(torch, mc)
+    cuda_build.build()
+    print(f"[build] {', '.join(f'{k}.cu' for k in cuda_build.ENTRY_POINTS)} "
+          f"in {time.perf_counter() - t0:.1f} s, one nvcc each in parallel "
+          f"({cuda_build._Libs.build_seconds})", flush=True)
+    for name, log in cuda_build._Libs.build_log.items():
+        print(f"[build] {name}.cu:\n{log.strip()}", flush=True)
+    records = [check_mix_kernel(torch, mc)]
     torch.cuda.empty_cache()
-    record["launches"], tr, state = run_main_path(torch, mc)
+    records.append(check_cmix_kernel(torch, mc))
+    torch.cuda.empty_cache()
+    records.append(check_collective_kernel(torch, mc))
+    torch.cuda.empty_cache()
+    if args.kernels_only:
+        print(json.dumps({"kernels": records}))
+        return 1
+    slice1, tr, state = run_main_path(torch, mc)
     where_time_goes(torch, mc, tr, state)
     del tr, state
     torch.cuda.empty_cache()
+    slice2, tr, state = run_main_path(torch, mc, compressed=True)
+    compressed_round_times(torch, mc, tr, state)
+    del tr, state
+    torch.cuda.empty_cache()
+    records[0]["launches"] = slice1["mix"]
+    records[1]["launches"] = slice2["cmix"]
+    records[2]["launches"] = slice2["collective"]
     cross_check(torch)
+    cross_check(torch, compressed=True)
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

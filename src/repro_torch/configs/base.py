@@ -111,9 +111,18 @@ class DistConfig:
     comm_backend: str = "reference"  # "reference": roll/mean mixing
                                      # "pallas": the fused hand-written
                                      # CUDA kernel (kernels/mixing_cuda)
-    comm_compression: str = "none"
+    comm_compression: str = "none"   # gossip wire codec: none | identity |
+                                     # int8 | fp8 | topk | randk
+                                     # (repro_torch.compress)
+    comm_compression_k: int = 32     # elements kept per node per leaf by
+                                     # topk/randk
     comm_global_compression: str = "none"
+                                     # compressed collective of the global/
+                                     # pod_avg phases: none | identity |
+                                     # int8 | fp8
     comm_error_feedback: bool = False
+                                     # per-node EF residual memory
+                                     # (TrainState.ef_state)
     comm_shard_mode: str = "auto"    # one device: "auto" == "stacked"
     pallas_leaf_threshold: int = 262_144
                                      # per-node elements at which a leaf gets
@@ -141,6 +150,28 @@ class DistConfig:
             raise ValueError("comm_backend must be 'reference' or 'pallas'")
         if self.comm_dtype not in ("float32", "bfloat16"):
             raise ValueError("comm_dtype must be 'float32' or 'bfloat16'")
+        # kept equal to repro_torch.compress.COMPRESSORS and
+        # COLLECTIVE_COMPRESSORS (tests pin them, and the reference's)
+        if self.comm_compression not in ("none", "identity", "int8", "fp8",
+                                         "topk", "randk"):
+            raise ValueError(
+                f"unknown comm_compression {self.comm_compression!r} "
+                "(expected none|identity|int8|fp8|topk|randk)")
+        if self.comm_compression_k < 1:
+            raise ValueError("comm_compression_k must be >= 1")
+        if self.comm_global_compression not in ("none", "identity", "int8",
+                                                "fp8"):
+            raise ValueError(
+                f"unknown comm_global_compression "
+                f"{self.comm_global_compression!r} (expected "
+                "none|identity|int8|fp8 — sparsifiers cannot ride the "
+                "reduce-scatter collective)")
+        if self.comm_error_feedback and self.comm_compression in (
+                "none", "identity") and self.comm_global_compression in (
+                "none", "identity"):
+            raise ValueError("comm_error_feedback requires a lossy "
+                             "comm_compression (int8|fp8|topk|randk) or "
+                             "comm_global_compression (int8|fp8)")
         if self.n_pods < 1:
             raise ValueError("n_pods must be >= 1")
         if self.comm_shard_mode not in ("auto", "stacked", "sharded"):
@@ -151,10 +182,6 @@ class DistConfig:
         if self.remat not in ("none", "block"):
             raise ValueError("remat must be 'none' or 'block'")
         get_algorithm(self.algorithm, caller="DistConfig.validate")
-        if self.comm_compression != "none" \
-                or self.comm_global_compression != "none" \
-                or self.comm_error_feedback:
-            raise not_ported("wire compression / error feedback", "A.3")
         if self.push_sum or self.topology in ("directed_ring",
                                               "directed_exp"):
             raise not_ported("push-sum and directed topologies", "A.4")
@@ -169,9 +196,10 @@ class DistConfig:
 
     def comm_spec(self, n_nodes: int):
         """The port's :class:`repro_torch.core.mixing.CommSpec` (no mesh
-        fields: one device holds every node)."""
+        fields: one device holds every node), with the compressors built."""
         import torch
 
+        from repro_torch.compress import make_compressor
         from repro_torch.core.mixing import CommSpec
         return CommSpec(
             topology=self.topology,
@@ -180,7 +208,11 @@ class DistConfig:
             backend=self.comm_backend,
             leaf_threshold=self.pallas_leaf_threshold,
             comm_dtype=(torch.bfloat16 if self.comm_dtype == "bfloat16"
-                        else None)).validate()
+                        else None),
+            compressor=make_compressor(self.comm_compression,
+                                       k=self.comm_compression_k),
+            global_compressor=make_compressor(
+                self.comm_global_compression)).validate()
 
     def validate_nodes(self, n_nodes: int) -> "DistConfig":
         """Checks that need the runtime node count (the reference's

@@ -4,10 +4,11 @@
 Every algorithm shares one skeleton — per-node grad, optimizer half-step,
 communication round — and ``train/step.py`` keeps one step body; the hooks
 ``pre_update`` / ``comm_payload`` / ``post_round`` carry what differs.
-This slice ports the hook-free algorithms (``parallel``, ``gossip``,
-``local``, ``gossip_pga``).  The reference's other registered algorithms
-(``gossip_aga``, ``slowmo``, ``hier_pga``, ``gt_pga``) are known names
-that raise ``NotImplementedError`` (ROADMAP A.2).
+The port has the hook-free algorithms (``parallel``, ``gossip``,
+``local``, ``gossip_pga``) and the error-feedback mode slot.  The
+reference's other registered algorithms (``gossip_aga``, ``slowmo``,
+``hier_pga``, ``gt_pga``) are known names that raise
+``NotImplementedError`` (ROADMAP A.2).
 """
 from __future__ import annotations
 
@@ -18,6 +19,10 @@ from repro_torch.configs.base import not_ported
 
 #: registered in the reference, ported later (ROADMAP A.2)
 PENDING = ("gossip_aga", "slowmo", "hier_pga", "gt_pga")
+#: the extras slot of the per-node error-feedback memory, owned by the
+#: communication stack (``DistConfig.comm_error_feedback``): fp32 zeros
+#: shaped like the joint round payload
+EF_SLOT = "ef_state"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,13 +98,18 @@ def phases_for_algorithm(algorithm: str) -> Tuple[str, ...]:
 def init_extras(dist: Any, params_stacked: Any,
                 n_nodes: int) -> Dict[str, Any]:
     """Initial ``TrainState.extras``: the ported algorithms declare no
-    slots, and the mode slots (error feedback, push-sum) are not ported."""
-    get_algorithm(dist.algorithm, caller="init_extras")
-    if dist.comm_error_feedback:
-        raise not_ported("the error-feedback slot", "A.3")
+    slots; with error feedback the EF slot mirrors the joint round payload
+    (the push-sum weight slot is not ported)."""
+    algo = get_algorithm(dist.algorithm, caller="init_extras")
     if dist.push_sum:
         raise not_ported("the push-sum weight slot", "A.4")
-    return {}
+    extras: Dict[str, Any] = {}
+    if dist.comm_error_feedback:
+        from repro_torch.compress import init_ef_state
+        payload = algo.comm_payload(extras, params_stacked)
+        extras[EF_SLOT] = init_ef_state(join_payload(payload,
+                                                     params_stacked))
+    return extras
 
 
 def join_payload(payload: Dict[str, Any], params: Any) -> Any:

@@ -1,0 +1,110 @@
+"""Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, on first use, into
+``src/repro_torch/_build/`` (listed in .gitignore), and bound with
+``ctypes``.  :func:`build` starts one ``nvcc`` per missing library, all at
+once, and waits for them.  Importing this module builds nothing; there is
+no fallback when ``nvcc`` is missing or a build fails: it raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _LL, _I, _U = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_uint)
+# library name -> (entry point, argtypes); every pointer and the stream as
+# c_void_p (a plain int would be cut to 32 bits)
+ENTRY_POINTS = {
+    "mix": ("repro_mix", [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
+    "cmix": ("repro_cmix", [_P] * 8 + [_U, _LL] + [_I] * 5 + [_P]),
+    "collective": ("repro_collective",
+                   [_P] * 4 + [_U, _U, _LL] + [_I] * 6 + [_P]),
+}
+
+
+class _Libs:
+    """The loaded kernel libraries (each built at most once per process)."""
+    handles: Dict[str, ctypes.CDLL] = {}
+    build_seconds: Dict[str, float] = {}
+    build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("repro_torch: nvcc not found (set CUDA_HOME); "
+                           "the CUDA kernels are built on first use")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    """The library's path, named by the hash of its source, the shared
+    headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def build(*names: str) -> Dict[str, ctypes.CDLL]:
+    """Compile (in parallel) and load the named libraries — all of
+    :data:`ENTRY_POINTS` by default.  ``_Libs.build_log`` keeps each
+    ``nvcc -Xptxas -v`` report, ``_Libs.build_seconds`` its wall time."""
+    names = names or tuple(ENTRY_POINTS)
+    todo = [n for n in names if n not in _Libs.handles]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        path = _lib_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        src = CSRC / f"{name}.cu"
+        running[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in running.items():
+        out, _ = proc.communicate()
+        _Libs.build_log[name] = out
+        _Libs.build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("repro_torch: nvcc failed on " + "\n".join(failed))
+    for name in todo:
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        entry, argtypes = ENTRY_POINTS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _Libs.handles[name] = lib
+    return {n: _Libs.handles[n] for n in names}
+
+
+def entry(name: str):
+    """The bound C entry point of library ``name`` (built on first use)."""
+    return getattr(build(name)[name], ENTRY_POINTS[name][0])

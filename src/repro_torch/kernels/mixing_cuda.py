@@ -1,42 +1,46 @@
-"""Fused mixing round on the packed node-major ``(n, D)`` matrix — the
-port of ``repro/kernels/mixing_pallas.py`` (stacked entry points).
+"""Fused communication rounds on the packed node-major ``(n, D)`` matrix —
+the port of ``repro/kernels/mixing_pallas.py`` (stacked entry points).
 
-The whole communication round (optional SGD half-step, the mix
-``o = d ⊙ x + M · wire(x)``, optional consensus residual) is one pass of
-the hand-written CUDA kernel in ``repro_torch/csrc/mix.cu``, which replaces
-the TPU kernel ``_mix_kernel`` (``mixing_pallas.py``, launched by
-``_mix_flat``).  :func:`mix_flat` is the kernel's wrapper: a CUDA tensor
-launches the kernel (or raises); a CPU tensor takes the plain PyTorch twin
-:func:`mix_flat_plain`, which is also the kernel's oracle on the card.
+Three hand-written CUDA kernels (``repro_torch/csrc/``), each replacing a
+TPU kernel of ``mixing_pallas.py`` and each behind a wrapper that launches
+it for a CUDA tensor (or raises) and takes its plain PyTorch twin — also
+the kernel's oracle on the card — for a CPU tensor:
 
-The kernel is built on first use with ``nvcc`` into a shared library with
-a plain C interface (``src/repro_torch/_build/``, listed in .gitignore)
-and bound with ``ctypes``; importing this module builds nothing.
+* ``mix.cu`` (``_mix_kernel``): optional SGD half-step, the mix
+  ``o = d ⊙ x + M · wire(x)``, optional consensus residual;
+  :func:`mix_flat` / :func:`mix_flat_plain`;
+* ``cmix.cu`` (``_cmix_kernel``): the compensated compressed round
+  ``o = x + (M·q − w⊙q)`` with int8/fp8 stochastic codes of ``x + e``
+  made in the kernel, or ``q`` given (topk/randk);
+  :func:`cmix_flat` / :func:`cmix_flat_plain`;
+* ``collective.cu`` (``_collective_kernel``): the two-stage compressed
+  global/pod average per 1024-column block;
+  :func:`collective_flat` / :func:`collective_flat_plain`.
 
-Leaves below ``leaf_threshold`` per-node elements are concatenated into one
-private staging buffer, which the kernel consumes in place (the TPU's
-``input_output_aliases``); larger leaves are mixed straight from
-``leaf.reshape(n, -1)`` into a fresh output, never touching the caller's
-tensor.  Wire semantics match the reference: gossip casts only the
-neighbour (M) term to bf16, averaging rounds cast everything (d = 0), and
-the grid topology ignores ``comm_dtype``.
+Each wrapper counts its launches in ``<wrapper>.launches``.  The kernels
+are built on first use by :mod:`repro_torch.kernels.cuda_build`; importing
+this module builds nothing.
+
+Uncompressed rounds concatenate leaves below ``leaf_threshold`` per-node
+elements into one private staging buffer, which the kernel consumes in
+place (the TPU's ``input_output_aliases``); larger leaves are mixed
+straight from ``leaf.reshape(n, -1)`` into a fresh output, never touching
+the caller's tensor.  Wire semantics match the reference: gossip casts only
+the neighbour (M) term to bf16, averaging rounds cast everything (d = 0),
+and the grid topology ignores ``comm_dtype``.  Compressed gossip rounds
+dispatch per leaf (scales and seeds are per leaf); the compressed
+collective runs once on the packed matrix.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import topology as topo
+from repro_torch.kernels import cuda_build
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 PyTree = Any
@@ -44,11 +48,6 @@ PyTree = Any
 KERNEL_PHASES = ("gossip", "global", "pod_avg")
 LEAF_DISPATCH_THRESHOLD = 262_144
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "mix.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dynamic shared memory a block may opt into on the H100: 227 KB less the
 # kernel's 4 KB static reduction buffer
 _MAX_SMEM = 232_448 - 4_096
@@ -141,59 +140,6 @@ def _dispatch_groups(leaves, threshold: int):
     return groups + [[i] for i in big]
 
 
-# ---------------------------------------------------------------------------
-# Build and bind the CUDA kernel
-# ---------------------------------------------------------------------------
-class _Lib:
-    """The loaded kernel library (built at most once per process)."""
-    handle: Optional[ctypes.CDLL] = None
-    build_seconds: float = 0.0
-    build_log: str = ""
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("repro_torch: nvcc not found (set CUDA_HOME); "
-                           "the mixing kernel is built on first use")
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/mix.cu`` (once; the library is named by the source's
-    hash) and load it.  ``_Lib.build_log`` keeps nvcc's ``-Xptxas -v``
-    report."""
-    if _Lib.handle is not None:
-        return _Lib.handle
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libmix_{tag[:12]}.so"
-    if not lib_path.exists():
-        t0 = time.perf_counter()
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        _Lib.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"repro_torch: nvcc failed on {SOURCE}:\n"
-                               f"{_Lib.build_log}")
-        os.replace(tmp, lib_path)
-        _Lib.build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    lib.repro_mix.argtypes = (
-        [ctypes.c_void_p] * 9
-        + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.repro_mix.restype = ctypes.c_int
-    _Lib.handle = lib
-    return lib
-
-
 def _block_size(n: int) -> int:
     """Threads per block: 256, halved until the per-thread column state
     (2n floats) fits the 48 KB every block gets without opting in; past
@@ -208,8 +154,43 @@ def _block_size(n: int) -> int:
     return block
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"repro_torch: {what} kernel launch failed with "
+                           f"cudaError {err}")
+
+
+def _check_operands(caller: str, xf: torch.Tensor, others) -> torch.device:
+    """Shape/dtype/device checks shared by the compressed wrappers; returns
+    the device, raising on one the port has no path for."""
+    if xf.dim() != 2 or xf.dtype != torch.float32:
+        raise ValueError(f"{caller}: x must be (n, D) float32, got "
+                         f"{tuple(xf.shape)} {xf.dtype}")
+    if any(t.dtype != torch.float32 for t in others):
+        raise ValueError(f"{caller}: every operand must be float32")
+    devices = {t.device for t in [xf, *others]}
+    if len(devices) != 1:
+        raise ValueError(f"{caller}: operands on several devices {devices}")
+    dev = xf.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{caller}: unsupported device {dev}")
+    if dev.type == "cuda":
+        if not all(t.is_contiguous() for t in [xf, *others]):
+            raise ValueError(f"{caller}: operands must be contiguous")
+        if xf.shape[1] == 0:
+            raise ValueError(f"{caller}: empty parameter matrix")
+    return dev
+
+
 def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace):
-    lib = build()
     n, D = xf.shape
     o = xf if inplace else torch.empty_like(xf)
     block = _block_size(n)
@@ -221,17 +202,12 @@ def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace):
                               dtype=torch.float32, device=dev)
         resid = torch.empty((), dtype=torch.float32, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.repro_mix(ptr(xf), ptr(gf), ptr(gamma), ptr(d), ptr(M),
-                        ptr(o), ptr(xbar), ptr(partial), ptr(resid),
-                        D, n, int(with_g), int(wire), int(with_residual),
-                        block, stream)
-    if err != 0:
-        raise RuntimeError(f"repro_torch: mix kernel launch failed with "
-                           f"cudaError {err} (n={n}, D={D}, block={block})")
+    stream = _stream(dev)
+    err = cuda_build.entry("mix")(
+        _ptr(xf), _ptr(gf), _ptr(gamma), _ptr(d), _ptr(M), _ptr(o),
+        _ptr(xbar), _ptr(partial), _ptr(resid), D, n, int(with_g),
+        int(wire), int(with_residual), block, stream)
+    _check_launch(err, f"mix (n={n}, D={D}, block={block})")
     return (o, xbar, resid) if with_residual else o
 
 
@@ -277,29 +253,15 @@ def mix_flat(xf: torch.Tensor, gf: Optional[torch.Tensor],
     staging buffer that nobody reads again.
     """
     n = xf.shape[0]
-    if xf.dim() != 2 or xf.dtype != torch.float32:
-        raise ValueError(f"mix_flat: x must be (n, D) float32, got "
-                         f"{tuple(xf.shape)} {xf.dtype}")
     if tuple(d.shape) != (n, 1) or tuple(M.shape) != (n, n):
         raise ValueError("mix_flat: d must be (n, 1) and M (n, n)")
-    operands = [xf, d, M] + ([gf, gamma] if with_g else [])
     if with_g and (gf.shape != xf.shape or gamma.numel() != 1):
         raise ValueError("mix_flat: g must match x and gamma be one value")
-    if any(t.dtype != torch.float32 for t in operands):
-        raise ValueError("mix_flat: every operand must be float32")
-    devices = {t.device for t in operands}
-    if len(devices) != 1:
-        raise ValueError(f"mix_flat: operands on several devices {devices}")
-    dev = xf.device
+    dev = _check_operands("mix_flat", xf,
+                          [d, M] + ([gf, gamma] if with_g else []))
     if dev.type == "cpu":
         return mix_flat_plain(xf, gf, gamma, d, M, with_g=with_g,
                               with_residual=with_residual, wire=wire)
-    if dev.type != "cuda":
-        raise ValueError(f"mix_flat: unsupported device {dev}")
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError("mix_flat: operands must be contiguous")
-    if xf.shape[1] == 0:
-        raise ValueError("mix_flat: empty parameter matrix")
     out = _launch(xf, gf, gamma, d, M, with_g=with_g,
                   with_residual=with_residual, wire=wire, inplace=inplace)
     mix_flat.launches += 1
@@ -407,3 +369,273 @@ def mix_residual(params: PyTree, grads: Optional[PyTree] = None,
                           topology=topology, n_nodes=n_nodes, step=step,
                           comm_dtype=comm_dtype, n_pods=n_pods,
                           with_residual=True, leaf_threshold=leaf_threshold)
+
+
+# ---------------------------------------------------------------------------
+# Compressed rounds: the compensated gossip kernel (cmix.cu) and the
+# compressed collective (collective.cu)
+# ---------------------------------------------------------------------------
+CMIX_KINDS = {"int8": 0, "fp8": 1, "precomputed": 2}
+COLLECTIVE_KINDS = {"int8": 0, "fp8": 1}
+COLLECTIVE_BLOCK = 256      # threads per 1024-column scale block
+
+
+def cmix_flat_plain(xf, ef, qf, seed, scale, w, M, *, kind: str,
+                    with_ef: bool, wire: bool):
+    """Plain PyTorch version of the compensated round on one ``(n, D)``
+    leaf: ``(o, ef_out)``.  ``Σ_k M_ik q_k`` is summed in the kernel's
+    order, k = 0 … n−1, with separately rounded products and sums."""
+    from repro_torch.compress import quantize as cq
+    from repro_torch.compress.base import (column_bits, column_range,
+                                           uniform_columns)
+
+    ef_out = None
+    if kind == "precomputed":
+        q = qf
+    else:
+        y = xf + ef if with_ef else xf
+        cols = column_range(xf.shape[1], xf.device)[None, :]
+        if kind == "int8":
+            codes = cq.int8_codes(y, scale, uniform_columns(seed, cols))
+            q = cq.int8_dequant(codes, scale)
+        else:
+            codes = cq.fp8_codes(y, scale, column_bits(seed, cols))
+            q = cq.fp8_dequant(codes, scale)
+        if with_ef:
+            ef_out = y - q
+    if wire:
+        q = q.to(torch.bfloat16).to(torch.float32)
+    acc = torch.zeros_like(xf)
+    for k in range(xf.shape[0]):
+        acc = acc + M[:, k:k + 1] * q[k:k + 1]
+    return xf + (acc - w * q), ef_out
+
+
+def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],
+              qf: Optional[torch.Tensor], seed: int,
+              scale: Optional[torch.Tensor], w: torch.Tensor,
+              M: torch.Tensor, *, kind: str, with_ef: bool, wire: bool):
+    """Run the compensated compressed round over one ``(n, D)`` fp32 leaf:
+    ``(o, ef_out)`` (``ef_out`` None without error feedback).
+
+    ``kind``: "int8"/"fp8" make ``q`` in the kernel from ``x (+ ef)``,
+    the per-row ``scale`` and the uint32 ``seed``; "precomputed" takes
+    ``qf``.  A CUDA ``xf`` launches ``cmix.cu`` (counted in
+    ``cmix_flat.launches``) into fresh outputs; a CPU ``xf`` takes
+    :func:`cmix_flat_plain`.
+    """
+    if kind not in CMIX_KINDS:
+        raise ValueError(f"cmix_flat: unknown kind {kind!r} "
+                         f"(expected one of {tuple(CMIX_KINDS)})")
+    quant = kind != "precomputed"
+    with_ef = with_ef and quant
+    n, D = xf.shape
+    if tuple(w.shape) != (n, 1) or tuple(M.shape) != (n, n):
+        raise ValueError("cmix_flat: w must be (n, 1) and M (n, n)")
+    operands = [w, M] + ([scale] if quant else [qf]) + (
+        [ef] if with_ef else [])
+    if any(t.shape != xf.shape for t in operands[3:] if t is not None) or (
+            quant and tuple(scale.shape) != (n, 1)):
+        raise ValueError("cmix_flat: q/ef must match x and scale be (n, 1)")
+    dev = _check_operands("cmix_flat", xf, operands)
+    if dev.type == "cpu":
+        return cmix_flat_plain(xf, ef, qf, seed, scale, w, M, kind=kind,
+                               with_ef=with_ef, wire=wire)
+    o = torch.empty_like(xf)
+    ef_out = torch.empty_like(xf) if with_ef else None
+    block = _block_size(n)
+    err = cuda_build.entry("cmix")(
+        _ptr(xf), _ptr(ef if with_ef else None), _ptr(None if quant else qf),
+        _ptr(scale if quant else None), _ptr(w), _ptr(M), _ptr(o),
+        _ptr(ef_out), int(seed) & 0xFFFFFFFF, D, n, CMIX_KINDS[kind],
+        int(with_ef), int(wire), block, _stream(dev))
+    _check_launch(err, f"cmix (n={n}, D={D}, kind={kind})")
+    cmix_flat.launches += 1
+    return o, ef_out
+
+
+cmix_flat.launches = 0
+
+
+def collective_flat_plain(xf, ef, s1: int, s2: int, *, kind: str,
+                          with_ef: bool, n_pods: int, qblock: int):
+    """Plain PyTorch version of the compressed collective on the packed
+    ``(n, D)`` matrix: ``(o, ef_out)``."""
+    from repro_torch.compress import collective as ccol
+    return ccol.collective_round_seeds(xf, ef if with_ef else None, kind,
+                                       s1, s2, n_pods=n_pods, qblock=qblock)
+
+
+def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
+                    s2: int, *, kind: str, with_ef: bool, n_pods: int,
+                    qblock: int, inplace: bool = False):
+    """Run the compressed collective over the packed ``(n, D)`` fp32 matrix:
+    ``(o, ef_out)``.  The kernel masks the ragged last ``qblock`` block, so
+    nothing is padded.  ``inplace`` writes ``o`` into ``xf`` and ``ef_out``
+    into ``ef``: only for private packed buffers nobody reads again.  A
+    CUDA ``xf`` launches ``collective.cu`` (counted in
+    ``collective_flat.launches``); a CPU ``xf`` takes
+    :func:`collective_flat_plain`."""
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"collective_flat: unsupported kind {kind!r} "
+                         f"(expected one of {tuple(COLLECTIVE_KINDS)})")
+    n, D = xf.shape
+    if n_pods < 1 or n % n_pods:
+        raise ValueError(f"collective_flat: n_pods={n_pods} does not divide "
+                         f"n={n}")
+    if with_ef and ef.shape != xf.shape:
+        raise ValueError("collective_flat: ef must match x")
+    dev = _check_operands("collective_flat", xf, [ef] if with_ef else [])
+    if dev.type == "cpu":
+        return collective_flat_plain(xf, ef, s1, s2, kind=kind,
+                                     with_ef=with_ef, n_pods=n_pods,
+                                     qblock=qblock)
+    if qblock % COLLECTIVE_BLOCK:
+        raise ValueError(f"collective_flat: qblock={qblock} must be a "
+                         f"multiple of {COLLECTIVE_BLOCK} on the card")
+    # the kernel's tile, warp partials and scales (collective.cu `launch`)
+    smem = 4 * (n * qblock + (n_pods + n) * (COLLECTIVE_BLOCK // 32 + 1))
+    if smem > 232_448:
+        raise ValueError(f"collective_flat: n={n} rows of a {qblock}-column "
+                         f"block need {smem} bytes of shared memory, over "
+                         f"the H100's 232448")
+    o = xf if inplace else torch.empty_like(xf)
+    ef_out = None
+    if with_ef:
+        ef_out = ef if inplace else torch.empty_like(ef)
+    err = cuda_build.entry("collective")(
+        _ptr(xf), _ptr(ef if with_ef else None), _ptr(o), _ptr(ef_out),
+        int(s1) & 0xFFFFFFFF, int(s2) & 0xFFFFFFFF, D, n, n_pods, qblock,
+        COLLECTIVE_KINDS[kind], int(with_ef), COLLECTIVE_BLOCK, _stream(dev))
+    _check_launch(err, f"collective (n={n}, D={D}, kind={kind})")
+    collective_flat.launches += 1
+    return o, ef_out
+
+
+collective_flat.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _device_compensated(phase: str, topology: str, n: int, step: int,
+                        n_pods: int, device: torch.device):
+    """``(w, M)`` of the compensated round on ``device``, made once per
+    round kind (``w = 1 − diag(W)``)."""
+    d, M = phase_matrices(phase, topology, n, step=step, n_pods=n_pods)
+    w = (1.0 - d).astype(np.float32)
+    return torch.from_numpy(w).to(device), torch.from_numpy(M).to(device)
+
+
+def compressed_step_mix(params: PyTree, *, compressor,
+                        ef_state: Optional[PyTree] = None, seed: int = 0,
+                        phase: str, topology: str = "ring", n_nodes: int,
+                        step: int = 0, n_pods: int = 1, comm_dtype=None):
+    """Fused compressed round ``mixed = x + (M·q − (1−d)⊙q)``, ``q`` the
+    compressed-wire estimate of ``x (+ ef)``, one kernel pass per leaf.
+
+    int8/fp8 make ``q`` in the kernel (the per-leaf scale is the one extra
+    reduction, in the wrapper); topk/randk precompute ``q`` with the
+    reference codec and the kernel fuses the compensated mix.  Returns
+    ``(mixed, new_ef_state)`` (None without ``ef_state``).  The consensus
+    residual does not fuse with compression: callers use
+    ``train.state.consensus_distance``.
+    """
+    if phase not in KERNEL_PHASES:
+        raise ValueError(f"phase {phase!r} has no fused kernel "
+                         f"(expected one of {KERNEL_PHASES})")
+    # global phase: the averaging operand is uncompressed fp32 sums, so
+    # comm_dtype still wire-casts the estimate (both occurrences)
+    wire = phase == "global" and comm_dtype is not None
+    if wire and comm_dtype != torch.bfloat16:
+        raise ValueError(f"compressed_step_mix: the fused kernel wire-casts "
+                         f"to bfloat16 only (got comm_dtype={comm_dtype})")
+    dev = tree_flatten(params)[0][0].device
+    w, M = _device_compensated(phase, topology, n_nodes, step, n_pods, dev)
+    kind = (compressor.name if compressor.name in ("int8", "fp8")
+            else "precomputed")
+    return _compressed_leaf_loop(params, compressor, ef_state, seed, w, M,
+                                 kind=kind, wire=wire)
+
+
+def _compressed_leaf_loop(params: PyTree, compressor, ef_state, seed,
+                          w: torch.Tensor, M: torch.Tensor, *, kind: str,
+                          wire: bool):
+    """Per-leaf dispatch of the compensated round: scales, salts and
+    sparsifier selections are per leaf, so leaves are never packed."""
+    from repro_torch import compress as compress_mod
+    from repro_torch.compress import quantize as cq
+
+    with_ef = ef_state is not None
+    leaves, treedef = tree_flatten(params)
+    n = leaves[0].shape[0]
+    ef_leaves = (tree_flatten(ef_state)[0] if with_ef
+                 else [None] * len(leaves))
+    new_ef = None
+    if kind == "precomputed":
+        q_tree, new_ef = compress_mod.apply_tree(compressor, params,
+                                                 ef_state, seed)
+        q_leaves = tree_flatten(q_tree)[0]
+    mixed_leaves, new_ef_leaves = [], []
+    for i, (leaf, e) in enumerate(zip(leaves, ef_leaves)):
+        x2 = leaf.reshape(n, -1).to(torch.float32).contiguous()
+        if kind == "precomputed":
+            q2 = q_leaves[i].reshape(n, -1).contiguous()
+            mixed, _ = cmix_flat(x2, None, q2, 0, None, w, M, kind=kind,
+                                 with_ef=False, wire=wire)
+        else:
+            e2 = (e.reshape(n, -1).to(torch.float32).contiguous()
+                  if e is not None else None)
+            y2 = x2 if e2 is None else x2 + e2
+            scale = (cq.int8_scale(y2) if kind == "int8"
+                     else cq.fp8_scale(y2))
+            del y2
+            mixed, ef_out = cmix_flat(
+                x2, e2, None, compress_mod.leaf_seed(seed, i), scale, w, M,
+                kind=kind, with_ef=with_ef, wire=wire)
+            if with_ef:
+                new_ef_leaves.append(ef_out.reshape(e.shape).to(e.dtype))
+        mixed_leaves.append(mixed.reshape(leaf.shape).to(leaf.dtype))
+    mixed_tree = tree_unflatten(treedef, mixed_leaves)
+    if not with_ef:
+        return mixed_tree, None
+    if kind == "precomputed":
+        return mixed_tree, new_ef
+    return mixed_tree, tree_unflatten(treedef, new_ef_leaves)
+
+
+def collective_step_mix(params: PyTree, *, compressor,
+                        ef_state: Optional[PyTree] = None, seed: int = 0,
+                        phase: str, n_nodes: int, n_pods: int = 1,
+                        qblock: Optional[int] = None):
+    """Fused compressed global/pod-averaging round: the packed ``(n, D)``
+    state goes through quantize → anchored accumulate → re-quantize →
+    compensate in one kernel pass (scales per ``qblock`` column block, so
+    the dispatch is the packed matrix, not per leaf).  Returns
+    ``(mixed, new_ef_state)`` (None without ``ef_state``)."""
+    from repro_torch.compress import collective as ccol
+
+    if phase not in ("global", "pod_avg"):
+        raise ValueError(f"collective_step_mix: phase {phase!r} is not an "
+                         f"averaging round (expected 'global' or 'pod_avg')")
+    pods = n_pods if phase == "pod_avg" else 1
+    if pods < 1 or n_nodes % pods:
+        raise ValueError(f"collective_step_mix: n_pods={pods} does not "
+                         f"divide n_nodes={n_nodes}")
+    qb = ccol.QBLOCK if qblock is None else qblock
+    xf, unflatten = flatten_nodes(params)
+    leaf0 = tree_flatten(params)[0][0]
+    # a concatenation is private: the kernel may write o into it
+    private = xf.data_ptr() != leaf0.data_ptr()
+    with_ef = ef_state is not None
+    ef2 = ef_unflatten = None
+    if with_ef:
+        ef2, ef_unflatten = flatten_nodes(ef_state)
+        private = private and (ef2.data_ptr()
+                               != tree_flatten(ef_state)[0][0].data_ptr())
+    s1, s2 = ccol.stage_seeds(seed)
+    mixed, ef_out = collective_flat(
+        xf.contiguous(), ef2.contiguous() if with_ef else None, s1, s2,
+        kind=compressor.name, with_ef=with_ef, n_pods=pods, qblock=qb,
+        inplace=private)
+    del xf, ef2
+    return (unflatten(mixed),
+            ef_unflatten(ef_out) if with_ef else None)

@@ -34,6 +34,21 @@ def main(argv=None) -> None:
     ap.add_argument("--leaf-threshold", type=int, default=262_144,
                     help="per-node elements at which a parameter leaf gets "
                          "its own kernel launch (skips the staging buffer)")
+    ap.add_argument("--comm-compression", default="none",
+                    choices=("none", "identity", "int8", "fp8", "topk",
+                             "randk"),
+                    help="wire compressor of the gossip rounds; identity "
+                         "is bit-identical to none")
+    ap.add_argument("--comm-compression-k", type=int, default=32,
+                    help="elements kept per node per leaf for topk/randk")
+    ap.add_argument("--comm-global-compression", default="none",
+                    choices=("none", "identity", "int8", "fp8"),
+                    help="compressed collective of the global/pod-"
+                         "averaging rounds; identity is bit-identical to "
+                         "none")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="per-node error-feedback memory: compression "
+                         "error is fed back next round instead of dropped")
     ap.add_argument("--full-config", action="store_true",
                     help="full published dims (default: reduced)")
     ap.add_argument("--iid", action="store_true")
@@ -47,7 +62,11 @@ def main(argv=None) -> None:
         model=cfg,
         dist=DistConfig(algorithm=args.algorithm, topology=args.topology,
                         H=args.H, comm_backend=args.comm_backend,
-                        pallas_leaf_threshold=args.leaf_threshold),
+                        pallas_leaf_threshold=args.leaf_threshold,
+                        comm_compression=args.comm_compression,
+                        comm_compression_k=args.comm_compression_k,
+                        comm_global_compression=args.comm_global_compression,
+                        comm_error_feedback=args.error_feedback),
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr,
                                   schedule="warmup_cosine", warmup_steps=10,
                                   total_steps=args.steps),

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -18,6 +18,11 @@ class TrainState:
     opt_state: PyTree
     step: int                    # host counter of executed steps
     extras: Dict[str, PyTree] = dataclasses.field(default_factory=dict)
+
+    @property
+    def ef_state(self) -> Optional[PyTree]:
+        """Per-node error-feedback memory (None without error feedback)."""
+        return self.extras.get("ef_state")
 
 
 def stack_for_nodes(tree: PyTree, n_nodes: int) -> PyTree:

@@ -7,8 +7,13 @@ One step body; algorithm differences enter through the
 ``repro_torch.core.algo`` hooks.  With ``comm_backend="pallas"`` and
 ``with_consensus`` the fused kernel emits the consensus residual in the
 same pass that mixes the parameters (``mixing_cuda.mix_residual``), so the
-step never re-reads the parameters it just wrote.  Overlap and push-sum
-step modes are not ported yet (ROADMAP A.4, A.5).
+step never re-reads the parameters it just wrote.  A lossy compressed round
+(``comm_compression`` on gossip, ``comm_global_compression`` on the
+averaging phases) goes through ``mixing.communicate`` with the step's
+error-feedback memory (``extras["ef_state"]``) and the absolute step as its
+rounding seed; residual fusion does not compose with compression, so its
+consensus is ``consensus_distance``.  Overlap and push-sum step modes are
+not ported yet (ROADMAP A.4, A.5).
 """
 from __future__ import annotations
 
@@ -53,10 +58,16 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         raise ValueError(f"build_train_step: phase {phase!r} is not one of "
                          f"{dist.algorithm}'s phases {algo.phases}")
     spec = dist.comm_spec(n_nodes)
+    spec_plain = spec.replace(compressor=None, global_compressor=None)
+    lossy_global = (spec.global_compressor is not None
+                    and spec.global_compressor.lossy)
+    lossy_round = n_nodes > 1 and (
+        (spec.lossy and phase in ("gossip", "global", "pod_avg"))
+        or (lossy_global and phase in ("global", "pod_avg")))
     opt = make_optimizer(tcfg.optimizer)
     remat = "none" if dist.remat == "none" else "default"
     fused_consensus_round = (dist.comm_backend == "pallas" and with_consensus
-                             and n_nodes > 1
+                             and n_nodes > 1 and not lossy_round
                              and phase in mixing_cuda.KERNEL_PHASES)
 
     def grad_fn(params: PyTree, batch: PyTree):
@@ -71,9 +82,19 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         metrics = {k: v.detach().mean() for k, v in metrics.items()}
         return tree_unflatten(treedef, list(grads)), metrics
 
-    def _sync_round(extras, params_half):
+    def _sync_round(extras, params_half, step_seed: int):
         payload = algo.comm_payload(extras, params_half)
         has_payload = bool(payload)
+        joint = algo_lib.join_payload(payload, params_half)
+        if lossy_round:
+            # the rounding seed is the absolute step (a host int: no sync),
+            # so stochastic rounding is unbiased across steps
+            mixed, new_ef = mixing.communicate(
+                joint, spec, phase=phase, step=shift_step,
+                ef_state=extras.get(algo_lib.EF_SLOT), seed=step_seed)
+            if new_ef is not None:
+                extras[algo_lib.EF_SLOT] = new_ef
+            return algo_lib.wrap_mixed(mixed, has_payload), None
         if fused_consensus_round and not has_payload:
             mixed, _xbar, resid = mixing_cuda.mix_residual(
                 params_half, phase=phase, topology=dist.topology,
@@ -81,8 +102,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
                 comm_dtype=spec.comm_dtype, n_pods=dist.n_pods,
                 leaf_threshold=dist.pallas_leaf_threshold)
             return algo_lib.wrap_mixed(mixed, False), resid / n_nodes
-        joint = algo_lib.join_payload(payload, params_half)
-        mixed = mixing.communicate(joint, spec, phase=phase,
+        mixed = mixing.communicate(joint, spec_plain, phase=phase,
                                    step=shift_step)
         return algo_lib.wrap_mixed(mixed, has_payload), None
 
@@ -99,7 +119,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         params_half, opt_state = opt.update(upd, state.opt_state,
                                             state.params, lr)
         del grads, upd
-        mixed, fused_consensus = _sync_round(extras, params_half)
+        mixed, fused_consensus = _sync_round(extras, params_half,
+                                             state.step)
         sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr)
         new_params, extras = algo.post_round(extras, mixed, phase, sctx)
         if with_consensus:

@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.train.trainer, repro_torch.launch.train, "
-            "repro_torch.interop; "
+            "repro_torch.interop, repro_torch.compress.collective, "
+            "repro_torch.compress.sparsify, repro_torch.kernels.cuda_build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -100,7 +101,7 @@ def test_wrapper_rejects_other_devices_and_bad_operands():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(comm_compression="int8"), "A.3"),
+    (dict(comm_compression="int8", push_sum=True), "A.4"),
     (dict(push_sum=True), "A.4"),
     (dict(comm_overlap=True), "A.5"),
     (dict(comm_shard_mode="sharded"), "A.10"),

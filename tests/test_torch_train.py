@@ -12,8 +12,18 @@ Tolerances, with their reasons:
   1e-5, atol 1e-7, metrics rtol 1e-5 (measured: 6e-8 and 3.3e-6).  AdamW
   divides each coordinate by sqrt(v) + eps, so where a gradient entry is
   within ~eps of zero its update swings with that summation noise: params
-  atol 5e-2·lr, metrics rtol 1e-4 (measured: 1.6e-2·lr and 7.4e-6).
+  atol 5e-2·lr, metrics rtol 1e-4 (measured: 1.6e-2·lr and 7.4e-6);
+* compressed Gossip-PGA (int8 gossip and collective, error feedback) on
+  the reduced pga-lm-100m, 3 steps of the two Trainers from shared
+  weights.  The codes agree exactly on the same inputs, but the forward
+  and backward sum in another order, and stochastic rounding turns a
+  1-ulp difference that lands on a code boundary into one code step.
+  So: every param and EF element within one code step (1e-3 here), all
+  but 1e-5 of them within 1e-6 (measured: 2 of 5,772,288 params off by
+  3.8e-4, 1 EF element by 7.5e-4, the rest ≤ 2.9e-7), consensus and loss
+  rtol 1e-4 (measured 1.3e-5).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -192,3 +202,96 @@ def test_cli_runs_on_cpu_when_asked():
             assert "phase=global consensus=0.000e+00" in line
         else:
             assert "phase=gossip" in line
+
+
+def test_compressed_trainer_matches_reference():
+    """Reduced pga-lm-100m, 4 nodes, H = 2 (gossip, global, gossip), int8
+    gossip + int8 collective with error feedback, fused backend: the port's
+    Trainer on the CPU against the JAX Trainer from the same weights."""
+    from repro.configs import pga_lm_100m as jarch
+    from repro.train.trainer import Trainer as JTrainer
+    from repro_torch.configs import pga_lm_100m as tarch
+    from repro_torch.train import Trainer as TTrainer
+
+    n = 4
+    dist = dict(algorithm="gossip_pga", topology="one_peer_exp", H=2,
+                comm_backend="pallas", comm_compression="int8",
+                comm_global_compression="int8", comm_error_feedback=True)
+    opt = dict(name="sgd", lr=0.05, schedule="constant", warmup_steps=0)
+    common = dict(global_batch=8, seq_len=32, log_every=1)
+    jt = jcfg.TrainConfig(
+        model=dataclasses.replace(jarch.reduced_config(), dtype="float32"),
+        dist=jcfg.DistConfig(**dist), optimizer=jcfg.OptimizerConfig(**opt),
+        **common)
+    tt = tcfg_mod.TrainConfig(
+        model=dataclasses.replace(tarch.reduced_config(), dtype="float32"),
+        dist=tcfg_mod.DistConfig(**dist),
+        optimizer=tcfg_mod.OptimizerConfig(**opt), **common)
+    jtr = JTrainer(jt, n_nodes=n, with_consensus=True)
+    jst = jtr.init_state(jax.random.PRNGKey(0))
+    row0 = jax.tree.map(lambda p: np.asarray(p[0]),
+                        jax.device_get(jst.params))
+    jst = jtr.run(jst, steps=3, log_every=1)
+    ttr = TTrainer(tt, n_nodes=n, with_consensus=True, device="cpu")
+    tst = ttr.init_state(params=interop.from_numpy(row0, "cpu"))
+    assert all(not e.any() for e in jax.tree.leaves(tst.ef_state))
+    tst = ttr.run(tst, steps=3, log_every=1)
+    assert [r["phase"] for r in ttr.history] == ["gossip", "global",
+                                                 "gossip"]
+    for jr, tr in zip(jtr.history, ttr.history):
+        for key in ("loss", "consensus"):
+            np.testing.assert_allclose(tr[key], jr[key], rtol=1e-4)
+    for want, got in ((jst.params, tst.params),
+                      (jst.extras["ef_state"], tst.ef_state)):
+        wl = jax.tree.leaves(jax.device_get(want))
+        gl = jax.tree.leaves(interop.to_numpy(got))
+        size = sum(a.size for a in wl)
+        off = sum(int((np.abs(a - b) > 1e-6).sum()) for a, b in zip(wl, gl))
+        worst = max(float(np.abs(a - b).max()) for a, b in zip(wl, gl))
+        assert off <= 1e-5 * size and worst <= 1e-3, (off, worst)
+    assert sum(float(np.abs(e).sum())
+               for e in jax.tree.leaves(interop.to_numpy(tst.ef_state))) > 0
+
+
+@pytest.mark.parametrize("over,item", [
+    (dict(push_sum=True), "A.4"),
+    (dict(comm_overlap=True), "A.5"),
+    (dict(comm_shard_mode="sharded"), "A.10"),
+])
+def test_unported_options_still_raise_with_compression(over, item):
+    """Compression is ported; push-sum, overlap and sharded rounds are not,
+    and the Trainer refuses them before running anything."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.train import Trainer as TTrainer
+
+    tcfg = tcfg_mod.TrainConfig(
+        model=get_model_config("pga-lm-100m", reduced=True),
+        dist=tcfg_mod.DistConfig(comm_backend="pallas",
+                                 comm_compression="int8",
+                                 comm_error_feedback=True, **over),
+        global_batch=8, seq_len=16)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        TTrainer(tcfg, n_nodes=4, device="cpu")
+
+
+def test_compressed_cli_runs_on_cpu_when_asked():
+    """The reference's compression flags on the port's launcher: per-step
+    lines with finite losses; a compressed global round leaves the nodes
+    apart by their residuals, so consensus stays positive."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         "--arch", "pga-lm-100m", "--nodes", "4", "--steps", "4",
+         "--global-batch", "8", "--seq-len", "16", "--H", "2",
+         "--comm-backend", "pallas", "--comm-compression", "int8",
+         "--comm-global-compression", "int8", "--error-feedback",
+         "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if "] step" in ln]
+    assert len(lines) == 4
+    for k, line in enumerate(lines):
+        loss = float(line.split("loss=")[1].split()[0])
+        consensus = float(line.split("consensus=")[1])
+        assert np.isfinite(loss) and consensus > 0.0
+        assert f"phase={'global' if k % 2 else 'gossip'}" in line
