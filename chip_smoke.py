@@ -9,14 +9,15 @@ Phases (any failure raises, so the run exits non-zero and prints no ok
 line):
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions, and the three kernels built from ``src/repro_torch/csrc/``
-   (``mix.cu``, ``cmix.cu``, ``collective.cu``; one nvcc each, all at
-   once) with their ``-Xptxas -v`` reports;
+   versions, and the four kernels built from ``src/repro_torch/csrc/``
+   (``mix.cu``, ``cmix.cu``, ``collective.cu``, ``mlstm.cu``; one nvcc
+   each, all at once) with their ``-Xptxas -v`` reports;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, with the tolerances stated in
-   :func:`check_mix_kernel`, :func:`check_cmix_kernel` and
-   :func:`check_collective_kernel`; timing by CUDA events against the
-   kernel's memory bound and one PyTorch library call;
+   :func:`check_mix_kernel`, :func:`check_cmix_kernel`,
+   :func:`check_collective_kernel` and :func:`check_mlstm_kernel`;
+   timing by CUDA events against the kernel's bound and, where one
+   exists, one PyTorch library call;
 3. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
    full width (8 nodes stacked on the card, Gossip-PGA with H = 3 over
    the one-peer exponential graph, fused kernel mixing with the consensus
@@ -28,8 +29,12 @@ line):
    (int8 gossip rounds and int8 compressed collective, error feedback),
    its launch counts read the same way, then one compressed gossip round
    and one compressed global round timed alone;
-5. both trainers at the reduced config with fp32 compute, on the card
-   (kernels) and on the CPU (plain versions) from one init, compared.
+5. slice 3's main path: serving xlstm-125m at full width through the
+   mLSTM kernel (:func:`run_serving_path`: ``Engine.generate`` and
+   ``BatchedServer.run``), its launch counts read the same way;
+6. both trainers and the server at reduced configs with fp32 compute, on
+   the card (kernels) and on the CPU (plain versions) from one init,
+   compared.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernel records, and the ok line.  The
@@ -398,19 +403,204 @@ def check_collective_kernel(torch, mc) -> dict:
             "library_ms": None}
 
 
+MLSTM_SWEEP = ((1, 37, 2, 8, 16, 8), (2, 64, 2, 16, 16, 16),
+               (1, 100, 3, 8, 8, 32), (2, 16, 1, 4, 4, 16),
+               (1, 6, 2, 8, 16, 64))
+MLSTM_FULL = dict(nh=8, dk=96, dv=192, chunk=64)   # xlstm-125m's mLSTM
+MLSTM_ACC_TOL = 1e-5     # float32 accumulation, in units of |ex| + scale
+MLSTM_OUT_TOL = {"torch.float32": 0.0, "torch.bfloat16": 8e-3}
+
+
+def mlstm_inputs(torch, gen, B, S, nh, dk, dv, dtype, strided=False,
+                 gates="wide"):
+    """q, k, v (B, S, nh, ·) in ``dtype`` and float32 log gates: drawn
+    wide (log i ~ 5·N(0, 2²), log f = logsigmoid(N(0, 2²))) to drive the
+    stabilizer, or at the model's scale (``gates="model"``: log i ~ N(0, 1)
+    as the fan-in input gate with zero bias gives, log f = logsigmoid(3 +
+    N(0, 1)) as the forget bias of 3 gives).  ``strided`` makes q, k, v
+    and the gates views of head-major buffers (the kernel reads them
+    through their strides)."""
+    F = torch.nn.functional
+
+    def draw(shape, scale=1.0):
+        if strided:   # (B, nh, S, ·) buffer seen as (B, S, nh, ·)
+            order = (0, 2, 1) + tuple(range(3, len(shape)))
+            buf_shape = tuple(shape[i] for i in order)
+            return scale * torch.randn(buf_shape, device="cuda",
+                                       generator=gen).transpose(1, 2)
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    q = (draw((B, S, nh, dk)) / math.sqrt(dk)).to(dtype)
+    k = draw((B, S, nh, dk)).to(dtype)
+    v = draw((B, S, nh, dv)).to(dtype)
+    if gates == "wide":
+        li = draw((B, S, nh), 10.0)
+        lf = F.logsigmoid(draw((B, S, nh), 2.0))
+    else:
+        li = draw((B, S, nh))
+        lf = F.logsigmoid(3.0 + draw((B, S, nh)))
+    return q, k, v, li, lf
+
+
+def check_mlstm_kernel(torch, mk) -> dict:
+    """mLSTM kernel vs its plain twin on the card, on h and on the final
+    (C, n, m).  Cases: the JAX kernel test's sweep and a prompt of 6 (L = 8
+    with padding); at full width (nh 8, dk 96, dv 192, chunk 64) B ∈ {1, 8}
+    × S ∈ {2000, 2048}, the serving admissions' B = 1 × S ∈ {6, 100, 1000}
+    (S = 6 takes the padded L = 8 layout), one case read through strided
+    views, all with wide gates, and B = 8 × S = 2048 and B = 1 × S = 1000
+    with gates at the model's scale; each in float32 and with bf16 q, k, v.
+
+    Tolerances.  State: max abs error ≤ 1e-5 · max|ref| on C, n and m.
+    h, element by element, against the twin run in float64 (``ex``) and
+    its error scale (``scale``, see ``mlstm_cuda.chunkwise``: about |h|
+    where nothing cancels, large only in rows whose denominator or
+    numerator cancels, where every float32 order loses digits):
+    |h − ex| ≤ out·|ex| + 1e-5·(|ex| + scale), with out = 0 for float32 h
+    and 8e-3 (one bf16 ulp) for bf16 h; the float32 twin passes at under
+    1e-6 in scale units.  Kernel vs float32 twin, element by element:
+    |h − twin| ≤ out·|ex| + 2e-5·(|ex| + scale), and over the whole case
+    max|h − twin| ≤ 2e-3 (float32) / 8e-3 (bf16) · max|twin|.  The cases
+    with model-scale gates, where no row comes near cancelling, also hold
+    max|h − ex| ≤ 1e-5 (float32) / 8e-3 (bf16) · max|ex|."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [c + (False, "wide") for c in MLSTM_SWEEP]
+    full = (MLSTM_FULL["nh"], MLSTM_FULL["dk"], MLSTM_FULL["dv"],
+            MLSTM_FULL["chunk"])
+    cases += [(B, S) + full + (False, "wide")
+              for B in (1, 8) for S in (2000, 2048)]
+    cases += [(1, S) + full + (False, "wide") for S in (6, 100, 1000)]
+    cases.append((2, 300) + full + (True, "wide"))
+    cases += [(8, 2048) + full + (False, "model"),
+              (1, 1000) + full + (False, "model")]
+    worst, n_cases, failures, m_equal = 0.0, 0, [], True
+    rel = {"h32": 0.0, "h16": 0.0, "k64": 0.0, "t64": 0.0, "state": 0.0,
+           "scaled": 0.0, "model32": 0.0, "model16": 0.0}
+    for B, S, nh, dk, dv, chunk, strided, gates in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, dtype, strided,
+                                gates)
+            h, state = mk.mlstm_chunk(*args, chunk=chunk)
+            rh, rstate = mk.mlstm_chunk_plain(*args, chunk=chunk)
+            ex, _, scale = mk.mlstm_chunk_plain(
+                *(t.double() for t in args), chunk=chunk, error_scale=True)
+            torch.cuda.synchronize()
+            where = (f"B={B} S={S} nh={nh} dk={dk} dv={dv} L={chunk} "
+                     f"strided={strided} gates={gates} {dtype}")
+            m_equal = m_equal and torch.equal(state[2], rstate[2])
+            for name, a, b in zip(("C", "n", "m"), state, rstate):
+                err = float((a - b).abs().max())
+                worst = max(worst, err)
+                ref_max = float(b.abs().max())
+                rel["state"] = max(rel["state"], err / max(ref_max, 1e-30))
+                if not err <= 1e-5 * ref_max:
+                    failures.append(f"{where}: {name} max abs err {err:.3e}")
+            h, rh = h.double(), rh.double()
+            out = MLSTM_OUT_TOL[str(dtype)]
+            unit = ex.abs() + scale
+            err_k, err_t = (h - ex).abs(), (rh - ex).abs()
+            err_kt = (h - rh).abs()
+            ex_max, rh_max = float(ex.abs().max()), float(rh.abs().max())
+            over = err_k - out * ex.abs() - MLSTM_ACC_TOL * unit
+            over_kt = err_kt - out * ex.abs() - 2 * MLSTM_ACC_TOL * unit
+            kt_tol = 2e-3 if dtype == torch.float32 else 8e-3
+            if not bool(torch.isfinite(h).all()):
+                failures.append(f"{where}: h not finite")
+            if float(over.max()) > 0:
+                i = int(over.argmax())
+                failures.append(
+                    f"{where}: h vs float64 {float(err_k.flatten()[i]):.3e} "
+                    f"at |ex| {float(ex.abs().flatten()[i]):.3e}, scale "
+                    f"{float(scale.flatten()[i]):.3e}")
+            if float(over_kt.max()) > 0 \
+                    or not float(err_kt.max()) <= kt_tol * rh_max:
+                failures.append(f"{where}: h vs twin max abs err "
+                                f"{float(err_kt.max()):.3e}, max|twin| "
+                                f"{rh_max:.3e}")
+            if gates == "model":
+                key = "model32" if dtype == torch.float32 else "model16"
+                r = float(err_k.max()) / ex_max
+                rel[key] = max(rel[key], r)
+                if not r <= (1e-5 if dtype == torch.float32 else 8e-3):
+                    failures.append(f"{where}: h vs float64 {r:.3e} of "
+                                    f"max|ex|")
+            key = "h32" if dtype == torch.float32 else "h16"
+            rel[key] = max(rel[key], float(err_kt.max()) / rh_max)
+            if dtype == torch.float32:
+                worst = max(worst, float(err_kt.max()))
+                rel["k64"] = max(rel["k64"], float(err_k.max()) / ex_max)
+                rel["t64"] = max(rel["t64"], float(err_t.max()) / ex_max)
+                rel["scaled"] = max(rel["scaled"],
+                                    float((err_k / unit).max()))
+            n_cases += 1
+            del args, h, state, rh, rstate, ex, scale, unit
+    if failures:
+        raise AssertionError("mlstm kernel vs plain:\n" + "\n".join(failures))
+    print(f"[kernel] mlstm: {n_cases} kernel-vs-plain cases within "
+          f"tolerance; max abs err {worst:.3e} (float32 h vs twin, state); "
+          f"max error over max|ref|: state {rel['state']:.3e}, float32 h vs "
+          f"twin {rel['h32']:.3e}, bf16 h vs twin {rel['h16']:.3e}; "
+          f"float32 h vs float64: kernel {rel['k64']:.3e}, twin "
+          f"{rel['t64']:.3e}, kernel per element in units of |ex| + scale "
+          f"{rel['scaled']:.3e}; model-scale gates, h vs float64 over "
+          f"max|ex|: float32 {rel['model32']:.3e}, bf16 {rel['model16']:.3e}"
+          f"; m equal to the twin's bit for bit in every case: {m_equal}",
+          flush=True)
+    timings = {}
+    for B in (8, 1):
+        S, (nh, dk, dv, L) = 2048, full
+        args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, torch.bfloat16)
+        ms = cuda_ms(torch, lambda: mk.mlstm_chunk(*args, chunk=L))
+        plain_ms = cuda_ms(torch, lambda: mk.mlstm_chunk_plain(*args,
+                                                               chunk=L),
+                           iters=5, warmup=1)
+        bound_ms, bound_by = _bound(*mlstm_work(B, S, nh, dk, dv, L))
+        timings[B] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"[kernel] mlstm B={B} S={S} nh={nh} dk={dk} dv={dv} L={L} "
+              f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single "
+              f"PyTorch call computes it, bound {bound_ms:.4f} ms by "
+              f"{bound_by}", flush=True)
+        del args
+    ms, plain_ms, bound_ms, bound_by = timings[8]
+    return {"name": "mlstm_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/mlstm.cu",
+            "replaces": "src/repro/kernels/mlstm_chunk.py:32",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def mlstm_work(B, S, nh, dk, dv, L):
+    """``(bytes, flops)`` the chunkwise mLSTM needs at bf16 q, k, v: read
+    q, k, v and the two float32 gates once, write h (bf16) and the float32
+    state once; per chunk of each (b, h) the causal pairs' scores and
+    weighted values, L(L+1)/2 · 2(dk + dv), plus q·C and kᵀv, 4 L dk dv."""
+    nc = -(-S // L)
+    bytes_moved = (2 * B * S * nh * (2 * dk + 2 * dv) + 4 * 2 * B * S * nh
+                   + 4 * B * nh * (dk * dv + dk + 1))
+    flops = B * nh * nc * (L * (L + 1) * (dk + dv) + 4 * L * dk * dv)
+    return bytes_moved, flops
+
+
 COMPRESSED = dict(comm_compression="int8", comm_global_compression="int8",
                   comm_error_feedback=True)
 
 
-def counts(mc) -> dict:
+def counts() -> dict:
+    from repro_torch.kernels import mixing_cuda as mc
+    from repro_torch.kernels import mlstm_cuda as mk
     return {"mix": mc.mix_flat.launches, "cmix": mc.cmix_flat.launches,
-            "collective": mc.collective_flat.launches}
+            "collective": mc.collective_flat.launches,
+            "mlstm": mk.mlstm_chunk.launches}
 
 
-def reset_counts(mc) -> None:
+def reset_counts() -> None:
+    from repro_torch.kernels import mixing_cuda as mc
+    from repro_torch.kernels import mlstm_cuda as mk
     mc.mix_flat.launches = 0
     mc.cmix_flat.launches = 0
     mc.collective_flat.launches = 0
+    mk.mlstm_chunk.launches = 0
 
 
 def run_main_path(torch, mc, compressed: bool = False):
@@ -453,7 +643,7 @@ def run_main_path(torch, mc, compressed: bool = False):
     tokens = tcfg.global_batch * tcfg.seq_len
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(mc)
+    reset_counts()
     times, phases = [], []
     for k in range(steps):
         t0 = time.perf_counter()
@@ -467,7 +657,7 @@ def run_main_path(torch, mc, compressed: bool = False):
               f" consensus={rec['consensus']:.6e} step_ms={dt * 1e3:.1f} "
               f"tokens/s={tokens / dt:.0f} max_mem_GB="
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches="
-              f"{counts(mc)}", flush=True)
+              f"{counts()}", flush=True)
         if not math.isfinite(rec["loss"]):
             raise AssertionError(f"step {k}: loss {rec['loss']}")
         if rec["phase"] == "global" and not compressed:
@@ -476,11 +666,12 @@ def run_main_path(torch, mc, compressed: bool = False):
             # a compressed global round keeps each node's own state at full
             # precision: the nodes differ by their stage-1 residuals
             assert rec["consensus"] > 0.0, rec
-    launches = counts(mc)
+    launches = counts()
     gossip, glob = phases.count("gossip"), phases.count("global")
-    expected = ({"mix": 0, "cmix": gossip * len(leaves), "collective": glob}
-                if compressed else
-                {"mix": len(groups) * steps, "cmix": 0, "collective": 0})
+    expected = ({"mix": 0, "cmix": gossip * len(leaves), "collective": glob,
+                 "mlstm": 0} if compressed else
+                {"mix": len(groups) * steps, "cmix": 0, "collective": 0,
+                 "mlstm": 0})
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} on the main path, "
                              f"expected {expected} ({gossip} gossip and "
@@ -499,6 +690,7 @@ def run_main_path(torch, mc, compressed: bool = False):
 
 
 KERNEL_KINDS = (("mix round", ("mix_kernel", "sum_partials")),
+                ("mlstm kernel", ("mlstm_kernel",)),
                 ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                 ("softmax", ("softmax",)),
                 ("reduction", ("reduce",)),
@@ -512,7 +704,6 @@ def where_time_goes(torch, mc, tr, state) -> None:
     clip+AdamW timed alone, then one more steady step under
     ``torch.profiler``: device busy share of the step's wall time, device
     time by kernel kind and the top kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import clip_by_global_norm, make_optimizer
@@ -562,13 +753,21 @@ def where_time_goes(torch, mc, tr, state) -> None:
         tr.run(state, steps=1, log_every=1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, wall_ms, "[profile]", "profiled step")
+
+
+def profile_report(prof, wall_ms: float, tag: str, what: str) -> None:
+    """Device busy share of ``wall_ms``, device time by kernel kind and the
+    top kernels of one ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
     busy = sum(t for t, _ in by_name.values())
-    print(f"[profile] profiled step: wall {wall_ms:.1f} ms, device busy "
+    print(f"{tag} {what}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
           f"{sum(c for _, c in by_name.values())} device events",
           flush=True)
@@ -579,12 +778,12 @@ def where_time_goes(torch, mc, tr, state) -> None:
                      if any(key in low for key in keys)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + t
     for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {kind:12s} {t:9.3f} ms "
+        print(f"{tag} {kind:12s} {t:9.3f} ms "
               f"({100 * t / max(busy, 1e-9):.1f}% of device time)",
               flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (t, c) in top:
-        print(f"[profile] {t:9.3f} ms {c:5d}x {name[:100]}", flush=True)
+        print(f"{tag} {t:9.3f} ms {c:5d}x {name[:100]}", flush=True)
 
 
 def compressed_round_times(torch, mc, tr, state) -> None:
@@ -619,6 +818,178 @@ def compressed_round_times(torch, mc, tr, state) -> None:
           f"cmix launches): {g_ms:.3f} ms; one compressed global round "
           f"(pack, collective, unpack): {c_ms:.3f} ms; bound of each "
           f"{bound:.3f} ms ({moved / 1e9:.2f} GB)", flush=True)
+
+
+def _serving_config(torch, reduced: bool = False, dtype: str = "bfloat16"):
+    """xlstm-125m with the hand-written mLSTM kernel on the prefill path."""
+    from repro_torch.configs import get_model_config
+
+    cfg = get_model_config("xlstm-125m", reduced=reduced)
+    return dataclasses.replace(cfg, dtype=dtype, ssm=dataclasses.replace(
+        cfg.ssm, use_pallas_mlstm=True))
+
+
+def run_serving_path(torch) -> int:
+    """Slice 3's main path at full width: xlstm-125m (12 layers, 10 mLSTM
+    blocks) with ``use_pallas_mlstm=True``, one replica on the card,
+    random weights from seed 0.  (a) ``Engine.generate`` on 8 prompts of
+    2000 tokens (31 whole chunks and a tail of 16), 32 new tokens, greedy;
+    (b) ``BatchedServer.run`` with prompts of 6, 100, 1000 and 2048 tokens
+    on 2 slots, 16 new tokens each.  The launch counts are set to 0 just
+    before each and read just after: 10 mLSTM launches per prefill, no
+    other kernel.  Returns the mLSTM launches of (a) and (b)."""
+    import numpy as np
+
+    from repro_torch.models.model import make_model
+    from repro_torch.serve import BatchedServer, Engine, Request
+    from repro_torch.tree import tree_leaves
+
+    cfg = _serving_config(torch)
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_mlstm = sum(kind[0] == "mlstm" for kind in cfg.layers)
+    rng = np.random.default_rng(0)
+    B, S0, n_new = 8, 2000, 32
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S0))).to(
+        device="cuda", dtype=torch.int32)
+    engine = Engine(model, s_max=S0 + n_new)
+    print(f"[serve] xlstm-125m: {n_params:,} params, {n_mlstm} mLSTM "
+          f"blocks, use_pallas_mlstm=True, bf16 compute", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(params, prompts, n_new)
+    gen_s = time.perf_counter() - t0
+    launches_a = counts()
+    if launches_a != {"mix": 0, "cmix": 0, "collective": 0,
+                      "mlstm": n_mlstm}:
+        raise AssertionError(f"[serve] generate launches {launches_a}, "
+                             f"expected {n_mlstm} mlstm (one prefill)")
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    assert ids.shape == (B, n_new), ids.shape
+    assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
+
+    # the same traffic's parts timed alone, outside the counted run
+    def prefill():
+        return engine.prefill(params, prompts)
+
+    t0 = time.perf_counter()
+    logits, caches = prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    assert all(bool(torch.isfinite(t.float()).all())
+               for t in tree_leaves(caches)), "cache not finite"
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    pos = torch.full((B,), S0, dtype=torch.int32, device="cuda")
+    engine.decode_step(params, caches, tok, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        out, caches = engine.decode_step(params, caches, tok, pos + i)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    again = engine.generate(params, prompts, n_new)
+    if not np.array_equal(ids, again):
+        raise AssertionError("[serve] a second generate gave other ids")
+    from torch.profiler import ProfilerActivity, profile
+    for what, fn in (("one prefill", prefill),
+                     ("4 decode steps", lambda: [
+                         engine.decode_step(params, caches, tok, pos)
+                         for _ in range(4)])):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profile_report(prof, wall_ms, "[sprofile]", what)
+    print(f"[serve] (a) Engine.generate B={B} S={S0} +{n_new} greedy: "
+          f"{gen_s * 1e3:.1f} ms in all, {B * n_new / gen_s:.1f} generated "
+          f"tokens/s; prefill alone {prefill_ms:.1f} ms "
+          f"({B * S0 / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
+          f"{decode_ms:.2f} ms/token ({B / decode_ms * 1e3:.1f} tokens/s at "
+          f"B={B}); peak memory {peak_a:.2f} GB; launches {launches_a}; "
+          f"logits finite, a second run gives the same ids", flush=True)
+    del logits, caches, out
+
+    lengths, max_new = (6, 100, 1000, 2048), 16
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=s),
+                    max_new=max_new) for i, s in enumerate(lengths)]
+    server = BatchedServer(Engine(model, s_max=max(lengths) + max_new),
+                           params, n_slots=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = server.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches_b = counts()
+    if launches_b != {"mix": 0, "cmix": 0, "collective": 0,
+                      "mlstm": n_mlstm * len(lengths)}:
+        raise AssertionError(f"[serve] batched launches {launches_b}, "
+                             f"expected {n_mlstm} mlstm per prefill × "
+                             f"{len(lengths)}")
+    assert sorted(r.uid for r in done) == list(range(len(lengths)))
+    for r in done:
+        assert r.done and len(r.generated) == max_new, r
+        assert all(0 <= t < cfg.vocab_size for t in r.generated), r
+    print(f"[serve] (b) BatchedServer prompts {lengths} on 2 slots, "
+          f"+{max_new} each: {run_s * 1e3:.1f} ms, "
+          f"{len(lengths) * max_new / run_s:.1f} generated tokens/s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches {launches_b}; every request answered", flush=True)
+    return launches_a["mlstm"] + launches_b["mlstm"]
+
+
+def serving_cross_check(torch) -> None:
+    """Reduced xlstm-125m at float32 compute with the kernel, one init on
+    the card (kernel) and on the CPU (plain twin): prefill logits and every
+    cache leaf within 1e-4 · max|cpu| (the kernel and the twin, cuBLAS and
+    the CPU's BLAS sum in other orders), and the same greedy ids over 8
+    decode steps."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.models.model import make_model
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_leaves
+
+    model = make_model(_serving_config(torch, reduced=True,
+                                       dtype="float32"))
+    init = interop.to_numpy(model.init(torch.Generator().manual_seed(1),
+                                       "cpu"))
+    prompts = np.random.default_rng(1).integers(0, model.cfg.vocab_size,
+                                                (2, 37)).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = interop.from_numpy(init, dev)
+        eng = Engine(model, s_max=64)
+        logits, caches = eng.prefill(params, torch.from_numpy(prompts).to(
+            dev))
+        ids = eng.generate(params, prompts, 8)
+        out[dev] = ([logits.cpu().numpy()] + [
+            t.float().cpu().numpy() for t in tree_leaves(caches)], ids)
+    worst = 0.0
+    for a, b in zip(*(out[d][0] for d in ("cuda", "cpu"))):
+        assert np.isfinite(a).all() and a.shape == b.shape
+        ratio = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                 1e-30)
+        worst = max(worst, ratio)
+    if worst > 1e-4:
+        raise AssertionError(f"[xcross] cuda vs cpu: {worst:.3e} of max|ref|")
+    if not np.array_equal(out["cuda"][1], out["cpu"][1]):
+        raise AssertionError(f"[xcross] greedy ids differ: {out['cuda'][1]} "
+                             f"vs {out['cpu'][1]}")
+    print(f"[xcross] reduced xlstm fp32, kernel on cuda vs twin on cpu: "
+          f"logits and {len(out['cpu'][0]) - 1} cache leaves within "
+          f"{worst:.3e} of max|cpu|; greedy ids over 8 steps equal "
+          f"{out['cuda'][1].tolist()}", flush=True)
 
 
 def _cross_config(compressed: bool):
@@ -721,6 +1092,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import mixing_cuda as mc
+    from repro_torch.kernels import mlstm_cuda as mk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -741,6 +1113,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(check_collective_kernel(torch, mc))
     torch.cuda.empty_cache()
+    records.append(check_mlstm_kernel(torch, mk))
+    torch.cuda.empty_cache()
     if args.kernels_only:
         print(json.dumps({"kernels": records}))
         return 1
@@ -755,8 +1129,11 @@ def main() -> int:
     records[0]["launches"] = slice1["mix"]
     records[1]["launches"] = slice2["cmix"]
     records[2]["launches"] = slice2["collective"]
+    records[3]["launches"] = run_serving_path(torch)
+    torch.cuda.empty_cache()
     cross_check(torch)
     cross_check(torch, compressed=True)
+    serving_cross_check(torch)
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,13 @@ from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
     DistConfig,
     ModelConfig,
     OptimizerConfig,
+    SSMConfig,
     TrainConfig,
 )
 
 _ARCH_MODULES = {
     "pga-lm-100m": "pga_lm_100m",
+    "xlstm-125m": "xlstm_125m",
 }
 
 

@@ -22,6 +22,25 @@ BlockSpec = Tuple[str, str]
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Recurrent mixer parameters (Mamba + xLSTM), the reference's fields
+    and defaults.  ``d_state``, ``d_conv``, ``expand``, ``dt_rank`` and
+    ``scan_dtype`` only serve Mamba, which is not ported (ROADMAP A.8)."""
+    d_state: int = 16                # Mamba N (per-channel state)
+    d_conv: int = 4                  # Mamba local conv width
+    expand: int = 2                  # Mamba inner expansion
+    dt_rank: Optional[int] = None    # None => ceil(d_model/16)
+    # xLSTM
+    mlstm_head_dim: int = 128        # mLSTM matrix-memory head dim (qk dim)
+    mlstm_expand: int = 2            # mLSTM up-projection factor
+    slstm_heads: int = 4
+    mlstm_chunk: int = 64            # chunkwise-parallel chunk length
+    scan_dtype: str = "float32"      # Mamba scan-state dtype
+    use_pallas_mlstm: bool = False   # True: the hand-written chunkwise
+                                     # mLSTM kernel (kernels/mlstm_cuda)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense|encoder|moe|vlm|ssm|hybrid
@@ -47,7 +66,7 @@ class ModelConfig:
     post_block_norm: bool = False
     moe: Optional[Any] = None        # family sub-configs: not ported yet
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     vision: Optional[Any] = None
     audio: Optional[Any] = None
     dtype: str = "bfloat16"          # activation/compute dtype

@@ -5,7 +5,8 @@ tensors on a device, and back.
 Dicts are rebuilt with keys in sorted order — the order ``jax.tree``
 flattens them in — so packing offsets in ``flatten_nodes`` agree between
 the packages.  Only numpy crosses the boundary: this module imports
-nothing of JAX.
+nothing of JAX.  bfloat16 leaves (a bf16 cache tree, numpy dtype
+``bfloat16`` from ``ml_dtypes``) cross exactly through float32.
 """
 from __future__ import annotations
 
@@ -21,10 +22,15 @@ PyTree = Any
 
 def from_numpy(tree: PyTree, device="cuda") -> PyTree:
     """numpy (or array-like) leaves → tensors on ``device``, dtype kept."""
+    def tensor(lf):
+        arr = np.array(lf, copy=True)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(arr).to(device)
+
     leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [
-        torch.from_numpy(np.array(lf, copy=True)).to(device)
-        for lf in leaves])
+    return tree_unflatten(treedef, [tensor(lf) for lf in leaves])
 
 
 def to_numpy(tree: PyTree) -> PyTree:

@@ -33,7 +33,10 @@ ENTRY_POINTS = {
     "cmix": ("repro_cmix", [_P] * 8 + [_U, _LL] + [_I] * 5 + [_P]),
     "collective": ("repro_collective",
                    [_P] * 4 + [_U, _U, _LL] + [_I] * 6 + [_P]),
+    "mlstm": ("repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
 }
+# dynamic shared memory a block may opt into on the H100 (227 KB)
+MAX_SMEM = 232_448
 
 
 class _Libs:

@@ -48,9 +48,9 @@ PyTree = Any
 KERNEL_PHASES = ("gossip", "global", "pod_avg")
 LEAF_DISPATCH_THRESHOLD = 262_144
 
-# dynamic shared memory a block may opt into on the H100: 227 KB less the
-# kernel's 4 KB static reduction buffer
-_MAX_SMEM = 232_448 - 4_096
+# dynamic shared memory a block of mix.cu may opt into: the H100's 227 KB
+# less the kernel's 4 KB static reduction buffer
+_MAX_SMEM = cuda_build.MAX_SMEM - 4_096
 
 
 # ---------------------------------------------------------------------------

@@ -1,34 +1,49 @@
-"""Transformer block assembly over layer-stacked parameters (counterpart
-of the dense path of ``repro/models/blocks.py``).
+"""Block assembly over layer-stacked parameters (counterpart of
+``repro/models/blocks.py``) for the ported block kinds: dense attention +
+gated MLP, and the xLSTM mixers (mLSTM, sLSTM) without an FFN.
 
-A block is pre-norm attention + residual, then pre-norm gated MLP +
-residual.  Parameters keep the reference's scan layout
-``{"scan": {"entry_0": stacked}}`` with the layer axis right after the
-node axis; :func:`apply_stack` loops over it where the reference scans.
-With ``remat="default"`` each block runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
+A block is a pre-norm mixer + residual, then, unless its FFN is
+``"none"``, a pre-norm gated MLP + residual.  Parameters keep the
+reference's scan layout ``{"scan": {"entry_<j>": stacked}}`` with the layer
+axis right after the node axis; :func:`apply_stack` loops over it where
+the reference scans, and returns the caches in the same layout
+(``(n, L, B, …)`` leaves).  With ``remat="default"`` each training block
+runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import BlockSpec, ModelConfig, not_ported
+from repro_torch.configs.base import (BlockSpec, ModelConfig, SSMConfig,
+                                      not_ported)
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, init_mlp,
                                        init_rms_norm, rms_norm)
 
 PyTree = Any
+FAMILY_BLOCKS = {"dense": {("attn", "dense")},
+                 "ssm": {("mlstm", "none"), ("slstm", "none")}}
+MODES = ("train", "prefill", "decode")
+
+
+def _attn_cache_not_ported() -> NotImplementedError:
+    return not_ported("attention KV cache / decode", "A.9")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for every model feature outside the ported dense path."""
-    if cfg.family != "dense" or any(
-            c is not None for c in (cfg.moe, cfg.mla, cfg.ssm, cfg.vision,
+    """Raise for every model feature outside the ported paths: the dense
+    decoder and the xLSTM family."""
+    if cfg.family not in FAMILY_BLOCKS or any(
+            c is not None for c in (cfg.moe, cfg.mla, cfg.vision,
                                     cfg.audio)):
         raise not_ported(f"model family {cfg.family!r}", "A.8")
+    if (cfg.family == "ssm") != isinstance(cfg.ssm, SSMConfig):
+        raise not_ported(f"family {cfg.family!r} with ssm={cfg.ssm!r}",
+                         "A.8")
     unported = [name for name, on in (
         ("prefix_pattern", bool(cfg.prefix_pattern)),
         ("qk_norm", cfg.qk_norm), ("qkv_bias", cfg.qkv_bias),
@@ -40,31 +55,69 @@ def check_supported(cfg: ModelConfig) -> None:
         ("non-causal attention", not cfg.causal)) if on]
     if unported:
         raise not_ported(f"model features {unported}", "A.8")
-    if any(kind != ("attn", "dense") for kind in cfg.layers):
-        raise not_ported(f"block kinds {sorted(set(cfg.layers))}", "A.8")
+    kinds = set(cfg.layers)
+    if any(mixer == "mamba" for mixer, _ in kinds):
+        raise not_ported("mamba mixer", "A.8")
+    if not kinds <= FAMILY_BLOCKS[cfg.family]:
+        raise not_ported(f"block kinds {sorted(kinds)} in family "
+                         f"{cfg.family!r}", "A.8")
 
 
 def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
-    """One ("attn", "dense") block's params into builder ``b``."""
+    """One block's params into builder ``b``."""
+    mixer_kind, ffn_kind = kind
     init_rms_norm(b, "ln1", cfg.d_model)
     mixer = ParamBuilder(b.generator, b.param_dtype, b.device)
-    attn.init_attention(mixer, cfg)
+    if mixer_kind == "attn":
+        attn.init_attention(mixer, cfg)
+    elif mixer_kind == "mlstm":
+        ssm_lib.init_mlstm(mixer, cfg)
+    elif mixer_kind == "slstm":
+        ssm_lib.init_slstm(mixer, cfg)
+    else:
+        raise not_ported(f"mixer {mixer_kind!r}", "A.8")
     b.attach("mixer", mixer.params)
-    init_rms_norm(b, "ln2", cfg.d_model)
-    ffn = ParamBuilder(b.generator, b.param_dtype, b.device)
-    init_mlp(ffn, cfg.d_model, cfg.d_ff)
-    b.attach("ffn", ffn.params)
+    if ffn_kind != "none":
+        init_rms_norm(b, "ln2", cfg.d_model)
+        ffn = ParamBuilder(b.generator, b.param_dtype, b.device)
+        init_mlp(ffn, cfg.d_model, cfg.d_ff)
+        b.attach("ffn", ffn.params)
 
 
 def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
-                x: torch.Tensor, *,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x: torch.Tensor, *, mode: str,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[PyTree] = None,
+                pos: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[PyTree]]:
+    """Returns ``(x, new_cache)``.  mode: train|prefill|decode; decode
+    takes x ``(n, B, 1, d)`` and the block's ``cache``.  ``pos`` (the
+    position being written) only serves attention decode, not ported."""
+    mixer, ffn = kind
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    out, _ = attn.attn_forward(params["mixer"], cfg, h, layer_kind=kind[0],
-                               positions=positions)
+    if mixer == "attn":
+        if mode == "decode":
+            raise _attn_cache_not_ported()
+        out, new_cache = attn.attn_forward(params["mixer"], cfg, h,
+                                           layer_kind=mixer,
+                                           positions=positions)
+    elif mixer == "mlstm":
+        out, new_cache = (
+            ssm_lib.mlstm_decode(params["mixer"], cfg, h, cache)
+            if mode == "decode" else
+            ssm_lib.mlstm_forward(params["mixer"], cfg, h))
+    elif mixer == "slstm":
+        out, new_cache = (
+            ssm_lib.slstm_decode(params["mixer"], cfg, h, cache)
+            if mode == "decode" else
+            ssm_lib.slstm_forward(params["mixer"], cfg, h))
+    else:
+        raise not_ported(f"mixer {mixer!r}", "A.8")
     x = x + out
-    h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + apply_mlp(params["ffn"], h)
+    if ffn != "none":
+        x = x + apply_mlp(params["ffn"], rms_norm(x, params["ln2"],
+                                                  cfg.norm_eps))
+    return x, new_cache
 
 
 def _layer(tree: PyTree, i: int) -> PyTree:
@@ -74,25 +127,49 @@ def _layer(tree: PyTree, i: int) -> PyTree:
 
 
 def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
+                mode: str = "train",
                 positions: Optional[torch.Tensor] = None,
-                remat: str = "none") -> torch.Tensor:
+                caches: Optional[PyTree] = None,
+                pos: Optional[torch.Tensor] = None,
+                remat: str = "none",
+                want_cache: bool = False
+                ) -> Tuple[torch.Tensor, Optional[PyTree]]:
     """Apply the scanned pattern repeats; params
-    ``{"scan": {"entry_<j>": (n, L, …) stacked}}``."""
+    ``{"scan": {"entry_<j>": (n, L, …) stacked}}``.  Returns ``(x,
+    caches)``: with ``want_cache`` or in decode mode, caches
+    ``{"scan": {"entry_<j>": (n, L, B, …) stacked}}`` (decode reads the
+    same layout from ``caches``), else None."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if remat not in ("none", "default"):
         raise not_ported(f"remat policy {remat!r}", "A.8")
+    need_cache = want_cache or mode == "decode"
+    if need_cache and any(kind[0] == "attn" for kind in cfg.pattern):
+        raise _attn_cache_not_ported()
     scan = params["scan"]
+    outs: Dict[int, list] = {j: [] for j in range(len(cfg.pattern))}
     for i in range(cfg.n_scan_blocks):
         for j, kind in enumerate(cfg.pattern):
             block = _layer(scan[f"entry_{j}"], i)
+            cache = (_layer(caches["scan"][f"entry_{j}"], i)
+                     if mode == "decode" else None)
 
-            def run(h, block=block, kind=kind):
-                return apply_block(block, cfg, kind, h, positions=positions)
+            def run(h, block=block, kind=kind, cache=cache):
+                return apply_block(block, cfg, kind, h, mode=mode,
+                                   positions=positions, cache=cache,
+                                   pos=pos)
 
-            if remat == "none":
-                x = run(x)
+            if remat == "default" and mode == "train" and not need_cache:
+                x = checkpoint(lambda h, run=run: run(h)[0], x,
+                               use_reentrant=False)
             else:
-                x = checkpoint(run, x, use_reentrant=False)
-    return x
+                x, c_out = run(x)
+                if need_cache:
+                    outs[j].append(c_out)
+    if not need_cache:
+        return x, None
+    return x, {"scan": {f"entry_{j}": _stack(outs[j], dim=1)
+                        for j in outs}}
 
 
 def init_stack(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -109,7 +186,38 @@ def init_stack(b: ParamBuilder, cfg: ModelConfig) -> None:
     b.attach("scan", scan)
 
 
-def _stack(trees):
+def _stack(trees, dim: int = 0):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees, dim=0)
+        return {k: _stack([t[k] for t in trees], dim) for k in trees[0]}
+    return torch.stack(trees, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Cache allocation
+# ---------------------------------------------------------------------------
+def init_block_cache(cfg: ModelConfig, kind: BlockSpec, batch: int,
+                     s_max: int, dtype: torch.dtype, device) -> PyTree:
+    """One block's empty recurrent state, ``(B, …)`` leaves.  ``s_max``
+    sizes attention caches only (not ported)."""
+    mixer, _ = kind
+    if mixer == "mlstm":
+        return ssm_lib.init_mlstm_state(cfg, batch, dtype, device)
+    if mixer == "slstm":
+        return ssm_lib.init_slstm_state(cfg, batch, dtype, device)
+    if mixer == "attn":
+        raise _attn_cache_not_ported()
+    raise not_ported(f"mixer {mixer!r}", "A.8")
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int,
+                     dtype: torch.dtype, device) -> PyTree:
+    """Every layer's empty cache for one replica, ``{"scan": {"entry_<j>":
+    (1, L, B, …)}}`` — the layout :func:`apply_stack` returns and decode
+    reads, with a node axis of 1."""
+    lead = (1, cfg.n_scan_blocks)
+    scan = {}
+    for j, kind in enumerate(cfg.pattern):
+        one = init_block_cache(cfg, kind, batch, s_max, dtype, device)
+        scan[f"entry_{j}"] = {
+            k: t.expand(lead + t.shape).clone() for k, t in one.items()}
+    return {"scan": scan}

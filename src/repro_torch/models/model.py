@@ -1,16 +1,20 @@
-"""Top-level Model: init / forward / loss for the dense decoder LM
-(counterpart of ``repro/models/model.py``).
+"""Top-level Model: init / forward / decode / loss for the dense decoder LM
+and the xLSTM family (counterpart of ``repro/models/model.py``).
 
 Params keep the reference's layout — the same nested keys and, once
 stacked for the nodes, the same ``(n, L, …)`` shapes — so a tree carries
-across with ``repro_torch.interop``.  :meth:`Model.node_losses` runs all n
-node replicas at once (the reference ``vmap``s :meth:`Model.loss`); batch
-``{"inputs", "targets"}`` is ``(n, B, S)`` int.
+across with ``repro_torch.interop``.  Every method takes node-stacked
+params and inputs: :meth:`Model.node_losses` runs all n node replicas at
+once (the reference ``vmap``s :meth:`Model.loss`), batch ``{"inputs",
+"targets"}`` is ``(n, B, S)`` int; the serving methods (:meth:`forward`
+with ``want_cache``, :meth:`decode_step`, :meth:`init_cache`) keep the
+node axis on the caches too, ``(n, L, B, …)`` leaves.  :meth:`loss` and
+``repro_torch.serve`` take one replica's tree and add a node axis of 1.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -46,24 +50,56 @@ class Model:
         return b.params
 
     def forward(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
-                remat: str = "none") -> torch.Tensor:
-        """Node-stacked params and batch → fp32 logits (n, B, S, V)."""
+                mode: str = "train", remat: str = "none",
+                want_cache: bool = False
+                ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
+        """Node-stacked params and batch → ``(fp32 logits (n, B, S, V),
+        caches or None, lb_loss)``; mode train|prefill.  lb_loss is the MoE
+        balance loss of the reference's call shape: 0 (MoE is not
+        ported)."""
+        if mode not in ("train", "prefill"):
+            raise ValueError(f"forward: mode must be 'train' or 'prefill', "
+                             f"got {mode!r} (decode: decode_step)")
         cfg = self.cfg
         dtype = _DTYPES[cfg.dtype]
         h = embed_tokens(params["embed"], batch["inputs"], dtype)
         _, B, S = batch["inputs"].shape
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
-        h = blocks.apply_stack(params["stack"], cfg, h, positions=positions,
-                               remat=remat)
+        h, caches = blocks.apply_stack(params["stack"], cfg, h, mode=mode,
+                                       positions=positions, remat=remat,
+                                       want_cache=want_cache)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return unembed(params["embed"], h)
+        lb_loss = torch.zeros((), dtype=torch.float32, device=h.device)
+        return unembed(params["embed"], h), caches, lb_loss
+
+    def decode_step(self, params: PyTree, caches: PyTree,
+                    tokens: torch.Tensor, pos: torch.Tensor
+                    ) -> Tuple[torch.Tensor, PyTree]:
+        """One token per sequence: tokens ``(n, B, 1)`` int, pos ``(B,)``
+        the position being written → ``(fp32 logits (n, B, 1, V),
+        caches)``."""
+        cfg = self.cfg
+        h = embed_tokens(params["embed"], tokens, _DTYPES[cfg.dtype])
+        h, caches = blocks.apply_stack(params["stack"], cfg, h,
+                                       mode="decode", caches=caches, pos=pos)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return unembed(params["embed"], h), caches
+
+    def init_cache(self, batch: int, s_max: int,
+                   dtype_name: Optional[str] = None, *,
+                   device="cuda") -> PyTree:
+        """One replica's empty caches for ``batch`` sequences of up to
+        ``s_max`` positions, ``(1, L, batch, …)`` leaves."""
+        return blocks.init_stack_cache(
+            self.cfg, batch, s_max, _DTYPES[dtype_name or self.cfg.dtype],
+            device)
 
     def node_losses(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
                     remat: str = "none", z_loss: float = 0.0
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Per-node mean next-token cross entropy (+ z-loss): ``(losses
         (n,), metrics of (n,))``."""
-        logits = self.forward(params, batch, remat=remat)
+        logits, _, _ = self.forward(params, batch, remat=remat)
         targets = batch["targets"].long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]

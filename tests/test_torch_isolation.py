@@ -44,7 +44,10 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.train.trainer, repro_torch.launch.train, "
             "repro_torch.interop, repro_torch.compress.collective, "
-            "repro_torch.compress.sparsify, repro_torch.kernels.cuda_build; "
+            "repro_torch.compress.sparsify, repro_torch.kernels.cuda_build, "
+            "repro_torch.launch.serve, repro_torch.serve, "
+            "repro_torch.kernels.mlstm_cuda, repro_torch.models.ssm, "
+            "repro_torch.configs.xlstm_125m; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
