@@ -9,13 +9,15 @@ Phases (any failure raises, so the run exits non-zero and prints no ok
 line):
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions, and the four kernels built from ``src/repro_torch/csrc/``
-   (``mix.cu``, ``cmix.cu``, ``collective.cu``, ``mlstm.cu``; one nvcc
-   each, all at once) with their ``-Xptxas -v`` reports;
+   versions, and the six kernels built from ``src/repro_torch/csrc/``
+   (``mix.cu``, ``cmix.cu``, ``collective.cu``, ``mlstm.cu``,
+   ``shard_mix.cu``, ``shard_cmix.cu``; one nvcc each, all at once) with
+   their ``-Xptxas -v`` reports;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, with the tolerances stated in
    :func:`check_mix_kernel`, :func:`check_cmix_kernel`,
-   :func:`check_collective_kernel` and :func:`check_mlstm_kernel`;
+   :func:`check_collective_kernel`, :func:`check_mlstm_kernel`,
+   :func:`check_shard_mix_kernel` and :func:`check_shard_cmix_kernel`;
    timing by CUDA events against the kernel's bound and, where one
    exists, one PyTorch library call;
 3. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
@@ -32,9 +34,18 @@ line):
 5. slice 3's main path: serving xlstm-125m at full width through the
    mLSTM kernel (:func:`run_serving_path`: ``Engine.generate`` and
    ``BatchedServer.run``), its launch counts read the same way;
-6. both trainers and the server at reduced configs with fp32 compute, on
+6. slice 4's main paths: the same trainer on a mesh of 4 node shards
+   (2 nodes each) on the card, ``comm_shard_mode="sharded"``, every round
+   shard by shard through the per-shard kernels: uncompressed with the
+   consensus residual (``[smain]``), then int8 gossip + int8 collective
+   with error feedback (``[scmain]``), launch counts read the same way;
+   then one sharded round of each kind timed beside its stacked
+   counterpart (``[sround]``).  The shards share one card: this measures
+   the per-shard kernels and the decomposition, not an interconnect;
+7. the trainers and the server at reduced configs with fp32 compute, on
    the card (kernels) and on the CPU (plain versions) from one init,
-   compared.
+   compared; the sharded trainers also against the stacked ones on the
+   card (``[scross]``).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernel records, and the ok line.  The
@@ -582,6 +593,197 @@ def mlstm_work(B, S, nh, dk, dv, L):
     return bytes_moved, flops
 
 
+SHARD_M = 2                          # nodes per shard on the main path
+SHARD_CASES = tuple((m, halo) for m in (1, 2, 4)     # (m, K / m)
+                    for halo in (1, 2, 3))
+SHARD_WIDTHS = (RAGGED_D, 37, 1)
+
+
+def _shard_factors(torch, gen, m, K, comp=False):
+    """A random ``(m, K)`` factor and ``(m, 1)`` self weight whose rows have
+    the absolute sum of a mixing row (1), so |o| ≤ max|inputs|; ``comp``
+    draws w in [0, 1) as 1 − d of a gossip round."""
+    M = torch.rand(m, K, device="cuda", generator=gen)
+    d = torch.rand(m, 1, device="cuda", generator=gen)
+    s = M.sum(1, keepdim=True) + d
+    return M / s, (1.0 - d / s) if comp else d / s
+
+
+def _main_shard_factors(torch, step):
+    """Shard 0's ``(M_r, d_r, w_r)`` of the main path's gossip round at
+    ``step`` (one_peer_exp, n = 8, 4 shards: K = 4 at hop 1, 2 after)."""
+    from repro_torch.core import mixing
+
+    offsets, Mst, dst, wst = mixing._device_shard_blocks(
+        "gossip", "one_peer_exp", MAIN_N, step, 1, MAIN_N // SHARD_M,
+        torch.device("cuda"))
+    return Mst[0], dst[0], wst[0]
+
+
+def check_shard_mix_kernel(torch, mc) -> dict:
+    """shard_mix kernel vs its plain twin on the card: m ∈ {1, 2, 4} rows,
+    K ∈ {m, 2m, 3m} halo rows, D ∈ {1,000,003, 37, 1}, with and without
+    the column sums, xs in fp32 and bf16-cast; then the main path's
+    full-width shard (m = 2, D = 138,431,232) at K = 4 (hop 1) and K = 2
+    (hop 2) with the real one_peer_exp factors.  Factor rows have abs sum
+    1, so |o| ≤ s = max(|x|, |xs|).  Tolerance: max|o − o_plain| ≤
+    1e-5·s and max|cs − cs_plain| ≤ 1e-5·m·s per element (the plain
+    version's matmul and column sum add in another order than the
+    kernel's loops)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, cases = 0.0, 0
+
+    def compare(x, xs, d, M, with_residual):
+        nonlocal worst, cases
+        m = x.shape[0]
+        out = mc.shard_mix_block(x, xs, d, M, with_residual=with_residual)
+        ref = mc.shard_mix_block_plain(x, xs, d, M,
+                                       with_residual=with_residual)
+        torch.cuda.synchronize()
+        s = max(float(x.abs().max()), float(xs.abs().max()))
+        o, r = (out[0], ref[0]) if with_residual else (out, ref)
+        err = float((o - r).abs().max())
+        if err > 1e-5 * s:
+            raise AssertionError(f"shard_mix m={m} K={xs.shape[0]} "
+                                 f"D={x.shape[1]}: o max abs err {err:.3e}")
+        if with_residual:
+            cerr = float((out[1] - ref[1]).abs().max())
+            if cerr > 1e-5 * m * s:
+                raise AssertionError(f"shard_mix m={m} K={xs.shape[0]} "
+                                     f"D={x.shape[1]}: column sums max abs "
+                                     f"err {cerr:.3e}")
+            err = max(err, cerr)
+        worst = max(worst, err)
+        cases += 1
+
+    for m, halo in SHARD_CASES:
+        K = m * halo
+        M, d = _shard_factors(torch, gen, m, K)
+        for D in SHARD_WIDTHS:
+            x = torch.randn(m, D, device="cuda", generator=gen)
+            xs = torch.randn(K, D, device="cuda", generator=gen)
+            for cast in (False, True):
+                xsw = xs.to(torch.bfloat16).to(torch.float32) if cast else xs
+                for with_residual in (False, True):
+                    compare(x, xsw, d, M, with_residual)
+    # full width: the main path's shard
+    D = MAIN_PACKED_D
+    x = torch.randn(SHARD_M, D, device="cuda", generator=gen)
+    xs = torch.randn(2 * SHARD_M, D, device="cuda", generator=gen)
+    for step, K in ((0, 4), (1, 2)):
+        M, d, _ = _main_shard_factors(torch, step)
+        assert tuple(M.shape) == (SHARD_M, K), M.shape
+        compare(x, xs[:K], d, M, True)
+    M, d, _ = _main_shard_factors(torch, 0)
+    kw = dict(with_residual=True)
+    ms = cuda_ms(torch, lambda: mc.shard_mix_block(x, xs, d, M, **kw),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: mc.shard_mix_block_plain(
+        x, xs, d, M, **kw), iters=5, warmup=1)
+    library_ms = cuda_ms(torch, lambda: torch.matmul(M, xs), iters=10,
+                         warmup=2)
+    m, K = SHARD_M, xs.shape[0]
+    bytes_moved = 4 * (m + K + m + 1) * D      # read x, xs; write o, cs
+    flops = (2 * K + 3) * m * D                 # mix, self term, sums
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    print(f"[kernel] shard_mix m={m} K={K} D={D} column sums: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul(M_r, xs) "
+          f"(the mix only) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
+          flush=True)
+    print(f"[kernel] shard_mix: {cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err {worst:.3e}", flush=True)
+    del x, xs
+    torch.cuda.empty_cache()
+    return {"name": "shard_mix_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/shard_mix.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:975",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_shard_cmix_kernel(torch, mc) -> dict:
+    """shard_cmix kernel vs its plain twin on the card, the cases of
+    :func:`check_shard_mix_kernel` (qs in fp32 and bf16-cast), then the
+    main path's full-width shard at K = 4 and 2 with the real factors.
+    With |M| rows ≤ 1 and w ≤ 1, |o − x| ≤ 2s, s = max(|x|, |q_self|,
+    |qs|).  Tolerance: max|o − o_plain| ≤ 1e-5·s per element."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, cases = 0.0, 0
+
+    def compare(x, q, qs, w, M):
+        nonlocal worst, cases
+        o = mc.shard_comp_mix_block(x, q, qs, w, M)
+        ref = mc.shard_comp_mix_block_plain(x, q, qs, w, M)
+        torch.cuda.synchronize()
+        s = max(float(t.abs().max()) for t in (x, q, qs))
+        err = float((o - ref).abs().max())
+        if err > 1e-5 * s:
+            raise AssertionError(f"shard_cmix m={x.shape[0]} K={qs.shape[0]}"
+                                 f" D={x.shape[1]}: max abs err {err:.3e}")
+        worst = max(worst, err)
+        cases += 1
+
+    for m, halo in SHARD_CASES:
+        K = m * halo
+        M, w = _shard_factors(torch, gen, m, K, comp=True)
+        for D in SHARD_WIDTHS:
+            x = torch.randn(m, D, device="cuda", generator=gen)
+            q = torch.randn(m, D, device="cuda", generator=gen)
+            qs = torch.randn(K, D, device="cuda", generator=gen)
+            for cast in (False, True):
+                f = ((lambda t: t.to(torch.bfloat16).to(torch.float32))
+                     if cast else (lambda t: t))
+                compare(x, f(q), f(qs), w, M)
+    D = MAIN_PACKED_D
+    x = torch.randn(SHARD_M, D, device="cuda", generator=gen)
+    qs = torch.randn(2 * SHARD_M, D, device="cuda", generator=gen)
+    for step, K in ((0, 4), (1, 2)):
+        M, _, w = _main_shard_factors(torch, step)
+        compare(x, qs[:SHARD_M], qs[:K], w, M)
+    M, _, w = _main_shard_factors(torch, 0)
+    m, K = SHARD_M, qs.shape[0]
+    flops = (2 * K + 4) * m * D
+    # the record: q_self in rows of its own (the kernel's general call, as
+    # at hops 2 and 4), so x, q_self and qs are each read once from HBM
+    q = torch.randn(m, D, device="cuda", generator=gen)
+    ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block(x, q, qs, w, M),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block_plain(
+        x, q, qs, w, M), iters=5, warmup=1)
+    library_ms = cuda_ms(torch, lambda: torch.matmul(M, qs), iters=10,
+                         warmup=2)
+    bytes_moved = 4 * (m + m + K + m) * D      # read x, q_self, qs; write o
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    print(f"[kernel] shard_cmix m={m} K={K} D={D}, q_self its own rows: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul(M_r, qs) (the mix only) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
+          flush=True)
+    # the path's hop-1 call: q_self is a view of qs's self block, whose
+    # second read the cache serves, so HBM moves x, qs and o only
+    del q
+    q = qs[:m]
+    view_ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block(x, q, qs, w, M),
+                      iters=10, warmup=2)
+    view_bound, _ = _bound(4 * (m + K + m) * D, flops)
+    print(f"[kernel] shard_cmix m={m} K={K} D={D}, q_self a view of qs (the "
+          f"path at hop 1): kernel {view_ms:.4f} ms, bound "
+          f"{view_bound:.4f} ms by bytes", flush=True)
+    print(f"[kernel] shard_cmix: {cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err {worst:.3e}", flush=True)
+    del x, qs, q
+    torch.cuda.empty_cache()
+    return {"name": "shard_cmix_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/shard_cmix.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:924",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 COMPRESSED = dict(comm_compression="int8", comm_global_compression="int8",
                   comm_error_feedback=True)
 
@@ -591,7 +793,14 @@ def counts() -> dict:
     from repro_torch.kernels import mlstm_cuda as mk
     return {"mix": mc.mix_flat.launches, "cmix": mc.cmix_flat.launches,
             "collective": mc.collective_flat.launches,
-            "mlstm": mk.mlstm_chunk.launches}
+            "mlstm": mk.mlstm_chunk.launches,
+            "shard_mix": mc.shard_mix_block.launches,
+            "shard_cmix": mc.shard_comp_mix_block.launches}
+
+
+def only(**launches) -> dict:
+    """The launch counts of a path that launches only the named kernels."""
+    return {**{k: 0 for k in counts()}, **launches}
 
 
 def reset_counts() -> None:
@@ -601,36 +810,55 @@ def reset_counts() -> None:
     mc.cmix_flat.launches = 0
     mc.collective_flat.launches = 0
     mk.mlstm_chunk.launches = 0
+    mc.shard_mix_block.launches = 0
+    mc.shard_comp_mix_block.launches = 0
 
 
-def run_main_path(torch, mc, compressed: bool = False):
+def run_main_path(torch, mc, compressed: bool = False,
+                  sharded: bool = False):
     """One main path at full width for 6 steps; returns ``(launches per
     kernel, trainer, state)``.  Slice 1: fused rounds with the consensus
     residual.  Slice 2 (``compressed``): int8 gossip + int8 collective
-    with error feedback."""
+    with error feedback.  Slice 4 (``sharded``): either of them on a mesh
+    of 4 node shards on the card, ``comm_shard_mode="sharded"``: one
+    per-shard kernel launch per shard per gossip round, the global rounds
+    in plain PyTorch (the sum over the shards; the compressed collective's
+    owner segments)."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
+    from repro_torch.core.mesh import make_mesh
     from repro_torch.train import Trainer
     from repro_torch.tree import tree_leaves
 
     steps, n_nodes = 6, 8
-    tag = "[cmain]" if compressed else "[main]"
+    tag = ("[s" if sharded else "[") + ("cmain]" if compressed else "main]")
+    shards = n_nodes // SHARD_M
+    mesh = make_mesh((shards,), ("data",)) if sharded else None
     tcfg = TrainConfig(
         model=get_model_config("pga-lm-100m"),
         dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
                         H=3, comm_backend="pallas",
+                        comm_shard_mode="sharded" if sharded else "auto",
                         **(COMPRESSED if compressed else {})),
         # total_steps covers the profiled step after the 6 (lr > 0 there)
         optimizer=OptimizerConfig(name="adamw", lr=3e-4,
                                   schedule="warmup_cosine", warmup_steps=2,
                                   total_steps=steps + 2),
         global_batch=32, seq_len=512, steps=steps, log_every=1)
-    tr = Trainer(tcfg, n_nodes=n_nodes, with_consensus=True)
+    tr = Trainer(tcfg, n_nodes=n_nodes, mesh=mesh, with_consensus=True)
     state = tr.init_state(torch.Generator().manual_seed(0))
     leaves = tree_leaves(state.params)
     per_node = sum(p.numel() for p in leaves) // n_nodes
     groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
-    if compressed:
+    if sharded:
+        print(f"{tag} pga-lm-100m on a mesh of {shards} node shards of "
+              f"{SHARD_M} nodes on one card ({mesh.shape}, "
+              f"{'compressed int8+EF' if compressed else 'uncompressed'}): "
+              f"{per_node:,} params per node, {n_nodes} nodes, one "
+              f"{'shard_cmix' if compressed else 'shard_mix'} launch per "
+              f"shard per gossip round over {per_node:,} packed columns",
+              flush=True)
+    elif compressed:
         print(f"{tag} pga-lm-100m compressed: {per_node:,} params per node,"
               f" {n_nodes} nodes, {len(leaves)} leaves (one cmix launch "
               f"each per gossip round), one collective launch per global "
@@ -668,10 +896,13 @@ def run_main_path(torch, mc, compressed: bool = False):
             assert rec["consensus"] > 0.0, rec
     launches = counts()
     gossip, glob = phases.count("gossip"), phases.count("global")
-    expected = ({"mix": 0, "cmix": gossip * len(leaves), "collective": glob,
-                 "mlstm": 0} if compressed else
-                {"mix": len(groups) * steps, "cmix": 0, "collective": 0,
-                 "mlstm": 0})
+    if sharded:
+        key = "shard_cmix" if compressed else "shard_mix"
+        expected = only(**{key: gossip * shards})
+    elif compressed:
+        expected = only(cmix=gossip * len(leaves), collective=glob)
+    else:
+        expected = only(mix=len(groups) * steps)
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} on the main path, "
                              f"expected {expected} ({gossip} gossip and "
@@ -689,7 +920,8 @@ def run_main_path(torch, mc, compressed: bool = False):
     return launches, tr, state
 
 
-KERNEL_KINDS = (("mix round", ("mix_kernel", "sum_partials")),
+KERNEL_KINDS = (("shard kernels", ("shard_mix_kernel", "shard_cmix_kernel")),
+                ("mix round", ("mix_kernel", "sum_partials")),
                 ("mlstm kernel", ("mlstm_kernel",)),
                 ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                 ("softmax", ("softmax",)),
@@ -820,6 +1052,53 @@ def compressed_round_times(torch, mc, tr, state) -> None:
           f"{bound:.3f} ms ({moved / 1e9:.2f} GB)", flush=True)
 
 
+def sharded_round_times(torch, mc, tr, state, compressed: bool) -> None:
+    """One sharded round of each phase timed by CUDA events beside the
+    stacked round on the same state, in turns (stacked, sharded, sharded,
+    stacked).  Uncompressed: gossip at hop 1 (4 shard_mix launches of K =
+    4 halo rows) and global, each with the consensus residual; compressed:
+    int8 + EF gossip and the int8 collective.  The bound is that of the
+    sharded gossip round's kernels alone (bytes at the HBM rate)."""
+    from repro_torch.core import mixing
+    from repro_torch.tree import tree_leaves
+
+    dist = tr.tcfg.dist
+    spec = dist.comm_spec(tr.n_nodes, mesh=tr.mesh)
+    if not compressed:
+        spec = spec.replace(compressor=None, global_compressor=None)
+    D = sum(p[0].numel() for p in tree_leaves(state.params))
+    k, m = tr.n_nodes // SHARD_M, SHARD_M
+    # per shard at hop 1 (K = 2m): shard_cmix reads x and qs (q_self is
+    # a view of qs's self block, read again from the cache) and writes o;
+    # shard_mix reads x, xs and writes o and the column sums
+    per_shard = (m + 2 * m + m) * D if compressed \
+        else (m + 2 * m + m + 1) * D
+    bound_ms = k * 4 * per_shard / HBM_BYTES_PER_S * 1e3
+
+    def run(sp, phase):
+        if compressed:
+            mixing.communicate(state.params, sp, phase=phase, step=0,
+                               ef_state=state.ef_state, seed=3)
+        elif sp.mesh is None:
+            mc.mix_residual(state.params, phase=phase,
+                            topology=dist.topology, n_nodes=tr.n_nodes,
+                            step=0, leaf_threshold=dist.pallas_leaf_threshold)
+        else:
+            mixing.communicate_sharded(state.params, sp, phase=phase,
+                                       step=0, with_residual=True)
+
+    stacked = spec.replace(mesh=None, shard_mode="auto")
+    for phase in ("gossip", "global"):
+        t = [cuda_ms(torch, lambda: run(sp, phase), iters=3, warmup=1)
+             for sp in (stacked, spec, spec, stacked)]
+        bound = (f"bound of its {k} shard kernels {bound_ms:.3f} ms"
+                 if phase == "gossip" else "no shard kernel")
+        print(f"[sround] {'compressed int8+EF ' if compressed else ''}"
+              f"{phase} round: sharded {t[1]:.3f} / {t[2]:.3f} ms, stacked "
+              f"{t[0]:.3f} / {t[3]:.3f} ms (in turns); {bound}", flush=True)
+        torch.cuda.empty_cache()
+
+
 def _serving_config(torch, reduced: bool = False, dtype: str = "bfloat16"):
     """xlstm-125m with the hand-written mLSTM kernel on the prefill path."""
     from repro_torch.configs import get_model_config
@@ -864,8 +1143,7 @@ def run_serving_path(torch) -> int:
     ids = engine.generate(params, prompts, n_new)
     gen_s = time.perf_counter() - t0
     launches_a = counts()
-    if launches_a != {"mix": 0, "cmix": 0, "collective": 0,
-                      "mlstm": n_mlstm}:
+    if launches_a != only(mlstm=n_mlstm):
         raise AssertionError(f"[serve] generate launches {launches_a}, "
                              f"expected {n_mlstm} mlstm (one prefill)")
     peak_a = torch.cuda.max_memory_allocated() / 1e9
@@ -930,8 +1208,7 @@ def run_serving_path(torch) -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches_b = counts()
-    if launches_b != {"mix": 0, "cmix": 0, "collective": 0,
-                      "mlstm": n_mlstm * len(lengths)}:
+    if launches_b != only(mlstm=n_mlstm * len(lengths)):
         raise AssertionError(f"[serve] batched launches {launches_b}, "
                              f"expected {n_mlstm} mlstm per prefill × "
                              f"{len(lengths)}")
@@ -1008,7 +1285,8 @@ def _cross_config(compressed: bool):
         global_batch=8, seq_len=64, log_every=1)
 
 
-def cross_check(torch, compressed: bool = False) -> None:
+def cross_check(torch, compressed: bool = False,
+                sharded: bool = False) -> None:
     """Reduced config at fp32 compute, 4 nodes, 3 steps (gossip, global,
     gossip), card (kernels) vs CPU (plain versions) from one init.
     Nesterov SGD keeps the update linear in the gradient, so the two runs
@@ -1031,23 +1309,47 @@ def cross_check(torch, compressed: bool = False) -> None:
     import numpy as np
 
     from repro_torch import interop
+    from repro_torch.core.mesh import make_mesh
     from repro_torch.models.model import make_model
     from repro_torch.train import Trainer
-    from repro_torch.tree import tree_leaves
 
     tcfg = _cross_config(compressed)
     init = interop.to_numpy(make_model(tcfg.model).init(
         torch.Generator().manual_seed(1), "cpu"))
     runs = {}
-    for dev in ("cuda", "cpu"):
-        tr = Trainer(tcfg, n_nodes=4, with_consensus=True, device=dev)
+    labels = (("cuda", True), ("cpu", True), ("cuda", False)) if sharded \
+        else (("cuda", False), ("cpu", False))
+    for dev, on_mesh in labels:
+        mesh = make_mesh((2,), ("data",), device=dev) if on_mesh else None
+        tr = Trainer(tcfg, n_nodes=4, mesh=mesh, with_consensus=True,
+                     device=dev)
         st = tr.init_state(params=interop.from_numpy(init, dev))
         st = tr.run(st, steps=3, log_every=1)
         trees = [st.params] + ([st.ef_state] if compressed else [])
-        runs[dev] = ([interop.to_numpy(t) for t in trees], tr.history)
+        runs[dev, on_mesh] = ([interop.to_numpy(t) for t in trees],
+                              tr.history)
+    pairs = [(labels[0], labels[1])] + (
+        [(labels[0], labels[2])] if sharded else [])
+    what = ("compressed int8+EF trainer (params and EF)" if compressed
+            else "trainer")
+    for a, b in pairs:
+        name = " vs ".join(f"{dev} {'sharded' if m else 'stacked'}"
+                           for dev, m in (a, b))
+        _compare_runs(runs[a], runs[b], compressed,
+                      f"{'[scross]' if sharded else '[cross]'} reduced fp32 "
+                      f"{what}, {name} over 3 steps")
+
+
+def _compare_runs(ra_runs, rb_runs, compressed: bool, title: str) -> None:
+    """Hold run a against run b with :func:`cross_check`'s tolerances and
+    print the differences."""
+    import numpy as np
+
+    from repro_torch.tree import tree_leaves
+
     worst, off, size, steps = 0.0, 0, 0, 0.0
-    cpu_params = tree_leaves(runs["cpu"][0][0])
-    for ta, tb in zip(runs["cuda"][0], runs["cpu"][0]):
+    cpu_params = tree_leaves(rb_runs[0][0])
+    for ta, tb in zip(ra_runs[0], rb_runs[0]):
         for a, b, p in zip(tree_leaves(ta), tree_leaves(tb), cpu_params):
             assert np.isfinite(a).all() and np.isfinite(b).all()
             d = np.abs(a - b)
@@ -1060,22 +1362,21 @@ def cross_check(torch, compressed: bool = False) -> None:
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
     if compressed and (off > 1e-4 * size or steps > 8.0):
-        raise AssertionError(f"compressed cross-check: {off} of {size} "
-                             f"elements off, max abs diff {worst:.3e} = "
-                             f"{steps:.2f} code steps")
-    for ra, rb in zip(runs["cuda"][1], runs["cpu"][1]):
+        raise AssertionError(f"{title}: {off} of {size} elements off, max "
+                             f"abs diff {worst:.3e} = {steps:.2f} code "
+                             f"steps")
+    for ra, rb in zip(ra_runs[1], rb_runs[1]):
         assert ra["phase"] == rb["phase"]
         np.testing.assert_allclose(ra["loss"], rb["loss"], rtol=1e-4)
         np.testing.assert_allclose(ra["consensus"], rb["consensus"],
                                    rtol=1e-2 if compressed else 1e-4)
-    what = ("compressed int8+EF trainer (params and EF)" if compressed
-            else "trainer")
-    print(f"[cross] reduced fp32 {what}, cuda vs cpu over 3 steps: max abs "
-          f"diff {worst:.3e} ({steps:.2f} code steps of its leaf), {off} of "
-          f"{size} elements beyond rtol 1e-4 + "
-          f"atol 1e-6; losses {[round(r['loss'], 6) for r in runs['cuda'][1]]}"
-          f", consensus cuda {[r['consensus'] for r in runs['cuda'][1]]} cpu "
-          f"{[r['consensus'] for r in runs['cpu'][1]]}", flush=True)
+        if ra["phase"] == "global" and not compressed:
+            assert ra["consensus"] == rb["consensus"] == 0.0, (ra, rb)
+    print(f"{title}: max abs diff {worst:.3e} ({steps:.2f} code steps of "
+          f"its leaf), {off} of {size} elements beyond rtol 1e-4 + atol "
+          f"1e-6; losses {[round(r['loss'], 6) for r in ra_runs[1]]}, "
+          f"consensus {[r['consensus'] for r in ra_runs[1]]} vs "
+          f"{[r['consensus'] for r in rb_runs[1]]}", flush=True)
 
 
 def main() -> int:
@@ -1115,6 +1416,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(check_mlstm_kernel(torch, mk))
     torch.cuda.empty_cache()
+    records.append(check_shard_mix_kernel(torch, mc))
+    records.append(check_shard_cmix_kernel(torch, mc))
     if args.kernels_only:
         print(json.dumps({"kernels": records}))
         return 1
@@ -1131,8 +1434,18 @@ def main() -> int:
     records[2]["launches"] = slice2["collective"]
     records[3]["launches"] = run_serving_path(torch)
     torch.cuda.empty_cache()
+    for compressed in (False, True):
+        launches, tr, state = run_main_path(torch, mc, compressed=compressed,
+                                            sharded=True)
+        key = "shard_cmix" if compressed else "shard_mix"
+        records[5 if compressed else 4]["launches"] = launches[key]
+        sharded_round_times(torch, mc, tr, state, compressed)
+        del tr, state
+        torch.cuda.empty_cache()
     cross_check(torch)
     cross_check(torch, compressed=True)
+    cross_check(torch, sharded=True)
+    cross_check(torch, compressed=True, sharded=True)
     serving_cross_check(torch)
     print(card)
     print(json.dumps({"kernels": records}))

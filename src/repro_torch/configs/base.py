@@ -124,7 +124,9 @@ class DistConfig:
     algorithm: str = "gossip_pga"
     topology: str = "one_peer_exp"
     H: int = 6                       # global averaging period
-    node_axis: str = "data"
+    node_axis: str = "data"          # "data": nodes along the mesh's
+                                     # (pod, data) axes; "pod": nodes are
+                                     # pods
     n_pods: int = 2                  # pod blocks of the pod_avg round
     comm_dtype: str = "float32"      # "bfloat16": bf16 wire cast
     comm_backend: str = "reference"  # "reference": roll/mean mixing
@@ -142,7 +144,14 @@ class DistConfig:
     comm_error_feedback: bool = False
                                      # per-node EF residual memory
                                      # (TrainState.ef_state)
-    comm_shard_mode: str = "auto"    # one device: "auto" == "stacked"
+    comm_shard_mode: str = "auto"    # fused backend under a mesh whose
+                                     # node axis has several shards
+                                     # (Trainer(mesh=...)):
+                                     # "auto": the sharded per-shard
+                                     #         kernels when it has, the
+                                     #         stacked kernels otherwise
+                                     # "stacked": always the stacked kernels
+                                     # "sharded": require a sharded mesh
     pallas_leaf_threshold: int = 262_144
                                      # per-node elements at which a leaf gets
                                      # its own kernel launch instead of the
@@ -206,16 +215,16 @@ class DistConfig:
             raise not_ported("push-sum and directed topologies", "A.4")
         if self.comm_overlap:
             raise not_ported("overlapped gossip (comm_overlap)", "A.5")
-        if self.comm_shard_mode == "sharded" or self.node_axis != "data" \
-                or self.fsdp:
-            raise not_ported("meshes and sharded communication", "A.10")
+        if self.fsdp:
+            raise not_ported("FSDP parameter sharding (fsdp)", "A.10")
         if self.remat_policy != "nothing":
             raise not_ported(f"remat_policy={self.remat_policy!r}", "A.8")
         return self
 
-    def comm_spec(self, n_nodes: int):
-        """The port's :class:`repro_torch.core.mixing.CommSpec` (no mesh
-        fields: one device holds every node), with the compressors built."""
+    def comm_spec(self, n_nodes: int, mesh=None):
+        """The port's :class:`repro_torch.core.mixing.CommSpec`, with the
+        compressors built and the mesh routing fields set (``mesh``: a
+        :class:`repro_torch.core.mesh.Mesh` or None)."""
         import torch
 
         from repro_torch.compress import make_compressor
@@ -225,6 +234,9 @@ class DistConfig:
             n_nodes=n_nodes,
             n_pods=self.n_pods,
             backend=self.comm_backend,
+            mesh=mesh,
+            node_axis=self.node_axis,
+            shard_mode=self.comm_shard_mode,
             leaf_threshold=self.pallas_leaf_threshold,
             comm_dtype=(torch.bfloat16 if self.comm_dtype == "bfloat16"
                         else None),

@@ -34,6 +34,8 @@ ENTRY_POINTS = {
     "collective": ("repro_collective",
                    [_P] * 4 + [_U, _U, _LL] + [_I] * 6 + [_P]),
     "mlstm": ("repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
+    "shard_mix": ("repro_shard_mix", [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
+    "shard_cmix": ("repro_shard_cmix", [_P] * 6 + [_LL] + [_I] * 3 + [_P]),
 }
 # dynamic shared memory a block may opt into on the H100 (227 KB)
 MAX_SMEM = 232_448

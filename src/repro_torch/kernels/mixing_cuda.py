@@ -15,7 +15,13 @@ the kernel's oracle on the card — for a CPU tensor:
   :func:`cmix_flat` / :func:`cmix_flat_plain`;
 * ``collective.cu`` (``_collective_kernel``): the two-stage compressed
   global/pod average per 1024-column block;
-  :func:`collective_flat` / :func:`collective_flat_plain`.
+  :func:`collective_flat` / :func:`collective_flat_plain`;
+* ``shard_mix.cu`` (``_shard_mix_kernel``): one node shard's
+  ``d ⊙ x + M_r · xs`` over its gathered halo rows, optional column sums;
+  :func:`shard_mix_block` / :func:`shard_mix_block_plain`;
+* ``shard_cmix.cu`` (``_shard_cmix_kernel``): one node shard's compensated
+  ``x + (M_r · qs − w ⊙ q_self)``;
+  :func:`shard_comp_mix_block` / :func:`shard_comp_mix_block_plain`.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  The kernels
 are built on first use by :mod:`repro_torch.kernels.cuda_build`; importing
@@ -639,3 +645,132 @@ def collective_step_mix(params: PyTree, *, compressor,
     del xf, ef2
     return (unflatten(mixed),
             ef_unflatten(ef_out) if with_ef else None)
+
+
+# ---------------------------------------------------------------------------
+# Per-shard rounds of the sharded path: shard_mix.cu and shard_cmix.cu
+# ---------------------------------------------------------------------------
+def _shard_block(K: int) -> int:
+    """Threads per block: 256, halved until the K halo floats each thread
+    keeps in shared memory fit the 48 KB every block gets without opting
+    in; past that the kernel opts into more at 32 threads."""
+    block = 256
+    while block > 32 and 4 * K * block > 48 * 1024:
+        block //= 2
+    if 4 * K * block > cuda_build.MAX_SMEM:
+        raise ValueError(f"shard kernels: K={K} halo rows need "
+                         f"{4 * K * block} bytes of shared memory per "
+                         f"block, over the H100's {cuda_build.MAX_SMEM}")
+    return block
+
+
+def _check_shard_out(caller: str, out: Optional[torch.Tensor],
+                     x: torch.Tensor, inputs) -> None:
+    """``out`` must be a fresh ``(m, D)`` fp32 buffer on x's device that
+    shares no storage with an input: a later shard's halo reads the
+    round's input rows, so no shard may write over them."""
+    if out is None:
+        return
+    if (out.shape != x.shape or out.dtype != torch.float32
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"{caller}: out must be a contiguous (m, D) "
+                         f"float32 tensor on {x.device}")
+    base = out.untyped_storage().data_ptr()
+    if any(t.untyped_storage().data_ptr() == base for t in inputs):
+        raise ValueError(f"{caller}: out shares storage with an input; "
+                         f"every shard writes into a fresh output")
+
+
+def shard_mix_block_plain(x, xs, d, M, *, with_residual: bool):
+    """Plain PyTorch version of one shard's round: ``d⊙x + M @ xs`` (+ its
+    column sums ``(1, D)``)."""
+    o = torch.matmul(M, xs) + d * x
+    if not with_residual:
+        return o
+    return o, torch.sum(o, dim=0, keepdim=True)
+
+
+def shard_mix_block(x: torch.Tensor, xs: torch.Tensor, d: torch.Tensor,
+                    M: torch.Tensor, *, with_residual: bool = False,
+                    out: Optional[torch.Tensor] = None):
+    """One node shard's fused round over its ``(m, D)`` row-block.
+
+    ``x`` is the shard's uncast rows, ``xs`` the ``(K, D)`` stack of
+    gathered halo rows (self and neighbour blocks, wire-cast by the
+    caller), ``d`` the shard's ``(m, 1)`` self weights and ``M`` its
+    ``(m, K)`` factor over the halo rows.  Returns ``o`` or, with
+    ``with_residual``, ``(o, column sums (1, D))``.  ``o`` is written into
+    ``out`` when given (a fresh buffer apart from the inputs), else into a
+    new tensor.  A CUDA ``x`` launches ``shard_mix.cu`` (counted in
+    ``shard_mix_block.launches``); a CPU ``x`` takes
+    :func:`shard_mix_block_plain`.
+    """
+    m, D = x.shape
+    K = xs.shape[0]
+    if xs.dim() != 2 or xs.shape[1] != D or tuple(d.shape) != (m, 1) \
+            or tuple(M.shape) != (m, K):
+        raise ValueError("shard_mix_block: xs must be (K, D), d (m, 1) and "
+                         "M (m, K)")
+    dev = _check_operands("shard_mix_block", x, [xs, d, M])
+    _check_shard_out("shard_mix_block", out, x, [x, xs])
+    if dev.type == "cpu":
+        res = shard_mix_block_plain(x, xs, d, M,
+                                    with_residual=with_residual)
+        if out is None:
+            return res
+        o = res[0] if with_residual else res
+        out.copy_(o)
+        return (out, res[1]) if with_residual else out
+    o = torch.empty_like(x) if out is None else out
+    cs = (torch.empty((1, D), dtype=torch.float32, device=dev)
+          if with_residual else None)
+    block = _shard_block(K)
+    err = cuda_build.entry("shard_mix")(
+        _ptr(x), _ptr(xs), _ptr(d), _ptr(M), _ptr(o), _ptr(cs), D, m, K,
+        int(with_residual), block, _stream(dev))
+    _check_launch(err, f"shard_mix (m={m}, K={K}, D={D})")
+    shard_mix_block.launches += 1
+    return (o, cs) if with_residual else o
+
+
+shard_mix_block.launches = 0
+
+
+def shard_comp_mix_block_plain(x, q_self, qs, w, M):
+    """Plain PyTorch version of one shard's compensated round:
+    ``x + (M @ qs − w⊙q_self)``."""
+    return x + (torch.matmul(M, qs) - w * q_self)
+
+
+def shard_comp_mix_block(x: torch.Tensor, q_self: torch.Tensor,
+                         qs: torch.Tensor, w: torch.Tensor, M: torch.Tensor,
+                         *, out: Optional[torch.Tensor] = None):
+    """One node shard's compensated compressed round over its ``(m, D)``
+    row-block: ``x + (M_r·qs − w⊙q_self)``, ``qs`` the ``(K, D)`` rebuilt
+    halo estimates, ``q_self`` the shard's own, ``w = 1 − d`` its ``(m,
+    1)`` rows.  ``out`` as in :func:`shard_mix_block`.  A CUDA ``x``
+    launches ``shard_cmix.cu`` (counted in
+    ``shard_comp_mix_block.launches``); a CPU ``x`` takes
+    :func:`shard_comp_mix_block_plain`."""
+    m, D = x.shape
+    K = qs.shape[0]
+    if q_self.shape != x.shape or qs.dim() != 2 or qs.shape[1] != D \
+            or tuple(w.shape) != (m, 1) or tuple(M.shape) != (m, K):
+        raise ValueError("shard_comp_mix_block: q_self must match x, qs be "
+                         "(K, D), w (m, 1) and M (m, K)")
+    dev = _check_operands("shard_comp_mix_block", x, [q_self, qs, w, M])
+    _check_shard_out("shard_comp_mix_block", out, x, [x, q_self, qs])
+    if dev.type == "cpu":
+        o = shard_comp_mix_block_plain(x, q_self, qs, w, M)
+        return o if out is None else out.copy_(o)
+    o = torch.empty_like(x) if out is None else out
+    block = _shard_block(K)
+    err = cuda_build.entry("shard_cmix")(
+        _ptr(x), _ptr(q_self), _ptr(qs), _ptr(w), _ptr(M), _ptr(o), D, m, K,
+        block, _stream(dev))
+    _check_launch(err, f"shard_cmix (m={m}, K={K}, D={D})")
+    shard_comp_mix_block.launches += 1
+    return o
+
+
+shard_comp_mix_block.launches = 0

@@ -2,7 +2,10 @@
 
 Runs the decentralized trainer with n simulated nodes stacked on one
 device — the card by default, the CPU only with ``--device cpu``.  The
-flags are the reference launcher's subset that this port runs.
+flags are the reference launcher's subset that this port runs.  Like the
+reference's, it builds no mesh: ``--comm-shard-mode sharded`` raises
+``ValueError`` there as here; the sharded rounds are reached through the
+library entry ``Trainer(tcfg, n, mesh=make_mesh(...))``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,11 @@ def main(argv=None) -> None:
                     choices=("reference", "pallas"),
                     help="mixing implementation: roll-based reference or "
                          "the fused hand-written CUDA kernel")
+    ap.add_argument("--comm-shard-mode", default="auto",
+                    choices=("auto", "stacked", "sharded"),
+                    help="pallas backend under a mesh-sharded node axis: "
+                         "auto-detect, force the local stacked kernels, or "
+                         "require the sharded per-shard path")
     ap.add_argument("--leaf-threshold", type=int, default=262_144,
                     help="per-node elements at which a parameter leaf gets "
                          "its own kernel launch (skips the staging buffer)")
@@ -62,6 +70,7 @@ def main(argv=None) -> None:
         model=cfg,
         dist=DistConfig(algorithm=args.algorithm, topology=args.topology,
                         H=args.H, comm_backend=args.comm_backend,
+                        comm_shard_mode=args.comm_shard_mode,
                         pallas_leaf_threshold=args.leaf_threshold,
                         comm_compression=args.comm_compression,
                         comm_compression_k=args.comm_compression_k,

@@ -12,8 +12,11 @@ step never re-reads the parameters it just wrote.  A lossy compressed round
 averaging phases) goes through ``mixing.communicate`` with the step's
 error-feedback memory (``extras["ef_state"]``) and the absolute step as its
 rounding seed; residual fusion does not compose with compression, so its
-consensus is ``consensus_distance``.  Overlap and push-sum step modes are
-not ported yet (ROADMAP A.4, A.5).
+consensus is ``consensus_distance``.  With a ``mesh`` whose node axis has
+several shards (``Trainer(mesh=...)``), the fused backend runs every
+round through the sharded per-shard kernels (``mixing.communicate_sharded``),
+honouring ``DistConfig.comm_shard_mode``.  Overlap and push-sum step modes
+are not ported yet (ROADMAP A.4, A.5).
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def _grad_global_norm(grads: PyTree) -> torch.Tensor:
 
 def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
                      phase: str, shift_step: int = 0,
-                     with_consensus: bool = False) -> Callable:
+                     with_consensus: bool = False, mesh=None) -> Callable:
     """Returns ``step(state, batch, lr) -> (state, metrics)``.
 
     ``phase``: one of ``phases_for_algorithm(dist.algorithm)``; batch
@@ -49,6 +52,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     holds device scalars (no host sync): the node-mean ``loss``/``ce``/
     ``lb_loss`` and, with ``with_consensus``, ``grad_norm`` and
     ``consensus`` (``(1/n) Σ_i ‖x_i − x̄‖²`` of the mixed params).
+    ``mesh``: a :class:`repro_torch.core.mesh.Mesh` for the sharded rounds
+    (None: the stacked rounds).
     """
     tcfg.validate()
     dist = tcfg.dist
@@ -57,7 +62,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     if phase not in algo.phases:
         raise ValueError(f"build_train_step: phase {phase!r} is not one of "
                          f"{dist.algorithm}'s phases {algo.phases}")
-    spec = dist.comm_spec(n_nodes)
+    sharded_comm = mixing.use_sharded_backend(
+        dist.comm_backend, mesh, dist.node_axis, dist.comm_shard_mode)
+    spec = dist.comm_spec(n_nodes, mesh=mesh)
     spec_plain = spec.replace(compressor=None, global_compressor=None)
     lossy_global = (spec.global_compressor is not None
                     and spec.global_compressor.lossy)
@@ -95,6 +102,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             if new_ef is not None:
                 extras[algo_lib.EF_SLOT] = new_ef
             return algo_lib.wrap_mixed(mixed, has_payload), None
+        if fused_consensus_round and not has_payload and sharded_comm:
+            mixed, _xbar, resid = mixing.communicate_sharded(
+                params_half, spec_plain, phase=phase, step=shift_step,
+                with_residual=True)
+            return algo_lib.wrap_mixed(mixed, False), resid / n_nodes
         if fused_consensus_round and not has_payload:
             mixed, _xbar, resid = mixing_cuda.mix_residual(
                 params_half, phase=phase, topology=dist.topology,

@@ -1,7 +1,10 @@
 """Host training loop: schedule-driven phase dispatch and metrics
 (counterpart of ``repro/train/trainer.py``).
 
-n simulated nodes live on one device as a stacked leading axis.  The loop
+n simulated nodes live on one device as a stacked leading axis; with a
+``mesh`` (:func:`repro_torch.core.mesh.make_mesh`) whose node axis has
+several shards, the fused backend runs the rounds shard by shard through
+the per-shard kernels, every shard on that one device.  The loop
 keeps metrics on the device and reads them back in one transfer per log
 boundary, where it records them in ``history`` and prints the reference's line
 ``[algo] step N loss=… phase=… consensus=…``.  Telemetry sinks,
@@ -32,12 +35,17 @@ PyTree = Any
 
 
 class Trainer:
-    """``Trainer(tcfg, n_nodes, device="cuda")``: runs on the card unless
-    ``device="cpu"`` is passed (no card → the default raises)."""
+    """``Trainer(tcfg, n_nodes, mesh=None, device="cuda")``: runs on the
+    card unless ``device="cpu"`` is passed (no card → the default raises);
+    a ``mesh`` must sit on that device."""
 
-    def __init__(self, tcfg: TrainConfig, n_nodes: int, *,
+    def __init__(self, tcfg: TrainConfig, n_nodes: int, *, mesh=None,
                  with_consensus: bool = False, device="cuda"):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"Trainer: the mesh sits on {mesh.device}, the "
+                             f"trainer on {self.device}")
+        self.mesh = mesh
         tcfg.validate()
         tcfg.dist.validate_nodes(n_nodes)
         self.tcfg = tcfg
@@ -75,7 +83,8 @@ class Trainer:
         if key not in self._steps:
             self._steps[key] = build_train_step(
                 self.model, self.tcfg, self.n_nodes, phase=phase,
-                shift_step=shift, with_consensus=self.with_consensus)
+                shift_step=shift, with_consensus=self.with_consensus,
+                mesh=self.mesh)
         return self._steps[key]
 
     def device_batch(self, k: int) -> Dict[str, torch.Tensor]:

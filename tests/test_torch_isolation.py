@@ -47,7 +47,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.compress.sparsify, repro_torch.kernels.cuda_build, "
             "repro_torch.launch.serve, repro_torch.serve, "
             "repro_torch.kernels.mlstm_cuda, repro_torch.models.ssm, "
-            "repro_torch.configs.xlstm_125m; "
+            "repro_torch.configs.xlstm_125m, repro_torch.core.mesh; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -107,7 +107,7 @@ def test_wrapper_rejects_other_devices_and_bad_operands():
     (dict(comm_compression="int8", push_sum=True), "A.4"),
     (dict(push_sum=True), "A.4"),
     (dict(comm_overlap=True), "A.5"),
-    (dict(comm_shard_mode="sharded"), "A.10"),
+    (dict(fsdp=True), "A.10"),
     (dict(algorithm="slowmo"), "A.2"),
 ])
 def test_unported_options_raise(over, item):

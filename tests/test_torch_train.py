@@ -256,11 +256,12 @@ def test_compressed_trainer_matches_reference():
 @pytest.mark.parametrize("over,item", [
     (dict(push_sum=True), "A.4"),
     (dict(comm_overlap=True), "A.5"),
-    (dict(comm_shard_mode="sharded"), "A.10"),
+    (dict(fsdp=True), "A.10"),
 ])
 def test_unported_options_still_raise_with_compression(over, item):
-    """Compression is ported; push-sum, overlap and sharded rounds are not,
-    and the Trainer refuses them before running anything."""
+    """Compression and the sharded rounds are ported; push-sum, overlap and
+    FSDP parameter sharding are not, and the Trainer refuses them before
+    running anything."""
     from repro_torch.configs import get_model_config
     from repro_torch.train import Trainer as TTrainer
 
