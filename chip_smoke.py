@@ -9,32 +9,38 @@ Phases (any failure raises, so the run exits non-zero and prints no ok
 line):
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions, and the six kernels built from ``src/repro_torch/csrc/``
+   versions, and the eight kernels built from ``src/repro_torch/csrc/``
    (``mix.cu``, ``cmix.cu``, ``collective.cu``, ``mlstm.cu``,
-   ``shard_mix.cu``, ``shard_cmix.cu``; one nvcc each, all at once) with
-   their ``-Xptxas -v`` reports;
+   ``shard_mix.cu``, ``shard_cmix.cu``, ``flash_attention.cu``,
+   ``rmsnorm.cu``; one nvcc each, all at once) with their ``-Xptxas -v``
+   reports;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, with the tolerances stated in
    :func:`check_mix_kernel`, :func:`check_cmix_kernel`,
    :func:`check_collective_kernel`, :func:`check_mlstm_kernel`,
-   :func:`check_shard_mix_kernel` and :func:`check_shard_cmix_kernel`;
-   timing by CUDA events against the kernel's bound and, where one
-   exists, one PyTorch library call;
-3. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
+   :func:`check_shard_mix_kernel`, :func:`check_shard_cmix_kernel`,
+   :func:`check_flash_kernel` and :func:`check_rmsnorm_kernel`; timing by
+   CUDA events against the kernel's bound and, where one exists, one
+   PyTorch library call (``--kernels-only`` stops here);
+3. slice 5's path (``[ops]``, :func:`run_ops_path`): the substrate entry
+   points ``repro_torch.kernels.ops`` at full width (pga-lm-100m's and
+   gemma2-9b's attention and norm calls, the xlstm-125m mLSTM call), one
+   launch of the right kernel per call and no plain twin;
+4. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
    full width (8 nodes stacked on the card, Gossip-PGA with H = 3 over
    the one-peer exponential graph, fused kernel mixing with the consensus
    residual, AdamW, global batch 32 × seq 512, 6 steps), with every
    kernel's launch count set to 0 just before it and read just after;
    then one fused round timed alone and one more step under
    ``torch.profiler`` (where the device time goes);
-4. slice 2's main path: the same trainer with compressed Gossip-PGA
+5. slice 2's main path: the same trainer with compressed Gossip-PGA
    (int8 gossip rounds and int8 compressed collective, error feedback),
    its launch counts read the same way, then one compressed gossip round
    and one compressed global round timed alone;
-5. slice 3's main path: serving xlstm-125m at full width through the
+6. slice 3's main path: serving xlstm-125m at full width through the
    mLSTM kernel (:func:`run_serving_path`: ``Engine.generate`` and
    ``BatchedServer.run``), its launch counts read the same way;
-6. slice 4's main paths: the same trainer on a mesh of 4 node shards
+7. slice 4's main paths: the same trainer on a mesh of 4 node shards
    (2 nodes each) on the card, ``comm_shard_mode="sharded"``, every round
    shard by shard through the per-shard kernels: uncompressed with the
    consensus residual (``[smain]``), then int8 gossip + int8 collective
@@ -42,7 +48,7 @@ line):
    then one sharded round of each kind timed beside its stacked
    counterpart (``[sround]``).  The shards share one card: this measures
    the per-shard kernels and the decomposition, not an interconnect;
-7. the trainers and the server at reduced configs with fp32 compute, on
+8. the trainers and the server at reduced configs with fp32 compute, on
    the card (kernels) and on the CPU (plain versions) from one init,
    compared; the sharded trainers also against the stacked ones on the
    card (``[scross]``).
@@ -54,6 +60,7 @@ script imports nothing of JAX: the card's machine has none.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -68,6 +75,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
+SPIN_CYCLES = 200_000_000           # ~0.1 s of torch.cuda._sleep
 MAIN_N, MAIN_D = 8, 25_165_824      # the embedding leaf of pga-lm-100m
 # every launch width of the main path's round: the staging buffer of the
 # norms, the attention projections, the embedding, the MLP matrices
@@ -96,6 +105,36 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters=20, warmup=3) -> float:
+    """Time per call of ``fn`` on the card, by CUDA events around
+    ``iters`` calls that the host queued while a spin kernel
+    (``torch.cuda._sleep``) held the stream: the card then runs them back
+    to back, whatever the host's launch rate.  :func:`cuda_ms` times the
+    host instead when a call is shorter on the card than in the Python
+    wrapper.  Raises if the host took longer to queue the calls than the
+    spin lasted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin, before, start, end = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(4))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    before.record()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if not host_ms < spin.elapsed_time(before):
+        raise AssertionError(f"device_ms: queueing took {host_ms:.2f} ms, "
+                             f"longer than the {spin.elapsed_time(before):.2f}"
+                             f" ms spin")
     return start.elapsed_time(end) / iters
 
 
@@ -784,18 +823,410 @@ def check_shard_cmix_kernel(torch, mc) -> dict:
             "library_ms": library_ms}
 
 
+# -- slice 5: the substrate kernel entry points (kernels/ops.py) -----------
+# (B, Sq, Sk, H, KH, D, causal, window, softcap): the reference kernel
+# test's sweep (tests/test_kernels.py), then rows with no valid key
+FLASH_SWEEP = ((1, 64, 64, 4, 2, 32, True, None, None),
+               (2, 100, 100, 4, 4, 16, True, 32, None),
+               (1, 48, 48, 2, 1, 64, True, None, 50.0),
+               (2, 32, 32, 8, 8, 8, False, None, None),
+               (1, 128, 128, 2, 2, 128, True, None, None),
+               (1, 17, 33, 3, 1, 24, False, None, None),
+               (1, 256, 256, 1, 1, 64, True, 64, 30.0))
+FLASH_MASKED = (1, 40, 16, 2, 1, 16, True, 4, None)   # rows 20..39: no key
+# head dims past 128, where the kernel takes 32-row kv tiles: D = 256 with
+# gemma2-9b's GQA, softcap and window at small S, ragged and Sq != Sk; D =
+# 160, whose last pass over 64 output columns is partial
+FLASH_WIDE = ((2, 300, 300, 4, 2, 256, True, None, 50.0),
+              (1, 700, 700, 16, 8, 256, True, 256, 50.0),
+              (1, 77, 200, 4, 1, 256, False, None, None),
+              (1, 130, 130, 2, 1, 160, True, 50, 30.0))
+# kernel vs twin, (atol, rtol).  float32: the reference suite's 2e-5.
+# bf16 and float16: both round an fp32 result that differs only by
+# summation order (about 1e-6 at most), so the two are equal or adjacent,
+# at most one ulp of the output apart: rtol 2^-7 (bf16) and 2^-10 (fp16)
+# of |o|, atol 1e-5 for that order.
+FLASH_TOL = {"torch.float32": (2e-5, 2e-5),
+             "torch.bfloat16": (1e-5, 2.0 ** -7),
+             "torch.float16": (1e-5, 2.0 ** -10)}
+FLASH_MODEL_TOL = 2e-2      # vs models.attention._sdpa: the suite's bf16
+NORM_SWEEP = ((8, 64), (3, 7, 96), (1, 128), (5, 256), (1001, 768))
+NORM_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2,
+            "torch.float16": 1e-3}
+
+
+def substrate_shapes() -> tuple:
+    """The slice's full-width calls, from the two model configs.
+
+    pga-lm-100m (``configs/pga_lm_100m.py``): 12 heads of 64, d_model 768;
+    the trainer's global batch 32 × seq 512 (8 nodes × 4 sequences) folded
+    into B.  gemma2-9b (``configs/gemma2_9b.py``, arXiv:2408.00118): 16
+    query heads and 8 kv heads of 256, d_model 3584, logit softcap 50,
+    window 4096 on its ``attn_sw`` layers, over Gemma 2's 8192-token
+    context.  Returns ``(attention, norms)``: name → ``((B, Sq, Sk, H, KH,
+    D), causal, window, softcap)`` and name → ``((N, D), offsets)``."""
+    from repro_torch.configs import get_model_config
+
+    lm = get_model_config("pga-lm-100m")
+    gm = get_model_config("gemma2-9b")
+    lm_tokens, gm_tokens = 32 * 512, 8192
+    lm_dims = (32, 512, 512, lm.n_heads, lm.n_kv_heads, lm.resolved_head_dim)
+    gm_dims = (1, gm_tokens, gm_tokens, gm.n_heads, gm.n_kv_heads,
+               gm.resolved_head_dim)
+    attention = {
+        "lm100m_attn": (lm_dims, True, None, None),
+        "gemma2_global": (gm_dims, True, None, gm.attn_logit_softcap),
+        "gemma2_local": (gm_dims, True, gm.sliding_window,
+                         gm.attn_logit_softcap)}
+    norms = {"lm100m_norm": ((lm_tokens, lm.d_model), (0.0,)),
+             "gemma2_norm": ((gm_tokens, gm.d_model), (0.0, 1.0))}
+    return attention, norms
+
+
+def flash_work(B, Sq, Sk, H, KH, D, causal, window, itemsize=2):
+    """``(bytes, flops, pairs)`` of one attention call: read q, k, v and
+    write o once each; 4·D operations (two multiply-adds per element of
+    D) for every unmasked (q, k) pair of every head and batch; ``pairs``
+    the unmasked pairs of one head."""
+    import numpy as np
+
+    i = np.arange(Sq)
+    lo = np.maximum(0, i - window + 1) if window is not None \
+        else np.zeros_like(i)
+    hi = np.minimum(Sk, i + 1) if causal else np.full_like(i, Sk)
+    pairs = int(np.maximum(0, hi - lo).sum())
+    bytes_moved = itemsize * (2 * B * Sq * H * D + 2 * B * Sk * KH * D)
+    return bytes_moved, 4 * D * pairs * B * H, pairs
+
+
+def rmsnorm_work(N, D, itemsize=2, w_itemsize=4):
+    """``(bytes, flops)`` of one RMSNorm call: read x and w, write y once
+    each; per element a square-add, two multiplies and the offset add."""
+    return 2 * N * D * itemsize + D * w_itemsize, 4 * N * D
+
+
+def _flash_inputs(torch, gen, B, Sq, Sk, H, KH, D, dtype, packed=False):
+    """q, k, v on the card; ``packed`` makes them views of one (B, S,
+    H + 2·KH, D) projection output (the kernel reads their strides)."""
+    if packed:
+        assert Sq == Sk
+        qkv = torch.randn(B, Sq, H + 2 * KH, D, device="cuda",
+                          generator=gen).to(dtype)
+        return qkv[:, :, :H], qkv[:, :, H:H + KH], qkv[:, :, H + KH:]
+    return tuple(torch.randn(s, device="cuda", generator=gen).to(dtype)
+                 for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D)))
+
+
+def _over_tol(torch, got, want, atol, rtol=None) -> float:
+    """max(|got − want| − atol − rtol·|want|): positive where an element
+    is outside the tolerance (``rtol`` defaults to ``atol``)."""
+    rtol = atol if rtol is None else rtol
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - atol - rtol * w.abs()).max())
+
+
+def check_flash_kernel(torch, fa) -> dict:
+    """Flash attention kernel vs its plain twin on the card: the reference
+    sweep (7 cases) in float32 and bf16, the rows-without-a-key case
+    (those rows exactly 0), four cases at D = 256 and 160 (the kernel's
+    32-row kv tiles, which no sweep case reaches) in float32 and bf16, q,
+    k, v as strided views of one packed projection, float16 at two shapes,
+    and the three full-width calls in float32 and bf16.  Tolerance
+    (:data:`FLASH_TOL`): 2e-5 atol and rtol in float32, the reference
+    suite's; one output ulp plus 1e-5 in bf16 and float16.  The lm100m
+    call is also held to the port model's ``_sdpa`` (one node), whose bf16
+    products round the scores and probabilities to bf16, at the suite's
+    bf16 2e-2.  Timing of each full-width bf16 call (kernel and library by
+    :func:`device_ms`, the twin by :func:`cuda_ms`, as a caller sees it)
+    against its bound (bytes at 3.35 TB/s, operations at the bf16
+    tensor-core rate) and the fp32-FMA ceiling;
+    ``scaled_dot_product_attention`` at lm100m only (no PyTorch call
+    computes the softcapped gemma2 function)."""
+    from repro_torch.models import attention as tattn
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst, n_cases = {}, 0
+
+    def compare(args, dtype, packed=False, where=""):
+        nonlocal n_cases
+        (B, Sq, Sk, H, KH, D), causal, window, cap = args
+        q, k, v = _flash_inputs(torch, gen, B, Sq, Sk, H, KH, D, dtype,
+                                packed)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o = fa.flash_attention(q, k, v, **kw)
+        r = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"flash {where} {args} {dtype}: not finite")
+        over = _over_tol(torch, o, r, *FLASH_TOL[str(dtype)])
+        err = float((o.float() - r.float()).abs().max())
+        if over > 0:
+            raise AssertionError(f"flash {where} {args} {dtype}: max abs err "
+                                 f"{err:.3e} beyond tolerance")
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+        n_cases += 1
+        return q, k, v, o
+
+    for case in FLASH_SWEEP + (FLASH_MASKED,) + FLASH_WIDE:
+        args = (case[:6],) + case[6:]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, o = compare(args, dtype, where="sweep")
+            if case is FLASH_MASKED:
+                assert torch.equal(o[:, 20:], torch.zeros_like(o[:, 20:]))
+    for dtype in (torch.float32, torch.bfloat16):
+        compare(((2, 300, 300, 8, 2, 64), True, 100, None), dtype,
+                packed=True, where="packed views")
+    for args in (((1, 256, 256, 1, 1, 64), True, 64, 30.0),
+                 ((2, 500, 500, 12, 12, 64), True, None, None)):
+        compare(args, torch.float16, where="fp16")
+    attention, _ = substrate_shapes()
+    timings = {}
+    for name, args in attention.items():
+        dims, causal, window, cap = args
+        compare(args, torch.float32, where=name)
+        torch.cuda.empty_cache()
+        q, k, v, o = compare(args, torch.bfloat16, where=name)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        heavy = dims[1] >= 4096
+        iters, p_iters = (5, 2) if heavy else (20, 5)
+        event_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                           iters=iters, warmup=1)
+        ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                       iters=iters, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, **kw), iters=p_iters, warmup=1)
+        library_ms = None
+        extra = ""
+        if name == "lm100m_attn":
+            B, S, H, KH, D = dims[0], dims[1], dims[3], dims[4], dims[5]
+            pos = torch.arange(S, device="cuda")[None].expand(B, S)
+            mask = tattn.attention_mask(pos, pos, causal=True, window=None)
+            model = tattn._sdpa(q.reshape(1, B, S, KH, H // KH, D), k[None],
+                                v[None], mask, scale=1.0 / math.sqrt(D))
+            model = model.reshape(B, S, H, D)
+            over = _over_tol(torch, o, model, FLASH_MODEL_TOL)
+            model_err = float((o.float() - model.float()).abs().max())
+            if over > 0:
+                raise AssertionError(f"flash {name} vs models.attention._sdpa"
+                                     f": max abs err {model_err:.3e}")
+            del model, mask
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+            extra = (f", scaled_dot_product_attention(is_causal=True) "
+                     f"{library_ms:.4f} ms; vs models.attention._sdpa max abs "
+                     f"err {model_err:.3e}")
+        else:
+            extra = ", no PyTorch call computes the softcapped function"
+        bytes_moved, flops, pairs = flash_work(*dims, causal, window)
+        b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / BF16_TC_FLOP_PER_S * 1e3
+        bound_ms, bound_by = max(b_ms, f_ms), ("bytes" if b_ms >= f_ms
+                                               else "operations")
+        fma_ms = flops / FP32_FLOP_PER_S * 1e3
+        timings[name] = (ms, plain_ms, bound_ms, bound_by, library_ms)
+        print(f"[kernel] flash {name} (B, Sq, Sk, H, KH, D)={dims} "
+              f"causal={causal} window={window} softcap={cap} bf16: kernel "
+              f"{ms:.4f} ms on the card ({event_ms:.4f} ms host-paced), "
+              f"plain {plain_ms:.4f} ms{extra}; "
+              f"{pairs:,} "
+              f"unmasked pairs per head, {flops:.4e} flops, "
+              f"{bytes_moved / 1e6:.1f} MB: bound {bound_ms:.4f} ms by "
+              f"{bound_by}, fp32-FMA ceiling {fma_ms:.4f} ms "
+              f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)",
+              flush=True)
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    print(f"[kernel] flash: {n_cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err "
+          + ", ".join(f"{e:.3e} {t[6:]}" for t, e in worst.items())
+          + "; rows without a valid key exactly 0", flush=True)
+    ms, plain_ms, bound_ms, bound_by, library_ms = timings["lm100m_attn"]
+    return {"name": "flash_attention_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:36",
+            "launches": None, "max_abs_err": max(worst.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_rmsnorm_kernel(torch, rn) -> dict:
+    """RMSNorm kernel vs its plain twin on the card: the reference sweep
+    (4 shapes) and a ragged 1001 rows (not a multiple of the kernel's 8
+    rows a block) in float32 and bf16, offsets 0 and 1, w in float32 and
+    in x's dtype, float16 at the ragged shape, then the full-width calls
+    in bf16.  Tolerance (atol and rtol): 1e-5 float32, 1e-2 bf16 (the
+    reference suite's), 1e-3 float16 (one output ulp).  Timing over four
+    copies of x in turn (no call finds its input in L2): kernel and
+    library by :func:`device_ms` (a call takes tens of microseconds on the
+    card, less than the wrapper takes on the host, so host-paced CUDA
+    events time the host), the twin by :func:`cuda_ms`; against the bytes
+    bound and ``torch.nn.functional.rms_norm`` (w cast to x's dtype;
+    offset 0, the function it computes)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst, n_cases = 0.0, 0
+
+    def compare(shape, dtype, offset, w_dtype=torch.float32, where=""):
+        nonlocal worst, n_cases
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        w = torch.randn(shape[-1], device="cuda", generator=gen).to(w_dtype)
+        y = rn.rmsnorm(x, w, offset=offset, block_rows=4)
+        r = rn.rmsnorm_plain(x, w, offset=offset)
+        torch.cuda.synchronize()
+        assert y.shape == x.shape and y.dtype == x.dtype
+        err = float((y.float() - r.float()).abs().max())
+        if _over_tol(torch, y, r, NORM_TOL[str(dtype)]) > 0:
+            raise AssertionError(f"rmsnorm {where} {shape} {dtype} offset="
+                                 f"{offset} w {w_dtype}: max abs err "
+                                 f"{err:.3e} beyond tolerance")
+        worst = max(worst, err)
+        n_cases += 1
+        return x, w
+
+    for shape in NORM_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for offset in (0.0, 1.0):
+                compare(shape, dtype, offset, where="sweep")
+        compare(shape, torch.bfloat16, 1.0, torch.bfloat16, where="w bf16")
+        compare(shape, torch.float16, 0.0, where="fp16")
+    _, norms = substrate_shapes()
+    timings = {}
+    for name, (shape, offsets) in norms.items():
+        for offset in offsets:
+            x, w = compare(shape, torch.bfloat16, offset, where=name)
+            # four copies of x (100 MB and more) cycled, so no call finds
+            # its input in the 50 MB L2
+            xs = itertools.cycle([x] + [x.clone() for _ in range(3)])
+            event_ms = cuda_ms(torch, lambda: rn.rmsnorm(next(xs), w,
+                                                         offset=offset))
+            ms = device_ms(torch, lambda: rn.rmsnorm(next(xs), w,
+                                                     offset=offset))
+            plain_ms = cuda_ms(torch, lambda: rn.rmsnorm_plain(
+                next(xs), w, offset=offset))
+            wx = w.to(x.dtype)
+            library_ms = device_ms(torch, lambda: F.rms_norm(
+                next(xs), (shape[-1],), wx, 1e-6)) if offset == 0.0 \
+                else None
+            bytes_moved, flops = rmsnorm_work(*shape)
+            bound_ms, bound_by = _bound(bytes_moved, flops)
+            lib = (f"F.rms_norm {library_ms:.4f} ms" if library_ms is not None
+                   else "no PyTorch call adds the offset")
+            print(f"[kernel] rmsnorm {name} x {shape} bf16, w fp32, offset "
+                  f"{offset}: kernel {ms:.4f} ms on the card ({event_ms:.4f} "
+                  f"ms host-paced), plain {plain_ms:.4f} ms, "
+                  f"{lib}, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({bytes_moved / 1e6:.1f} MB, "
+                  f"{bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
+                  flush=True)
+            timings.setdefault(name, (ms, plain_ms, bound_ms, bound_by,
+                                      library_ms))
+            del x, w, wx, xs
+    print(f"[kernel] rmsnorm: {n_cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err {worst:.3e}", flush=True)
+    ms, plain_ms, bound_ms, bound_by, library_ms = timings["lm100m_norm"]
+    return {"name": "rmsnorm_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:16",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def run_ops_path(torch) -> dict:
+    """Slice 5's path: the entry points of ``repro_torch.kernels.ops`` at
+    full width, as a caller of the reference's ``repro.kernels.ops`` calls
+    them: ``flash_attention_op`` on the three attention shapes,
+    ``rmsnorm_op`` on the three norm calls and ``mlstm_chunk_op`` once at
+    the serving shape (B = 8, S = 2048, xlstm-125m's heads).  Each call's
+    launch counts are set to 0 just before it and read just after: exactly
+    one launch of its kernel and none of another; the plain twins are
+    replaced by a function that raises for the whole phase.  Returns the
+    launches per kernel."""
+    from repro_torch.kernels import flash_attention_cuda as fa
+    from repro_torch.kernels import mlstm_cuda as mk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_cuda as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    attention, norms = substrate_shapes()
+    calls = []
+    for name, (dims, causal, window, cap) in attention.items():
+        qkv = _flash_inputs(torch, gen, *dims, torch.bfloat16)
+        calls.append((name, "flash", lambda qkv=qkv, kw=dict(
+            causal=causal, window=window, softcap=cap):
+            ops.flash_attention_op(*qkv, **kw)))
+    for name, (shape, offsets) in norms.items():
+        x = torch.randn(shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w = torch.randn(shape[-1], device="cuda", generator=gen)
+        for offset in offsets:
+            calls.append((f"{name} offset={offset}", "rmsnorm",
+                          lambda x=x, w=w, offset=offset: ops.rmsnorm_op(
+                              x, w, offset=offset)))
+    S = 2048
+    m_args = mlstm_inputs(torch, gen, 8, S, MLSTM_FULL["nh"],
+                          MLSTM_FULL["dk"], MLSTM_FULL["dv"], torch.bfloat16,
+                          gates="model")
+    calls.append(("mlstm B=8 S=2048", "mlstm", lambda: ops.mlstm_chunk_op(
+        *m_args, chunk=MLSTM_FULL["chunk"])))
+
+    def refuse(*_, **__):
+        raise AssertionError("[ops] a plain twin ran on the card")
+
+    twins = ((fa, "flash_attention_plain"), (rn, "rmsnorm_plain"),
+             (mk, "mlstm_chunk_plain"))
+    saved = [getattr(mod, attr) for mod, attr in twins]
+    total = {k: 0 for k in counts()}
+    try:
+        for mod, attr in twins:
+            setattr(mod, attr, refuse)
+        for name, kernel, call in calls:
+            torch.cuda.synchronize()
+            reset_counts()
+            out = call()
+            torch.cuda.synchronize()
+            launches = counts()
+            if launches != only(**{kernel: 1}):
+                raise AssertionError(f"[ops] {name}: launches {launches}, "
+                                     f"expected one {kernel}")
+            finite = bool(torch.isfinite(out).all())
+            if not finite:
+                raise AssertionError(f"[ops] {name}: output not finite")
+            total[kernel] += 1
+            print(f"[ops] {name}: out {tuple(out.shape)} {out.dtype}, finite "
+                  f"{finite}, max|o| {float(out.float().abs().max()):.4f}, "
+                  f"launches {launches}", flush=True)
+            del out
+    finally:
+        for (mod, attr), fn in zip(twins, saved):
+            setattr(mod, attr, fn)
+    del calls, m_args
+    torch.cuda.empty_cache()
+    print(f"[ops] {len(attention)} flash_attention_op, "
+          f"{sum(len(o) for _, o in norms.values())} rmsnorm_op, 1 "
+          f"mlstm_chunk_op calls through their kernels: {total}", flush=True)
+    return total
+
+
 COMPRESSED = dict(comm_compression="int8", comm_global_compression="int8",
                   comm_error_feedback=True)
 
 
 def counts() -> dict:
+    from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mixing_cuda as mc
     from repro_torch.kernels import mlstm_cuda as mk
+    from repro_torch.kernels import rmsnorm_cuda as rn
     return {"mix": mc.mix_flat.launches, "cmix": mc.cmix_flat.launches,
             "collective": mc.collective_flat.launches,
             "mlstm": mk.mlstm_chunk.launches,
             "shard_mix": mc.shard_mix_block.launches,
-            "shard_cmix": mc.shard_comp_mix_block.launches}
+            "shard_cmix": mc.shard_comp_mix_block.launches,
+            "flash": fa.flash_attention.launches,
+            "rmsnorm": rn.rmsnorm.launches}
 
 
 def only(**launches) -> dict:
@@ -804,8 +1235,12 @@ def only(**launches) -> dict:
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mixing_cuda as mc
     from repro_torch.kernels import mlstm_cuda as mk
+    from repro_torch.kernels import rmsnorm_cuda as rn
+    fa.flash_attention.launches = 0
+    rn.rmsnorm.launches = 0
     mc.mix_flat.launches = 0
     mc.cmix_flat.launches = 0
     mc.collective_flat.launches = 0
@@ -1392,8 +1827,10 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mixing_cuda as mc
     from repro_torch.kernels import mlstm_cuda as mk
+    from repro_torch.kernels import rmsnorm_cuda as rn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1418,9 +1855,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(check_shard_mix_kernel(torch, mc))
     records.append(check_shard_cmix_kernel(torch, mc))
+    records.append(check_flash_kernel(torch, fa))
+    torch.cuda.empty_cache()
+    records.append(check_rmsnorm_kernel(torch, rn))
     if args.kernels_only:
         print(json.dumps({"kernels": records}))
         return 1
+    ops_launches = run_ops_path(torch)
+    records[6]["launches"] = ops_launches["flash"]
+    records[7]["launches"] = ops_launches["rmsnorm"]
     slice1, tr, state = run_main_path(torch, mc)
     where_time_goes(torch, mc, tr, state)
     del tr, state

@@ -24,8 +24,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _LL, _I, _U = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_uint)
+_P, _LL, _I, _U, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_uint, ctypes.c_float)
 # library name -> (entry point, argtypes); every pointer and the stream as
 # c_void_p (a plain int would be cut to 32 bits)
 ENTRY_POINTS = {
@@ -36,6 +36,10 @@ ENTRY_POINTS = {
     "mlstm": ("repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
     "shard_mix": ("repro_shard_mix", [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
     "shard_cmix": ("repro_shard_cmix", [_P] * 6 + [_LL] + [_I] * 3 + [_P]),
+    "flash_attention": ("repro_flash_attention",
+                        [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4 + [_P]),
+    "rmsnorm": ("repro_rmsnorm",
+                [_P] * 3 + [_LL, _I, _LL, _F, _F, _I, _I, _P]),
 }
 # dynamic shared memory a block may opt into on the H100 (227 KB)
 MAX_SMEM = 232_448
@@ -76,6 +80,8 @@ def build(*names: str) -> Dict[str, ctypes.CDLL]:
     ``nvcc -Xptxas -v`` report, ``_Libs.build_seconds`` its wall time."""
     names = names or tuple(ENTRY_POINTS)
     todo = [n for n in names if n not in _Libs.handles]
+    if not todo:
+        return {n: _Libs.handles[n] for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 """Shared building blocks (counterpart of ``repro/models/layers.py``):
-parameter builder, RMSNorm, rotary embedding, gated MLP, embedding.
+parameter builder, RMSNorm, logit softcap, rotary embedding, gated MLP,
+embedding.
 
 Parameters are nested dicts of tensors in the reference's layout.  Every
 function below takes tensors that carry the leading node axis ``n`` of
@@ -86,6 +87,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 def init_rms_norm(b: ParamBuilder, name: str, dim: int) -> None:
     b.add(name, (dim,), init="ones")
+
+
+def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: ``cap * tanh(logits / cap)`` (a division
+    by cap, as the reference computes it)."""
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)
 
 
 def make_rope(positions: torch.Tensor, head_dim: int, theta: float

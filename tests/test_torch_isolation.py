@@ -47,7 +47,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.compress.sparsify, repro_torch.kernels.cuda_build, "
             "repro_torch.launch.serve, repro_torch.serve, "
             "repro_torch.kernels.mlstm_cuda, repro_torch.models.ssm, "
-            "repro_torch.configs.xlstm_125m, repro_torch.core.mesh; "
+            "repro_torch.configs.xlstm_125m, repro_torch.core.mesh, "
+            "repro_torch.kernels, repro_torch.kernels.ops, "
+            "repro_torch.kernels.ref, "
+            "repro_torch.kernels.flash_attention_cuda, "
+            "repro_torch.kernels.rmsnorm_cuda, repro_torch.configs.gemma2_9b; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
