@@ -9,11 +9,13 @@ Phases (any failure raises, so the run exits non-zero and prints no ok
 line):
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions, and the eight kernels built from ``src/repro_torch/csrc/``
-   (``mix.cu``, ``cmix.cu``, ``collective.cu``, ``mlstm.cu``,
-   ``shard_mix.cu``, ``shard_cmix.cu``, ``flash_attention.cu``,
-   ``rmsnorm.cu``; one nvcc each, all at once) with their ``-Xptxas -v``
-   reports;
+   versions, and the nine kernel libraries built from
+   ``src/repro_torch/csrc/`` (``mix.cu``, ``cmix.cu``, ``collective.cu``,
+   ``mlstm.cu``, ``shard_mix.cu``, ``shard_cmix.cu``,
+   ``flash_attention.cu``, ``flash_attention_wgmma.cu``, ``rmsnorm.cu``;
+   one nvcc each, all at once) with their ``-Xptxas -v`` reports, and the
+   count of ``HGMMA`` (tensor-core) instructions in the tensor-core flash
+   kernel's SASS;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, with the tolerances stated in
    :func:`check_mix_kernel`, :func:`check_cmix_kernel`,
@@ -24,8 +26,9 @@ line):
    PyTorch library call (``--kernels-only`` stops here);
 3. slice 5's path (``[ops]``, :func:`run_ops_path`): the substrate entry
    points ``repro_torch.kernels.ops`` at full width (pga-lm-100m's and
-   gemma2-9b's attention and norm calls, the xlstm-125m mLSTM call), one
-   launch of the right kernel per call and no plain twin;
+   gemma2-9b's attention and norm calls, the xlstm-125m mLSTM call, and
+   pga-lm-100m's attention in float32), one launch of the right kernel
+   per call and no plain twin;
 4. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
    full width (8 nodes stacked on the card, Gossip-PGA with H = 3 over
    the one-peer exponential graph, fused kernel mixing with the consensus
@@ -63,6 +66,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -91,6 +95,23 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def hgmma_count(cuda_build) -> str:
+    """The count of tensor-core (``HGMMA``) instructions in the SASS of
+    the tensor-core flash kernel's library, by ``cuobjdump -sass``; raises
+    if there are none."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        return "cuobjdump absent, HGMMA instructions not counted"
+    lib = cuda_build._lib_path("flash_attention_wgmma")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    if n == 0:
+        raise AssertionError("flash_attention_wgmma.cu: no HGMMA in its SASS")
+    return f"{n} HGMMA instructions in its SASS (cuobjdump -sass)"
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -841,16 +862,23 @@ FLASH_WIDE = ((2, 300, 300, 4, 2, 256, True, None, 50.0),
               (1, 700, 700, 16, 8, 256, True, 256, 50.0),
               (1, 77, 200, 4, 1, 256, False, None, None),
               (1, 130, 130, 2, 1, 160, True, 50, 30.0))
-# kernel vs twin, (atol, rtol).  float32: the reference suite's 2e-5.
-# bf16 and float16: both round an fp32 result that differs only by
-# summation order (about 1e-6 at most), so the two are equal or adjacent,
-# at most one ulp of the output apart: rtol 2^-7 (bf16) and 2^-10 (fp16)
-# of |o|, atol 1e-5 for that order.
+# csrc/flash_attention.cu vs twin, (atol, rtol).  float32: the reference
+# suite's 2e-5.  bf16 and float16 (the views and head dims that kernel
+# takes): both round an fp32 result that differs only by summation order
+# (about 1e-6 at most), so the two are equal or adjacent, at most one ulp
+# of the output apart: rtol 2^-7 (bf16) and 2^-10 (fp16) of |o|, atol 1e-5
+# for that order.  csrc/flash_attention_wgmma.cu (bf16 and fp16) rounds p
+# to q's type before p·v: flash_attention_cuda.wgmma_tolerance (atol 1e-5
+# + 2^-9 max|v| bf16, 2^-11 fp16; rtol one output ulp) and the RMS error
+# against the float64 twin at most WGMMA_RMS_RATIO times the fp32 twin's.
 FLASH_TOL = {"torch.float32": (2e-5, 2e-5),
              "torch.bfloat16": (1e-5, 2.0 ** -7),
              "torch.float16": (1e-5, 2.0 ** -10)}
 FLASH_MODEL_TOL = 2e-2      # vs models.attention._sdpa: the suite's bf16
 NORM_SWEEP = ((8, 64), (3, 7, 96), (1, 128), (5, 256), (1001, 768))
+# rows the vector instance does not take: 196- and 392-byte rows, rows past
+# its 8192 bytes
+NORM_SCALAR = ((7, 98), (4, 5000))
 NORM_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2,
             "torch.float16": 1e-3}
 
@@ -925,46 +953,77 @@ def _over_tol(torch, got, want, atol, rtol=None) -> float:
     return float(((g - w).abs() - atol - rtol * w.abs()).max())
 
 
-def check_flash_kernel(torch, fa) -> dict:
-    """Flash attention kernel vs its plain twin on the card: the reference
-    sweep (7 cases) in float32 and bf16, the rows-without-a-key case
-    (those rows exactly 0), four cases at D = 256 and 160 (the kernel's
-    32-row kv tiles, which no sweep case reaches) in float32 and bf16, q,
-    k, v as strided views of one packed projection, float16 at two shapes,
-    and the three full-width calls in float32 and bf16.  Tolerance
-    (:data:`FLASH_TOL`): 2e-5 atol and rtol in float32, the reference
-    suite's; one output ulp plus 1e-5 in bf16 and float16.  The lm100m
-    call is also held to the port model's ``_sdpa`` (one node), whose bf16
-    products round the scores and probabilities to bf16, at the suite's
-    bf16 2e-2.  Timing of each full-width bf16 call (kernel and library by
-    :func:`device_ms`, the twin by :func:`cuda_ms`, as a caller sees it)
-    against its bound (bytes at 3.35 TB/s, operations at the bf16
-    tensor-core rate) and the fp32-FMA ceiling;
-    ``scaled_dot_product_attention`` at lm100m only (no PyTorch call
-    computes the softcapped gemma2 function)."""
+def check_flash_kernel(torch, fa) -> list:
+    """Both flash attention kernels vs their plain twin on the card, each
+    case's launch checked: float32 goes to ``flash_attention.cu``, bf16 and
+    float16 to ``flash_attention_wgmma.cu``, except the operands that
+    :func:`~repro_torch.kernels.flash_attention_cuda.use_wgmma` leaves to
+    the first (a head dim of 12, views whose strides are not 16-byte
+    multiples).  Cases: the reference sweep (7) in float32 and bf16, the
+    rows-without-a-key case (those rows exactly 0), four cases at D = 256
+    and 160, q, k, v as strided views of one packed projection, float16 at
+    two shapes, the two bf16 cases of the fp32 kernel, and the three
+    full-width calls in float32 and bf16.  Tolerance (:data:`FLASH_TOL`):
+    2e-5 atol and rtol in float32, the reference suite's; one output ulp
+    plus 1e-5 for the fp32 kernel in bf16; for the tensor-core kernel
+    ``wgmma_tolerance`` and the RMS error against the float64 twin at most
+    ``WGMMA_RMS_RATIO`` times the fp32 twin's.  The lm100m call is also
+    held to the port model's ``_sdpa`` (one node), whose bf16 products
+    round the scores and probabilities to bf16, at the suite's bf16 2e-2.
+    Timing of each full-width bf16 call by :func:`device_ms`: the
+    tensor-core kernel, ``flash_attention.cu`` on the same operands, and
+    ``scaled_dot_product_attention`` at lm100m (no PyTorch call computes
+    the softcapped gemma2 function; SDPA with ``enable_gqa`` and no cap is
+    printed as a yardstick at gemma2_global), the twin by :func:`cuda_ms`
+    as a caller sees it, against the bound (bytes at 3.35 TB/s, operations
+    at the bf16 tensor-core rate); the fp32 call at lm100m against its own
+    bound (4-byte operands, operations at the fp32 rate) and SDPA in
+    float32.  Returns the records of ``flash_attention.cu`` (the float32
+    path) and ``flash_attention_wgmma.cu``."""
     from repro_torch.models import attention as tattn
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(6)
-    worst, n_cases = {}, 0
+    worst, ratios, n_cases = {}, [], 0
 
-    def compare(args, dtype, packed=False, where=""):
+    def compare(args, dtype, packed=False, where="", operands=None,
+                expect=None):
         nonlocal n_cases
         (B, Sq, Sk, H, KH, D), causal, window, cap = args
-        q, k, v = _flash_inputs(torch, gen, B, Sq, Sk, H, KH, D, dtype,
-                                packed)
+        q, k, v = operands or _flash_inputs(torch, gen, B, Sq, Sk, H, KH, D,
+                                            dtype, packed)
+        expect = expect or ("flash" if dtype == torch.float32
+                            else "flash_wgmma")
         kw = dict(causal=causal, window=window, softcap=cap)
-        o = fa.flash_attention(q, k, v, **kw)
-        r = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        reset_counts()
+        o = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if counts() != only(**{expect: 1}):
+            raise AssertionError(f"flash {where} {args} {dtype}: launches "
+                                 f"{counts()}, expected one {expect}")
+        r = fa.flash_attention_plain(q, k, v, **kw)
         if not bool(torch.isfinite(o).all()):
             raise AssertionError(f"flash {where} {args} {dtype}: not finite")
-        over = _over_tol(torch, o, r, *FLASH_TOL[str(dtype)])
+        wgmma = expect == "flash_wgmma"
+        tol = fa.wgmma_tolerance(v) if wgmma else FLASH_TOL[str(dtype)]
+        over = _over_tol(torch, o, r, *tol)
         err = float((o.float() - r.float()).abs().max())
         if over > 0:
-            raise AssertionError(f"flash {where} {args} {dtype}: max abs err "
-                                 f"{err:.3e} beyond tolerance")
-        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            raise AssertionError(f"flash {where} {args} {dtype} ({expect}): "
+                                 f"max abs err {err:.3e} beyond tolerance")
+        if wgmma:
+            exact = fa.flash_attention_plain(q.double(), k.double(),
+                                             v.double(), **kw)
+            ratio = fa.rms_ratio(o, r, exact)
+            if not ratio <= fa.WGMMA_RMS_RATIO:
+                raise AssertionError(f"flash {where} {args} {dtype}: RMS error"
+                                     f" {ratio:.3f} x the fp32 twin's, over "
+                                     f"{fa.WGMMA_RMS_RATIO}")
+            ratios.append(ratio)
+            del exact
+        key = f"{expect} {str(dtype)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), err)
         n_cases += 1
         return q, k, v, o
 
@@ -980,24 +1039,57 @@ def check_flash_kernel(torch, fa) -> dict:
     for args in (((1, 256, 256, 1, 1, 64), True, 64, 30.0),
                  ((2, 500, 500, 12, 12, 64), True, None, None)):
         compare(args, torch.float16, where="fp16")
+    # bf16 operands the fp32 kernel takes: D = 12, and views of a width-28
+    # projection (56-byte head strides)
+    compare(((1, 64, 64, 4, 2, 12), True, None, None), torch.bfloat16,
+            where="D = 12", expect="flash")
+    wide = torch.randn(2, 100, 6, 28, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    compare(((2, 100, 100, 4, 1, 24), True, 16, None), torch.bfloat16,
+            where="misaligned views", expect="flash",
+            operands=(wide[:, :, :4, :24], wide[:, :, 4:5, :24],
+                      wide[:, :, 5:, :24]))
+    del wide
     attention, _ = substrate_shapes()
     timings = {}
     for name, args in attention.items():
         dims, causal, window, cap = args
-        compare(args, torch.float32, where=name)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q, k, v, o = compare(args, torch.float32, where=name)
+        if name == "lm100m_attn":
+            ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
+            plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, **kw), iters=5, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+            bytes_moved, flops, _ = flash_work(*dims, causal, window,
+                                               itemsize=4)
+            bound_ms, bound_by = _bound(bytes_moved, flops)
+            timings["fp32"] = (ms, plain_ms, bound_ms, bound_by, library_ms)
+            print(f"[kernel] flash {name} {dims} float32 (flash_attention.cu)"
+                  f": kernel {ms:.4f} ms on the card, plain {plain_ms:.4f} "
+                  f"ms, scaled_dot_product_attention(is_causal=True) "
+                  f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+                  f"{bound_by} (fp32 operations at 67 TFLOP/s, "
+                  f"{bytes_moved / 1e6:.1f} MB)", flush=True)
+            del qt, kt, vt
+        del q, k, v, o
         torch.cuda.empty_cache()
         q, k, v, o = compare(args, torch.bfloat16, where=name)
-        kw = dict(causal=causal, window=window, softcap=cap)
         heavy = dims[1] >= 4096
         iters, p_iters = (5, 2) if heavy else (20, 5)
         event_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
                            iters=iters, warmup=1)
         ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
                        iters=iters, warmup=1)
+        simt_ms = device_ms(torch, lambda: fa.flash_simt(q, k, v, **kw),
+                            iters=p_iters, warmup=1)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, **kw), iters=p_iters, warmup=1)
         library_ms = None
-        extra = ""
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if name == "lm100m_attn":
             B, S, H, KH, D = dims[0], dims[1], dims[3], dims[4], dims[5]
             pos = torch.arange(S, device="cuda")[None].expand(B, S)
@@ -1011,55 +1103,79 @@ def check_flash_kernel(torch, fa) -> dict:
                 raise AssertionError(f"flash {name} vs models.attention._sdpa"
                                      f": max abs err {model_err:.3e}")
             del model, mask
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library_ms = device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True))
             extra = (f", scaled_dot_product_attention(is_causal=True) "
-                     f"{library_ms:.4f} ms; vs models.attention._sdpa max abs "
-                     f"err {model_err:.3e}")
+                     f"{library_ms:.4f} ms (kernel / SDPA "
+                     f"{ms / library_ms:.2f}); vs models.attention._sdpa max "
+                     f"abs err {model_err:.3e}")
+        elif window is None:
+            gqa_ms = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                iters=iters, warmup=1)
+            extra = (f", no PyTorch call computes the softcapped function "
+                     f"(yardstick, not the same function: "
+                     f"scaled_dot_product_attention(is_causal=True, "
+                     f"enable_gqa=True) without softcap {gqa_ms:.4f} ms)")
         else:
             extra = ", no PyTorch call computes the softcapped function"
+        del qt, kt, vt
         bytes_moved, flops, pairs = flash_work(*dims, causal, window)
         b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         f_ms = flops / BF16_TC_FLOP_PER_S * 1e3
         bound_ms, bound_by = max(b_ms, f_ms), ("bytes" if b_ms >= f_ms
                                                else "operations")
-        fma_ms = flops / FP32_FLOP_PER_S * 1e3
         timings[name] = (ms, plain_ms, bound_ms, bound_by, library_ms)
         print(f"[kernel] flash {name} (B, Sq, Sk, H, KH, D)={dims} "
-              f"causal={causal} window={window} softcap={cap} bf16: kernel "
-              f"{ms:.4f} ms on the card ({event_ms:.4f} ms host-paced), "
-              f"plain {plain_ms:.4f} ms{extra}; "
-              f"{pairs:,} "
-              f"unmasked pairs per head, {flops:.4e} flops, "
-              f"{bytes_moved / 1e6:.1f} MB: bound {bound_ms:.4f} ms by "
-              f"{bound_by}, fp32-FMA ceiling {fma_ms:.4f} ms "
-              f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)",
-              flush=True)
+              f"causal={causal} window={window} softcap={cap} bf16: "
+              f"flash_attention_wgmma.cu {ms:.4f} ms on the card "
+              f"({event_ms:.4f} ms host-paced; "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.1%} of the bound), "
+              f"flash_attention.cu {simt_ms:.4f} ms ({simt_ms / ms:.1f}x), "
+              f"plain {plain_ms:.4f} ms{extra}; {pairs:,} unmasked pairs per "
+              f"head, {flops:.4e} flops, {bytes_moved / 1e6:.1f} MB: bound "
+              f"{bound_ms:.4f} ms by {bound_by}", flush=True)
         del q, k, v, o
         torch.cuda.empty_cache()
     print(f"[kernel] flash: {n_cases} kernel-vs-plain cases within "
           f"tolerance, max abs err "
-          + ", ".join(f"{e:.3e} {t[6:]}" for t, e in worst.items())
-          + "; rows without a valid key exactly 0", flush=True)
-    ms, plain_ms, bound_ms, bound_by, library_ms = timings["lm100m_attn"]
-    return {"name": "flash_attention_kernel", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+          + ", ".join(f"{e:.3e} {t}" for t, e in worst.items())
+          + f"; tensor-core RMS error {min(ratios):.3f}-{max(ratios):.3f} x "
+          f"the fp32 twin's (limit {fa.WGMMA_RMS_RATIO}); rows without a "
+          f"valid key exactly 0", flush=True)
+    records = []
+    for key, kernel, source in (
+            ("fp32", "flash_attention_kernel", "flash_attention.cu"),
+            ("lm100m_attn", "flash_attention_wgmma_kernel",
+             "flash_attention_wgmma.cu")):
+        ms, plain_ms, bound_ms, bound_by, library_ms = timings[key]
+        err = max(e for t, e in worst.items()
+                  if t.startswith("flash_wgmma") == (key != "fp32"))
+        records.append({
+            "name": kernel, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
             "replaces": "src/repro/kernels/flash_attention.py:36",
-            "launches": None, "max_abs_err": max(worst.values()), "ms": ms,
+            "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms})
+    return records
 
 
 def check_rmsnorm_kernel(torch, rn) -> dict:
-    """RMSNorm kernel vs its plain twin on the card: the reference sweep
-    (4 shapes) and a ragged 1001 rows (not a multiple of the kernel's 8
-    rows a block) in float32 and bf16, offsets 0 and 1, w in float32 and
-    in x's dtype, float16 at the ragged shape, then the full-width calls
-    in bf16.  Tolerance (atol and rtol): 1e-5 float32, 1e-2 bf16 (the
-    reference suite's), 1e-3 float16 (one output ulp).  Timing over four
-    copies of x in turn (no call finds its input in L2): kernel and
+    """RMSNorm kernel vs its plain twin on the card, each case's instance
+    checked (:func:`~repro_torch.kernels.rmsnorm_cuda.use_vector`): the
+    reference sweep (4 shapes) and a ragged 1001 rows in float32 and bf16,
+    offsets 0 and 1, w in float32 and in x's dtype, float16 at the ragged
+    shape (all the vector instance), two shapes the scalar instance takes
+    (rows of 196 and 392 bytes; rows past the vector instance's 8192
+    bytes), then the full-width calls in bf16.  Tolerance (atol and rtol):
+    1e-5 float32, 1e-2 bf16 (the reference suite's), 1e-3 float16 (one
+    output ulp).
+    Timing over four copies of x in turn (no call finds its input in L2):
+    the vector instance, the scalar instance on the same rows and the
     library by :func:`device_ms` (a call takes tens of microseconds on the
     card, less than the wrapper takes on the host, so host-paced CUDA
     events time the host), the twin by :func:`cuda_ms`; against the bytes
@@ -1069,13 +1185,19 @@ def check_rmsnorm_kernel(torch, rn) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst, n_cases = 0.0, 0
 
-    def compare(shape, dtype, offset, w_dtype=torch.float32, where=""):
+    def compare(shape, dtype, offset, w_dtype=torch.float32, where="",
+                expect="rmsnorm_vector"):
         nonlocal worst, n_cases
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         w = torch.randn(shape[-1], device="cuda", generator=gen).to(w_dtype)
-        y = rn.rmsnorm(x, w, offset=offset, block_rows=4)
-        r = rn.rmsnorm_plain(x, w, offset=offset)
         torch.cuda.synchronize()
+        reset_counts()
+        y = rn.rmsnorm(x, w, offset=offset, block_rows=4)
+        torch.cuda.synchronize()
+        if counts() != only(**{expect: 1}):
+            raise AssertionError(f"rmsnorm {where} {shape} {dtype}: launches "
+                                 f"{counts()}, expected one {expect}")
+        r = rn.rmsnorm_plain(x, w, offset=offset)
         assert y.shape == x.shape and y.dtype == x.dtype
         err = float((y.float() - r.float()).abs().max())
         if _over_tol(torch, y, r, NORM_TOL[str(dtype)]) > 0:
@@ -1092,6 +1214,9 @@ def check_rmsnorm_kernel(torch, rn) -> dict:
                 compare(shape, dtype, offset, where="sweep")
         compare(shape, torch.bfloat16, 1.0, torch.bfloat16, where="w bf16")
         compare(shape, torch.float16, 0.0, where="fp16")
+    for shape in NORM_SCALAR:
+        for dtype in (torch.float32, torch.bfloat16):
+            compare(shape, dtype, 1.0, where="scalar", expect="rmsnorm")
     _, norms = substrate_shapes()
     timings = {}
     for name, (shape, offsets) in norms.items():
@@ -1104,6 +1229,8 @@ def check_rmsnorm_kernel(torch, rn) -> dict:
                                                          offset=offset))
             ms = device_ms(torch, lambda: rn.rmsnorm(next(xs), w,
                                                      offset=offset))
+            scalar_ms = device_ms(torch, lambda: rn.rmsnorm_scalar(
+                next(xs), w, offset=offset))
             plain_ms = cuda_ms(torch, lambda: rn.rmsnorm_plain(
                 next(xs), w, offset=offset))
             wx = w.to(x.dtype)
@@ -1112,12 +1239,14 @@ def check_rmsnorm_kernel(torch, rn) -> dict:
                 else None
             bytes_moved, flops = rmsnorm_work(*shape)
             bound_ms, bound_by = _bound(bytes_moved, flops)
-            lib = (f"F.rms_norm {library_ms:.4f} ms" if library_ms is not None
+            lib = (f"F.rms_norm {library_ms:.4f} ms (kernel / library "
+                   f"{ms / library_ms:.2f})" if library_ms is not None
                    else "no PyTorch call adds the offset")
             print(f"[kernel] rmsnorm {name} x {shape} bf16, w fp32, offset "
-                  f"{offset}: kernel {ms:.4f} ms on the card ({event_ms:.4f} "
-                  f"ms host-paced), plain {plain_ms:.4f} ms, "
-                  f"{lib}, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"{offset}: vector instance {ms:.4f} ms on the card "
+                  f"({event_ms:.4f} ms host-paced), scalar instance "
+                  f"{scalar_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib}, "
+                  f"bound {bound_ms:.4f} ms by {bound_by} "
                   f"({bytes_moved / 1e6:.1f} MB, "
                   f"{bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
                   flush=True)
@@ -1140,11 +1269,13 @@ def run_ops_path(torch) -> dict:
     full width, as a caller of the reference's ``repro.kernels.ops`` calls
     them: ``flash_attention_op`` on the three attention shapes,
     ``rmsnorm_op`` on the three norm calls and ``mlstm_chunk_op`` once at
-    the serving shape (B = 8, S = 2048, xlstm-125m's heads).  Each call's
-    launch counts are set to 0 just before it and read just after: exactly
-    one launch of its kernel and none of another; the plain twins are
-    replaced by a function that raises for the whole phase.  Returns the
-    launches per kernel."""
+    the serving shape (B = 8, S = 2048, xlstm-125m's heads), all in bf16,
+    then ``flash_attention_op`` on pga-lm-100m's attention in float32.
+    Each call's launch counts are set to 0 just before it and read just
+    after: exactly one launch of its kernel and none of another (bf16
+    attention the tensor-core kernel, float32 attention the fp32 one, the
+    norms the vector instance); the plain twins are replaced by a function
+    that raises for the whole phase.  Returns the launches per kernel."""
     from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mlstm_cuda as mk
     from repro_torch.kernels import ops
@@ -1155,7 +1286,7 @@ def run_ops_path(torch) -> dict:
     calls = []
     for name, (dims, causal, window, cap) in attention.items():
         qkv = _flash_inputs(torch, gen, *dims, torch.bfloat16)
-        calls.append((name, "flash", lambda qkv=qkv, kw=dict(
+        calls.append((name, "flash_wgmma", lambda qkv=qkv, kw=dict(
             causal=causal, window=window, softcap=cap):
             ops.flash_attention_op(*qkv, **kw)))
     for name, (shape, offsets) in norms.items():
@@ -1163,7 +1294,7 @@ def run_ops_path(torch) -> dict:
             torch.bfloat16)
         w = torch.randn(shape[-1], device="cuda", generator=gen)
         for offset in offsets:
-            calls.append((f"{name} offset={offset}", "rmsnorm",
+            calls.append((f"{name} offset={offset}", "rmsnorm_vector",
                           lambda x=x, w=w, offset=offset: ops.rmsnorm_op(
                               x, w, offset=offset)))
     S = 2048
@@ -1172,6 +1303,11 @@ def run_ops_path(torch) -> dict:
                           gates="model")
     calls.append(("mlstm B=8 S=2048", "mlstm", lambda: ops.mlstm_chunk_op(
         *m_args, chunk=MLSTM_FULL["chunk"])))
+    dims, causal, window, cap = attention["lm100m_attn"]
+    qkv32 = _flash_inputs(torch, gen, *dims, torch.float32)
+    calls.append(("lm100m_attn float32", "flash",
+                  lambda: ops.flash_attention_op(*qkv32, causal=causal,
+                                                 window=window, softcap=cap)))
 
     def refuse(*_, **__):
         raise AssertionError("[ops] a plain twin ran on the card")
@@ -1203,9 +1339,9 @@ def run_ops_path(torch) -> dict:
     finally:
         for (mod, attr), fn in zip(twins, saved):
             setattr(mod, attr, fn)
-    del calls, m_args
+    del calls, m_args, qkv32
     torch.cuda.empty_cache()
-    print(f"[ops] {len(attention)} flash_attention_op, "
+    print(f"[ops] {len(attention) + 1} flash_attention_op, "
           f"{sum(len(o) for _, o in norms.values())} rmsnorm_op, 1 "
           f"mlstm_chunk_op calls through their kernels: {total}", flush=True)
     return total
@@ -1226,7 +1362,9 @@ def counts() -> dict:
             "shard_mix": mc.shard_mix_block.launches,
             "shard_cmix": mc.shard_comp_mix_block.launches,
             "flash": fa.flash_attention.launches,
-            "rmsnorm": rn.rmsnorm.launches}
+            "flash_wgmma": fa.flash_attention.wgmma_launches,
+            "rmsnorm": rn.rmsnorm.launches,
+            "rmsnorm_vector": rn.rmsnorm.vector_launches}
 
 
 def only(**launches) -> dict:
@@ -1240,7 +1378,9 @@ def reset_counts() -> None:
     from repro_torch.kernels import mlstm_cuda as mk
     from repro_torch.kernels import rmsnorm_cuda as rn
     fa.flash_attention.launches = 0
+    fa.flash_attention.wgmma_launches = 0
     rn.rmsnorm.launches = 0
+    rn.rmsnorm.vector_launches = 0
     mc.mix_flat.launches = 0
     mc.cmix_flat.launches = 0
     mc.collective_flat.launches = 0
@@ -1845,6 +1985,8 @@ def main() -> int:
           f"({cuda_build._Libs.build_seconds})", flush=True)
     for name, log in cuda_build._Libs.build_log.items():
         print(f"[build] {name}.cu:\n{log.strip()}", flush=True)
+    print(f"[build] flash_attention_wgmma.cu: {hgmma_count(cuda_build)}",
+          flush=True)
     records = [check_mix_kernel(torch, mc)]
     torch.cuda.empty_cache()
     records.append(check_cmix_kernel(torch, mc))
@@ -1855,7 +1997,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(check_shard_mix_kernel(torch, mc))
     records.append(check_shard_cmix_kernel(torch, mc))
-    records.append(check_flash_kernel(torch, fa))
+    records.extend(check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
     records.append(check_rmsnorm_kernel(torch, rn))
     if args.kernels_only:
@@ -1863,7 +2005,9 @@ def main() -> int:
         return 1
     ops_launches = run_ops_path(torch)
     records[6]["launches"] = ops_launches["flash"]
-    records[7]["launches"] = ops_launches["rmsnorm"]
+    records[7]["launches"] = ops_launches["flash_wgmma"]
+    records[8]["launches"] = (ops_launches["rmsnorm"]
+                              + ops_launches["rmsnorm_vector"])
     slice1, tr, state = run_main_path(torch, mc)
     where_time_goes(torch, mc, tr, state)
     del tr, state

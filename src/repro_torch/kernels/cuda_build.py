@@ -38,8 +38,11 @@ ENTRY_POINTS = {
     "shard_cmix": ("repro_shard_cmix", [_P] * 6 + [_LL] + [_I] * 3 + [_P]),
     "flash_attention": ("repro_flash_attention",
                         [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4 + [_P]),
+    "flash_attention_wgmma": ("repro_flash_attention_wgmma",
+                              [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4
+                              + [_P]),
     "rmsnorm": ("repro_rmsnorm",
-                [_P] * 3 + [_LL, _I, _LL, _F, _F, _I, _I, _P]),
+                [_P] * 3 + [_LL, _I, _LL, _F, _F, _I, _I, _I, _P]),
 }
 # dynamic shared memory a block may opt into on the H100 (227 KB)
 MAX_SMEM = 232_448

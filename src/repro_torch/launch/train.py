@@ -2,7 +2,9 @@
 
 Runs the decentralized trainer with n simulated nodes stacked on one
 device — the card by default, the CPU only with ``--device cpu``.  The
-flags are the reference launcher's subset that this port runs.  Like the
+flags are the reference launcher's; those of what is not ported yet
+(overlap, push-sum and faults, telemetry and tracing) raise
+``NotImplementedError`` naming their ROADMAP item when set.  Like the
 reference's, it builds no mesh: ``--comm-shard-mode sharded`` raises
 ``ValueError`` there as here; the sharded rounds are reached through the
 library entry ``Trainer(tcfg, n, mesh=make_mesh(...))``.
@@ -13,6 +15,7 @@ import argparse
 
 from repro_torch.configs import (DataConfig, DistConfig, OptimizerConfig,
                                  TrainConfig, get_model_config, list_archs)
+from repro_torch.configs.base import not_ported
 from repro_torch.core.algo import algorithm_names
 from repro_torch.train import Trainer
 
@@ -57,14 +60,41 @@ def main(argv=None) -> None:
     ap.add_argument("--error-feedback", action="store_true",
                     help="per-node error-feedback memory: compression "
                          "error is fed back next round instead of dropped")
+    ap.add_argument("--comm-overlap", action="store_true",
+                    help="not ported (ROADMAP A.5)")
+    ap.add_argument("--push-sum", action="store_true",
+                    help="not ported (ROADMAP A.4)")
+    ap.add_argument("--fault-drop", default="",
+                    help="not ported (ROADMAP A.4)")
+    ap.add_argument("--fault-rejoin", default="",
+                    help="not ported (ROADMAP A.4)")
+    ap.add_argument("--fault-resample", default="none",
+                    choices=("none", "hop", "peer"),
+                    help="not ported (ROADMAP A.4)")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="not ported (ROADMAP A.4)")
     ap.add_argument("--full-config", action="store_true",
                     help="full published dims (default: reduced)")
     ap.add_argument("--iid", action="store_true")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="not ported (ROADMAP A.6)")
+    ap.add_argument("--trace", default="", help="not ported (ROADMAP A.6)")
+    ap.add_argument("--trace-fence", action="store_true",
+                    help="not ported (ROADMAP A.6)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the card (default) or, explicitly, on the "
                          "CPU with the plain PyTorch kernels")
     args = ap.parse_args(argv)
 
+    if args.comm_overlap:
+        raise not_ported("pipelined gossip (--comm-overlap)", "A.5")
+    if (args.push_sum or args.fault_drop or args.fault_rejoin
+            or args.fault_resample != "none" or args.fault_seed is not None):
+        raise not_ported("push-sum gossip and fault injection (--push-sum, "
+                         "--fault-*)", "A.4")
+    if args.telemetry_dir or args.trace or args.trace_fence:
+        raise not_ported("training telemetry (--telemetry-dir, --trace, "
+                         "--trace-fence)", "A.6")
     cfg = get_model_config(args.arch, reduced=not args.full_config)
     tcfg = TrainConfig(
         model=cfg,

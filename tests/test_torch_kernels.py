@@ -10,7 +10,16 @@ Tolerances, atol and rtol, the reference kernel suite's own: flash
 attention 2e-5 (float32) and 2e-2 (bf16); RMSNorm 1e-5 and 1e-2; the
 mLSTM op 5e-5 and 3e-2 (rtol ten times that).  Measured: float32 flash
 within 8e-7, one bf16 output ulp at most.
+
+The CUDA dispatch rules (``flash_attention_cuda.use_wgmma``,
+``rmsnorm_cuda.use_vector``) and the kernels' shared-memory sizes are pure
+Python and pinned here.  The tensor-core flash kernel rounds p to q's type
+before p·v; ``test_wgmma_rounding_emulation_holds_the_card_tolerance``
+emulates that rounding on the CPU and holds it to the check the card run
+applies (``flash_attention_cuda.wgmma_tolerance`` and ``WGMMA_RMS_RATIO``
+against the float64 twin).
 """
+import math
 import dataclasses
 
 import jax
@@ -28,7 +37,8 @@ from repro_torch.configs import get_model_config
 from repro_torch.kernels import (flash_attention_cuda, mlstm_cuda, ops,
                                  ref, rmsnorm_cuda)
 from repro_torch.models import attention as tattn
-from repro_torch.models import blocks
+from repro_torch.models import blocks, layers
+from repro_torch.kernels import cuda_build
 from repro_torch.models.layers import softcap
 from repro_torch.models.model import make_model
 
@@ -227,15 +237,22 @@ def test_ops_on_cpu_take_the_twins_and_count_no_launch():
     _, (q, k, v) = _flash_inputs(FLASH_SWEEP[0], "float32", seed=10)
     x = torch.randn(6, 32)
     w = torch.randn(32)
-    before = (flash_attention_cuda.flash_attention.launches,
-              rmsnorm_cuda.rmsnorm.launches, mlstm_cuda.mlstm_chunk.launches)
+    fa, rn = flash_attention_cuda.flash_attention, rmsnorm_cuda.rmsnorm
+
+    def launches():
+        return (fa.launches, fa.wgmma_launches, rn.launches,
+                rn.vector_launches, mlstm_cuda.mlstm_chunk.launches)
+
+    before = launches()
     assert torch.equal(ops.flash_attention_op(q, k, v),
                        flash_attention_cuda.flash_attention_plain(q, k, v))
+    assert torch.equal(ops.flash_attention_op(q.bfloat16(), k.bfloat16(),
+                                              v.bfloat16()),
+                       flash_attention_cuda.flash_attention_plain(
+                           q.bfloat16(), k.bfloat16(), v.bfloat16()))
     assert torch.equal(ops.rmsnorm_op(x, w), rmsnorm_cuda.rmsnorm_plain(x, w))
-    assert before == (0, 0, 0)
-    assert (flash_attention_cuda.flash_attention.launches,
-            rmsnorm_cuda.rmsnorm.launches,
-            mlstm_cuda.mlstm_chunk.launches) == before
+    assert before == (0, 0, 0, 0, 0)
+    assert launches() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int32])
@@ -259,13 +276,197 @@ def test_other_devices_raise_and_never_take_the_twin():
                        torch.ones(16, device="meta"))
 
 
-def test_head_dim_past_shared_memory_raises():
-    """The kernel's tiles are fp32: D = 256 fits (209,664 bytes), D = 512
-    does not, and the wrapper raises before any launch."""
-    assert flash_attention_cuda.check_smem(256) == 209_664
-    assert flash_attention_cuda.check_smem(64) == 87_040
-    with pytest.raises(ValueError, match="shared memory"):
-        flash_attention_cuda.check_smem(512)
+@pytest.mark.parametrize("D,need", [(64, 87_040), (256, 209_664),
+                                    (284, 232_192), (285, None),
+                                    (512, None)])
+def test_head_dim_past_shared_memory_raises(D, need):
+    """The fp32 kernel's tiles: D = 284 is the widest head that fits
+    (232,192 of the card's 232,448 bytes), D = 285 needs 232,704 and the
+    wrapper raises before any launch."""
+    if need is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            flash_attention_cuda.check_smem(D)
+    else:
+        assert flash_attention_cuda.check_smem(D) == need
+
+
+@pytest.mark.parametrize("D_pad,need", [(64, 83_072), (128, 164_992),
+                                        (256, 197_760)])
+def test_wgmma_smem_bytes(D_pad, need):
+    """csrc/flash_attention_wgmma.cu's smem_bytes, mirrored: Q (128 rows)
+    and a ring of K and V tiles (four stages of 64 rows at D_pad = 64, two
+    of 128 at 128, two of 64 at 256) in 16-bit, 1024 bytes of alignment and
+    128 of barriers, within the card's budget (twice at D_pad = 64, whose
+    blocks run two a multiprocessor)."""
+    assert flash_attention_cuda.wgmma_smem_bytes(D_pad) == need
+    blocks = 2 if D_pad == 64 else 1
+    assert blocks * need <= cuda_build.MAX_SMEM
+    bk = flash_attention_cuda.wgmma_block_k(D_pad)
+    stages = flash_attention_cuda.wgmma_stages(D_pad)
+    assert need == 1024 + 128 + 2 * D_pad * (128 + 2 * stages * bk)
+
+
+@pytest.mark.parametrize("D,D_pad", [(8, 64), (64, 64), (72, 128),
+                                     (128, 128), (160, 256), (256, 256)])
+def test_head_dim_pad(D, D_pad):
+    assert flash_attention_cuda.head_dim_pad(D) == D_pad
+
+
+def _qkv(dtype, D, B=2, S=24, H=4, KH=2):
+    return (torch.zeros((B, S, H, D), dtype=dtype),
+            torch.zeros((B, S, KH, D), dtype=dtype),
+            torch.zeros((B, S, KH, D), dtype=dtype))
+
+
+@pytest.mark.parametrize("D", [8, 64, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_use_wgmma_takes_16bit_aligned_heads(dtype, D):
+    assert flash_attention_cuda.use_wgmma(*_qkv(dtype, D))
+
+
+@pytest.mark.parametrize("case", ["fp32", "D12", "D264", "misaligned view",
+                                  "misaligned pointer"])
+def test_use_wgmma_leaves_the_rest_to_the_fp32_kernel(case):
+    """fp32, a head dim that is not a multiple of 8 or past 256, a view
+    whose (B, S, H) strides are not 16-byte multiples, a pointer off 16
+    bytes: all take csrc/flash_attention.cu."""
+    if case == "fp32":
+        qkv = _qkv(torch.float32, 64)
+    elif case == "D12":
+        qkv = _qkv(torch.bfloat16, 12)
+    elif case == "D264":
+        qkv = _qkv(torch.bfloat16, 264)
+    elif case == "misaligned view":
+        wide = torch.zeros((2, 24, 6, 20), dtype=torch.bfloat16)
+        qkv = (wide[..., :16], wide[:, :, :2, :16], wide[:, :, 2:4, :16])
+        assert qkv[0].stride(2) * 2 == 40
+    else:
+        flat = torch.zeros(2 * 24 * 4 * 64 + 8, dtype=torch.bfloat16)
+        q = flat[8:].view(2, 24, 4, 64)
+        q_off = flat[1:1 + q.numel()].view(2, 24, 4, 64)
+        assert q.data_ptr() % 16 == 0 and q_off.data_ptr() % 16 == 2
+        _, k, v = _qkv(torch.bfloat16, 64)
+        assert flash_attention_cuda.use_wgmma(q, k, v)
+        qkv = (q_off, k, v)
+    assert not flash_attention_cuda.use_wgmma(*qkv)
+
+
+@pytest.mark.parametrize("shape,dtype,w_dtype,want", [
+    ((8, 64), torch.bfloat16, torch.float32, True),
+    ((16, 768), torch.bfloat16, torch.float32, True),
+    ((4, 3584), torch.bfloat16, torch.bfloat16, True),
+    ((3, 96), torch.float32, torch.float32, True),
+    ((5, 256), torch.float16, torch.float32, True),
+    ((4, 4096), torch.bfloat16, torch.float32, True),    # 8192 bytes a row
+    ((4, 4104), torch.bfloat16, torch.float32, False),   # past the widest
+    ((7, 100), torch.bfloat16, torch.float32, False),    # 200-byte rows
+    ((6, 2050), torch.float32, torch.float32, False),    # 8200-byte rows
+])
+def test_use_vector_rule(shape, dtype, w_dtype, want):
+    x2 = torch.zeros(shape, dtype=dtype)
+    w = torch.zeros(shape[-1], dtype=w_dtype)
+    assert rmsnorm_cuda.use_vector(x2, w) is want
+
+
+def test_use_vector_refuses_misaligned_rows_and_pointers():
+    wide = torch.zeros((8, 100), dtype=torch.bfloat16)
+    rows = wide[:, :96]          # 192-byte rows 200 bytes apart
+    assert rows.stride(0) * 2 == 200
+    assert not rmsnorm_cuda.use_vector(rows, torch.zeros(96))
+    flat = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16)
+    assert rmsnorm_cuda.use_vector(flat[8:].view(8, 64), torch.zeros(64))
+    assert not rmsnorm_cuda.use_vector(flat[1:513].view(8, 64),
+                                       torch.zeros(64))
+    wflat = torch.zeros(65)
+    assert not rmsnorm_cuda.use_vector(flat[8:].view(8, 64), wflat[1:])
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, softcap, scale=None):
+    """The tensor-core kernel's arithmetic on the CPU: the fp32 twin's
+    online softmax at the kernel's tiles (128 query rows, ``wgmma_block_k``
+    keys), with p rounded to q's type before p·v and l summed from the
+    fp32 p."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    g = H // KH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    bk = flash_attention_cuda.wgmma_block_k(
+        flash_attention_cuda.head_dim_pad(D))
+    qf = q.float().reshape(B, Sq, KH, g, D).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.zeros((B, KH, g, Sq, D))
+    neg = flash_attention_cuda.NEG_INF
+    for q0 in range(0, Sq, 128):
+        q1 = min(q0 + 128, Sq)
+        q_pos = torch.arange(q0, q1)[:, None]
+        m = torch.full((B, KH, g, q1 - q0), neg)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KH, g, q1 - q0, D))
+        lo, hi = flash_attention_cuda.kv_range(q0, q1, Sk, causal, window)
+        for k0 in range(lo, hi, bk):
+            k1 = min(k0 + bk, Sk)
+            s = layers.softcap(qf[..., q0:q1, :] @ kf[..., k0:k1, :].transpose(
+                -1, -2) * scale, softcap)
+            k_pos = torch.arange(k0, k1)[None, :]
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
+            if causal:
+                mask &= k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > q_pos - window
+            s = torch.where(mask, s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            acc = acc * alpha[..., None] + p.to(q.dtype).float() @ vf[
+                ..., k0:k1, :]
+            l = alpha * l + p.sum(dim=-1)
+            m = m_new
+        out[..., q0:q1, :] = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+WIDE_CASES = [(2, 300, 300, 4, 2, 256, True, None, 50.0, 128, 128),
+              (1, 77, 200, 4, 1, 256, False, None, None, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", FLASH_SWEEP + [MASKED_ROWS] + WIDE_CASES)
+def test_wgmma_rounding_emulation_holds_the_card_tolerance(case, dtype):
+    """The check the card run holds the tensor-core kernel to, applied to
+    its rounding emulated here: within ``wgmma_tolerance`` of the fp32
+    twin, and an RMS error against the float64 twin at most
+    ``WGMMA_RMS_RATIO`` times the fp32 twin's rounded to q's type
+    (measured 1.07-1.29)."""
+    B, Sq, Sk, H, KH, D = case[:6]
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype) for s in ((B, Sq, H, D), (B, Sk, KH, D),
+                                         (B, Sk, KH, D)))
+    twin = flash_attention_cuda.flash_attention_plain(q, k, v, **_kw(case))
+    exact = flash_attention_cuda.flash_attention_plain(
+        q.double(), k.double(), v.double(), **_kw(case))
+    got = _emulate_wgmma(q, k, v, **_kw(case))
+    atol, rtol = flash_attention_cuda.wgmma_tolerance(v)
+    torch.testing.assert_close(got.float(), twin.float(), atol=atol,
+                               rtol=rtol)
+    ratio = flash_attention_cuda.rms_ratio(got, twin, exact)
+    assert ratio <= flash_attention_cuda.WGMMA_RMS_RATIO, ratio
+    if case is MASKED_ROWS:
+        assert torch.equal(got[:, 20:], torch.zeros_like(got[:, 20:]))
+
+
+@pytest.mark.parametrize("launcher", ["flash_simt", "flash_wgmma",
+                                      "rmsnorm_scalar", "rmsnorm_vector"])
+def test_direct_launchers_refuse_cpu_operands(launcher):
+    """The launchers of one kernel (which chip_smoke times directly) take
+    CUDA operands only: a CPU tensor raises before anything launches."""
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    x2, w = torch.zeros((4, 64), dtype=torch.bfloat16), torch.ones(64)
+    fn = getattr(flash_attention_cuda if launcher.startswith("flash")
+                 else rmsnorm_cuda, launcher)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(q, q, q) if launcher.startswith("flash") else fn(x2, w)
 
 
 def test_kv_range_skips_only_masked_tiles():
