@@ -672,7 +672,8 @@ int launch_dpad(const void* q, const void* k, const void* v, void* o,
 // (B, S, H) axes of q, k, v, each a positive multiple of 8, with a unit
 // stride on D, D % 8 == 0, D <= 256 and 16-byte aligned pointers.  Writes o
 // (B, Sq, H, D) contiguous.  Returns cudaGetLastError() after the launch
-// (0 = success), or 1000 + the CUresult of a tensor map the driver refused.
+// (0 = success), or 1000 + the CUresult of a tensor map that
+// cuTensorMapEncodeTiled refused.
 extern "C" int repro_flash_attention_wgmma(
     const void* q, const void* k, const void* v, void* o,
     const void* strides, int B, int Sq, int Sk, int H, int KH, int D,
