@@ -13,12 +13,16 @@ line):
    ``src/repro_torch/csrc/`` (``mix.cu``, ``cmix.cu``, ``collective.cu``,
    ``mlstm.cu``, ``shard_mix.cu``, ``shard_cmix.cu``,
    ``flash_attention.cu``, ``flash_attention_wgmma.cu``, ``rmsnorm.cu``;
-   one nvcc each, all at once) with their ``-Xptxas -v`` reports, and the
+   one nvcc each, all at once) with their ``-Xptxas -v`` reports, the
    count of ``HGMMA`` (tensor-core) instructions in the tensor-core flash
-   kernel's SASS;
+   kernel's SASS, and the registers and spills of the mix and cmix
+   register instances with their global and shared loads and stores;
 2. every kernel against its plain PyTorch version on the card, at ragged
-   and main-path shapes, with the tolerances stated in
-   :func:`check_mix_kernel`, :func:`check_cmix_kernel`,
+   and main-path shapes, each case on the instance its dispatch rule
+   picks (the mix and cmix register instances also bitwise against the
+   generic ones), with the tolerances stated in
+   :func:`check_mix_kernel`, :func:`check_cmix_kernel` (with the
+   compressed round's row maxima, :func:`check_absmax`),
    :func:`check_collective_kernel`, :func:`check_mlstm_kernel`,
    :func:`check_shard_mix_kernel`, :func:`check_shard_cmix_kernel`,
    :func:`check_flash_kernel` and :func:`check_rmsnorm_kernel`; timing by
@@ -114,6 +118,80 @@ def hgmma_count(cuda_build) -> str:
     return f"{n} HGMMA instructions in its SASS (cuobjdump -sass)"
 
 
+# the generic and the main path's register instance of each round, by a
+# piece of their mangled names: mix with the residual (no g, no wire);
+# cmix int8 with error feedback (no wire)
+SASS_KERNELS = {"mix": (("mix_kernel", "10mix_kernelE"),
+                        ("mix_vector_kernel<8, residual>",
+                         "mix_vector_kernelILi8ELb0ELb0ELb1E")),
+                "cmix": (("cmix_kernel<int8, EF>", "cmix_kernelILi0ELb1ELb0E"),
+                         ("cmix_vector_kernel<8, int8, EF>",
+                          "cmix_vector_kernelILi8ELi0ELb1ELb0E"))}
+
+
+def sass_memory_counts(cuda_build, name: str) -> list:
+    """One line per kernel of :data:`SASS_KERNELS` ``[name]``: its global
+    and shared loads and stores in the library's SASS, by ``cuobjdump
+    -sass`` (static counts: a loop's body counts once; the register
+    instance's body is one group of columns)."""
+    import re
+
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        return ["cuobjdump absent, instructions not counted"]
+    sass = subprocess.run([str(tool), "-sass", str(cuda_build._lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(("LDG", "STG", "LDS", "STS"), 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if fn and m and m.group(1) in counts[fn]:
+            counts[fn][m.group(1)] += 1
+    lines = []
+    for label, piece in SASS_KERNELS[name]:
+        found = [c for f, c in counts.items() if piece in f]
+        if len(found) != 1:
+            raise AssertionError(f"{name}.cu: {len(found)} SASS functions "
+                                 f"match {piece}")
+        lines.append(f"{label}: " + ", ".join(f"{k} {v}"
+                                             for k, v in found[0].items()))
+    return lines
+
+
+def register_report(log: str, kernel: str) -> list:
+    """One line per instance of ``kernel`` in an ``nvcc -Xptxas -v``
+    report: its template arguments, registers and spill bytes.  Raises if
+    there is none, or if an instance at n = 8 (the main path's) spills."""
+    lines, name, frame = [], None, None
+    for raw in log.splitlines():
+        if "Compiling entry function" in raw:
+            name = raw.split("'")[1]
+            frame = None
+        elif name and "bytes spill stores" in raw:
+            frame = raw.strip()
+        elif name and frame and "Used" in raw and "registers" in raw \
+                and kernel in name:
+            regs = raw.split("Used")[1].split("registers")[0].strip()
+            args = name.split(kernel, 1)[1]
+            spill = [int(t) for t in frame.replace(",", " ").split()
+                     if t.isdigit()]
+            lines.append(f"{kernel}<{args[:40]}>: {regs} registers, "
+                         f"{frame}")
+            if args.startswith("ILi8E") and any(spill[1:]):
+                raise AssertionError(f"{kernel}{args}: spills at n = 8: "
+                                     f"{frame}")
+            name = None
+    if not lines:
+        raise AssertionError(f"no ptxas report of {kernel}")
+    return lines
+
+
 def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     """Mean time of ``fn`` by CUDA events over ``iters`` runs."""
     for _ in range(warmup):
@@ -167,22 +245,41 @@ def _bound(bytes_moved: float, flops: float):
     return max(b, f), "bytes" if b >= f else "operations"
 
 
+def _turns(torch, old, new) -> tuple:
+    """``(old ms, new ms)`` by :func:`device_ms`, timed in turns (old, new,
+    new, old) and averaged per version."""
+    o1, n1, n2, o2 = (device_ms(torch, f) for f in (old, new, new, old))
+    return (o1 + o2) / 2, (n1 + n2) / 2
+
+
 def check_mix_kernel(torch, mc) -> dict:
-    """Kernel vs plain version.  Tolerances: max|o − o_plain| and
+    """Kernel vs plain version, each case on the instance that
+    ``use_vector_mix`` picks.  Tolerances: max|o − o_plain| and
     max|x̄ − x̄_plain| ≤ 1e-5·max|x| (the plain version's matmul sums the
     n terms in another order than the kernel's loop), residual relative
     error ≤ 1e-5 (another summation order over D columns), and the rows
-    of a global round bitwise equal with a residual of exactly 0."""
+    of a global round bitwise equal with a residual of exactly 0.  Where
+    the register instance takes a case, it also runs on the generic
+    instance: o and x̄ bitwise equal, and the register instance's residual
+    bitwise the same in two runs."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     gamma = torch.tensor([0.05], device="cuda")
     worst = 0.0
-    cases = 0
+    cases = vector_cases = 0
 
-    def compare(x, g, d, M, with_g, with_residual, wire, bitwise_rows):
-        nonlocal worst, cases
+    def compare(x, g, d, M, with_g, with_residual, wire, bitwise_rows,
+                inplace=False):
+        nonlocal worst, cases, vector_cases
         args = (x, g if with_g else None, gamma if with_g else None, d, M)
         kw = dict(with_g=with_g, with_residual=with_residual, wire=wire)
-        out = mc.mix_flat(*args, **kw)
+        vector = mc.use_vector_mix(x, g if with_g else None)
+        if inplace:
+            stage = x.clone()
+            out = mc.mix_flat(stage, *args[1:], **kw, inplace=True)
+            assert (out[0] if with_residual else out).data_ptr() == \
+                stage.data_ptr()
+        else:
+            out = mc.mix_flat(*args, **kw)
         ref = mc.mix_flat_plain(*args, **kw)
         torch.cuda.synchronize()
         xs = x - gamma * g if with_g else x
@@ -199,16 +296,38 @@ def check_mix_kernel(torch, mc) -> dict:
                 raise AssertionError(f"residual rel err {rel:.3e}")
         if err > tol:
             raise AssertionError(
-                f"mix kernel n={x.shape[0]} D={x.shape[1]} {kw}: max abs "
-                f"err {err:.3e} > {tol:.3e}")
+                f"mix kernel n={x.shape[0]} D={x.shape[1]} {kw} vector="
+                f"{vector}: max abs err {err:.3e} > {tol:.3e}")
         if bitwise_rows:
             assert torch.equal(o, o[:1].expand_as(o)), "global rows differ"
+        if vector:
+            if inplace:
+                stage = x.clone()
+                old = mc.mix_generic(stage, *args[1:], **kw, inplace=True)
+            else:
+                old = mc.mix_generic(*args, **kw)
+            again = mc.mix_vector(*args, **kw)
+            pairs = list(zip(out, old))[:2] if with_residual else [(out, old)]
+            for a, b in pairs:
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"mix n={x.shape[0]} D={x.shape[1]} {kw}: register "
+                        f"instance differs from the generic one by "
+                        f"{float((a - b).abs().max()):.3e}")
+            if with_residual and not torch.equal(out[2], again[2]):
+                raise AssertionError(f"mix residual differs between two "
+                                     f"runs: {float(out[2])!r} "
+                                     f"{float(again[2])!r}")
+            del old, again
+            vector_cases += 1
         worst = max(worst, err)
         cases += 1
 
-    # n = 256 takes the path where a block opts into more than 48 KB of
-    # shared memory
-    for n, width in ((4, RAGGED_D), (8, RAGGED_D), (32, RAGGED_D),
+    # n = 4, 8 at D = 1,000,003 and 32 at any D, and 256, on the generic
+    # instance (n = 256 opts into more than 48 KB of shared memory); n = 4,
+    # 8, 16, 32 at D a multiple of 4 on the register instance
+    for n, width in ((4, RAGGED_D), (4, RAGGED_D - 3), (8, RAGGED_D),
+                     (8, RAGGED_D - 3), (16, RAGGED_D - 1), (32, RAGGED_D),
                      (256, 100_003)):
         x = torch.randn(n, width, device="cuda", generator=gen)
         g = torch.randn(n, width, device="cuda", generator=gen)
@@ -221,17 +340,10 @@ def check_mix_kernel(torch, mc) -> dict:
                         compare(x, g, d, M, with_g, with_residual, wire,
                                 phase == "global")
         # in place into a private staging buffer
-        stage = x.clone()
         d, M = (torch.from_numpy(a).cuda()
                 for a in mc.phase_matrices("gossip", "ring", n))
-        out = mc.mix_flat(stage, None, None, d, M, with_g=False,
-                          with_residual=False, wire=True, inplace=True)
-        ref = mc.mix_flat_plain(x, None, None, d, M, with_g=False,
-                                with_residual=False, wire=True)
-        assert out.data_ptr() == stage.data_ptr()
-        assert float((out - ref).abs().max()) <= 1e-5 * float(
-            x.abs().max())
-        del x, g, stage, out, ref
+        compare(x, g, d, M, True, True, True, False, inplace=True)
+        del x, g
 
     # the main path's calls (n = 8, fp32 wire, consensus residual on, as
     # Trainer's fused round launches them), timed at the embedding leaf
@@ -239,53 +351,123 @@ def check_mix_kernel(torch, mc) -> dict:
             for a in mc.phase_matrices("gossip", "one_peer_exp", MAIN_N))
     for width in MAIN_WIDTHS:
         x = torch.randn(MAIN_N, width, device="cuda", generator=gen)
+        if not mc.use_vector_mix(x):
+            raise AssertionError(f"main-path width {width} is not taken by "
+                                 f"the register instance")
         compare(x, None, d, M, False, True, False, False)
     x = torch.randn(MAIN_N, MAIN_D, device="cuda", generator=gen)
     kw = dict(with_g=False, with_residual=True, wire=False)
-    ms = cuda_ms(torch, lambda: mc.mix_flat(x, None, None, d, M, **kw))
+    old_ms, ms = _turns(
+        torch, lambda: mc.mix_generic(x, None, None, d, M, **kw),
+        lambda: mc.mix_vector(x, None, None, d, M, **kw))
     plain_ms = cuda_ms(torch,
                        lambda: mc.mix_flat_plain(x, None, None, d, M, **kw))
     W = M + torch.diag(d[:, 0])
-    library_ms = cuda_ms(torch, lambda: torch.matmul(W, x))
+    library_ms = device_ms(torch, lambda: torch.matmul(W, x))
     n, D = MAIN_N, MAIN_D
     bytes_moved = 4 * (n * D + n * D + D)      # read x, write o and x̄
     flops = 2 * n * n * D + 4 * n * D           # mix + mean + residual
     bound_ms, bound_by = _bound(bytes_moved, flops)
-    print(f"[kernel] mix n={n} D={D} residual: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.matmul(W, x) {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} "
-          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
-          flush=True)
-    print(f"[kernel] {cases} kernel-vs-plain cases within tolerance, "
-          f"max abs err {worst:.3e}", flush=True)
-    return {"name": "mix_kernel", "route": "cuda",
+    print(f"[kernel] mix n={n} D={D} residual: register instance {ms:.4f} "
+          f"ms, generic instance {old_ms:.4f} ms (device_ms, in turns), "
+          f"plain {plain_ms:.4f} ms, torch.matmul(W, x) {library_ms:.4f} ms,"
+          f" bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved, "
+          f"{100 * bound_ms / ms:.1f}% of the bound)", flush=True)
+    print(f"[kernel] mix: {cases} kernel-vs-plain cases within tolerance, "
+          f"max abs err {worst:.3e}; {vector_cases} of them on the register "
+          f"instance, bitwise equal to the generic one", flush=True)
+    return {"name": "mix_vector_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/mix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:215",
             "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "old_ms": old_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
-def check_cmix_kernel(torch, mc) -> dict:
-    """cmix kernel vs its plain twin on the card, every kind (int8, fp8 with
-    error feedback on and off; q precomputed from topk and randk), every
-    phase (gossip, global with and without the bf16 wire, pod_avg), n in
-    {4, 8, 32} at D = 1,000,003 and n = 8 at the embedding leaf.  The two
-    do the same IEEE operations in the same order on the same scale tensor
-    (the wrapper computes it), so the tolerance is 1e-6·max|x| on o and on
-    the new EF and the measured error is expected to be 0.  Constant
-    fixed point: the rows of an equal-row state stay bitwise equal in every
-    case, and one-peer gossip returns the state bitwise, for every kind."""
+def _nan_equal(torch, a, b) -> bool:
+    """Bitwise equality, any NaN equal to any NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and torch.equal(
+        a.masked_fill(na, 0).view(torch.int32),
+        b.masked_fill(nb, 0).view(torch.int32))
+
+
+def check_absmax(torch, mc, gen) -> int:
+    """The rows' maxima kernel bitwise against ``absmax_rows(x + e)``, with
+    and without e, on aligned rows (16-byte loads), a ragged D and a
+    misaligned view (4-byte loads), with rows holding a NaN, ±inf, only
+    zeros, a denormal maximum, and only negative values; the int8 and fp8
+    scales made from its maxima bitwise equal to the plain ones.  Returns
+    the number of cases."""
+    from repro_torch.compress import quantize as cq
+
+    cases = 0
+    for n, width, offset in ((8, RAGGED_D - 3, 0), (8, RAGGED_D, 0),
+                             (8, RAGGED_D - 3, 1), (32, 4096, 0),
+                             (MAIN_N, MAIN_D, 0)):
+        buf = torch.randn(2, n * width + offset, device="cuda",
+                          generator=gen)
+        x = buf[0, offset:].view(n, width)
+        e = 0.01 * buf[1, offset:].view(n, width)
+        x[0, width // 3] = float("nan")
+        x[1, width - 1] = float("inf")
+        x[2, 0] = float("-inf")
+        x[3] = 0.0
+        e[3] = 0.0
+        x[4] *= 1e-39
+        e[4] *= 1e-39
+        x[5] = -x[5].abs()
+        for ef in (None, e):
+            m = mc.cmix_absmax(x, ef)
+            p = mc.cmix_absmax_plain(x, ef)
+            torch.cuda.synchronize()
+            if not _nan_equal(torch, m, p):
+                raise AssertionError(f"absmax n={n} D={width} offset="
+                                     f"{offset} ef={ef is not None}: {m} vs "
+                                     f"{p}")
+            y = x if ef is None else x + ef
+            for of_max, plain in ((cq.int8_scale_of_max, cq.int8_scale),
+                                  (cq.fp8_scale_of_max, cq.fp8_scale)):
+                if not _nan_equal(torch, of_max(m), plain(y)):
+                    raise AssertionError(f"{plain.__name__} from the "
+                                         f"kernel's maxima differs")
+            assert torch.isnan(m[0]).all() and m[1, 0] == float("inf")
+            assert m[2, 0] == float("inf") and m[3, 0] == 0.0
+            assert 0.0 < float(m[4, 0]) < 1.1754944e-38, float(m[4, 0])
+            cases += 1
+        del buf, x, e
+    return cases
+
+
+def check_cmix_kernel(torch, mc) -> tuple:
+    """cmix kernel vs its plain twin on the card, each case on the instance
+    that ``use_vector_cmix`` picks: every kind (int8, fp8 with error
+    feedback on and off; q precomputed from topk and randk), every phase
+    (gossip, global with and without the bf16 wire, pod_avg), n in {4, 8,
+    16, 32} at D near 1,000,000 (n = 4 and 8 at 1,000,003 on the generic
+    instance) and n = 8 at the embedding leaf.  The two do the same IEEE
+    operations in the same order on the same scale tensor (the wrapper
+    computes it), so the tolerance is 1e-6·max|x| on o and on the new EF
+    and the measured error is expected to be 0; where the register
+    instance takes a case, the generic one also runs it and the two agree
+    bitwise.  Constant fixed point: the rows of an equal-row state stay
+    bitwise equal in every case, and one-peer gossip returns the state
+    bitwise, for every kind, at D = 1,000,003 (generic instance) and
+    1,000,000 (both instances).  Then the rows' maxima
+    kernel (:func:`check_absmax`).  Returns the cmix record and the
+    maxima kernel's."""
     from repro_torch import compress as C
     from repro_torch.compress import quantize as cq
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst, cases = 0.0, 0
+    worst, cases, vector_cases = 0.0, 0, 0
     phases = (("gossip", "one_peer_exp", 1, False), ("global", "ring", 1,
                                                      False),
               ("global", "ring", 1, True), ("pod_avg", "ring", 2, False))
 
-    def run(x, e, kind, phase, topo, pods, wire, seed, q=None):
+    def run(x, e, kind, phase, topo, pods, wire, seed, q=None,
+            launch=None):
         n = x.shape[0]
         w, M = mc._device_compensated(phase, topo, n, 1, pods,
                                       torch.device("cuda"))
@@ -296,10 +478,11 @@ def check_cmix_kernel(torch, mc) -> dict:
             del y
         args = (x, e, q, seed, scale, w, M)
         kw = dict(kind=kind, with_ef=e is not None, wire=wire)
-        return mc.cmix_flat(*args, **kw), mc.cmix_flat_plain(*args, **kw)
+        out = (launch or mc.cmix_flat)(*args, **kw)
+        return out, (None if launch else mc.cmix_flat_plain(*args, **kw))
 
     def compare(x, e, kind, phase, topo, pods, wire, seed=7, q=None):
-        nonlocal worst, cases
+        nonlocal worst, cases, vector_cases
         (o, ef), (po, pef) = run(x, e, kind, phase, topo, pods, wire, seed,
                                  q)
         torch.cuda.synchronize()
@@ -307,11 +490,19 @@ def check_cmix_kernel(torch, mc) -> dict:
         if ef is not None:
             err = max(err, float((ef - pef).abs().max()))
         tol = 1e-6 * float(x.abs().max())
+        what = (f"cmix n={x.shape[0]} D={x.shape[1]} kind={kind} "
+                f"phase={phase} wire={wire} ef={e is not None}")
         if err > tol:
-            raise AssertionError(
-                f"cmix n={x.shape[0]} D={x.shape[1]} kind={kind} "
-                f"phase={phase} wire={wire} ef={e is not None}: max abs err "
-                f"{err:.3e} > {tol:.3e}")
+            raise AssertionError(f"{what}: max abs err {err:.3e} > "
+                                 f"{tol:.3e}")
+        if mc.use_vector_cmix(x, e, q):
+            (go, gef), _ = run(x, e, kind, phase, topo, pods, wire, seed, q,
+                               launch=mc.cmix_generic)
+            if not (torch.equal(o, go) and (ef is None
+                                            or torch.equal(ef, gef))):
+                raise AssertionError(f"{what}: register instance differs "
+                                     f"from the generic one")
+            vector_cases += 1
         worst = max(worst, err)
         cases += 1
 
@@ -322,13 +513,17 @@ def check_cmix_kernel(torch, mc) -> dict:
             q = None
             if comp is not None:
                 q = C.apply_tree(comp, {"w": x}, None, 5)[0]["w"]
-            (o, _), _ = run(x, None, kind, phase, topo, pods, wire, 5, q)
-            assert torch.equal(o, o[:1].expand_as(o)), (kind, phase)
-            if topo == "one_peer_exp":
-                assert torch.equal(o, x), (kind, phase)
+            vector = mc.use_vector_cmix(x, None, q)
+            for launch in ((mc.cmix_generic, mc.cmix_vector) if vector
+                           else (mc.cmix_generic,)):
+                (o, _), _ = run(x, None, kind, phase, topo, pods, wire, 5, q,
+                                launch=launch)
+                assert torch.equal(o, o[:1].expand_as(o)), (kind, phase)
+                if topo == "one_peer_exp":
+                    assert torch.equal(o, x), (kind, phase)
 
-    for n, width in ((4, RAGGED_D), (8, RAGGED_D), (32, RAGGED_D),
-                     (MAIN_N, MAIN_D)):
+    for n, width in ((4, RAGGED_D), (4, RAGGED_D - 3), (8, RAGGED_D),
+                     (16, RAGGED_D - 1), (32, RAGGED_D), (MAIN_N, MAIN_D)):
         x = torch.randn(n, width, device="cuda", generator=gen)
         e = 0.01 * torch.randn(n, width, device="cuda", generator=gen)
         for kind in ("int8", "fp8"):
@@ -345,7 +540,9 @@ def check_cmix_kernel(torch, mc) -> dict:
     for kind, name in (("int8", None), ("fp8", None),
                        ("precomputed", "topk"), ("precomputed", "randk")):
         comp = None if name is None else C.make_compressor(name, k=32)
-        fixed_point(8, RAGGED_D, kind, comp)
+        for width in (RAGGED_D, RAGGED_D - 3):
+            fixed_point(8, width, kind, comp)
+    absmax_cases = check_absmax(torch, mc, gen)
 
     # the main path's call timed at the embedding leaf: int8, EF, gossip
     n, D = MAIN_N, MAIN_D
@@ -356,28 +553,51 @@ def check_cmix_kernel(torch, mc) -> dict:
     scale = cq.int8_scale(x + e)
     args = (x, e, None, 7, scale, w, M)
     kw = dict(kind="int8", with_ef=True, wire=False)
-    ms = cuda_ms(torch, lambda: mc.cmix_flat(*args, **kw))
+    old_ms, ms = _turns(torch, lambda: mc.cmix_generic(*args, **kw),
+                        lambda: mc.cmix_vector(*args, **kw))
     plain_ms = cuda_ms(torch, lambda: mc.cmix_flat_plain(*args, **kw),
                        iters=5, warmup=1)
     # the yardstick covers the mix part only: M·q at the same shape
-    library_ms = cuda_ms(torch, lambda: torch.matmul(M, x))
+    library_ms = device_ms(torch, lambda: torch.matmul(M, x))
     bytes_moved = 4 * 4 * n * D                 # read x, e; write o, ef
     flops = (2 * n + 12) * n * D                # codec + mix per element
     bound_ms, bound_by = _bound(bytes_moved, flops)
-    print(f"[kernel] cmix int8+EF n={n} D={D}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.matmul(M, q) (the mix part only) "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
-          flush=True)
+    print(f"[kernel] cmix int8+EF n={n} D={D}: register instance {ms:.4f} "
+          f"ms, generic instance {old_ms:.4f} ms (device_ms, in turns), "
+          f"plain {plain_ms:.4f} ms, torch.matmul(M, q) (the mix part only)"
+          f" {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved, "
+          f"{100 * bound_ms / ms:.1f}% of the bound)", flush=True)
     print(f"[kernel] cmix: {cases} kernel-vs-plain cases within tolerance, "
-          f"max abs err {worst:.3e}; constant fixed point bitwise for int8, "
-          f"fp8, topk, randk", flush=True)
-    return {"name": "cmix_kernel", "route": "cuda",
-            "source": "src/repro_torch/csrc/cmix.cu",
-            "replaces": "src/repro/kernels/mixing_pallas.py:504",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+          f"max abs err {worst:.3e}; {vector_cases} of them on the register "
+          f"instance, bitwise equal to the generic one; constant fixed "
+          f"point bitwise for int8, fp8, topk, randk on both instances",
+          flush=True)
+    cmix_rec = {"name": "cmix_vector_kernel", "route": "cuda",
+                "source": "src/repro_torch/csrc/cmix.cu",
+                "replaces": "src/repro/kernels/mixing_pallas.py:504",
+                "launches": None, "max_abs_err": worst, "ms": ms,
+                "old_ms": old_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    # the rows' maxima of the same call: read x and e once
+    a_ms = device_ms(torch, lambda: mc.cmix_absmax(x, e))
+    a_plain_ms = device_ms(torch, lambda: mc.cmix_absmax_plain(x, e))
+    a_bytes = 2 * 4 * n * D
+    a_bound, a_by = _bound(a_bytes, 2 * n * D)
+    print(f"[kernel] cmix_absmax n={n} D={D} with e: kernel {a_ms:.4f} ms, "
+          f"plain amax(abs(x + e)) {a_plain_ms:.4f} ms (device_ms), bound "
+          f"{a_bound:.4f} ms by {a_by} ({a_bytes / (a_ms * 1e-3) / 1e9:.0f} "
+          f"GB/s achieved, {100 * a_bound / a_ms:.1f}% of the bound); "
+          f"{absmax_cases} cases bitwise equal to the plain maxima, NaN rows "
+          f"included", flush=True)
+    absmax_rec = {"name": "cmix_absmax_kernel", "route": "cuda",
+                  "source": "src/repro_torch/csrc/cmix.cu",
+                  "replaces": "src/repro/kernels/mixing_pallas.py:718",
+                  "launches": None, "max_abs_err": 0.0, "ms": a_ms,
+                  "plain_ms": a_plain_ms, "bound_ms": a_bound,
+                  "bound_by": a_by, "library_ms": None}
+    return cmix_rec, absmax_rec
 
 
 def check_collective_kernel(torch, mc) -> dict:
@@ -1356,7 +1576,11 @@ def counts() -> dict:
     from repro_torch.kernels import mixing_cuda as mc
     from repro_torch.kernels import mlstm_cuda as mk
     from repro_torch.kernels import rmsnorm_cuda as rn
-    return {"mix": mc.mix_flat.launches, "cmix": mc.cmix_flat.launches,
+    return {"mix": mc.mix_flat.launches,
+            "mix_vector": mc.mix_flat.vector_launches,
+            "cmix": mc.cmix_flat.launches,
+            "cmix_vector": mc.cmix_flat.vector_launches,
+            "cmix_absmax": mc.cmix_flat.absmax_launches,
             "collective": mc.collective_flat.launches,
             "mlstm": mk.mlstm_chunk.launches,
             "shard_mix": mc.shard_mix_block.launches,
@@ -1382,7 +1606,10 @@ def reset_counts() -> None:
     rn.rmsnorm.launches = 0
     rn.rmsnorm.vector_launches = 0
     mc.mix_flat.launches = 0
+    mc.mix_flat.vector_launches = 0
     mc.cmix_flat.launches = 0
+    mc.cmix_flat.vector_launches = 0
+    mc.cmix_flat.absmax_launches = 0
     mc.collective_flat.launches = 0
     mk.mlstm_chunk.launches = 0
     mc.shard_mix_block.launches = 0
@@ -1435,8 +1662,9 @@ def run_main_path(torch, mc, compressed: bool = False,
               flush=True)
     elif compressed:
         print(f"{tag} pga-lm-100m compressed: {per_node:,} params per node,"
-              f" {n_nodes} nodes, {len(leaves)} leaves (one cmix launch "
-              f"each per gossip round), one collective launch per global "
+              f" {n_nodes} nodes, {len(leaves)} leaves (one cmix_absmax "
+              f"and one cmix launch each per gossip round), one collective "
+              f"launch per global "
               f"round over {per_node:,} packed columns", flush=True)
     else:
         widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
@@ -1475,9 +1703,10 @@ def run_main_path(torch, mc, compressed: bool = False,
         key = "shard_cmix" if compressed else "shard_mix"
         expected = only(**{key: gossip * shards})
     elif compressed:
-        expected = only(cmix=gossip * len(leaves), collective=glob)
+        expected = only(cmix_vector=gossip * len(leaves),
+                        cmix_absmax=gossip * len(leaves), collective=glob)
     else:
-        expected = only(mix=len(groups) * steps)
+        expected = only(mix_vector=len(groups) * steps)
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} on the main path, "
                              f"expected {expected} ({gossip} gossip and "
@@ -1496,7 +1725,10 @@ def run_main_path(torch, mc, compressed: bool = False,
 
 
 KERNEL_KINDS = (("shard kernels", ("shard_mix_kernel", "shard_cmix_kernel")),
-                ("mix round", ("mix_kernel", "sum_partials")),
+                ("cmix round", ("cmix_kernel", "cmix_vector_kernel",
+                                "absmax")),
+                ("mix round", ("mix_kernel", "mix_vector_kernel",
+                               "sum_partials")),
                 ("mlstm kernel", ("mlstm_kernel",)),
                 ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                 ("softmax", ("softmax",)),
@@ -1594,12 +1826,17 @@ def profile_report(prof, wall_ms: float, tag: str, what: str) -> None:
 
 
 def compressed_round_times(torch, mc, tr, state) -> None:
-    """One compressed gossip round (int8 + EF, one cmix launch per leaf)
-    and one compressed global round (packing, one collective launch,
-    unpacking), each timed alone by CUDA events against the bytes bound
-    of its kernels (read x and e, write o and e')."""
+    """One compressed gossip round (int8 + EF, one row maxima and one cmix
+    launch per leaf) and one compressed global round (packing, one
+    collective launch, unpacking), each timed alone by CUDA events against
+    the bytes bound of its kernels (read x and e, write o and e'; the
+    gossip round reads x and e once more for its scales); the gossip round
+    again on contiguous copies of the leaves, then once more under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch import compress as C
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     dist = tr.tcfg.dist
     comp = C.make_compressor(dist.comm_compression)
@@ -1608,11 +1845,11 @@ def compressed_round_times(torch, mc, tr, state) -> None:
     moved = sum(4 * 4 * p.numel() for p in leaves)
     bound = moved / HBM_BYTES_PER_S * 1e3
 
-    def gossip():
-        mc.compressed_step_mix(state.params, compressor=comp,
-                               ef_state=state.ef_state, seed=3,
-                               phase="gossip", topology=dist.topology,
-                               n_nodes=tr.n_nodes, step=1)
+    def gossip(params=state.params, ef_state=state.ef_state):
+        mc.compressed_step_mix(params, compressor=comp, ef_state=ef_state,
+                               seed=3, phase="gossip",
+                               topology=dist.topology, n_nodes=tr.n_nodes,
+                               step=1)
 
     def global_round():
         mc.collective_step_mix(state.params, compressor=gcomp,
@@ -1621,10 +1858,32 @@ def compressed_round_times(torch, mc, tr, state) -> None:
 
     g_ms = cuda_ms(torch, gossip, iters=5, warmup=1)
     c_ms = cuda_ms(torch, global_round, iters=5, warmup=1)
+    # the state after a global round holds views into the collective's
+    # packed output (rows D apart), which the round copies into
+    # contiguous rows; the same round on contiguous copies of the leaves
+    params = tree_map(lambda t: t.contiguous(), state.params)
+    ef_state = tree_map(lambda t: t.contiguous(), state.ef_state)
+    views = sum(not t.is_contiguous() for t in tree_leaves(state.params))
+    gc_ms = cuda_ms(torch, lambda: gossip(params, ef_state), iters=5,
+                    warmup=1)
+    del params, ef_state
     print(f"[cround] one compressed gossip round (int8+EF, {len(leaves)} "
-          f"cmix launches): {g_ms:.3f} ms; one compressed global round "
-          f"(pack, collective, unpack): {c_ms:.3f} ms; bound of each "
-          f"{bound:.3f} ms ({moved / 1e9:.2f} GB)", flush=True)
+          f"cmix_absmax and {len(leaves)} cmix launches): {g_ms:.3f} ms on "
+          f"the state as the last (global) step left it ({views} of "
+          f"{len(leaves)} leaves views), {gc_ms:.3f} ms on contiguous "
+          f"copies (bound {bound * 1.5:.3f} ms with the maxima's pass over "
+          f"x and e); one compressed global round (pack, collective, "
+          f"unpack): {c_ms:.3f} ms; bound of each round's cmix or "
+          f"collective launches {bound:.3f} ms ({moved / 1e9:.2f} GB)",
+          flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gossip()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, wall_ms, "[cprofile]",
+                   "one compressed gossip round")
 
 
 def sharded_round_times(torch, mc, tr, state, compressed: bool) -> None:
@@ -1980,16 +2239,24 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     cuda_build.build()
-    print(f"[build] {', '.join(f'{k}.cu' for k in cuda_build.ENTRY_POINTS)} "
+    print(f"[build] {', '.join(f'{k}.cu' for k in cuda_build.LIBRARIES)} "
           f"in {time.perf_counter() - t0:.1f} s, one nvcc each in parallel "
           f"({cuda_build._Libs.build_seconds})", flush=True)
     for name, log in cuda_build._Libs.build_log.items():
         print(f"[build] {name}.cu:\n{log.strip()}", flush=True)
     print(f"[build] flash_attention_wgmma.cu: {hgmma_count(cuda_build)}",
           flush=True)
+    for name, kernel in (("mix", "mix_vector_kernel"),
+                         ("cmix", "cmix_vector_kernel")):
+        log = cuda_build._Libs.build_log.get(name)
+        lines = (["built before this run: no ptxas report"] if log is None
+                 else register_report(log, kernel))
+        for line in lines + sass_memory_counts(cuda_build, name):
+            print(f"[build] {name}.cu: {line}", flush=True)
     records = [check_mix_kernel(torch, mc)]
     torch.cuda.empty_cache()
-    records.append(check_cmix_kernel(torch, mc))
+    cmix_rec, absmax_rec = check_cmix_kernel(torch, mc)
+    records.append(cmix_rec)
     torch.cuda.empty_cache()
     records.append(check_collective_kernel(torch, mc))
     torch.cuda.empty_cache()
@@ -2000,6 +2267,7 @@ def main() -> int:
     records.extend(check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
     records.append(check_rmsnorm_kernel(torch, rn))
+    records.append(absmax_rec)
     if args.kernels_only:
         print(json.dumps({"kernels": records}))
         return 1
@@ -2016,9 +2284,10 @@ def main() -> int:
     compressed_round_times(torch, mc, tr, state)
     del tr, state
     torch.cuda.empty_cache()
-    records[0]["launches"] = slice1["mix"]
-    records[1]["launches"] = slice2["cmix"]
+    records[0]["launches"] = slice1["mix_vector"]
+    records[1]["launches"] = slice2["cmix_vector"]
     records[2]["launches"] = slice2["collective"]
+    records[9]["launches"] = slice2["cmix_absmax"]
     records[3]["launches"] = run_serving_path(torch)
     torch.cuda.empty_cache()
     for compressed in (False, True):

@@ -30,7 +30,9 @@ _FP8_MASK = (1 << _FP8_DROP) - 1
 _LOG2_FP8_MAX = float(torch.tensor(math.log2(448.0), dtype=torch.float32))
 
 
-def _absmax_rows(y2: torch.Tensor) -> torch.Tensor:
+def absmax_rows(y2: torch.Tensor) -> torch.Tensor:
+    """(rows, 1) maxima of |y2| along the last axis (NaN where a row holds
+    one)."""
     return torch.amax(torch.abs(y2), dim=-1, keepdim=True)
 
 
@@ -40,7 +42,12 @@ def _absmax_rows(y2: torch.Tensor) -> torch.Tensor:
 def int8_scale(y2: torch.Tensor) -> torch.Tensor:
     """(rows, 1) per-row scale so codes land in [−127, 127]; an all-zero
     row maps to scale 1."""
-    m = _absmax_rows(y2)
+    return int8_scale_of_max(absmax_rows(y2))
+
+
+def int8_scale_of_max(m: torch.Tensor) -> torch.Tensor:
+    """:func:`int8_scale` from the rows' maxima ``m`` = ``absmax_rows(y2)``
+    (the compressed round's kernel computes them on the card)."""
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, one bit off the IEEE quotient
     return torch.where(m > 0, m / torch.full_like(m, 127.0),
@@ -81,7 +88,11 @@ class Int8Compressor(Compressor):
 # ---------------------------------------------------------------------------
 def fp8_scale(y2: torch.Tensor) -> torch.Tensor:
     """(rows, 1) power-of-two scale with ``absmax/scale ≤ 448``."""
-    m = _absmax_rows(y2)
+    return fp8_scale_of_max(absmax_rows(y2))
+
+
+def fp8_scale_of_max(m: torch.Tensor) -> torch.Tensor:
+    """:func:`fp8_scale` from the rows' maxima ``m`` = ``absmax_rows(y2)``."""
     e = torch.ceil(torch.log2(torch.clamp(m, min=1e-30)) - _LOG2_FP8_MAX)
     e = torch.clamp(e, -100.0, 100.0)
     return torch.where(m > 0, torch.exp2(e), torch.ones_like(m))

@@ -26,24 +26,37 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _LL, _I, _U, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_uint, ctypes.c_float)
-# library name -> (entry point, argtypes); every pointer and the stream as
-# c_void_p (a plain int would be cut to 32 bits)
+# entry point -> (library, C symbol, argtypes); a library is one source,
+# csrc/<library>.cu.  Every pointer and the stream as c_void_p (a plain int
+# would be cut to 32 bits), every long long as c_longlong.
 ENTRY_POINTS = {
-    "mix": ("repro_mix", [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
-    "cmix": ("repro_cmix", [_P] * 8 + [_U, _LL] + [_I] * 5 + [_P]),
-    "collective": ("repro_collective",
+    "mix": ("mix", "repro_mix", [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
+    "mix_vector": ("mix", "repro_mix_vector",
+                   [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
+    "cmix": ("cmix", "repro_cmix", [_P] * 8 + [_U, _LL] + [_I] * 5 + [_P]),
+    "cmix_vector": ("cmix", "repro_cmix_vector",
+                    [_P] * 8 + [_U, _LL] + [_I] * 4 + [_P]),
+    "cmix_absmax": ("cmix", "repro_cmix_absmax",
+                    [_P] * 4 + [_LL] + [_I] * 3 + [_P]),
+    "collective": ("collective", "repro_collective",
                    [_P] * 4 + [_U, _U, _LL] + [_I] * 6 + [_P]),
-    "mlstm": ("repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
-    "shard_mix": ("repro_shard_mix", [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
-    "shard_cmix": ("repro_shard_cmix", [_P] * 6 + [_LL] + [_I] * 3 + [_P]),
-    "flash_attention": ("repro_flash_attention",
-                        [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4 + [_P]),
-    "flash_attention_wgmma": ("repro_flash_attention_wgmma",
+    "mlstm": ("mlstm", "repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
+    "shard_mix": ("shard_mix", "repro_shard_mix",
+                  [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
+    "shard_cmix": ("shard_cmix", "repro_shard_cmix",
+                   [_P] * 6 + [_LL] + [_I] * 3 + [_P]),
+    "flash_attention": ("flash_attention", "repro_flash_attention",
+                        [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4
+                        + [_P]),
+    "flash_attention_wgmma": ("flash_attention_wgmma",
+                              "repro_flash_attention_wgmma",
                               [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4
                               + [_P]),
-    "rmsnorm": ("repro_rmsnorm",
+    "rmsnorm": ("rmsnorm", "repro_rmsnorm",
                 [_P] * 3 + [_LL, _I, _LL, _F, _F, _I, _I, _I, _P]),
 }
+# the libraries, one nvcc each
+LIBRARIES = tuple(dict.fromkeys(lib for lib, _, _ in ENTRY_POINTS.values()))
 # dynamic shared memory a block may opt into on the H100 (227 KB)
 MAX_SMEM = 232_448
 
@@ -79,9 +92,9 @@ def _lib_path(name: str) -> Path:
 
 def build(*names: str) -> Dict[str, ctypes.CDLL]:
     """Compile (in parallel) and load the named libraries — all of
-    :data:`ENTRY_POINTS` by default.  ``_Libs.build_log`` keeps each
+    :data:`LIBRARIES` by default.  ``_Libs.build_log`` keeps each
     ``nvcc -Xptxas -v`` report, ``_Libs.build_seconds`` its wall time."""
-    names = names or tuple(ENTRY_POINTS)
+    names = names or LIBRARIES
     todo = [n for n in names if n not in _Libs.handles]
     if not todo:
         return {n: _Libs.handles[n] for n in names}
@@ -111,14 +124,17 @@ def build(*names: str) -> Dict[str, ctypes.CDLL]:
         raise RuntimeError("repro_torch: nvcc failed on " + "\n".join(failed))
     for name in todo:
         lib = ctypes.CDLL(str(_lib_path(name)))
-        entry, argtypes = ENTRY_POINTS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for library, symbol, argtypes in ENTRY_POINTS.values():
+            if library == name:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _Libs.handles[name] = lib
     return {n: _Libs.handles[n] for n in names}
 
 
 def entry(name: str):
-    """The bound C entry point of library ``name`` (built on first use)."""
-    return getattr(build(name)[name], ENTRY_POINTS[name][0])
+    """The bound C entry point ``name`` of :data:`ENTRY_POINTS` (its
+    library built on first use)."""
+    library, symbol, _ = ENTRY_POINTS[name]
+    return getattr(build(library)[library], symbol)

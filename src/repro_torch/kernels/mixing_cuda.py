@@ -12,7 +12,9 @@ the kernel's oracle on the card — for a CPU tensor:
 * ``cmix.cu`` (``_cmix_kernel``): the compensated compressed round
   ``o = x + (M·q − w⊙q)`` with int8/fp8 stochastic codes of ``x + e``
   made in the kernel, or ``q`` given (topk/randk);
-  :func:`cmix_flat` / :func:`cmix_flat_plain`;
+  :func:`cmix_flat` / :func:`cmix_flat_plain`; and the rows' maxima of
+  ``|x + e|`` from which its scales are made, :func:`cmix_absmax` /
+  :func:`cmix_absmax_plain`;
 * ``collective.cu`` (``_collective_kernel``): the two-stage compressed
   global/pod average per 1024-column block;
   :func:`collective_flat` / :func:`collective_flat_plain`;
@@ -23,9 +25,17 @@ the kernel's oracle on the card — for a CPU tensor:
   ``x + (M_r · qs − w ⊙ q_self)``;
   :func:`shard_comp_mix_block` / :func:`shard_comp_mix_block_plain`.
 
-Each wrapper counts its launches in ``<wrapper>.launches``.  The kernels
-are built on first use by :mod:`repro_torch.kernels.cuda_build`; importing
-this module builds nothing.
+Each wrapper counts its launches in ``<wrapper>.launches``.  The mix and
+cmix rounds have two instances each, picked by one rule
+(:func:`use_vector_mix`, :func:`use_vector_cmix`): the register instance
+(16-byte accesses, the columns in registers; counted in
+``mix_flat.vector_launches`` / ``cmix_flat.vector_launches``) for n in
+:data:`VECTOR_NODES`, D a multiple of its vector width and 16-byte aligned
+rows, and the generic one (``.launches``) for the rest; the two compute
+the same bits.  :func:`cmix_absmax` counts in
+``cmix_flat.absmax_launches``.  The kernels are built on first use by
+:mod:`repro_torch.kernels.cuda_build`; importing this module builds
+nothing.
 
 Uncompressed rounds concatenate leaves below ``leaf_threshold`` per-node
 elements into one private staging buffer, which the kernel consumes in
@@ -57,6 +67,14 @@ LEAF_DISPATCH_THRESHOLD = 262_144
 # dynamic shared memory a block of mix.cu may opt into: the H100's 227 KB
 # less the kernel's 4 KB static reduction buffer
 _MAX_SMEM = cuda_build.MAX_SMEM - 4_096
+# node counts of the register instances of mix.cu and cmix.cu
+VECTOR_NODES = (4, 8, 16, 32)
+# the register instance of mix.cu: at most this many blocks, one residual
+# partial each (the H100 holds at most 8 blocks of 256 threads on each of
+# its 132 multiprocessors)
+VECTOR_MAX_GRID = 2048
+# cmix.cu's row maxima: at most this many blocks per row (kAbsmaxMaxChunks)
+ABSMAX_MAX_CHUNKS = 256
 
 
 # ---------------------------------------------------------------------------
@@ -196,25 +214,79 @@ def _check_operands(caller: str, xf: torch.Tensor, others) -> torch.device:
     return dev
 
 
-def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace):
+def vector_width(n: int) -> int:
+    """Columns a thread of the register instances holds at n nodes (16
+    bytes a row up to n = 8), as ``vec_width`` in mix.cu and cmix.cu."""
+    return 4 if n <= 8 else (2 if n <= 16 else 1)
+
+
+def _vector_rows(n: int, D: int, tensors) -> bool:
+    return (n in VECTOR_NODES and D % vector_width(n) == 0
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                    for t in tensors))
+
+
+def use_vector_mix(xf: torch.Tensor,
+                   gf: Optional[torch.Tensor] = None) -> bool:
+    """Whether a CUDA round on ``xf`` (n, D) (and ``gf``) launches the
+    register instance of mix.cu: n in :data:`VECTOR_NODES`, D a multiple
+    of :func:`vector_width`, contiguous operands at 16-byte aligned
+    pointers (so every row is aligned; the outputs are fresh or ``xf``).
+    Pure: reads shapes, strides and pointers only."""
     n, D = xf.shape
+    return _vector_rows(n, D, [xf] + ([gf] if gf is not None else []))
+
+
+def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace,
+            vector: bool):
+    n, D = xf.shape
+    if xf.device.type != "cuda":
+        raise ValueError("mix kernel: CUDA operands expected")
+    if vector and not use_vector_mix(xf, gf if with_g else None):
+        raise ValueError("mix_vector: operands outside use_vector_mix's rule")
     o = xf if inplace else torch.empty_like(xf)
     block = _block_size(n)
     dev = xf.device
     xbar = partial = resid = None
     if with_residual:
         xbar = torch.empty((1, D), dtype=torch.float32, device=dev)
-        partial = torch.empty(((D + block - 1) // block,),
-                              dtype=torch.float32, device=dev)
+        partial = torch.empty(
+            (VECTOR_MAX_GRID if vector else (D + block - 1) // block,),
+            dtype=torch.float32, device=dev)
         resid = torch.empty((), dtype=torch.float32, device=dev)
-
-    stream = _stream(dev)
-    err = cuda_build.entry("mix")(
-        _ptr(xf), _ptr(gf), _ptr(gamma), _ptr(d), _ptr(M), _ptr(o),
-        _ptr(xbar), _ptr(partial), _ptr(resid), D, n, int(with_g),
-        int(wire), int(with_residual), block, stream)
-    _check_launch(err, f"mix (n={n}, D={D}, block={block})")
+    args = (_ptr(xf), _ptr(gf), _ptr(gamma), _ptr(d), _ptr(M), _ptr(o),
+            _ptr(xbar), _ptr(partial), _ptr(resid), D, n, int(with_g),
+            int(wire), int(with_residual))
+    if vector:
+        err = cuda_build.entry("mix_vector")(*args, VECTOR_MAX_GRID,
+                                             _stream(dev))
+    else:
+        err = cuda_build.entry("mix")(*args, block, _stream(dev))
+    _check_launch(err, f"mix (n={n}, D={D}, vector={vector})")
     return (o, xbar, resid) if with_residual else o
+
+
+def mix_generic(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
+                wire: bool, inplace: bool = False):
+    """Launch mix.cu's generic instance on CUDA operands (any n, D and
+    alignment); counted in ``mix_flat.launches``."""
+    out = _launch(xf, gf, gamma, d, M, with_g=with_g,
+                  with_residual=with_residual, wire=wire, inplace=inplace,
+                  vector=False)
+    mix_flat.launches += 1
+    return out
+
+
+def mix_vector(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
+               wire: bool, inplace: bool = False):
+    """Launch mix.cu's register instance on CUDA operands that
+    :func:`use_vector_mix` accepts (raises otherwise); counted in
+    ``mix_flat.vector_launches``."""
+    out = _launch(xf, gf, gamma, d, M, with_g=with_g,
+                  with_residual=with_residual, wire=wire, inplace=inplace,
+                  vector=True)
+    mix_flat.vector_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -253,8 +325,9 @@ def mix_flat(xf: torch.Tensor, gf: Optional[torch.Tensor],
     """Run the fused round over an already-packed ``(n, D)`` fp32 matrix.
 
     Returns ``o`` or, with ``with_residual``, ``(o, xbar (1, D),
-    residual)``.  A CUDA ``xf`` launches the kernel (counted in
-    ``mix_flat.launches``); a CPU ``xf`` takes :func:`mix_flat_plain`.
+    residual)``.  A CUDA ``xf`` launches the instance of mix.cu that
+    :func:`use_vector_mix` picks (:func:`mix_vector` or
+    :func:`mix_generic`); a CPU ``xf`` takes :func:`mix_flat_plain`.
     ``inplace`` lets the kernel write ``o`` into ``xf``: only for a private
     staging buffer that nobody reads again.
     """
@@ -268,13 +341,14 @@ def mix_flat(xf: torch.Tensor, gf: Optional[torch.Tensor],
     if dev.type == "cpu":
         return mix_flat_plain(xf, gf, gamma, d, M, with_g=with_g,
                               with_residual=with_residual, wire=wire)
-    out = _launch(xf, gf, gamma, d, M, with_g=with_g,
+    launch = (mix_vector if use_vector_mix(xf, gf if with_g else None)
+              else mix_generic)
+    return launch(xf, gf, gamma, d, M, with_g=with_g,
                   with_residual=with_residual, wire=wire, inplace=inplace)
-    mix_flat.launches += 1
-    return out
 
 
 mix_flat.launches = 0
+mix_flat.vector_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +491,16 @@ def cmix_flat_plain(xf, ef, qf, seed, scale, w, M, *, kind: str,
     return xf + (acc - w * q), ef_out
 
 
+def use_vector_cmix(xf: torch.Tensor, ef: Optional[torch.Tensor] = None,
+                    qf: Optional[torch.Tensor] = None) -> bool:
+    """Whether a CUDA round on ``xf`` (n, D) (with ``ef`` or ``qf``)
+    launches the register instance of cmix.cu: the rule of
+    :func:`use_vector_mix` over every row operand (the outputs are fresh).
+    Pure: reads shapes, strides and pointers only."""
+    n, D = xf.shape
+    return _vector_rows(n, D, [t for t in (xf, ef, qf) if t is not None])
+
+
 def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],
               qf: Optional[torch.Tensor], seed: int,
               scale: Optional[torch.Tensor], w: torch.Tensor,
@@ -426,10 +510,23 @@ def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],
 
     ``kind``: "int8"/"fp8" make ``q`` in the kernel from ``x (+ ef)``,
     the per-row ``scale`` and the uint32 ``seed``; "precomputed" takes
-    ``qf``.  A CUDA ``xf`` launches ``cmix.cu`` (counted in
-    ``cmix_flat.launches``) into fresh outputs; a CPU ``xf`` takes
-    :func:`cmix_flat_plain`.
+    ``qf``.  A CUDA ``xf`` launches, into fresh outputs, the instance of
+    cmix.cu that :func:`use_vector_cmix` picks (:func:`cmix_vector` or
+    :func:`cmix_generic`); a CPU ``xf`` takes :func:`cmix_flat_plain`.
     """
+    quant, with_ef = _check_cmix(xf, ef, qf, scale, w, M, kind, with_ef)
+    if xf.device.type == "cpu":
+        return cmix_flat_plain(xf, ef, qf, seed, scale, w, M, kind=kind,
+                               with_ef=with_ef, wire=wire)
+    vector = use_vector_cmix(xf, ef if with_ef else None,
+                             None if quant else qf)
+    launch = cmix_vector if vector else cmix_generic
+    return launch(xf, ef, qf, seed, scale, w, M, kind=kind, with_ef=with_ef,
+                  wire=wire)
+
+
+def _check_cmix(xf, ef, qf, scale, w, M, kind, with_ef):
+    """Operand checks of the cmix wrappers; returns ``(quant, with_ef)``."""
     if kind not in CMIX_KINDS:
         raise ValueError(f"cmix_flat: unknown kind {kind!r} "
                          f"(expected one of {tuple(CMIX_KINDS)})")
@@ -443,24 +540,92 @@ def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],
     if any(t.shape != xf.shape for t in operands[3:] if t is not None) or (
             quant and tuple(scale.shape) != (n, 1)):
         raise ValueError("cmix_flat: q/ef must match x and scale be (n, 1)")
-    dev = _check_operands("cmix_flat", xf, operands)
-    if dev.type == "cpu":
-        return cmix_flat_plain(xf, ef, qf, seed, scale, w, M, kind=kind,
-                               with_ef=with_ef, wire=wire)
+    _check_operands("cmix_flat", xf, operands)
+    return quant, with_ef
+
+
+def _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
+                 vector: bool):
+    quant, with_ef = _check_cmix(xf, ef, qf, scale, w, M, kind, with_ef)
+    if xf.device.type != "cuda":
+        raise ValueError("cmix kernel: CUDA operands expected")
+    if vector and not use_vector_cmix(xf, ef if with_ef else None,
+                                      None if quant else qf):
+        raise ValueError("cmix_vector: operands outside use_vector_cmix's "
+                         "rule")
+    n, D = xf.shape
     o = torch.empty_like(xf)
     ef_out = torch.empty_like(xf) if with_ef else None
-    block = _block_size(n)
-    err = cuda_build.entry("cmix")(
-        _ptr(xf), _ptr(ef if with_ef else None), _ptr(None if quant else qf),
-        _ptr(scale if quant else None), _ptr(w), _ptr(M), _ptr(o),
-        _ptr(ef_out), int(seed) & 0xFFFFFFFF, D, n, CMIX_KINDS[kind],
-        int(with_ef), int(wire), block, _stream(dev))
-    _check_launch(err, f"cmix (n={n}, D={D}, kind={kind})")
-    cmix_flat.launches += 1
+    args = (_ptr(xf), _ptr(ef if with_ef else None),
+            _ptr(None if quant else qf), _ptr(scale if quant else None),
+            _ptr(w), _ptr(M), _ptr(o), _ptr(ef_out), int(seed) & 0xFFFFFFFF,
+            D, n, CMIX_KINDS[kind], int(with_ef), int(wire))
+    if vector:
+        err = cuda_build.entry("cmix_vector")(*args, _stream(xf.device))
+    else:
+        err = cuda_build.entry("cmix")(*args, _block_size(n),
+                                       _stream(xf.device))
+    _check_launch(err, f"cmix (n={n}, D={D}, kind={kind}, vector={vector})")
     return o, ef_out
 
 
+def cmix_generic(xf, ef, qf, seed, scale, w, M, *, kind: str, with_ef: bool,
+                 wire: bool):
+    """Launch cmix.cu's generic instance on CUDA operands; counted in
+    ``cmix_flat.launches``."""
+    out = _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
+                       vector=False)
+    cmix_flat.launches += 1
+    return out
+
+
+def cmix_vector(xf, ef, qf, seed, scale, w, M, *, kind: str, with_ef: bool,
+                wire: bool):
+    """Launch cmix.cu's register instance on CUDA operands that
+    :func:`use_vector_cmix` accepts (raises otherwise); counted in
+    ``cmix_flat.vector_launches``."""
+    out = _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
+                       vector=True)
+    cmix_flat.vector_launches += 1
+    return out
+
+
 cmix_flat.launches = 0
+cmix_flat.vector_launches = 0
+cmix_flat.absmax_launches = 0
+
+
+def cmix_absmax_plain(xf: torch.Tensor,
+                      ef: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the rows' maxima: ``(n, 1)`` of
+    ``max_j |x_kj + e_kj|`` (``|x_kj|`` without ``ef``)."""
+    from repro_torch.compress import quantize as cq
+    return cq.absmax_rows(xf if ef is None else xf + ef)
+
+
+def cmix_absmax(xf: torch.Tensor,
+                ef: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rows' maxima from which the compressed round makes its int8/fp8
+    scales, reading x and e once and writing no ``x + e``.  A CUDA ``xf``
+    launches cmix.cu's ``repro_cmix_absmax`` (counted in
+    ``cmix_flat.absmax_launches``); a CPU ``xf`` takes
+    :func:`cmix_absmax_plain`.  Both give the same bits, NaN rows
+    included."""
+    if ef is not None and ef.shape != xf.shape:
+        raise ValueError("cmix_absmax: ef must match x")
+    dev = _check_operands("cmix_absmax", xf, [] if ef is None else [ef])
+    if dev.type == "cpu":
+        return cmix_absmax_plain(xf, ef)
+    n, D = xf.shape
+    m = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    partial = torch.empty((n * ABSMAX_MAX_CHUNKS,), dtype=torch.float32,
+                          device=dev)
+    err = cuda_build.entry("cmix_absmax")(
+        _ptr(xf), _ptr(ef), _ptr(partial), _ptr(m), D, n, int(ef is not None),
+        ABSMAX_MAX_CHUNKS, _stream(dev))
+    _check_launch(err, f"cmix_absmax (n={n}, D={D})")
+    cmix_flat.absmax_launches += 1
+    return m
 
 
 def collective_flat_plain(xf, ef, s1: int, s2: int, *, kind: str,
@@ -538,8 +703,8 @@ def compressed_step_mix(params: PyTree, *, compressor,
     """Fused compressed round ``mixed = x + (M·q − (1−d)⊙q)``, ``q`` the
     compressed-wire estimate of ``x (+ ef)``, one kernel pass per leaf.
 
-    int8/fp8 make ``q`` in the kernel (the per-leaf scale is the one extra
-    reduction, in the wrapper); topk/randk precompute ``q`` with the
+    int8/fp8 make ``q`` in the kernel (the per-leaf scale comes from the
+    rows' maxima of ``x + ef``, :func:`cmix_absmax`); topk/randk precompute ``q`` with the
     reference codec and the kernel fuses the compensated mix.  Returns
     ``(mixed, new_ef_state)`` (None without ``ef_state``).  The consensus
     residual does not fuse with compression: callers use
@@ -590,10 +755,9 @@ def _compressed_leaf_loop(params: PyTree, compressor, ef_state, seed,
         else:
             e2 = (e.reshape(n, -1).to(torch.float32).contiguous()
                   if e is not None else None)
-            y2 = x2 if e2 is None else x2 + e2
-            scale = (cq.int8_scale(y2) if kind == "int8"
-                     else cq.fp8_scale(y2))
-            del y2
+            m = cmix_absmax(x2, e2)
+            scale = (cq.int8_scale_of_max(m) if kind == "int8"
+                     else cq.fp8_scale_of_max(m))
             mixed, ef_out = cmix_flat(
                 x2, e2, None, compress_mod.leaf_seed(seed, i), scale, w, M,
                 kind=kind, with_ef=with_ef, wire=wire)

@@ -481,3 +481,104 @@ def test_distconfig_vocabularies_and_wire_bytes_match_reference():
                 == JC.round_wire_bytes(phase, topo, N, sum(sizes), **kw)
     assert TC.collective_wire_bytes("int8", 2152) == \
         jcol.collective_wire_bytes("int8", 2152)
+
+
+# ---------------------------------------------------------------------------
+# The compressed round on the card: the rule between cmix.cu's instances,
+# and the rows' maxima its scales come from
+# ---------------------------------------------------------------------------
+def _rows(n, D, offset=0):
+    """An (n, D) float32 view whose first element lies ``offset`` elements
+    past a 16-byte boundary."""
+    buf = torch.zeros(n * D + 8)
+    start = (-buf.data_ptr() % 16) // 4 + offset
+    return buf[start:start + n * D].view(n, D)
+
+
+# (n, D, offsets of x, e, q (None: not passed), want)
+CMIX_VECTOR_RULE = [
+    (8, 1000, (0, None, None), True), (8, 1000, (0, 0, None), True),
+    (8, 1000, (0, None, 0), True), (4, 1000, (0, 0, None), True),
+    (16, 1002, (0, 0, None), True), (32, 1001, (0, 0, None), True),
+    (3, 1000, (0, 0, None), False), (8, 1001, (0, 0, None), False),
+    (8, 1000, (1, 0, None), False), (8, 1000, (0, 1, None), False),
+    (8, 1000, (0, None, 3), False),
+]
+
+
+@pytest.mark.parametrize("n,D,offsets,want", CMIX_VECTOR_RULE)
+def test_use_vector_cmix_rule(n, D, offsets, want):
+    x, e, q = (None if o is None else _rows(n, D, o) for o in offsets)
+    assert tmc.use_vector_cmix(x, e, q) is want
+
+
+def test_use_vector_cmix_takes_the_main_path_leaf():
+    x = torch.empty((8, 25_165_824), device="meta")
+    assert tmc.use_vector_cmix(x, x) and tmc.use_vector_cmix(x, None, x)
+
+
+def _maxima_edge_rows():
+    """(8, 41) x and e whose rows hold a NaN, +inf, -inf, only zeros, a
+    denormal maximum, only negative values, and inf + (-inf)."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((8, 41)).astype(np.float32)
+    e = (0.01 * rng.standard_normal((8, 41))).astype(np.float32)
+    x[0, 7] = np.nan
+    x[1, 40] = np.inf
+    x[2, 0] = -np.inf
+    x[3] = e[3] = 0.0
+    x[4] *= np.float32(1e-39)
+    e[4] *= np.float32(1e-39)
+    x[5] = -np.abs(x[5])
+    x[6, 3], e[6, 3] = np.inf, -np.inf
+    return torch.from_numpy(x), torch.from_numpy(e)
+
+
+@pytest.mark.parametrize("with_ef", (False, True))
+def test_absmax_plain_matches_the_amax_of_x_plus_e(with_ef):
+    """The maxima kernel's plain version (and the CPU wrapper) equal
+    ``absmax_rows(x + e)`` bitwise, NaN rows included; the NaN, infinite,
+    zero and denormal rows come out as torch.amax makes them."""
+    x, e = _maxima_edge_rows()
+    ef = e if with_ef else None
+    want = tq.absmax_rows(x + e if with_ef else x)
+    launches = tmc.cmix_flat.absmax_launches
+    for got in (tmc.cmix_absmax_plain(x, ef), tmc.cmix_absmax(x, ef)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert torch.isnan(got[0, 0]) and float(got[1, 0]) == np.inf
+        assert float(got[2, 0]) == np.inf and float(got[3, 0]) == 0.0
+        assert 0.0 < float(got[4, 0]) < 2.0 ** -126
+        assert bool(torch.isnan(got[6, 0])) is with_ef
+    assert tmc.cmix_flat.absmax_launches == launches
+    with pytest.raises(ValueError, match="ef must match"):
+        tmc.cmix_absmax(x, e[:, :40])
+
+
+@pytest.mark.parametrize("kind", ("int8", "fp8"))
+def test_scales_of_the_maxima_equal_the_scales(kind):
+    """``int8_scale``/``fp8_scale`` split as a function of the rows'
+    maxima: bitwise the same scales (NaN and infinite rows included), and
+    on the edge rows bitwise the reference's."""
+    of_max, scale, jscale = ((tq.int8_scale_of_max, tq.int8_scale,
+                              jq.int8_scale) if kind == "int8" else
+                             (tq.fp8_scale_of_max, tq.fp8_scale,
+                              jq.fp8_scale))
+    x, e = _maxima_edge_rows()
+    for y in (x, x + e, torch.from_numpy(_edge_rows())):
+        _bits_equal(of_max(tq.absmax_rows(y)).numpy(), scale(y).numpy())
+    y = _edge_rows()
+    _bits_equal(of_max(tq.absmax_rows(torch.from_numpy(y))).numpy(),
+                jscale(jnp.asarray(y)))
+
+
+@pytest.mark.parametrize("launcher", ["cmix_generic", "cmix_vector"])
+def test_cmix_direct_launchers_refuse_cpu_operands(launcher):
+    x = _rows(8, 1000)
+    w, M = (torch.from_numpy(a) for a in tmix.compensated_round_factors(
+        "gossip", "ring", 8))
+    before = (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tmc, launcher)(x, None, None, 3, tq.int8_scale(x), w, M,
+                               kind="int8", with_ef=False, wire=False)
+    assert (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches) == before

@@ -19,8 +19,10 @@ emulates that rounding on the CPU and holds it to the check the card run
 applies (``flash_attention_cuda.wgmma_tolerance`` and ``WGMMA_RMS_RATIO``
 against the float64 twin).
 """
+import ctypes
 import math
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -518,3 +520,49 @@ def test_gemma2_model_is_refused():
             blocks.check_supported(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
             make_model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# The ctypes rows of the C entry points
+# ---------------------------------------------------------------------------
+_C_SCALARS = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint,
+              "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+def _c_entry_points() -> dict:
+    """``{symbol: (library, argtypes)}`` parsed from every ``extern "C"
+    int repro_*(...)`` in ``csrc/*.cu``: a pointer is a c_void_p, a scalar
+    its ctypes type."""
+    found = {}
+    for path in sorted(cuda_build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (repro_\w+)\(([^)]*)\)',
+                             path.read_text()):
+            types = []
+            for param in m.group(2).split(","):
+                words = param.replace("const", " ").split()
+                if "*" in param:
+                    types.append(ctypes.c_void_p)
+                else:
+                    types.append(_C_SCALARS[" ".join(words[:-1])])
+            found[m.group(1)] = (path.stem, types)
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build.ENTRY_POINTS))
+def test_entry_point_rows_match_the_c_signatures(name):
+    """Each ``cuda_build.ENTRY_POINTS`` row names its source's library and
+    has the C function's arity, with c_void_p for every pointer and
+    c_longlong for every long long: a 64-bit argument passed as a 32-bit
+    int would be cut without a word."""
+    library, symbol, argtypes = cuda_build.ENTRY_POINTS[name]
+    found = _c_entry_points()
+    assert symbol in found, f"{symbol} is in no csrc/*.cu"
+    assert found[symbol][0] == library
+    assert argtypes == found[symbol][1]
+
+
+def test_every_c_entry_point_has_a_row():
+    assert set(_c_entry_points()) == {
+        symbol for _, symbol, _ in cuda_build.ENTRY_POINTS.values()}
+    assert set(cuda_build.LIBRARIES) == {
+        p.stem for p in cuda_build.CSRC.glob("*.cu")}

@@ -227,3 +227,65 @@ def test_round_frees_its_outputs_without_the_cyclic_collector():
         assert all(r() is None for r in refs)
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# The rule between mix.cu's two instances (pure: shapes, strides, pointers)
+# ---------------------------------------------------------------------------
+def _rows(n, D, offset=0):
+    """An (n, D) float32 view whose first element lies ``offset`` elements
+    past a 16-byte boundary."""
+    buf = torch.zeros(n * D + 8)
+    start = (-buf.data_ptr() % 16) // 4 + offset
+    return buf[start:start + n * D].view(n, D)
+
+
+# (n, D, offset of x, offset of g (None: no g), want)
+VECTOR_RULE = [
+    (4, 1000, 0, None, True), (8, 1000, 0, None, True),
+    (16, 1002, 0, None, True), (32, 1001, 0, None, True),
+    (8, 1000, 0, 0, True),
+    (2, 1000, 0, None, False), (5, 1000, 0, None, False),
+    (64, 1000, 0, None, False),
+    (8, 1001, 0, None, False), (4, 1002, 0, None, False),
+    (16, 1001, 0, None, False),
+    (8, 1000, 1, None, False), (8, 1000, 2, None, False),
+    (8, 1000, 0, 1, False),
+]
+
+
+@pytest.mark.parametrize("n,D,x_off,g_off,want", VECTOR_RULE)
+def test_use_vector_mix_rule(n, D, x_off, g_off, want):
+    x = _rows(n, D, x_off)
+    g = None if g_off is None else _rows(n, D, g_off)
+    assert tmc.use_vector_mix(x, g) is want
+
+
+@pytest.mark.parametrize("D", (19_200, 7_077_888, 25_165_824, 28_311_552))
+def test_use_vector_mix_takes_the_main_path_widths(D):
+    """Every launch width of pga-lm-100m's fused round at 8 nodes (the
+    norms' staging buffer, the attention projections, the embedding, the
+    MLP matrices) takes the register instance; meta tensors stand in for
+    the gigabyte operands (their pointer is 0, so aligned)."""
+    x = torch.empty((8, D), device="meta")
+    assert tmc.use_vector_mix(x) and tmc.use_vector_mix(x, x)
+
+
+def test_use_vector_mix_refuses_strided_rows():
+    x = _rows(8, 2000)
+    assert not tmc.use_vector_mix(x[:, ::2])
+    assert not tmc.use_vector_mix(x.t().contiguous().t())
+
+
+@pytest.mark.parametrize("launcher", ["mix_generic", "mix_vector"])
+def test_mix_direct_launchers_refuse_cpu_operands(launcher):
+    """The launchers of one instance (which chip_smoke times and compares
+    directly) take CUDA operands only and count nothing on the CPU."""
+    x = _rows(8, 1000)
+    d, M = (torch.from_numpy(a) for a in tmc.phase_matrices("gossip", "ring",
+                                                            8))
+    before = (tmc.mix_flat.launches, tmc.mix_flat.vector_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tmc, launcher)(x, None, None, d, M, with_g=False,
+                               with_residual=True, wire=False)
+    assert (tmc.mix_flat.launches, tmc.mix_flat.vector_launches) == before
