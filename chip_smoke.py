@@ -9,14 +9,15 @@ Phases (any failure raises, so the run exits non-zero and prints no ok
 line):
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions, and the nine kernel libraries built from
+   versions, and the ten kernel libraries built from
    ``src/repro_torch/csrc/`` (``mix.cu``, ``cmix.cu``, ``collective.cu``,
-   ``mlstm.cu``, ``shard_mix.cu``, ``shard_cmix.cu``,
+   ``mlstm.cu``, ``mlstm_wgmma.cu``, ``shard_mix.cu``, ``shard_cmix.cu``,
    ``flash_attention.cu``, ``flash_attention_wgmma.cu``, ``rmsnorm.cu``;
    one nvcc each, all at once) with their ``-Xptxas -v`` reports, the
-   count of ``HGMMA`` (tensor-core) instructions in the tensor-core flash
-   kernel's SASS, and the registers and spills of the mix and cmix
-   register instances with their global and shared loads and stores;
+   count of ``HGMMA`` (tensor-core) instructions in the SASS of the two
+   tensor-core kernels (flash attention, mLSTM), and the registers and
+   spills of the mix and cmix register instances (with their global and
+   shared loads and stores) and of the tensor-core mLSTM kernel;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, each case on the instance its dispatch rule
    picks (the mix and cmix register instances also bitwise against the
@@ -31,8 +32,8 @@ line):
 3. slice 5's path (``[ops]``, :func:`run_ops_path`): the substrate entry
    points ``repro_torch.kernels.ops`` at full width (pga-lm-100m's and
    gemma2-9b's attention and norm calls, the xlstm-125m mLSTM call, and
-   pga-lm-100m's attention in float32), one launch of the right kernel
-   per call and no plain twin;
+   pga-lm-100m's attention and the mLSTM call in float32), one launch of
+   the right kernel per call and no plain twin;
 4. slice 1's main path: the decentralized ``Trainer`` on pga-lm-100m at
    full width (8 nodes stacked on the card, Gossip-PGA with H = 3 over
    the one-peer exponential graph, fused kernel mixing with the consensus
@@ -45,8 +46,8 @@ line):
    its launch counts read the same way, then one compressed gossip round
    and one compressed global round timed alone;
 6. slice 3's main path: serving xlstm-125m at full width through the
-   mLSTM kernel (:func:`run_serving_path`: ``Engine.generate`` and
-   ``BatchedServer.run``), its launch counts read the same way;
+   tensor-core mLSTM kernel (:func:`run_serving_path`: ``Engine.generate``
+   and ``BatchedServer.run``), its launch counts read the same way;
 7. slice 4's main paths: the same trainer on a mesh of 4 node shards
    (2 nodes each) on the card, ``comm_shard_mode="sharded"``, every round
    shard by shard through the per-shard kernels: uncompressed with the
@@ -60,8 +61,9 @@ line):
    compared; the sharded trainers also against the stacked ones on the
    card (``[scross]``).
 
-The last three lines of standard output are the card's name and power
-limit, one JSON object with the kernel records, and the ok line.  The
+Every kernel's record must show launches on a main path.  The last three
+lines of standard output are the card's name and power limit, one JSON
+object with the kernel records, and the ok line.  The
 script imports nothing of JAX: the card's machine has none.
 """
 from __future__ import annotations
@@ -101,20 +103,20 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hgmma_count(cuda_build) -> str:
+def hgmma_count(cuda_build, name: str) -> str:
     """The count of tensor-core (``HGMMA``) instructions in the SASS of
-    the tensor-core flash kernel's library, by ``cuobjdump -sass``; raises
-    if there are none."""
+    the library ``name`` (a tensor-core kernel's), by ``cuobjdump -sass``;
+    raises if there are none."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
         "cuobjdump"
     if not tool.exists():
         return "cuobjdump absent, HGMMA instructions not counted"
-    lib = cuda_build._lib_path("flash_attention_wgmma")
+    lib = cuda_build._lib_path(name)
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     n = sum("HGMMA" in line for line in sass.splitlines())
     if n == 0:
-        raise AssertionError("flash_attention_wgmma.cu: no HGMMA in its SASS")
+        raise AssertionError(f"{name}.cu: no HGMMA in its SASS")
     return f"{n} HGMMA instructions in its SASS (cuobjdump -sass)"
 
 
@@ -733,27 +735,44 @@ def mlstm_inputs(torch, gen, B, S, nh, dk, dv, dtype, strided=False,
     return q, k, v, li, lf
 
 
-def check_mlstm_kernel(torch, mk) -> dict:
-    """mLSTM kernel vs its plain twin on the card, on h and on the final
-    (C, n, m).  Cases: the JAX kernel test's sweep and a prompt of 6 (L = 8
-    with padding); at full width (nh 8, dk 96, dv 192, chunk 64) B ∈ {1, 8}
-    × S ∈ {2000, 2048}, the serving admissions' B = 1 × S ∈ {6, 100, 1000}
-    (S = 6 takes the padded L = 8 layout), one case read through strided
-    views, all with wide gates, and B = 8 × S = 2048 and B = 1 × S = 1000
-    with gates at the model's scale; each in float32 and with bf16 q, k, v.
+def check_mlstm_kernel(torch, mk) -> list:
+    """Both mLSTM kernels vs their plain twin on the card, on h and on the
+    final (C, n, m), each case's launch checked: float32 goes to
+    ``mlstm.cu``, bf16 to ``mlstm_wgmma.cu`` where
+    :func:`~repro_torch.kernels.mlstm_cuda.use_wgmma` takes it (chunk 64,
+    or one chunk of S <= 64; dk, dv multiples of 8) and to ``mlstm.cu``
+    otherwise; every bf16 case the tensor-core instance takes also runs
+    through ``mlstm.cu`` (``mlstm_simt``) under that kernel's gates.  Cases:
+    the JAX kernel test's sweep and a prompt of 6 (L = 8 with padding); at
+    full width (nh 8, dk 96, dv 192, chunk 64) B ∈ {1, 8} × S ∈ {2000,
+    2048}, the serving admissions' B = 1 × S ∈ {6, 100, 1000} (S = 6 takes
+    the padded L = 8 layout), one case read through strided views, all
+    with wide gates, and B = 8 × S = 2048 and B = 1 × S = 1000 with gates
+    at the model's scale; each in float32 and with bf16 q, k, v.
 
-    Tolerances.  State: max abs error ≤ 1e-5 · max|ref| on C, n and m.
-    h, element by element, against the twin run in float64 (``ex``) and
-    its error scale (``scale``, see ``mlstm_cuda.chunkwise``: about |h|
-    where nothing cancels, large only in rows whose denominator or
-    numerator cancels, where every float32 order loses digits):
-    |h − ex| ≤ out·|ex| + 1e-5·(|ex| + scale), with out = 0 for float32 h
-    and 8e-3 (one bf16 ulp) for bf16 h; the float32 twin passes at under
-    1e-6 in scale units.  Kernel vs float32 twin, element by element:
-    |h − twin| ≤ out·|ex| + 2e-5·(|ex| + scale), and over the whole case
-    max|h − twin| ≤ 2e-3 (float32) / 8e-3 (bf16) · max|twin|.  The cases
-    with model-scale gates, where no row comes near cancelling, also hold
-    max|h − ex| ≤ 1e-5 (float32) / 8e-3 (bf16) · max|ex|."""
+    Tolerances.  State, both kernels: max abs error ≤ 1e-5 · max|ref| on
+    C, n and m, and m bit for bit the twin's.  ``mlstm.cu``, h element by
+    element against the twin run in float64 (``ex``) and its error scale
+    (``scale``, see ``mlstm_cuda.chunkwise``: about |h| where nothing
+    cancels, large only in rows whose denominator or numerator cancels,
+    where every float32 order loses digits): |h − ex| ≤ out·|ex| +
+    1e-5·(|ex| + scale), with out = 0 for float32 h and 8e-3 (one bf16
+    ulp) for bf16 h; the float32 twin passes at under 1e-6 in scale
+    units.  Kernel vs float32 twin, element by element: |h − twin| ≤
+    out·|ex| + 2e-5·(|ex| + scale), and over the whole case max|h − twin|
+    ≤ 2e-3 (float32) / 8e-3 (bf16) · max|twin|.  ``mlstm_wgmma.cu``, which
+    rounds P and C to bf16 before their products: the same element gates
+    with ``WGMMA_UNIT`` (2^-8) added to each allowance
+    (``mlstm_cuda.wgmma_excess``).  The cases with model-scale gates,
+    where no row comes near cancelling, also hold max|h − ex| ≤ 1e-5
+    (float32) / 8e-3 (bf16) · max|ex|.
+
+    Timing at the serving shape (B = 8, S = 2048) and at B = 1: both
+    kernels on the same bf16 operands by :func:`device_ms` in turns, the
+    tensor-core instance against the bytes and bf16 tensor-core bound, the
+    twin by :func:`cuda_ms`; ``mlstm.cu``'s float32 call at B = 8 against
+    its fp32 bound.  Returns the records of ``mlstm.cu`` (the float32
+    path) and ``mlstm_wgmma.cu``."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = [c + (False, "wide") for c in MLSTM_SWEEP]
     full = (MLSTM_FULL["nh"], MLSTM_FULL["dk"], MLSTM_FULL["dv"],
@@ -764,110 +783,188 @@ def check_mlstm_kernel(torch, mk) -> dict:
     cases.append((2, 300) + full + (True, "wide"))
     cases += [(8, 2048) + full + (False, "model"),
               (1, 1000) + full + (False, "model")]
-    worst, n_cases, failures, m_equal = 0.0, 0, [], True
+    worst = {"mlstm": 0.0, "mlstm_wgmma": 0.0}
+    n_cases = {"mlstm": 0, "mlstm_wgmma": 0}
+    m_equal = {"mlstm": True, "mlstm_wgmma": True}
+    failures = []
     rel = {"h32": 0.0, "h16": 0.0, "k64": 0.0, "t64": 0.0, "state": 0.0,
-           "scaled": 0.0, "model32": 0.0, "model16": 0.0}
+           "scaled": 0.0, "model32": 0.0, "model16": 0.0, "wg_h": 0.0,
+           "wg_state": 0.0, "wg_scaled": 0.0, "wg_model": 0.0}
+
+    def hold(kernel, dtype, h, state, rh, rstate, ex, scale, where, gates):
+        wg = kernel == "mlstm_wgmma"
+        m_equal[kernel] = m_equal[kernel] and torch.equal(state[2],
+                                                          rstate[2])
+        for name, a, b in zip(("C", "n", "m"), state, rstate):
+            err = float((a - b).abs().max())
+            worst[kernel] = max(worst[kernel], err)
+            ref_max = float(b.abs().max())
+            key = "wg_state" if wg else "state"
+            rel[key] = max(rel[key], err / max(ref_max, 1e-30))
+            if not err <= 1e-5 * ref_max:
+                failures.append(f"{where} {kernel}: {name} max abs err "
+                                f"{err:.3e}")
+        if not bool(torch.isfinite(h).all()):
+            failures.append(f"{where} {kernel}: h not finite")
+        h, rh = h.double(), rh.double()
+        err_k, err_t = (h - ex).abs(), (rh - ex).abs()
+        err_kt = (h - rh).abs()
+        ex_max, rh_max = float(ex.abs().max()), float(rh.abs().max())
+        unit = ex.abs() + scale
+        out = MLSTM_OUT_TOL[str(dtype)]
+        if wg:
+            over = mk.wgmma_excess(h, ex, ex, scale, MLSTM_ACC_TOL)
+            over_kt = mk.wgmma_excess(h, rh, ex, scale, 2 * MLSTM_ACC_TOL)
+            kt_ok = True
+            rel["wg_h"] = max(rel["wg_h"], float(err_kt.max()) / rh_max)
+            rel["wg_scaled"] = max(rel["wg_scaled"], float(
+                ((err_k - out * ex.abs()) / unit).max()))
+        else:
+            over = err_k - out * ex.abs() - MLSTM_ACC_TOL * unit
+            over_kt = err_kt - out * ex.abs() - 2 * MLSTM_ACC_TOL * unit
+            kt_tol = 2e-3 if dtype == torch.float32 else 8e-3
+            kt_ok = float(err_kt.max()) <= kt_tol * rh_max
+        if float(over.max()) > 0:
+            i = int(over.argmax())
+            failures.append(
+                f"{where} {kernel}: h vs float64 "
+                f"{float(err_k.flatten()[i]):.3e} at |ex| "
+                f"{float(ex.abs().flatten()[i]):.3e}, scale "
+                f"{float(scale.flatten()[i]):.3e}")
+        if float(over_kt.max()) > 0 or not kt_ok:
+            failures.append(f"{where} {kernel}: h vs twin max abs err "
+                            f"{float(err_kt.max()):.3e}, max|twin| "
+                            f"{rh_max:.3e}")
+        if gates == "model":
+            key = ("wg_model" if wg else "model32" if dtype == torch.float32
+                   else "model16")
+            r = float(err_k.max()) / ex_max
+            rel[key] = max(rel[key], r)
+            if not r <= (1e-5 if dtype == torch.float32 else 8e-3):
+                failures.append(f"{where} {kernel}: h vs float64 {r:.3e} of "
+                                f"max|ex|")
+        if not wg:
+            key = "h32" if dtype == torch.float32 else "h16"
+            rel[key] = max(rel[key], float(err_kt.max()) / rh_max)
+        if wg or dtype == torch.float32:
+            worst[kernel] = max(worst[kernel], float(err_kt.max()))
+        if not wg and dtype == torch.float32:
+            rel["k64"] = max(rel["k64"], float(err_k.max()) / ex_max)
+            rel["t64"] = max(rel["t64"], float(err_t.max()) / ex_max)
+            rel["scaled"] = max(rel["scaled"], float((err_k / unit).max()))
+        n_cases[kernel] += 1
+
     for B, S, nh, dk, dv, chunk, strided, gates in cases:
         for dtype in (torch.float32, torch.bfloat16):
             args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, dtype, strided,
                                 gates)
+            wg = mk.use_wgmma(*args[:3], mk.chunk_len(chunk, S))
+            expect = "mlstm_wgmma" if wg else "mlstm"
+            torch.cuda.synchronize()
+            reset_counts()
             h, state = mk.mlstm_chunk(*args, chunk=chunk)
-            rh, rstate = mk.mlstm_chunk_plain(*args, chunk=chunk)
-            ex, _, scale = mk.mlstm_chunk_plain(
-                *(t.double() for t in args), chunk=chunk, error_scale=True)
             torch.cuda.synchronize()
             where = (f"B={B} S={S} nh={nh} dk={dk} dv={dv} L={chunk} "
                      f"strided={strided} gates={gates} {dtype}")
-            m_equal = m_equal and torch.equal(state[2], rstate[2])
-            for name, a, b in zip(("C", "n", "m"), state, rstate):
-                err = float((a - b).abs().max())
-                worst = max(worst, err)
-                ref_max = float(b.abs().max())
-                rel["state"] = max(rel["state"], err / max(ref_max, 1e-30))
-                if not err <= 1e-5 * ref_max:
-                    failures.append(f"{where}: {name} max abs err {err:.3e}")
-            h, rh = h.double(), rh.double()
-            out = MLSTM_OUT_TOL[str(dtype)]
-            unit = ex.abs() + scale
-            err_k, err_t = (h - ex).abs(), (rh - ex).abs()
-            err_kt = (h - rh).abs()
-            ex_max, rh_max = float(ex.abs().max()), float(rh.abs().max())
-            over = err_k - out * ex.abs() - MLSTM_ACC_TOL * unit
-            over_kt = err_kt - out * ex.abs() - 2 * MLSTM_ACC_TOL * unit
-            kt_tol = 2e-3 if dtype == torch.float32 else 8e-3
-            if not bool(torch.isfinite(h).all()):
-                failures.append(f"{where}: h not finite")
-            if float(over.max()) > 0:
-                i = int(over.argmax())
-                failures.append(
-                    f"{where}: h vs float64 {float(err_k.flatten()[i]):.3e} "
-                    f"at |ex| {float(ex.abs().flatten()[i]):.3e}, scale "
-                    f"{float(scale.flatten()[i]):.3e}")
-            if float(over_kt.max()) > 0 \
-                    or not float(err_kt.max()) <= kt_tol * rh_max:
-                failures.append(f"{where}: h vs twin max abs err "
-                                f"{float(err_kt.max()):.3e}, max|twin| "
-                                f"{rh_max:.3e}")
-            if gates == "model":
-                key = "model32" if dtype == torch.float32 else "model16"
-                r = float(err_k.max()) / ex_max
-                rel[key] = max(rel[key], r)
-                if not r <= (1e-5 if dtype == torch.float32 else 8e-3):
-                    failures.append(f"{where}: h vs float64 {r:.3e} of "
-                                    f"max|ex|")
-            key = "h32" if dtype == torch.float32 else "h16"
-            rel[key] = max(rel[key], float(err_kt.max()) / rh_max)
-            if dtype == torch.float32:
-                worst = max(worst, float(err_kt.max()))
-                rel["k64"] = max(rel["k64"], float(err_k.max()) / ex_max)
-                rel["t64"] = max(rel["t64"], float(err_t.max()) / ex_max)
-                rel["scaled"] = max(rel["scaled"],
-                                    float((err_k / unit).max()))
-            n_cases += 1
-            del args, h, state, rh, rstate, ex, scale, unit
+            if counts() != only(**{expect: 1}):
+                raise AssertionError(f"mlstm {where}: launches {counts()}, "
+                                     f"expected one {expect}")
+            rh, rstate = mk.mlstm_chunk_plain(*args, chunk=chunk)
+            ex, _, scale = mk.mlstm_chunk_plain(
+                *(t.double() for t in args), chunk=chunk, error_scale=True)
+            hold(expect, dtype, h, state, rh, rstate, ex, scale, where, gates)
+            if wg:   # the same bf16 operands on mlstm.cu, its own gates
+                h2, state2 = mk.mlstm_simt(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                hold("mlstm", dtype, h2, state2, rh, rstate, ex, scale,
+                     where, gates)
+                del h2, state2
+            del args, h, state, rh, rstate, ex, scale
     if failures:
         raise AssertionError("mlstm kernel vs plain:\n" + "\n".join(failures))
-    print(f"[kernel] mlstm: {n_cases} kernel-vs-plain cases within "
-          f"tolerance; max abs err {worst:.3e} (float32 h vs twin, state); "
-          f"max error over max|ref|: state {rel['state']:.3e}, float32 h vs "
-          f"twin {rel['h32']:.3e}, bf16 h vs twin {rel['h16']:.3e}; "
-          f"float32 h vs float64: kernel {rel['k64']:.3e}, twin "
-          f"{rel['t64']:.3e}, kernel per element in units of |ex| + scale "
-          f"{rel['scaled']:.3e}; model-scale gates, h vs float64 over "
-          f"max|ex|: float32 {rel['model32']:.3e}, bf16 {rel['model16']:.3e}"
-          f"; m equal to the twin's bit for bit in every case: {m_equal}",
-          flush=True)
+    print(f"[kernel] mlstm: {sum(n_cases.values())} kernel-vs-plain cases "
+          f"within tolerance, {n_cases['mlstm_wgmma']} on mlstm_wgmma.cu and "
+          f"{n_cases['mlstm']} on mlstm.cu (every bf16 case of the first "
+          f"also on the second); max abs err {worst['mlstm']:.3e} (mlstm.cu"
+          f", float32 h vs twin, state), {worst['mlstm_wgmma']:.3e} "
+          f"(mlstm_wgmma.cu, bf16 h vs twin, state)", flush=True)
+    print(f"[kernel] mlstm mlstm.cu: max error over max|ref|: state "
+          f"{rel['state']:.3e}, float32 h vs twin {rel['h32']:.3e}, bf16 h "
+          f"vs twin {rel['h16']:.3e}; float32 h vs float64: kernel "
+          f"{rel['k64']:.3e}, twin {rel['t64']:.3e}, kernel per element in "
+          f"units of |ex| + scale {rel['scaled']:.3e}; model-scale gates, h "
+          f"vs float64 over max|ex|: float32 {rel['model32']:.3e}, bf16 "
+          f"{rel['model16']:.3e}; m equal to the twin's bit for bit in every"
+          f" case: {m_equal['mlstm']}", flush=True)
+    print(f"[kernel] mlstm mlstm_wgmma.cu: max error over max|ref|: state "
+          f"{rel['wg_state']:.3e}, bf16 h vs twin {rel['wg_h']:.3e}; h vs "
+          f"float64 beyond one bf16 ulp, per element in units of |ex| + "
+          f"scale {rel['wg_scaled']:.3e} (allowed {mk.WGMMA_UNIT:.3e} + "
+          f"{MLSTM_ACC_TOL:.0e}); model-scale gates, h vs float64 over "
+          f"max|ex| {rel['wg_model']:.3e}; m equal to the twin's bit for bit"
+          f" in every case: {m_equal['mlstm_wgmma']}", flush=True)
+    if not all(m_equal.values()):
+        raise AssertionError(f"mlstm: m not bit for bit the twin's: "
+                             f"{m_equal}")
     timings = {}
+    S, (nh, dk, dv, L) = 2048, full
     for B in (8, 1):
-        S, (nh, dk, dv, L) = 2048, full
         args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, torch.bfloat16)
-        ms = cuda_ms(torch, lambda: mk.mlstm_chunk(*args, chunk=L))
+        simt_ms, ms = _turns(torch, lambda: mk.mlstm_simt(*args, chunk=L),
+                             lambda: mk.mlstm_wgmma(*args, chunk=L))
         plain_ms = cuda_ms(torch, lambda: mk.mlstm_chunk_plain(*args,
                                                                chunk=L),
                            iters=5, warmup=1)
-        bound_ms, bound_by = _bound(*mlstm_work(B, S, nh, dk, dv, L))
+        bytes_moved, flops = mlstm_work(B, S, nh, dk, dv, L)
+        b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / BF16_TC_FLOP_PER_S * 1e3
+        bound_ms, bound_by = max(b_ms, f_ms), ("bytes" if b_ms >= f_ms
+                                               else "operations")
+        simt_bound, simt_by = _bound(bytes_moved, flops)
         timings[B] = (ms, plain_ms, bound_ms, bound_by)
         print(f"[kernel] mlstm B={B} S={S} nh={nh} dk={dk} dv={dv} L={L} "
-              f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single "
-              f"PyTorch call computes it, bound {bound_ms:.4f} ms by "
-              f"{bound_by}", flush=True)
+              f"bf16: mlstm_wgmma.cu {ms:.4f} ms on the card ("
+              f"{bound_ms / ms:.1%} of its bound {bound_ms:.4f} ms by "
+              f"{bound_by}: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s, "
+              f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s), mlstm.cu "
+              f"{simt_ms:.4f} ms ({simt_ms / ms:.1f}x; fp32 bound "
+              f"{simt_bound:.4f} ms by {simt_by}), in turns; plain "
+              f"{plain_ms:.4f} ms; no single PyTorch call computes it",
+              flush=True)
         del args
+    B = 8
+    args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, torch.float32)
+    ms32 = device_ms(torch, lambda: mk.mlstm_chunk(*args, chunk=L))
+    plain32 = cuda_ms(torch, lambda: mk.mlstm_chunk_plain(*args, chunk=L),
+                      iters=5, warmup=1)
+    bound32, by32 = _bound(*mlstm_work(B, S, nh, dk, dv, L, itemsize=4))
+    print(f"[kernel] mlstm B={B} S={S} nh={nh} dk={dk} dv={dv} L={L} float32"
+          f": mlstm.cu {ms32:.4f} ms on the card, plain {plain32:.4f} ms, "
+          f"bound {bound32:.4f} ms by {by32} (fp32 operations at 67 "
+          f"TFLOP/s)", flush=True)
+    del args
     ms, plain_ms, bound_ms, bound_by = timings[8]
-    return {"name": "mlstm_kernel", "route": "cuda",
-            "source": "src/repro_torch/csrc/mlstm.cu",
-            "replaces": "src/repro/kernels/mlstm_chunk.py:32",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    record = dict(route="cuda", replaces="src/repro/kernels/mlstm_chunk.py:32",
+                  launches=None, library_ms=None)
+    return [dict(record, name="mlstm_kernel",
+                 source="src/repro_torch/csrc/mlstm.cu",
+                 max_abs_err=worst["mlstm"], ms=ms32, plain_ms=plain32,
+                 bound_ms=bound32, bound_by=by32),
+            dict(record, name="mlstm_wgmma_kernel",
+                 source="src/repro_torch/csrc/mlstm_wgmma.cu",
+                 max_abs_err=worst["mlstm_wgmma"], ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)]
 
 
-def mlstm_work(B, S, nh, dk, dv, L):
-    """``(bytes, flops)`` the chunkwise mLSTM needs at bf16 q, k, v: read
-    q, k, v and the two float32 gates once, write h (bf16) and the float32
-    state once; per chunk of each (b, h) the causal pairs' scores and
-    weighted values, L(L+1)/2 · 2(dk + dv), plus q·C and kᵀv, 4 L dk dv."""
+def mlstm_work(B, S, nh, dk, dv, L, itemsize=2):
+    """``(bytes, flops)`` the chunkwise mLSTM needs at q, k, v of
+    ``itemsize`` bytes (bf16 by default): read q, k, v and the two float32
+    gates once, write h (q's type) and the float32 state once; per chunk
+    of each (b, h) the causal pairs' scores and weighted values,
+    L(L+1)/2 · 2(dk + dv), plus q·C and kᵀv, 4 L dk dv."""
     nc = -(-S // L)
-    bytes_moved = (2 * B * S * nh * (2 * dk + 2 * dv) + 4 * 2 * B * S * nh
+    bytes_moved = (itemsize * B * S * nh * (2 * dk + 2 * dv)
+                   + 4 * 2 * B * S * nh
                    + 4 * B * nh * (dk * dv + dk + 1))
     flops = B * nh * nc * (L * (L + 1) * (dk + dv) + 4 * L * dk * dv)
     return bytes_moved, flops
@@ -1490,12 +1587,13 @@ def run_ops_path(torch) -> dict:
     them: ``flash_attention_op`` on the three attention shapes,
     ``rmsnorm_op`` on the three norm calls and ``mlstm_chunk_op`` once at
     the serving shape (B = 8, S = 2048, xlstm-125m's heads), all in bf16,
-    then ``flash_attention_op`` on pga-lm-100m's attention in float32.
-    Each call's launch counts are set to 0 just before it and read just
-    after: exactly one launch of its kernel and none of another (bf16
-    attention the tensor-core kernel, float32 attention the fp32 one, the
-    norms the vector instance); the plain twins are replaced by a function
-    that raises for the whole phase.  Returns the launches per kernel."""
+    then ``mlstm_chunk_op`` on the same inputs and ``flash_attention_op``
+    on pga-lm-100m's attention in float32.  Each call's launch counts are
+    set to 0 just before it and read just after: exactly one launch of its
+    kernel and none of another (bf16 attention and mLSTM the tensor-core
+    kernels, float32 the fp32 ones, the norms the vector instance); the
+    plain twins are replaced by a function that raises for the whole
+    phase.  Returns the launches per kernel."""
     from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mlstm_cuda as mk
     from repro_torch.kernels import ops
@@ -1521,8 +1619,13 @@ def run_ops_path(torch) -> dict:
     m_args = mlstm_inputs(torch, gen, 8, S, MLSTM_FULL["nh"],
                           MLSTM_FULL["dk"], MLSTM_FULL["dv"], torch.bfloat16,
                           gates="model")
-    calls.append(("mlstm B=8 S=2048", "mlstm", lambda: ops.mlstm_chunk_op(
-        *m_args, chunk=MLSTM_FULL["chunk"])))
+    calls.append(("mlstm B=8 S=2048", "mlstm_wgmma",
+                  lambda: ops.mlstm_chunk_op(*m_args,
+                                             chunk=MLSTM_FULL["chunk"])))
+    m_args32 = [t.float() for t in m_args]
+    calls.append(("mlstm B=8 S=2048 float32", "mlstm",
+                  lambda: ops.mlstm_chunk_op(*m_args32,
+                                             chunk=MLSTM_FULL["chunk"])))
     dims, causal, window, cap = attention["lm100m_attn"]
     qkv32 = _flash_inputs(torch, gen, *dims, torch.float32)
     calls.append(("lm100m_attn float32", "flash",
@@ -1559,10 +1662,10 @@ def run_ops_path(torch) -> dict:
     finally:
         for (mod, attr), fn in zip(twins, saved):
             setattr(mod, attr, fn)
-    del calls, m_args, qkv32
+    del calls, m_args, m_args32, qkv32
     torch.cuda.empty_cache()
     print(f"[ops] {len(attention) + 1} flash_attention_op, "
-          f"{sum(len(o) for _, o in norms.values())} rmsnorm_op, 1 "
+          f"{sum(len(o) for _, o in norms.values())} rmsnorm_op, 2 "
           f"mlstm_chunk_op calls through their kernels: {total}", flush=True)
     return total
 
@@ -1583,6 +1686,7 @@ def counts() -> dict:
             "cmix_absmax": mc.cmix_flat.absmax_launches,
             "collective": mc.collective_flat.launches,
             "mlstm": mk.mlstm_chunk.launches,
+            "mlstm_wgmma": mk.mlstm_chunk.wgmma_launches,
             "shard_mix": mc.shard_mix_block.launches,
             "shard_cmix": mc.shard_comp_mix_block.launches,
             "flash": fa.flash_attention.launches,
@@ -1612,6 +1716,7 @@ def reset_counts() -> None:
     mc.cmix_flat.absmax_launches = 0
     mc.collective_flat.launches = 0
     mk.mlstm_chunk.launches = 0
+    mk.mlstm_chunk.wgmma_launches = 0
     mc.shard_mix_block.launches = 0
     mc.shard_comp_mix_block.launches = 0
 
@@ -1949,8 +2054,9 @@ def run_serving_path(torch) -> int:
     2000 tokens (31 whole chunks and a tail of 16), 32 new tokens, greedy;
     (b) ``BatchedServer.run`` with prompts of 6, 100, 1000 and 2048 tokens
     on 2 slots, 16 new tokens each.  The launch counts are set to 0 just
-    before each and read just after: 10 mLSTM launches per prefill, no
-    other kernel.  Returns the mLSTM launches of (a) and (b)."""
+    before each and read just after: 10 launches of the tensor-core mLSTM
+    kernel per prefill (bf16 q, k, v, the model's einsum views), no other
+    kernel.  Returns its launches in (a) and (b)."""
     import numpy as np
 
     from repro_torch.models.model import make_model
@@ -1977,9 +2083,10 @@ def run_serving_path(torch) -> int:
     ids = engine.generate(params, prompts, n_new)
     gen_s = time.perf_counter() - t0
     launches_a = counts()
-    if launches_a != only(mlstm=n_mlstm):
+    if launches_a != only(mlstm_wgmma=n_mlstm):
         raise AssertionError(f"[serve] generate launches {launches_a}, "
-                             f"expected {n_mlstm} mlstm (one prefill)")
+                             f"expected {n_mlstm} mlstm_wgmma (one "
+                             f"prefill)")
     peak_a = torch.cuda.max_memory_allocated() / 1e9
     assert ids.shape == (B, n_new), ids.shape
     assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
@@ -2042,10 +2149,10 @@ def run_serving_path(torch) -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches_b = counts()
-    if launches_b != only(mlstm=n_mlstm * len(lengths)):
+    if launches_b != only(mlstm_wgmma=n_mlstm * len(lengths)):
         raise AssertionError(f"[serve] batched launches {launches_b}, "
-                             f"expected {n_mlstm} mlstm per prefill × "
-                             f"{len(lengths)}")
+                             f"expected {n_mlstm} mlstm_wgmma per prefill "
+                             f"× {len(lengths)}")
     assert sorted(r.uid for r in done) == list(range(len(lengths)))
     for r in done:
         assert r.done and len(r.generated) == max_new, r
@@ -2055,7 +2162,7 @@ def run_serving_path(torch) -> int:
           f"{len(lengths) * max_new / run_s:.1f} generated tokens/s, peak "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
           f"launches {launches_b}; every request answered", flush=True)
-    return launches_a["mlstm"] + launches_b["mlstm"]
+    return launches_a["mlstm_wgmma"] + launches_b["mlstm_wgmma"]
 
 
 def serving_cross_check(torch) -> None:
@@ -2244,38 +2351,48 @@ def main() -> int:
           f"({cuda_build._Libs.build_seconds})", flush=True)
     for name, log in cuda_build._Libs.build_log.items():
         print(f"[build] {name}.cu:\n{log.strip()}", flush=True)
-    print(f"[build] flash_attention_wgmma.cu: {hgmma_count(cuda_build)}",
-          flush=True)
+    for name in ("flash_attention_wgmma", "mlstm_wgmma"):
+        print(f"[build] {name}.cu: {hgmma_count(cuda_build, name)}",
+              flush=True)
     for name, kernel in (("mix", "mix_vector_kernel"),
-                         ("cmix", "cmix_vector_kernel")):
+                         ("cmix", "cmix_vector_kernel"),
+                         ("mlstm_wgmma", "mlstm_wgmma_kernel")):
         log = cuda_build._Libs.build_log.get(name)
         lines = (["built before this run: no ptxas report"] if log is None
                  else register_report(log, kernel))
-        for line in lines + sass_memory_counts(cuda_build, name):
+        if name in SASS_KERNELS:
+            lines += sass_memory_counts(cuda_build, name)
+        for line in lines:
             print(f"[build] {name}.cu: {line}", flush=True)
-    records = [check_mix_kernel(torch, mc)]
+    records = {}
+
+    def add(*found):
+        for rec in found:
+            records[rec["name"]] = rec
+
+    add(check_mix_kernel(torch, mc))
     torch.cuda.empty_cache()
-    cmix_rec, absmax_rec = check_cmix_kernel(torch, mc)
-    records.append(cmix_rec)
+    add(*check_cmix_kernel(torch, mc))
     torch.cuda.empty_cache()
-    records.append(check_collective_kernel(torch, mc))
+    add(check_collective_kernel(torch, mc))
     torch.cuda.empty_cache()
-    records.append(check_mlstm_kernel(torch, mk))
+    add(*check_mlstm_kernel(torch, mk))
     torch.cuda.empty_cache()
-    records.append(check_shard_mix_kernel(torch, mc))
-    records.append(check_shard_cmix_kernel(torch, mc))
-    records.extend(check_flash_kernel(torch, fa))
+    add(check_shard_mix_kernel(torch, mc))
+    add(check_shard_cmix_kernel(torch, mc))
+    add(*check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
-    records.append(check_rmsnorm_kernel(torch, rn))
-    records.append(absmax_rec)
+    add(check_rmsnorm_kernel(torch, rn))
     if args.kernels_only:
-        print(json.dumps({"kernels": records}))
+        print(json.dumps({"kernels": list(records.values())}))
         return 1
     ops_launches = run_ops_path(torch)
-    records[6]["launches"] = ops_launches["flash"]
-    records[7]["launches"] = ops_launches["flash_wgmma"]
-    records[8]["launches"] = (ops_launches["rmsnorm"]
-                              + ops_launches["rmsnorm_vector"])
+    records["flash_attention_kernel"]["launches"] = ops_launches["flash"]
+    records["flash_attention_wgmma_kernel"]["launches"] = \
+        ops_launches["flash_wgmma"]
+    records["rmsnorm_kernel"]["launches"] = (ops_launches["rmsnorm"]
+                                             + ops_launches["rmsnorm_vector"])
+    records["mlstm_kernel"]["launches"] = ops_launches["mlstm"]
     slice1, tr, state = run_main_path(torch, mc)
     where_time_goes(torch, mc, tr, state)
     del tr, state
@@ -2284,17 +2401,17 @@ def main() -> int:
     compressed_round_times(torch, mc, tr, state)
     del tr, state
     torch.cuda.empty_cache()
-    records[0]["launches"] = slice1["mix_vector"]
-    records[1]["launches"] = slice2["cmix_vector"]
-    records[2]["launches"] = slice2["collective"]
-    records[9]["launches"] = slice2["cmix_absmax"]
-    records[3]["launches"] = run_serving_path(torch)
+    records["mix_vector_kernel"]["launches"] = slice1["mix_vector"]
+    records["cmix_vector_kernel"]["launches"] = slice2["cmix_vector"]
+    records["collective_kernel"]["launches"] = slice2["collective"]
+    records["cmix_absmax_kernel"]["launches"] = slice2["cmix_absmax"]
+    records["mlstm_wgmma_kernel"]["launches"] = run_serving_path(torch)
     torch.cuda.empty_cache()
     for compressed in (False, True):
         launches, tr, state = run_main_path(torch, mc, compressed=compressed,
                                             sharded=True)
         key = "shard_cmix" if compressed else "shard_mix"
-        records[5 if compressed else 4]["launches"] = launches[key]
+        records[f"{key}_kernel"]["launches"] = launches[key]
         sharded_round_times(torch, mc, tr, state, compressed)
         del tr, state
         torch.cuda.empty_cache()
@@ -2303,8 +2420,11 @@ def main() -> int:
     cross_check(torch, sharded=True)
     cross_check(torch, compressed=True, sharded=True)
     serving_cross_check(torch)
+    missing = [k for k, r in records.items() if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernels no main path launched: {missing}")
     print(card)
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

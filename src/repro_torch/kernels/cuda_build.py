@@ -41,6 +41,8 @@ ENTRY_POINTS = {
     "collective": ("collective", "repro_collective",
                    [_P] * 4 + [_U, _U, _LL] + [_I] * 6 + [_P]),
     "mlstm": ("mlstm", "repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
+    "mlstm_wgmma": ("mlstm_wgmma", "repro_mlstm_wgmma",
+                    [_P] * 10 + [_I] * 5 + [_P]),
     "shard_mix": ("shard_mix", "repro_shard_mix",
                   [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
     "shard_cmix": ("shard_cmix", "repro_shard_cmix",

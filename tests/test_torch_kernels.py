@@ -243,7 +243,8 @@ def test_ops_on_cpu_take_the_twins_and_count_no_launch():
 
     def launches():
         return (fa.launches, fa.wgmma_launches, rn.launches,
-                rn.vector_launches, mlstm_cuda.mlstm_chunk.launches)
+                rn.vector_launches, mlstm_cuda.mlstm_chunk.launches,
+                mlstm_cuda.mlstm_chunk.wgmma_launches)
 
     before = launches()
     assert torch.equal(ops.flash_attention_op(q, k, v),
@@ -253,7 +254,7 @@ def test_ops_on_cpu_take_the_twins_and_count_no_launch():
                        flash_attention_cuda.flash_attention_plain(
                            q.bfloat16(), k.bfloat16(), v.bfloat16()))
     assert torch.equal(ops.rmsnorm_op(x, w), rmsnorm_cuda.rmsnorm_plain(x, w))
-    assert before == (0, 0, 0, 0, 0)
+    assert before == (0, 0, 0, 0, 0, 0)
     assert launches() == before
 
 
@@ -459,16 +460,26 @@ def test_wgmma_rounding_emulation_holds_the_card_tolerance(case, dtype):
 
 
 @pytest.mark.parametrize("launcher", ["flash_simt", "flash_wgmma",
-                                      "rmsnorm_scalar", "rmsnorm_vector"])
+                                      "rmsnorm_scalar", "rmsnorm_vector",
+                                      "mlstm_simt", "mlstm_wgmma"])
 def test_direct_launchers_refuse_cpu_operands(launcher):
     """The launchers of one kernel (which chip_smoke times directly) take
     CUDA operands only: a CPU tensor raises before anything launches."""
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     x2, w = torch.zeros((4, 64), dtype=torch.bfloat16), torch.ones(64)
-    fn = getattr(flash_attention_cuda if launcher.startswith("flash")
-                 else rmsnorm_cuda, launcher)
+    gate = torch.zeros((1, 8, 2))
+    module = {"flash": flash_attention_cuda, "rmsnorm": rmsnorm_cuda,
+              "mlstm": mlstm_cuda}[launcher.split("_")[0]]
+    fn = getattr(module, launcher)
     with pytest.raises(ValueError, match="CUDA"):
-        fn(q, q, q) if launcher.startswith("flash") else fn(x2, w)
+        if module is rmsnorm_cuda:
+            fn(x2, w)
+        elif module is mlstm_cuda:
+            fn(q, q, q, gate, gate)
+        else:
+            fn(q, q, q)
+    assert mlstm_cuda.mlstm_chunk.launches == 0
+    assert mlstm_cuda.mlstm_chunk.wgmma_launches == 0
 
 
 def test_kv_range_skips_only_masked_tiles():

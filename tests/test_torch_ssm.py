@@ -14,7 +14,15 @@ Tolerances (each stated where it is used):
   double by the twin);
 * bf16 mixers: the port rounds where the reference rounds, but matmuls and
   casts fuse differently, so outputs agree to a few bf16 ulps: max abs
-  error ≤ 3e-2 · max|ref| (measured ≤ 1.1e-2).
+  error ≤ 3e-2 · max|ref| (measured ≤ 1.1e-2);
+* the tensor-core kernel's arithmetic (``csrc/mlstm_wgmma.cu``: P and C
+  rounded to bf16, k·kg as three bf16 terms), emulated by
+  ``chunkwise(wgmma=True)``: the gates the card run holds it to,
+  ``mlstm_cuda.wgmma_excess`` ≤ 0 element by element, |h − ref| ≤
+  8e-3·|ex| + (2^-8 + acc)·(|ex| + scale), acc 1e-5 against the float64
+  twin and 2e-5 against the fp32 twin and the Pallas kernel; the state
+  within 1e-5 · max|ref| and m bit for bit; at model-scale gates
+  max|h − ex| ≤ 8e-3 · max|ex|.
 """
 import dataclasses
 
@@ -176,13 +184,19 @@ def test_chunk_rule_is_the_kernels():
 
 
 def test_wrapper_takes_twin_on_cpu_and_counts_no_launch():
-    arrays = _to_torch(_inputs(MLSTM_SWEEP[0], "float32"), "float32")
-    before = mlstm_cuda.mlstm_chunk.launches
-    h, state = mlstm_cuda.mlstm_chunk(*arrays, chunk=8)
-    h2, state2 = mlstm_cuda.mlstm_chunk_plain(*arrays, chunk=8)
-    assert torch.equal(h, h2)
-    assert all(torch.equal(a, b) for a, b in zip(state, state2))
-    assert mlstm_cuda.mlstm_chunk.launches == before == 0
+    """On CPU tensors the wrapper is the twin, also for bf16 operands that
+    ``use_wgmma`` would give the tensor-core instance; no count moves."""
+    fn = mlstm_cuda.mlstm_chunk
+    before = (fn.launches, fn.wgmma_launches)
+    for case, dtype, chunk in ((MLSTM_SWEEP[0], "float32", 8),
+                               (MLSTM_SWEEP[4], "bfloat16", 64)):
+        arrays = _to_torch(_inputs(case, dtype), dtype)
+        h, state = mlstm_cuda.mlstm_chunk(*arrays, chunk=chunk)
+        h2, state2 = mlstm_cuda.mlstm_chunk_plain(*arrays, chunk=chunk)
+        assert torch.equal(h, h2)
+        assert all(torch.equal(a, b) for a, b in zip(state, state2))
+    assert mlstm_cuda.use_wgmma(*arrays[:3], 8)
+    assert (fn.launches, fn.wgmma_launches) == before == (0, 0)
 
 
 def test_wrapper_rejects_gradients_and_bad_operands():
@@ -199,6 +213,164 @@ def test_wrapper_rejects_gradients_and_bad_operands():
     with pytest.raises(ValueError, match="unsupported device"):
         mlstm_cuda.mlstm_chunk(*(t.to("meta") for t in (q, k, v, li, lf)),
                                chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's rule and arithmetic (csrc/mlstm_wgmma.cu)
+# ---------------------------------------------------------------------------
+# the sweep case use_wgmma takes (one chunk of 6), a ragged one, and the
+# full width (xlstm-125m: nh 8, dk 96, dv 192) over 200 positions
+WGMMA_CASES = [MLSTM_SWEEP[4], (2, 130, 2, 16, 24, 64),
+               (1, 200, 8, 96, 192, 64)]
+
+
+def _wide(case, seed, gates="wide"):
+    """bf16 q, k, v and float32 gates, drawn as chip_smoke.py draws them:
+    wide (log i ~ 10·N(0, 1), log f = logsigmoid(2·N(0, 1))) or at the
+    model's scale (log i ~ N(0, 1), log f = logsigmoid(3 + N(0, 1)))."""
+    B, S, nh, dk, dv, _ = case
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    q = (draw(B, S, nh, dk) / np.sqrt(dk)).bfloat16()
+    k, v = draw(B, S, nh, dk).bfloat16(), draw(B, S, nh, dv).bfloat16()
+    if gates == "wide":
+        li, lf = 10 * draw(B, S, nh), F.logsigmoid(2 * draw(B, S, nh))
+    else:
+        li, lf = draw(B, S, nh), F.logsigmoid(3 + draw(B, S, nh))
+    return q, k, v, li, lf
+
+
+def _emulate(args):
+    return mlstm_cuda.chunkwise(*args, mlstm_cuda.WGMMA_CHUNK, wgmma=True)
+
+
+@pytest.mark.parametrize("gates", ["wide", "model"])
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_wgmma_emulation_holds_the_card_gates(case, gates):
+    """The tensor-core instance's roundings, emulated, against the fp32
+    and float64 twins under the gates chip_smoke.py applies on the card:
+    h element by element (``wgmma_excess`` ≤ 0 with acc 1e-5 against
+    float64, 2e-5 against float32), the state within 1e-5 · max|ref|, m
+    bit for bit, and at model-scale gates max|h − ex| ≤ 8e-3 · max|ex|."""
+    args = _wide(case, seed=12, gates=gates)
+    assert mlstm_cuda.use_wgmma(*args[:3], mlstm_cuda.chunk_len(64,
+                                                                case[1]))
+    h, state = _emulate(args)
+    twin, tstate = mlstm_cuda.mlstm_chunk_plain(*args)
+    ex, _, scale = mlstm_cuda.mlstm_chunk_plain(
+        *(t.double() for t in args), error_scale=True)
+    assert h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all())
+    assert float(mlstm_cuda.wgmma_excess(h, ex, ex, scale, 1e-5).max()) <= 0
+    assert float(mlstm_cuda.wgmma_excess(h, twin, ex, scale,
+                                         2e-5).max()) <= 0
+    for got, want in zip(state, tstate):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    assert torch.equal(state[2], tstate[2])
+    if gates == "model":
+        err = float((h.double() - ex).abs().max())
+        assert err <= 8e-3 * float(ex.abs().max())
+
+
+def test_wgmma_gates_catch_an_error():
+    """The gates have teeth at the serving width with model-scale gates:
+    h scaled by 1 + 2^-6 fails max|h − ex| ≤ 8e-3 · max|ex|, h one
+    allowance past ex fails ``wgmma_excess``, and C scaled by 1 + 1e-4
+    fails the state gate.  (The element gate alone is loose where the
+    error scale is far above |h|, rows whose numerator cancels.)"""
+    args = _wide(WGMMA_CASES[2], seed=13, gates="model")
+    h, state = _emulate(args)
+    ex, xstate, scale = mlstm_cuda.mlstm_chunk_plain(
+        *(t.double() for t in args), error_scale=True)
+    bad = h.double() * (1 + 2.0 ** -6)
+    assert float((bad - ex).abs().max()) > 8e-3 * float(ex.abs().max())
+    tol = 8e-3 * ex.abs() + (mlstm_cuda.WGMMA_UNIT + 1e-5) * (ex.abs()
+                                                              + scale)
+    assert float(mlstm_cuda.wgmma_excess(ex + 1.01 * tol, ex, ex, scale,
+                                         1e-5).min()) > 0
+    C_bad = state[0] * (1 + 1e-4)
+    assert float((C_bad - xstate[0]).abs().max()) > 1e-5 * float(
+        xstate[0].abs().max())
+
+
+@pytest.mark.parametrize("case", [MLSTM_SWEEP[4], MLSTM_SWEEP[1]], ids=str)
+def test_wgmma_emulation_matches_pallas_kernel(case):
+    """The emulation (one chunk of 64 rows for these S ≤ 64) against the
+    JAX Pallas kernel in interpret mode at the case's own chunk, bf16 q,
+    k, v: within the h gate against the fp32 twin (acc 2e-5), ex the
+    float64 twin."""
+    arrays = _inputs(case, "bfloat16", seed=14)
+    chunk = case[-1]
+    want = jax_mlstm_chunk_op(*_to_jax(arrays, "bfloat16"), chunk=chunk,
+                              interpret=True)
+    args = _to_torch(arrays, "bfloat16")
+    h, _ = _emulate(args)
+    ex, _, scale = mlstm_cuda.mlstm_chunk_plain(
+        *(t.double() for t in args), chunk=chunk, error_scale=True)
+    jh = torch.from_numpy(np.array(_f32(want)))
+    assert float(mlstm_cuda.wgmma_excess(h, jh, ex, scale, 2e-5).max()) <= 0
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("what,want", [
+    ("bf16 full width", True), ("float32", False), ("float16", False),
+    ("L 32", False), ("one chunk of 6", True), ("S 37 at L 16", False),
+    ("one chunk of 64 at L 16", False), ("dk 4", False), ("dk 264", False),
+    ("dv 200", True), ("dv 12", False), ("head-major views", True),
+    ("misaligned head stride", False), ("misaligned pointer", False),
+    ("non-unit last stride", False)])
+def test_use_wgmma_rule(what, want):
+    """``use_wgmma``: bf16 only, chunk 64 or a single chunk of S ≤ 64,
+    dk and dv multiples of 8 up to 256, strides and pointers TMA takes."""
+    B, S, nh, dk, dv, L = 2, 128, 4, 96, 192, 64
+    q, k, v = _bf16(B, S, nh, dk), _bf16(B, S, nh, dk), _bf16(B, S, nh, dv)
+    if what in ("float32", "float16"):
+        q, k, v = (t.to(getattr(torch, what)) for t in (q, k, v))
+    elif what == "L 32":
+        L = 32
+    elif what in ("one chunk of 6", "S 37 at L 16",
+                  "one chunk of 64 at L 16"):
+        S = {"one chunk of 6": 6, "S 37 at L 16": 37,
+             "one chunk of 64 at L 16": 64}[what]
+        L = mlstm_cuda.chunk_len(64 if S == 6 else 16, S)
+        q, k, v = q[:, :S], k[:, :S], v[:, :S]
+    elif what.startswith("dk"):
+        dk = int(what.split()[1])
+        q, k = _bf16(B, S, nh, dk), _bf16(B, S, nh, dk)
+    elif what.startswith("dv"):
+        v = _bf16(B, S, nh, int(what.split()[1]))
+    elif what == "head-major views":   # (B, nh, S, d) buffers as (B, S, nh, d)
+        q, k = (_bf16(B, nh, S, dk).transpose(1, 2) for _ in range(2))
+        v = _bf16(B, nh, S, dv).transpose(1, 2)
+    elif what == "misaligned head stride":   # heads of a width-100 buffer
+        q = _bf16(B, S, nh, 100)[..., :dk]
+    elif what == "misaligned pointer":
+        q = _bf16(B * S * nh * dk + 8).flatten()[1:][:B * S * nh * dk].view(
+            B, S, nh, dk)
+    elif what == "non-unit last stride":
+        q = _bf16(B, S, nh, dk, 2)[..., 0]
+    assert mlstm_cuda.use_wgmma(q, k, v, L) is want
+
+
+@pytest.mark.parametrize("dk,pad", [(8, 64), (64, 64), (96, 128),
+                                    (128, 128), (200, 256), (256, 256)])
+def test_wgmma_smem_bytes(dk, pad):
+    """csrc/mlstm_wgmma.cu's smem_bytes, mirrored: within the card's
+    232,448 bytes a block at every dk_pad, and two blocks a multiprocessor
+    (2 × (bytes + 1 KB reserved) ≤ 233,472) at dk_pad ≤ 128, the serving
+    shape's."""
+    assert mlstm_cuda.dk_pad(dk) == pad
+    need = mlstm_cuda.wgmma_smem_bytes(pad)
+    assert need == (1024 + 2 * (2 * pad * 128 + 8192) + pad * 128 + 8192
+                    + 4 * pad + 3072 + 16)
+    assert need <= 232_448
+    assert (2 * (need + 1024) <= 233_472) == (pad <= 128)
 
 
 # ---------------------------------------------------------------------------
