@@ -59,7 +59,25 @@ line):
 8. the trainers and the server at reduced configs with fp32 compute, on
    the card (kernels) and on the CPU (plain versions) from one init,
    compared; the sharded trainers also against the stacked ones on the
-   card (``[scross]``).
+   card (``[scross]``); and the trainer with each of ``[algos]``' four
+   algorithms below, 6 steps (``[xalgos]``);
+9. slice 7's paths.  ``[sim]`` (:func:`run_sim_path`): the paper's §5.1
+   protocol through ``repro_torch.core.simulate(backend="pallas")`` at
+   n = 100, M = 8000, d = 10 (ring, H = 16, lr 0.2 halved every 1000
+   steps, batch 8, 3000 steps) for all eight algorithms, each with its
+   launch counts against the dispatch rule, no plain-twin call, and the
+   consensus after the global rounds an eval falls on; the suboptimality
+   AUC against parallel SGD (f* by full-batch gradient descent here);
+   one compressed run at the same size (int8 gossip + EF, int8
+   collective); then the non-IID crossover of
+   ``benchmarks/bench_logistic_transient.py`` with its two gates.
+   ``[simx]`` (:func:`run_sim_cross_check`): ``simulate`` on the card
+   against the CPU at n = 16 with full gradients, held to the CPU tests'
+   tolerances, the compressed runs' iterates bitwise.
+   ``[algos]`` (:func:`run_algo_path`): the Trainer at full width with
+   SlowMo, Hier-PGA, GT-PGA and Gossip-AGA, 6 steps each, phases against
+   the schedule, launch counts against the dispatch rule, step ms and
+   peak memory.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -92,6 +110,10 @@ MAIN_N, MAIN_D = 8, 25_165_824      # the embedding leaf of pga-lm-100m
 # norms, the attention projections, the embedding, the MLP matrices
 MAIN_WIDTHS = (19_200, 7_077_888, MAIN_D, 28_311_552)
 RAGGED_D = 1_000_003
+# the simulator's round operands ([sim] at n = 100, [simx] and the non-IID
+# crossover at 16, d = 10; GT-PGA's joint tree is 2d wide)
+SIM_MIX_SHAPES = ((16, 10), (16, 20), (100, 10), (100, 20))
+SIM_COMP_SHAPES = ((16, 10), (32, 10), (100, 10))
 MAIN_PACKED_D = 138_431_232         # every parameter of one node, packed
 
 
@@ -263,7 +285,11 @@ def check_mix_kernel(torch, mc) -> dict:
     of a global round bitwise equal with a residual of exactly 0.  Where
     the register instance takes a case, it also runs on the generic
     instance: o and x̄ bitwise equal, and the register instance's residual
-    bitwise the same in two runs."""
+    bitwise the same in two runs.  For n not a power of two the mean of n
+    equal rows is not always exact, so a global round's residual is held
+    to n·D·(2⁻²⁰·max|o|)² instead of 0.  The simulator's shapes ([sim],
+    [simx]: n = 16 and 100 at D = 10, and D = 20 for GT-PGA's joint tree)
+    run on a ring with and without the half-step and the residual."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     gamma = torch.tensor([0.05], device="cuda")
     worst = 0.0
@@ -293,7 +319,10 @@ def check_mix_kernel(torch, mc) -> dict:
             rel = abs(float(out[2]) - float(ref[2])) / max(
                 abs(float(ref[2])), 1e-30)
             if bitwise_rows:
-                assert float(out[2]) == 0.0, float(out[2])
+                n, width = x.shape
+                cap = (0.0 if n & (n - 1) == 0 else
+                       n * width * (2.0 ** -20 * float(o.abs().max())) ** 2)
+                assert 0.0 <= float(out[2]) <= cap, (float(out[2]), cap)
             elif rel > 1e-5:
                 raise AssertionError(f"residual rel err {rel:.3e}")
         if err > tol:
@@ -346,6 +375,20 @@ def check_mix_kernel(torch, mc) -> dict:
                 for a in mc.phase_matrices("gossip", "ring", n))
         compare(x, g, d, M, True, True, True, False, inplace=True)
         del x, g
+
+    # the simulator's rounds: ring gossip and global at n = 16 and 100,
+    # D = 10 (params) and 20 (GT-PGA's params + tracker)
+    for n, width in SIM_MIX_SHAPES:
+        x = torch.randn(n, width, device="cuda", generator=gen)
+        g = torch.randn(n, width, device="cuda", generator=gen)
+        for phase in ("gossip", "global"):
+            d, M = (torch.from_numpy(a).cuda()
+                    for a in mc.phase_matrices(phase, "ring", n, step=1))
+            for with_g in (False, True):
+                for with_residual in (False, True):
+                    for wire in (False, True):
+                        compare(x, g, d, M, with_g, with_residual, wire,
+                                phase == "global")
 
     # the main path's calls (n = 8, fp32 wire, consensus residual on, as
     # Trainer's fused round launches them), timed at the embedding leaf
@@ -457,8 +500,10 @@ def check_cmix_kernel(torch, mc) -> tuple:
     bitwise equal in every case, and one-peer gossip returns the state
     bitwise, for every kind, at D = 1,000,003 (generic instance) and
     1,000,000 (both instances).  Then the rows' maxima
-    kernel (:func:`check_absmax`).  Returns the cmix record and the
-    maxima kernel's."""
+    kernel (:func:`check_absmax`).  At the simulator's shapes (n = 16, 32
+    and 100 at D = 10; ring gossip, global and pod_avg) o and the new EF
+    must be bitwise the twin's.  Returns the cmix record and the maxima
+    kernel's."""
     from repro_torch import compress as C
     from repro_torch.compress import quantize as cq
 
@@ -483,7 +528,8 @@ def check_cmix_kernel(torch, mc) -> tuple:
         out = (launch or mc.cmix_flat)(*args, **kw)
         return out, (None if launch else mc.cmix_flat_plain(*args, **kw))
 
-    def compare(x, e, kind, phase, topo, pods, wire, seed=7, q=None):
+    def compare(x, e, kind, phase, topo, pods, wire, seed=7, q=None,
+                bitwise=False):
         nonlocal worst, cases, vector_cases
         (o, ef), (po, pef) = run(x, e, kind, phase, topo, pods, wire, seed,
                                  q)
@@ -491,7 +537,10 @@ def check_cmix_kernel(torch, mc) -> tuple:
         err = float((o - po).abs().max())
         if ef is not None:
             err = max(err, float((ef - pef).abs().max()))
-        tol = 1e-6 * float(x.abs().max())
+        tol = 0.0 if bitwise else 1e-6 * float(x.abs().max())
+        if bitwise and not (torch.equal(o, po) and (
+                ef is None or torch.equal(ef, pef))):
+            err = max(err, float("inf"))
         what = (f"cmix n={x.shape[0]} D={x.shape[1]} kind={kind} "
                 f"phase={phase} wire={wire} ef={e is not None}")
         if err > tol:
@@ -538,6 +587,19 @@ def check_cmix_kernel(torch, mc) -> tuple:
             for phase, topo, pods, wire in phases:
                 compare(x, None, "precomputed", phase, topo, pods, wire,
                         q=q)
+        del x, e
+    # the simulator's compressed rounds, bitwise
+    for n, width in SIM_COMP_SHAPES:
+        x = torch.randn(n, width, device="cuda", generator=gen)
+        e = 0.01 * torch.randn(n, width, device="cuda", generator=gen)
+        pods = 4 if n % 4 == 0 and n > 32 else 2
+        for kind in ("int8", "fp8"):
+            for phase, pp in (("gossip", 1), ("global", 1),
+                              ("pod_avg", pods)):
+                for ef in (None, e):
+                    for seed in (7, 1234):
+                        compare(x, ef, kind, phase, "ring", pp, False,
+                                seed=seed, bitwise=True)
         del x, e
     for kind, name in (("int8", None), ("fp8", None),
                        ("precomputed", "topk"), ("precomputed", "randk")):
@@ -610,26 +672,33 @@ def check_collective_kernel(torch, mc) -> dict:
     main path's call).  The pod sum runs in one order in both and the
     scales are powers of two, so the tolerance is 1e-6·max|x| (measured
     error expected 0).  A constant state comes back bitwise for every
-    kind and phase."""
+    kind and phase.  At the simulator's shapes (n = 16, 32 and 100 at
+    D = 10; n = 100 takes the untiled instance) o and the new EF must be
+    bitwise the twin's, and so must the untiled instance, forced at n = 8,
+    against the tiled one and at n = 100 over 98 blocks against the
+    twin."""
     from repro_torch.compress import collective as ccol
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst, cases = 0.0, 0
+    worst, cases, untiled_cases = 0.0, 0, 0
     n = MAIN_N
     s1, s2 = ccol.stage_seeds(7)
 
-    def compare(x, e, kind, pods):
+    def compare(x, e, kind, pods, bitwise=False, tiled=None):
         nonlocal worst, cases
         kw = dict(kind=kind, with_ef=e is not None, n_pods=pods,
                   qblock=ccol.QBLOCK)
-        o, ef = mc.collective_flat(x, e, s1, s2, **kw)
+        o, ef = mc.collective_flat(x, e, s1, s2, tiled=tiled, **kw)
         po, pef = mc.collective_flat_plain(x, e, s1, s2, **kw)
         torch.cuda.synchronize()
         err = float((o - po).abs().max())
         if ef is not None:
             err = max(err, float((ef - pef).abs().max()))
+        if bitwise and not (torch.equal(o, po) and (
+                ef is None or torch.equal(ef, pef))):
+            err = max(err, float("inf"))
         del po, pef
-        tol = 1e-6 * float(x.abs().max())
+        tol = 0.0 if bitwise else 1e-6 * float(x.abs().max())
         if err > tol:
             raise AssertionError(f"collective D={x.shape[1]} kind={kind} "
                                  f"pods={pods} ef={e is not None}: max abs "
@@ -662,8 +731,36 @@ def check_collective_kernel(torch, mc) -> dict:
         assert ef.data_ptr() == stage_e.data_ptr()
         assert torch.equal(o, po) and torch.equal(ef, pef)
         del const, stage, stage_e, o, ef, po, pef
+        # the untiled instance, forced, bitwise the tiled one
+        for pods in (1, 2):
+            for ef in (None, e):
+                kw = dict(kind=kind, with_ef=ef is not None, n_pods=pods,
+                          qblock=ccol.QBLOCK)
+                a = mc.collective_flat(x, ef, s1, s2, tiled=True, **kw)
+                b = mc.collective_flat(x, ef, s1, s2, tiled=False, **kw)
+                if not all(u is None and v is None or torch.equal(u, v)
+                           for u, v in zip(a, b)):
+                    raise AssertionError(f"collective {kind} pods={pods} "
+                                         f"ef={ef is not None}: untiled "
+                                         f"instance differs from the tiled")
+                del a, b
+                untiled_cases += 1
     del x, e
     torch.cuda.empty_cache()
+
+    # the simulator's shapes, bitwise; n = 100 is past the tile
+    for n_sim, width in SIM_COMP_SHAPES + ((100, 100_003),):
+        x = torch.randn(n_sim, width, device="cuda", generator=gen)
+        e = 0.01 * torch.randn(n_sim, width, device="cuda", generator=gen)
+        pods = 4 if n_sim % 4 == 0 and n_sim > 32 else 2
+        for kind in ("int8", "fp8"):
+            for pp in (1, pods):
+                for ef in (None, e):
+                    compare(x, ef, kind, pp, bitwise=True)
+        del x, e
+    if mc.collective_smem(100, 1, ccol.QBLOCK, True) <= \
+            mc.cuda_build.MAX_SMEM:
+        raise AssertionError("n = 100 was expected past the tile")
 
     D = MAIN_PACKED_D
     x = torch.randn(n, D, device="cuda", generator=gen)
@@ -675,25 +772,30 @@ def check_collective_kernel(torch, mc) -> dict:
                  iters=10, warmup=2)
     plain_ms = cuda_ms(torch, lambda: mc.collective_flat_plain(
         x, e, s1, s2, **kw), iters=2, warmup=1)
+    untiled_ms = cuda_ms(torch, lambda: mc.collective_flat(
+        x, e, s1, s2, tiled=False, **kw), iters=5, warmup=1)
     bytes_moved = 4 * 4 * n * D                 # read x, e; write o, ef
     flops = 60 * n * D                          # two codecs, pod mean
     bound_ms, bound_by = _bound(bytes_moved, flops)
-    print(f"[kernel] collective int8+EF n={n} D={D}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, no single PyTorch call computes it, "
+    print(f"[kernel] collective int8+EF n={n} D={D}: kernel {ms:.4f} ms "
+          f"(the untiled instance {untiled_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, no single PyTorch call computes it, "
           f"bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
           flush=True)
     print(f"[kernel] collective: {cases} kernel-vs-plain cases within "
-          f"tolerance, max abs err {worst:.3e}; constant fixed point bitwise "
-          f"for int8 and fp8, global and 2 pods; in place matches", flush=True)
+          f"tolerance (those at n = 16, 32 and 100 bitwise), max abs err "
+          f"{worst:.3e}; {untiled_cases} untiled-vs-tiled cases bitwise; "
+          f"constant fixed point bitwise for int8 and fp8, global and 2 "
+          f"pods; in place matches", flush=True)
     del x, e
     torch.cuda.empty_cache()
     return {"name": "collective_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/collective.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:765",
             "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "untiled_ms": untiled_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 MLSTM_SWEEP = ((1, 37, 2, 8, 16, 8), (2, 64, 2, 16, 16, 16),
@@ -2210,7 +2312,8 @@ def serving_cross_check(torch) -> None:
           f"{out['cuda'][1].tolist()}", flush=True)
 
 
-def _cross_config(compressed: bool):
+def _cross_config(compressed: bool, algorithm: str = "gossip_pga",
+                  dist_kw=None):
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
 
@@ -2218,18 +2321,23 @@ def _cross_config(compressed: bool):
         get_model_config("pga-lm-100m", reduced=True), dtype="float32")
     return TrainConfig(
         model=model,
-        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
-                        H=2, comm_backend="pallas",
+        dist=DistConfig(algorithm=algorithm, topology="one_peer_exp",
+                        comm_backend="pallas",
+                        **(dist_kw if dist_kw is not None else {"H": 2}),
                         **(COMPRESSED if compressed else {})),
         optimizer=OptimizerConfig(name="sgd", lr=0.05, schedule="constant",
                                   warmup_steps=0),
         global_batch=8, seq_len=64, log_every=1)
 
 
-def cross_check(torch, compressed: bool = False,
-                sharded: bool = False) -> None:
+def cross_check(torch, compressed: bool = False, sharded: bool = False,
+                algorithm: str = "gossip_pga", dist_kw=None,
+                steps: int = 3) -> None:
     """Reduced config at fp32 compute, 4 nodes, 3 steps (gossip, global,
-    gossip), card (kernels) vs CPU (plain versions) from one init.
+    gossip), card (kernels) vs CPU (plain versions) from one init; with
+    ``algorithm`` and ``dist_kw`` one of ``[algos]``' runs at reduced width
+    over ``steps`` (``[xalgos]``), the phases equal and the consensus after
+    a global or SlowMo outer step exactly 0.0 in both.
     Nesterov SGD keeps the update linear in the gradient, so the two runs
     differ only by fp32 summation order: params agree to rtol 1e-4, atol
     1e-6, per-step loss/consensus to rtol 1e-4.  (AdamW's sqrt(v) + eps
@@ -2254,7 +2362,7 @@ def cross_check(torch, compressed: bool = False,
     from repro_torch.models.model import make_model
     from repro_torch.train import Trainer
 
-    tcfg = _cross_config(compressed)
+    tcfg = _cross_config(compressed, algorithm, dist_kw)
     init = interop.to_numpy(make_model(tcfg.model).init(
         torch.Generator().manual_seed(1), "cpu"))
     runs = {}
@@ -2265,7 +2373,7 @@ def cross_check(torch, compressed: bool = False,
         tr = Trainer(tcfg, n_nodes=4, mesh=mesh, with_consensus=True,
                      device=dev)
         st = tr.init_state(params=interop.from_numpy(init, dev))
-        st = tr.run(st, steps=3, log_every=1)
+        st = tr.run(st, steps=steps, log_every=1)
         trees = [st.params] + ([st.ef_state] if compressed else [])
         runs[dev, on_mesh] = ([interop.to_numpy(t) for t in trees],
                               tr.history)
@@ -2273,12 +2381,15 @@ def cross_check(torch, compressed: bool = False,
         [(labels[0], labels[2])] if sharded else [])
     what = ("compressed int8+EF trainer (params and EF)" if compressed
             else "trainer")
+    tag = "[scross]" if sharded else "[cross]"
+    if algorithm != "gossip_pga":
+        tag, what = "[xalgos]", f"{algorithm} {dist_kw} trainer"
     for a, b in pairs:
         name = " vs ".join(f"{dev} {'sharded' if m else 'stacked'}"
                            for dev, m in (a, b))
         _compare_runs(runs[a], runs[b], compressed,
-                      f"{'[scross]' if sharded else '[cross]'} reduced fp32 "
-                      f"{what}, {name} over 3 steps")
+                      f"{tag} reduced fp32 {what}, {name} over {steps} "
+                      f"steps")
 
 
 def _compare_runs(ra_runs, rb_runs, compressed: bool, title: str) -> None:
@@ -2311,13 +2422,450 @@ def _compare_runs(ra_runs, rb_runs, compressed: bool, title: str) -> None:
         np.testing.assert_allclose(ra["loss"], rb["loss"], rtol=1e-4)
         np.testing.assert_allclose(ra["consensus"], rb["consensus"],
                                    rtol=1e-2 if compressed else 1e-4)
-        if ra["phase"] == "global" and not compressed:
+        if ra["phase"] in ("global", "slowmo") and not compressed:
             assert ra["consensus"] == rb["consensus"] == 0.0, (ra, rb)
-    print(f"{title}: max abs diff {worst:.3e} ({steps:.2f} code steps of "
+    print(f"{title}: phases {[r['phase'] for r in ra_runs[1]]}; max abs "
+          f"diff {worst:.3e} ({steps:.2f} code steps of "
           f"its leaf), {off} of {size} elements beyond rtol 1e-4 + atol "
           f"1e-6; losses {[round(r['loss'], 6) for r in ra_runs[1]]}, "
           f"consensus {[r['consensus'] for r in ra_runs[1]]} vs "
           f"{[r['consensus'] for r in rb_runs[1]]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: the paper's simulator on the §5.1 logistic problem ([sim],
+# [simx]) and the Trainer with the four new algorithms at full width
+# ([algos])
+# ---------------------------------------------------------------------------
+SIM_ALGORITHMS = ("parallel", "gossip", "local", "gossip_pga", "gossip_aga",
+                  "slowmo", "hier_pga", "gt_pga")
+# paper §5.1 at its largest network (bench_logistic_transient.py --full):
+# ring, H = 16, lr 0.2 halved every 1000 steps, batch 8 per node
+SIM = dict(n=100, M=8000, d=10, H=16, steps=3000, eval_every=50, batch=8)
+SIM_EXTRA = {"hier_pga": dict(aga_kwargs={"n_pods": 4, "hier_h_pod": 4})}
+# the compressed case, on the same problem (n = 100 takes collective.cu's
+# untiled instance)
+SIM_COMPRESSED = dict(compression="int8", error_feedback=True,
+                      global_compression="int8")
+# the non-IID crossover of benchmarks/bench_logistic_transient.py:120-175
+NONIID = dict(n=16, M=500, d=10, steps=400, alpha=0.3, feature_shift=2.0,
+              lr=0.05, H=16)
+NONIID_GATES = (4.0, 10.0)       # gt <= 4 x gossip(IID); gossip >= 10 x gt
+# [simx]: the CPU tests' setup (tests/test_torch_algorithms.py) at n = 16
+SIMX = dict(n=16, M=500, d=10, steps=40, eval_every=5, H=8, lr=0.2)
+SIMX_EXTRA = {"hier_pga": dict(aga_kwargs={"n_pods": 2, "hier_h_pod": 3}),
+              "gossip_aga": dict(aga_kwargs={"aga_h_init": 2,
+                                              "aga_warmup": 10})}
+
+
+def sim_lr(k: int) -> float:
+    return 0.2 * (0.5 ** (k // 1000))   # paper §5.1
+
+
+def f_star(torch, prob, steps: int = 4000, lr: float = 0.05) -> float:
+    """f* of the average objective by full-batch gradient descent (the
+    reference benchmark's ``f_star``, restated: ``benchmarks/`` imports
+    the JAX package)."""
+    H, y = prob.H, prob.y
+    x = torch.zeros(prob.d, device=H.device)
+    with torch.no_grad():
+        for _ in range(steps):
+            z = -y * torch.einsum("nmd,d->nm", H, x)
+            g = -torch.einsum("nm,nmd->d", torch.sigmoid(z) * y,
+                              H) / (prob.n * prob.M)
+            x = x - lr * g
+        return float(prob.loss_fn()(x))
+
+
+class PlainCalls:
+    """Counts calls of the mix, cmix and collective plain twins while
+    active (the wrappers look them up in their module at each call)."""
+    NAMES = ("mix_flat_plain", "cmix_flat_plain", "cmix_absmax_plain",
+             "collective_flat_plain")
+
+    def __init__(self, mc):
+        self.mc, self.calls, self.saved = mc, 0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.mc, name)
+
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            setattr(self.mc, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mc, name, fn)
+
+
+def replay_phases(algorithm: str, steps: int, losses_at, **dist_kw) -> list:
+    """Each step's phase, from the port's schedule fed the losses the run
+    observed (``losses_at(k)``: the loss observed after step k, or None):
+    Gossip-AGA's phases depend on them."""
+    from repro_torch.configs import DistConfig
+    from repro_torch.core.schedule import make_schedule
+    sched = make_schedule(DistConfig(algorithm=algorithm, **dist_kw))
+    phases = []
+    for k in range(steps):
+        phases.append(sched.advance(k))
+        f = losses_at(k)
+        if f is not None:
+            sched.observe_loss(k, f)
+    return phases
+
+
+def sim_round_launches(torch, mc, algorithm: str, phases, n: int, d: int,
+                       compressed: bool) -> dict:
+    """The dispatch rule's launches for a ``simulate(backend="pallas")``
+    run, stated before it runs: one round per gossip/global/pod_avg step
+    (none for SlowMo's outer step or Local SGD's "none"); uncompressed,
+    one mix.cu launch a round (the joint tree of GT-PGA, params and
+    tracker, packs into one (n, 2d) staging buffer), on the register
+    instance where ``use_vector_mix`` takes the (n, width) operand;
+    compressed (one leaf), a gossip round is one row maxima and one
+    cmix.cu launch, a global round one collective.cu launch."""
+    kinds = mc.KERNEL_PHASES
+    rounds = [ph for ph in phases if ph in kinds]
+    if compressed:
+        x = torch.empty(n, d, device="cuda")
+        gossip = rounds.count("gossip")
+        key = "cmix_vector" if mc.use_vector_cmix(x, x) else "cmix"
+        return only(**{key: gossip, "cmix_absmax": gossip,
+                       "collective": len(rounds) - gossip})
+    width = 2 * d if algorithm == "gt_pga" else d
+    x = torch.empty(n, width, device="cuda")
+    key = "mix_vector" if mc.use_vector_mix(x, x) else "mix"
+    return only(**{key: len(rounds)})
+
+
+def _sim_run(torch, prob, algorithm: str, *, steps, lr, H, eval_every,
+             backend="pallas", batch=0, device="cuda", grad_fn=None, **kw):
+    from repro_torch.core import simulate
+    return simulate(algorithm=algorithm,
+                    grad_fn=grad_fn or prob.grad_fn(batch=batch),
+                    loss_fn=prob.loss_fn(),
+                    x0=torch.zeros(prob.d, device=device), n=prob.n,
+                    steps=steps, lr=lr, topology="ring", H=H,
+                    eval_every=eval_every, seed=0, backend=backend,
+                    device=device, **kw)
+
+
+def _sim_checked(torch, mc, prob, algorithm: str, tag: str, *,
+                 compressed=False, **run_kw) -> tuple:
+    """One ``simulate`` on the card: launch counts against the dispatch
+    rule, no plain twin, finite losses, and the consensus after every
+    uncompressed global round that an eval falls on: exactly 0.0 for n a
+    power of two; for other n the mean of n equal float32 rows is not
+    always exact, so at most rounding level (1e-12).  Returns ``(out,
+    wall ms per step, launches)``."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls(mc) as plain:
+        t0 = time.perf_counter()
+        out = _sim_run(torch, prob, algorithm, **run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    steps = run_kw["steps"]
+    dist_kw = dict(H=run_kw["H"], **run_kw.get("aga_kwargs", {}))
+    losses = dict(zip(out["iteration"].tolist(), out["loss"].tolist()))
+    last = [None]
+
+    def losses_at(k):
+        last[0] = losses.get(k, last[0])
+        return last[0]
+
+    phases = replay_phases(algorithm, steps, losses_at, **dist_kw)
+    expected = sim_round_launches(torch, mc, algorithm, phases, prob.n,
+                                  prob.d, compressed)
+    if launches != expected:
+        raise AssertionError(f"{tag} {algorithm}: launches {launches}, the "
+                             f"dispatch rule gives {expected}")
+    if plain.calls:
+        raise AssertionError(f"{tag} {algorithm}: {plain.calls} plain-twin "
+                             f"calls on the card")
+    if not all(math.isfinite(f) for f in out["loss"]):
+        raise AssertionError(f"{tag} {algorithm}: loss {out['loss']}")
+    exact = prob.n & (prob.n - 1) == 0
+    for k, c in zip(out["iteration"].tolist(), out["consensus"].tolist()):
+        if phases[k] == "global" and not compressed:
+            if (c != 0.0) if exact else (abs(c) > 1e-12):
+                raise AssertionError(f"{tag} {algorithm}: consensus {c!r} "
+                                     f"after the global round of step {k}")
+    return out, wall * 1e3 / steps, launches
+
+
+def run_sim_path(torch, mc) -> dict:
+    """[sim]: paper §5.1 at n = 100 (M = 8000, d = 10, non-IID), all eight
+    algorithms through ``simulate(backend="pallas")`` and one compressed
+    run, then the non-IID crossover gates.  Returns the launch counts
+    summed over the phase's runs."""
+    import numpy as np
+
+    from repro_torch.data import (dirichlet_noniid_problem,
+                                  make_logistic_problem)
+    total = {k: 0 for k in counts()}
+    t_phase = time.perf_counter()
+    prob = make_logistic_problem(SIM["n"], SIM["M"], SIM["d"], iid=False,
+                                 seed=0)
+    fs = f_star(torch, prob)
+    print(f"[sim] §5.1 logistic problem n={SIM['n']} M={SIM['M']} "
+          f"d={SIM['d']} non-IID, ring, H={SIM['H']}, lr 0.2 halved every "
+          f"1000 steps, batch {SIM['batch']}, {SIM['steps']} steps, "
+          f"backend pallas; f* = {fs:.8f} (4000 full-batch GD steps)",
+          flush=True)
+    run_kw = dict(steps=SIM["steps"], lr=sim_lr, H=SIM["H"],
+                  eval_every=SIM["eval_every"], batch=SIM["batch"])
+    aucs, sub_ref = {}, None
+    for alg in SIM_ALGORITHMS:
+        out, ms, launches = _sim_checked(torch, mc, prob, alg, "[sim]",
+                                         **run_kw, **SIM_EXTRA.get(alg, {}))
+        for k, v in launches.items():
+            total[k] += v
+        sub = out["loss"] - fs
+        if alg == "parallel":
+            sub_ref = sub
+        aucs[alg] = float(np.trapezoid(sub) / max(np.trapezoid(sub_ref),
+                                                  1e-12))
+        used = {k: v for k, v in launches.items() if v}
+        line = (f"[sim] {alg:10s} final loss {out['loss'][-1]:.8f} "
+                f"consensus {out['consensus'][-1]:.6e} AUC vs parallel "
+                f"{aucs[alg]:.4f}; {ms:.4f} ms/step wall, launches {used} "
+                f"({sum(used.values()) / SIM['steps']:.4f} per step)")
+        if "H_history" in out:
+            line += f"; H_history {out['H_history'].tolist()}"
+        print(line, flush=True)
+    print(f"[sim] AUC ordering (printed, one seed): PGA "
+          f"{aucs['gossip_pga']:.4f} <= 1.05 x Gossip {aucs['gossip']:.4f}: "
+          f"{aucs['gossip_pga'] <= 1.05 * aucs['gossip']}; PGA <= 1.05 x "
+          f"Local {aucs['local']:.4f}: "
+          f"{aucs['gossip_pga'] <= 1.05 * aucs['local']}", flush=True)
+    # one compressed run: int8 gossip + EF, int8 collective
+    out, ms, launches = _sim_checked(torch, mc, prob, "gossip_pga", "[sim]",
+                                     compressed=True, **run_kw,
+                                     **SIM_COMPRESSED)
+    for k, v in launches.items():
+        total[k] += v
+    used = {k: v for k, v in launches.items() if v}
+    print(f"[sim] gossip_pga int8+EF gossip, int8 collective, n="
+          f"{prob.n}: final loss {out['loss'][-1]:.8f} consensus "
+          f"{out['consensus'][-1]:.6e}; {ms:.4f} ms/step wall, launches "
+          f"{used}", flush=True)
+    del prob
+    # the non-IID crossover: deterministic (full batch, constant lr)
+    floor = 1e-9
+    pn = dirichlet_noniid_problem(NONIID["n"], NONIID["M"], NONIID["d"],
+                                  alpha=NONIID["alpha"],
+                                  feature_shift=NONIID["feature_shift"],
+                                  seed=0)
+    pi = make_logistic_problem(NONIID["n"], NONIID["M"], NONIID["d"],
+                               iid=True, seed=0)
+    fs_n, fs_i = f_star(torch, pn), f_star(torch, pi)
+    cross_kw = dict(steps=NONIID["steps"], lr=NONIID["lr"], H=NONIID["H"],
+                    eval_every=25)
+    subs = {}
+    for name, prob, fs_p, alg in (("gt", pn, fs_n, "gt_pga"),
+                                  ("gossip", pn, fs_n, "gossip"),
+                                  ("iid", pi, fs_i, "gossip"),
+                                  ("pga", pn, fs_n, "gossip_pga")):
+        out, _, launches = _sim_checked(torch, mc, prob, alg, "[sim]",
+                                        **cross_kw)
+        for k, v in launches.items():
+            total[k] += v
+        subs[name] = max(float(np.mean(out["loss"][-4:])) - fs_p, floor)
+    gt_vs_iid = subs["gt"] / subs["iid"]
+    stall = subs["gossip"] / subs["gt"]
+    print(f"[sim] non-IID crossover (n={NONIID['n']}, M={NONIID['M']}, "
+          f"alpha {NONIID['alpha']}, shift {NONIID['feature_shift']}, full "
+          f"batch, lr {NONIID['lr']}, H={NONIID['H']}, {NONIID['steps']} "
+          f"steps): tail suboptimality gt_pga {subs['gt']:.3e}, gossip "
+          f"{subs['gossip']:.3e}, gossip IID {subs['iid']:.3e}, gossip_pga "
+          f"{subs['pga']:.3e}; gt/IID {gt_vs_iid:.3f} (gate <= "
+          f"{NONIID_GATES[0]}), gossip/gt {stall:.3f} (gate >= "
+          f"{NONIID_GATES[1]})", flush=True)
+    if gt_vs_iid > NONIID_GATES[0] or stall < NONIID_GATES[1]:
+        raise AssertionError("[sim] non-IID crossover gate failed")
+    del pn, pi
+    print(f"[sim] phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
+def run_sim_cross_check(torch) -> None:
+    """[simx]: ``simulate`` with full gradients at n = 16 on the card
+    (kernels) and on the CPU (plain versions), every algorithm and the
+    compressed case.  Uncompressed runs are held to the CPU tests'
+    tolerances (tests/test_torch_algorithms.py): loss rtol 2e-6,
+    consensus rtol 5e-6 + atol 1e-12, AGA's H_history equal.  Compressed
+    runs (int8 gossip + EF, int8 collective) take their gradients from the
+    CPU run's function on a CPU copy of the iterate: the card's einsum
+    sums in another order, and a rounding difference on a code boundary
+    would move a stochastic-rounding code.  cmix.cu and collective.cu are
+    bitwise their twins, so every iterate the card run hands its gradient
+    function must be bitwise the CPU run's, and the loss and consensus,
+    taken on each device from the same iterates, are held to the
+    uncompressed tolerances."""
+    import numpy as np
+
+    from repro_torch.data import make_logistic_problem
+    t0 = time.perf_counter()
+    probs = {dev: make_logistic_problem(SIMX["n"], SIMX["M"], SIMX["d"],
+                                        seed=0, device=dev)
+             for dev in ("cuda", "cpu")}
+    cpu_grad = probs["cpu"].grad_fn(0)
+
+    def traced(log, on_cpu):
+        def grad(x, generator, k):
+            log.append(x.cpu())
+            if on_cpu:
+                return cpu_grad(log[-1], None, k).to(x.device)
+            return probs[x.device.type].grad_fn(0)(x, generator, k)
+        return grad
+
+    worst, iterates = {}, 0
+    cases = [(alg, {}) for alg in SIM_ALGORITHMS] + \
+        [("gossip_pga", SIM_COMPRESSED), ("hier_pga", SIM_COMPRESSED)]
+    for alg, comp in cases:
+        kw = dict(steps=SIMX["steps"], lr=SIMX["lr"], H=SIMX["H"],
+                  eval_every=SIMX["eval_every"], slowmo_beta=0.5,
+                  slowmo_lr=0.7, **SIMX_EXTRA.get(alg, {}), **comp)
+        xa, xb = [], []
+        a = _sim_run(torch, probs["cuda"], alg, device="cuda",
+                     grad_fn=traced(xa, bool(comp)), **kw)
+        b = _sim_run(torch, probs["cpu"], alg, device="cpu",
+                     grad_fn=traced(xb, False), **kw)
+        what = f"[simx] {alg}{' int8+EF' if comp else ''} card vs CPU"
+        if comp:
+            if len(xa) != len(xb) or not all(
+                    torch.equal(u, v) for u, v in zip(xa, xb)):
+                k = next((k for k, (u, v) in enumerate(zip(xa, xb))
+                          if not torch.equal(u, v)), None)
+                raise AssertionError(f"{what}: the iterate of step {k} "
+                                     f"differs")
+            iterates += len(xa)
+        np.testing.assert_array_equal(a["iteration"], b["iteration"])
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=2e-6,
+                                   err_msg=what)
+        np.testing.assert_allclose(a["consensus"], b["consensus"],
+                                   rtol=5e-6, atol=1e-12, err_msg=what)
+        if "H_history" in b:
+            assert a["H_history"].tolist() == b["H_history"].tolist(), what
+        big = np.abs(b["consensus"]) > 1e-12
+        kind = "compressed" if comp else "uncompressed"
+        w = worst.setdefault(kind, [0.0, 0.0])
+        w[0] = max(w[0], float(np.max(np.abs(a["loss"] - b["loss"])
+                                      / np.abs(b["loss"]))))
+        if big.any():
+            w[1] = max(w[1], float(np.max(
+                np.abs(a["consensus"] - b["consensus"])[big]
+                / np.abs(b["consensus"])[big])))
+    print(f"[simx] simulate card vs CPU, n={SIMX['n']} M={SIMX['M']} full "
+          f"gradients, {SIMX['steps']} steps, {len(cases)} runs (eight "
+          f"algorithms; gossip_pga and hier_pga int8+EF, {iterates} "
+          f"iterates bitwise equal): max relative difference of loss and "
+          f"consensus "
+          f"{ {k: [f'{v:.3e}' for v in w] for k, w in worst.items()} }; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+ALGO_RUNS = (("slowmo", dict(H=3, slowmo_beta=0.5)),
+             ("hier_pga", dict(H=6, n_pods=2, hier_h_pod=2)),
+             ("gt_pga", dict(H=3)),
+             ("gossip_aga", dict(aga_h_init=2, aga_warmup=2)))
+
+
+def run_algo_path(torch, mc, algorithm: str, dist_kw: dict) -> dict:
+    """[algos]: the Trainer on pga-lm-100m at full width with one of the
+    four new algorithms, 8 nodes stacked on the card, fused rounds with
+    the consensus residual, AdamW, global batch 32 × seq 512, 6 steps.
+    The launch counts are reset just before and read just after; they must
+    be the dispatch rule's: one mix.cu launch per dispatch group of the
+    round's tree (the joint params + tracker tree for GT-PGA) per
+    gossip/pod_avg/global step, none for SlowMo's outer step.  The phases
+    must be the schedule's, fed the run's losses, and the consensus after
+    every global (and SlowMo outer) step exactly 0.0."""
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+    from repro_torch.core import algo as algo_lib
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    steps, n_nodes = 6, 8
+    t_phase = time.perf_counter()
+    tcfg = TrainConfig(
+        model=get_model_config("pga-lm-100m"),
+        dist=DistConfig(algorithm=algorithm, topology="one_peer_exp",
+                        comm_backend="pallas", **dist_kw),
+        optimizer=OptimizerConfig(name="adamw", lr=3e-4,
+                                  schedule="warmup_cosine", warmup_steps=2,
+                                  total_steps=steps),
+        global_batch=32, seq_len=512, steps=steps, log_every=1)
+    tr = Trainer(tcfg, n_nodes=n_nodes, with_consensus=True)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    impl = algo_lib.get_algorithm(algorithm)
+    joint = algo_lib.join_payload(
+        impl.comm_payload(state.extras, state.params), state.params)
+    leaves = tree_leaves(joint)
+    groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
+    vector = all(mc.use_vector_mix(
+        leaves[g[0]].reshape(n_nodes, -1) if len(g) == 1 else
+        torch.empty(n_nodes, sum(leaves[i][0].numel() for i in g),
+                    device="cuda")) for g in groups)
+    extra_gb = sum(p.numel() * p.element_size()
+                   for name in state.extras
+                   for p in tree_leaves(state.extras[name])) / 1e9
+    tokens = tcfg.global_batch * tcfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        state = tr.run(state, steps=1, log_every=1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts()
+    recs = tr.history[-steps:]
+    phases = [r["phase"] for r in recs]
+    losses = [r["loss"] for r in recs]
+    want_phases = replay_phases(algorithm, steps, lambda k: losses[k],
+                                topology="one_peer_exp", **dist_kw)
+    for k, r in enumerate(recs):
+        print(f"[algos] {algorithm} step {k} phase={r['phase']} "
+              f"loss={r['loss']:.4f} consensus={r['consensus']:.6e} "
+              f"step_ms={times[k] * 1e3:.1f}", flush=True)
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"[algos] {algorithm} step {k}: {r}")
+        if r["phase"] in ("global", "slowmo") and r["consensus"] != 0.0:
+            raise AssertionError(f"[algos] {algorithm} step {k}: consensus "
+                                 f"{r['consensus']!r} after a "
+                                 f"{r['phase']} step")
+    if phases != want_phases:
+        raise AssertionError(f"[algos] {algorithm}: phases {phases}, the "
+                             f"schedule gives {want_phases}")
+    rounds = sum(ph in mc.KERNEL_PHASES for ph in phases)
+    expected = only(**{("mix_vector" if vector else "mix"):
+                       len(groups) * rounds})
+    if launches != expected:
+        raise AssertionError(f"[algos] {algorithm}: launches {launches}, "
+                             f"expected {expected}")
+    steady = statistics.median(times[1:])
+    line = (f"[algos] {algorithm} {dist_kw}: phases {phases}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } ({len(groups)} "
+            f"per round x {rounds} rounds); steady step {steady * 1e3:.1f} "
+            f"ms (median of steps 1-5), {tokens / steady:.0f} tokens/s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"(extras {extra_gb:.2f} GB)")
+    if hasattr(tr.schedule, "history"):
+        line += f"; H_history {tr.schedule.history}"
+    print(line + f"; phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del tr, state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2419,7 +2967,24 @@ def main() -> int:
     cross_check(torch, compressed=True)
     cross_check(torch, sharded=True)
     cross_check(torch, compressed=True, sharded=True)
+    for algorithm, dist_kw in ALGO_RUNS:
+        cross_check(torch, algorithm=algorithm, dist_kw=dist_kw, steps=6)
     serving_cross_check(torch)
+    torch.cuda.empty_cache()
+    sim = run_sim_path(torch, mc)
+    run_sim_cross_check(torch)
+    algos = {k: 0 for k in counts()}
+    for algorithm, dist_kw in ALGO_RUNS:
+        for k, v in run_algo_path(torch, mc, algorithm, dist_kw).items():
+            algos[k] += v
+    # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
+    for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("cmix_vector_kernel", ("cmix", "cmix_vector")),
+                       ("cmix_absmax_kernel", ("cmix_absmax",)),
+                       ("collective_kernel", ("collective",))):
+        records[name]["launches_sim_algos"] = {
+            path: {k: c[k] for k in keys if c[k]}
+            for path, c in (("[sim]", sim), ("[algos]", algos))}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

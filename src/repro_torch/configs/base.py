@@ -127,7 +127,17 @@ class DistConfig:
     node_axis: str = "data"          # "data": nodes along the mesh's
                                      # (pod, data) axes; "pod": nodes are
                                      # pods
+    # SlowMo (Wang et al. 2019) — Gossip-PGA == SlowMo(beta=0, alpha=1)
+    slowmo_beta: float = 0.0
+    slowmo_lr: float = 1.0
+    # Hier-PGA: intra-pod averaging period (the global one is H)
+    hier_h_pod: int = 3
     n_pods: int = 2                  # pod blocks of the pod_avg round
+    # Gossip-AGA (paper Alg. 2)
+    aga_h_init: int = 4
+    aga_warmup: int = 64             # K_w warmup iterations of the F_init
+                                     # running average
+    aga_h_max: int = 64              # Corollary 1 requires bounded H
     comm_dtype: str = "float32"      # "bfloat16": bf16 wire cast
     comm_backend: str = "reference"  # "reference": roll/mean mixing
                                      # "pallas": the fused hand-written
@@ -246,11 +256,16 @@ class DistConfig:
                 self.comm_global_compression)).validate()
 
     def validate_nodes(self, n_nodes: int) -> "DistConfig":
-        """Checks that need the runtime node count (the reference's
-        hier_pga pod check; that algorithm is not ported, so this only
-        rejects a node count below one)."""
+        """Checks that need the runtime node count: at least one node, and
+        hier_pga's ``n_pods`` dividing ``n_nodes`` (its pod_avg round needs
+        equal pod blocks)."""
         if n_nodes < 1:
             raise ValueError(f"DistConfig: n_nodes={n_nodes} must be >= 1")
+        if self.algorithm == "hier_pga" and n_nodes % self.n_pods:
+            raise ValueError(
+                f"DistConfig: n_pods={self.n_pods} does not divide "
+                f"n_nodes={n_nodes} — hier_pga's pod_avg round needs equal "
+                f"pod blocks")
         return self
 
 
@@ -308,5 +323,11 @@ class TrainConfig:
         if self.ckpt_every:
             raise not_ported("checkpoints", "A.7")
         if self.data.kind != "synthetic_lm":
-            raise not_ported(f"data kind {self.data.kind!r}", "A.1")
+            # the reference's Trainer ignores the field and trains on the
+            # LM stream whatever it says; the port refuses instead
+            raise ValueError(
+                f"TrainConfig: data kind {self.data.kind!r} — the "
+                f"Trainer's stream is LM-only (synthetic_lm); the logistic "
+                f"problem runs through repro_torch.core.algorithms."
+                f"simulate")
         return self

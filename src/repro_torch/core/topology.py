@@ -4,8 +4,9 @@ part of ``repro/core/topology.py``).
 
 Every topology here is circulant (or 2-D circulant on a torus), so
 ``W·x = Σ_s w_s · roll(x, s)`` along the node axis.  The push-sum fault
-matrices and the paper's transient-stage formulas are not copied yet
-(ROADMAP A.4, A.1).
+matrices (ROADMAP A.4) and the paper's transient-stage formulas, which
+only ``benchmarks/bench_transient_theory.py`` reads (ROADMAP A.11), are
+not copied yet.
 """
 from __future__ import annotations
 

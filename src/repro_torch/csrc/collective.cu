@@ -18,21 +18,30 @@
 // tile *is* the scale block: its n row absmax reductions (stage 1), the
 // n_pods absmax reductions over m and the n over q1 (stage 2) stay inside
 // the block, no accumulator crosses blocks, and the grid order does not
-// matter.  q1 lives in shared memory ([row][column]) between the phases;
-// the stage-1 and stage-2 codes never reach device memory.
+// matter.  The stage-1 and stage-2 codes never reach device memory.
 //
 // The pod sum runs r = 0 .. per-1 in that order, as the plain twin
 // (`collective_flat_plain`) does: the stage-2 decision depends on m's exact
 // bits.  Equal rows give equal q1, the anchored mean returns it bitwise and
 // Q2(m) == Q2(q1), so a constant state is a bitwise fixed point.
 //
+// Two instances.  The tiled one (TILE) keeps q1 in shared memory
+// ([row][column], 4·n·qblock bytes) between the phases; the untiled one
+// keeps only the scales and the warp partials there and recomputes q1 from
+// x, e and its stage-1 scale wherever a phase reads it, with the same
+// operations, so the two agree bitwise.  The wrapper takes the tiled one
+// while its tile fits the 227 KB a block may opt into (n <= 56 at a
+// 1024-column block) and the untiled one above that.
+//
 // What bounds it on the H100: bytes (x and e read, o and e' written; the
 // codec is some 60 flops per element).  The ragged last block is masked
 // (columns >= D count as zeros, which quantize to zero at every stage), so
 // the wrapper pads nothing.  o may alias x and e' may alias e (the packed
-// buffers are private): each element is written only by the thread that
-// read it, after it read it.  x is read a second time in the last phase,
-// mostly from L2.
+// buffers are private): each column is read and written only by one
+// thread, and each element is written after that thread's last read of
+// it (the untiled instance writes e' in the last phase, with o).  x is
+// read a second time in the last phase, mostly from L2; the untiled
+// instance reads x and e four times.
 
 #include <cuda_runtime.h>
 
@@ -48,17 +57,18 @@ __device__ __forceinline__ float quant(float y, float scale, uint32_t bits) {
                        : repro::fp8_q(y, scale, bits);
 }
 
-// Anchored pod mean of column c from the stage-1 tile.
-__device__ __forceinline__ float pod_mean(const float* sq, int qblock, int p,
-                                          int per, int c) {
-  const float anchor = sq[(p * per) * qblock + c];
+// Anchored pod mean of column c, q1(i, c) giving the stage-1 codes.
+template <typename Q1>
+__device__ __forceinline__ float pod_mean(const Q1& q1, int p, int per,
+                                          int c) {
+  const float anchor = q1(p * per, c);
   float s = 0.f;
   for (int r = 0; r < per; ++r)
-    s = __fadd_rn(s, __fsub_rn(sq[(p * per + r) * qblock + c], anchor));
+    s = __fadd_rn(s, __fsub_rn(q1(p * per + r, c), anchor));
   return __fadd_rn(anchor, __fdiv_rn(s, static_cast<float>(per)));
 }
 
-template <int KIND, bool EF>
+template <int KIND, bool EF, bool TILE>
 __global__ void collective_kernel(const float* x, const float* e, float* o,
                                   float* ef, uint32_t s1, uint32_t s2, int n,
                                   int n_pods, long long D, int qblock) {
@@ -68,23 +78,34 @@ __global__ void collective_kernel(const float* x, const float* e, float* o,
   const int lane = t & 31, warp = t >> 5, nwarps = bd >> 5;
   const int per = n / n_pods;
   const int shift = KIND == kInt8 ? 7 : 8;
-  float* sq = smem;                                 // [n][qblock]
-  float* red = sq + static_cast<size_t>(n) * qblock;  // [n_pods + n][nwarps]
-  float* scales = red + (n_pods + n) * nwarps;      // stage 1: [n];
-                                                    // stage 2: [n_pods + n]
+  float* sq = smem;                          // TILE: [n][qblock]
+  float* red = sq + (TILE ? static_cast<size_t>(n) * qblock : 0);
+                                             // [n_pods + n][nwarps]
+  float* sc1 = red + (n_pods + n) * nwarps;  // stage 1: [n]
+  float* sc2 = sc1 + n;                      // stage 2: [n_pods + n]
   const long long base = static_cast<long long>(blockIdx.x) * qblock;
 
-  // 1. y into shared memory, per-row absmax -> stage-1 scales
+  auto y_of = [&](int i, long long col) -> float {
+    float y = x[i * D + col];
+    if (EF) y = __fadd_rn(y, e[i * D + col]);
+    return y;
+  };
+  // the stage-1 code of row i, column c (zero past D)
+  auto q1 = [&](int i, int c) -> float {
+    if (TILE) return sq[i * qblock + c];
+    const long long col = base + c;
+    if (col >= D) return 0.f;
+    return quant<KIND>(y_of(i, col), sc1[i],
+                       repro::column_bits(s1, static_cast<uint32_t>(col)));
+  };
+
+  // 1. per-row absmax of y -> stage-1 scales (TILE: y into shared memory)
   for (int i = 0; i < n; ++i) {
     float m = 0.f;
     for (int c = t; c < qblock; c += bd) {
       const long long col = base + c;
-      float y = 0.f;
-      if (col < D) {
-        y = x[i * D + col];
-        if (EF) y = __fadd_rn(y, e[i * D + col]);
-      }
-      sq[i * qblock + c] = y;
+      const float y = col < D ? y_of(i, col) : 0.f;
+      if (TILE) sq[i * qblock + c] = y;
       m = fmaxf(m, fabsf(y));
     }
     m = repro::warp_max(m);
@@ -94,20 +115,23 @@ __global__ void collective_kernel(const float* x, const float* e, float* o,
   if (t < n) {
     float m = 0.f;
     for (int k = 0; k < nwarps; ++k) m = fmaxf(m, red[t * nwarps + k]);
-    scales[t] = repro::pow2_scale(m, shift);
+    sc1[t] = repro::pow2_scale(m, shift);
   }
   __syncthreads();
 
-  // 2. stage-1 codes in place; error feedback e' = y - q1.  Each thread
-  // touches only its own columns, so no barrier is needed before 3.
-  for (int c = t; c < qblock; c += bd) {
-    const long long col = base + c;
-    const uint32_t bits = repro::column_bits(s1, static_cast<uint32_t>(col));
-    for (int i = 0; i < n; ++i) {
-      const float y = sq[i * qblock + c];
-      const float q = quant<KIND>(y, scales[i], bits);
-      if (EF && col < D) ef[i * D + col] = __fsub_rn(y, q);
-      sq[i * qblock + c] = q;
+  // 2. TILE: stage-1 codes in place; error feedback e' = y - q1.  Each
+  // thread touches only its own columns, so no barrier is needed before 3.
+  if (TILE) {
+    for (int c = t; c < qblock; c += bd) {
+      const long long col = base + c;
+      const uint32_t bits =
+          repro::column_bits(s1, static_cast<uint32_t>(col));
+      for (int i = 0; i < n; ++i) {
+        const float y = sq[i * qblock + c];
+        const float q = quant<KIND>(y, sc1[i], bits);
+        if (EF && col < D) ef[i * D + col] = __fsub_rn(y, q);
+        sq[i * qblock + c] = q;
+      }
     }
   }
 
@@ -115,71 +139,87 @@ __global__ void collective_kernel(const float* x, const float* e, float* o,
   for (int p = 0; p < n_pods; ++p) {
     float m = 0.f;
     for (int c = t; c < qblock; c += bd)
-      m = fmaxf(m, fabsf(pod_mean(sq, qblock, p, per, c)));
+      m = fmaxf(m, fabsf(pod_mean(q1, p, per, c)));
     m = repro::warp_max(m);
     if (lane == 0) red[p * nwarps + warp] = m;
   }
   for (int i = 0; i < n; ++i) {
     float m = 0.f;
-    for (int c = t; c < qblock; c += bd) m = fmaxf(m, fabsf(sq[i * qblock + c]));
+    for (int c = t; c < qblock; c += bd) m = fmaxf(m, fabsf(q1(i, c)));
     m = repro::warp_max(m);
     if (lane == 0) red[(n_pods + i) * nwarps + warp] = m;
   }
-  __syncthreads();  // also: every thread has read the stage-1 scales
+  __syncthreads();
   if (t < n_pods + n) {
     float m = 0.f;
     for (int k = 0; k < nwarps; ++k) m = fmaxf(m, red[t * nwarps + k]);
-    scales[t] = repro::pow2_scale(m, shift);
+    sc2[t] = repro::pow2_scale(m, shift);
   }
   __syncthreads();
 
-  // 4. o = x + (Q2(m)[pod] - Q2(q1))
+  // 4. o = x + (Q2(m)[pod] - Q2(q1)); untiled: e' = y - q1 here, after
+  // this thread's last read of the column's x and e
   for (int c = t; c < qblock; c += bd) {
     const long long col = base + c;
     if (col >= D) continue;
     const uint32_t bits = repro::column_bits(s2, static_cast<uint32_t>(col));
     for (int p = 0; p < n_pods; ++p) {
-      const float r = quant<KIND>(pod_mean(sq, qblock, p, per, c), scales[p],
-                                  bits);
+      const float r = quant<KIND>(pod_mean(q1, p, per, c), sc2[p], bits);
       for (int k = 0; k < per; ++k) {
         const int i = p * per + k;
-        const float rho = quant<KIND>(sq[i * qblock + c], scales[n_pods + i],
-                                      bits);
-        o[i * D + col] = __fadd_rn(x[i * D + col], __fsub_rn(r, rho));
+        const float q = q1(i, c);
+        const float rho = quant<KIND>(q, sc2[n_pods + i], bits);
+        const float xi = x[i * D + col];
+        if (!TILE && EF) ef[i * D + col] = __fsub_rn(y_of(i, col), q);
+        o[i * D + col] = __fadd_rn(xi, __fsub_rn(r, rho));
       }
     }
   }
 }
 
-template <int KIND, bool EF>
+template <int KIND, bool EF, bool TILE>
 cudaError_t launch(const float* x, const float* e, float* o, float* ef,
                    uint32_t s1, uint32_t s2, int n, int n_pods, long long D,
                    int qblock, int block, cudaStream_t s) {
   const int nwarps = block / 32;
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n) * qblock +
-                       static_cast<size_t>(n_pods + n) * nwarps + n_pods + n);
+      sizeof(float) * ((TILE ? static_cast<size_t>(n) * qblock : 0) +
+                       static_cast<size_t>(n_pods + n) * nwarps + n_pods +
+                       2 * static_cast<size_t>(n));
   if (smem > 48u * 1024u) {
     const cudaError_t err = cudaFuncSetAttribute(
-        collective_kernel<KIND, EF>,
+        collective_kernel<KIND, EF, TILE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const long long grid = (D + qblock - 1) / qblock;
-  collective_kernel<KIND, EF><<<static_cast<unsigned>(grid), block, smem, s>>>(
-      x, e, o, ef, s1, s2, n, n_pods, D, qblock);
+  collective_kernel<KIND, EF, TILE>
+      <<<static_cast<unsigned>(grid), block, smem, s>>>(x, e, o, ef, s1, s2,
+                                                        n, n_pods, D, qblock);
   return cudaGetLastError();
+}
+
+template <int KIND, bool EF>
+cudaError_t launch_kind(const float* x, const float* e, float* o, float* ef,
+                        uint32_t s1, uint32_t s2, int n, int n_pods,
+                        long long D, int qblock, int block, int tiled,
+                        cudaStream_t s) {
+  return tiled ? launch<KIND, EF, true>(x, e, o, ef, s1, s2, n, n_pods, D,
+                                        qblock, block, s)
+               : launch<KIND, EF, false>(x, e, o, ef, s1, s2, n, n_pods, D,
+                                         qblock, block, s);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  kind: 0 int8, 1 fp8.  `block`
-// must be a multiple of 32 that divides `qblock`; n_pods must divide n.
-// Returns cudaGetLastError() after the launch.
+// Plain C entry point (bound with ctypes).  kind: 0 int8, 1 fp8; tiled:
+// 1 for the instance with the q1 tile in shared memory, 0 for the one that
+// recomputes it.  `block` must be a multiple of 32 that divides `qblock`;
+// n_pods must divide n.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_collective(const void* x, const void* e, void* o,
                                 void* ef, unsigned int s1, unsigned int s2,
                                 long long D, int n, int n_pods, int qblock,
-                                int kind, int with_ef, int block,
+                                int kind, int with_ef, int block, int tiled,
                                 void* stream) {
   if (n < 1 || D < 1 || n_pods < 1 || n % n_pods != 0 || qblock < 32 ||
       block < 32 || block > 1024 || block % 32 != 0 || qblock % block != 0 ||
@@ -192,14 +232,18 @@ extern "C" int repro_collective(const void* x, const void* e, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (kind == kInt8)
-    err = with_ef ? launch<kInt8, true>(xf, ef_in, of, ef_out, s1, s2, n,
-                                        n_pods, D, qblock, block, s)
-                  : launch<kInt8, false>(xf, ef_in, of, ef_out, s1, s2, n,
-                                         n_pods, D, qblock, block, s);
+    err = with_ef ? launch_kind<kInt8, true>(xf, ef_in, of, ef_out, s1, s2, n,
+                                             n_pods, D, qblock, block, tiled,
+                                             s)
+                  : launch_kind<kInt8, false>(xf, ef_in, of, ef_out, s1, s2,
+                                              n, n_pods, D, qblock, block,
+                                              tiled, s);
   else
-    err = with_ef ? launch<kFp8, true>(xf, ef_in, of, ef_out, s1, s2, n,
-                                       n_pods, D, qblock, block, s)
-                  : launch<kFp8, false>(xf, ef_in, of, ef_out, s1, s2, n,
-                                        n_pods, D, qblock, block, s);
+    err = with_ef ? launch_kind<kFp8, true>(xf, ef_in, of, ef_out, s1, s2, n,
+                                            n_pods, D, qblock, block, tiled,
+                                            s)
+                  : launch_kind<kFp8, false>(xf, ef_in, of, ef_out, s1, s2,
+                                             n, n_pods, D, qblock, block,
+                                             tiled, s);
   return static_cast<int>(err);
 }

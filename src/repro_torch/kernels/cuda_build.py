@@ -39,7 +39,7 @@ ENTRY_POINTS = {
     "cmix_absmax": ("cmix", "repro_cmix_absmax",
                     [_P] * 4 + [_LL] + [_I] * 3 + [_P]),
     "collective": ("collective", "repro_collective",
-                   [_P] * 4 + [_U, _U, _LL] + [_I] * 6 + [_P]),
+                   [_P] * 4 + [_U, _U, _LL] + [_I] * 7 + [_P]),
     "mlstm": ("mlstm", "repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
     "mlstm_wgmma": ("mlstm_wgmma", "repro_mlstm_wgmma",
                     [_P] * 10 + [_I] * 5 + [_P]),

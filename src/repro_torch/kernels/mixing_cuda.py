@@ -57,7 +57,7 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.kernels import cuda_build
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import pairwise_mean, tree_flatten, tree_unflatten
 
 PyTree = Any
 
@@ -292,17 +292,6 @@ def mix_vector(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
 # ---------------------------------------------------------------------------
 # The wrapper and its plain twin
 # ---------------------------------------------------------------------------
-def _pairwise_mean(o: torch.Tensor) -> torch.Tensor:
-    """Column mean, halving pairwise (``s[i] += s[m − h + i]``) exactly as
-    the kernel does: exact for equal rows when n is a power of two."""
-    s, m = o, o.shape[0]
-    while m > 1:
-        h = m // 2
-        s = torch.cat([s[:h] + s[m - h:m], s[h:m - h]])
-        m -= h
-    return s[:1] / o.shape[0]
-
-
 def mix_flat_plain(xf, gf, gamma, d, M, *, with_g: bool,
                    with_residual: bool, wire: bool):
     """Plain PyTorch version of the round: ``d⊙x + M @ wire(x)`` (+ x̄ and
@@ -314,7 +303,7 @@ def mix_flat_plain(xf, gf, gamma, d, M, *, with_g: bool,
     o = torch.matmul(M, onwire) + d * x
     if not with_residual:
         return o
-    xbar = _pairwise_mean(o)
+    xbar = pairwise_mean(o)
     return o, xbar, torch.sum(torch.square(o - xbar))
 
 
@@ -637,16 +626,28 @@ def collective_flat_plain(xf, ef, s1: int, s2: int, *, kind: str,
                                        s1, s2, n_pods=n_pods, qblock=qblock)
 
 
+def collective_smem(n: int, n_pods: int, qblock: int, tiled: bool) -> int:
+    """Bytes of shared memory a block of ``collective.cu`` takes: the q1
+    tile (tiled instance only), the warp partials and both stages'
+    scales (``launch`` there)."""
+    nwarps = COLLECTIVE_BLOCK // 32
+    return 4 * ((n * qblock if tiled else 0) + (n_pods + n) * nwarps
+                + n_pods + 2 * n)
+
+
 def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
                     s2: int, *, kind: str, with_ef: bool, n_pods: int,
-                    qblock: int, inplace: bool = False):
+                    qblock: int, inplace: bool = False,
+                    tiled: Optional[bool] = None):
     """Run the compressed collective over the packed ``(n, D)`` fp32 matrix:
     ``(o, ef_out)``.  The kernel masks the ragged last ``qblock`` block, so
     nothing is padded.  ``inplace`` writes ``o`` into ``xf`` and ``ef_out``
     into ``ef``: only for private packed buffers nobody reads again.  A
     CUDA ``xf`` launches ``collective.cu`` (counted in
-    ``collective_flat.launches``); a CPU ``xf`` takes
-    :func:`collective_flat_plain`."""
+    ``collective_flat.launches``): the instance that keeps the q1 tile in
+    shared memory while it fits the card's 227 KB, else the one that
+    recomputes q1 (bitwise the same; ``tiled`` forces one); a CPU ``xf``
+    takes :func:`collective_flat_plain`."""
     if kind not in COLLECTIVE_KINDS:
         raise ValueError(f"collective_flat: unsupported kind {kind!r} "
                          f"(expected one of {tuple(COLLECTIVE_KINDS)})")
@@ -664,12 +665,13 @@ def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
     if qblock % COLLECTIVE_BLOCK:
         raise ValueError(f"collective_flat: qblock={qblock} must be a "
                          f"multiple of {COLLECTIVE_BLOCK} on the card")
-    # the kernel's tile, warp partials and scales (collective.cu `launch`)
-    smem = 4 * (n * qblock + (n_pods + n) * (COLLECTIVE_BLOCK // 32 + 1))
-    if smem > 232_448:
+    if tiled is None:
+        tiled = collective_smem(n, n_pods, qblock, True) <= \
+            cuda_build.MAX_SMEM
+    if collective_smem(n, n_pods, qblock, tiled) > cuda_build.MAX_SMEM:
         raise ValueError(f"collective_flat: n={n} rows of a {qblock}-column "
-                         f"block need {smem} bytes of shared memory, over "
-                         f"the H100's 232448")
+                         f"block need more shared memory than the H100's "
+                         f"{cuda_build.MAX_SMEM} bytes")
     o = xf if inplace else torch.empty_like(xf)
     ef_out = None
     if with_ef:
@@ -677,7 +679,8 @@ def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
     err = cuda_build.entry("collective")(
         _ptr(xf), _ptr(ef if with_ef else None), _ptr(o), _ptr(ef_out),
         int(s1) & 0xFFFFFFFF, int(s2) & 0xFFFFFFFF, D, n, n_pods, qblock,
-        COLLECTIVE_KINDS[kind], int(with_ef), COLLECTIVE_BLOCK, _stream(dev))
+        COLLECTIVE_KINDS[kind], int(with_ef), COLLECTIVE_BLOCK, int(tiled),
+        _stream(dev))
     _check_launch(err, f"collective (n={n}, D={D}, kind={kind})")
     collective_flat.launches += 1
     return o, ef_out

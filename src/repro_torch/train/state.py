@@ -7,7 +7,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import pairwise_mean, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -35,9 +35,13 @@ def stack_for_nodes(tree: PyTree, n_nodes: int) -> PyTree:
 
 def consensus_distance(params_stacked: PyTree) -> torch.Tensor:
     """(1/n) Σ_i ‖x_i − x̄‖² summed over all parameters — the paper's
-    consensus quantity (§4 Intuition)."""
+    consensus quantity (§4 Intuition).  x̄ is the node mean taken by
+    pairwise halving, as the fused round's residual takes it: for n a
+    power of two it is exact on equal rows, so the consensus after an
+    exact average is exactly 0.0 (a running sum over the rows is not
+    exact: 3·x rounds)."""
     def one(p):
         p32 = p.to(torch.float32)
-        xbar = torch.mean(p32, dim=0, keepdim=True)
+        xbar = pairwise_mean(p32)
         return torch.sum(torch.square(p32 - xbar)) / p.shape[0]
     return sum(one(p) for p in tree_leaves(params_stacked))

@@ -16,7 +16,10 @@ consensus is ``consensus_distance``.  With a ``mesh`` whose node axis has
 several shards (``Trainer(mesh=...)``), the fused backend runs every
 round through the sharded per-shard kernels (``mixing.communicate_sharded``),
 honouring ``DistConfig.comm_shard_mode``.  Overlap and push-sum step modes
-are not ported yet (ROADMAP A.4, A.5).
+are not ported yet (ROADMAP A.4, A.5).  An algorithm-owned phase
+(SlowMo's outer step) runs no round: ``post_round`` consumes the
+half-step iterate.  Algorithms with a payload (GT-PGA's tracker) send the
+joint tree ``{"params": ..., <slot>: ...}`` through ``communicate``.
 """
 from __future__ import annotations
 
@@ -71,6 +74,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     lossy_round = n_nodes > 1 and (
         (spec.lossy and phase in ("gossip", "global", "pod_avg"))
         or (lossy_global and phase in ("global", "pod_avg")))
+    owned = phase in algo.owned_phases
     opt = make_optimizer(tcfg.optimizer)
     remat = "none" if dist.remat == "none" else "default"
     fused_consensus_round = (dist.comm_backend == "pallas" and with_consensus
@@ -93,14 +97,18 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         payload = algo.comm_payload(extras, params_half)
         has_payload = bool(payload)
         joint = algo_lib.join_payload(payload, params_half)
+        if owned:
+            # algorithm-owned phase (SlowMo's outer step): no round —
+            # post_round consumes the half-step iterate itself
+            return algo_lib.wrap_mixed(joint, has_payload), None
         if lossy_round:
             # the rounding seed is the absolute step (a host int: no sync),
             # so stochastic rounding is unbiased across steps
             mixed, new_ef = mixing.communicate(
                 joint, spec, phase=phase, step=shift_step,
-                ef_state=extras.get(algo_lib.EF_SLOT), seed=step_seed)
+                ef_state=extras.get(algo_lib.EF_SLOT.name), seed=step_seed)
             if new_ef is not None:
-                extras[algo_lib.EF_SLOT] = new_ef
+                extras[algo_lib.EF_SLOT.name] = new_ef
             return algo_lib.wrap_mixed(mixed, has_payload), None
         if fused_consensus_round and not has_payload and sharded_comm:
             mixed, _xbar, resid = mixing.communicate_sharded(

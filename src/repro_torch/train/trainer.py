@@ -7,7 +7,9 @@ several shards, the fused backend runs the rounds shard by shard through
 the per-shard kernels, every shard on that one device.  The loop
 keeps metrics on the device and reads them back in one transfer per log
 boundary, where it records them in ``history`` and prints the reference's line
-``[algo] step N loss=… phase=… consensus=…``.  Telemetry sinks,
+``[algo] step N loss=… phase=… consensus=…``.  Each step's loss goes to
+``schedule.observe_loss`` as a device scalar (Gossip-AGA reads it at its
+period boundaries; ``schedule.history`` keeps the periods it set).  Telemetry sinks,
 checkpoints and fault schedules are not ported yet (ROADMAP A.6, A.7,
 A.4).
 """
@@ -113,6 +115,9 @@ class Trainer:
             lr = self.lr_fn(k)
             state, metrics = self._get_step_fn(phase, shift)(state, batch,
                                                             lr)
+            # the schedule holds the device scalar and reads it only at a
+            # period boundary (schedule._as_float): no per-step host read
+            self.schedule.observe_loss(k, metrics["loss"])
             if log_every and (k % log_every == 0 or k == steps - 1):
                 self._log_boundary(k, phase, lr, metrics, t0)
         return state

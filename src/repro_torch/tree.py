@@ -59,3 +59,25 @@ def tree_map(fn: Callable, tree: PyTree) -> PyTree:
     """``fn`` over every leaf, keeping the structure."""
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
+
+
+def pairwise_mean(x):
+    """Mean over the leading (node) axis of a tensor, keeping it as one
+    row: halving pairwise, ``s[i] += s[m − h + i]`` for ``i < h = m // 2``
+    while ``m > 1`` rows are left, then ``/ n``.  This is the order in
+    which the fused round's kernel takes x̄ (``csrc/mix.cu``), its plain
+    twin and ``consensus_distance`` too; it is exact on equal rows when n
+    is a power of two (a running sum is not: 3·x rounds).  One working
+    buffer of about half of ``x``, summed in place."""
+    n = m = x.shape[0]
+    if n == 1:
+        return x[:1] / n
+    h = m // 2
+    s = x[:m - h].clone()
+    s[:h] += x[m - h:m]
+    m -= h
+    while m > 1:
+        h = m // 2
+        s[:h] += s[m - h:m]
+        m -= h
+    return s[:1] / n

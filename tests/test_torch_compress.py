@@ -582,3 +582,43 @@ def test_cmix_direct_launchers_refuse_cpu_operands(launcher):
         getattr(tmc, launcher)(x, None, None, 3, tq.int8_scale(x), w, M,
                                kind="int8", with_ef=False, wire=False)
     assert (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches) == before
+
+
+@pytest.mark.parametrize("n,n_pods,tiled,fits", [
+    (8, 1, True, True), (56, 1, True, True), (56, 4, True, True),
+    (57, 1, True, False), (100, 1, True, False), (100, 1, False, True),
+    (100, 4, False, True), (4096, 1, False, True)])
+def test_collective_shared_memory_picks_the_instance(n, n_pods, tiled, fits):
+    """collective.cu's shared memory per block: the tiled instance holds
+    n × 1024 stage-1 codes and fits up to n = 56; the untiled one holds
+    only the warp partials and both stages' scales, so n = 100 (the
+    paper's largest network) runs on it."""
+    need = tmc.collective_smem(n, n_pods, 1024, tiled)
+    nwarps = tmc.COLLECTIVE_BLOCK // 32
+    assert need == 4 * ((n * 1024 if tiled else 0)
+                        + (n_pods + n) * nwarps + n_pods + 2 * n)
+    assert (need <= 232_448) == fits
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, 7, 8, 16, 100))
+def test_pairwise_mean_halves_in_the_kernels_order(n):
+    """tree.pairwise_mean sums s[i] += s[m − h + i] level by level, as
+    csrc/mix.cu does: equal to that sum written out, exact on equal rows
+    when n is a power of two, and it leaves its input untouched."""
+    from repro_torch.tree import pairwise_mean
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, 33)).astype(np.float32))
+    keep = x.clone()
+    rows, m = [x[i] for i in range(n)], n
+    while m > 1:
+        h = m // 2
+        rows = [rows[i] + rows[m - h + i] for i in range(h)] + rows[h:m - h]
+        m -= h
+    got = pairwise_mean(x)
+    assert got.shape == (1, 33)
+    assert torch.equal(got[0], rows[0] / n)
+    assert torch.equal(x, keep)
+    same = x[:1].expand(n, 33).contiguous()
+    if n & (n - 1) == 0:
+        assert torch.equal(pairwise_mean(same), same[:1])

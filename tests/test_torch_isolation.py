@@ -112,7 +112,7 @@ def test_wrapper_rejects_other_devices_and_bad_operands():
     (dict(push_sum=True), "A.4"),
     (dict(comm_overlap=True), "A.5"),
     (dict(fsdp=True), "A.10"),
-    (dict(algorithm="slowmo"), "A.2"),
+    (dict(algorithm="slowmo", comm_overlap=True), "A.5"),
 ])
 def test_unported_options_raise(over, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

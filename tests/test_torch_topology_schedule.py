@@ -61,7 +61,31 @@ def test_phase_sequences_match(algorithm, H):
 @pytest.mark.parametrize("algorithm", ("gossip_aga", "slowmo", "hier_pga",
                                        "gt_pga"))
 def test_unported_schedules_raise(algorithm):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        tsched.make_schedule(TDist(algorithm=algorithm))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        TDist(algorithm=algorithm).validate()
+    """The adaptive, SlowMo, hierarchical and GT-PGA schedules, refused
+    until they were ported, now validate and follow the reference's phase
+    sequence for the same parameters: 60 steps of phases and one-peer
+    shifts, AGA fed one loss sequence and its ``state_dict`` round-tripped
+    halfway."""
+    kw = dict(algorithm=algorithm, H=6, hier_h_pod=2, n_pods=2,
+              aga_h_init=2, aga_warmup=5, aga_h_max=7)
+    TDist(**kw).validate()
+    ts, js = tsched.make_schedule(TDist(**kw)), \
+        jsched.make_schedule(JDist(**kw))
+    assert type(ts).__name__ == type(js).__name__
+    period = ttopo.schedule_period("one_peer_exp", 8)
+    losses = 3.0 / (1.0 + 0.2 * np.arange(60.0))
+    for k in range(60):
+        if k == 30:
+            state = ts.state_dict()
+            assert state == js.state_dict()
+            ts = tsched.make_schedule(TDist(**kw))
+            ts.load_state_dict(state)
+        assert ts.peek_phase(k) == js.peek_phase(k)
+        assert ts.advance(k) == js.advance(k)
+        assert ts.gossip_shift_step(k, period) == \
+            js.gossip_shift_step(k, period)
+        ts.observe_loss(k, float(losses[k]))
+        js.observe_loss(k, float(losses[k]))
+    assert ts.state_dict() == js.state_dict()
+    if algorithm == "gossip_aga":
+        assert ts.history == js.history and len(set(ts.history)) > 1
