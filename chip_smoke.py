@@ -77,7 +77,22 @@ line):
    ``[algos]`` (:func:`run_algo_path`): the Trainer at full width with
    SlowMo, Hier-PGA, GT-PGA and Gossip-AGA, 6 steps each, phases against
    the schedule, launch counts against the dispatch rule, step ms and
-   peak memory.
+   peak memory;
+10. slice 8's paths, push-sum gossip with fault injection: the Trainer
+   at full width over directed_exp with ``push_sum=True`` and a
+   :class:`repro_torch.core.faults.FaultSchedule` (nodes 2 and 5 down at
+   steps 1–3, per-node hops), stacked (``[psmain]``, mix.cu on a runtime
+   W), with int8 gossip + EF (``[pscmain]``, cmix.cu and its row maxima)
+   and on a mesh of 4 node shards (``[spsmain]``, shard_mix.cu over the
+   static halo; its rounds timed beside the stacked ones): the mass
+   ``Σw`` within 8e-5 of 8 after every step, ``w`` bitwise ones after the
+   full global round, the dropped nodes' rows bitwise frozen, the
+   synchronizing calls per step against ``[main]``'s; the three at a
+   reduced config card vs CPU (``[pscross]``); ``[psim]``: ``simulate``
+   with push-sum and faults, the reference's acceptance scenario card vs
+   CPU and the §5.1 problem at n = 100 over the directed ring.  The
+   kernel checks of phase 2 also hold mix, cmix and shard_mix on factors
+   built on the card from a runtime W at these paths' shapes.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -115,6 +130,12 @@ RAGGED_D = 1_000_003
 SIM_MIX_SHAPES = ((16, 10), (16, 20), (100, 10), (100, 20))
 SIM_COMP_SHAPES = ((16, 10), (32, 10), (100, 10))
 MAIN_PACKED_D = 138_431_232         # every parameter of one node, packed
+# the push-sum paths' round operands (slice 8): the staging group of the
+# norms with the weight column (19,201: not a multiple of 4, so the
+# generic instance), the large leaves, and the simulator's joint (x, w)
+# trees ([psim]: d = 6 at n = 16, d = 10 at n = 100)
+PUSH_MIX_SHAPES = ((8, 19_201), (8, 7_077_888), (8, MAIN_D),
+                   (8, 28_311_552), (16, 7), (100, 11))
 
 
 def smi() -> str:
@@ -276,6 +297,24 @@ def _turns(torch, old, new) -> tuple:
     return (o1 + o2) / 2, (n1 + n2) / 2
 
 
+def push_matrices(n: int) -> list:
+    """Two runtime push-sum matrices at n nodes, float32 numpy: a gossip
+    round with nodes 1 and n − 2 down and every node on its own drawn hop
+    (renormalized, non-dyadic columns), and the global round over the
+    other nodes."""
+    import numpy as np
+
+    from repro_torch.core import topology as topo
+    from repro_torch.core.faults import FaultSchedule
+
+    fs = FaultSchedule(n_nodes=n, drops={0: (1, n - 2)}, resample="peer",
+                       seed=3)
+    t = "directed_exp" if n & (n - 1) == 0 else "directed_ring"
+    return [W.astype(np.float32)
+            for W in (fs.matrix(t, 0),
+                      topo.global_push_matrix(n, fs.active_mask(0)))]
+
+
 def check_mix_kernel(torch, mc) -> dict:
     """Kernel vs plain version, each case on the instance that
     ``use_vector_mix`` picks.  Tolerances: max|o − o_plain| and
@@ -289,7 +328,10 @@ def check_mix_kernel(torch, mc) -> dict:
     equal rows is not always exact, so a global round's residual is held
     to n·D·(2⁻²⁰·max|o|)² instead of 0.  The simulator's shapes ([sim],
     [simx]: n = 16 and 100 at D = 10, and D = 20 for GT-PGA's joint tree)
-    run on a ring with and without the half-step and the residual."""
+    run on a ring with and without the half-step and the residual.  The
+    push-sum rounds (:data:`PUSH_MIX_SHAPES`) run with d and M built on
+    the card from two runtime matrices (:func:`push_matrices`), fp32 and
+    bf16 wire."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     gamma = torch.tensor([0.05], device="cuda")
     worst = 0.0
@@ -390,6 +432,19 @@ def check_mix_kernel(torch, mc) -> dict:
                         compare(x, g, d, M, with_g, with_residual, wire,
                                 phase == "global")
 
+    # the push-sum rounds (slice 8): d and M built on the card from a
+    # runtime W (dense_factors), fp32 and bf16 wire, at the push paths'
+    # widths
+    push_cases = 0
+    for n, width in PUSH_MIX_SHAPES:
+        x = torch.randn(n, width, device="cuda", generator=gen)
+        for W in push_matrices(n):
+            d, M = mc.dense_factors(torch.from_numpy(W).cuda(), n)
+            for wire in (False, True):
+                compare(x, None, d, M, False, False, wire, False)
+                push_cases += 1
+        del x
+
     # the main path's calls (n = 8, fp32 wire, consensus residual on, as
     # Trainer's fused round launches them), timed at the embedding leaf
     d, M = (torch.from_numpy(a).cuda()
@@ -421,7 +476,8 @@ def check_mix_kernel(torch, mc) -> dict:
           f"{100 * bound_ms / ms:.1f}% of the bound)", flush=True)
     print(f"[kernel] mix: {cases} kernel-vs-plain cases within tolerance, "
           f"max abs err {worst:.3e}; {vector_cases} of them on the register "
-          f"instance, bitwise equal to the generic one", flush=True)
+          f"instance, bitwise equal to the generic one; {push_cases} with a "
+          f"runtime push-sum W at {PUSH_MIX_SHAPES}", flush=True)
     return {"name": "mix_vector_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/mix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:215",
@@ -502,7 +558,9 @@ def check_cmix_kernel(torch, mc) -> tuple:
     1,000,000 (both instances).  Then the rows' maxima
     kernel (:func:`check_absmax`).  At the simulator's shapes (n = 16, 32
     and 100 at D = 10; ring gossip, global and pod_avg) o and the new EF
-    must be bitwise the twin's.  Returns the cmix record and the maxima
+    must be bitwise the twin's.  The push-sum gossip round's factors come
+    from a runtime W built on the card (n = 8 at D = 1,000,003 and the
+    embedding leaf, int8 and fp8).  Returns the cmix record and the maxima
     kernel's."""
     from repro_torch import compress as C
     from repro_torch.compress import quantize as cq
@@ -514,10 +572,10 @@ def check_cmix_kernel(torch, mc) -> tuple:
               ("global", "ring", 1, True), ("pod_avg", "ring", 2, False))
 
     def run(x, e, kind, phase, topo, pods, wire, seed, q=None,
-            launch=None):
+            launch=None, factors=None):
         n = x.shape[0]
-        w, M = mc._device_compensated(phase, topo, n, 1, pods,
-                                      torch.device("cuda"))
+        w, M = factors if factors is not None else mc._device_compensated(
+            phase, topo, n, 1, pods, torch.device("cuda"))
         scale = None
         if q is None:
             y = x if e is None else x + e
@@ -529,10 +587,10 @@ def check_cmix_kernel(torch, mc) -> tuple:
         return out, (None if launch else mc.cmix_flat_plain(*args, **kw))
 
     def compare(x, e, kind, phase, topo, pods, wire, seed=7, q=None,
-                bitwise=False):
+                bitwise=False, factors=None):
         nonlocal worst, cases, vector_cases
         (o, ef), (po, pef) = run(x, e, kind, phase, topo, pods, wire, seed,
-                                 q)
+                                 q, factors=factors)
         torch.cuda.synchronize()
         err = float((o - po).abs().max())
         if ef is not None:
@@ -548,7 +606,7 @@ def check_cmix_kernel(torch, mc) -> tuple:
                                  f"{tol:.3e}")
         if mc.use_vector_cmix(x, e, q):
             (go, gef), _ = run(x, e, kind, phase, topo, pods, wire, seed, q,
-                               launch=mc.cmix_generic)
+                               launch=mc.cmix_generic, factors=factors)
             if not (torch.equal(o, go) and (ef is None
                                             or torch.equal(ef, gef))):
                 raise AssertionError(f"{what}: register instance differs "
@@ -600,6 +658,18 @@ def check_cmix_kernel(torch, mc) -> tuple:
                     for seed in (7, 1234):
                         compare(x, ef, kind, phase, "ring", pp, False,
                                 seed=seed, bitwise=True)
+        del x, e
+    # push-sum compressed gossip (slice 8): w = 1 − diag(W) and M built on
+    # the card from a runtime fault W, int8 and fp8, EF on and off
+    Wf = torch.from_numpy(push_matrices(MAIN_N)[0]).cuda()
+    d, M = mc.dense_factors(Wf, MAIN_N)
+    for width in (RAGGED_D, MAIN_D):
+        x = torch.randn(MAIN_N, width, device="cuda", generator=gen)
+        e = 0.01 * torch.randn(MAIN_N, width, device="cuda", generator=gen)
+        for kind in ("int8", "fp8"):
+            for ef in (None, e):
+                compare(x, ef, kind, "gossip", None, 1, False,
+                        factors=(1.0 - d, M))
         del x, e
     for kind, name in (("int8", None), ("fp8", None),
                        ("precomputed", "topk"), ("precomputed", "randk")):
@@ -1157,6 +1227,7 @@ def check_shard_mix_kernel(torch, mc) -> dict:
     kw = dict(with_residual=True)
     ms = cuda_ms(torch, lambda: mc.shard_mix_block(x, xs, d, M, **kw),
                  iters=10, warmup=2)
+    push_ms = push_shard_cases(torch, mc, compare)
     plain_ms = cuda_ms(torch, lambda: mc.shard_mix_block_plain(
         x, xs, d, M, **kw), iters=5, warmup=1)
     library_ms = cuda_ms(torch, lambda: torch.matmul(M, xs), iters=10,
@@ -1179,7 +1250,41 @@ def check_shard_mix_kernel(torch, mc) -> dict:
             "replaces": "src/repro/kernels/mixing_pallas.py:975",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "push_ms": push_ms}
+
+
+def push_shard_cases(torch, mc, compare) -> dict:
+    """The sharded push-sum path's shard_mix calls at full width (slice 8):
+    m = 2 rows of the joint (x, w) matrix, D = 138,431,233 (the weight
+    column packed with the parameters), each shard's factor gathered on
+    the card from a runtime W over the static halo: K = 6 (offsets 0, 1, 2
+    of directed_exp's hops at 4 shards) on a fault gossip W, K = 8 on the
+    global round over 6 of 8 nodes.  Held by ``compare`` (the tolerances
+    of :func:`check_shard_mix_kernel`), every shard; returns the ms of one
+    call of each kind (CUDA events)."""
+    from repro_torch.core import mixing
+
+    k, D = MAIN_N // SHARD_M, MAIN_PACKED_D + 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(SHARD_M, D, device="cuda", generator=gen)
+    xs = torch.randn(MAIN_N, D, device="cuda", generator=gen)
+    out = {}
+    gossip_offsets = mixing.push_sum_shard_offsets(MAIN_N, k, (0, 1, 2, 4))
+    for name, W, offsets in zip(("gossip", "global"), push_matrices(MAIN_N),
+                                (gossip_offsets, tuple(range(k)))):
+        Mst, dst = mixing._dense_shard_stacks(torch.from_numpy(W).cuda(),
+                                              MAIN_N, k, offsets)
+        K = len(offsets) * SHARD_M
+        for r in range(k):
+            compare(x, xs[:K], dst[r], Mst[r], False)
+        out[f"{name} K={K}"] = cuda_ms(
+            torch, lambda: mc.shard_mix_block(x, xs[:K], dst[1], Mst[1]),
+            iters=5, warmup=1)
+    print(f"[kernel] shard_mix push-sum shards m={SHARD_M} D={D}: "
+          f"{ {key: round(v, 4) for key, v in out.items()} } ms per call",
+          flush=True)
+    del x, xs
+    return out
 
 
 def check_shard_cmix_kernel(torch, mc) -> dict:
@@ -1802,6 +1907,35 @@ def only(**launches) -> dict:
     return {**{k: 0 for k in counts()}, **launches}
 
 
+# synchronizing calls per step of each trainer path, and where in the
+# source the last step of each made them (sync_steps)
+SYNCS, SYNC_SITES = {}, {}
+
+
+def sync_steps(torch, fn, sites=None):
+    """``(fn(), synchronizing calls)``: the calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports while ``fn`` runs
+    (a device read, a pageable copy, a stream or device synchronize).
+    ``sites`` (a dict) gets the count per ``file:line`` of the Python
+    frame that made each."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    found = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        sites.clear()
+        for w in found:
+            where = (f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}")
+            sites[where] = sites.get(where, 0) + 1
+    return out, len(found)
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mixing_cuda as mc
@@ -1882,20 +2016,24 @@ def run_main_path(torch, mc, compressed: bool = False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    times, phases = [], []
+    times, phases, syncs = [], [], []
     for k in range(steps):
         t0 = time.perf_counter()
-        state = tr.run(state, steps=1, log_every=1)
+        state, n_sync = sync_steps(
+            torch, lambda: tr.run(state, steps=1, log_every=1),
+            SYNC_SITES.setdefault(tag, {}))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         times.append(dt)
+        syncs.append(n_sync)
         rec = tr.history[-1]
         phases.append(rec["phase"])
         print(f"{tag} step {k} phase={rec['phase']} loss={rec['loss']:.4f}"
               f" consensus={rec['consensus']:.6e} step_ms={dt * 1e3:.1f} "
               f"tokens/s={tokens / dt:.0f} max_mem_GB="
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches="
-              f"{counts()}", flush=True)
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"synchronizing_calls={n_sync} launches={counts()}",
+              flush=True)
         if not math.isfinite(rec["loss"]):
             raise AssertionError(f"step {k}: loss {rec['loss']}")
         if rec["phase"] == "global" and not compressed:
@@ -1924,10 +2062,13 @@ def run_main_path(torch, mc, compressed: bool = False,
         print(f"{tag} ef_state sum |e| = {ef_abs:.6e} (non-zero, finite)",
               flush=True)
     steady = statistics.median(times[1:])
+    SYNCS[tag] = syncs
     print(f"{tag} {steps} steps through the kernels ({launches}); steady "
           f"step {steady * 1e3:.1f} ms (median of steps 1-5), "
           f"{tokens / steady:.0f} tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; synchronizing "
+          f"calls per step {syncs}, step {steps - 1}'s by source line "
+          f"{SYNC_SITES[tag]}", flush=True)
     return launches, tr, state
 
 
@@ -2319,12 +2460,13 @@ def _cross_config(compressed: bool, algorithm: str = "gossip_pga",
 
     model = dataclasses.replace(
         get_model_config("pga-lm-100m", reduced=True), dtype="float32")
+    dist = dict(algorithm=algorithm, topology="one_peer_exp",
+                comm_backend="pallas")
+    dist.update(dist_kw if dist_kw is not None else {"H": 2})
+    dist.update(COMPRESSED if compressed else {})
     return TrainConfig(
         model=model,
-        dist=DistConfig(algorithm=algorithm, topology="one_peer_exp",
-                        comm_backend="pallas",
-                        **(dist_kw if dist_kw is not None else {"H": 2}),
-                        **(COMPRESSED if compressed else {})),
+        dist=DistConfig(**dist),
         optimizer=OptimizerConfig(name="sgd", lr=0.05, schedule="constant",
                                   warmup_steps=0),
         global_batch=8, seq_len=64, log_every=1)
@@ -2392,9 +2534,13 @@ def cross_check(torch, compressed: bool = False, sharded: bool = False,
                       f"steps")
 
 
-def _compare_runs(ra_runs, rb_runs, compressed: bool, title: str) -> None:
+def _compare_runs(ra_runs, rb_runs, compressed: bool, title: str,
+                  push: bool = False) -> None:
     """Hold run a against run b with :func:`cross_check`'s tolerances and
-    print the differences."""
+    print the differences.  ``push``: push-sum runs, whose global round is
+    a dense 1/n W (each row summed in its own order), so their consensus
+    after it is rounding noise, held to atol 1e-10 instead of exactly 0.0;
+    their mass per step to atol 1e-6."""
     import numpy as np
 
     from repro_torch.tree import tree_leaves
@@ -2421,8 +2567,12 @@ def _compare_runs(ra_runs, rb_runs, compressed: bool, title: str) -> None:
         assert ra["phase"] == rb["phase"]
         np.testing.assert_allclose(ra["loss"], rb["loss"], rtol=1e-4)
         np.testing.assert_allclose(ra["consensus"], rb["consensus"],
-                                   rtol=1e-2 if compressed else 1e-4)
-        if ra["phase"] in ("global", "slowmo") and not compressed:
+                                   rtol=1e-2 if compressed else 1e-4,
+                                   atol=1e-10 if push else 0.0)
+        if push:
+            np.testing.assert_allclose(ra["mass"], rb["mass"], rtol=0,
+                                       atol=1e-6)
+        elif ra["phase"] in ("global", "slowmo") and not compressed:
             assert ra["consensus"] == rb["consensus"] == 0.0, (ra, rb)
     print(f"{title}: phases {[r['phase'] for r in ra_runs[1]]}; max abs "
           f"diff {worst:.3e} ({steps:.2f} code steps of "
@@ -2477,11 +2627,18 @@ def f_star(torch, prob, steps: int = 4000, lr: float = 0.05) -> float:
         return float(prob.loss_fn()(x))
 
 
+# [sim]'s f* and parallel SGD's suboptimality integral, which [psim]'s
+# AUCs are taken against
+SIM_REFERENCE = {}
+
+
 class PlainCalls:
-    """Counts calls of the mix, cmix and collective plain twins while
-    active (the wrappers look them up in their module at each call)."""
+    """Counts calls of the mix, cmix, collective and shard plain twins
+    while active (the wrappers look them up in their module at each
+    call)."""
     NAMES = ("mix_flat_plain", "cmix_flat_plain", "cmix_absmax_plain",
-             "collective_flat_plain")
+             "collective_flat_plain", "shard_mix_block_plain",
+             "shard_comp_mix_block_plain")
 
     def __init__(self, mc):
         self.mc, self.calls, self.saved = mc, 0, {}
@@ -2542,13 +2699,14 @@ def sim_round_launches(torch, mc, algorithm: str, phases, n: int, d: int,
 
 
 def _sim_run(torch, prob, algorithm: str, *, steps, lr, H, eval_every,
-             backend="pallas", batch=0, device="cuda", grad_fn=None, **kw):
+             backend="pallas", batch=0, device="cuda", grad_fn=None,
+             topology="ring", **kw):
     from repro_torch.core import simulate
     return simulate(algorithm=algorithm,
                     grad_fn=grad_fn or prob.grad_fn(batch=batch),
                     loss_fn=prob.loss_fn(),
                     x0=torch.zeros(prob.d, device=device), n=prob.n,
-                    steps=steps, lr=lr, topology="ring", H=H,
+                    steps=steps, lr=lr, topology=topology, H=H,
                     eval_every=eval_every, seed=0, backend=backend,
                     device=device, **kw)
 
@@ -2638,6 +2796,8 @@ def run_sim_path(torch, mc) -> dict:
         if "H_history" in out:
             line += f"; H_history {out['H_history'].tolist()}"
         print(line, flush=True)
+    SIM_REFERENCE.update(f_star=fs, parallel_auc=float(
+        np.trapezoid(sub_ref)))
     print(f"[sim] AUC ordering (printed, one seed): PGA "
           f"{aucs['gossip_pga']:.4f} <= 1.05 x Gossip {aucs['gossip']:.4f}: "
           f"{aucs['gossip_pga'] <= 1.05 * aucs['gossip']}; PGA <= 1.05 x "
@@ -2868,6 +3028,438 @@ def run_algo_path(torch, mc, algorithm: str, dist_kw: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: push-sum gossip and fault injection ([psmain], [pscmain],
+# [spsmain], [pscross], [psim])
+# ---------------------------------------------------------------------------
+# nodes 2 and 5 drop at step 1 and rejoin at 4, and every node draws its
+# own hop each step ("peer"): step 2 is a global round over 6 active
+# nodes, step 5 a full one
+PUSH_FAULTS = dict(n_nodes=8, drops={1: (2, 5)}, rejoins={4: (2, 5)},
+                   resample="peer", seed=0)
+PUSH_DROPPED = (2, 5)
+PUSH_MASS_TOL = 8e-5
+# push-sum forbids the compressed collective: int8 gossip + EF only
+PUSH_COMPRESSED = dict(comm_compression="int8", comm_error_feedback=True)
+# [pscross]: node 1 of 4 down at steps 1 and 2, per-node hops
+PUSH_CROSS_FAULTS = dict(n_nodes=4, drops={1: (1,)}, rejoins={3: (1,)},
+                         resample="peer", seed=0)
+
+
+def _row_copies(tree, rows) -> list:
+    """Host copies of the node rows ``rows`` of every node-stacked leaf of
+    ``tree`` (no device allocation)."""
+    from repro_torch.tree import tree_leaves
+    return [lf[i].cpu() for lf in tree_leaves(tree)
+            if lf.dim() and lf.shape[0] == MAIN_N for i in rows]
+
+
+def push_expected_launches(mc, tr, state, phases, compressed: bool,
+                           sharded: bool) -> tuple:
+    """The dispatch rule's launches for a push path's steps, stated before
+    they run, and the instance each dispatch group takes.  Stacked: one
+    mix.cu launch per dispatch group of the joint ``{"x": params, "w":
+    weight}`` tree per round; every operand is a fresh contiguous tensor
+    (the staging buffer, or the optimizer's output), so the rule
+    ``use_vector_mix`` reads n and the width only.  Compressed: a gossip
+    round is one row maxima and one cmix.cu launch per params leaf (the
+    weight is mixed by one matmul), a global round the uncompressed one.
+    Sharded: one shard_mix launch per shard per round."""
+    from repro_torch.tree import tree_leaves
+    n = tr.n_nodes
+    rounds = sum(ph in mc.KERNEL_PHASES for ph in phases)
+    gossip = phases.count("gossip")
+    if sharded:
+        return only(shard_mix=rounds * (n // SHARD_M)), {}
+    leaves = tree_leaves({"x": state.params, "w": state.push_weight})
+    groups = mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold)
+    per_round, widths = {}, {}
+    for g in groups:
+        D = sum(leaves[i][0].numel() for i in g)
+        key = "mix_vector" if mc._vector_rows(n, D, []) else "mix"
+        per_round[key] = per_round.get(key, 0) + 1
+        widths.setdefault(key, []).append(D)
+    mix_rounds = rounds - gossip if compressed else rounds
+    want = {k: v * mix_rounds for k, v in per_round.items()}
+    if compressed:
+        for lf in tree_leaves(state.params):
+            D = lf[0].numel()
+            key = "cmix_vector" if mc._vector_rows(n, D, []) else "cmix"
+            want[key] = want.get(key, 0) + gossip
+            want["cmix_absmax"] = want.get("cmix_absmax", 0) + gossip
+    return only(**want), widths
+
+
+def run_push_path(torch, mc, compressed: bool = False,
+                  sharded: bool = False):
+    """Slice 8's main paths at full width: pga-lm-100m, 8 nodes, Gossip-PGA
+    H = 3 over directed_exp with ``push_sum=True``, AdamW, global batch
+    32 × seq 512, 6 steps (gossip at 0, 1, 3, 4; global at 2 over 6 nodes
+    and at 5 over all), under :data:`PUSH_FAULTS`.  ``[psmain]``: stacked
+    fused rounds of the runtime W (mix.cu); ``[pscmain]``: int8 gossip +
+    EF (cmix.cu and its row maxima) with the weight mixed exactly, the
+    global rounds on mix.cu; ``[spsmain]``: on a mesh of 4 node shards,
+    ``comm_shard_mode="sharded"`` (shard_mix.cu over the static halo).
+    Gates: |Σw − 8| ≤ 8e-5 after every step, w bitwise ones after step 5,
+    nodes 2 and 5's params and AdamW m/v rows after step 3 bitwise those
+    after step 0, finite losses, the phases the schedule gives, the launch
+    counts the dispatch rule gives (reset just before, read just after),
+    no plain-twin call; ``[psmain]`` no more synchronizing calls per step
+    than ``[main]``.  Returns ``(launches, trainer, state, host copy of
+    the de-biased params)``."""
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    from repro_torch.train.state import debias
+    from repro_torch.tree import tree_leaves
+
+    steps, n = 6, MAIN_N
+    tag = ("[spsmain]" if sharded else "[pscmain]" if compressed
+           else "[psmain]")
+    t_phase = time.perf_counter()
+    mesh = make_mesh((n // SHARD_M,), ("data",)) if sharded else None
+    tcfg = TrainConfig(
+        model=get_model_config("pga-lm-100m"),
+        dist=DistConfig(algorithm="gossip_pga", topology="directed_exp",
+                        H=3, comm_backend="pallas", push_sum=True,
+                        comm_shard_mode="sharded" if sharded else "auto",
+                        **(PUSH_COMPRESSED if compressed else {})),
+        optimizer=OptimizerConfig(name="adamw", lr=3e-4,
+                                  schedule="warmup_cosine", warmup_steps=2,
+                                  total_steps=steps),
+        global_batch=32, seq_len=512, steps=steps, log_every=1)
+    fs = FaultSchedule(**PUSH_FAULTS)
+    tr = Trainer(tcfg, n_nodes=n, mesh=mesh, with_consensus=True,
+                 fault_schedule=fs)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    phases_want = [tr.schedule.peek_phase(k) for k in range(steps)]
+    expected, widths = push_expected_launches(mc, tr, state, phases_want,
+                                              compressed, sharded)
+    per_node = sum(p[0].numel() for p in tree_leaves(state.params))
+    where = "stacked"
+    if sharded:
+        from repro_torch.core import mixing
+        offs = mixing.push_sum_shard_offsets(
+            n, n // SHARD_M, fs.hop_superset("directed_exp"))
+        where = (f"a mesh of {n // SHARD_M} node shards, gossip halo "
+                 f"offsets {offs}")
+    print(f"{tag} pga-lm-100m push-sum ({where}"
+          f"{', int8+EF gossip' if compressed else ''}): {per_node:,} "
+          f"params per node + the weight column, {n} nodes, directed_exp, "
+          f"faults {PUSH_FAULTS}, hop superset "
+          f"{fs.hop_superset('directed_exp')}; dispatch groups of the "
+          f"joint (x, w) tree by instance {widths}; expected launches "
+          f"{ {k: v for k, v in expected.items() if v} }", flush=True)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, syncs, rows0 = [], [], None
+    with PlainCalls(mc) as plain:
+        for k in range(steps):
+            t0 = time.perf_counter()
+            state, n_sync = sync_steps(
+                torch, lambda: tr.run(state, steps=1, log_every=1),
+                SYNC_SITES.setdefault(tag, {}))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            times.append(dt)
+            syncs.append(n_sync)
+            rec = tr.history[-1]
+            print(f"{tag} step {k} phase={rec['phase']} active="
+                  f"{int(fs.active_mask(k).sum())} loss={rec['loss']:.4f} "
+                  f"mass={rec['mass']!r} consensus={rec['consensus']:.6e} "
+                  f"step_ms={dt * 1e3:.1f} max_mem_GB="
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                  f"synchronizing_calls={n_sync}", flush=True)
+            if not math.isfinite(rec["loss"]):
+                raise AssertionError(f"{tag} step {k}: loss {rec['loss']}")
+            if abs(rec["mass"] - n) > PUSH_MASS_TOL:
+                raise AssertionError(f"{tag} step {k}: mass {rec['mass']!r}")
+            if k in (0, 3):
+                rows = _row_copies((state.params, state.opt_state),
+                                   PUSH_DROPPED)
+                if k == 0:
+                    rows0 = rows
+                elif not all(torch.equal(a, b) for a, b in zip(rows, rows0)):
+                    raise AssertionError(f"{tag}: the rows of dropped nodes "
+                                         f"{PUSH_DROPPED} moved while down")
+    launches = counts()
+    phases = [r["phase"] for r in tr.history[-steps:]]
+    if phases != phases_want:
+        raise AssertionError(f"{tag} phases {phases}, the schedule gives "
+                             f"{phases_want}")
+    if not torch.equal(state.push_weight, torch.ones_like(
+            state.push_weight)):
+        raise AssertionError(f"{tag}: w after the full global round of step "
+                             f"5 is not ones: {state.push_weight.flatten()}")
+    if launches != expected:
+        raise AssertionError(f"{tag} launches {launches}, the dispatch rule "
+                             f"gives {expected}")
+    if plain.calls:
+        raise AssertionError(f"{tag}: {plain.calls} plain-twin calls on the "
+                             f"card")
+    main_tag = ("[smain]" if sharded else "[cmain]" if compressed
+                else "[main]")
+    base = SYNCS.get(main_tag)
+    if not compressed and not sharded and (
+            base is None or max(syncs[1:]) > max(base[1:])):
+        raise AssertionError(f"{tag} synchronizing calls per step {syncs} "
+                             f"over [main]'s {base}")
+    if compressed:
+        ef_abs = sum(float(e.abs().sum()) for e in tree_leaves(state.ef_state))
+        assert ef_abs > 0.0 and math.isfinite(ef_abs), ef_abs
+    steady = statistics.median(times[1:])
+    print(f"{tag} {steps} steps: phases {phases}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } as the dispatch "
+          f"rule gives, no plain twin; w bitwise ones after step 5; nodes "
+          f"{PUSH_DROPPED}' params and AdamW m/v rows after step 3 bitwise "
+          f"those after step 0; steady step {steady * 1e3:.1f} ms (median "
+          f"of steps 1-5), {tokens / steady:.0f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; synchronizing "
+          f"calls per step {syncs} ({main_tag}: {base}), step "
+          f"{steps - 1}'s by source line {SYNC_SITES[tag]}; phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    debiased = [p.cpu() for p in tree_leaves(debias(state.params,
+                                                    state.push_weight))]
+    return launches, tr, state, debiased
+
+
+def push_round_times(torch, mc, tr, state) -> None:
+    """[spsmain]'s rounds timed beside the stacked ones on the same state,
+    by CUDA events over 10 rounds (as ``[round]``; ``[sround]`` takes 3)
+    in turns (stacked, sharded, sharded, stacked): a fault
+    gossip round (nodes 2 and 5 down, per-node hops; shard_mix over the
+    static halo, K = 6) and the full global round (K = 8).  Then the
+    stacked push gossip round beside the static-W round of slice 1 on the
+    same params (``fused_step_mix``, factors cached per round kind, no
+    weight column), in turns: what the runtime W costs."""
+    from repro_torch.core import mixing
+    from repro_torch.core import topology as topo
+    from repro_torch.core.faults import FaultSchedule
+
+    n, k = tr.n_nodes, tr.n_nodes // SHARD_M
+    fs = FaultSchedule(**PUSH_FAULTS)
+    offsets = mixing.push_sum_shard_offsets(
+        n, k, fs.hop_superset("directed_exp"))
+    for name, W, offs in (("gossip", fs.matrix("directed_exp", 3), offsets),
+                          ("global", topo.global_push_matrix(n), None)):
+        def run(sharded, W=W, offs=offs):
+            kw = (dict(mesh=tr.mesh, shard_mode="sharded", offsets=offs)
+                  if sharded else {})
+            mixing.communicate_push_sum(state.params, state.push_weight,
+                                        W=W, n_nodes=n, backend="pallas",
+                                        **kw)
+        t = [cuda_ms(torch, lambda: run(sh), iters=10, warmup=2)
+             for sh in (False, True, True, False)]
+        print(f"[spsmain] push-sum {name} round: sharded {t[1]:.3f} / "
+              f"{t[2]:.3f} ms (halo offsets "
+              f"{offs if offs is not None else tuple(range(k))}), stacked "
+              f"{t[0]:.3f} / {t[3]:.3f} ms (in turns)", flush=True)
+        torch.cuda.empty_cache()
+    W = fs.matrix("directed_exp", 3)
+    dense = (lambda: mixing.communicate_push_sum(
+        state.params, state.push_weight, W=W, n_nodes=n, backend="pallas"))
+    static = (lambda: mc.fused_step_mix(state.params, phase="gossip",
+                                        topology="directed_exp", n_nodes=n))
+    t = [cuda_ms(torch, f, iters=10, warmup=2)
+         for f in (static, dense, dense, static)]
+    print(f"[spsmain] stacked gossip rounds: push-sum (runtime W, weight "
+          f"column) {t[1]:.3f} / {t[2]:.3f} ms, static W of the round kind "
+          f"{t[0]:.3f} / {t[3]:.3f} ms (in turns)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def push_cross_check(torch, compressed: bool = False,
+                     sharded: bool = False, steps: int = 4) -> None:
+    """[pscross]: the push paths at the reduced config (fp32 compute, 4
+    nodes, directed_exp, H = 2, SGD) under :data:`PUSH_CROSS_FAULTS`, card
+    (kernels) vs CPU (plain versions) from one init, with
+    :func:`cross_check`'s tolerances (push: the consensus after a global
+    round to atol 1e-10, the mass per step to 1e-6); sharded, also against
+    the stacked run on the card.  The push weight is compared with the
+    params."""
+    from repro_torch import interop
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models.model import make_model
+    from repro_torch.train import Trainer
+
+    tcfg = _cross_config(False, dist_kw=dict(
+        H=2, topology="directed_exp", push_sum=True,
+        **(PUSH_COMPRESSED if compressed else {})))
+    init = interop.to_numpy(make_model(tcfg.model).init(
+        torch.Generator().manual_seed(1), "cpu"))
+    runs = {}
+    labels = (("cuda", True), ("cpu", True), ("cuda", False)) if sharded \
+        else (("cuda", False), ("cpu", False))
+    for dev, on_mesh in labels:
+        mesh = make_mesh((2,), ("data",), device=dev) if on_mesh else None
+        tr = Trainer(tcfg, n_nodes=4, mesh=mesh, with_consensus=True,
+                     fault_schedule=FaultSchedule(**PUSH_CROSS_FAULTS),
+                     device=dev)
+        st = tr.init_state(params=interop.from_numpy(init, dev))
+        st = tr.run(st, steps=steps, log_every=1)
+        trees = [st.params, {"w": st.push_weight}] + (
+            [st.ef_state] if compressed else [])
+        runs[dev, on_mesh] = ([interop.to_numpy(t) for t in trees],
+                              tr.history)
+    pairs = [(labels[0], labels[1])] + (
+        [(labels[0], labels[2])] if sharded else [])
+    what = "push-sum int8+EF trainer" if compressed else "push-sum trainer"
+    for a, b in pairs:
+        name = " vs ".join(f"{dev} {'sharded' if m else 'stacked'}"
+                           for dev, m in (a, b))
+        _compare_runs(runs[a], runs[b], compressed,
+                      f"[pscross] reduced fp32 {what}, {name} over {steps} "
+                      f"steps, faults {PUSH_CROSS_FAULTS}", push=True)
+
+
+def _least_squares(torch, device, d: int = 6, m: int = 48):
+    """The reference fault tests' least squares (``tests/test_faults.py``),
+    A and b drawn with numpy: ``0.5·mean((A x − b)²)`` and its full
+    gradient on ``device``."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    A = torch.from_numpy(rng.standard_normal((m, d)).astype(
+        np.float32)).to(device)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        device)
+
+    def loss(x):
+        return 0.5 * torch.mean((A @ x - b) ** 2)
+
+    def grad(xs, generator, k):
+        return (xs @ A.T - b) @ A / m
+
+    return loss, grad, d
+
+
+def run_push_sim_path(torch, mc) -> dict:
+    """[psim]: ``simulate(push_sum=True, fault_schedule=...)`` on the card.
+    (a) the reference's acceptance scenario (``tests/test_faults.py``):
+    n = 16, directed_exp, nodes 3 and 11 dropped at step 12 and rejoined
+    at 28, 64 steps, H = 8, ``backend="pallas"``, card vs CPU: mass within
+    1e-2 of 16 at every step, final consensus < 1e-6, loss rtol 1e-5.
+    (b) the §5.1 problem of [sim] at n = 100 over directed_ring, 3000
+    steps: push-sum gossip, push-sum Gossip-PGA, and push-sum Gossip-PGA
+    with 10 nodes dropped at step 1000 and rejoined at 2000; mass within
+    1e-3·n at every step; AUC against [sim]'s parallel SGD printed (one
+    seed, not gated).  Every run: one mix.cu launch a round (the joint
+    (n, d + 1) tree, on the instance ``use_vector_mix`` picks), no plain
+    twin on the card.  Returns the launch counts summed over the runs."""
+    import numpy as np
+
+    from repro_torch.core import simulate
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.data import make_logistic_problem
+
+    total = {k: 0 for k in counts()}
+    t_phase = time.perf_counter()
+
+    def mix_key(n, d):
+        return ("mix_vector" if mc._vector_rows(n, d + 1, []) else "mix")
+
+    def checked(tag, n, d, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls(mc) as plain:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+        steps = len(out["mass"])
+        want = only(**{mix_key(n, d): steps})
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches}, the dispatch "
+                                 f"rule gives {want}")
+        if plain.calls:
+            raise AssertionError(f"{tag}: {plain.calls} plain-twin calls")
+        for k, v in launches.items():
+            total[k] += v
+        return out, wall * 1e3 / steps, launches
+
+    # (a) the acceptance scenario, card vs CPU
+    acc = dict(algorithm="gossip_pga", n=16, steps=64, lr=0.05,
+               topology="directed_exp", H=8, push_sum=True,
+               backend="pallas", eval_every=8)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        loss, grad, d = _least_squares(torch, dev)
+        fs = FaultSchedule(n_nodes=16, drops={12: (3, 11)},
+                           rejoins={28: (3, 11)}, seed=0)
+
+        def fn(dev=dev, loss=loss, grad=grad, d=d, fs=fs):
+            return simulate(grad_fn=grad, loss_fn=loss,
+                            x0=torch.zeros(d, device=dev),
+                            fault_schedule=fs, device=dev, **acc)
+        if dev == "cuda":
+            outs[dev], ms, launches = checked("[psim] acceptance", 16, d,
+                                              fn)
+        else:
+            outs[dev] = fn()
+    for dev, out in outs.items():
+        if np.abs(out["mass"] - 16.0).max() > 1e-2:
+            raise AssertionError(f"[psim] acceptance {dev}: mass "
+                                 f"{out['mass']}")
+        if not out["consensus"][-1] < 1e-6:
+            raise AssertionError(f"[psim] acceptance {dev}: final consensus "
+                                 f"{out['consensus'][-1]}")
+    np.testing.assert_allclose(outs["cuda"]["loss"], outs["cpu"]["loss"],
+                               rtol=1e-5, err_msg="[psim] acceptance")
+    rel = float(np.max(np.abs(outs["cuda"]["loss"] - outs["cpu"]["loss"])
+                       / np.abs(outs["cpu"]["loss"])))
+    print(f"[psim] acceptance (n=16 directed_exp, nodes 3 and 11 down at "
+          f"steps 12-27, 64 steps, H=8, pallas): card vs CPU loss max rel "
+          f"diff {rel:.3e} (gate 1e-5); max |mass - 16| card "
+          f"{np.abs(outs['cuda']['mass'] - 16).max():.3e}, CPU "
+          f"{np.abs(outs['cpu']['mass'] - 16).max():.3e} (gate 1e-2); final "
+          f"consensus card {outs['cuda']['consensus'][-1]:.3e}, CPU "
+          f"{outs['cpu']['consensus'][-1]:.3e} (gate 1e-6); final weight "
+          f"{outs['cuda']['push_weight'].ravel().tolist()}; {ms:.4f} ms/step "
+          f"wall, launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+
+    # (b) the §5.1 problem at n = 100 over the directed ring
+    n = SIM["n"]
+    prob = make_logistic_problem(n, SIM["M"], SIM["d"], iid=False, seed=0)
+    fs_star = SIM_REFERENCE["f_star"]
+    down = tuple(range(0, n, n // 10))
+    run_kw = dict(steps=SIM["steps"], lr=sim_lr, H=SIM["H"],
+                  eval_every=SIM["eval_every"], batch=SIM["batch"],
+                  topology="directed_ring", push_sum=True)
+    for name, alg, faults in (
+            ("gossip", "gossip", None), ("gossip_pga", "gossip_pga", None),
+            ("gossip_pga, 10 nodes down 1000-1999", "gossip_pga",
+             dict(n_nodes=n, drops={1000: down}, rejoins={2000: down}))):
+        fs = FaultSchedule(**faults) if faults else None
+        out, ms, launches = checked(
+            f"[psim] {name}", n, prob.d,
+            lambda: _sim_run(torch, prob, alg, fault_schedule=fs, **run_kw))
+        err = float(np.abs(out["mass"] - n).max())
+        if err > 1e-3 * n:
+            raise AssertionError(f"[psim] {name}: max |mass - n| {err}")
+        if not all(math.isfinite(f) for f in out["loss"]):
+            raise AssertionError(f"[psim] {name}: loss {out['loss']}")
+        auc = float(np.trapezoid(out["loss"] - fs_star)
+                    / max(SIM_REFERENCE["parallel_auc"], 1e-12))
+        used = {k: v for k, v in launches.items() if v}
+        print(f"[psim] push-sum {name} (n={n} directed_ring, §5.1 problem, "
+              f"{SIM['steps']} steps): final loss {out['loss'][-1]:.8f} "
+              f"consensus {out['consensus'][-1]:.6e} AUC vs [sim]'s parallel "
+              f"{auc:.4f}; max |mass - n| {err:.3e} (gate {1e-3 * n:g}); "
+              f"{ms:.4f} ms/step wall, launches {used} "
+              f"({sum(used.values()) / SIM['steps']:.4f} per step)",
+              flush=True)
+    del prob
+    print(f"[psim] phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import argparse
 
@@ -2977,6 +3569,29 @@ def main() -> int:
     for algorithm, dist_kw in ALGO_RUNS:
         for k, v in run_algo_path(torch, mc, algorithm, dist_kw).items():
             algos[k] += v
+    # slice 8: push-sum and faults
+    push = {}
+    push["[psmain]"], tr, state, debiased = run_push_path(torch, mc)
+    del tr, state
+    torch.cuda.empty_cache()
+    push["[pscmain]"], tr, state, _ = run_push_path(torch, mc,
+                                                    compressed=True)
+    del tr, state
+    torch.cuda.empty_cache()
+    push["[spsmain]"], tr, state, sharded_debiased = run_push_path(
+        torch, mc, sharded=True)
+    push_round_times(torch, mc, tr, state)
+    del tr, state
+    torch.cuda.empty_cache()
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(sharded_debiased, debiased))
+    print(f"[spsmain] de-biased params after 6 steps vs [psmain]'s: max abs "
+          f"diff {diff:.3e}", flush=True)
+    del debiased, sharded_debiased
+    push_cross_check(torch)
+    push_cross_check(torch, compressed=True)
+    push_cross_check(torch, sharded=True)
+    push["[psim]"] = run_push_sim_path(torch, mc)
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -2985,6 +3600,14 @@ def main() -> int:
         records[name]["launches_sim_algos"] = {
             path: {k: c[k] for k in keys if c[k]}
             for path, c in (("[sim]", sim), ("[algos]", algos))}
+    # the push paths' launches (B.1, B.2 and its row maxima, B.5)
+    for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("cmix_vector_kernel", ("cmix", "cmix_vector")),
+                       ("cmix_absmax_kernel", ("cmix_absmax",)),
+                       ("shard_mix_kernel", ("shard_mix",))):
+        records[name]["launches_push"] = {
+            path: {k: c[k] for k in keys if c[k]}
+            for path, c in push.items()}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

@@ -166,14 +166,17 @@ class DistConfig:
                                      # per-node elements at which a leaf gets
                                      # its own kernel launch instead of the
                                      # concat staging buffer
-    push_sum: bool = False
+    push_sum: bool = False           # push-sum gossip: column-stochastic
+                                     # rounds of (x, w), reads de-biased
+                                     # by the weight (push_weight slot)
     comm_overlap: bool = False
     remat: str = "block"             # "none" | "block" (checkpoint per block)
     remat_policy: str = "nothing"
     fsdp: bool = False
 
     def validate(self) -> "DistConfig":
-        from repro_torch.core.algo import algorithm_names, get_algorithm
+        from repro_torch.core.algo import (algorithm_names, get_algorithm,
+                                           push_sum_algorithm_names)
         if self.algorithm not in algorithm_names():
             raise ValueError(
                 f"DistConfig.validate: unknown algorithm "
@@ -220,9 +223,33 @@ class DistConfig:
         if self.remat not in ("none", "block"):
             raise ValueError("remat must be 'none' or 'block'")
         get_algorithm(self.algorithm, caller="DistConfig.validate")
-        if self.push_sum or self.topology in ("directed_ring",
-                                              "directed_exp"):
-            raise not_ported("push-sum and directed topologies", "A.4")
+        if self.topology in ("directed_ring", "directed_exp") \
+                and not self.push_sum:
+            raise ValueError(
+                f"topology {self.topology!r} is directed (column-"
+                f"stochastic): it requires push_sum=True so reads are "
+                f"de-biased by the weight scalar (DESIGN.md §2.5)")
+        if self.push_sum:
+            push_ok = push_sum_algorithm_names()
+            if self.algorithm not in push_ok:
+                raise ValueError(
+                    f"push_sum composes with algorithms "
+                    f"{push_ok}, not {self.algorithm!r}")
+            if self.topology == "grid":
+                raise ValueError(
+                    "push_sum has no 2-D grid decomposition — use a 1-D "
+                    "(directed) circulant topology")
+            if self.comm_global_compression != "none":
+                raise ValueError(
+                    "push_sum global rounds average the (x, w) pair over "
+                    "the active set and cannot ride the compressed "
+                    "collective — set comm_global_compression='none'")
+            if self.comm_overlap:
+                raise ValueError(
+                    "comm_overlap does not compose with push_sum: the "
+                    "de-biased read x/w needs x and w mixed by the *same* "
+                    "round, but the overlapped correction applies a stale "
+                    "buffer to a fresh iterate (DESIGN.md §2.6)")
         if self.comm_overlap:
             raise not_ported("overlapped gossip (comm_overlap)", "A.5")
         if self.fsdp:

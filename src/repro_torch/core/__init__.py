@@ -2,7 +2,9 @@
 ``repro/core``).
 
 topology.py   — mixing matrices W, β, circulant shift decompositions
-mixing.py     — stacked and one-device sharded gossip, global averaging
+mixing.py     — stacked and one-device sharded gossip, global averaging,
+                push-sum rounds
+faults.py     — FaultSchedule: seeded drops, rejoins, resampled wiring
 schedule.py   — PGA fixed period, AGA adaptive period (paper Alg. 2), baselines
 algo.py       — the algorithm registry and its hooks
 algorithms.py — Decentralized wiring + the exact-math simulator

@@ -16,8 +16,9 @@ communication round — and ``train/step.py`` and ``core/algorithms.py``
   dict ``{"params": tree, **payload}`` at the hook level.
 
 Lookups raise caller-named ``ValueError`` listing valid names.  The
-slots' sharding axes (``axes_value``, ``extras_axes``) and checkpoint
-backfill wait for ROADMAP A.10 and A.7; the push-sum weight slot for A.4.
+mode slots (the error-feedback memory, the push-sum weight) are declared
+here too.  The slots' sharding axes (``axes_value``, ``extras_axes``) and
+checkpoint backfill wait for ROADMAP A.10 and A.7.
 """
 from __future__ import annotations
 
@@ -27,13 +28,13 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import not_ported
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = [
     "Algorithm",
     "EF_SLOT",
     "ExtraSlot",
+    "PUSH_SLOT",
     "StepContext",
     "algorithm_names",
     "get_algorithm",
@@ -41,6 +42,7 @@ __all__ = [
     "join_payload",
     "known_slot_names",
     "phases_for_algorithm",
+    "push_sum_algorithm_names",
     "register",
     "state_slots",
     "unwrap_mixed",
@@ -53,21 +55,28 @@ class ExtraSlot:
     """Descriptor for one entry of ``TrainState.extras``.
 
     ``kind``: ``"stacked_params"`` (the params tree with its leading node
-    axis) or ``"unstacked"`` (one replica's tree); the reference's
-    ``"node_scalar"`` (the push-sum weight) is ROADMAP A.4.  ``init``:
-    ``"zeros"`` (float32 zeros of the base shape) or ``"row0"`` (a copy of
-    node 0's params — SlowMo's anchor).  ``payload`` marks the slot as
-    riding the round jointly with the params (GT-PGA's tracker).
+    axis), ``"unstacked"`` (one replica's tree) or ``"node_scalar"`` (an
+    ``(n_nodes, 1)`` float32 column: the push-sum weight).  ``init``:
+    ``"zeros"`` (float32 zeros of the base shape), ``"ones"``
+    (node_scalar only) or ``"row0"`` (a copy of node 0's params —
+    SlowMo's anchor).  ``payload`` marks the slot as riding the round
+    jointly with the params (GT-PGA's tracker).
     """
 
     name: str
-    kind: str = "stacked_params"  # stacked_params | unstacked
-    init: str = "zeros"           # zeros | row0
+    kind: str = "stacked_params"  # stacked_params | unstacked | node_scalar
+    init: str = "zeros"           # zeros | ones | row0
     payload: bool = False
 
     def init_value(self, params_stacked: Any, n_nodes: int) -> Any:
         if self.kind == "node_scalar":
-            raise not_ported("the node_scalar slot (push-sum weight)", "A.4")
+            fill = 1.0 if self.init == "ones" else 0.0
+            if self.init not in ("ones", "zeros"):
+                raise ValueError(f"ExtraSlot {self.name!r}: unknown init "
+                                 f"{self.init!r} for a node_scalar")
+            dev = tree_flatten(params_stacked)[0][0].device
+            return torch.full((n_nodes, 1), fill, dtype=torch.float32,
+                              device=dev)
         if self.kind not in ("stacked_params", "unstacked"):
             raise ValueError(f"ExtraSlot {self.name!r}: unknown kind "
                              f"{self.kind!r}")
@@ -87,6 +96,9 @@ class ExtraSlot:
 #: (``DistConfig.comm_error_feedback``): fp32 zeros shaped like the joint
 #: round payload
 EF_SLOT = ExtraSlot("ef_state", kind="stacked_params")
+#: the push-sum weight (``DistConfig.push_sum``): ones at init (Σw = n);
+#: readers de-bias with ``train.state.debias(params, w)``
+PUSH_SLOT = ExtraSlot("push_weight", kind="node_scalar", init="ones")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +118,8 @@ class Algorithm:
     #: (SlowMo's outer step)
     owned_phases: Tuple[str, ...] = ()
     slots: Tuple[ExtraSlot, ...] = ()
+    #: eligible to compose with push-sum (directed, gossip-style mixing)
+    push_sum_capable: bool = False
     #: True when ``pre_update`` is not the identity; rules out the fused
     #: half-step + mix kernel, whose in-kernel update consumes raw grads
     transforms_grads: bool = False
@@ -151,6 +165,10 @@ def algorithm_names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def push_sum_algorithm_names() -> Tuple[str, ...]:
+    return tuple(n for n, a in _REGISTRY.items() if a.push_sum_capable)
+
+
 def get_algorithm(name: str, *, caller: str = "get_algorithm") -> Algorithm:
     try:
         return _REGISTRY[name]
@@ -166,26 +184,26 @@ def phases_for_algorithm(algorithm: str) -> Tuple[str, ...]:
 
 
 def known_slot_names() -> Tuple[str, ...]:
-    """Every extras slot name a registered algorithm (or mode) can own.
-    The reference's list also holds ``push_weight`` (ROADMAP A.4)."""
+    """Every extras slot name a registered algorithm (or mode) can own."""
     names = []
     for algo in _REGISTRY.values():
         for slot in algo.slots:
             if slot.name not in names:
                 names.append(slot.name)
-    if EF_SLOT.name not in names:
-        names.append(EF_SLOT.name)
+    for slot in (EF_SLOT, PUSH_SLOT):
+        if slot.name not in names:
+            names.append(slot.name)
     return tuple(names)
 
 
 def state_slots(dist: Any) -> Tuple[ExtraSlot, ...]:
     """All extras slots for a config: algorithm-declared plus mode slots."""
     algo = get_algorithm(dist.algorithm, caller="state_slots")
-    if dist.push_sum:
-        raise not_ported("the push-sum weight slot", "A.4")
     slots = tuple(algo.slots)
     if dist.comm_error_feedback:
         slots += (EF_SLOT,)
+    if dist.push_sum:
+        slots += (PUSH_SLOT,)
     return slots
 
 
@@ -204,6 +222,9 @@ def init_extras(dist: Any, params_stacked: Any,
         payload = algo.comm_payload(extras, params_stacked)
         extras[EF_SLOT.name] = init_ef_state(join_payload(payload,
                                                           params_stacked))
+    if PUSH_SLOT in slots:
+        extras[PUSH_SLOT.name] = PUSH_SLOT.init_value(params_stacked,
+                                                      n_nodes)
     return extras
 
 
@@ -244,30 +265,35 @@ def _zip(fn, *trees):
 class _Parallel(Algorithm):
     name = "parallel"
     phases = ("global",)
+    push_sum_capable = True
     description = "All-reduce every step (centralised baseline)."
 
 
 class _Gossip(Algorithm):
     name = "gossip"
     phases = ("gossip",)
+    push_sum_capable = True
     description = "One W-mixing per step (DSGD)."
 
 
 class _Local(Algorithm):
     name = "local"
     phases = ("none", "global")
+    push_sum_capable = True
     description = "H local steps, then a global average (Local SGD)."
 
 
 class _GossipPGA(Algorithm):
     name = "gossip_pga"
     phases = ("gossip", "global")
+    push_sum_capable = True
     description = "Gossip with a global average every H steps (Alg. 1)."
 
 
 class _GossipAGA(Algorithm):
     name = "gossip_aga"
     phases = ("gossip", "global")
+    push_sum_capable = True
     description = "Gossip-PGA with the adaptive H controller (App. G)."
 
 

@@ -23,6 +23,7 @@ from repro_torch.configs.base import DistConfig, not_ported
 from repro_torch.core import algo as algo_registry
 from repro_torch.core import mixing
 from repro_torch.core import topology as topo
+from repro_torch.core.faults import push_round
 from repro_torch.core.schedule import CommSchedule, make_schedule
 from repro_torch.kernels import mixing_cuda
 from repro_torch.tree import pairwise_mean
@@ -140,8 +141,19 @@ def simulate(
     stochastic rounding.  ``aga_kwargs`` go to :class:`DistConfig` (AGA's
     and Hier-PGA's fields).
 
-    Not ported yet: ``telemetry`` (ROADMAP A.6), ``push_sum`` and
-    ``fault_schedule`` (A.4), ``overlap`` (A.5).
+    ``push_sum=True`` runs every round as a column-stochastic push-sum
+    round of ``(x, w)`` (``mixing.communicate_push_sum``): each step's W
+    is built on the host (the topology's, or ``fault_schedule``'s, a
+    :class:`repro_torch.core.faults.FaultSchedule` that drops, rejoins
+    and rewires nodes) and copied to the device without blocking; dropped
+    nodes' gradients are zeroed; a lossy ``compression`` applies to the
+    gossip rounds only, the weight mixed exactly; a full-participation
+    global round snaps w to ones.  Evals read the de-biased average
+    ``Σx/Σw`` and the consensus of ``x_i/w_i``, and the output gains the
+    per-step ``mass`` (``Σw``, kept on the device until the end) and the
+    final ``push_weight``.
+
+    Not ported yet: ``telemetry`` (ROADMAP A.6), ``overlap`` (A.5).
     """
     if fault_schedule is not None:
         if not push_sum:
@@ -152,8 +164,6 @@ def simulate(
                              f"{fault_schedule.n_nodes} nodes, got n={n}")
     if telemetry is not None:
         raise not_ported("simulate(telemetry=...)", "A.6")
-    if push_sum or fault_schedule is not None:
-        raise not_ported("simulate(push_sum=..., fault_schedule=...)", "A.4")
     if overlap:
         raise not_ported("simulate(overlap=True)", "A.5")
     dev = resolve_device(device)
@@ -162,7 +172,7 @@ def simulate(
                       comm_compression_k=compression_k,
                       comm_error_feedback=error_feedback,
                       comm_global_compression=global_compression,
-                      **(aga_kwargs or {})).validate()
+                      push_sum=push_sum, **(aga_kwargs or {})).validate()
     dist.validate_nodes(n)
     if algorithm == "slowmo":
         dist = dataclasses.replace(dist, slowmo_beta=slowmo_beta,
@@ -213,7 +223,42 @@ def simulate(
             extras, algo_registry.wrap_mixed(mixed, has_payload), phase,
             _ctx(gamma))
 
+    def push_step(x, extras, k, gamma, phase, W, live):
+        """Push-sum round: dropped nodes' grads zeroed, half-step, the
+        joint round against the runtime W, w's snap after a
+        full-participation averaging round."""
+        g = grad_fn(x, generator, k)
+        if not live.all():
+            g = g * mixing.upload(live, g.device)[:, None]
+        upd, extras = algo_impl.pre_update(dict(extras), g)
+        extras = dict(extras)
+        y = x - gamma * upd
+        joint = algo_registry.join_payload(
+            algo_impl.comm_payload(extras, y), y)
+        w = extras["push_weight"]
+        if lossy and phase == "gossip":
+            mixed, w2, new_ef = mixing.communicate_push_sum(
+                joint, w, W=W, n_nodes=n, backend=backend,
+                compressor=compressor, ef_state=extras.get("ef_state"),
+                seed=k)
+            if new_ef is not None:
+                extras["ef_state"] = new_ef
+        else:
+            mixed, w2 = mixing.communicate_push_sum(joint, w, W=W,
+                                                    n_nodes=n,
+                                                    backend=backend)
+        if phase in ("global", "pod_avg") and live.all():
+            # w_i = Σw/n = 1 in exact arithmetic: snap to it
+            w2 = torch.ones_like(w2)
+        extras["push_weight"] = w2
+        return algo_impl.post_round(
+            extras, algo_registry.wrap_mixed(mixed, has_payload), phase,
+            _ctx(gamma))
+
     losses, consensus, its = [], [], []
+    # Σw of every push-sum step, kept on the device until the end
+    mass = (torch.empty(steps, dtype=torch.float32, device=dev)
+            if push_sum else None)
     period = topo.schedule_period(topology, n)
     with torch.no_grad():
         for k in range(steps):
@@ -225,6 +270,23 @@ def simulate(
             lossy_round = ((lossy and phase in ("gossip", "global",
                                                 "pod_avg"))
                            or (glossy and phase in ("global", "pod_avg")))
+            if push_sum:
+                W, live = push_round(topology, n, phase, k, shift_step,
+                                     fault_schedule)
+                x, extras = push_step(x, extras, k, gamma, phase, W, live)
+                w = extras["push_weight"]
+                mass[k] = torch.sum(w)
+                if is_eval:
+                    xbar = torch.sum(x, dim=0) / torch.sum(w)   # Σx/Σw
+                    f = float(loss_fn(xbar))
+                    algo.schedule.observe_loss(k, f)
+                    losses.append(f)
+                    consensus.append(float(torch.mean(torch.sum(
+                        (x / w - xbar) ** 2, -1))))
+                    its.append(k)
+                elif losses:
+                    algo.schedule.observe_loss(k, losses[-1])
+                continue
             if phase in algo_impl.owned_phases:
                 # owned phase (SlowMo's outer step): no round; post_round
                 # consumes the half-step iterate
@@ -265,6 +327,9 @@ def simulate(
         "loss": np.array(losses),
         "consensus": np.array(consensus),
     }
+    if push_sum:
+        out["mass"] = mass.cpu().numpy()
+        out["push_weight"] = extras["push_weight"].cpu().numpy()
     if hasattr(algo.schedule, "history"):
         out["H_history"] = np.array(getattr(algo.schedule, "history"))
     return out

@@ -28,8 +28,13 @@ kernels (``shard_mix.cu``, ``shard_cmix.cu``).  Every shard of a
 the shard body runs once per shard in a fixed order, the reference's
 ``ppermute`` halo exchange is a gather of the neighbours' row-blocks, and
 its ``psum`` a fixed-order sum over the shards (no interconnect).
-Push-sum and overlap rounds, 2-D ``(node, model)`` meshes and shards on
-several cards are not ported yet (ROADMAP A.4, A.5, A.10).
+
+Push-sum rounds (:func:`communicate_push_sum`): ``(x, w) ← (W·x, W·w)``
+for a runtime column-stochastic W (new data every step under faults),
+stacked through the dense-W entry points of the fused kernels, or sharded
+through ``shard_mix.cu`` with halo offsets from a static superset.
+Overlap rounds, 2-D ``(node, model)`` meshes and shards on several cards
+are not ported yet (ROADMAP A.5, A.10).
 """
 from __future__ import annotations
 
@@ -548,6 +553,40 @@ def _shard_count(mesh, node_axis: str, n_nodes: int, who: str) -> int:
     return k
 
 
+def _shard_mix_rounds(x: torch.Tensor, offsets, Mstack, dstack, k: int,
+                      wire_dtype, with_residual: bool = False):
+    """The per-shard body of an uncompressed sharded round on the packed
+    ``(n, D)`` fp32 ``x``: shard by shard, the row-blocks at ``offsets``
+    are gathered (wire-cast when ``wire_dtype`` is set, the self block
+    too; consecutive fp32 row-blocks as a view of ``x``, the others copied
+    per shard and freed) and ``shard_mix.cu`` writes ``d_r ⊙ x_r + M_r ·
+    xs`` into the shard's rows of one fresh output.  Returns ``(out, Σ of
+    the shards' column sums or None)``."""
+    from repro_torch.kernels import mixing_cuda
+
+    m = x.shape[0] // k
+    send = x.to(wire_dtype) if wire_dtype is not None else x
+    out = torch.empty_like(x)
+    acc = None
+    for r in range(k):
+        src = [(r + q) % k for q in offsets]
+        if wire_dtype is None and src == list(range(src[0],
+                                                    src[0] + len(src))):
+            # consecutive row-blocks of the fp32 input: a view, no copy
+            xs = x[src[0] * m:(src[-1] + 1) * m]
+        else:
+            xs = torch.cat([send[c * m:(c + 1) * m] for c in src]).to(
+                torch.float32)
+        res = mixing_cuda.shard_mix_block(
+            x[r * m:(r + 1) * m], xs, dstack[r], Mstack[r],
+            with_residual=with_residual, out=out[r * m:(r + 1) * m])
+        del xs
+        if with_residual:
+            acc = res[1] if acc is None else acc + res[1]
+    del send
+    return out, acc
+
+
 def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
                         step: int = 0, grads: Optional[PyTree] = None,
                         gamma=None, with_residual: bool = False,
@@ -653,25 +692,8 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
 
     offsets, Mstack, dstack, _ = _device_shard_blocks(
         phase, topology, n, step, n_pods, k, x.device)
-    send = x.to(wire_dtype) if wire_dtype is not None else x
-    out = torch.empty_like(x)
-    acc = None
-    for r in range(k):
-        src = [(r + q) % k for q in offsets]
-        if wire_dtype is None and src == list(range(src[0],
-                                                    src[0] + len(src))):
-            # consecutive row-blocks of the fp32 input: a view, no copy
-            xs = x[src[0] * m:(src[-1] + 1) * m]
-        else:
-            xs = torch.cat([send[c * m:(c + 1) * m] for c in src]).to(
-                torch.float32)
-        res = mixing_cuda.shard_mix_block(
-            x[r * m:(r + 1) * m], xs, dstack[r], Mstack[r],
-            with_residual=with_residual, out=out[r * m:(r + 1) * m])
-        del xs
-        if with_residual:
-            acc = res[1] if acc is None else acc + res[1]
-    del send
+    out, acc = _shard_mix_rounds(x, offsets, Mstack, dstack, k, wire_dtype,
+                                 with_residual)
     if not with_residual:
         return unflatten(out)
     xbar = _divide(acc, n)
@@ -865,3 +887,221 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
                  n, Dp)[:, :D]
     return unflatten(mixed), (None if ef_unflatten is None
                               else ef_unflatten(new_ef))
+
+
+# ---------------------------------------------------------------------------
+# Push-sum: a runtime dense column-stochastic W
+# ---------------------------------------------------------------------------
+def push_sum_shard_offsets(n: int, k: int, shifts) -> Tuple[int, ...]:
+    """Static shard-offset superset of the sharded push-sum rounds.
+
+    A shift ``s`` over ``m = n/k`` rows per shard reaches the shard
+    offsets ``(s // m) % k`` and, when it straddles a shard boundary
+    (``s % m != 0``), ``(s // m + 1) % k``.  Offset 0 is always included:
+    fault renormalization puts dropped nodes on diagonal entries."""
+    m = n // k
+    offs = {0}
+    for s in shifts:
+        s = s % n
+        offs.add((s // m) % k)
+        if s % m:
+            offs.add((s // m + 1) % k)
+    return tuple(sorted(offs))
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) as a float32 tensor on
+    ``device``, rounded to float32 as the reference rounds it; to a card
+    it is copied from pinned memory without blocking the host (PyTorch's
+    pinned-memory cache keeps the block until the copy has run).  A
+    tensor already on ``device`` is taken as it is."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.float32))
+    t = t.to(torch.float32)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _host_matrix(W) -> Optional[np.ndarray]:
+    """W as a host array when it is one (no device read), else None."""
+    if not torch.is_tensor(W):
+        return np.asarray(W, dtype=np.float32)
+    return W.numpy() if W.device.type == "cpu" else None
+
+
+def _check_halo(W: np.ndarray, n: int, k: int, offsets) -> None:
+    """Raise when W mixes a row-block from a shard offset that the sharded
+    round does not gather (a shift outside the static superset)."""
+    m = n // k
+    M = W - np.diag(np.diag(W))
+    for r in range(k):
+        gathered = {(r + q) % k for q in offsets}
+        for c in range(k):
+            if c not in gathered and np.any(
+                    M[r * m:(r + 1) * m, c * m:(c + 1) * m]):
+                raise ValueError(
+                    f"mixing._push_sum_sharded: W mixes shard {c}'s rows "
+                    f"into shard {r}, offset {(c - r) % k}, outside the "
+                    f"halo offsets {tuple(offsets)} (a shift outside the "
+                    f"static superset: widen fault_hops/offsets)")
+
+
+def _dense_shard_stacks(W: torch.Tensor, n: int, k: int, offsets):
+    """Each shard's ``(m, |offsets|·m)`` mixing factor and ``(m, 1)`` self
+    weights gathered from a runtime dense W on its device (block slices,
+    no host round trip): ``(Mstack (k, m, |off|·m), dstack (k, m, 1))``."""
+    from repro_torch.kernels.mixing_cuda import dense_factors
+
+    m = n // k
+    d, M = dense_factors(W, n)
+    Mstack = torch.stack([
+        torch.cat([M[r * m:(r + 1) * m,
+                     ((r + q) % k) * m:(((r + q) % k) + 1) * m]
+                   for q in offsets], dim=1)
+        for r in range(k)])
+    return Mstack, d.reshape(k, m, 1)
+
+
+def _mix_dense_reference(params: PyTree, W: torch.Tensor, n: int,
+                         comm_dtype=None) -> PyTree:
+    """Reference dense round ``x ← d ⊙ x + M · wire(x)`` for a runtime W,
+    leaf by leaf (the oracle of the fused and sharded paths); only the
+    neighbour term is wire-cast."""
+    from repro_torch.kernels.mixing_cuda import dense_factors
+
+    d, M = dense_factors(W, n)
+
+    def one(x):
+        x2 = x.reshape(n, -1).to(torch.float32)
+        xw = (x2.to(comm_dtype).to(torch.float32) if comm_dtype is not None
+              else x2)
+        return (d * x2 + torch.matmul(M, xw)).reshape(x.shape).to(x.dtype)
+
+    return tree_map(one, params)
+
+
+def _compressed_round_dense(params: PyTree, q: PyTree, W: torch.Tensor,
+                            n: int) -> PyTree:
+    """Compensated compressed round ``x + (M·q − (1−d)⊙q)`` for a runtime
+    dense W (the oracle of ``compressed_step_mix_dense``)."""
+    from repro_torch.kernels.mixing_cuda import dense_factors
+
+    d, M = dense_factors(W, n)
+    w = 1.0 - d
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for x, qq in zip(leaves, tree_flatten(q)[0]):
+        x2 = x.reshape(n, -1).to(torch.float32)
+        q2 = qq.reshape(n, -1).to(torch.float32)
+        out.append((x2 + (torch.matmul(M, q2) - w * q2)).reshape(
+            x.shape).to(x.dtype))
+    return tree_unflatten(treedef, out)
+
+
+def _push_sum_sharded(joint: PyTree, *, W: torch.Tensor,
+                      W_host: Optional[np.ndarray], n_nodes: int, offsets,
+                      comm_dtype, mesh, node_axis: str) -> PyTree:
+    """Sharded push-sum round: the joint ``(x, w)`` tree packed into one
+    ``(n, D + 1)`` matrix (the weight column rides it, wire-cast with it),
+    each shard's factor gathered from the runtime W over the static halo
+    ``offsets`` (default: every shard offset), and the per-shard body of
+    the sharded gossip round (:func:`_shard_mix_rounds`, ``shard_mix.cu``).
+    A W that mixes rows from outside the halo raises ``ValueError``; it is
+    checked on the host copy, read back from the device only when the
+    caller passed a device W with a restricted halo."""
+    from repro_torch.kernels import mixing_cuda
+
+    who = "mixing._push_sum_sharded"
+    n = n_nodes
+    k = _shard_count(mesh, node_axis, n, who)
+    offsets = tuple(range(k)) if offsets is None else tuple(offsets)
+    if set(range(k)) - {q % k for q in offsets}:
+        _check_halo(W_host if W_host is not None else W.cpu().numpy(), n, k,
+                    offsets)
+    x, unflatten = mixing_cuda.flatten_nodes(joint)
+    x = x.contiguous()
+    Mstack, dstack = _dense_shard_stacks(W, n, k, offsets)
+    out, _ = _shard_mix_rounds(x, offsets, Mstack, dstack, k, comm_dtype)
+    return unflatten(out)
+
+
+def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
+                         n_nodes: int, comm_dtype=None,
+                         backend: str = "reference", mesh=None,
+                         node_axis: str = "data", shard_mode: str = "auto",
+                         leaf_threshold: Optional[int] = None, offsets=None,
+                         compressor=None, ef_state: Optional[PyTree] = None,
+                         seed: int = 0):
+    """One push-sum round ``(x, w) ← (W·x, W·w)`` for a **runtime**
+    column-stochastic ``W``.
+
+    ``weight`` is the per-node push-sum scalar ``(n, 1)``; readers
+    de-bias with ``x/w`` (:func:`repro_torch.train.state.debias`).  ``W``
+    is an ``(n, n)`` host array (numpy or CPU tensor: copied to the
+    device without blocking the host) or a tensor on the params' device.
+    The weight column rides the same round as the parameters (packed into
+    the staging buffer or the sharded row-blocks with them), so x and w
+    see the same mixing arithmetic, the bf16 wire cast included.
+
+    Backends: ``"reference"`` (dense matmul oracle), ``"pallas"`` stacked
+    (:func:`repro_torch.kernels.mixing_cuda.fused_step_mix_dense`) and,
+    when ``mesh``'s node axis is sharded, the per-shard rounds
+    (:func:`_push_sum_sharded`) over the halo ``offsets``
+    (:func:`push_sum_shard_offsets`; default every shard offset).
+
+    With a lossy ``compressor`` the parameters run the compensated
+    compressed round while the weight is mixed exactly (``W @ w``
+    outside the codec); returns ``(mixed, new_weight, new_ef_state)``.
+    Without a compressor returns ``(mixed, new_weight)``; the identity
+    codec takes the exact path and passes ``ef_state`` through.  Sharded
+    + compressed raises ``ValueError``, as in the reference.
+    """
+    _check_backend(backend, 0, caller="mixing.communicate_push_sum")
+    n = n_nodes
+    if weight.shape[0] != n:
+        raise ValueError(f"communicate_push_sum: weight has {weight.shape[0]}"
+                         f" rows for n_nodes={n}")
+    w2 = weight.reshape(n, -1).to(torch.float32)
+    sharded = use_sharded_backend(backend, mesh, node_axis, shard_mode)
+    if compressor is not None and compressor.lossy and sharded:
+        raise ValueError(
+            "mixing.communicate_push_sum: compressed push-sum has no "
+            "sharded path (the fault-varying W would need runtime wire "
+            "layouts); use comm_shard_mode='stacked'")
+    W_host = _host_matrix(W)
+    Wd = upload(W, weight.device)
+
+    if compressor is not None and compressor.lossy:
+        if backend == "pallas":
+            from repro_torch.kernels import mixing_cuda
+            mixed, new_ef = mixing_cuda.compressed_step_mix_dense(
+                params, W=Wd, compressor=compressor, ef_state=ef_state,
+                seed=seed, n_nodes=n)
+        else:
+            from repro_torch import compress as compress_mod
+            q, new_ef = compress_mod.apply_tree(compressor, params,
+                                                ef_state, seed)
+            mixed = _compressed_round_dense(params, q, Wd, n)
+        # the weight is the de-bias denominator: mix it exactly, outside
+        # the lossy codec (a column-stochastic W keeps Σw = n)
+        new_w = torch.matmul(Wd, w2).to(weight.dtype).reshape(weight.shape)
+        return mixed, new_w, new_ef
+
+    joint = {"x": params, "w": weight}
+    if sharded:
+        out = _push_sum_sharded(joint, W=Wd, W_host=W_host, n_nodes=n,
+                                offsets=offsets, comm_dtype=comm_dtype,
+                                mesh=mesh, node_axis=node_axis)
+    elif backend == "pallas":
+        from repro_torch.kernels import mixing_cuda
+        out = mixing_cuda.fused_step_mix_dense(
+            joint, Wd, n_nodes=n, comm_dtype=comm_dtype,
+            leaf_threshold=leaf_threshold)
+    else:
+        out = _mix_dense_reference(joint, Wd, n, comm_dtype=comm_dtype)
+    if compressor is not None:
+        return out["x"], out["w"], ef_state
+    return out["x"], out["w"]

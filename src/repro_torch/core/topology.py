@@ -1,17 +1,21 @@
 """Gossip topologies: circulant shift decompositions, dense mixing
-matrices W and the mixing rate β (numpy copy of the circulant and grid
-part of ``repro/core/topology.py``).
+matrices W, the mixing rate β and the push-sum matrices (numpy copy of
+``repro/core/topology.py`` less the paper's transient-stage formulas).
 
 Every topology here is circulant (or 2-D circulant on a torus), so
-``W·x = Σ_s w_s · roll(x, s)`` along the node axis.  The push-sum fault
-matrices (ROADMAP A.4) and the paper's transient-stage formulas, which
-only ``benchmarks/bench_transient_theory.py`` reads (ROADMAP A.11), are
-not copied yet.
+``W·x = Σ_s w_s · roll(x, s)`` along the node axis.  The directed
+circulants (``directed_ring``, ``directed_exp``) are asymmetric but
+doubly stochastic under full participation; faults make a push-sum round
+only column-stochastic (:func:`push_sum_matrix` renormalizes a sender's
+column over its surviving receivers), which keeps the mass ``Σw = n``.
+The transient-stage formulas, which only
+``benchmarks/bench_transient_theory.py`` reads (ROADMAP A.11), are not
+copied yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -20,6 +24,7 @@ GridShiftWeights = Dict[Tuple[int, int], float]
 
 CIRCULANT_TOPOLOGIES = ("ring", "exp", "one_peer_exp", "full",
                         "disconnected", "directed_ring", "directed_exp")
+DIRECTED_TOPOLOGIES = ("directed_ring", "directed_exp")
 KNOWN_TOPOLOGIES = CIRCULANT_TOPOLOGIES + ("grid",)
 
 
@@ -153,3 +158,60 @@ def schedule_period(topology: str, n: int) -> int:
     if topology == "one_peer_exp" and n > 1:
         return _require_power_of_two(n, "one-peer exp topology")
     return 1
+
+
+def push_sum_matrix(topology: str, n: int, step: int = 0,
+                    active: Optional[np.ndarray] = None,
+                    out_weights: Optional[List[ShiftWeights]] = None,
+                    ) -> np.ndarray:
+    """Column-stochastic W for one push-sum round, honouring failures.
+
+    Column j is how active sender j splits its mass among its receivers
+    ``(j - s) % n`` for each shift s (``W[i, (i+s) % n] = w_s``, as in
+    :func:`mixing_matrix`, which it equals under full participation).  A
+    dropped node (``active[j] == False``) neither sends nor receives: its
+    row and column collapse to ``e_j``.  An active sender renormalizes its
+    out-weights over its surviving receivers, so every column still sums
+    to 1.  ``out_weights`` (one ShiftWeights per node) gives each sender
+    its own shift set (per-step resampling); it defaults to
+    ``shift_weights(topology, n, step)`` for every node.
+    """
+    if active is None:
+        active = np.ones(n, dtype=bool)
+    active = np.asarray(active, dtype=bool)
+    if active.shape != (n,):
+        raise ValueError(f"active mask shape {active.shape} != ({n},)")
+    if out_weights is None:
+        shared = shift_weights(topology, n, step)
+        out_weights = [shared] * n
+    if len(out_weights) != n:
+        raise ValueError("out_weights must have one entry per node")
+    W = np.zeros((n, n))
+    for j in range(n):
+        if not active[j]:
+            W[j, j] = 1.0
+            continue
+        live = {s: w for s, w in out_weights[j].items()
+                if active[(j - s) % n]}
+        z = sum(live.values())
+        if z <= 0.0:                      # all receivers down: keep own mass
+            W[j, j] = 1.0
+            continue
+        for s, w in live.items():
+            W[(j - s) % n, j] += w / z
+    return W
+
+
+def global_push_matrix(n: int, active: Optional[np.ndarray] = None
+                       ) -> np.ndarray:
+    """The PGA global round as a push-sum matrix: the exact average of the
+    joint ``(x, w)`` pair over the active set, ``W = a aᵀ/|A| + diag(1 −
+    a)`` (dropped nodes keep their own mass); ``𝟙𝟙ᵀ/n`` under full
+    participation."""
+    if active is None:
+        active = np.ones(n, dtype=bool)
+    a = np.asarray(active, dtype=float)
+    n_live = a.sum()
+    if n_live == 0:
+        return np.eye(n)
+    return np.outer(a, a) / n_live + np.diag(1.0 - a)

@@ -37,6 +37,11 @@ the same bits.  :func:`cmix_absmax` counts in
 :mod:`repro_torch.kernels.cuda_build`; importing this module builds
 nothing.
 
+The round factors come from the round kind (``phase_matrices``, made once
+per kind on the device) or, for push-sum, from a runtime ``(n, n)`` W
+tensor built on the device every call (:func:`dense_factors`,
+:func:`fused_step_mix_dense`, :func:`compressed_step_mix_dense`).
+
 Uncompressed rounds concatenate leaves below ``leaf_threshold`` per-node
 elements into one private staging buffer, which the kernel consumes in
 place (the TPU's ``input_output_aliases``); larger leaves are mixed
@@ -361,14 +366,28 @@ def fused_step_mix(params: PyTree, grads: Optional[PyTree] = None,
     if comm_dtype is not None and comm_dtype != torch.bfloat16:
         raise ValueError(f"the fused kernel wire-casts to bfloat16 only "
                          f"(got comm_dtype={comm_dtype})")
+    leaves = tree_flatten(params)[0]
+    d, M = _device_factors(phase, topology, n_nodes, step, n_pods,
+                           leaves[0].device)
+    wire = (comm_dtype is not None
+            and not (phase == "gossip" and topology == "grid"))
+    return _mix_groups(params, d, M, wire=wire, grads=grads, gamma=gamma,
+                       with_residual=with_residual,
+                       leaf_threshold=leaf_threshold)
+
+
+def _mix_groups(params: PyTree, d: torch.Tensor, M: torch.Tensor, *,
+                wire: bool, grads: Optional[PyTree] = None, gamma=None,
+                with_residual: bool = False,
+                leaf_threshold: Optional[int] = None):
+    """One :func:`mix_flat` launch per dispatch group of ``params`` with
+    the round's ``(d, M)`` on the leaves' device; the body of
+    :func:`fused_step_mix` and :func:`fused_step_mix_dense`."""
     thresh = (LEAF_DISPATCH_THRESHOLD if leaf_threshold is None
               else leaf_threshold)
     leaves, treedef = tree_flatten(params)
     n = leaves[0].shape[0]
     dev = leaves[0].device
-    d, M = _device_factors(phase, topology, n_nodes, step, n_pods, dev)
-    wire = (comm_dtype is not None
-            and not (phase == "gossip" and topology == "grid"))
     with_g = grads is not None
     if with_g and gamma is None:
         raise ValueError("grads given without gamma")
@@ -408,6 +427,38 @@ def fused_step_mix(params: PyTree, grads: Optional[PyTree] = None,
     if with_residual:
         return mixed_tree, tree_unflatten(treedef, xbar_leaves), resid
     return mixed_tree
+
+
+def dense_factors(W: torch.Tensor, n_nodes: int):
+    """``(d, M)`` of a runtime ``(n, n)`` mixing matrix on W's device:
+    ``d = diag(W)`` (n, 1) and ``M = W − diag(W)``, built there from the
+    tensor (no host round trip, nothing cached: a push-sum W is new data
+    every step)."""
+    if tuple(W.shape) != (n_nodes, n_nodes):
+        raise ValueError(f"dense round: W must be ({n_nodes}, {n_nodes}), "
+                         f"got {tuple(W.shape)}")
+    Wf = W.to(torch.float32)
+    diag = torch.diagonal(Wf)
+    return diag.reshape(n_nodes, 1).contiguous(), Wf - torch.diag(diag)
+
+
+def fused_step_mix_dense(params: PyTree, W: torch.Tensor, *, n_nodes: int,
+                         comm_dtype=None,
+                         leaf_threshold: Optional[int] = None) -> PyTree:
+    """Fused mixing round for a **runtime** dense ``W`` (push-sum): the
+    kernel of :func:`fused_step_mix`, with ``d = diag(W)`` and ``M = W −
+    diag(W)`` built on the device from the W tensor each call
+    (:func:`dense_factors`), so a new fault pattern is new data.  Gossip
+    wire semantics: ``comm_dtype`` (bf16 only) casts the M term.  The
+    push-sum weight column rides the packed staging buffer as one more
+    leaf of ``params``."""
+    if comm_dtype is not None and comm_dtype != torch.bfloat16:
+        raise ValueError(
+            f"fused_step_mix_dense wire-casts to bfloat16 only (got "
+            f"comm_dtype={comm_dtype}); use backend='reference'")
+    d, M = dense_factors(W, n_nodes)
+    return _mix_groups(params, d, M, wire=comm_dtype is not None,
+                       leaf_threshold=leaf_threshold)
 
 
 def global_average(params: PyTree, n_nodes: int, *, comm_dtype=None,
@@ -728,6 +779,26 @@ def compressed_step_mix(params: PyTree, *, compressor,
             else "precomputed")
     return _compressed_leaf_loop(params, compressor, ef_state, seed, w, M,
                                  kind=kind, wire=wire)
+
+
+def compressed_step_mix_dense(params: PyTree, *, W: torch.Tensor,
+                              compressor, ef_state: Optional[PyTree] = None,
+                              seed: int = 0, n_nodes: int):
+    """Compensated compressed gossip round for a runtime dense ``W``
+    (push-sum under faults): the kernel of :func:`compressed_step_mix`
+    with ``w = 1 − diag(W)`` and ``M = W − diag(W)`` built on the device
+    from the W tensor.  ``mixed = x + (M·q − w⊙q)`` combines one shared
+    per-node estimate q, so a column-stochastic W conserves the push-sum
+    mass as the exact round does; the caller mixes the weight column
+    outside this lossy codec.  Returns ``(mixed, new_ef_state)``."""
+    d, M = dense_factors(W, n_nodes)
+    w = 1.0 - d
+    kind = (compressor.name if compressor.name in ("int8", "fp8")
+            else "precomputed")
+    # gossip wire semantics only: the push-sum global round is never
+    # compressed (DistConfig refuses it), so no wire cast here
+    return _compressed_leaf_loop(params, compressor, ef_state, seed, w, M,
+                                 kind=kind, wire=False)
 
 
 def _compressed_leaf_loop(params: PyTree, compressor, ef_state, seed,

@@ -3,8 +3,11 @@
 Runs the decentralized trainer with n simulated nodes stacked on one
 device — the card by default, the CPU only with ``--device cpu``.  The
 flags are the reference launcher's; those of what is not ported yet
-(overlap, push-sum and faults, telemetry and tracing) raise
-``NotImplementedError`` naming their ROADMAP item when set.  Like the
+(overlap, telemetry and tracing) raise ``NotImplementedError`` naming
+their ROADMAP item when set.  ``--push-sum`` and ``--fault-*`` build the
+reference's :class:`repro_torch.core.faults.FaultSchedule` as it does
+(a fault flag without ``--push-sum`` raises ``ValueError`` in the
+Trainer).  Like the
 reference's, it builds no mesh: ``--comm-shard-mode sharded`` raises
 ``ValueError`` there as here; the sharded rounds are reached through the
 library entry ``Trainer(tcfg, n, mesh=make_mesh(...))``.
@@ -17,6 +20,7 @@ from repro_torch.configs import (DataConfig, DistConfig, OptimizerConfig,
                                  TrainConfig, get_model_config, list_archs)
 from repro_torch.configs.base import not_ported
 from repro_torch.core.algo import algorithm_names
+from repro_torch.core.faults import FaultSchedule, parse_fault_events
 from repro_torch.train import Trainer
 
 
@@ -63,16 +67,24 @@ def main(argv=None) -> None:
     ap.add_argument("--comm-overlap", action="store_true",
                     help="not ported (ROADMAP A.5)")
     ap.add_argument("--push-sum", action="store_true",
-                    help="not ported (ROADMAP A.4)")
+                    help="push-sum gossip: column-stochastic directed "
+                         "mixing with a per-node weight scalar, de-biased "
+                         "at read time — required for directed topologies "
+                         "and fault injection")
     ap.add_argument("--fault-drop", default="",
-                    help="not ported (ROADMAP A.4)")
+                    help="drop events as 'step:id,id[;step:id,...]', e.g. "
+                         "'40:3,5;90:0' drops nodes 3,5 at step 40 and "
+                         "node 0 at step 90 (requires --push-sum)")
     ap.add_argument("--fault-rejoin", default="",
-                    help="not ported (ROADMAP A.4)")
+                    help="rejoin events, same syntax as --fault-drop")
     ap.add_argument("--fault-resample", default="none",
                     choices=("none", "hop", "peer"),
-                    help="not ported (ROADMAP A.4)")
-    ap.add_argument("--fault-seed", type=int, default=None,
-                    help="not ported (ROADMAP A.4)")
+                    help="re-draw the gossip wiring each step: 'hop' "
+                         "resamples one shared power-of-two hop, 'peer' "
+                         "gives every node its own draw")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic per-step fault/"
+                         "resample draws (counter-based)")
     ap.add_argument("--full-config", action="store_true",
                     help="full published dims (default: reduced)")
     ap.add_argument("--iid", action="store_true")
@@ -88,10 +100,6 @@ def main(argv=None) -> None:
 
     if args.comm_overlap:
         raise not_ported("pipelined gossip (--comm-overlap)", "A.5")
-    if (args.push_sum or args.fault_drop or args.fault_rejoin
-            or args.fault_resample != "none" or args.fault_seed is not None):
-        raise not_ported("push-sum gossip and fault injection (--push-sum, "
-                         "--fault-*)", "A.4")
     if args.telemetry_dir or args.trace or args.trace_fence:
         raise not_ported("training telemetry (--telemetry-dir, --trace, "
                          "--trace-fence)", "A.6")
@@ -105,15 +113,24 @@ def main(argv=None) -> None:
                         comm_compression=args.comm_compression,
                         comm_compression_k=args.comm_compression_k,
                         comm_global_compression=args.comm_global_compression,
-                        comm_error_feedback=args.error_feedback),
+                        comm_error_feedback=args.error_feedback,
+                        push_sum=args.push_sum),
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr,
                                   schedule="warmup_cosine", warmup_steps=10,
                                   total_steps=args.steps),
         data=DataConfig(non_iid=not args.iid),
         global_batch=args.global_batch, seq_len=args.seq_len,
         steps=args.steps, log_every=max(args.steps // 10, 1))
+    fault_schedule = None
+    if args.fault_drop or args.fault_rejoin or args.fault_resample != "none":
+        fault_schedule = FaultSchedule(
+            n_nodes=args.nodes,
+            drops=parse_fault_events(args.fault_drop),
+            rejoins=parse_fault_events(args.fault_rejoin),
+            resample=args.fault_resample,
+            seed=args.fault_seed)
     tr = Trainer(tcfg, n_nodes=args.nodes, with_consensus=True,
-                 device=args.device)
+                 fault_schedule=fault_schedule, device=args.device)
     state = tr.init_state()
     tr.run(state, steps=args.steps)
 

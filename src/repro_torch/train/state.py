@@ -1,4 +1,4 @@
-"""TrainState and node-stacking helpers (counterpart of
+"""TrainState, node-stacking and push-sum helpers (counterpart of
 ``repro/train/state.py``)."""
 from __future__ import annotations
 
@@ -23,6 +23,33 @@ class TrainState:
     def ef_state(self) -> Optional[PyTree]:
         """Per-node error-feedback memory (None without error feedback)."""
         return self.extras.get("ef_state")
+
+    @property
+    def push_weight(self) -> Optional[torch.Tensor]:
+        """The ``(n, 1)`` float32 push-sum weight (None without push-sum);
+        readers de-bias with :func:`debias`, and ``Σw = n`` holds."""
+        return self.extras.get("push_weight")
+
+
+def init_push_weight(n_nodes: int, device="cpu") -> torch.Tensor:
+    """Push-sum weights start at 1 on every node (Σw = n)."""
+    return torch.ones((n_nodes, 1), dtype=torch.float32, device=device)
+
+
+def debias(params_stacked: PyTree, push_weight: Optional[torch.Tensor]
+           ) -> PyTree:
+    """The de-biased read ``x/w``, the push-sum estimate of the average;
+    the identity when ``push_weight`` is None.  Divides in fp32 and casts
+    back per leaf; w broadcasts over each leaf's trailing dims."""
+    if push_weight is None:
+        return params_stacked
+    w = push_weight.reshape(-1).to(torch.float32)
+
+    def one(p):
+        wb = w.reshape((p.shape[0],) + (1,) * (p.dim() - 1))
+        return (p.to(torch.float32) / wb).to(p.dtype)
+
+    return tree_map(one, params_stacked)
 
 
 def stack_for_nodes(tree: PyTree, n_nodes: int) -> PyTree:

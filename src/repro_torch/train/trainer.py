@@ -9,9 +9,13 @@ keeps metrics on the device and reads them back in one transfer per log
 boundary, where it records them in ``history`` and prints the reference's line
 ``[algo] step N loss=… phase=… consensus=…``.  Each step's loss goes to
 ``schedule.observe_loss`` as a device scalar (Gossip-AGA reads it at its
-period boundaries; ``schedule.history`` keeps the periods it set).  Telemetry sinks,
-checkpoints and fault schedules are not ported yet (ROADMAP A.6, A.7,
-A.4).
+period boundaries; ``schedule.history`` keeps the periods it set).  With
+``DistConfig.push_sum`` each step gets its round's W and live mask, built
+on the host (:func:`repro_torch.core.faults.push_round`), from a
+:class:`repro_torch.core.faults.FaultSchedule` when one is given.
+Telemetry sinks (the ``fault`` events among them) and checkpoints (the
+fault counters' sidecar among them) are not ported yet (ROADMAP A.6,
+A.7).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import algo as algo_lib
 from repro_torch.core import topology as topo
+from repro_torch.core.faults import push_round
 from repro_torch.core.schedule import make_schedule
 from repro_torch.data import make_stream
 from repro_torch.models.model import make_model
@@ -39,10 +44,13 @@ PyTree = Any
 class Trainer:
     """``Trainer(tcfg, n_nodes, mesh=None, device="cuda")``: runs on the
     card unless ``device="cpu"`` is passed (no card → the default raises);
-    a ``mesh`` must sit on that device."""
+    a ``mesh`` must sit on that device.  ``fault_schedule`` (a
+    :class:`repro_torch.core.faults.FaultSchedule` for ``n_nodes``)
+    drops, rejoins and rewires nodes; it requires push-sum."""
 
     def __init__(self, tcfg: TrainConfig, n_nodes: int, *, mesh=None,
-                 with_consensus: bool = False, device="cuda"):
+                 with_consensus: bool = False, fault_schedule=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         if mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"Trainer: the mesh sits on {mesh.device}, the "
@@ -50,6 +58,17 @@ class Trainer:
         self.mesh = mesh
         tcfg.validate()
         tcfg.dist.validate_nodes(n_nodes)
+        if fault_schedule is not None:
+            if not tcfg.dist.push_sum:
+                raise ValueError(
+                    "Trainer: fault injection requires DistConfig."
+                    "push_sum=True — only the push-sum weight scalar keeps "
+                    "the average unbiased when nodes drop (DESIGN.md §2.5)")
+            if fault_schedule.n_nodes != n_nodes:
+                raise ValueError(
+                    f"Trainer: fault_schedule built for "
+                    f"{fault_schedule.n_nodes} nodes, trainer has {n_nodes}")
+        self.fault_schedule = fault_schedule
         self.tcfg = tcfg
         self.n_nodes = n_nodes
         self.model = make_model(tcfg.model)
@@ -83,10 +102,12 @@ class Trainer:
     def _get_step_fn(self, phase: str, shift: int):
         key = (phase, shift)
         if key not in self._steps:
+            hops = (self.fault_schedule.hop_superset(self.tcfg.dist.topology)
+                    if self.fault_schedule is not None else None)
             self._steps[key] = build_train_step(
                 self.model, self.tcfg, self.n_nodes, phase=phase,
                 shift_step=shift, with_consensus=self.with_consensus,
-                mesh=self.mesh)
+                mesh=self.mesh, fault_hops=hops)
         return self._steps[key]
 
     def device_batch(self, k: int) -> Dict[str, torch.Tensor]:
@@ -113,8 +134,15 @@ class Trainer:
                      else "none")
             shift = self.schedule.gossip_shift_step(k, self.period)
             lr = self.lr_fn(k)
-            state, metrics = self._get_step_fn(phase, shift)(state, batch,
-                                                            lr)
+            step_fn = self._get_step_fn(phase, shift)
+            if self.tcfg.dist.push_sum:
+                # the round's W and live mask, built on the host
+                W, active = push_round(self.tcfg.dist.topology,
+                                       self.n_nodes, phase, k, shift,
+                                       self.fault_schedule)
+                state, metrics = step_fn(state, batch, lr, W, active)
+            else:
+                state, metrics = step_fn(state, batch, lr)
             # the schedule holds the device scalar and reads it only at a
             # period boundary (schedule._as_float): no per-step host read
             self.schedule.observe_loss(k, metrics["loss"])

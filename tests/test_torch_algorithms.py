@@ -22,7 +22,12 @@ own tests run it).  Tolerances, with their reasons:
   nodes (a reference fault, ROADMAP C.4); the port does the same and is
   held to that trajectory;
 * SlowMo's ``post_round`` and GT's ``pre_update`` on random trees: rtol
-  1e-6, atol 1e-7 (fp32 elementwise arithmetic in the same order).
+  1e-6, atol 1e-7 (fp32 elementwise arithmetic in the same order);
+* push-sum runs (gossip_pga over the ring, with and without a fault
+  schedule): loss rtol 1e-5, the per-step mass and the final weight atol
+  1e-5 (the de-biased read ``Σx/Σw`` adds a division and two sums in
+  another order; ``tests/test_torch_faults.py`` holds the rest);
+* the push-sum weight slot (``node_scalar``): bitwise.
 """
 import types
 
@@ -190,11 +195,20 @@ def test_unported_options_raise_after_the_reference_checks(problems):
         with pytest.raises(ValueError, match=match):
             tsim(**tbase, **kw)
     for kw, item in ((dict(telemetry=object()), "A.6"),
-                     (dict(push_sum=True), "A.4"),
-                     (dict(push_sum=True, fault_schedule=faults), "A.4"),
                      (dict(overlap=True), "A.5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tsim(**tbase, **kw)
+    # push-sum and faults (ROADMAP A.4, ported): the port runs what the
+    # reference runs, to its trajectory
+    from repro.core.faults import FaultSchedule as JFaults
+    from repro_torch.core.faults import FaultSchedule as TFaults
+    sched = dict(n_nodes=N, drops={6: (2, 5)}, rejoins={17: (2, 5)}, seed=1)
+    for jfs, tfs in ((None, None), (JFaults(**sched), TFaults(**sched))):
+        jo = jsim(**jbase, push_sum=True, fault_schedule=jfs)
+        to = tsim(**tbase, push_sum=True, fault_schedule=tfs)
+        np.testing.assert_allclose(to["loss"], jo["loss"], rtol=1e-5)
+        for key in ("mass", "push_weight"):
+            np.testing.assert_allclose(to[key], jo[key], rtol=0, atol=1e-5)
 
 
 def test_simulate_defaults_to_the_card(problems):
@@ -286,8 +300,7 @@ def test_registry_matches_reference(algorithm):
         assert sorted(got) == sorted(want)
         _assert_trees(want, got, rtol=0)
     assert talgo.algorithm_names() == jalgo.algorithm_names()
-    assert set(talgo.known_slot_names()) == \
-        set(jalgo.known_slot_names()) - {"push_weight"}
+    assert talgo.known_slot_names() == jalgo.known_slot_names()
 
 
 def test_row0_slot_is_a_copy_of_node_zero():
@@ -297,8 +310,15 @@ def test_row0_slot_is_a_copy_of_node_zero():
     assert torch.equal(got["w"], params["w"][0])
     params["w"][0] += 1.0
     assert torch.equal(got["w"], torch.arange(3.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        talgo.ExtraSlot("w8", kind="node_scalar").init_value(params, 4)
+    # the push-sum weight's kind (ROADMAP A.4, ported): an (n, 1) float32
+    # column, zeros or ones, as the reference's
+    for init in ("zeros", "ones"):
+        got = talgo.ExtraSlot("w8", kind="node_scalar",
+                              init=init).init_value(params, 4)
+        want = jalgo.ExtraSlot("w8", kind="node_scalar",
+                               init=init).init_value(params, 4)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 class _Lazy:

@@ -107,9 +107,32 @@ def test_wrapper_rejects_other_devices_and_bad_operands():
                                    n_nodes=4, comm_dtype=torch.float16)
 
 
+@pytest.mark.parametrize("over", [
+    dict(comm_compression="int8", push_sum=True),
+    dict(push_sum=True),
+    dict(push_sum=True, topology="directed_exp", comm_backend="pallas"),
+    dict(topology="directed_ring"),
+    dict(push_sum=True, algorithm="slowmo"),
+    dict(push_sum=True, topology="grid"),
+    dict(push_sum=True, comm_global_compression="int8"),
+    dict(push_sum=True, comm_overlap=True),
+])
+def test_push_sum_options_validate_as_the_reference(over):
+    """Push-sum (ROADMAP A.4, ported): the port accepts what the
+    reference accepts and raises the reference's ``ValueError``, message
+    for message, where it refuses."""
+    from repro.configs.base import DistConfig as JDist
+    try:
+        JDist(**over).validate()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            DistConfig(**over).validate()
+        assert str(got.value) == str(e)
+    else:
+        DistConfig(**over).validate()
+
+
 @pytest.mark.parametrize("over,item", [
-    (dict(comm_compression="int8", push_sum=True), "A.4"),
-    (dict(push_sum=True), "A.4"),
     (dict(comm_overlap=True), "A.5"),
     (dict(fsdp=True), "A.10"),
     (dict(algorithm="slowmo", comm_overlap=True), "A.5"),

@@ -254,14 +254,13 @@ def test_compressed_trainer_matches_reference():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(push_sum=True), "A.4"),
     (dict(comm_overlap=True), "A.5"),
     (dict(fsdp=True), "A.10"),
 ])
 def test_unported_options_still_raise_with_compression(over, item):
-    """Compression and the sharded rounds are ported; push-sum, overlap and
-    FSDP parameter sharding are not, and the Trainer refuses them before
-    running anything."""
+    """Compression, the sharded rounds and push-sum are ported; overlap
+    and FSDP parameter sharding are not, and the Trainer refuses them
+    before running anything."""
     from repro_torch.configs import get_model_config
     from repro_torch.train import Trainer as TTrainer
 
@@ -273,6 +272,30 @@ def test_unported_options_still_raise_with_compression(over, item):
         global_batch=8, seq_len=16)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TTrainer(tcfg, n_nodes=4, device="cpu")
+
+
+def test_push_sum_with_compression_builds_as_the_reference():
+    """Push-sum with int8 gossip and error feedback (ROADMAP A.4, ported):
+    the reference's Trainer accepts it and so does the port's, with the
+    same extras slots (the EF memory and the push weight)."""
+    from repro.configs import pga_lm_100m as jarch
+    from repro.train.trainer import Trainer as JTrainer
+    from repro_torch.configs import get_model_config
+    from repro_torch.train import Trainer as TTrainer
+
+    dist = dict(comm_backend="pallas", comm_compression="int8",
+                comm_error_feedback=True, push_sum=True)
+    tcfg = tcfg_mod.TrainConfig(
+        model=get_model_config("pga-lm-100m", reduced=True),
+        dist=tcfg_mod.DistConfig(**dist), global_batch=8, seq_len=16)
+    jtcfg = jcfg.TrainConfig(
+        model=jarch.reduced_config(), dist=jcfg.DistConfig(**dist),
+        global_batch=8, seq_len=16)
+    tst = TTrainer(tcfg, n_nodes=4, device="cpu").init_state()
+    jst = JTrainer(jtcfg, n_nodes=4).init_state(jax.random.PRNGKey(0))
+    assert sorted(tst.extras) == sorted(jst.extras) == ["ef_state",
+                                                        "push_weight"]
+    assert torch.equal(tst.push_weight, torch.ones(4, 1))
 
 
 def test_compressed_cli_runs_on_cpu_when_asked():
@@ -300,11 +323,6 @@ def test_compressed_cli_runs_on_cpu_when_asked():
 
 @pytest.mark.parametrize("flag,item", [
     (["--comm-overlap"], "A.5"),
-    (["--push-sum"], "A.4"),
-    (["--fault-drop", "40:3,5"], "A.4"),
-    (["--fault-rejoin", "90:3"], "A.4"),
-    (["--fault-resample", "hop"], "A.4"),
-    (["--fault-seed", "0"], "A.4"),
     (["--telemetry-dir", "telemetry"], "A.6"),
     (["--trace", "trace.json"], "A.6"),
     (["--trace-fence"], "A.6"),
@@ -317,3 +335,108 @@ def test_cli_unported_flags_raise_not_ported(flag, item):
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tlaunch.main(["--arch", "pga-lm-100m", "--device", "cpu", *flag])
+
+
+class _Recorder:
+    """Stands in for a launcher's Trainer: records what the launcher built
+    and runs nothing."""
+    built = []
+
+    def __init__(self, tcfg, n_nodes, **kw):
+        _Recorder.built.append((tcfg, n_nodes, kw.get("fault_schedule")))
+
+    def init_state(self, *a, **kw):
+        return None
+
+    def run(self, *a, **kw):
+        return None
+
+
+def _launch_both(monkeypatch, argv, record: bool):
+    """Both launchers on the same flags: ``(reference's, port's)`` built
+    ``(tcfg, n_nodes, fault_schedule)`` when ``record``, else each one's
+    exception."""
+    from repro.launch import train as jlaunch
+    from repro_torch.launch import train as tlaunch
+
+    out = []
+    args = ["--arch", "pga-lm-100m", *argv]
+    monkeypatch.setattr(sys, "argv", ["train", *args])
+    for mod in (jlaunch, tlaunch):
+        if record:
+            monkeypatch.setattr(mod, "Trainer", _Recorder)
+        _Recorder.built.clear()
+        try:
+            if mod is tlaunch:
+                mod.main([*args, "--device", "cpu"])
+            else:
+                mod.main()
+        except ValueError as e:
+            out.append(e)
+        else:
+            out.append(_Recorder.built[-1])
+    return out
+
+
+@pytest.mark.parametrize("flag", [
+    ["--push-sum"], ["--fault-drop", "40:3,5"], ["--fault-rejoin", "90:3"],
+    ["--fault-resample", "hop"], ["--fault-seed", "0"]])
+def test_cli_push_sum_flags_as_the_reference(monkeypatch, flag):
+    """The push-sum and fault flags (ROADMAP A.4, ported) do what the
+    reference launcher's do: ``--push-sum`` sets ``DistConfig.push_sum``;
+    a drop, rejoin or resample flag builds the reference's FaultSchedule,
+    which the Trainer refuses without ``--push-sum`` (the reference's
+    ``ValueError``, raised before any model is built); ``--fault-seed``
+    alone builds none."""
+    builds_schedule = flag[0] in ("--fault-drop", "--fault-rejoin",
+                                  "--fault-resample")
+    if builds_schedule:
+        jerr, terr = _launch_both(monkeypatch, flag, record=False)
+        assert isinstance(jerr, ValueError) and isinstance(terr, ValueError)
+        assert str(terr) == str(jerr)
+        assert "requires DistConfig.push_sum" in str(terr)
+    else:
+        (jt, jn, jfs), (tt, tn, tfs) = _launch_both(monkeypatch, flag,
+                                                    record=True)
+        assert tt.dist.push_sum == jt.dist.push_sum == (flag == [
+            "--push-sum"])
+        assert jfs is None and tfs is None and tn == jn
+
+
+def test_cli_fault_flags_build_the_reference_schedule(monkeypatch):
+    """With ``--push-sum`` the fault flags build the reference's schedule:
+    the same events, resampling and seed (``--fault-seed`` defaults to 0
+    in both), hence the same masks and matrices."""
+    argv = ["--push-sum", "--topology", "directed_exp", "--nodes", "8",
+            "--fault-drop", "4:3,5;9:0", "--fault-rejoin", "12:3",
+            "--fault-resample", "peer"]
+    for extra in ([], ["--fault-seed", "7"]):
+        (jt, _, jfs), (tt, _, tfs) = _launch_both(monkeypatch, argv + extra,
+                                                  record=True)
+        assert tt.dist.push_sum and tt.dist.topology == "directed_exp"
+        for key in ("n_nodes", "drops", "rejoins", "resample", "seed"):
+            assert getattr(tfs, key) == getattr(jfs, key), key
+        for k in range(14):
+            np.testing.assert_array_equal(tfs.matrix("directed_exp", k),
+                                          jfs.matrix("directed_exp", k))
+
+
+def test_cli_push_sum_fault_run_on_cpu():
+    """The launcher's push-sum run with a drop and a rejoin, on the CPU:
+    finite losses, one line per step, phases gossip/global at H = 3."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         "--arch", "pga-lm-100m", "--nodes", "4", "--steps", "6",
+         "--global-batch", "8", "--seq-len", "16", "--H", "3",
+         "--topology", "directed_exp", "--push-sum", "--fault-drop", "2:1",
+         "--fault-rejoin", "4:1", "--comm-backend", "pallas",
+         "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if "] step" in ln]
+    assert len(lines) == 6
+    for k, line in enumerate(lines):
+        loss = float(line.split("loss=")[1].split()[0])
+        assert np.isfinite(loss)
+        assert f"phase={'global' if k % 3 == 2 else 'gossip'}" in line
