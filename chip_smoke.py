@@ -92,7 +92,25 @@ line):
    with push-sum and faults, the reference's acceptance scenario card vs
    CPU and the §5.1 problem at n = 100 over the directed ring.  The
    kernel checks of phase 2 also hold mix, cmix and shard_mix on factors
-   built on the card from a runtime W at these paths' shapes.
+   built on the card from a runtime W at these paths' shapes;
+11. slice 9's paths, overlapped gossip (``comm_overlap=True``: step t's
+   round applied at step t + 1 as ``x + (M·b − (1 − d)⊙b)``, global
+   rounds flushing synchronously): the Trainer at full width over
+   one_peer_exp, stacked (``[ovmain]``: shard_cmix.cu once per dispatch
+   group per gossip step, the whole node stack as one shard with
+   ``q_self = qs`` the buffer; mix.cu on the flushes), with int8 gossip +
+   int8 collective + EF (``[ovcmain]``) and on a mesh of 4 node shards
+   (``[sovmain]``, A.10.4): launches, no plain twin, consensus 0.0 after
+   every uncompressed flush, the node average kept by every apply, one
+   synchronizing call on each steady step (``[main]`` is held to the
+   same);
+   ``[ovround]`` times the overlapped round against ``[round]``'s fused
+   one; ``[ovcross]`` the three at a reduced config card vs CPU;
+   ``[ovsim]`` ``simulate(overlap=True)`` on ``[sim]``'s problem at
+   n = 100, card vs CPU, its AUC beside the synchronous runs'.  The
+   kernel checks of phase 2 hold shard_cmix at that apply's shape (m = K
+   = 8, ``q_self is qs``) at the ragged widths and at 138,431,232
+   columns, and time it there.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -1356,15 +1374,68 @@ def check_shard_cmix_kernel(torch, mc) -> dict:
     print(f"[kernel] shard_cmix m={m} K={K} D={D}, q_self a view of qs (the "
           f"path at hop 1): kernel {view_ms:.4f} ms, bound "
           f"{view_bound:.4f} ms by bytes", flush=True)
-    print(f"[kernel] shard_cmix: {cases} kernel-vs-plain cases within "
-          f"tolerance, max abs err {worst:.3e}", flush=True)
     del x, qs, q
     torch.cuda.empty_cache()
+    stacked = stacked_apply_cases(torch, mc, gen, compare)
+    print(f"[kernel] shard_cmix: {cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err {worst:.3e}", flush=True)
     return {"name": "shard_cmix_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/shard_cmix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:924",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "overlap_apply": stacked}
+
+
+def stacked_apply_cases(torch, mc, gen, compare) -> dict:
+    """The overlapped gossip round's stacked apply (slice 9): the whole
+    node stack as one shard, m = K = 8, ``q_self`` and ``qs`` the same
+    buffer, with the real one_peer_exp factors of hops 1 and 2; at the
+    ragged widths (b in fp32 and bf16-cast) and at the packed width of
+    pga-lm-100m, held by ``compare`` (the tolerance of
+    :func:`check_shard_cmix_kernel`).  Also checks that the wrapper
+    refuses an ``out`` over the buffer.  Times the full-width call beside
+    its bytes bound (x and b read once, o written once) and
+    ``torch.matmul(M, b)``; returns those numbers."""
+    n, dev = MAIN_N, torch.device("cuda")
+    factors = [mc._device_compensated("gossip", "one_peer_exp", n, step, 1,
+                                      dev) for step in (0, 1)]
+    for D in SHARD_WIDTHS:
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        b = torch.randn(n, D, device="cuda", generator=gen)
+        for w, M in factors:
+            for bb in (b, b.to(torch.bfloat16).to(torch.float32)):
+                compare(x, bb, bb, w, M)
+    D = MAIN_PACKED_D
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    b = torch.randn(n, D, device="cuda", generator=gen)
+    for w, M in factors:
+        compare(x, b, b, w, M)
+    try:
+        mc.shard_comp_mix_block(x, b, b, w, M, out=b)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("shard_cmix: an out over the buffer was taken")
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block(x, b, b, w, M),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block_plain(
+        x, b, b, w, M), iters=3, warmup=1)
+    library_ms = cuda_ms(torch, lambda: torch.matmul(M, b), iters=10,
+                         warmup=2)
+    bytes_moved = 4 * 3 * n * D                # read x, b; write o
+    bound_ms, bound_by = _bound(bytes_moved, (2 * n + 4) * n * D)
+    print(f"[kernel] shard_cmix stacked overlap apply m=K={n} D={D}, "
+          f"q_self is qs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul(M, b) (the mix only) {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved); an out "
+          f"over the buffer refused", flush=True)
+    del x, b
+    torch.cuda.empty_cache()
+    return {"m": n, "K": n, "D": D, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
@@ -1936,6 +2007,25 @@ def sync_steps(torch, fn, sites=None):
     return out, len(found)
 
 
+def step_sites(tag: str, k: int) -> dict:
+    """Where :func:`sync_steps` records step k's synchronizing calls by
+    source line: step 0 (a fresh trainer's first step) apart, every later
+    step in the one dict of ``tag``."""
+    return SYNC_SITES.setdefault(f"{tag} step 0" if k == 0 else tag, {})
+
+
+def gate_one_sync(tag: str, syncs: list) -> None:
+    """One synchronizing call a step (the log boundary's read of the
+    metrics) on the steady steps 1-5 of a trainer path, or the run fails
+    naming the source lines of the last step's; step 0's are printed."""
+    print(f"{tag} synchronizing calls per step {syncs}; step 0's by source "
+          f"line {SYNC_SITES.get(tag + ' step 0')}", flush=True)
+    if any(c != 1 for c in syncs[1:]):
+        raise AssertionError(f"{tag} synchronizing calls per step {syncs}, "
+                             f"not one; the last step's by source line "
+                             f"{SYNC_SITES.get(tag)}")
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import flash_attention_cuda as fa
     from repro_torch.kernels import mixing_cuda as mc
@@ -2021,7 +2111,7 @@ def run_main_path(torch, mc, compressed: bool = False,
         t0 = time.perf_counter()
         state, n_sync = sync_steps(
             torch, lambda: tr.run(state, steps=1, log_every=1),
-            SYNC_SITES.setdefault(tag, {}))
+            step_sites(tag, k))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         times.append(dt)
@@ -2063,6 +2153,8 @@ def run_main_path(torch, mc, compressed: bool = False,
               flush=True)
     steady = statistics.median(times[1:])
     SYNCS[tag] = syncs
+    if tag == "[main]":
+        gate_one_sync(tag, syncs)
     print(f"{tag} {steps} steps through the kernels ({launches}); steady "
           f"step {steady * 1e3:.1f} ms (median of steps 1-5), "
           f"{tokens / steady:.0f} tokens/s, peak memory "
@@ -2474,7 +2566,7 @@ def _cross_config(compressed: bool, algorithm: str = "gossip_pga",
 
 def cross_check(torch, compressed: bool = False, sharded: bool = False,
                 algorithm: str = "gossip_pga", dist_kw=None,
-                steps: int = 3) -> None:
+                steps: int = 3, tag=None) -> None:
     """Reduced config at fp32 compute, 4 nodes, 3 steps (gossip, global,
     gossip), card (kernels) vs CPU (plain versions) from one init; with
     ``algorithm`` and ``dist_kw`` one of ``[algos]``' runs at reduced width
@@ -2485,6 +2577,8 @@ def cross_check(torch, compressed: bool = False, sharded: bool = False,
     1e-6, per-step loss/consensus to rtol 1e-4.  (AdamW's sqrt(v) + eps
     normalisation would turn near-zero gradient noise into updates of up
     to lr; its port is checked against JAX in tests/test_torch_train.py.)
+    ``tag`` labels the runs of another path (``[ovcross]``: ``dist_kw``
+    with ``comm_overlap``).
 
     Compressed (int8 gossip and collective, EF): stochastic rounding turns
     a summation-order difference that lands on a code boundary into one
@@ -2523,9 +2617,12 @@ def cross_check(torch, compressed: bool = False, sharded: bool = False,
         [(labels[0], labels[2])] if sharded else [])
     what = ("compressed int8+EF trainer (params and EF)" if compressed
             else "trainer")
-    tag = "[scross]" if sharded else "[cross]"
-    if algorithm != "gossip_pga":
+    if tag is not None:
+        what = f"{dist_kw} {what}"
+    elif algorithm != "gossip_pga":
         tag, what = "[xalgos]", f"{algorithm} {dist_kw} trainer"
+    else:
+        tag = "[scross]" if sharded else "[cross]"
     for a, b in pairs:
         name = " vs ".join(f"{dev} {'sharded' if m else 'stacked'}"
                            for dev, m in (a, b))
@@ -2797,7 +2894,7 @@ def run_sim_path(torch, mc) -> dict:
             line += f"; H_history {out['H_history'].tolist()}"
         print(line, flush=True)
     SIM_REFERENCE.update(f_star=fs, parallel_auc=float(
-        np.trapezoid(sub_ref)))
+        np.trapezoid(sub_ref)), aucs=dict(aucs))
     print(f"[sim] AUC ordering (printed, one seed): PGA "
           f"{aucs['gossip_pga']:.4f} <= 1.05 x Gossip {aucs['gossip']:.4f}: "
           f"{aucs['gossip_pga'] <= 1.05 * aucs['gossip']}; PGA <= 1.05 x "
@@ -3460,6 +3557,371 @@ def run_push_sim_path(torch, mc) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: overlapped gossip ([ovmain], [ovcmain], [sovmain], [ovround],
+# [ovcross], [ovsim])
+# ---------------------------------------------------------------------------
+OVERLAP_CROSS = {"H": 2, "comm_overlap": True}
+# [ovsim] card vs CPU: [sim]'s problem at n = 100 with full gradients
+OVSIM_CROSS = dict(steps=300, eval_every=10)
+
+
+class AverageGate:
+    """While active, wraps ``core.mixing.finish_round`` (the step looks it
+    up in the module at each call): per call, on the card and without a
+    host read, the largest ``|node mean of the output − node mean of the
+    input iterate|`` over the leaves and the largest ``|x|`` or ``|b|``,
+    kept as 0-d tensors; :meth:`read` brings them back after the step.
+    The compensated apply keeps the node average exactly in exact
+    arithmetic; in fp32 each output element carries a few roundings of
+    terms up to ``2·s``."""
+
+    def __init__(self):
+        from repro_torch.core import mixing
+        self.mixing, self.pending = mixing, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.tree import tree_leaves
+        self.saved = finish = self.mixing.finish_round
+
+        def largest(ts):
+            return torch.stack([t.float() for t in ts]).max()
+
+        def wrapped(params, round_state, spec, *, step=0):
+            out = finish(params, round_state, spec, step=step)
+            xs = tree_leaves(params)
+            errs = [(o.float().mean(0) - x.float().mean(0)).abs().max()
+                    for x, o in zip(xs, tree_leaves(out))]
+            scales = [x.abs().max() for x in xs] + [
+                q.abs().max() for q in tree_leaves(round_state.get("q", []))]
+            self.pending.append((largest(errs), largest(scales)))
+            return out
+
+        self.mixing.finish_round = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mixing.finish_round = self.saved
+
+    def read(self) -> list:
+        out = [(float(e), float(s)) for e, s in self.pending]
+        self.pending.clear()
+        return out
+
+
+def overlap_expected_launches(mc, tr, state, phases, compressed: bool,
+                              sharded: bool) -> tuple:
+    """The dispatch rule's launches for an overlapped path's steps, stated
+    before they run, and the dispatch groups' widths.  Stacked: a gossip
+    step's apply is one shard_cmix.cu launch per dispatch group of the
+    params (the whole node stack as one shard, m = K = 8); a global flush
+    is the synchronous round: one mix.cu launch per group on the instance
+    ``use_vector_mix`` takes (every operand a fresh contiguous tensor, so
+    the rule reads n and the width only) or, compressed, one
+    collective.cu launch; the captures (``start_round``) launch nothing.
+    Sharded: one shard_cmix launch per shard per gossip step, the global
+    flush in plain PyTorch (the sum over the shards)."""
+    from repro_torch.tree import tree_leaves
+    n = tr.n_nodes
+    gossip = phases.count("gossip")
+    flushes = sum(ph in ("global", "pod_avg") for ph in phases)
+    if sharded:
+        return only(shard_cmix=gossip * (n // SHARD_M)), {}
+    leaves = tree_leaves(state.params)
+    groups = mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold)
+    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+    want = {"shard_cmix": gossip * len(groups)}
+    if compressed:
+        want["collective"] = flushes
+    else:
+        for D in widths:
+            key = "mix_vector" if mc._vector_rows(n, D, []) else "mix"
+            want[key] = want.get(key, 0) + flushes
+    return only(**want), widths
+
+
+def run_overlap_path(torch, mc, compressed: bool = False,
+                     sharded: bool = False):
+    """Slice 9's main paths at full width: pga-lm-100m, 8 nodes,
+    Gossip-PGA H = 3 over one_peer_exp, AdamW, global batch 32 × seq 512,
+    6 steps, ``comm_backend="pallas"``, ``comm_overlap=True``: each gossip
+    step applies the buffer primed one step earlier (shard_cmix.cu) and
+    primes the next; the global steps flush.  ``[ovmain]`` uncompressed,
+    ``[ovcmain]`` int8 gossip + int8 collective + EF, ``[sovmain]`` on a
+    mesh of 4 node shards (A.10.4, dense).  Gates: the phases the schedule
+    gives; the launch counts of :func:`overlap_expected_launches` (reset
+    just before, read just after); no plain-twin call; consensus 0.0
+    after every uncompressed global flush (> 0 compressed); the node
+    average after every gossip step's apply within 1e-5·s of the
+    half-step's (:class:`AverageGate`); one synchronizing call on each of
+    steps 1-5 (:func:`gate_one_sync`).  Returns ``(launches, trainer,
+    state)``."""
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    steps, n = 6, MAIN_N
+    tag = ("[sovmain]" if sharded else "[ovcmain]" if compressed
+           else "[ovmain]")
+    t_phase = time.perf_counter()
+    shards = n // SHARD_M
+    mesh = make_mesh((shards,), ("data",)) if sharded else None
+    tcfg = TrainConfig(
+        model=get_model_config("pga-lm-100m"),
+        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
+                        H=3, comm_backend="pallas", comm_overlap=True,
+                        comm_shard_mode="sharded" if sharded else "auto",
+                        **(COMPRESSED if compressed else {})),
+        optimizer=OptimizerConfig(name="adamw", lr=3e-4,
+                                  schedule="warmup_cosine", warmup_steps=2,
+                                  total_steps=steps + 2),
+        global_batch=32, seq_len=512, steps=steps, log_every=1)
+    tr = Trainer(tcfg, n_nodes=n, mesh=mesh, with_consensus=True)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    phases_want = [tr.schedule.peek_phase(k) for k in range(steps)]
+    expected, widths = overlap_expected_launches(mc, tr, state, phases_want,
+                                                 compressed, sharded)
+    per_node = sum(p[0].numel() for p in tree_leaves(state.params))
+    where = (f"a mesh of {shards} node shards of {SHARD_M}" if sharded
+             else f"stacked, dispatch group widths {widths}")
+    print(f"{tag} pga-lm-100m overlapped ({where}"
+          f"{', int8+EF gossip, int8 collective' if compressed else ''}): "
+          f"{per_node:,} params per node, {n} nodes, one_peer_exp, phases "
+          f"{phases_want}; expected launches "
+          f"{ {k: v for k, v in expected.items() if v} }", flush=True)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, syncs, averages = [], [], []
+    with PlainCalls(mc) as plain, AverageGate() as gate:
+        for k in range(steps):
+            t0 = time.perf_counter()
+            state, n_sync = sync_steps(
+                torch, lambda: tr.run(state, steps=1, log_every=1),
+                step_sites(tag, k))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            times.append(dt)
+            syncs.append(n_sync)
+            rec = tr.history[-1]
+            checked = gate.read()
+            print(f"{tag} step {k} phase={rec['phase']} loss="
+                  f"{rec['loss']:.4f} consensus={rec['consensus']:.6e} "
+                  f"step_ms={dt * 1e3:.1f} tokens/s={tokens / dt:.0f} "
+                  f"max_mem_GB="
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                  f"synchronizing_calls={n_sync} node-average "
+                  f"(|Δ mean|, s) {checked}", flush=True)
+            if not math.isfinite(rec["loss"]):
+                raise AssertionError(f"{tag} step {k}: loss {rec['loss']}")
+            if rec["phase"] == "gossip":
+                if len(checked) != 1 or checked[0][0] > 1e-5 * checked[0][1]:
+                    raise AssertionError(f"{tag} step {k}: the apply moved "
+                                         f"the node average: {checked}")
+                averages.append(checked[0][0] / checked[0][1])
+            elif checked:
+                raise AssertionError(f"{tag} step {k}: a {rec['phase']} "
+                                     f"step finished a round")
+            if rec["phase"] == "global" and not compressed:
+                assert rec["consensus"] == 0.0, rec
+            else:
+                assert rec["consensus"] > 0.0, rec
+    launches = counts()
+    phases = [r["phase"] for r in tr.history[-steps:]]
+    if phases != phases_want:
+        raise AssertionError(f"{tag} phases {phases}, the schedule gives "
+                             f"{phases_want}")
+    if launches != expected:
+        raise AssertionError(f"{tag} launches {launches}, the dispatch rule "
+                             f"gives {expected}")
+    if plain.calls:
+        raise AssertionError(f"{tag}: {plain.calls} plain-twin calls on the "
+                             f"card")
+    SYNCS[tag] = syncs
+    gate_one_sync(tag, syncs)
+    if compressed:
+        ef_abs = sum(float(e.abs().sum()) for e in tree_leaves(state.ef_state))
+        assert ef_abs > 0.0 and math.isfinite(ef_abs), ef_abs
+    buf_gb = sum(q.numel() * q.element_size()
+                 for q in tree_leaves(tr._comm_buf)) / 1e9
+    steady = statistics.median(times[1:])
+    print(f"{tag} {steps} steps: launches "
+          f"{ {k: v for k, v in launches.items() if v} } as the dispatch "
+          f"rule gives, no plain twin; node average kept to "
+          f"{max(averages):.3e}·s over the gossip steps; steady step "
+          f"{steady * 1e3:.1f} ms (median of steps 1-5), "
+          f"{tokens / steady:.0f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the buffer "
+          f"{buf_gb:.2f} GB); synchronizing calls per step {syncs}, step "
+          f"{steps - 1}'s by source line {SYNC_SITES[tag]}; phase wall "
+          f"time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, tr, state
+
+
+def overlap_round_times(torch, mc, tr, state) -> None:
+    """[ovround]: one overlapped gossip round, ``finish_round`` of the
+    trainer's buffer and ``start_round`` from the same params (what a
+    gossip step of ``[ovmain]`` runs), against the synchronous fused round
+    with the consensus residual of ``[round]``, on the same params, by
+    CUDA events over 10 rounds in turns (sync, overlap, overlap, sync).
+    Bounds at the HBM rate: the apply reads x and b and writes o, the
+    capture reads x and writes b; the fused round reads x and writes o
+    (and x̄).  Then the overlapped step's unfused consensus timed alone
+    (``[ovsplit]``) and one more steady gossip step under
+    ``torch.profiler`` (``[ovprofile]``, as ``[profile]`` for ``[main]``;
+    it advances the trainer, whose state is not used after)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import mixing
+    from repro_torch.train.state import consensus_distance
+    from repro_torch.tree import tree_leaves
+
+    dist = tr.tcfg.dist
+    spec = dist.comm_spec(tr.n_nodes)
+    buf = tr._comm_buf
+
+    def sync_round():
+        mc.mix_residual(state.params, phase="gossip",
+                        topology=dist.topology, n_nodes=tr.n_nodes, step=1,
+                        leaf_threshold=dist.pallas_leaf_threshold)
+
+    def overlap_round():
+        mixing.finish_round(state.params, buf, spec, step=1)
+        mixing.start_round(state.params, spec)
+
+    t = [cuda_ms(torch, f, iters=10, warmup=2)
+         for f in (sync_round, overlap_round, overlap_round, sync_round)]
+    leaves = tree_leaves(state.params)
+    xb = sum(4 * p.numel() for p in leaves)
+    ov_bound = 5 * xb / HBM_BYTES_PER_S * 1e3
+    sync_bound = sum(4 * (2 * p.numel() + p[0].numel())
+                     for p in leaves) / HBM_BYTES_PER_S * 1e3
+    print(f"[ovround] overlapped gossip round (finish_round: "
+          f"{len(mc._dispatch_groups(leaves, dist.pallas_leaf_threshold))} "
+          f"shard_cmix launches; start_round: the buffer copy) "
+          f"{t[1]:.3f} / {t[2]:.3f} ms, bound {ov_bound:.3f} ms; the "
+          f"synchronous fused round with residual {t[0]:.3f} / {t[3]:.3f} "
+          f"ms, bound {sync_bound:.3f} ms (in turns, same params)",
+          flush=True)
+    # the overlapped step's consensus is not fused into its round
+    cons_ms = cuda_ms(torch, lambda: consensus_distance(state.params),
+                      iters=5, warmup=1)
+    print(f"[ovsplit] consensus_distance of the params alone {cons_ms:.3f} "
+          f"ms (CUDA events; [main] takes it from the fused round's "
+          f"residual)", flush=True)
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(state, steps=1, log_every=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, wall_ms, "[ovprofile]",
+                   "profiled overlapped gossip step")
+    torch.cuda.empty_cache()
+
+
+def run_overlap_sim_path(torch, mc) -> dict:
+    """[ovsim]: ``simulate(overlap=True, backend="pallas")`` on [sim]'s
+    §5.1 problem at n = 100 (ring, H = 16, lr 0.2 halved every 1000 steps,
+    batch 8, 3000 steps) for gossip_pga and gossip: launches (one
+    shard_cmix launch per gossip step at m = K = 100, one generic mix
+    launch per global flush), no plain twin, consensus after every global
+    flush an eval falls on at most 1e-12 (n = 100 is not a power of two),
+    finite losses for gossip_pga, and the suboptimality AUC against
+    parallel SGD beside [sim]'s synchronous runs' (printed, not gated: one
+    seed).  Overlapped gossip without a flush is not held finite: with
+    batch-8 gradients over the ring (eigenvalues of W down to −1/3) the
+    one-step-stale recursion diverges, in the reference as in the port.  Then card vs CPU
+    at n = 100 with full gradients over 300 steps: loss rtol 1e-5,
+    consensus rtol 1e-4 + atol 1e-12 ([simx]'s 2e-6 and 5e-6 are for 40
+    steps at n = 16; here the apply sums 100 terms a column, in another
+    order on the card, over 300 steps).  Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.data import make_logistic_problem
+    total = {k: 0 for k in counts()}
+    t_phase = time.perf_counter()
+    prob = make_logistic_problem(SIM["n"], SIM["M"], SIM["d"], iid=False,
+                                 seed=0)
+    fs, ref = SIM_REFERENCE["f_star"], SIM_REFERENCE["parallel_auc"]
+    run_kw = dict(steps=SIM["steps"], lr=sim_lr, H=SIM["H"],
+                  eval_every=SIM["eval_every"], batch=SIM["batch"])
+    x = torch.empty(prob.n, prob.d, device="cuda")
+    mix_key = "mix_vector" if mc.use_vector_mix(x, x) else "mix"
+    for alg in ("gossip_pga", "gossip"):
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls(mc) as plain:
+            t0 = time.perf_counter()
+            out = _sim_run(torch, prob, alg, overlap=True, **run_kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SIM["steps"]
+        launches = counts()
+        phases = replay_phases(alg, SIM["steps"], lambda k: None,
+                               H=SIM["H"])
+        expected = only(**{"shard_cmix": phases.count("gossip"),
+                           mix_key: phases.count("global")})
+        if launches != expected or plain.calls:
+            raise AssertionError(f"[ovsim] {alg}: launches {launches} (the "
+                                 f"dispatch rule gives {expected}), "
+                                 f"{plain.calls} plain-twin calls")
+        for k, c in zip(out["iteration"].tolist(),
+                        out["consensus"].tolist()):
+            if phases[k] == "global" and abs(c) > 1e-12:
+                raise AssertionError(f"[ovsim] {alg}: consensus {c!r} after "
+                                     f"the global flush of step {k}")
+        bad = [k for k, f in zip(out["iteration"].tolist(),
+                                 out["loss"].tolist())
+               if not math.isfinite(f)]
+        if bad and alg == "gossip_pga":
+            raise AssertionError(f"[ovsim] {alg}: loss {out['loss']}")
+        for key, v in launches.items():
+            total[key] += v
+        auc = float(np.trapezoid(out["loss"] - fs) / max(ref, 1e-12))
+        growth = ", ".join(f"{k}: {c:.3e}" for k, c in zip(
+            out["iteration"].tolist()[::10], out["consensus"].tolist()[::10]))
+        print(f"[ovsim] {alg:10s} overlapped, n={prob.n}: final loss "
+              f"{out['loss'][-1]:.8f} consensus {out['consensus'][-1]:.6e} "
+              f"AUC vs parallel {auc:.4f} (synchronous [sim] "
+              f"{SIM_REFERENCE['aucs'][alg]:.4f}, ratio "
+              f"{auc / SIM_REFERENCE['aucs'][alg]:.4f}); {ms:.4f} ms/step "
+              f"wall, launches {({k: v for k, v in launches.items() if v})};"
+              f" consensus by step {{{growth}}}"
+              + (f"; loss non-finite from step {bad[0]}" if bad else ""),
+              flush=True)
+    del prob
+    probs = {dev: make_logistic_problem(SIM["n"], SIM["M"], SIM["d"],
+                                        iid=False, seed=0, device=dev)
+             for dev in ("cuda", "cpu")}
+    for alg in ("gossip_pga", "gossip"):
+        a, b = (_sim_run(torch, probs[dev], alg, device=dev, overlap=True,
+                         lr=0.2, H=SIM["H"], **OVSIM_CROSS)
+                for dev in ("cuda", "cpu"))
+        what = f"[ovsim] {alg} overlapped card vs CPU"
+        np.testing.assert_array_equal(a["iteration"], b["iteration"])
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5,
+                                   err_msg=what)
+        np.testing.assert_allclose(a["consensus"], b["consensus"],
+                                   rtol=1e-4, atol=1e-12, err_msg=what)
+        big = np.abs(b["consensus"]) > 1e-12
+        dl = np.max(np.abs(a["loss"] - b["loss"]) / np.abs(b["loss"]))
+        dc = (np.abs(a["consensus"] - b["consensus"])[big]
+              / np.abs(b["consensus"])[big])
+        print(f"{what}, n={SIM['n']} full gradients, "
+              f"{OVSIM_CROSS['steps']} steps: max relative difference loss "
+              f"{dl:.3e}, consensus {dc.max() if big.any() else 0.0:.3e}",
+              flush=True)
+    print(f"[ovsim] phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import argparse
 
@@ -3592,6 +4054,24 @@ def main() -> int:
     push_cross_check(torch, compressed=True)
     push_cross_check(torch, sharded=True)
     push["[psim]"] = run_push_sim_path(torch, mc)
+    # slice 9: overlapped gossip
+    overlap = {}
+    overlap["[ovmain]"], tr, state = run_overlap_path(torch, mc)
+    overlap_round_times(torch, mc, tr, state)
+    del tr, state
+    torch.cuda.empty_cache()
+    overlap["[ovcmain]"], tr, state = run_overlap_path(torch, mc,
+                                                       compressed=True)
+    del tr, state
+    torch.cuda.empty_cache()
+    overlap["[sovmain]"], tr, state = run_overlap_path(torch, mc,
+                                                       sharded=True)
+    del tr, state
+    torch.cuda.empty_cache()
+    for compressed, sharded in ((False, False), (True, False), (True, True)):
+        cross_check(torch, compressed=compressed, sharded=sharded,
+                    dist_kw=OVERLAP_CROSS, steps=4, tag="[ovcross]")
+    overlap["[ovsim]"] = run_overlap_sim_path(torch, mc)
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -3608,6 +4088,14 @@ def main() -> int:
         records[name]["launches_push"] = {
             path: {k: c[k] for k in keys if c[k]}
             for path, c in push.items()}
+    # the overlapped paths' launches (B.4 at the stacked apply's shape,
+    # B.1 and B.3 on the flushes)
+    for name, keys in (("shard_cmix_kernel", ("shard_cmix",)),
+                       ("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("collective_kernel", ("collective",))):
+        records[name]["launches_overlap"] = {
+            path: {k: c[k] for k in keys if c[k]}
+            for path, c in overlap.items()}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

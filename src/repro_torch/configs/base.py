@@ -169,7 +169,8 @@ class DistConfig:
     push_sum: bool = False           # push-sum gossip: column-stochastic
                                      # rounds of (x, w), reads de-biased
                                      # by the weight (push_weight slot)
-    comm_overlap: bool = False
+    comm_overlap: bool = False       # overlapped gossip: step t's round
+                                     # is applied at step t + 1
     remat: str = "block"             # "none" | "block" (checkpoint per block)
     remat_policy: str = "nothing"
     fsdp: bool = False
@@ -250,8 +251,6 @@ class DistConfig:
                     "de-biased read x/w needs x and w mixed by the *same* "
                     "round, but the overlapped correction applies a stale "
                     "buffer to a fresh iterate (DESIGN.md §2.6)")
-        if self.comm_overlap:
-            raise not_ported("overlapped gossip (comm_overlap)", "A.5")
         if self.fsdp:
             raise not_ported("FSDP parameter sharding (fsdp)", "A.10")
         if self.remat_policy != "nothing":

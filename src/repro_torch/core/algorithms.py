@@ -153,7 +153,18 @@ def simulate(
     per-step ``mass`` (``Σw``, kept on the device until the end) and the
     final ``push_weight``.
 
-    Not ported yet: ``telemetry`` (ROADMAP A.6), ``overlap`` (A.5).
+    ``overlap=True`` runs the one-step-stale pipelined rounds: each gossip
+    step applies the previous step's buffered half-step iterate as the
+    compensated correction, ``x_{k+1} = y_k + (W − I)·y_{k−1}`` with
+    ``y_k = x_k − γ g_k`` and the warm-up buffer ``y_{−1} = x_0``
+    (``mixing.finish_round`` / ``start_round``).  The matrix applied at
+    step k is that of the buffer's priming step (the warm-up round reuses
+    step 0's shift).  Global, pod and SlowMo steps run synchronously and
+    re-prime the buffer; ``"none"`` steps leave it in flight.  Composes
+    with ``compression``/``error_feedback`` (the EF memory advances
+    against the payload buffered), not with ``push_sum``.
+
+    Not ported yet: ``telemetry`` (ROADMAP A.6).
     """
     if fault_schedule is not None:
         if not push_sum:
@@ -164,15 +175,14 @@ def simulate(
                              f"{fault_schedule.n_nodes} nodes, got n={n}")
     if telemetry is not None:
         raise not_ported("simulate(telemetry=...)", "A.6")
-    if overlap:
-        raise not_ported("simulate(overlap=True)", "A.5")
     dev = resolve_device(device)
     dist = DistConfig(algorithm=algorithm, topology=topology, H=H,
                       comm_backend=backend, comm_compression=compression,
                       comm_compression_k=compression_k,
                       comm_error_feedback=error_feedback,
                       comm_global_compression=global_compression,
-                      push_sum=push_sum, **(aga_kwargs or {})).validate()
+                      push_sum=push_sum, comm_overlap=overlap,
+                      **(aga_kwargs or {})).validate()
     dist.validate_nodes(n)
     if algorithm == "slowmo":
         dist = dataclasses.replace(dist, slowmo_beta=slowmo_beta,
@@ -186,6 +196,9 @@ def simulate(
     lossy = compressor is not None and compressor.lossy
     global_comp = make_compressor(global_compression)
     glossy = global_comp is not None and global_comp.lossy
+    ov_spec = (algo.spec.replace(compressor=compressor,
+                                 global_compressor=global_comp)
+               if overlap else None)
     # the fused half-step + mix kernel consumes raw grads and only the
     # bare params ride it: algorithms that transform the update (GT) or
     # attach a payload take the generic communicate path
@@ -204,12 +217,15 @@ def simulate(
         upd, extras = algo_impl.pre_update(dict(extras), g)
         return x - gamma * upd, dict(extras)
 
+    def _joint(extras, y):
+        return algo_registry.join_payload(algo_impl.comm_payload(extras, y),
+                                          y)
+
     def sync_step(x, extras, k, gamma, phase, shift_step, use_lossy):
         """pre_update -> half-step -> joint communicate (compressed when
         the phase's codec is lossy) -> post_round."""
         y, extras = half_step(x, extras, k, gamma)
-        joint = algo_registry.join_payload(
-            algo_impl.comm_payload(extras, y), y)
+        joint = _joint(extras, y)
         if use_lossy:
             mixed, new_ef = algo.communicate(
                 joint, phase, shift_step, compressor=compressor,
@@ -223,6 +239,31 @@ def simulate(
             extras, algo_registry.wrap_mixed(mixed, has_payload), phase,
             _ctx(gamma))
 
+    def ov_step(x, extras, buf, k, gamma, phase, shift_step, buf_shift):
+        """One pipelined step: the half-step iterate takes the buffered
+        round (its priming shift), then re-primes the buffer from itself;
+        averaging phases flush synchronously; ``"none"`` leaves the buffer
+        in flight."""
+        y, extras = half_step(x, extras, k, gamma)
+        if phase == "none":
+            return y, buf, extras
+        joint = _joint(extras, y)
+        ef = extras.get("ef_state")
+        if phase == "gossip":
+            mixed = mixing.finish_round(joint, buf, ov_spec, step=buf_shift)
+            buf2, ef2 = mixing.start_round(joint, ov_spec, ef_state=ef,
+                                           seed=k)
+        else:
+            mixed, buf2, ef2 = mixing.overlap_flush(
+                joint, ov_spec, phase=phase, step=shift_step, ef_state=ef,
+                seed=k)
+        if ef2 is not None:
+            extras["ef_state"] = ef2
+        new_x, extras = algo_impl.post_round(
+            extras, algo_registry.wrap_mixed(mixed, has_payload), phase,
+            _ctx(gamma))
+        return new_x, buf2, extras
+
     def push_step(x, extras, k, gamma, phase, W, live):
         """Push-sum round: dropped nodes' grads zeroed, half-step, the
         joint round against the runtime W, w's snap after a
@@ -233,8 +274,7 @@ def simulate(
         upd, extras = algo_impl.pre_update(dict(extras), g)
         extras = dict(extras)
         y = x - gamma * upd
-        joint = algo_registry.join_payload(
-            algo_impl.comm_payload(extras, y), y)
+        joint = _joint(extras, y)
         w = extras["push_weight"]
         if lossy and phase == "gossip":
             mixed, w2, new_ef = mixing.communicate_push_sum(
@@ -260,7 +300,17 @@ def simulate(
     mass = (torch.empty(steps, dtype=torch.float32, device=dev)
             if push_sum else None)
     period = topo.schedule_period(topology, n)
+    buf = buf_shift = None
     with torch.no_grad():
+        if overlap:
+            # warm-up buffer b = x_0; the warm-up round reuses step 0's
+            # shift
+            buf, ef0 = mixing.start_round(
+                _joint(extras, x), ov_spec,
+                ef_state=extras.get("ef_state"), seed=0)
+            if ef0 is not None:
+                extras["ef_state"] = ef0
+            buf_shift = algo.schedule.gossip_shift_step(0, period)
         for k in range(steps):
             gamma = float(lr_fn(k))
             phase = algo.advance(k)   # executed step: commit schedule state
@@ -293,6 +343,18 @@ def simulate(
                 y, extras = half_step(x, extras, k, gamma)
                 x, extras = algo_impl.post_round(extras, {"params": y},
                                                  phase, _ctx(gamma))
+                if overlap:   # the outer step is a synchronous flush
+                    buf, ef2 = mixing.start_round(
+                        _joint(extras, x), ov_spec,
+                        ef_state=extras.get("ef_state"), seed=k)
+                    if ef2 is not None:
+                        extras["ef_state"] = ef2
+                    buf_shift = shift_step
+            elif overlap:
+                x, buf, extras = ov_step(x, extras, buf, k, gamma, phase,
+                                         shift_step, buf_shift)
+                if phase != "none":   # "none" leaves the buffer in flight
+                    buf_shift = shift_step
             elif lossy_round:
                 x, extras = sync_step(x, extras, k, gamma, phase,
                                       shift_step, use_lossy=True)

@@ -33,8 +33,23 @@ Push-sum rounds (:func:`communicate_push_sum`): ``(x, w) ← (W·x, W·w)``
 for a runtime column-stochastic W (new data every step under faults),
 stacked through the dense-W entry points of the fused kernels, or sharded
 through ``shard_mix.cu`` with halo offsets from a static superset.
-Overlap rounds, 2-D ``(node, model)`` meshes and shards on several cards
-are not ported yet (ROADMAP A.5, A.10).
+
+Overlapped rounds (:func:`start_round`, :func:`finish_round`,
+:func:`overlap_flush`): step t captures its wire payload ``b`` (the
+double buffer, which owns its storage) and step t+1 applies it to its own
+half-step iterate as ``x + (M·b − (1 − d)⊙b)``, with the factors of the
+issuing step's shift.  The stacked fused apply runs ``shard_cmix.cu`` once
+per dispatch group of the parameters (``q_self = qs = b``), not once on
+the whole packed tree as the reference does: the round is column-local,
+so every column's result is the same bits either way, and the per-group
+apply stages at most one group's operands where packing the full tree
+would copy x, b and the output whole.  The sharded apply gathers the
+buffered row-blocks (dense) or wire arrays (lossy) over the round's halo
+offsets and runs ``shard_cmix.cu`` per shard.  Global and pod rounds
+flush synchronously and re-prime the buffer.
+
+2-D ``(node, model)`` meshes and shards on several cards are not ported
+yet (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -520,12 +535,13 @@ def _device_shard_blocks(phase: str, topology: str, n: int, step: int,
                          n_pods: int, k: int, device: torch.device):
     """``(offsets, Mstack, dstack, wstack)`` of one round kind on
     ``device``, made once (a fresh host-to-device copy every round would
-    wait for the stream); ``wstack = 1 − dstack``."""
+    wait for the stream) and copied by :func:`upload`; ``wstack = 1 −
+    dstack``."""
     from repro_torch.kernels.mixing_cuda import phase_matrices
     d, M = phase_matrices(phase, topology, n, step=step, n_pods=n_pods)
     offsets, Mstack, dstack = _shard_blocks(M, d, n, k)
     wstack = (1.0 - dstack).astype(np.float32)
-    return (tuple(offsets),) + tuple(torch.from_numpy(a).to(device)
+    return (tuple(offsets),) + tuple(upload(a, device)
                                      for a in (Mstack, dstack, wstack))
 
 
@@ -553,6 +569,20 @@ def _shard_count(mesh, node_axis: str, n_nodes: int, who: str) -> int:
     return k
 
 
+def _halo_rows(x: torch.Tensor, send: torch.Tensor, r: int, offsets,
+               m: int, k: int) -> torch.Tensor:
+    """Shard r's gathered halo: the fp32 ``(|offsets|·m, D)`` stack of the
+    row-blocks ``(r + q) mod k`` of ``send`` (``x`` wire-cast, or ``x``
+    itself), in offset order.  Consecutive row-blocks of an uncast ``x``
+    are a view of it; anything else is a copy the caller frees after the
+    shard's launch."""
+    src = [(r + q) % k for q in offsets]
+    if send is x and src == list(range(src[0], src[0] + len(src))):
+        return x[src[0] * m:(src[-1] + 1) * m]
+    return torch.cat([send[c * m:(c + 1) * m] for c in src]).to(
+        torch.float32)
+
+
 def _shard_mix_rounds(x: torch.Tensor, offsets, Mstack, dstack, k: int,
                       wire_dtype, with_residual: bool = False):
     """The per-shard body of an uncompressed sharded round on the packed
@@ -569,14 +599,7 @@ def _shard_mix_rounds(x: torch.Tensor, offsets, Mstack, dstack, k: int,
     out = torch.empty_like(x)
     acc = None
     for r in range(k):
-        src = [(r + q) % k for q in offsets]
-        if wire_dtype is None and src == list(range(src[0],
-                                                    src[0] + len(src))):
-            # consecutive row-blocks of the fp32 input: a view, no copy
-            xs = x[src[0] * m:(src[-1] + 1) * m]
-        else:
-            xs = torch.cat([send[c * m:(c + 1) * m] for c in src]).to(
-                torch.float32)
+        xs = _halo_rows(x, send, r, offsets, m, k)
         res = mixing_cuda.shard_mix_block(
             x[r * m:(r + 1) * m], xs, dstack[r], Mstack[r],
             with_residual=with_residual, out=out[r * m:(r + 1) * m])
@@ -768,10 +791,9 @@ def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
                                     n_nodes: int, step: int, n_pods: int,
                                     k: int, comm_dtype=None):
     """Compressed sharded round: each shard's rows are compressed
-    (row-local), the wire arrays of the neighbour blocks named by the
-    round's block decomposition are gathered and decoded into their
-    estimates ``q``, and ``shard_cmix.cu`` applies ``x + (M_r · qs −
-    (1 − d_r) ⊙ q_self)``.  The ``"global"`` phase applies ``x + (q̄ − q)``
+    (row-local, :func:`_sharded_wire_build`), then the gossip and pod
+    phases run :func:`_sharded_compensated_gossip` on the wires.  The
+    ``"global"`` phase applies ``x + (q̄ − q)``
     around the fixed-order sum of the shards' column sums of ``q``,
     wire-cast per ``comm_dtype`` (both occurrences).  Returns ``(mixed,
     new_ef_state)``."""
@@ -780,13 +802,11 @@ def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
     n, m = n_nodes, n_nodes // k
     wires, new_ef, sizes = _sharded_wire_build(
         params, compressor=compressor, ef_state=ef_state, seed=seed, n=n)
-    arrs = _wire_arrays(wires)
-    build_q = _wire_build_q(compressor, wires, sizes)
-    x, unflatten = mixing_cuda.flatten_nodes(params)
-    x = x.contiguous()
-    D = x.shape[1]
-
     if phase == "global":
+        arrs = _wire_arrays(wires)
+        build_q = _wire_build_q(compressor, wires, sizes)
+        x, unflatten = mixing_cuda.flatten_nodes(params)
+        x = x.contiguous()
         q = torch.empty_like(x)
         acc = None
         for r in range(k):
@@ -796,7 +816,33 @@ def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
             cs = torch.sum(qr, dim=0, keepdim=True)
             acc = cs if acc is None else acc + cs
         return unflatten(x + (_divide(acc, n) - q)), new_ef
+    return _sharded_compensated_gossip(
+        params, wires, compressor=compressor, sizes=sizes, phase=phase,
+        topology=topology, n_nodes=n, step=step, n_pods=n_pods,
+        k=k), new_ef
 
+
+def _sharded_compensated_gossip(params: PyTree, wires, *, compressor,
+                                sizes, phase: str, topology: str,
+                                n_nodes: int, step: int, n_pods: int,
+                                k: int) -> PyTree:
+    """The apply half of a compressed sharded gossip (or pod) round: shard
+    by shard, the wire arrays of the row-blocks the round's block
+    decomposition names are gathered and decoded into their estimates
+    ``qs`` (``sizes``: each leaf's column width), and ``shard_cmix.cu``
+    writes ``x_r + (M_r · qs − (1 − d_r) ⊙ q_self)`` into the shard's rows
+    of one fresh output.  ``wires`` may be the buffered, one-step-stale
+    payload of an overlapped round (:func:`finish_round`): the compensation
+    keeps the node average for any estimate, so the synchronous and the
+    overlapped rounds share this apply."""
+    from repro_torch.kernels import mixing_cuda
+
+    n, m = n_nodes, n_nodes // k
+    arrs = _wire_arrays(wires)
+    build_q = _wire_build_q(compressor, wires, sizes)
+    x, unflatten = mixing_cuda.flatten_nodes(params)
+    x = x.contiguous()
+    D = x.shape[1]
     offsets, Mstack, _, wstack = _device_shard_blocks(
         phase, topology, n, step, n_pods, k, x.device)
     out = torch.empty_like(x)
@@ -817,7 +863,7 @@ def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
             x[r * m:(r + 1) * m], q_self, qs, wstack[r], Mstack[r],
             out=out[r * m:(r + 1) * m])
         del qs, q_self
-    return unflatten(out), new_ef
+    return unflatten(out)
 
 
 def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
@@ -887,6 +933,153 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
                  n, Dp)[:, :D]
     return unflatten(mixed), (None if ef_unflatten is None
                               else ef_unflatten(new_ef))
+
+
+# ---------------------------------------------------------------------------
+# Overlap: the double-buffered gossip round
+# ---------------------------------------------------------------------------
+def start_round(params: PyTree, spec: CommSpec, *,
+                ef_state: Optional[PyTree] = None, seed: int = 0):
+    """Open one overlapped gossip round: capture the payload of ``params``
+    that :func:`finish_round` applies one step later.  Returns
+    ``(round_state, new_ef_state)``, ``round_state`` a dict:
+
+    * dense modes (no lossy gossip codec): ``{"q": buffer}``, the params
+      cast to ``spec.comm_dtype`` when one is set (the wire cast, made
+      once at capture, so both occurrences of the buffer in the apply see
+      the same value).  The buffer is a copy that owns its storage: the
+      fused rounds consume staging buffers in place and the optimizer's
+      outputs become the next state, so a buffer sharing storage with
+      the params could change under the step;
+    * lossy sharded mode: ``{"wire": [...]}``, each leaf's wire arrays
+      (``{"payload": ..., "aux": ...}``), the EF memory advanced against
+      them;
+    * lossy stacked modes: ``{"q": estimate}``, the dense decoded
+      estimate, the EF memory advanced here too.
+
+    The round counts as issued at capture: :func:`finish_round` takes the
+    issuing step's shift."""
+    n = spec.n_nodes
+    if n == 1 or not spec.lossy:
+        cast = spec.comm_dtype if n > 1 else None
+        return {"q": tree_map(
+            lambda p: p.to(dtype=p.dtype if cast is None else cast,
+                           copy=True), params)}, ef_state
+    if spec.uses_sharded():
+        _shard_count(spec.mesh, spec.node_axis, n, "mixing.start_round")
+        wires, new_ef, _ = _sharded_wire_build(
+            params, compressor=spec.compressor, ef_state=ef_state, seed=seed,
+            n=n)
+        return {"wire": [{"payload": tuple(w.payload), "aux": tuple(w.aux)}
+                         for w in wires]}, new_ef
+    from repro_torch import compress as compress_mod
+    q, new_ef = compress_mod.apply_tree(spec.compressor, params, ef_state,
+                                        seed)
+    return {"q": q}, new_ef
+
+
+def finish_round(params: PyTree, round_state, spec: CommSpec, *,
+                 step: int = 0) -> PyTree:
+    """Close the overlapped round opened by :func:`start_round`: mix the
+    buffered payload ``b`` into the current iterate as the compensated
+    correction ``x ← params + (M·b − (1 − diag W)⊙b)`` (≡ ``params + (W −
+    I)·b``), which keeps the node average for any buffer, the one-step-
+    stale one included: ``x_{t+1} = y_t + (W − I)·y_{t−1}``.  ``step`` is
+    the shift step of the *issuing* step (the one that called
+    :func:`start_round`).  Only gossip rounds overlap; averaging rounds go
+    through :func:`overlap_flush`.
+
+    Backends: stacked ``"pallas"`` launches ``shard_cmix.cu`` once per
+    dispatch group with ``q_self = qs = b``
+    (:func:`repro_torch.kernels.mixing_cuda.compensated_apply`); stacked
+    ``"reference"`` the dense matmul oracle; sharded, the per-shard
+    compensated kernel over the gathered halo of the buffer (dense) or
+    of its wire arrays (lossy)."""
+    n = spec.n_nodes
+    if n == 1:
+        return params
+    if "wire" in round_state:
+        return _overlap_finish_sharded_wire(params, round_state, spec,
+                                            step=step)
+    q = round_state["q"]
+    if spec.uses_sharded():
+        return _overlap_finish_sharded_dense(params, q, spec, step=step)
+    if spec.backend == "pallas":
+        from repro_torch.kernels import mixing_cuda
+        return mixing_cuda.compensated_apply(
+            params, q, topology=spec.topology, n_nodes=n, step=step,
+            n_pods=spec.n_pods, leaf_threshold=spec.leaf_threshold)
+    return _compressed_round_reference(params, q, "gossip", spec.topology,
+                                       n, step, spec.n_pods)
+
+
+def overlap_flush(params: PyTree, spec: CommSpec, *, phase: str,
+                  step: int = 0, axis: int = 0,
+                  ef_state: Optional[PyTree] = None, seed: int = 0):
+    """Synchronous round and buffer re-prime at a period boundary: the
+    global and pod averages must see the current iterate to restore the
+    exact average, so they do not overlap.  Runs :func:`communicate` for
+    ``phase``, then :func:`start_round` from its result.  Returns
+    ``(mixed, round_state, new_ef_state)``.  With a lossy gossip codec the
+    EF memory advances twice, once in the round and once in the re-prime:
+    the two payloads the step produces."""
+    out = communicate(params, spec, phase=phase, step=step, axis=axis,
+                      ef_state=ef_state, seed=seed)
+    if spec.compressor is not None or spec.global_compressor is not None:
+        mixed, ef2 = out
+    else:
+        mixed, ef2 = out, ef_state
+    buf, ef3 = start_round(mixed, spec, ef_state=ef2, seed=seed)
+    return mixed, buf, ef3
+
+
+def _overlap_finish_sharded_dense(params: PyTree, q: PyTree,
+                                  spec: CommSpec, *, step: int) -> PyTree:
+    """Sharded apply of a dense buffer: shard by shard, the buffered
+    row-blocks at the round's halo offsets are gathered (wire-cast as they
+    are sent, then upcast: exact, the buffer was cast at capture) and
+    ``shard_cmix.cu`` writes ``x_r + (M_r · qs − (1 − d_r) ⊙ b_r)`` into
+    the shard's rows of one fresh output."""
+    from repro_torch.kernels import mixing_cuda
+
+    n = spec.n_nodes
+    k = _shard_count(spec.mesh, spec.node_axis, n, "mixing.finish_round")
+    m = n // k
+    x, unflatten = mixing_cuda.flatten_nodes(params)
+    x = x.contiguous()
+    qf = mixing_cuda.flatten_nodes(q)[0].contiguous()
+    offsets, Mstack, _, wstack = _device_shard_blocks(
+        "gossip", spec.topology, n, step, spec.n_pods, k, x.device)
+    wire = spec.comm_dtype
+    send = qf.to(wire) if wire is not None else qf
+    out = torch.empty_like(x)
+    for r in range(k):
+        qs = _halo_rows(qf, send, r, offsets, m, k)
+        mixing_cuda.shard_comp_mix_block(
+            x[r * m:(r + 1) * m], qf[r * m:(r + 1) * m], qs, wstack[r],
+            Mstack[r], out=out[r * m:(r + 1) * m])
+        del qs
+    del send, qf
+    return unflatten(out)
+
+
+def _overlap_finish_sharded_wire(params: PyTree, round_state,
+                                 spec: CommSpec, *, step: int) -> PyTree:
+    """Sharded apply of a lossy buffer: rebuild the leaves' wires from
+    ``round_state`` and run the apply half of the synchronous compressed
+    round on them (:func:`_sharded_compensated_gossip`)."""
+    from repro_torch.compress import LeafWire
+
+    n = spec.n_nodes
+    k = _shard_count(spec.mesh, spec.node_axis, n, "mixing.finish_round")
+    sizes = [int(np.prod(lf.shape[1:], dtype=np.int64))
+             for lf in tree_leaves(params)]
+    wires = [LeafWire(payload=tuple(w["payload"]), aux=tuple(w["aux"]))
+             for w in round_state["wire"]]
+    return _sharded_compensated_gossip(
+        params, wires, compressor=spec.compressor, sizes=sizes,
+        phase="gossip", topology=spec.topology, n_nodes=n, step=step,
+        n_pods=spec.n_pods, k=k)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ the kernel's oracle on the card — for a CPU tensor:
   :func:`shard_mix_block` / :func:`shard_mix_block_plain`;
 * ``shard_cmix.cu`` (``_shard_cmix_kernel``): one node shard's compensated
   ``x + (M_r · qs − w ⊙ q_self)``;
-  :func:`shard_comp_mix_block` / :func:`shard_comp_mix_block_plain`.
+  :func:`shard_comp_mix_block` / :func:`shard_comp_mix_block_plain`; also
+  the stacked apply of an overlapped gossip round, the whole node stack
+  as one shard with ``q_self = qs`` the buffer, once per dispatch group
+  (:func:`compensated_apply`).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  The mix and
 cmix rounds have two instances each, picked by one rule
@@ -114,9 +117,12 @@ def phase_matrices(phase: str, topology: str, n: int, step: int = 0,
 def _device_factors(phase: str, topology: str, n: int, step: int,
                     n_pods: int, device: torch.device):
     """``(d, M)`` on ``device``, made once per round kind: a fresh
-    host-to-device copy every round would wait for the stream."""
+    host-to-device copy every round would wait for the stream.  The one
+    copy goes from pinned memory without blocking the host
+    (``core.mixing.upload``)."""
+    from repro_torch.core.mixing import upload
     d, M = phase_matrices(phase, topology, n, step=step, n_pods=n_pods)
-    return torch.from_numpy(d).to(device), torch.from_numpy(M).to(device)
+    return upload(d, device), upload(M, device)
 
 
 # ---------------------------------------------------------------------------
@@ -744,10 +750,12 @@ collective_flat.launches = 0
 def _device_compensated(phase: str, topology: str, n: int, step: int,
                         n_pods: int, device: torch.device):
     """``(w, M)`` of the compensated round on ``device``, made once per
-    round kind (``w = 1 − diag(W)``)."""
+    round kind (``w = 1 − diag(W)``), copied as :func:`_device_factors`
+    copies its factors."""
+    from repro_torch.core.mixing import upload
     d, M = phase_matrices(phase, topology, n, step=step, n_pods=n_pods)
     w = (1.0 - d).astype(np.float32)
-    return torch.from_numpy(w).to(device), torch.from_numpy(M).to(device)
+    return upload(w, device), upload(M, device)
 
 
 def compressed_step_mix(params: PyTree, *, compressor,
@@ -1012,3 +1020,38 @@ def shard_comp_mix_block(x: torch.Tensor, q_self: torch.Tensor,
 
 
 shard_comp_mix_block.launches = 0
+
+
+def compensated_apply(params: PyTree, q: PyTree, *, topology: str,
+                      n_nodes: int, step: int = 0, n_pods: int = 1,
+                      leaf_threshold: Optional[int] = None) -> PyTree:
+    """The stacked apply of an overlapped gossip round, ``params + (M·q −
+    (1 − d)⊙q)`` for the gossip round at ``step``: one
+    :func:`shard_comp_mix_block` launch per dispatch group of ``params``
+    (:func:`_dispatch_groups`), the whole node stack as one shard (m = K =
+    n) with ``q_self = qs`` the group's columns of ``q``, into a fresh
+    output.  ``q`` is the buffer of ``core.mixing.start_round``, in any
+    dtype (upcast exactly to fp32).  The factors are those of
+    ``core.mixing.compensated_round_factors``, made once per round kind on
+    the device."""
+    thresh = (LEAF_DISPATCH_THRESHOLD if leaf_threshold is None
+              else leaf_threshold)
+    leaves, treedef = tree_flatten(params)
+    qleaves = tree_flatten(q)[0]
+    n = n_nodes
+    w, M = _device_compensated("gossip", topology, n, step, n_pods,
+                               leaves[0].device)
+    out_leaves: list = [None] * len(leaves)
+    for group in _dispatch_groups(leaves, thresh):
+        xf = _pack_rows([leaves[i] for i in group], n).contiguous()
+        qf = _pack_rows([qleaves[i] for i in group], n).contiguous()
+        o = shard_comp_mix_block(xf, qf, qf, w, M)
+        del xf, qf
+        off = 0
+        for i in group:
+            size = _leaf_size(leaves[i])
+            out_leaves[i] = o[:, off:off + size].reshape(
+                leaves[i].shape).to(leaves[i].dtype)
+            off += size
+    return tree_unflatten(treedef, out_leaves)
+

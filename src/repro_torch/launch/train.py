@@ -3,8 +3,9 @@
 Runs the decentralized trainer with n simulated nodes stacked on one
 device — the card by default, the CPU only with ``--device cpu``.  The
 flags are the reference launcher's; those of what is not ported yet
-(overlap, telemetry and tracing) raise ``NotImplementedError`` naming
-their ROADMAP item when set.  ``--push-sum`` and ``--fault-*`` build the
+(telemetry and tracing) raise ``NotImplementedError`` naming their
+ROADMAP item when set.  ``--comm-overlap`` runs the overlapped gossip
+rounds.  ``--push-sum`` and ``--fault-*`` build the
 reference's :class:`repro_torch.core.faults.FaultSchedule` as it does
 (a fault flag without ``--push-sum`` raises ``ValueError`` in the
 Trainer).  Like the
@@ -65,7 +66,10 @@ def main(argv=None) -> None:
                     help="per-node error-feedback memory: compression "
                          "error is fed back next round instead of dropped")
     ap.add_argument("--comm-overlap", action="store_true",
-                    help="not ported (ROADMAP A.5)")
+                    help="overlapped gossip: the mixing round of step t "
+                         "overlaps the compute of step t+1 via a one-step-"
+                         "stale double buffer; global/PGA rounds stay "
+                         "synchronous")
     ap.add_argument("--push-sum", action="store_true",
                     help="push-sum gossip: column-stochastic directed "
                          "mixing with a per-node weight scalar, de-biased "
@@ -98,8 +102,6 @@ def main(argv=None) -> None:
                          "CPU with the plain PyTorch kernels")
     args = ap.parse_args(argv)
 
-    if args.comm_overlap:
-        raise not_ported("pipelined gossip (--comm-overlap)", "A.5")
     if args.telemetry_dir or args.trace or args.trace_fence:
         raise not_ported("training telemetry (--telemetry-dir, --trace, "
                          "--trace-fence)", "A.6")
@@ -114,6 +116,7 @@ def main(argv=None) -> None:
                         comm_compression_k=args.comm_compression_k,
                         comm_global_compression=args.comm_global_compression,
                         comm_error_feedback=args.error_feedback,
+                        comm_overlap=args.comm_overlap,
                         push_sum=args.push_sum),
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr,
                                   schedule="warmup_cosine", warmup_steps=10,

@@ -48,8 +48,8 @@ def _sdpa(q, k, v, mask, *, scale):
     """q: (n,B,Sq,nkv,g,hd); k,v: (n,B,Sk,nkv,hd); mask (B,Sq,Sk)."""
     logits = torch.einsum("nbqhgd,nbkhd->nbhgqk", q, k).to(
         torch.float32) * scale
-    logits = torch.where(mask[None, :, None, None], logits,
-                         torch.tensor(NEG_INF, dtype=torch.float32))
+    # a Python float fill: no host tensor to copy to the device
+    logits = logits.masked_fill(~mask[None, :, None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("nbhgqk,nbkhd->nbqhgd", probs, v)
 

@@ -18,8 +18,13 @@ round through the sharded per-shard kernels (``mixing.communicate_sharded``),
 honouring ``DistConfig.comm_shard_mode``.  With ``DistConfig.push_sum``
 the step runs every round as a push-sum round of the joint ``(x, w)``
 pair against the round's runtime W (``mixing.communicate_push_sum``).
-The overlap step mode is not ported yet (ROADMAP A.5).  An
-algorithm-owned phase (SlowMo's outer step) runs no round:
+With ``DistConfig.comm_overlap`` the step is ``step(state, batch, lr,
+comm_buf) -> (state, metrics, new_buf)``: a gossip step finishes the
+round buffered one step ago (``mixing.finish_round`` with the buffer's
+shift) and starts the next from its half-step iterate
+(``mixing.start_round``); global and pod steps flush synchronously and
+re-prime (``mixing.overlap_flush``); ``"none"`` returns the buffer
+unchanged.  An algorithm-owned phase (SlowMo's outer step) runs no round:
 ``post_round`` consumes the half-step iterate.  Algorithms with a payload
 (GT-PGA's tracker) send the joint tree ``{"params": ..., <slot>: ...}``
 through ``communicate``.
@@ -81,7 +86,7 @@ def _freeze_rows(new: PyTree, old: PyTree, dropped, n_nodes: int) -> PyTree:
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
-                     phase: str, shift_step: int = 0,
+                     phase: str, shift_step: int = 0, buf_shift: int = 0,
                      with_consensus: bool = False, mesh=None,
                      fault_hops: Optional[Tuple[int, ...]] = None
                      ) -> Callable:
@@ -106,6 +111,16 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     ``metrics`` gains ``mass`` (``Σw``), and ``consensus`` is taken on the
     de-biased params ``x/w``.  ``fault_hops`` (``FaultSchedule.
     hop_superset``) widens the static halo offsets of the sharded rounds.
+
+    With ``DistConfig.comm_overlap`` the step is ``step(state, batch, lr,
+    comm_buf) -> (state, metrics, new_buf)``, ``comm_buf`` the round state
+    of ``mixing.start_round``: a gossip step applies it with the factors
+    of ``buf_shift`` (the shift of the step that primed it), then primes
+    the next one from its half-step iterate; global and pod steps run the
+    synchronous round and re-prime from its result; an owned phase
+    re-primes from ``post_round``'s result; ``"none"`` returns the buffer
+    unchanged.  The consensus is ``consensus_distance`` of the new params
+    (the residual is not fused).
     """
     tcfg.validate()
     dist = tcfg.dist
@@ -125,6 +140,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         or (lossy_global and phase in ("global", "pod_avg")))
     owned = phase in algo.owned_phases
     push = dist.push_sum
+    overlap = dist.comm_overlap
     ps_offsets = None
     if push and sharded_comm:
         # static halo superset: every shift the topology (over its period)
@@ -219,8 +235,51 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         extras[algo_lib.PUSH_SLOT.name] = new_w
         return algo_lib.wrap_mixed(mixed, has_payload)
 
-    def _core(state: TrainState, batch: PyTree, lr, W=None, active=None
-              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def _overlap_round(extras, params_half, step_seed: int, comm_buf,
+                       sctx):
+        """``(mixed, new_buf, owned_params)``: the round of an overlapped
+        step; an owned phase returns its new params as ``owned_params``
+        (and no ``mixed``)."""
+        payload = algo.comm_payload(extras, params_half)
+        has_payload = bool(payload)
+        joint = algo_lib.join_payload(payload, params_half)
+        ef_name = algo_lib.EF_SLOT.name
+        if phase == "none" or n_nodes == 1:
+            return algo_lib.wrap_mixed(joint, has_payload), comm_buf, None
+        if owned:
+            # no round to finish: post_round consumes the half-step and
+            # its result re-primes the buffer
+            new_params, extras2 = algo.post_round(
+                extras, algo_lib.wrap_mixed(joint, has_payload), phase, sctx)
+            extras.clear()
+            extras.update(extras2)
+            reprime = algo_lib.join_payload(
+                algo.comm_payload(extras, new_params), new_params)
+            new_buf, new_ef = mixing.start_round(
+                reprime, spec, ef_state=extras.get(ef_name), seed=step_seed)
+            if new_ef is not None:
+                extras[ef_name] = new_ef
+            return None, new_buf, new_params
+        if phase == "gossip":
+            # finish the round primed one step ago, with its shift, then
+            # issue the next from this half-step:
+            # x_{t+1} = y_t + (W(buf_shift) − I)·y_{t−1}
+            mixed = mixing.finish_round(joint, comm_buf, spec,
+                                        step=buf_shift)
+            new_buf, new_ef = mixing.start_round(
+                joint, spec, ef_state=extras.get(ef_name), seed=step_seed)
+        else:
+            mixed, new_buf, new_ef = mixing.overlap_flush(
+                joint, spec, phase=phase, step=shift_step,
+                ef_state=extras.get(ef_name), seed=step_seed)
+        if new_ef is not None:
+            extras[ef_name] = new_ef
+        return algo_lib.wrap_mixed(mixed, has_payload), new_buf, None
+
+    def _core(state: TrainState, batch: PyTree, lr, W=None, active=None,
+              comm_buf=None):
+        """``(new_state, metrics, new_buf)``; ``new_buf`` is None unless
+        the step is overlapped."""
         extras = dict(state.extras)
         dropped = []
         if push:
@@ -239,6 +298,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         params_half, opt_state = opt.update(upd, state.opt_state,
                                             state.params, lr)
         del grads, upd
+        sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr)
+        fused_consensus = new_params = new_buf = None
         if push:
             params_half = _freeze_rows(params_half, state.params, dropped,
                                        n_nodes)
@@ -246,12 +307,14 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
                                      n_nodes)
             mixed = _push_round(extras, params_half, state.step, W,
                                 not dropped)
-            fused_consensus = None
+        elif overlap:
+            mixed, new_buf, new_params = _overlap_round(
+                extras, params_half, state.step, comm_buf, sctx)
         else:
             mixed, fused_consensus = _sync_round(extras, params_half,
                                                  state.step)
-        sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr)
-        new_params, extras = algo.post_round(extras, mixed, phase, sctx)
+        if new_params is None:
+            new_params, extras = algo.post_round(extras, mixed, phase, sctx)
         if push:
             new_w = extras[algo_lib.PUSH_SLOT.name]
             metrics["mass"] = torch.sum(new_w.to(torch.float32))
@@ -262,20 +325,30 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             metrics["consensus"] = (fused_consensus
                                     if fused_consensus is not None
                                     else consensus_distance(new_params))
-        return TrainState(params=new_params, opt_state=opt_state,
-                          step=state.step + 1, extras=extras), metrics
+        new_state = TrainState(params=new_params, opt_state=opt_state,
+                               step=state.step + 1, extras=extras)
+        return new_state, metrics, new_buf
 
     if push:
         @torch.no_grad()
         def push_step(state: TrainState, batch: PyTree, lr, W, active
                       ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-            return _core(state, batch, lr, W, active)
+            return _core(state, batch, lr, W, active)[:2]
 
         return push_step
+
+    if overlap:
+        @torch.no_grad()
+        def overlap_step(state: TrainState, batch: PyTree, lr, comm_buf
+                         ) -> Tuple[TrainState, Dict[str, torch.Tensor],
+                                    Any]:
+            return _core(state, batch, lr, comm_buf=comm_buf)
+
+        return overlap_step
 
     @torch.no_grad()
     def step(state: TrainState, batch: PyTree, lr
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        return _core(state, batch, lr)
+        return _core(state, batch, lr)[:2]
 
     return step

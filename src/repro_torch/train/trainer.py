@@ -12,10 +12,13 @@ boundary, where it records them in ``history`` and prints the reference's line
 period boundaries; ``schedule.history`` keeps the periods it set).  With
 ``DistConfig.push_sum`` each step gets its round's W and live mask, built
 on the host (:func:`repro_torch.core.faults.push_round`), from a
-:class:`repro_torch.core.faults.FaultSchedule` when one is given.
-Telemetry sinks (the ``fault`` events among them) and checkpoints (the
-fault counters' sidecar among them) are not ported yet (ROADMAP A.6,
-A.7).
+:class:`repro_torch.core.faults.FaultSchedule` when one is given.  With
+``DistConfig.comm_overlap`` the trainer keeps the in-flight round's
+buffer and the shift it was primed with, primed at the first ``run()``
+from the current params and kept across ``run()`` calls.
+Telemetry sinks (the ``fault`` events among them), the overlap occupancy
+calibration and checkpoints (the fault counters' sidecar among them) are
+not ported yet (ROADMAP A.6, A.7).
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import TrainConfig, not_ported
 from repro_torch.core import algo as algo_lib
+from repro_torch.core import mixing
 from repro_torch.core import topology as topo
 from repro_torch.core.faults import push_round
 from repro_torch.core.schedule import make_schedule
@@ -46,11 +50,17 @@ class Trainer:
     card unless ``device="cpu"`` is passed (no card → the default raises);
     a ``mesh`` must sit on that device.  ``fault_schedule`` (a
     :class:`repro_torch.core.faults.FaultSchedule` for ``n_nodes``)
-    drops, rejoins and rewires nodes; it requires push-sum."""
+    drops, rejoins and rewires nodes; it requires push-sum.
+    ``measure_occupancy`` (the reference's one-shot occupancy calibration
+    of overlapped runs) takes None or False; True raises until ROADMAP
+    A.6 brings ``obs/``."""
 
     def __init__(self, tcfg: TrainConfig, n_nodes: int, *, mesh=None,
                  with_consensus: bool = False, fault_schedule=None,
-                 device="cuda"):
+                 measure_occupancy=None, device="cuda"):
+        if measure_occupancy:
+            raise not_ported("the overlap occupancy calibration "
+                             "(measure_occupancy)", "A.6")
         self.device = resolve_device(device)
         if mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"Trainer: the mesh sits on {mesh.device}, the "
@@ -81,6 +91,11 @@ class Trainer:
                                   seq_len=tcfg.seq_len)
         self._steps: Dict[Any, Any] = {}
         self.history: List[Dict[str, Any]] = []
+        # overlap: the in-flight round's buffer and the shift it was
+        # primed with, host-side trajectory state primed at the first run()
+        self._overlap = tcfg.dist.comm_overlap
+        self._comm_buf = None
+        self._buf_shift = 0
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
@@ -99,16 +114,38 @@ class Trainer:
         return TrainState(params=params, opt_state=opt_state, step=0,
                           extras=extras)
 
-    def _get_step_fn(self, phase: str, shift: int):
-        key = (phase, shift)
+    def _get_step_fn(self, phase: str, shift: int, buf_shift: int = 0):
+        key = (phase, shift, buf_shift)
         if key not in self._steps:
             hops = (self.fault_schedule.hop_superset(self.tcfg.dist.topology)
                     if self.fault_schedule is not None else None)
             self._steps[key] = build_train_step(
                 self.model, self.tcfg, self.n_nodes, phase=phase,
-                shift_step=shift, with_consensus=self.with_consensus,
-                mesh=self.mesh, fault_hops=hops)
+                shift_step=shift, buf_shift=buf_shift,
+                with_consensus=self.with_consensus, mesh=self.mesh,
+                fault_hops=hops)
         return self._steps[key]
+
+    def _prime(self, state: TrainState) -> TrainState:
+        """Prime the overlap buffer from ``state``'s params (the warm-up
+        round then mixes x_0 with itself); returns ``state`` with the EF
+        memory the capture advanced."""
+        dist = self.tcfg.dist
+        spec = dist.comm_spec(self.n_nodes, mesh=self.mesh)
+        impl = algo_lib.get_algorithm(dist.algorithm, caller="Trainer")
+        joint = algo_lib.join_payload(
+            impl.comm_payload(state.extras, state.params), state.params)
+        ef_name = algo_lib.EF_SLOT.name
+        self._comm_buf, ef = mixing.start_round(
+            joint, spec, ef_state=state.extras.get(ef_name),
+            seed=state.step)
+        self._buf_shift = self.schedule.gossip_shift_step(state.step,
+                                                          self.period)
+        if ef is state.extras.get(ef_name):
+            return state
+        return TrainState(params=state.params, opt_state=state.opt_state,
+                          step=state.step, extras={**state.extras,
+                                                   ef_name: ef})
 
     def device_batch(self, k: int) -> Dict[str, torch.Tensor]:
         """Step k's batch on the device (pinned, asynchronous copy)."""
@@ -128,14 +165,24 @@ class Trainer:
         log_every = log_every if log_every is not None else tcfg.log_every
         t0 = time.time()
         start = state.step
+        if self._overlap and self.n_nodes > 1 and self._comm_buf is None:
+            state = self._prime(state)
         for k in range(start, start + steps):
             batch = self.device_batch(k)
             phase = (self.schedule.advance(k) if self.n_nodes > 1
                      else "none")
             shift = self.schedule.gossip_shift_step(k, self.period)
             lr = self.lr_fn(k)
-            step_fn = self._get_step_fn(phase, shift)
-            if self.tcfg.dist.push_sum:
+            step_fn = self._get_step_fn(
+                phase, shift, buf_shift=(self._buf_shift if self._overlap
+                                         and phase == "gossip" else 0))
+            if self._overlap:
+                state, metrics, self._comm_buf = step_fn(
+                    state, batch, lr, self._comm_buf)
+                if phase != "none":
+                    # the buffer now in flight was primed at this step
+                    self._buf_shift = shift
+            elif self.tcfg.dist.push_sum:
                 # the round's W and live mask, built on the host
                 W, active = push_round(self.tcfg.dist.topology,
                                        self.n_nodes, phase, k, shift,

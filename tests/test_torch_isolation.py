@@ -133,13 +133,33 @@ def test_push_sum_options_validate_as_the_reference(over):
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(comm_overlap=True), "A.5"),
     (dict(fsdp=True), "A.10"),
-    (dict(algorithm="slowmo", comm_overlap=True), "A.5"),
 ])
 def test_unported_options_raise(over, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         DistConfig(**over).validate()
+
+
+@pytest.mark.parametrize("over", [
+    dict(comm_overlap=True),
+    dict(algorithm="slowmo", comm_overlap=True),
+    dict(comm_overlap=True, comm_compression="int8",
+         comm_error_feedback=True, comm_global_compression="int8"),
+    dict(comm_overlap=True, push_sum=True, topology="directed_ring"),
+])
+def test_overlap_options_validate_as_the_reference(over):
+    """Overlapped gossip (ROADMAP A.5, ported): the port accepts what the
+    reference accepts and raises the reference's ``ValueError`` (push-sum
+    with overlap), message for message."""
+    from repro.configs.base import DistConfig as JDist
+    try:
+        JDist(**over).validate()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            DistConfig(**over).validate()
+        assert str(got.value) == str(e)
+    else:
+        assert DistConfig(**over).validate().comm_overlap
 
 
 def test_unported_train_options_raise():

@@ -254,13 +254,12 @@ def test_compressed_trainer_matches_reference():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(comm_overlap=True), "A.5"),
     (dict(fsdp=True), "A.10"),
 ])
 def test_unported_options_still_raise_with_compression(over, item):
-    """Compression, the sharded rounds and push-sum are ported; overlap
-    and FSDP parameter sharding are not, and the Trainer refuses them
-    before running anything."""
+    """Compression, the sharded rounds, push-sum and overlap are ported;
+    FSDP parameter sharding is not, and the Trainer refuses it before
+    running anything."""
     from repro_torch.configs import get_model_config
     from repro_torch.train import Trainer as TTrainer
 
@@ -272,6 +271,31 @@ def test_unported_options_still_raise_with_compression(over, item):
         global_batch=8, seq_len=16)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TTrainer(tcfg, n_nodes=4, device="cpu")
+
+
+def test_overlap_with_compression_builds_as_the_reference():
+    """Overlap with int8 gossip and error feedback (ROADMAP A.5, ported):
+    the reference's Trainer accepts it and so does the port's, with the
+    same extras slots; neither has primed its buffer before ``run()``."""
+    from repro.configs import pga_lm_100m as jarch
+    from repro.train.trainer import Trainer as JTrainer
+    from repro_torch.configs import get_model_config
+    from repro_torch.train import Trainer as TTrainer
+
+    dist = dict(comm_backend="pallas", comm_compression="int8",
+                comm_error_feedback=True, comm_overlap=True)
+    tcfg = tcfg_mod.TrainConfig(
+        model=get_model_config("pga-lm-100m", reduced=True),
+        dist=tcfg_mod.DistConfig(**dist), global_batch=8, seq_len=16)
+    jtcfg = jcfg.TrainConfig(
+        model=jarch.reduced_config(), dist=jcfg.DistConfig(**dist),
+        global_batch=8, seq_len=16)
+    ttr = TTrainer(tcfg, n_nodes=4, device="cpu")
+    jtr = JTrainer(jtcfg, n_nodes=4)
+    tst = ttr.init_state()
+    jst = jtr.init_state(jax.random.PRNGKey(0))
+    assert sorted(tst.extras) == sorted(jst.extras) == ["ef_state"]
+    assert ttr._comm_buf is None and jtr._comm_buf is None
 
 
 def test_push_sum_with_compression_builds_as_the_reference():
@@ -322,7 +346,6 @@ def test_compressed_cli_runs_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--comm-overlap"], "A.5"),
     (["--telemetry-dir", "telemetry"], "A.6"),
     (["--trace", "trace.json"], "A.6"),
     (["--trace-fence"], "A.6"),
@@ -335,6 +358,30 @@ def test_cli_unported_flags_raise_not_ported(flag, item):
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tlaunch.main(["--arch", "pga-lm-100m", "--device", "cpu", *flag])
+
+
+def test_cli_comm_overlap_runs_on_cpu_when_asked(capsys):
+    """``--comm-overlap`` (ROADMAP A.5, ported) runs the overlapped
+    rounds, as the reference's flag does: per-step lines with finite
+    losses, the nodes apart after the gossip steps and exactly equal after
+    the global flush."""
+    from repro_torch.launch import train as tlaunch
+
+    tlaunch.main(["--arch", "pga-lm-100m", "--nodes", "4", "--steps", "3",
+                  "--global-batch", "8", "--seq-len", "16", "--H", "2",
+                  "--comm-backend", "pallas", "--comm-overlap",
+                  "--device", "cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if "] step" in ln]
+    assert len(lines) == 3
+    for k, line in enumerate(lines):
+        loss = float(line.split("loss=")[1].split()[0])
+        consensus = float(line.split("consensus=")[1])
+        assert np.isfinite(loss)
+        if k % 2:
+            assert "phase=global" in line and consensus == 0.0
+        else:
+            assert "phase=gossip" in line and consensus > 0.0
 
 
 class _Recorder:
