@@ -112,6 +112,29 @@ line):
    = 8, ``q_self is qs``) at the ragged widths and at 138,431,232
    columns, and time it there.
 
+12. slice 10's paths, checkpoints and resume and the telemetry layer:
+   ``[tel]`` (right after ``[main]``) runs ``[main]``'s cell with a hub
+   of JsonlSink + RingSink: one synchronizing call and one
+   ``Telemetry.fetch`` a step, ``analytic_bytes == measured_bytes`` on
+   every ``comm_round`` record, the Chrome trace loads with the
+   ``train/step`` spans, the step ms beside ``[main]``'s;
+   ``[telfence]`` the same with fenced spans (device time beside host
+   time).  ``[ckpt]`` (``[main]``'s cell), ``[cckpt]`` (``[cmain]``'s:
+   the EF slot in the file), ``[psckpt]`` (``[psmain]``'s push-sum and
+   faults, the checkpoint between drop and rejoin) and ``[agackpt]``
+   (Gossip-AGA: the schedule sidecar) save once, after step 2, and
+   resume in a fresh Trainer from ``restore_checkpoint``: steps 3-5
+   bitwise an uninterrupted run's (params, AdamW m, v, count, extras;
+   fault counters; schedule), with the file size, the save and restore
+   seconds and the peak host RSS printed; ``[psckpt]`` and
+   ``[agackpt]`` at 2 of the 12 layers (the card's machine stops a run
+   after 45 GiB of disk writes).  ``[occ]``: ``[ovmain]``'s cell
+   with ``measure_occupancy=True``, its one occupancy record, the params
+   bitwise a run's without it.  ``[simtel]``: ``[psim]``'s acceptance
+   scenario under ``simulate(telemetry=)``, its fault records the
+   schedule's events.  ``[servetel]``: ``[serve]``'s server with a hub,
+   one ``serve_req`` per request and the serve spans.
+
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
 object with the kernel records, and the ok line.  The
@@ -2153,6 +2176,7 @@ def run_main_path(torch, mc, compressed: bool = False,
               flush=True)
     steady = statistics.median(times[1:])
     SYNCS[tag] = syncs
+    STEADY[tag] = steady
     if tag == "[main]":
         gate_one_sync(tag, syncs)
     print(f"{tag} {steps} steps through the kernels ({launches}); steady "
@@ -3922,6 +3946,530 @@ def run_overlap_sim_path(torch, mc) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: checkpoints and resume ([ckpt], [cckpt], [psckpt], [agackpt])
+# and the telemetry layer ([tel], [telfence], [occ], [simtel], [servetel])
+# ---------------------------------------------------------------------------
+CKPT_DIR = ROOT / "_ckpt_smoke"     # listed in .gitignore, removed after
+TEL_DIR = ROOT / "_tel_smoke"
+CKPT_EVERY = 3
+# [psckpt] and [agackpt] cut pga-lm-100m's depth (12 layers) to this, at
+# its full width: the card's machine stops a run after 45 GiB of disk
+# writes (deleted files count), and the four phases write one file each
+CKPT_CUT_LAYERS = 2
+CKPT_WRITE_BUDGET = 40 * 2**30
+CKPT_WRITTEN = [0]                  # checkpoint bytes this run wrote
+MAIN_OPT = dict(name="adamw", lr=3e-4, schedule="warmup_cosine",
+                warmup_steps=2, total_steps=8)
+STEADY = {}                         # steady step seconds of each path
+DEVICE = "cuda"                     # where slice 10's phases run
+
+
+class RssPeak:
+    """The process's peak resident set over a block, in bytes, and its
+    resident set at the start: ``/proc/self/statm`` sampled every 10 ms
+    on a thread (the card's machine keeps no resettable peak)."""
+
+    def __init__(self):
+        import threading
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self.start = self.peak = 0
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _poll(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self.start = self.peak = self._rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _state_bytes(state) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        (state.params, state.opt_state, state.extras)))
+
+
+def _bitwise(torch, a, b) -> bool:
+    from repro_torch.tree import tree_flatten
+    la, da = tree_flatten(a)
+    lb, db = tree_flatten(b)
+    if da != db:
+        return False
+
+    def bits(t):
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
+def _slice10_config(tag: str, **dist_kw):
+    """[main]'s cell (pga-lm-100m full width, 8 nodes, Gossip-PGA H = 3
+    over one_peer_exp, AdamW, batch 32 × 512, fused rounds) with the
+    phase's distributed options; [psckpt] and [agackpt] at
+    :data:`CKPT_CUT_LAYERS` layers."""
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+    model = get_model_config("pga-lm-100m")
+    if tag in ("[psckpt]", "[agackpt]"):
+        model = dataclasses.replace(model, n_layers=CKPT_CUT_LAYERS)
+    dist = {"algorithm": "gossip_pga", "topology": "one_peer_exp", "H": 3,
+            "comm_backend": "pallas", **dist_kw}
+    return TrainConfig(model=model, dist=DistConfig(**dist),
+                       optimizer=OptimizerConfig(**MAIN_OPT),
+                       global_batch=32, seq_len=512, steps=6, log_every=1)
+
+
+def ckpt_expected_launches(mc, tr, state, phases, tag: str) -> dict:
+    """The dispatch rule's launches over a resume phase's 9 steps (A's 6,
+    B's 3): one mix.cu launch per dispatch group per round, on the
+    instance ``_vector_rows`` gives fresh contiguous operands;
+    compressed: one cmix and one row-maxima launch per leaf per gossip
+    step, one collective launch per global step; push-sum:
+    :func:`push_expected_launches`."""
+    from repro_torch.tree import tree_leaves
+    if tag == "[psckpt]":
+        return push_expected_launches(mc, tr, state, phases, False, False)[0]
+    leaves = tree_leaves(state.params)
+    if tag == "[cckpt]":
+        return only(cmix_vector=phases.count("gossip") * len(leaves),
+                    cmix_absmax=phases.count("gossip") * len(leaves),
+                    collective=phases.count("global"))
+    rounds = sum(ph in mc.KERNEL_PHASES for ph in phases)
+    want = {}
+    for g in mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold):
+        D = sum(leaves[i][0].numel() for i in g)
+        key = "mix_vector" if mc._vector_rows(tr.n_nodes, D, []) else "mix"
+        want[key] = want.get(key, 0) + rounds
+    return only(**want)
+
+
+def run_ckpt_path(torch, mc, tag: str, **dist_kw) -> dict:
+    """A resume phase.  Trainer U runs the phase's config uninterrupted
+    for 6 steps; Trainer A runs steps 0-2 of it with ``ckpt_every=3``
+    (one save, after step 2); a fresh Trainer B (``ckpt_every=0``: the
+    card's machine stops a run after 45 GiB of writes, so each phase writes
+    one file) restores that file onto its ``init_state()`` template with
+    ``restore_checkpoint`` and runs steps 3-5.  Gates: B's params,
+    optimizer state (AdamW m, v, count) and extras (EF, push weight)
+    bitwise U's; the launch counts the dispatch rule gives over the 12
+    steps (reset before U, read after B); no plain twin on the card;
+    ``[psckpt]`` (push-sum, the faults of :data:`PUSH_FAULTS`: the
+    checkpoint falls between the drop and the rejoin) B's fault counters
+    equal U's; ``[agackpt]`` (Gossip-AGA) B's schedule state and
+    ``history`` equal U's through the schedule sidecar.  The free disk
+    and the run's write budget are checked first; the directory is
+    removed after.  Prints the file size, the save and restore seconds
+    and rates, and the process's peak host RSS over A's run (the save
+    in it) and over the restore, beside its RSS before each.  Returns
+    the launch counts."""
+    import shutil
+
+    from repro_torch import checkpoint as ck
+    from repro_torch import obs
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    tcfg = _slice10_config(tag, **dist_kw).replace(ckpt_dir=str(CKPT_DIR))
+
+    def trainer(ckpt_every):
+        fs = FaultSchedule(**PUSH_FAULTS) if tag == "[psckpt]" else None
+        return Trainer(tcfg.replace(ckpt_every=ckpt_every), n_nodes=MAIN_N,
+                       with_consensus=True, fault_schedule=fs, device=DEVICE,
+                       telemetry=obs.Telemetry(sinks=[obs.RingSink()]))
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tr_u = trainer(0)
+    state = tr_u.init_state(torch.Generator().manual_seed(0))
+    nbytes = _state_bytes(state)
+    free = shutil.disk_usage(ROOT).free
+    if free < nbytes + (1 << 30):
+        raise AssertionError(f"{tag}: {free / 1e9:.1f} GB free on the disk "
+                             f"of {ROOT}, the phase writes a "
+                             f"{nbytes / 1e9:.2f} GB checkpoint there")
+    if CKPT_WRITTEN[0] + nbytes > CKPT_WRITE_BUDGET:
+        raise AssertionError(f"{tag}: a {nbytes / 1e9:.2f} GB checkpoint "
+                             f"after {CKPT_WRITTEN[0] / 1e9:.2f} GB would "
+                             f"pass this run's write budget of "
+                             f"{CKPT_WRITE_BUDGET / 2**30:.0f} GiB")
+    CKPT_WRITTEN[0] += nbytes
+    print(f"{tag} pga-lm-100m, {tcfg.model.n_layers} layers, 8 nodes, "
+          f"{tcfg.dist.algorithm} over {tcfg.dist.topology} {dist_kw}, "
+          f"ckpt_every={CKPT_EVERY}: state {nbytes / 1e9:.3f} GB, "
+          f"{free / 1e9:.1f} GB free on the disk", flush=True)
+    saves = []
+    real_save = ck.save_checkpoint
+
+    def timed_save(d, st, step):
+        t0 = time.perf_counter()
+        path = real_save(d, st, step)
+        saves.append((step, time.perf_counter() - t0,
+                      os.path.getsize(path)))
+        return path
+
+    torch.cuda.synchronize()
+    reset_counts()
+    ck.save_checkpoint = timed_save
+    try:
+        with PlainCalls(mc) as plain:
+            full = tr_u.run(state, steps=6, log_every=1)
+            del state
+            tr_a = trainer(CKPT_EVERY)
+            state = tr_a.init_state(torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            with RssPeak() as rss_save:
+                state = tr_a.run(state, steps=3, log_every=1)
+            del state
+            tr_b = trainer(0)
+            template = tr_b.init_state(torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            with RssPeak() as rss_restore:
+                t0 = time.perf_counter()
+                restored = ck.restore_checkpoint(str(CKPT_DIR), template,
+                                                 step=3)
+                torch.cuda.synchronize()
+                t_restore = time.perf_counter() - t0
+            del template
+            if restored.step != 3:
+                raise AssertionError(f"{tag}: restored step "
+                                     f"{restored.step}")
+            resumed = tr_b.run(restored, steps=3, log_every=1)
+            torch.cuda.synchronize()
+            del restored
+    finally:
+        ck.save_checkpoint = real_save
+    launches = counts()
+    phases = [r["phase"] for tr in (tr_u, tr_a, tr_b) for r in tr.history]
+    expected = ckpt_expected_launches(mc, tr_u, full, phases, tag)
+    if launches != expected:
+        raise AssertionError(f"{tag} launches {launches}, the dispatch rule "
+                             f"gives {expected} (phases {phases})")
+    if plain.calls:
+        raise AssertionError(f"{tag}: {plain.calls} plain-twin calls")
+    if [s[0] for s in saves] != [3]:
+        raise AssertionError(f"{tag}: saves {saves}")
+    for what, a, b in (("params", full.params, resumed.params),
+                       ("optimizer state", full.opt_state,
+                        resumed.opt_state),
+                       ("extras", full.extras, resumed.extras)):
+        if not _bitwise(torch, a, b):
+            raise AssertionError(f"{tag}: the resumed run's {what} after "
+                                 f"step 5 are not bitwise the "
+                                 f"uninterrupted run's")
+    extra = ""
+    if tag == "[psckpt]":
+        if tr_b.fault_schedule.state_dict() != \
+                tr_u.fault_schedule.state_dict():
+            raise AssertionError(f"{tag}: fault counters "
+                                 f"{tr_b.fault_schedule.state_dict()} after "
+                                 f"the resume, "
+                                 f"{tr_u.fault_schedule.state_dict()} "
+                                 f"uninterrupted")
+        extra = (f"; push_weight bitwise; fault counters "
+                 f"{tr_b.fault_schedule.state_dict()} equal")
+    if tag == "[agackpt]":
+        if (tr_b.schedule.state_dict() != tr_u.schedule.state_dict()
+                or tr_b.schedule.history != tr_u.schedule.history):
+            raise AssertionError(f"{tag}: schedule {tr_b.schedule.history} "
+                                 f"after the resume, "
+                                 f"{tr_u.schedule.history} uninterrupted")
+        extra = (f"; schedule sidecar restored, history "
+                 f"{tr_b.schedule.history} equal")
+    _, t_save, size = saves[0]
+    print(f"{tag} phases U {phases[:6]}, A {phases[6:9]}, B {phases[9:]}; "
+          f"file {size / 1e9:.3f} GB ({size:,} bytes; state {nbytes:,}); "
+          f"save {t_save:.2f} s, {size / t_save / 1e9:.2f} GB/s; restore "
+          f"{t_restore:.2f} s, {size / t_restore / 1e9:.2f} GB/s; peak host "
+          f"RSS {rss_save.peak / 1e9:.2f} GB over A's 3 steps and the save "
+          f"({rss_save.start / 1e9:.2f} before), "
+          f"{rss_restore.peak / 1e9:.2f} GB over the restore "
+          f"({rss_restore.start / 1e9:.2f} before; sampled every 10 ms); "
+          f"launches "
+          f"{ {k: v for k, v in launches.items() if v} } as the dispatch "
+          f"rule gives, no plain twin; B's params, AdamW m, v, count and "
+          f"extras after step 5 bitwise U's{extra}; phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del full, resumed, tr_u, tr_a, tr_b
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_tel_path(torch, mc, fence: bool) -> dict:
+    """``[tel]``: [main]'s run (6 steps, one ``run()`` a step) with a hub
+    of JsonlSink + RingSink and an unfenced tracer; its steady step beside
+    [main]'s (the default hub: RingSink + PrettySink) is the hub's cost.
+    Gates: one synchronizing call a step (:func:`gate_one_sync`), one
+    ``Telemetry.fetch`` per log boundary, ``analytic_bytes ==
+    measured_bytes`` on every ``comm_round`` record (one per step variant:
+    the fused gossip at shifts 0 and 1 and the global round), the JSONL
+    stream's records equal the ring's, and the saved Chrome trace loads
+    as JSON with the 6 ``train/step`` spans.  ``[telfence]``: the same
+    with ``fence=True``: each span waits for the card (CUDA event), its
+    duration printed beside the step's host time; its synchronizing calls
+    are printed, not gated.  Returns the launch counts."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.train import Trainer
+
+    tag = "[telfence]" if fence else "[tel]"
+    steps = 6
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    TEL_DIR.mkdir()
+    jsonl = TEL_DIR / "telemetry.jsonl"
+    hub = obs.Telemetry(sinks=[obs.JsonlSink(str(jsonl)), obs.RingSink()],
+                        fence=fence)
+    tcfg = _slice10_config(tag)
+    tr = Trainer(tcfg, n_nodes=MAIN_N, with_consensus=True, telemetry=hub,
+                 device=DEVICE)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    reset_counts()
+    times, syncs = [], []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        state, n_sync = sync_steps(
+            torch, lambda: tr.run(state, steps=1, log_every=1),
+            step_sites(tag, k))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs.append(n_sync)
+    launches = counts()
+    hub.close()
+    spans = [e for e in hub.tracer.events if e["name"] == "train/step"]
+    trace = hub.tracer.save(str(TEL_DIR / "trace.json"))
+    with open(trace) as f:
+        loaded = [e for e in json.load(f)["traceEvents"]
+                  if e["name"] == "train/step"]
+    recs = hub.ring().records()
+    with open(jsonl) as f:
+        lines = [json.loads(ln) for ln in f]
+    comm = hub.ring().records("comm_round")
+    bad = [r for r in comm if r["analytic_bytes"] != r["measured_bytes"]]
+    if bad or len(comm) != 3:
+        raise AssertionError(f"{tag}: comm_round records {comm}")
+    if hub.host_fetches != steps:
+        raise AssertionError(f"{tag}: {hub.host_fetches} fetches over "
+                             f"{steps} log boundaries")
+    if len(loaded) != steps or [e["args"]["step"] for e in loaded] != \
+            list(range(steps)):
+        raise AssertionError(f"{tag}: the trace's train/step spans "
+                             f"{loaded}")
+    if [r["type"] for r in lines] != [r["type"] for r in recs]:
+        raise AssertionError(f"{tag}: the JSONL stream holds other records "
+                             f"than the ring")
+    SYNCS[tag] = syncs
+    if not fence:
+        gate_one_sync(tag, syncs)
+    steady = statistics.median(times[1:])
+    STEADY[tag] = steady
+    main = STEADY.get("[main]")
+    span_ms = [e["dur"] * 1e3 for e in spans]
+    print(f"{tag} 6 steps of [main]'s cell with a JsonlSink + RingSink hub"
+          f"{' and a fencing tracer' if fence else ''}: steady step "
+          f"{steady * 1e3:.1f} ms (median of steps 1-5; [main] "
+          f"{main * 1e3:.1f} ms, hub cost {(steady - main) * 1e3:+.1f} ms); "
+          f"train/step span ms {[round(x, 1) for x in span_ms]} beside the "
+          f"host step ms {[round(t * 1e3, 1) for t in times]}; "
+          f"synchronizing calls per step {syncs}; fetches "
+          f"{hub.host_fetches} for {steps} log boundaries; "
+          f"{len(comm)} comm_round records (one per step variant), "
+          f"analytic == measured: "
+          f"{[(r['phase'], r['shift'], r['measured_bytes']) for r in comm]}"
+          f"; {len(lines)} JSONL records; the trace loads with {len(loaded)}"
+          f" train/step spans; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del tr, state
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_occ_path(torch, mc) -> dict:
+    """``[occ]``: [ovmain]'s cell (overlapped gossip, 6 steps in one
+    ``run()``) with ``measure_occupancy=True``: the one ``occupancy``
+    record (the calibration at step 1, on clones of the state and the
+    buffer), printed; then the same run without it: the params after 6
+    steps must be bitwise equal.  Returns the first run's launch counts
+    (the calibration's probes included)."""
+    from repro_torch import obs
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    tcfg = _slice10_config("[occ]", comm_overlap=True)
+    ends, launches = [], None
+    for mo in (True, False):
+        hub = obs.Telemetry(sinks=[obs.RingSink()])
+        tr = Trainer(tcfg, n_nodes=MAIN_N, with_consensus=True,
+                     measure_occupancy=mo, telemetry=hub, device=DEVICE)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with PlainCalls(mc) as plain:
+            t0 = time.perf_counter()
+            state = tr.run(state, steps=6, log_every=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if plain.calls:
+            raise AssertionError(f"[occ]: {plain.calls} plain-twin calls")
+        occ = [r for r in hub.ring().records("comm_round")
+               if r["role"] == "occupancy"]
+        if mo:
+            launches = counts()
+            if len(occ) != 1:
+                raise AssertionError(f"[occ]: occupancy records {occ}")
+            rec = {k: v for k, v in occ[0].items()
+                   if k not in ("type", "schema", "ts")}
+            print(f"[occ] the occupancy record: {rec}; 6 steps with the "
+                  f"calibration {wall:.2f} s of wall time, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the "
+                  f"calibration's clones of the state and the buffer "
+                  f"included); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+        elif occ:
+            raise AssertionError(f"[occ]: a record without calibration")
+        ends.append(state.params)
+        del tr, state
+        torch.cuda.empty_cache()
+    if not _bitwise(torch, ends[0], ends[1]):
+        raise AssertionError("[occ]: the params after 6 steps differ with "
+                             "the calibration")
+    print(f"[occ] params after 6 steps bitwise those of the run without "
+          f"the calibration; phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del ends
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_simtel_path(torch, mc) -> dict:
+    """``[simtel]``: [psim]'s acceptance scenario (n = 16, directed_exp,
+    nodes 3 and 11 down at steps 12-27, 64 steps, H = 8, push-sum,
+    ``backend="pallas"``) under ``simulate(telemetry=hub)`` on the card:
+    the ``fault`` records are the schedule's events, one ``step`` record
+    per eval, every ``comm_round`` record a push round; the run's losses
+    bitwise those of the run without a hub.  Returns its launches."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import simulate
+    from repro_torch.core.faults import FaultSchedule
+
+    acc = dict(algorithm="gossip_pga", n=16, steps=64, lr=0.05,
+               topology="directed_exp", H=8, push_sum=True,
+               backend="pallas", eval_every=8)
+    events = dict(drops={12: (3, 11)}, rejoins={28: (3, 11)})
+    loss, grad, d = _least_squares(torch, DEVICE)
+    outs = []
+    for with_hub in (True, False):
+        hub = obs.Telemetry(sinks=[obs.RingSink()]) if with_hub else None
+        torch.cuda.synchronize()
+        reset_counts()
+        out = simulate(grad_fn=grad, loss_fn=loss,
+                       x0=torch.zeros(d, device=DEVICE),
+                       fault_schedule=FaultSchedule(n_nodes=16, seed=0,
+                                                    **events),
+                       device=DEVICE, telemetry=hub, **acc)
+        outs.append(out)
+        if with_hub:
+            launches = counts()
+            faults = [(r["step"], r["kind"], r["nodes"])
+                      for r in hub.ring().records("fault")]
+            want = [(12, "drop", [3, 11]), (28, "rejoin", [3, 11])]
+            steps = hub.ring().records("step")
+            comm = hub.ring().records("comm_round")
+            if faults != want:
+                raise AssertionError(f"[simtel] fault records {faults}, the "
+                                     f"schedule's events {want}")
+            if [r["step"] for r in steps] != out["iteration"].tolist():
+                raise AssertionError(f"[simtel] step records {steps}")
+            if not comm or any(r["phase"] != "push_sum" for r in comm):
+                raise AssertionError(f"[simtel] comm records {comm}")
+    if not np.array_equal(outs[0]["loss"], outs[1]["loss"]):
+        raise AssertionError("[simtel] the hub changed the losses")
+    print(f"[simtel] acceptance scenario under simulate(telemetry=): fault "
+          f"records {faults} (the schedule's events); {len(steps)} step "
+          f"records (the evals), last mass {steps[-1]['mass']!r}; "
+          f"{len(comm)} push_sum comm_round records (one per step "
+          f"variant); losses bitwise the run without a hub; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
+def run_servetel_path(torch) -> dict:
+    """``[servetel]``: [serve]'s ``BatchedServer`` at full width
+    (xlstm-125m, bf16, the tensor-core mLSTM kernel; prompts of 6, 100,
+    1000 and 2048 tokens on 2 slots, 16 new each) with a hub: one
+    ``serve_req`` record per request, 4 ``serve/prefill`` spans and the
+    decode spans in the saved Chrome trace, 10 mLSTM launches per
+    prefill.  Prints the records' latencies.  Returns its launches."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.models.model import make_model
+    from repro_torch.serve import BatchedServer, Engine, Request
+
+    cfg = _serving_config(torch)
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), DEVICE)
+    n_mlstm = sum(kind[0] == "mlstm" for kind in cfg.layers)
+    rng = np.random.default_rng(0)
+    lengths, max_new = (6, 100, 1000, 2048), 16
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=s),
+                    max_new=max_new) for i, s in enumerate(lengths)]
+    hub = obs.Telemetry(sinks=[obs.RingSink()])
+    server = BatchedServer(Engine(model, s_max=max(lengths) + max_new),
+                           params, n_slots=2, telemetry=hub)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = server.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    if launches != only(mlstm_wgmma=n_mlstm * len(lengths)):
+        raise AssertionError(f"[servetel] launches {launches}")
+    recs = hub.ring().records("serve_req")
+    if sorted(r["uid"] for r in recs) != list(range(len(lengths))) or \
+            len(done) != len(lengths):
+        raise AssertionError(f"[servetel] serve_req records {recs}")
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    TEL_DIR.mkdir()
+    with open(hub.tracer.save(str(TEL_DIR / "serve_trace.json"))) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]]
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    if names.count("serve/prefill") != len(lengths) or \
+            "serve/decode" not in names:
+        raise AssertionError(f"[servetel] trace spans {set(names)}")
+    latencies = [(r["uid"], round(r["latency_s"] * 1e3, 1),
+                  round(r["tokens_per_s"], 1)) for r in recs]
+    print(f"[servetel] BatchedServer prompts {lengths} on 2 slots, "
+          f"+{max_new} each, with a hub: {run_s * 1e3:.1f} ms; serve_req "
+          f"records (uid, latency ms, tokens/s) {latencies}; the trace "
+          f"loads with {names.count('serve/prefill')} "
+          f"serve/prefill and {names.count('serve/decode')} serve/decode "
+          f"spans; launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -3999,6 +4547,11 @@ def main() -> int:
     where_time_goes(torch, mc, tr, state)
     del tr, state
     torch.cuda.empty_cache()
+    # slice 10: the telemetry hub on [main]'s cell, right after it
+    slice10 = {}
+    for fence in (False, True):
+        slice10["[telfence]" if fence else "[tel]"] = run_tel_path(
+            torch, mc, fence)
     slice2, tr, state = run_main_path(torch, mc, compressed=True)
     compressed_round_times(torch, mc, tr, state)
     del tr, state
@@ -4072,6 +4625,19 @@ def main() -> int:
         cross_check(torch, compressed=compressed, sharded=sharded,
                     dist_kw=OVERLAP_CROSS, steps=4, tag="[ovcross]")
     overlap["[ovsim]"] = run_overlap_sim_path(torch, mc)
+    # slice 10: checkpoints and resume, the occupancy calibration, the
+    # simulator's and the server's telemetry
+    slice10["[ckpt]"] = run_ckpt_path(torch, mc, "[ckpt]")
+    slice10["[cckpt]"] = run_ckpt_path(torch, mc, "[cckpt]", **COMPRESSED)
+    slice10["[psckpt]"] = run_ckpt_path(torch, mc, "[psckpt]",
+                                        topology="directed_exp",
+                                        push_sum=True)
+    slice10["[agackpt]"] = run_ckpt_path(torch, mc, "[agackpt]",
+                                         algorithm="gossip_aga",
+                                         aga_h_init=2, aga_warmup=2)
+    slice10["[occ]"] = run_occ_path(torch, mc)
+    slice10["[simtel]"] = run_simtel_path(torch, mc)
+    slice10["[servetel]"] = run_servetel_path(torch)
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -4096,6 +4662,17 @@ def main() -> int:
         records[name]["launches_overlap"] = {
             path: {k: c[k] for k in keys if c[k]}
             for path, c in overlap.items()}
+    # the slice-10 phases' launches (B.1-B.4 on the resume, telemetry and
+    # occupancy paths; B.8 through the server)
+    for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("cmix_vector_kernel", ("cmix", "cmix_vector")),
+                       ("cmix_absmax_kernel", ("cmix_absmax",)),
+                       ("collective_kernel", ("collective",)),
+                       ("shard_cmix_kernel", ("shard_cmix",)),
+                       ("mlstm_wgmma_kernel", ("mlstm_wgmma",))):
+        records[name]["launches_slice10"] = {
+            path: {k: c[k] for k in keys if c[k]}
+            for path, c in slice10.items() if any(c[k] for k in keys)}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

@@ -334,7 +334,8 @@ class TrainConfig:
     microbatches: int = 1
     steps: int = 200
     log_every: int = 10
-    ckpt_every: int = 0              # checkpoints: not ported (must be 0)
+    ckpt_every: int = 0              # 0 = disabled
+    ckpt_dir: str = "/tmp/repro_ckpt"
     seed: int = 0
     z_loss: float = 0.0
 
@@ -346,8 +347,6 @@ class TrainConfig:
         if self.microbatches != 1:
             raise not_ported("gradient accumulation (microbatches)",
                               "A.8")
-        if self.ckpt_every:
-            raise not_ported("checkpoints", "A.7")
         if self.data.kind != "synthetic_lm":
             # the reference's Trainer ignores the field and trains on the
             # LM stream whatever it says; the port refuses instead

@@ -17,8 +17,9 @@ communication round — and ``train/step.py`` and ``core/algorithms.py``
 
 Lookups raise caller-named ``ValueError`` listing valid names.  The
 mode slots (the error-feedback memory, the push-sum weight) are declared
-here too.  The slots' sharding axes (``axes_value``, ``extras_axes``) and
-checkpoint backfill wait for ROADMAP A.10 and A.7.
+here too, with what a checkpoint that predates a slot restores into it
+(``backfill``).  The slots' sharding axes (``axes_value``,
+``extras_axes``) wait for ROADMAP A.10.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ __all__ = [
     "PUSH_SLOT",
     "StepContext",
     "algorithm_names",
+    "backfill_kind",
     "get_algorithm",
     "init_extras",
     "join_payload",
@@ -59,13 +61,16 @@ class ExtraSlot:
     ``(n_nodes, 1)`` float32 column: the push-sum weight).  ``init``:
     ``"zeros"`` (float32 zeros of the base shape), ``"ones"``
     (node_scalar only) or ``"row0"`` (a copy of node 0's params —
-    SlowMo's anchor).  ``payload`` marks the slot as riding the round
-    jointly with the params (GT-PGA's tracker).
+    SlowMo's anchor).  ``backfill`` names what ``checkpoint/ckpt.py``
+    materialises when an older checkpoint lacks the slot (``"ones"`` for
+    push weights, else ``"zeros"``).  ``payload`` marks the slot as riding
+    the round jointly with the params (GT-PGA's tracker).
     """
 
     name: str
     kind: str = "stacked_params"  # stacked_params | unstacked | node_scalar
     init: str = "zeros"           # zeros | ones | row0
+    backfill: str = "zeros"       # zeros | ones
     payload: bool = False
 
     def init_value(self, params_stacked: Any, n_nodes: int) -> Any:
@@ -95,10 +100,11 @@ class ExtraSlot:
 #: the per-node error-feedback memory, owned by the communication stack
 #: (``DistConfig.comm_error_feedback``): fp32 zeros shaped like the joint
 #: round payload
-EF_SLOT = ExtraSlot("ef_state", kind="stacked_params")
+EF_SLOT = ExtraSlot("ef_state", kind="stacked_params", backfill="zeros")
 #: the push-sum weight (``DistConfig.push_sum``): ones at init (Σw = n);
 #: readers de-bias with ``train.state.debias(params, w)``
-PUSH_SLOT = ExtraSlot("push_weight", kind="node_scalar", init="ones")
+PUSH_SLOT = ExtraSlot("push_weight", kind="node_scalar", init="ones",
+                      backfill="ones")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +200,18 @@ def known_slot_names() -> Tuple[str, ...]:
         if slot.name not in names:
             names.append(slot.name)
     return tuple(names)
+
+
+def backfill_kind(slot_name: str) -> str:
+    """Checkpoint backfill for a slot missing from an older checkpoint."""
+    for algo in _REGISTRY.values():
+        for slot in algo.slots:
+            if slot.name == slot_name:
+                return slot.backfill
+    for slot in (EF_SLOT, PUSH_SLOT):
+        if slot.name == slot_name:
+            return slot.backfill
+    return "zeros"
 
 
 def state_slots(dist: Any) -> Tuple[ExtraSlot, ...]:

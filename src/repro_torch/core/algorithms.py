@@ -11,6 +11,7 @@ it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -18,8 +19,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.configs.base import DistConfig, not_ported
+from repro_torch import obs, resolve_device
+from repro_torch.configs.base import DistConfig
 from repro_torch.core import algo as algo_registry
 from repro_torch.core import mixing
 from repro_torch.core import topology as topo
@@ -164,7 +165,12 @@ def simulate(
     with ``compression``/``error_feedback`` (the EF memory advances
     against the payload buffered), not with ``push_sum``.
 
-    Not ported yet: ``telemetry`` (ROADMAP A.6).
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) is installed as
+    the ambient hub for the run: eval points emit ``step`` records, fault
+    events ``fault`` records, and the mixing meters ``comm_round``
+    records, once per step variant (the reference's jitted step
+    functions meter once, at their trace; its eager captures every call).
+    Equivalently, call inside an enclosing ``obs.telemetry_scope``.
     """
     if fault_schedule is not None:
         if not push_sum:
@@ -174,7 +180,18 @@ def simulate(
             raise ValueError(f"simulate: fault_schedule built for "
                              f"{fault_schedule.n_nodes} nodes, got n={n}")
     if telemetry is not None:
-        raise not_ported("simulate(telemetry=...)", "A.6")
+        with obs.telemetry_scope(telemetry):
+            return simulate(
+                algorithm=algorithm, grad_fn=grad_fn, loss_fn=loss_fn,
+                x0=x0, n=n, steps=steps, lr=lr, topology=topology, H=H,
+                seed=seed, slowmo_beta=slowmo_beta, slowmo_lr=slowmo_lr,
+                aga_kwargs=aga_kwargs, eval_every=eval_every,
+                backend=backend, compression=compression,
+                compression_k=compression_k,
+                error_feedback=error_feedback,
+                global_compression=global_compression,
+                push_sum=push_sum, fault_schedule=fault_schedule,
+                overlap=overlap, telemetry=None, device=device)
     dev = resolve_device(device)
     dist = DistConfig(algorithm=algorithm, topology=topology, H=H,
                       comm_backend=backend, comm_compression=compression,
@@ -295,6 +312,16 @@ def simulate(
             extras, algo_registry.wrap_mixed(mixed, has_payload), phase,
             _ctx(gamma))
 
+    tel = obs.get_telemetry()
+    metered = set()
+
+    def once(key):
+        """The ambient hub for a step variant's first call, none after."""
+        if key in metered:
+            return obs.telemetry_scope(None)
+        metered.add(key)
+        return contextlib.nullcontext()
+
     losses, consensus, its = [], [], []
     # Σw of every push-sum step, kept on the device until the end
     mass = (torch.empty(steps, dtype=torch.float32, device=dev)
@@ -323,7 +350,16 @@ def simulate(
             if push_sum:
                 W, live = push_round(topology, n, phase, k, shift_step,
                                      fault_schedule)
-                x, extras = push_step(x, extras, k, gamma, phase, W, live)
+                if tel is not None and fault_schedule is not None:
+                    for kind, events in (("drop", fault_schedule.drops),
+                                         ("rejoin", fault_schedule.rejoins)):
+                        if k in events:
+                            tel.emit("fault", step=k, kind=kind,
+                                     nodes=list(events[k]))
+                with once(("push", phase, lossy and phase == "gossip",
+                           phase in ("global", "pod_avg"))):
+                    x, extras = push_step(x, extras, k, gamma, phase, W,
+                                          live)
                 w = extras["push_weight"]
                 mass[k] = torch.sum(w)
                 if is_eval:
@@ -334,6 +370,10 @@ def simulate(
                     consensus.append(float(torch.mean(torch.sum(
                         (x / w - xbar) ** 2, -1))))
                     its.append(k)
+                    if tel is not None:
+                        tel.emit("step", step=k, phase=phase, loss=f,
+                                 consensus=consensus[-1],
+                                 mass=float(mass[k]))
                 elif losses:
                     algo.schedule.observe_loss(k, losses[-1])
                 continue
@@ -351,13 +391,15 @@ def simulate(
                         extras["ef_state"] = ef2
                     buf_shift = shift_step
             elif overlap:
-                x, buf, extras = ov_step(x, extras, buf, k, gamma, phase,
-                                         shift_step, buf_shift)
+                with once(("overlap", phase, shift_step, buf_shift)):
+                    x, buf, extras = ov_step(x, extras, buf, k, gamma,
+                                             phase, shift_step, buf_shift)
                 if phase != "none":   # "none" leaves the buffer in flight
                     buf_shift = shift_step
             elif lossy_round:
-                x, extras = sync_step(x, extras, k, gamma, phase,
-                                      shift_step, use_lossy=True)
+                with once(("sync", phase, shift_step, True)):
+                    x, extras = sync_step(x, extras, k, gamma, phase,
+                                          shift_step, use_lossy=True)
             elif fused_ok and phase in mixing_cuda.KERNEL_PHASES:
                 g = grad_fn(x, generator, k)
                 out = mixing_cuda.fused_step_mix(
@@ -366,8 +408,9 @@ def simulate(
                 # fused: mix + x̄ + consensus in one parameter pass
                 x, xbar, resid = out if is_eval else (out, None, None)
             else:
-                x, extras = sync_step(x, extras, k, gamma, phase,
-                                      shift_step, use_lossy=False)
+                with once(("sync", phase, shift_step, False)):
+                    x, extras = sync_step(x, extras, k, gamma, phase,
+                                          shift_step, use_lossy=False)
             if is_eval:
                 if xbar is None:
                     # pairwise, as the fused kernel takes x̄: exact on
@@ -380,6 +423,9 @@ def simulate(
                     float(resid) / n if resid is not None
                     else float(torch.mean(torch.sum((x - xbar) ** 2, -1))))
                 its.append(k)
+                if tel is not None:
+                    tel.emit("step", step=k, phase=phase, loss=f,
+                             consensus=consensus[-1])
             elif losses:
                 # AGA still needs a loss signal between evals: reuse the last
                 algo.schedule.observe_loss(k, losses[-1])

@@ -48,13 +48,26 @@ buffered row-blocks (dense) or wire arrays (lossy) over the round's halo
 offsets and runs ``shard_cmix.cu`` per shard.  Global and pod rounds
 flush synchronously and re-prime the buffer.
 
+Telemetry: with an ambient :class:`repro_torch.obs.Telemetry` hub
+installed, every public round entry point (:func:`communicate`,
+:func:`start_round`, :func:`finish_round`, :func:`overlap_flush`,
+:func:`communicate_push_sum`) emits one ``comm_round`` record (analytic
+against measured wire bytes, from shapes only) and runs in a ``comm/*``
+span; with none installed the hooks are a None check.  The step's fused
+route, which bypasses :func:`communicate`, meters through
+:func:`meter_round`.  The Trainer and ``simulate`` install the hub for a
+step variant's first call only, so a run emits one record per round of
+each variant, as the reference's traced meters do.
+
 2-D ``(node, model)`` meshes and shards on several cards are not ported
 yet (ROADMAP A.10).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -122,6 +135,45 @@ class CommSpec:
         """True when rounds route through the sharded per-shard path."""
         return use_sharded_backend(self.backend, self.mesh, self.node_axis,
                                    self.shard_mode)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry hooks: one comm_round record and one comm/* span per public
+# round while an ambient hub is installed; a None check otherwise
+# ---------------------------------------------------------------------------
+def _hub():
+    from repro_torch import obs
+    return obs.get_telemetry()
+
+
+def _meter(tel, params: PyTree, spec: "CommSpec", *, phase: str, step: int,
+           role: str, wires=None) -> None:
+    """Emit one ``comm_round`` record; metering never breaks a round, so
+    an accounting error degrades to a warning."""
+    try:
+        from repro_torch.obs import meters as obs_meters
+        fields = obs_meters.comm_round_fields(
+            params, phase=phase, topology=spec.topology,
+            n_nodes=spec.n_nodes, step=int(step), n_pods=spec.n_pods,
+            backend=spec.backend, sharded=spec.uses_sharded(),
+            comm_dtype=spec.comm_dtype, compressor=spec.compressor,
+            global_compressor=spec.global_compressor, wires=wires,
+            role=role)
+        tel.emit("comm_round", **fields)
+    except Exception as e:                           # pragma: no cover
+        warnings.warn(f"mixing: comm_round meter failed ({e}); "
+                      f"round unaffected")
+
+
+def meter_round(params: PyTree, spec: "CommSpec", *, phase: str,
+                step: int = 0, role: str = "round", wires=None) -> None:
+    """Metering hook for step functions whose fused kernels bypass
+    :func:`communicate`: emit the record the metered entry points would.
+    No-op without an ambient hub."""
+    tel = _hub()
+    if tel is not None:
+        _meter(tel, params, spec, phase=phase, step=step, role=role,
+               wires=wires)
 
 
 def _check_backend(backend: str, axis: int, caller: str) -> bool:
@@ -421,11 +473,11 @@ def _communicate_compressed(params: PyTree, *, spec: CommSpec, ef_state,
             return pod_average_pytree(params, n_pods, **kw)
         # identity global codec: the exact average, whatever the gossip
         # compressor is
-        return communicate(params, exact, phase=phase, step=step,
-                           axis=axis), ef_state
+        return _communicate_impl(params, exact, phase=phase, step=step,
+                                 axis=axis), ef_state
     if compressor is None or not compressor.lossy:
-        return communicate(params, exact, phase=phase, step=step,
-                           axis=axis), ef_state
+        return _communicate_impl(params, exact, phase=phase, step=step,
+                                 axis=axis), ef_state
     # gossip/pod_avg: the lossy payload is the wire and supersedes
     # comm_dtype; global: the averaging operand is uncompressed fp32 sums,
     # so comm_dtype still wire-casts it
@@ -469,6 +521,22 @@ def communicate(params: PyTree, spec: CommSpec, *, phase: str,
     ``spec.shard_mode == "stacked"`` forces the stacked path;
     ``"sharded"`` without such a mesh raises ``ValueError``.
     """
+    tel = _hub()
+    if tel is None:
+        return _communicate_impl(params, spec, phase=phase, step=step,
+                                 axis=axis, ef_state=ef_state, seed=seed)
+    _meter(tel, params, spec, phase=phase, step=step, role="round")
+    with tel.span("comm/round", phase=phase, shift=int(step)) as sp:
+        return sp.fence(_communicate_impl(
+            params, spec, phase=phase, step=step, axis=axis,
+            ef_state=ef_state, seed=seed))
+
+
+def _communicate_impl(params: PyTree, spec: CommSpec, *, phase: str,
+                      step: int = 0, axis: int = 0,
+                      ef_state: Optional[PyTree] = None, seed: int = 0):
+    """The body of :func:`communicate`; internal re-dispatches call it
+    directly, so a round is metered once."""
     _check_backend(spec.backend, axis, "mixing.communicate")
     if spec.compressor is not None or spec.global_compressor is not None:
         if axis != 0:
@@ -959,6 +1027,19 @@ def start_round(params: PyTree, spec: CommSpec, *,
 
     The round counts as issued at capture: :func:`finish_round` takes the
     issuing step's shift."""
+    tel = _hub()
+    if tel is None:
+        return _start_round_impl(params, spec, ef_state=ef_state, seed=seed)
+    with tel.span("comm/issue") as sp:
+        out = sp.fence(_start_round_impl(params, spec, ef_state=ef_state,
+                                         seed=seed))
+    _meter(tel, params, spec, phase="gossip", step=0, role="issue",
+           wires=out[0].get("wire"))
+    return out
+
+
+def _start_round_impl(params: PyTree, spec: CommSpec, *,
+                      ef_state: Optional[PyTree] = None, seed: int = 0):
     n = spec.n_nodes
     if n == 1 or not spec.lossy:
         cast = spec.comm_dtype if n > 1 else None
@@ -995,6 +1076,18 @@ def finish_round(params: PyTree, round_state, spec: CommSpec, *,
     ``"reference"`` the dense matmul oracle; sharded, the per-shard
     compensated kernel over the gathered halo of the buffer (dense) or
     of its wire arrays (lossy)."""
+    tel = _hub()
+    if tel is None:
+        return _finish_round_impl(params, round_state, spec, step=step)
+    _meter(tel, params, spec, phase="gossip", step=step, role="apply",
+           wires=round_state.get("wire"))
+    with tel.span("comm/apply", shift=int(step)) as sp:
+        return sp.fence(_finish_round_impl(params, round_state, spec,
+                                           step=step))
+
+
+def _finish_round_impl(params: PyTree, round_state, spec: CommSpec, *,
+                       step: int = 0) -> PyTree:
     n = spec.n_nodes
     if n == 1:
         return params
@@ -1023,13 +1116,20 @@ def overlap_flush(params: PyTree, spec: CommSpec, *, phase: str,
     ``(mixed, round_state, new_ef_state)``.  With a lossy gossip codec the
     EF memory advances twice, once in the round and once in the re-prime:
     the two payloads the step produces."""
-    out = communicate(params, spec, phase=phase, step=step, axis=axis,
-                      ef_state=ef_state, seed=seed)
-    if spec.compressor is not None or spec.global_compressor is not None:
-        mixed, ef2 = out
-    else:
-        mixed, ef2 = out, ef_state
-    buf, ef3 = start_round(mixed, spec, ef_state=ef2, seed=seed)
+    tel = _hub()
+    if tel is not None:
+        _meter(tel, params, spec, phase=phase, step=step, role="flush")
+    span = (tel.span("comm/flush", phase=phase) if tel is not None
+            else contextlib.nullcontext())
+    with span:
+        out = _communicate_impl(params, spec, phase=phase, step=step,
+                                axis=axis, ef_state=ef_state, seed=seed)
+        if spec.compressor is not None \
+                or spec.global_compressor is not None:
+            mixed, ef2 = out
+        else:
+            mixed, ef2 = out, ef_state
+        buf, ef3 = start_round(mixed, spec, ef_state=ef2, seed=seed)
     return mixed, buf, ef3
 
 
@@ -1221,6 +1321,30 @@ def _push_sum_sharded(joint: PyTree, *, W: torch.Tensor,
     return unflatten(out)
 
 
+def _meter_push_sum(tel, params: PyTree, n: int, *, backend: str,
+                    sharded: bool, comm_dtype, compressor) -> None:
+    """The push round's ``comm_round`` record: its W is runtime data, so
+    the static shift accounting does not apply; one send's worth of
+    payload bytes from the live tree, ``sends=-1`` (data-dependent) and
+    no analytic figure, as the reference reports it."""
+    try:
+        from repro_torch.obs import meters as obs_meters
+        sizes = obs_meters.per_node_leaf_sizes(params, n)
+        elem = (torch.empty((), dtype=comm_dtype).element_size()
+                if comm_dtype is not None else 4)
+        tel.emit(
+            "comm_round", phase="push_sum", role="round",
+            topology="runtime", backend=backend, sharded=sharded,
+            n_nodes=int(n), sends=-1,
+            compression=(compressor.name if compressor is not None
+                         else "none"),
+            measured_bytes=int(sum(sizes)) * int(elem),
+            analytic_bytes=None, traced=False)
+    except Exception as e:                           # pragma: no cover
+        warnings.warn(f"mixing: push-sum comm meter failed ({e}); "
+                      f"round unaffected")
+
+
 def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
                          n_nodes: int, comm_dtype=None,
                          backend: str = "reference", mesh=None,
@@ -1259,6 +1383,10 @@ def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
                          f" rows for n_nodes={n}")
     w2 = weight.reshape(n, -1).to(torch.float32)
     sharded = use_sharded_backend(backend, mesh, node_axis, shard_mode)
+    tel = _hub()
+    if tel is not None:
+        _meter_push_sum(tel, params, n, backend=backend, sharded=sharded,
+                        comm_dtype=comm_dtype, compressor=compressor)
     if compressor is not None and compressor.lossy and sharded:
         raise ValueError(
             "mixing.communicate_push_sum: compressed push-sum has no "

@@ -2,13 +2,14 @@
 
 Runs the decentralized trainer with n simulated nodes stacked on one
 device — the card by default, the CPU only with ``--device cpu``.  The
-flags are the reference launcher's; those of what is not ported yet
-(telemetry and tracing) raise ``NotImplementedError`` naming their
-ROADMAP item when set.  ``--comm-overlap`` runs the overlapped gossip
-rounds.  ``--push-sum`` and ``--fault-*`` build the
-reference's :class:`repro_torch.core.faults.FaultSchedule` as it does
-(a fault flag without ``--push-sum`` raises ``ValueError`` in the
-Trainer).  Like the
+flags are the reference launcher's.  ``--telemetry-dir`` writes the
+structured record stream to ``<dir>/telemetry.jsonl``; ``--trace`` saves
+a Chrome trace of the host spans; ``--trace-fence`` makes each
+``train/step`` span wait for the card (CUDA events), so it measures
+device time.  ``--comm-overlap`` runs the overlapped gossip rounds.
+``--push-sum`` and ``--fault-*`` build the reference's
+:class:`repro_torch.core.faults.FaultSchedule` as it does (a fault flag
+without ``--push-sum`` raises ``ValueError`` in the Trainer).  Like the
 reference's, it builds no mesh: ``--comm-shard-mode sharded`` raises
 ``ValueError`` there as here; the sharded rounds are reached through the
 library entry ``Trainer(tcfg, n, mesh=make_mesh(...))``.
@@ -16,10 +17,11 @@ library entry ``Trainer(tcfg, n, mesh=make_mesh(...))``.
 from __future__ import annotations
 
 import argparse
+import os
 
+from repro_torch import obs
 from repro_torch.configs import (DataConfig, DistConfig, OptimizerConfig,
                                  TrainConfig, get_model_config, list_archs)
-from repro_torch.configs.base import not_ported
 from repro_torch.core.algo import algorithm_names
 from repro_torch.core.faults import FaultSchedule, parse_fault_events
 from repro_torch.train import Trainer
@@ -93,18 +95,22 @@ def main(argv=None) -> None:
                     help="full published dims (default: reduced)")
     ap.add_argument("--iid", action="store_true")
     ap.add_argument("--telemetry-dir", default="",
-                    help="not ported (ROADMAP A.6)")
-    ap.add_argument("--trace", default="", help="not ported (ROADMAP A.6)")
+                    help="write the structured telemetry stream to "
+                         "<dir>/telemetry.jsonl: step records, per-round "
+                         "comm byte meters, fault and checkpoint events")
+    ap.add_argument("--trace", default="",
+                    help="save a Chrome-trace-event timeline of the run's "
+                         "host spans to this path (load in Perfetto / "
+                         "chrome://tracing)")
     ap.add_argument("--trace-fence", action="store_true",
-                    help="not ported (ROADMAP A.6)")
+                    help="wait for the card at span exits (CUDA events) so "
+                         "spans measure device time instead of launch time "
+                         "(serializes the pipeline it measures)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the card (default) or, explicitly, on the "
                          "CPU with the plain PyTorch kernels")
     args = ap.parse_args(argv)
 
-    if args.telemetry_dir or args.trace or args.trace_fence:
-        raise not_ported("training telemetry (--telemetry-dir, --trace, "
-                         "--trace-fence)", "A.6")
     cfg = get_model_config(args.arch, reduced=not args.full_config)
     tcfg = TrainConfig(
         model=cfg,
@@ -132,10 +138,25 @@ def main(argv=None) -> None:
             rejoins=parse_fault_events(args.fault_rejoin),
             resample=args.fault_resample,
             seed=args.fault_seed)
-    tr = Trainer(tcfg, n_nodes=args.nodes, with_consensus=True,
-                 fault_schedule=fault_schedule, device=args.device)
-    state = tr.init_state()
-    tr.run(state, steps=args.steps)
+    telemetry = None
+    if args.telemetry_dir or args.trace or args.trace_fence:
+        sinks = [obs.RingSink(), obs.PrettySink()]
+        if args.telemetry_dir:
+            os.makedirs(args.telemetry_dir, exist_ok=True)
+            sinks.insert(0, obs.JsonlSink(
+                os.path.join(args.telemetry_dir, "telemetry.jsonl")))
+        telemetry = obs.Telemetry(sinks=sinks, fence=args.trace_fence)
+    try:
+        tr = Trainer(tcfg, n_nodes=args.nodes, with_consensus=True,
+                     fault_schedule=fault_schedule, telemetry=telemetry,
+                     device=args.device)
+        state = tr.init_state()
+        tr.run(state, steps=args.steps)
+    finally:
+        if telemetry is not None:
+            if args.trace:
+                print("trace:", telemetry.tracer.save(args.trace))
+            telemetry.close()
 
 
 if __name__ == "__main__":

@@ -12,13 +12,15 @@ family, whose caches are recurrent states.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, not_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -152,6 +154,7 @@ class Request:
     max_new: int
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    t_admit: float = 0.0        # perf_counter at admission (telemetry)
 
 
 class BatchedServer:
@@ -159,12 +162,16 @@ class BatchedServer:
     requests retire and free their slot for the next queued request.
     Per-slot prefill (B=1) keeps admission simple and bounded.  ``caches``
     holds every slot's state in the model's node-stacked layout, batch axis
-    2 of every leaf.  Telemetry is not ported (ROADMAP A.6)."""
+    2 of every leaf.
+
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`, optional): each
+    retired request emits a ``serve_req`` record (latency, prompt and new
+    token counts, tokens/s), and prefill and decode run in ``serve/*``
+    spans."""
 
     def __init__(self, engine: Engine, params: PyTree, n_slots: int,
                  telemetry=None):
-        if telemetry is not None:
-            raise not_ported("obs telemetry", "A.6")
+        self.telemetry = telemetry
         self.engine = engine
         self.params = params
         self.n_slots = n_slots
@@ -176,10 +183,17 @@ class BatchedServer:
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.slots: List[Optional[Request]] = [None] * n_slots
 
+    def _span(self, name: str, **args):
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name, **args)
+
     def _admit(self, req: Request, slot: int) -> None:
+        req.t_admit = time.perf_counter()
         prompt = torch.as_tensor(np.asarray(req.prompt)[None],
                                  dtype=torch.int32, device=self.tok.device)
-        logits, cache = self.engine._prefill(self._params1, prompt)
+        with self._span("serve/prefill", uid=req.uid, slot=slot):
+            logits, cache = self.engine._prefill(self._params1, prompt)
         for dst, src in zip(tree_leaves(self.caches), tree_leaves(cache)):
             dst[:, :, slot] = src[:, :, 0]
         first = int(torch.argmax(logits[0]))
@@ -188,6 +202,16 @@ class BatchedServer:
         self.tok[slot, 0] = first
         self.pos[slot] = len(req.prompt)
 
+    def _retire(self, req: Request) -> None:
+        if self.telemetry is None:
+            return
+        latency = time.perf_counter() - req.t_admit
+        new_tokens = len(req.generated)
+        self.telemetry.emit(
+            "serve_req", uid=req.uid, latency_s=latency,
+            prompt_tokens=int(len(req.prompt)), new_tokens=new_tokens,
+            tokens_per_s=new_tokens / max(latency, 1e-9))
+
     def run(self, requests: List[Request]) -> List[Request]:
         queue = list(requests)
         finished: List[Request] = []
@@ -195,12 +219,13 @@ class BatchedServer:
             for i in range(self.n_slots):
                 if self.slots[i] is None and queue:
                     self._admit(queue.pop(0), i)
-            logits, self.caches = self.engine._decode(
-                self._params1, self.caches, self.tok, self.pos)
-            nxt_dev = torch.argmax(logits, dim=-1).to(torch.int32)
-            # the scheduler is host-side by design: admission and
-            # completion need this tick's ids, so one fetch per tick
-            nxt = nxt_dev.cpu().numpy()
+            with self._span("serve/decode"):
+                logits, self.caches = self.engine._decode(
+                    self._params1, self.caches, self.tok, self.pos)
+                nxt_dev = torch.argmax(logits, dim=-1).to(torch.int32)
+                # the scheduler is host-side by design: admission and
+                # completion need this tick's ids, so one fetch per tick
+                nxt = nxt_dev.cpu().numpy()
             self.pos = self.pos + 1
             # every slot takes its own argmax; a free slot's is never read
             self.tok = nxt_dev[:, None]
@@ -210,6 +235,7 @@ class BatchedServer:
                 req.generated.append(int(nxt[i]))
                 if len(req.generated) >= req.max_new:
                     req.done = True
+                    self._retire(req)
                     finished.append(req)
                     self.slots[i] = None
         return finished

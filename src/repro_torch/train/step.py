@@ -27,7 +27,8 @@ re-prime (``mixing.overlap_flush``); ``"none"`` returns the buffer
 unchanged.  An algorithm-owned phase (SlowMo's outer step) runs no round:
 ``post_round`` consumes the half-step iterate.  Algorithms with a payload
 (GT-PGA's tracker) send the joint tree ``{"params": ..., <slot>: ...}``
-through ``communicate``.
+through ``communicate``.  The fused consensus rounds bypass
+``communicate`` and meter themselves (``mixing.meter_round``).
 """
 from __future__ import annotations
 
@@ -126,7 +127,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     dist = tcfg.dist
     dist.validate_nodes(n_nodes)
     algo = algo_lib.get_algorithm(dist.algorithm, caller="build_train_step")
-    if phase not in algo.phases:
+    # "none" (no round) is every algorithm's: a one-node Trainer and the
+    # occupancy calibration's compute-only step run it
+    if phase != "none" and phase not in algo.phases:
         raise ValueError(f"build_train_step: phase {phase!r} is not one of "
                          f"{dist.algorithm}'s phases {algo.phases}")
     sharded_comm = mixing.use_sharded_backend(
@@ -190,6 +193,10 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             if new_ef is not None:
                 extras[algo_lib.EF_SLOT.name] = new_ef
             return algo_lib.wrap_mixed(mixed, has_payload), None
+        if fused_consensus_round and not has_payload:
+            # the fused round bypasses communicate(): meter it here
+            mixing.meter_round(params_half, spec_plain, phase=phase,
+                               step=shift_step)
         if fused_consensus_round and not has_payload and sharded_comm:
             mixed, _xbar, resid = mixing.communicate_sharded(
                 params_half, spec_plain, phase=phase, step=shift_step,

@@ -194,8 +194,18 @@ def test_unported_options_raise_after_the_reference_checks(problems):
             jsim(**jbase, **kw)
         with pytest.raises(ValueError, match=match):
             tsim(**tbase, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        tsim(**tbase, telemetry=object())
+    # telemetry (ROADMAP A.6, ported): the run is the same with a hub,
+    # which gets the reference's step records
+    from repro import obs as jobs
+    from repro_torch import obs
+    tel, jtel = obs.Telemetry(), jobs.Telemetry()
+    tel.sinks.append(obs.RingSink())
+    jtel.sinks.append(jobs.RingSink())
+    with_tel = tsim(**tbase, telemetry=tel)
+    np.testing.assert_array_equal(with_tel["loss"], tsim(**tbase)["loss"])
+    jsim(**jbase, telemetry=jtel)
+    assert [(r["step"], r["phase"]) for r in tel.ring().records("step")] \
+        == [(r["step"], r["phase"]) for r in jtel.ring().records("step")]
     # overlap (ROADMAP A.5, ported): the port runs what the reference
     # runs, to its trajectory, and refuses push-sum with it as it does
     jo = jsim(**jbase, overlap=True)

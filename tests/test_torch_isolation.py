@@ -37,7 +37,8 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax_and_nothing_of_repro(path):
-    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    bad = {"jax", "jaxlib", "ml_dtypes", "repro"} & set(
+        _imported_roots(path))
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
@@ -51,9 +52,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.kernels.ref, "
             "repro_torch.kernels.flash_attention_cuda, "
-            "repro_torch.kernels.rmsnorm_cuda, repro_torch.configs.gemma2_9b; "
+            "repro_torch.kernels.rmsnorm_cuda, repro_torch.configs.gemma2_9b, "
+            "repro_torch.checkpoint, repro_torch.obs; "
             "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -163,10 +166,14 @@ def test_overlap_options_validate_as_the_reference(over):
 
 
 def test_unported_train_options_raise():
-    for over, item in ((dict(microbatches=2), "A.8"),
-                       (dict(ckpt_every=5), "A.7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            Trainer(_tcfg().replace(**over), n_nodes=4, device="cpu")
+    """Gradient accumulation still raises A.8; checkpoints (A.7, ported)
+    are accepted, with the reference's default directory."""
+    from repro.configs.base import TrainConfig as JTrain
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        Trainer(_tcfg().replace(microbatches=2), n_nodes=4, device="cpu")
+    tr = Trainer(_tcfg().replace(ckpt_every=5), n_nodes=4, device="cpu")
+    assert tr.tcfg.ckpt_every == 5
+    assert tr.tcfg.ckpt_dir == JTrain(model=None).ckpt_dir
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         Trainer(_tcfg().replace(optimizer=OptimizerConfig(name="lamb")),
                 n_nodes=4, device="cpu").init_state()

@@ -567,8 +567,19 @@ def test_phase_none_leaves_the_buffer_in_flight():
 
 
 def test_occupancy_calibration_waits_for_obs():
+    """The occupancy calibration (ROADMAP A.6, ported): off for None
+    (no JSONL sink) and False, one ``occupancy`` record for True, taken
+    on clones, so the run ends bitwise where the others end."""
     _, tt = _train_configs(False)
-    for flag in (None, False):
-        TTrainer(tt, n_nodes=4, measure_occupancy=flag, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        TTrainer(tt, n_nodes=4, measure_occupancy=True, device="cpu")
+    ends, records = [], []
+    for flag in (None, False, True):
+        tr = TTrainer(tt, n_nodes=4, measure_occupancy=flag, device="cpu")
+        st = tr.run(tr.init_state(torch.Generator().manual_seed(0)),
+                    steps=3, log_every=1)
+        ends.append(tree_leaves((st.params, st.opt_state, tr._comm_buf)))
+        records.append([r for r in tr.telemetry.ring().records("comm_round")
+                        if r["role"] == "occupancy"])
+    assert [len(r) for r in records] == [0, 0, 1]
+    assert 0.0 <= records[2][0]["occupancy"] <= 1.0
+    for a, b, c in zip(*ends):
+        assert torch.equal(a, b) and torch.equal(a, c)

@@ -14,6 +14,7 @@ so logits agree within 5e-2 · max|ref| (measured ≤ 1.5e-2) and cache
 leaves within 3e-2 · max|ref| (measured ≤ 1.3e-2).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -264,10 +265,24 @@ def test_pad_cache_to_matches_reference():
 
 
 def test_server_telemetry_raises(weights):
+    """The server's telemetry (ROADMAP A.6, ported): a hub gets one
+    ``serve_req`` record per retired request and the serve spans, and the
+    answers are those of a server without one."""
+    from repro_torch import obs
     _, tm = _models("float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        BatchedServer(Engine(tm, s_max=8), interop.from_numpy(weights, "cpu"),
-                      n_slots=1, telemetry=object())
+    outs = []
+    for tel in (None, obs.Telemetry(sinks=[obs.RingSink()])):
+        server = BatchedServer(Engine(tm, s_max=8),
+                               interop.from_numpy(weights, "cpu"),
+                               n_slots=1, telemetry=tel)
+        done = server.run([Request(uid=i, prompt=_prompts(1, 3, i)[0],
+                                   max_new=2) for i in range(2)])
+        outs.append(sorted((r.uid, r.generated) for r in done))
+    assert outs[0] == outs[1]
+    assert sorted(r["uid"] for r in tel.ring().records("serve_req")) == [0,
+                                                                         1]
+    assert {e["name"] for e in tel.tracer.events} == {"serve/prefill",
+                                                      "serve/decode"}
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +299,17 @@ def test_serve_cli_answers_every_request(capsys):
         assert len(eval(prompt)) == 6 and len(eval(gen)) == 5
 
 
-def test_serve_cli_unported_flags_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        serve_cli.main(["--arch", ARCH, "--device", "cpu", "--trace",
-                        "t.json"])
+def test_serve_cli_unported_flags_raise(tmp_path, capsys):
+    """The serving CLI's telemetry flags (ROADMAP A.6, ported) run on the
+    CPU and write their files: one ``serve_req`` line per request and a
+    Chrome trace with the serve spans."""
+    trace = tmp_path / "t.json"
+    serve_cli.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
+                    "--max-new", "3", "--telemetry-dir", str(tmp_path),
+                    "--trace", str(trace)])
+    recs = [json.loads(ln) for ln in open(tmp_path / "telemetry.jsonl")]
+    assert sorted(r["uid"] for r in recs) == [0, 1]
+    assert {r["type"] for r in recs} == {"serve_req"}
+    names = {e["name"] for e in json.load(open(trace))["traceEvents"]}
+    assert names == {"serve/prefill", "serve/decode"}
+    assert "req 1:" in capsys.readouterr().out

@@ -24,6 +24,7 @@ Tolerances, with their reasons:
   rtol 1e-4 (measured 1.3e-5).
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -350,14 +351,34 @@ def test_compressed_cli_runs_on_cpu_when_asked():
     (["--trace", "trace.json"], "A.6"),
     (["--trace-fence"], "A.6"),
 ])
-def test_cli_unported_flags_raise_not_ported(flag, item):
-    """The reference launcher's flags of what is not ported yet are
-    accepted by the port's parser and raise ``not_ported`` naming their
-    ROADMAP item before anything is built (never argparse's exit)."""
+def test_cli_unported_flags_raise_not_ported(flag, item, tmp_path,
+                                             monkeypatch, capsys):
+    """The reference launcher's telemetry flags, ported with ROADMAP
+    ``item``, run on the CPU: ``--telemetry-dir`` writes the JSONL
+    stream, ``--trace`` a Chrome trace of the ``train/step`` spans,
+    ``--trace-fence`` fences them; the step lines print as without
+    them."""
     from repro_torch.launch import train as tlaunch
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tlaunch.main(["--arch", "pga-lm-100m", "--device", "cpu", *flag])
+    monkeypatch.chdir(tmp_path)
+    tlaunch.main(["--arch", "pga-lm-100m", "--nodes", "4", "--steps", "2",
+                  "--global-batch", "8", "--seq-len", "16", "--H", "2",
+                  "--comm-backend", "pallas", "--device", "cpu", *flag])
+    out = capsys.readouterr().out
+    assert len([ln for ln in out.splitlines() if "] step" in ln]) == 2
+    if flag[0] == "--telemetry-dir":
+        recs = [json.loads(ln)
+                for ln in open(tmp_path / flag[1] / "telemetry.jsonl")]
+        assert [r["step"] for r in recs if r["type"] == "step"] == [0, 1]
+        comm = [r for r in recs if r["type"] == "comm_round"]
+        assert comm and all(r["analytic_bytes"] == r["measured_bytes"]
+                            for r in comm)
+    elif flag[0] == "--trace":
+        events = json.load(open(tmp_path / flag[1]))["traceEvents"]
+        assert [e["args"]["step"] for e in events
+                if e["name"] == "train/step"] == [0, 1]
+    else:
+        assert "trace:" not in out
 
 
 def test_cli_comm_overlap_runs_on_cpu_when_asked(capsys):
