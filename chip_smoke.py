@@ -134,6 +134,23 @@ line):
    scenario under ``simulate(telemetry=)``, its fault records the
    schedule's events.  ``[servetel]``: ``[serve]``'s server with a hub,
    one ``serve_req`` per request and the serve spans.
+13. slice 11's paths, attention KV caches and decode (A.9) and the dense
+   features of A.8, serving the dense decoders at full published width
+   with fp32 params from seed 0 and bf16 compute
+   (:func:`run_dense_serve_path`): ``[lmserve]`` pga-lm-100m
+   (``Engine.generate`` 8 × 480 + 32; ``BatchedServer`` with prompts of
+   6, 100 and 480 on 2 slots, 16 new each), ``[gserve]`` gemma2-9b at
+   all 42 layers (1 × 4,608 + 32 at ``s_max`` 4,672, the sliding window
+   cutting the prefill and every decode step on its 21 ``attn_sw``
+   layers; prompts of 6, 100, 1,000 and 4,608 on 4 slots; the init time,
+   one profiled window of 4 decode steps and the weight casts alone),
+   ``[qserve]`` qwen3-0.6b, qwen2-0.5b and qwen1.5-32b at 2 of its 64
+   layers (8 × 1,024 + 32): prefill ms, decode ms a token against the
+   floor of :func:`decode_floor_bytes`, tokens/s, peak memory, no kernel
+   launched, and :func:`decode_gate` (decode against the full forward,
+   gated at float32, bf16 beside its rounding floor);
+   ``[dxcross]`` (:func:`dense_cross_check`) the five archs at their
+   reduced configs card vs CPU through ``Engine`` and ``BatchedServer``.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -4470,6 +4487,355 @@ def run_servetel_path(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: attention KV caches and decode (A.9) and the dense features of
+# A.8, serving the dense decoders at full published size
+# ---------------------------------------------------------------------------
+DENSE_GATE = (5e-2, 5e-2)   # decode vs forward at bf16: atol, rtol
+                            # (tests/test_decode_consistency.py's rule;
+                            # reported, not gated: see decode_gate)
+DENSE_GATE_F32 = (1e-4, 1e-4)   # decode vs forward at float32: gated
+DXCROSS_TOL = 1e-4          # card vs CPU at float32, of max|cpu|
+DENSE_ARCHS = ("pga-lm-100m", "gemma2-9b", "qwen3-0.6b", "qwen2-0.5b",
+               "qwen1.5-32b")
+QWEN32_LAYERS = 2           # of qwen1.5-32b's 64, at full width
+# (B, prompt, new tokens, s_max) of Engine.generate, then the
+# BatchedServer's prompt lengths, slots and new tokens per request
+DENSE_SERVE = {
+    "[lmserve]": dict(arch="pga-lm-100m", gen=(8, 480, 32, 512),
+                      server=((6, 100, 480), 2, 16)),
+    "[gserve]": dict(arch="gemma2-9b", gen=(1, 4608, 32, 4672),
+                     server=((6, 100, 1000, 4608), 4, 16)),
+    "[qserve] qwen3-0.6b": dict(arch="qwen3-0.6b", gen=(8, 1024, 32, 1056)),
+    "[qserve] qwen2-0.5b": dict(arch="qwen2-0.5b", gen=(8, 1024, 32, 1056)),
+    "[qserve] qwen1.5-32b": dict(arch="qwen1.5-32b", gen=(8, 1024, 32, 1056),
+                                 n_layers=QWEN32_LAYERS),
+}
+
+
+def _sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gb(torch) -> float:
+    return (torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda"
+            else float("nan"))
+
+
+def _reset_peak(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def decode_floor_bytes(cfg, n_params: int, cache_bytes: int) -> int:
+    """The bytes one decode step moves at the least, as the port computes
+    it: every fp32 weight matrix read and cast to a bf16 copy that the
+    product reads again (4 + 2 + 2 bytes a parameter), the embedding cast
+    for the lookup (4 + 2 bytes an entry) and, when tied, cast again and
+    read by the unembedding (4 + 2 + 2), and the KV cache read once."""
+    emb = cfg.vocab_size * cfg.d_model
+    return (8 * (n_params - emb) + 6 * emb
+            + (8 * emb if cfg.tie_embeddings else 0) + cache_bytes)
+
+
+def _decode_and_forward(torch, model, params, tokens, s_max: int):
+    """Prefill ``tokens[:, :S0]`` (S0 = S − 4), decode the 4 known tokens
+    after it, and run one full forward over all S tokens: ``(dec, fwd)``,
+    the prefill's last logits and the 4 decode steps' beside the
+    forward's logits at the same 5 positions, each ``(B, 5, V)``."""
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_map
+
+    engine = Engine(model, s_max=s_max)
+    B, S = tokens.shape
+    S0 = S - 4
+    logits, caches = engine.prefill(params, tokens[:, :S0])
+    outs = [logits.clone()]
+    del logits
+    for t in range(4):
+        pos = torch.full((B,), S0 + t, dtype=torch.int32, device=DEVICE)
+        out, caches = engine.decode_step(params, caches,
+                                         tokens[:, S0 + t:S0 + t + 1], pos)
+        outs.append(out)
+    del caches, out
+    dec = torch.stack(outs, dim=1)
+    del outs
+    return dec, _forward_tail(torch, model, params, tokens, S0 - 1, 5)
+
+
+def _forward_tail(torch, model, params, tokens, start: int, n: int):
+    """One full forward over ``tokens``; its logits at positions
+    ``start .. start + n − 1``, ``(B, n, V)``."""
+    from repro_torch.tree import tree_map
+
+    full, _, _ = model.forward(tree_map(lambda t: t[None], params),
+                               {"inputs": tokens[None]})
+    out = full[0, :, start:start + n].clone()
+    del full
+    return out
+
+
+def _gap(torch, got, want, atol: float, rtol: float) -> tuple:
+    """(max |got − want|, worst ratio to atol + rtol·|want|, greedy-id
+    agreement) over every logit."""
+    err = (got - want).abs()
+    return (float(err.max()),
+            float((err / (atol + rtol * want.abs())).max()),
+            float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+
+
+def decode_gate(torch, tag: str, model, params, tokens, s_max: int) -> None:
+    """The decode path held against the full forward at full size.
+
+    Gated, at float32 compute (the same fp32 params, TF32 off): the
+    prefill's last logits and 4 decode steps against one forward over
+    ``tokens[:, :S0 + 4]``, ``|dec − fwd| ≤ atol + rtol·|fwd|`` elementwise
+    at :data:`DENSE_GATE_F32`.  Reported, at bf16 compute (the serving
+    path): the same gap against the reference test's rule
+    (:data:`DENSE_GATE`), beside the bf16 rounding floor, the forward over
+    ``S0 + 4`` tokens against the forward over all ``S0 + 8`` at the same
+    5 positions (two equally valid bf16 computations of one function), and
+    the greedy-id agreement of both."""
+    from repro_torch.models.model import make_model
+
+    S = tokens.shape[1] - 4
+    B = tokens.shape[0]
+    head = tokens[:, :S].contiguous()
+    dec, fwd = _decode_and_forward(torch, model, params, head, s_max)
+    finite = bool(torch.isfinite(dec).all())
+    bf16 = _gap(torch, dec, fwd, *DENSE_GATE)
+    longer = _forward_tail(torch, model, params, tokens, S - 5, 5)
+    floor = _gap(torch, longer, fwd, *DENSE_GATE)
+    ref_max = float(fwd.abs().max())
+    del dec, fwd, longer
+    model32 = make_model(dataclasses.replace(model.cfg, dtype="float32"))
+    dec, fwd = _decode_and_forward(torch, model32, params, head, s_max)
+    f32 = _gap(torch, dec, fwd, *DENSE_GATE_F32)
+    finite = finite and bool(torch.isfinite(dec).all())
+    f32_max = float(fwd.abs().max())
+    del dec, fwd
+    print(f"{tag} decode vs forward (prefill's last logits and 4 decoded "
+          f"positions against one forward over {S} tokens, B={B}): float32 "
+          f"max abs err {f32[0]:.4e} (max|fwd| {f32_max:.4f}), worst ratio "
+          f"to {DENSE_GATE_F32[0]:g} + {DENSE_GATE_F32[1]:g}·|fwd| "
+          f"{f32[1]:.4f} (gated), greedy ids agree at {f32[2]:.4f}; bf16 "
+          f"max abs err {bf16[0]:.4e} (max|fwd| {ref_max:.4f}), worst ratio "
+          f"to {DENSE_GATE[0]:g} + {DENSE_GATE[1]:g}·|fwd| {bf16[1]:.4f}, "
+          f"greedy ids agree at {bf16[2]:.4f}; bf16 rounding floor (forward "
+          f"over {S} vs over {S + 4} tokens) max abs err {floor[0]:.4e}, "
+          f"worst ratio {floor[1]:.4f}, greedy ids agree at {floor[2]:.4f} "
+          f"(bf16 not gated)", flush=True)
+    if not finite or not f32[1] <= 1.0:
+        raise AssertionError(f"{tag} decode vs forward at float32: worst "
+                             f"ratio {f32[1]} to the gate, finite {finite}")
+
+
+def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
+                         n_layers=None) -> None:
+    """Slice 11's serving path on one dense model at full published width
+    (depth cut to ``n_layers`` where given), fp32 params from seed 0, bf16
+    compute: the init timed; (a) ``Engine.generate`` at ``gen`` = (B,
+    prompt, new tokens, s_max) with greedy ids, then its prefill and its
+    decode steps timed alone and a second generate with the same ids;
+    (b) ``BatchedServer.run`` with ``server`` = (prompt lengths, slots,
+    new tokens each); then :func:`decode_gate`.  The model launches none of
+    the port's kernels (no model calls them, here or in the reference):
+    the counts are set to 0 before each run and must read 0 after."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import make_model
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_model_config(arch)
+    cut = ""
+    if n_layers is not None:
+        cut = f", depth cut to {n_layers} of its {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = make_model(cfg)
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), DEVICE)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    init_peak = _peak_gb(torch)
+    print(f"{tag} {cfg.name}: {n_params:,} params ({n_params * 4 / 1e9:.2f}"
+          f" GB fp32){cut}, {cfg.n_layers} layers {sorted(set(cfg.layers))}"
+          f", bf16 compute; init {init_s:.1f} s (drawn on the host from "
+          f"seed 0), peak device memory after init {init_peak:.2f} GB",
+          flush=True)
+    B, S0, n_new, s_max = gen
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S0 + 8))
+                              ).to(device=DEVICE, dtype=torch.int32)
+    prompts = tokens[:, :S0].contiguous()
+    engine = Engine(model, s_max=s_max)
+    _reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(params, prompts, n_new)
+    gen_s = time.perf_counter() - t0
+    if counts() != only():
+        raise AssertionError(f"{tag} generate launched {counts()}")
+    peak_a = _peak_gb(torch)
+    assert ids.shape == (B, n_new), ids.shape
+    assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
+    _sync(torch)
+    t0 = time.perf_counter()
+    logits, caches = engine.prefill(params, prompts)
+    _sync(torch)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    cache_leaves = tree_leaves(caches)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in cache_leaves)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache_leaves)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    del logits
+    pos = torch.full((B,), S0, dtype=torch.int32, device=DEVICE)
+    engine.decode_step(params, caches, tok, pos)
+    _sync(torch)
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        out, caches = engine.decode_step(params, caches, tok, pos + i)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+    _sync(torch)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    floor = decode_floor_bytes(cfg, n_params, cache_bytes)
+    if tag == "[gserve]" and DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(4):
+                engine.decode_step(params, caches, tok, pos + n_new)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profile_report(prof, wall_ms, "[gprofile]", "4 decode steps")
+        mats = [p for p in leaves if p.dim() >= 3]
+
+        def casts():
+            for p in mats:
+                p.to(torch.bfloat16)
+
+        cast_ms = cuda_ms(torch, casts, iters=3, warmup=1)
+        moved = sum(6 * p.numel() for p in mats)
+        print(f"[gprofile] the casts alone: every weight matrix to bf16 "
+              f"once ({len(mats)} leaves, {moved / 1e9:.2f} GB read + "
+              f"written): {cast_ms:.2f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.2f} ms", flush=True)
+    del caches, out
+    again = engine.generate(params, prompts, n_new)
+    if not np.array_equal(ids, again):
+        raise AssertionError(f"{tag} a second generate gave other ids")
+    print(f"{tag} (a) Engine.generate B={B} S={S0} +{n_new} greedy, s_max "
+          f"{s_max}: {gen_s * 1e3:.1f} ms in all, {B * n_new / gen_s:.1f} "
+          f"generated tokens/s; prefill alone {prefill_ms:.1f} ms "
+          f"({B * S0 / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
+          f"{decode_ms:.2f} ms/token ({B / decode_ms * 1e3:.1f} tokens/s at "
+          f"B={B}; floor {floor / HBM_BYTES_PER_S * 1e3:.2f} ms from "
+          f"{floor / 1e9:.2f} GB a step: weight casts and their reads, the "
+          f"KV cache of {cache_bytes / 1e9:.3f} GB); peak memory "
+          f"{peak_a:.2f} GB; no kernel launched; a second run gives the same "
+          f"ids", flush=True)
+    if server is not None:
+        _serve_batched(torch, tag, model, params, rng, s_max, *server)
+    decode_gate(torch, tag, model, params, tokens, s_max)
+
+
+def _serve_batched(torch, tag: str, model, params, rng, s_max: int,
+                   lengths, n_slots: int, max_new: int) -> None:
+    """(b) of :func:`run_dense_serve_path`: ``BatchedServer.run`` with
+    prompts of ``lengths`` on ``n_slots`` slots, ``max_new`` each."""
+    from repro_torch.serve import BatchedServer, Engine, Request
+
+    cfg = model.cfg
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=s),
+                    max_new=max_new) for i, s in enumerate(lengths)]
+    srv = BatchedServer(Engine(model, s_max=s_max), params, n_slots=n_slots)
+    _reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = srv.run(reqs)
+    _sync(torch)
+    run_s = time.perf_counter() - t0
+    if counts() != only():
+        raise AssertionError(f"{tag} BatchedServer launched {counts()}")
+    assert sorted(r.uid for r in done) == list(range(len(lengths)))
+    for r in done:
+        assert r.done and len(r.generated) == max_new, r
+        assert all(0 <= t < cfg.vocab_size for t in r.generated), r
+    peak_b = _peak_gb(torch)
+    print(f"{tag} (b) BatchedServer prompts {lengths} on {n_slots} slots, "
+          f"+{max_new} each, s_max {s_max}: {run_s * 1e3:.1f} ms, "
+          f"{len(lengths) * max_new / run_s:.1f} generated tokens/s, peak "
+          f"memory {peak_b:.2f} GB; no kernel launched; every request "
+          f"answered", flush=True)
+
+
+def dense_cross_check(torch) -> None:
+    """``[dxcross]``: the five dense archs at their reduced configs with
+    float32 compute, one init (seed 1) on the card and on the CPU: prefill
+    logits and every cache leaf within :data:`DXCROSS_TOL` · max|cpu|
+    (cuBLAS and the CPU's BLAS sum in other orders; TF32 off), and the
+    same greedy ids over 8 decode steps through ``Engine.generate`` and
+    through ``BatchedServer.run`` (prompts of 5, 9 and 3 tokens on 2
+    slots)."""
+    import numpy as np
+
+    from repro_torch import configs, interop
+    from repro_torch.models.model import make_model
+    from repro_torch.serve import BatchedServer, Engine, Request
+    from repro_torch.tree import tree_leaves
+
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(
+            configs.get_model_config(arch, reduced=True), dtype="float32")
+        model = make_model(cfg)
+        init = interop.to_numpy(model.init(torch.Generator().manual_seed(1),
+                                           "cpu"))
+        rng = np.random.default_rng(1)
+        prompts = rng.integers(0, cfg.vocab_size, (2, 37)).astype(np.int32)
+        lone = [rng.integers(0, cfg.vocab_size, s) for s in (5, 9, 3)]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = interop.from_numpy(init, dev)
+            eng = Engine(model, s_max=64)
+            logits, caches = eng.prefill(params,
+                                         torch.from_numpy(prompts).to(dev))
+            ids = eng.generate(params, prompts, 8)
+            srv = BatchedServer(Engine(model, s_max=64), params, n_slots=2)
+            done = sorted(srv.run([Request(uid=i, prompt=p, max_new=8)
+                                   for i, p in enumerate(lone)]),
+                          key=lambda r: r.uid)
+            out[dev] = ([logits.cpu().numpy()] + [
+                t.float().cpu().numpy() for t in tree_leaves(caches)], ids,
+                [r.generated for r in done])
+        worst = 0.0
+        for a, b in zip(*(out[d][0] for d in ("cuda", "cpu"))):
+            assert np.isfinite(a).all() and a.shape == b.shape
+            worst = max(worst, float(np.abs(a - b).max())
+                        / max(float(np.abs(b).max()), 1e-30))
+        if worst > DXCROSS_TOL:
+            raise AssertionError(f"[dxcross] {arch} cuda vs cpu: "
+                                 f"{worst:.3e} of max|ref|")
+        for k, what in ((1, "Engine.generate"), (2, "BatchedServer")):
+            if not np.array_equal(np.asarray(out["cuda"][k]),
+                                  np.asarray(out["cpu"][k])):
+                raise AssertionError(f"[dxcross] {arch} {what} greedy ids "
+                                     f"differ: {out['cuda'][k]} vs "
+                                     f"{out['cpu'][k]}")
+        print(f"[dxcross] {cfg.name} fp32, cuda vs cpu: logits and "
+              f"{len(out['cpu'][0]) - 1} cache leaves within {worst:.3e} of "
+              f"max|cpu|; greedy ids over 8 steps equal, Engine "
+              f"{out['cuda'][1].tolist()}, BatchedServer "
+              f"{out['cuda'][2]}", flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -4638,6 +5004,13 @@ def main() -> int:
     slice10["[occ]"] = run_occ_path(torch, mc)
     slice10["[simtel]"] = run_simtel_path(torch, mc)
     slice10["[servetel]"] = run_servetel_path(torch)
+    # slice 11: the dense decoders served at full published size, then
+    # card against CPU at their reduced configs
+    for tag, kw in DENSE_SERVE.items():
+        torch.cuda.empty_cache()
+        run_dense_serve_path(torch, tag, **kw)
+    torch.cuda.empty_cache()
+    dense_cross_check(torch)
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),

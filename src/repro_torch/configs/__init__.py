@@ -1,9 +1,9 @@
 """Config registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures the port can run are listed, and gemma2-9b, whose
-widths give the substrate kernels' full-width shapes (its model is
-refused until ROADMAP A.8); the reference's other archs arrive with their
-model families (A.8).
+Only the architectures the port can run are listed: the dense decoders
+(pga-lm-100m, gemma2-9b, qwen3-0.6b, qwen2-0.5b, qwen1.5-32b) and
+xlstm-125m.  The reference's other archs arrive with their model
+families (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -21,6 +21,9 @@ from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
 _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
     "pga-lm-100m": "pga_lm_100m",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "qwen3-0.6b": "qwen3_0_6b",
     "xlstm-125m": "xlstm_125m",
 }
 

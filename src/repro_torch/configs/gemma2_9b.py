@@ -5,10 +5,11 @@ Source: Gemma 2 technical report [arXiv:2408.00118].
 42L d_model=3584 16H (GQA kv=8, head_dim=256) d_ff=14336 vocab=256000,
 sliding window 4096 on every other layer, attn softcap 50, final softcap 30.
 
-The port's model does not run it yet (sliding window, softcaps and
-post-block norms are ROADMAP A.8): ``models.blocks.check_supported``
-refuses it.  Its widths give the substrate kernels' full-width shapes
-(``kernels.ops``, ``chip_smoke.py``).
+The port's model runs it: the sliding window on the ``attn_sw`` layers,
+both softcaps, the post-block norms and the embedding scale.  Its widths
+also give the substrate kernels' full-width shapes (``kernels.ops``,
+``chip_smoke.py``).  ``long_context_config`` waits for its first ported
+caller (ROADMAP A.8).
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -1,10 +1,13 @@
-"""Attention mixer: dense MHA/GQA with RoPE (counterpart of the GQA path of
+"""Attention mixer: dense MHA/GQA with RoPE, sliding window, logit softcap,
+qk-norm and qkv biases, and its KV cache (counterpart of the GQA path of
 ``repro/models/attention.py``).
 
 Plain ``matmul`` + fp32 softmax, as the reference computes it outside any
-Pallas kernel.  MLA, sliding windows, logit softcaps, qk-norm, qkv biases,
-decode and the blocked long-sequence path are not ported yet (ROADMAP
-A.8); nor is the flash-attention kernel (ROADMAP B.6).
+Pallas kernel.  Two entry modes share one weight set: the full sequence
+(train / prefill, :func:`attn_forward`) and one query position against a
+cache (:func:`attn_decode`).  MLA and the blocked long-sequence path
+(S ≥ 8192) are not ported yet (ROADMAP A.8); no model calls the
+flash-attention kernel (ROADMAP B.6), here or in the reference.
 """
 from __future__ import annotations
 
@@ -14,24 +17,36 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, not_ported
-from repro_torch.models.layers import ParamBuilder, apply_rope, make_rope
+from repro_torch.models.layers import (ParamBuilder, apply_rope, make_rope,
+                                       rms_norm, softcap)
 
 PyTree = Any
 NEG_INF = -2.3819763e38  # the reference's (XLA's) mask value
 BLOCKED_THRESHOLD = 8192
+LAYER_KINDS = ("attn", "attn_sw")
 
 
 def init_attention(b: ParamBuilder, cfg: ModelConfig) -> None:
+    if cfg.mla is not None:
+        raise not_ported("multi-head latent attention (MLA)", "A.8")
     d, nh, nkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim)
     b.add("w_q", (d, nh, hd))
     b.add("w_k", (d, nkv, hd))
     b.add("w_v", (d, nkv, hd))
     b.add("w_o", (nh, hd, d))
+    if cfg.qkv_bias:
+        b.add("b_q", (nh, hd), init="zeros")
+        b.add("b_k", (nkv, hd), init="zeros")
+        b.add("b_v", (nkv, hd), init="zeros")
+    if cfg.qk_norm:
+        b.add("q_norm", (hd,), init="ones")
+        b.add("k_norm", (hd,), init="ones")
 
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                   causal: bool, window: Optional[int]) -> torch.Tensor:
+                   causal: bool, window: Optional[int],
+                   k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Boolean (…, Sq, Sk) mask; ``window`` = sliding-window width."""
     q = q_pos[..., :, None]
     k = k_pos[..., None, :]
@@ -41,48 +56,120 @@ def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
         mask = mask & (k <= q)
     if window is not None:
         mask = mask & (k > q - window)
+    if k_valid is not None:
+        mask = mask & k_valid[..., None, :]
     return mask
 
 
-def _sdpa(q, k, v, mask, *, scale):
-    """q: (n,B,Sq,nkv,g,hd); k,v: (n,B,Sk,nkv,hd); mask (B,Sq,Sk)."""
+def _sdpa(q, k, v, mask, *, scale, cap=None):
+    """q: (n,B,Sq,nkv,g,hd); k,v: (n,B,Sk,nkv,hd); mask (B,Sq,Sk).  The
+    fp32 logits are scaled, softcapped, then masked, as in the
+    reference."""
     logits = torch.einsum("nbqhgd,nbkhd->nbhgqk", q, k).to(
         torch.float32) * scale
+    logits = softcap(logits, cap)
     # a Python float fill: no host tensor to copy to the device
     logits = logits.masked_fill(~mask[None, :, None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("nbhgqk,nbkhd->nbqhgd", probs, v)
 
 
+def _heads(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A per-node ``(n, heads, hd)`` leaf broadcast over ``(B, S)``."""
+    return w.to(dtype)[:, None, None]
+
+
 def _project_qkv(params, cfg: ModelConfig, x, positions):
+    """The bias, then qk-norm, then RoPE, in the reference's order."""
     hd = cfg.resolved_head_dim
     q = torch.einsum("nbsd,ndhk->nbshk", x, params["w_q"].to(x.dtype))
     k = torch.einsum("nbsd,ndhk->nbshk", x, params["w_k"].to(x.dtype))
     v = torch.einsum("nbsd,ndhk->nbshk", x, params["w_v"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + _heads(params["b_q"], x.dtype)
+        k = k + _heads(params["b_k"], x.dtype)
+        v = v + _heads(params["b_v"], x.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     cos, sin = make_rope(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _window(cfg: ModelConfig, layer_kind: str) -> Optional[int]:
+    if layer_kind not in LAYER_KINDS:
+        raise not_ported(f"attention layer kind {layer_kind!r}", "A.8")
+    return cfg.sliding_window if layer_kind == "attn_sw" else None
+
+
+def _out(params, out, x):
+    n, B, S = out.shape[:3]
+    out = out.reshape(n, B, S, -1, out.shape[-1])
+    return torch.einsum("nbshk,nhkd->nbsd", out, params["w_o"].to(x.dtype))
 
 
 def attn_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                  layer_kind: str,
                  positions: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence attention (train).  x (n, B, S, d); returns
-    ``(out, {"k", "v"})``."""
+    """Full-sequence attention (train / prefill).  x (n, B, S, d); returns
+    ``(out, {"k", "v"})``, the cache leaves ``(n, B, S, nkv, hd)``."""
     n, B, S, _ = x.shape
-    if layer_kind != "attn":
-        raise not_ported(f"attention layer kind {layer_kind!r}", "A.8")
+    window = _window(cfg, layer_kind)
     if S >= BLOCKED_THRESHOLD:
         raise not_ported(f"blocked attention for S={S}", "A.8")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x, positions)
-    g = nh // nkv
-    qg = q.reshape(n, B, S, nkv, g, hd)
+    qg = q.reshape(n, B, S, nkv, nh // nkv, hd)
     mask = attention_mask(positions, positions, causal=cfg.causal,
-                          window=None)
-    out = _sdpa(qg, k, v, mask, scale=1.0 / math.sqrt(hd))
-    out = out.reshape(n, B, S, nh, hd)
-    out = torch.einsum("nbshk,nhkd->nbsd", out, params["w_o"].to(x.dtype))
-    return out, {"k": k, "v": v}
+                          window=window)
+    out = _sdpa(qg, k, v, mask, scale=1.0 / math.sqrt(hd),
+                cap=cfg.attn_logit_softcap)
+    return _out(params, out, x), {"k": k, "v": v}
+
+
+def attn_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor, *,
+                layer_kind: str
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode.  x (n, B, 1, d); cache k/v (n, B, S_max, nkv, hd);
+    pos (B,) the position each row writes.
+
+    The new key and value are written **in place** into ``cache`` (one row
+    per sequence), which is returned: the reference returns updated
+    copies.  Rows past a sequence's ``pos`` are masked, so a caller that
+    decodes again from the same tensors at ``pos`` or earlier gets the
+    reference's answer.  The write index is clamped to ``S_max - 1`` as
+    XLA's ``dynamic_update_slice`` clamps its start; the unclamped ``pos``
+    goes into RoPE and the mask (an idle serving slot runs past
+    ``S_max``).  The mask is causal whatever ``cfg.causal`` says."""
+    n, B = x.shape[:2]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = _window(cfg, layer_kind)
+    q, k_new, v_new = _project_qkv(params, cfg, x, pos[:, None])
+    k, v = cache["k"], cache["v"]
+    S_max = k.shape[2]
+    rows = torch.arange(B, device=x.device)
+    at = pos.clamp(0, S_max - 1).long()
+    k[:, rows, at] = k_new[:, :, 0]
+    v[:, rows, at] = v_new[:, :, 0]
+    qg = q.reshape(n, B, 1, nkv, nh // nkv, hd)
+    k_pos = torch.arange(S_max, device=x.device)[None].expand(B, S_max)
+    mask = attention_mask(pos[:, None], k_pos, causal=True, window=window)
+    out = _sdpa(qg, k, v, mask, scale=1.0 / math.sqrt(hd),
+                cap=cfg.attn_logit_softcap)
+    return _out(params, out, x), cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int,
+                    dtype: torch.dtype, device,
+                    layer_kind: str = "attn") -> Dict[str, torch.Tensor]:
+    """Empty ``(B, S_max, nkv, hd)`` key and value caches."""
+    if cfg.mla is not None:
+        raise not_ported("the MLA latent cache", "A.8")
+    _window(cfg, layer_kind)
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

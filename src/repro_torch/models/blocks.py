@@ -1,13 +1,17 @@
 """Block assembly over layer-stacked parameters (counterpart of
-``repro/models/blocks.py``) for the ported block kinds: dense attention +
-gated MLP, and the xLSTM mixers (mLSTM, sLSTM) without an FFN.
+``repro/models/blocks.py``) for the ported block kinds: dense attention
+(global or sliding-window) + gated MLP, and the xLSTM mixers (mLSTM,
+sLSTM) without an FFN.
 
 A block is a pre-norm mixer + residual, then, unless its FFN is
-``"none"``, a pre-norm gated MLP + residual.  Parameters keep the
-reference's scan layout ``{"scan": {"entry_<j>": stacked}}`` with the layer
-axis right after the node axis; :func:`apply_stack` loops over it where
-the reference scans, and returns the caches in the same layout
-(``(n, L, B, …)`` leaves).  With ``remat="default"`` each training block
+``"none"``, a pre-norm gated MLP + residual; with ``post_block_norm`` each
+branch's output is normed before its residual add (Gemma 2).  Parameters
+keep the reference's scan layout ``{"scan": {"entry_<j>": stacked}}`` with
+the layer axis right after the node axis; :func:`apply_stack` loops over
+it where the reference scans, and returns the caches in the same layout
+(``(n, L, B, …)`` leaves).  Decode writes attention KV rows in place into
+the caches it is given and returns those tensors; recurrent states are
+returned as new tensors.  With ``remat="default"`` each training block
 runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
@@ -23,20 +27,18 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, init_mlp,
                                        init_rms_norm, rms_norm)
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 PyTree = Any
-FAMILY_BLOCKS = {"dense": {("attn", "dense")},
+FAMILY_BLOCKS = {"dense": {("attn", "dense"), ("attn_sw", "dense")},
                  "ssm": {("mlstm", "none"), ("slstm", "none")}}
 MODES = ("train", "prefill", "decode")
 
 
-def _attn_cache_not_ported() -> NotImplementedError:
-    return not_ported("attention KV cache / decode", "A.9")
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every model feature outside the ported paths: the dense
-    decoder and the xLSTM family."""
+    decoder (with qk-norm, qkv biases, softcaps, the sliding window,
+    post-block norms, untied embeddings) and the xLSTM family."""
     if cfg.family not in FAMILY_BLOCKS or any(
             c is not None for c in (cfg.moe, cfg.mla, cfg.vision,
                                     cfg.audio)):
@@ -46,12 +48,6 @@ def check_supported(cfg: ModelConfig) -> None:
                          "A.8")
     unported = [name for name, on in (
         ("prefix_pattern", bool(cfg.prefix_pattern)),
-        ("qk_norm", cfg.qk_norm), ("qkv_bias", cfg.qkv_bias),
-        ("attn_logit_softcap", cfg.attn_logit_softcap is not None),
-        ("final_logit_softcap", cfg.final_logit_softcap is not None),
-        ("sliding_window", cfg.sliding_window is not None),
-        ("post_block_norm", cfg.post_block_norm),
-        ("untied embeddings", not cfg.tie_embeddings),
         ("non-causal attention", not cfg.causal)) if on]
     if unported:
         raise not_ported(f"model features {unported}", "A.8")
@@ -68,7 +64,7 @@ def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
     mixer_kind, ffn_kind = kind
     init_rms_norm(b, "ln1", cfg.d_model)
     mixer = ParamBuilder(b.generator, b.param_dtype, b.device)
-    if mixer_kind == "attn":
+    if mixer_kind in attn.LAYER_KINDS:
         attn.init_attention(mixer, cfg)
     elif mixer_kind == "mlstm":
         ssm_lib.init_mlstm(mixer, cfg)
@@ -77,11 +73,15 @@ def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
     else:
         raise not_ported(f"mixer {mixer_kind!r}", "A.8")
     b.attach("mixer", mixer.params)
+    if cfg.post_block_norm:
+        init_rms_norm(b, "post_ln1", cfg.d_model)
     if ffn_kind != "none":
         init_rms_norm(b, "ln2", cfg.d_model)
         ffn = ParamBuilder(b.generator, b.param_dtype, b.device)
         init_mlp(ffn, cfg.d_model, cfg.d_ff)
         b.attach("ffn", ffn.params)
+        if cfg.post_block_norm:
+            init_rms_norm(b, "post_ln2", cfg.d_model)
 
 
 def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
@@ -91,16 +91,17 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
                 pos: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[PyTree]]:
     """Returns ``(x, new_cache)``.  mode: train|prefill|decode; decode
-    takes x ``(n, B, 1, d)`` and the block's ``cache``.  ``pos`` (the
-    position being written) only serves attention decode, not ported."""
+    takes x ``(n, B, 1, d)``, the block's ``cache`` and, for attention,
+    ``pos`` ``(B,)``, the position each sequence writes."""
     mixer, ffn = kind
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    if mixer == "attn":
-        if mode == "decode":
-            raise _attn_cache_not_ported()
-        out, new_cache = attn.attn_forward(params["mixer"], cfg, h,
-                                           layer_kind=mixer,
-                                           positions=positions)
+    if mixer in attn.LAYER_KINDS:
+        out, new_cache = (
+            attn.attn_decode(params["mixer"], cfg, h, cache, pos,
+                             layer_kind=mixer)
+            if mode == "decode" else
+            attn.attn_forward(params["mixer"], cfg, h, layer_kind=mixer,
+                              positions=positions))
     elif mixer == "mlstm":
         out, new_cache = (
             ssm_lib.mlstm_decode(params["mixer"], cfg, h, cache)
@@ -113,10 +114,15 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
             ssm_lib.slstm_forward(params["mixer"], cfg, h))
     else:
         raise not_ported(f"mixer {mixer!r}", "A.8")
+    if cfg.post_block_norm:
+        out = rms_norm(out, params["post_ln1"], cfg.norm_eps)
     x = x + out
     if ffn != "none":
-        x = x + apply_mlp(params["ffn"], rms_norm(x, params["ln2"],
-                                                  cfg.norm_eps))
+        out = apply_mlp(params["ffn"], rms_norm(x, params["ln2"],
+                                                cfg.norm_eps))
+        if cfg.post_block_norm:
+            out = rms_norm(out, params["post_ln2"], cfg.norm_eps)
+        x = x + out
     return x, new_cache
 
 
@@ -137,15 +143,15 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     """Apply the scanned pattern repeats; params
     ``{"scan": {"entry_<j>": (n, L, …) stacked}}``.  Returns ``(x,
     caches)``: with ``want_cache`` or in decode mode, caches
-    ``{"scan": {"entry_<j>": (n, L, B, …) stacked}}`` (decode reads the
-    same layout from ``caches``), else None."""
+    ``{"scan": {"entry_<j>": (n, L, B, …) stacked}}``, else None.  Decode
+    reads the same layout from ``caches``; an attention entry's leaves
+    are written in place and returned as they were given, a recurrent
+    entry's are restacked from the new states."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if remat not in ("none", "default"):
         raise not_ported(f"remat policy {remat!r}", "A.8")
     need_cache = want_cache or mode == "decode"
-    if need_cache and any(kind[0] == "attn" for kind in cfg.pattern):
-        raise _attn_cache_not_ported()
     scan = params["scan"]
     outs: Dict[int, list] = {j: [] for j in range(len(cfg.pattern))}
     for i in range(cfg.n_scan_blocks):
@@ -168,21 +174,33 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                     outs[j].append(c_out)
     if not need_cache:
         return x, None
-    return x, {"scan": {f"entry_{j}": _stack(outs[j], dim=1)
-                        for j in outs}}
+    return x, {"scan": {
+        f"entry_{j}": (caches["scan"][f"entry_{j}"]
+                       if mode == "decode" and kind[0] in attn.LAYER_KINDS
+                       else _stack(outs[j], dim=1))
+        for j, kind in enumerate(cfg.pattern)}}
 
 
 def init_stack(b: ParamBuilder, cfg: ModelConfig) -> None:
     """``{"scan": {"entry_<j>": (L, …)}}`` into builder ``b``; layers are
-    drawn one after another and stacked on a leading layer axis."""
+    drawn one after another on the host and copied into their slot of the
+    stacked leaves on ``b.device``, so the device holds the stack and no
+    per-layer copy (gemma2-9b's 37 GB of fp32 params, not 54 at the
+    peak)."""
     scan = {}
     for j, kind in enumerate(cfg.pattern):
-        layers = []
-        for _ in range(cfg.n_scan_blocks):
-            one = ParamBuilder(b.generator, b.param_dtype, b.device)
+        stacked = None
+        for i in range(cfg.n_scan_blocks):
+            one = ParamBuilder(b.generator, b.param_dtype, "cpu")
             init_block(one, cfg, kind)
-            layers.append(one.params)
-        scan[f"entry_{j}"] = _stack(layers)
+            leaves, treedef = tree_flatten(one.params)
+            if stacked is None:
+                stacked = [torch.empty((cfg.n_scan_blocks,) + t.shape,
+                                       dtype=t.dtype, device=b.device)
+                           for t in leaves]
+            for dst, src in zip(stacked, leaves):
+                dst[i].copy_(src)
+        scan[f"entry_{j}"] = tree_unflatten(treedef, stacked)
     b.attach("scan", scan)
 
 
@@ -197,15 +215,15 @@ def _stack(trees, dim: int = 0):
 # ---------------------------------------------------------------------------
 def init_block_cache(cfg: ModelConfig, kind: BlockSpec, batch: int,
                      s_max: int, dtype: torch.dtype, device) -> PyTree:
-    """One block's empty recurrent state, ``(B, …)`` leaves.  ``s_max``
-    sizes attention caches only (not ported)."""
+    """One block's empty cache, ``(B, …)`` leaves: the KV cache of
+    ``s_max`` positions, or the recurrent state."""
     mixer, _ = kind
+    if mixer in attn.LAYER_KINDS:
+        return attn.init_attn_cache(cfg, batch, s_max, dtype, device, mixer)
     if mixer == "mlstm":
         return ssm_lib.init_mlstm_state(cfg, batch, dtype, device)
     if mixer == "slstm":
         return ssm_lib.init_slstm_state(cfg, batch, dtype, device)
-    if mixer == "attn":
-        raise _attn_cache_not_ported()
     raise not_ported(f"mixer {mixer!r}", "A.8")
 
 

@@ -142,24 +142,38 @@ def apply_mlp(params: PyTree, x: torch.Tensor, *, act=F.silu) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding / unembedding (tied)
+# Embedding / unembedding
 # ---------------------------------------------------------------------------
-def init_embedding(b: ParamBuilder, vocab: int, d_model: int) -> None:
+def init_embedding(b: ParamBuilder, vocab: int, d_model: int,
+                   tie: bool) -> None:
     b.add("embedding", (vocab, d_model), init="normal", scale=0.02)
+    if not tie:
+        b.add("unembed", (d_model, vocab))
 
 
-def embed_tokens(params: PyTree, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+def embed_tokens(params: PyTree, tokens: torch.Tensor, dtype: torch.dtype,
+                 scale_by_dim: bool = False) -> torch.Tensor:
     """tokens (n, B, S) → (n, B, S, d): each node looks up its own
-    table."""
+    table.  ``scale_by_dim`` (the Gemma convention) multiplies by
+    ``sqrt(d)`` rounded to ``dtype`` first, as the reference does (59.75
+    in bf16 for d = 3584, not 59.8665)."""
     emb = params["embedding"].to(dtype)
     n = tokens.shape[0]
     node = torch.arange(n, device=tokens.device).reshape(
         (n,) + (1,) * (tokens.dim() - 1))
-    return emb[node, tokens.long()]
+    out = emb[node, tokens.long()]
+    if scale_by_dim:
+        scale = torch.tensor(math.sqrt(emb.shape[-1]), dtype=dtype).item()
+        out = out * scale
+    return out
 
 
-def unembed(params: PyTree, h: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding ``h @ Eᵀ`` per node; fp32 logits."""
-    emb = params["embedding"].to(h.dtype)
-    return node_matmul(h, emb.transpose(1, 2)).to(torch.float32)
+def unembed(params: PyTree, h: torch.Tensor, tie: bool,
+            final_softcap: Optional[float] = None) -> torch.Tensor:
+    """``h @ Eᵀ`` (tied) or ``h @ U`` per node; fp32 logits, softcapped
+    after the cast as in the reference."""
+    if tie:
+        w = params["embedding"].to(h.dtype).transpose(1, 2)
+    else:
+        w = params["unembed"].to(h.dtype)
+    return softcap(node_matmul(h, w).to(torch.float32), final_softcap)

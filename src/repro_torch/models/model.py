@@ -1,5 +1,6 @@
-"""Top-level Model: init / forward / decode / loss for the dense decoder LM
-and the xLSTM family (counterpart of ``repro/models/model.py``).
+"""Top-level Model: init / forward / decode / loss for the dense decoder LMs
+(pga-lm-100m, gemma2-9b, the qwen configs) and the xLSTM family
+(counterpart of ``repro/models/model.py``).
 
 Params keep the reference's layout — the same nested keys and, once
 stacked for the nodes, the same ``(n, L, …)`` shapes — so a tree carries
@@ -41,7 +42,8 @@ class Model:
         cfg = self.cfg
         b = ParamBuilder(generator, _DTYPES[cfg.param_dtype], device)
         emb = ParamBuilder(generator, b.param_dtype, b.device)
-        init_embedding(emb, cfg.vocab_size, cfg.d_model)
+        init_embedding(emb, cfg.vocab_size, cfg.d_model,
+                       cfg.tie_embeddings)
         b.attach("embed", emb.params)
         stack = ParamBuilder(generator, b.param_dtype, b.device)
         blocks.init_stack(stack, cfg)
@@ -62,7 +64,7 @@ class Model:
                              f"got {mode!r} (decode: decode_step)")
         cfg = self.cfg
         dtype = _DTYPES[cfg.dtype]
-        h = embed_tokens(params["embed"], batch["inputs"], dtype)
+        h = self._embed(params, batch["inputs"], dtype)
         _, B, S = batch["inputs"].shape
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
         h, caches = blocks.apply_stack(params["stack"], cfg, h, mode=mode,
@@ -70,20 +72,33 @@ class Model:
                                        want_cache=want_cache)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         lb_loss = torch.zeros((), dtype=torch.float32, device=h.device)
-        return unembed(params["embed"], h), caches, lb_loss
+        return self._unembed(params, h), caches, lb_loss
 
     def decode_step(self, params: PyTree, caches: PyTree,
                     tokens: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, PyTree]:
         """One token per sequence: tokens ``(n, B, 1)`` int, pos ``(B,)``
         the position being written → ``(fp32 logits (n, B, 1, V),
-        caches)``."""
+        caches)``.  Attention caches are updated in place and returned
+        (the reference returns new arrays); recurrent states are new
+        tensors."""
         cfg = self.cfg
-        h = embed_tokens(params["embed"], tokens, _DTYPES[cfg.dtype])
+        h = self._embed(params, tokens, _DTYPES[cfg.dtype])
         h, caches = blocks.apply_stack(params["stack"], cfg, h,
                                        mode="decode", caches=caches, pos=pos)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return unembed(params["embed"], h), caches
+        return self._unembed(params, h), caches
+
+    # the reference ties the Gemma embedding scale to the final softcap
+    def _embed(self, params: PyTree, tokens: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+        return embed_tokens(
+            params["embed"], tokens, dtype,
+            scale_by_dim=self.cfg.final_logit_softcap is not None)
+
+    def _unembed(self, params: PyTree, h: torch.Tensor) -> torch.Tensor:
+        return unembed(params["embed"], h, self.cfg.tie_embeddings,
+                       self.cfg.final_logit_softcap)
 
     def init_cache(self, batch: int, s_max: int,
                    dtype_name: Optional[str] = None, *,

@@ -1,14 +1,14 @@
-"""Serving engine: prefill + decode with recurrent-state caches, greedy or
-temperature sampling, and a slot-based continuous-batching loop
+"""Serving engine: prefill + decode with KV / recurrent-state caches,
+greedy or temperature sampling, and a slot-based continuous-batching loop
 (counterpart of ``repro/serve/engine.py``).
 
 The serving entry points take one replica's params in the reference's
 layout (``Model.init``'s tree) and add the model's node axis of 1 inside;
 :meth:`Engine.prefill` and :meth:`Engine.decode_step` return and take
-caches in the reference's layout too (``(L, B, …)`` leaves).  Sampling at
-``temperature > 0`` draws from an explicit ``torch.Generator``.  Attention
-KV caches are not ported (ROADMAP A.9): the engine serves the xLSTM
-family, whose caches are recurrent states.
+caches in the reference's layout too (``(L, B, …)`` leaves; a KV leaf is
+``(L, B, S_max, nkv, hd)``).  Decode writes each new key and value in
+place into the caches it is given (``Model.decode_step``).  Sampling at
+``temperature > 0`` draws from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -194,6 +194,8 @@ class BatchedServer:
                                  dtype=torch.int32, device=self.tok.device)
         with self._span("serve/prefill", uid=req.uid, slot=slot):
             logits, cache = self.engine._prefill(self._params1, prompt)
+        # every leaf is (1, L, B, …): a KV leaf (1, L, B, S_max, nkv, hd)
+        # takes the prompt's rows and the padding's zeros
         for dst, src in zip(tree_leaves(self.caches), tree_leaves(cache)):
             dst[:, :, slot] = src[:, :, 0]
         first = int(torch.argmax(logits[0]))

@@ -53,7 +53,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ref, "
             "repro_torch.kernels.flash_attention_cuda, "
             "repro_torch.kernels.rmsnorm_cuda, repro_torch.configs.gemma2_9b, "
-            "repro_torch.checkpoint, repro_torch.obs; "
+            "repro_torch.checkpoint, repro_torch.obs, "
+            "repro_torch.configs.qwen3_0_6b, repro_torch.configs.qwen2_0_5b, "
+            "repro_torch.configs.qwen1_5_32b, repro_torch.models.attention, "
+            "repro_torch.models.blocks, repro_torch.models.model; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'repro')))")

@@ -525,12 +525,28 @@ def test_gemma2_config_matches_reference(variant):
 
 
 def test_gemma2_model_is_refused():
+    """Since the dense features (ROADMAP A.8, first bullet) the gemma2-9b
+    model builds, full and reduced; its reduced model runs a forward with
+    logits under the final softcap.  Only its long-context variant's
+    blocked attention (S ≥ 8192) is still refused."""
     for cfg in (get_model_config("gemma2-9b"),
                 get_model_config("gemma2-9b", reduced=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            blocks.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            make_model(cfg)
+        blocks.check_supported(cfg)
+        assert make_model(cfg).cfg == cfg
+    model = make_model(get_model_config("gemma2-9b", reduced=True))
+    from repro_torch.tree import tree_map
+    node = tree_map(lambda t: t[None],
+                    model.init(torch.Generator().manual_seed(0), "cpu"))
+    logits, _, _ = model.forward(
+        node, {"inputs": torch.zeros((1, 2, 5), dtype=torch.int32)})
+    assert logits.shape == (1, 2, 5, 512)
+    assert float(logits.abs().max()) < 30.0
+    x = torch.zeros((1, 1, 8192, 256))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        tattn.attn_forward(tree_map(lambda t: t[:, 0],
+                                    node["stack"]["scan"]["entry_1"]
+                                    ["mixer"]),
+                           model.cfg, x, layer_kind="attn")
 
 
 # ---------------------------------------------------------------------------

@@ -562,20 +562,32 @@ def test_mamba_raises():
 
 
 def test_attention_decode_raises():
+    """Attention decode is ported (ROADMAP A.9): the dense model's empty
+    caches, its prefill cache and one decode step run, and a prefill
+    without a cache is the plain forward."""
     model = make_model(get_model_config("pga-lm-100m", reduced=True))
     node = tree_map(lambda t: t[None], model.init(
         torch.Generator().manual_seed(0), "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        model.init_cache(2, 16, device="cpu")
+    empty = model.init_cache(2, 16, device="cpu")
+    assert tuple(empty["scan"]["entry_0"]["k"].shape) == (1, 2, 2, 16, 4,
+                                                          64)
     tokens = torch.zeros((1, 2, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        model.forward(node, {"inputs": tokens}, mode="prefill",
-                      want_cache=True)
+    full, caches, _ = model.forward(node, {"inputs": tokens},
+                                    mode="prefill", want_cache=True)
+    assert tuple(caches["scan"]["entry_0"]["v"].shape) == (1, 2, 2, 4, 4,
+                                                           64)
     block = tree_map(lambda t: t[:, 0], node["stack"]["scan"]["entry_0"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        blocks.apply_block(block, model.cfg, ("attn", "dense"),
-                           torch.zeros((1, 2, 1, 256)), mode="decode")
+    cache = {k: torch.cat([t[:, 0], t.new_zeros((1, 2, 4, 4, 64))], dim=2)
+             for k, t in caches["scan"]["entry_0"].items()}
+    out, new = blocks.apply_block(block, model.cfg, ("attn", "dense"),
+                                  torch.zeros((1, 2, 1, 256),
+                                              dtype=torch.bfloat16),
+                                  mode="decode", cache=cache,
+                                  pos=torch.full((2,), 4, dtype=torch.int32))
+    assert new is cache and out.shape == (1, 2, 1, 256)
+    assert bool(torch.isfinite(out).all())
     # a prefill without a cache is the plain forward
     logits, caches, _ = model.forward(node, {"inputs": tokens},
                                       mode="prefill")
     assert caches is None and logits.shape == (1, 2, 4, 512)
+    assert torch.equal(logits, full)
