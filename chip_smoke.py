@@ -151,6 +151,22 @@ line):
    gated at float32, bf16 beside its rounding floor);
    ``[dxcross]`` (:func:`dense_cross_check`) the five archs at their
    reduced configs card vs CPU through ``Engine`` and ``BatchedServer``.
+14. slice 12's paths, the encoder family, LAMB, microbatches, the remat
+   policies and the blocked attention: ``[glong]`` (right after
+   ``[gserve]``, on its params) one 8,192-token gemma2-9b prompt through
+   ``Engine.generate`` (+16 at ``s_max`` 8,208), every layer's prefill
+   attention through ``_sdpa_blocked``, then one ``attn_sw`` and one
+   ``attn`` layer at float32 against the plain ``_sdpa`` on the same q,
+   k, v; ``[bert]`` bert-large at its full published size (465,213,440
+   params a replica) trained on 4 stacked nodes with Gossip-PGA H = 4,
+   LAMB (``warmup_poly``), 32 sequences of 128 a node in 4
+   microbatches, 8 steps through mix.cu's fused consensus round: launch
+   count, consensus 0.0 on the global steps, one synchronizing call a
+   steady step; ``[bertmem]`` the same step with remat_policy ``"dots"``
+   and with 1 microbatch beside ``"nothing"``/4 (peak memory, step ms,
+   params after one step); ``[encx]`` bert-large and hubert-xlarge at
+   their reduced configs card vs CPU (grads, loss and params after one
+   LAMB step with 2 microbatches).
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -4642,7 +4658,8 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     (b) ``BatchedServer.run`` with ``server`` = (prompt lengths, slots,
     new tokens each); then :func:`decode_gate`.  The model launches none of
     the port's kernels (no model calls them, here or in the reference):
-    the counts are set to 0 before each run and must read 0 after."""
+    the counts are set to 0 before each run and must read 0 after.
+    Returns ``(model, params)``."""
     import numpy as np
 
     from repro_torch import configs
@@ -4745,6 +4762,7 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     if server is not None:
         _serve_batched(torch, tag, model, params, rng, s_max, *server)
     decode_gate(torch, tag, model, params, tokens, s_max)
+    return model, params
 
 
 def _serve_batched(torch, tag: str, model, params, rng, s_max: int,
@@ -4834,6 +4852,478 @@ def dense_cross_check(torch) -> None:
               f"max|cpu|; greedy ids over 8 steps equal, Engine "
               f"{out['cuda'][1].tolist()}, BatchedServer "
               f"{out['cuda'][2]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Slice 12: bert-large training (the paper's §5.3 workload: the encoder,
+# LAMB, microbatches, remat "dots") and gemma2-9b's 8,192-token prefill
+# through the blocked attention
+# ---------------------------------------------------------------------------
+BERT = dict(n=4, H=4, per_node=32, seq=128, microbatches=4, steps=8,
+            lr=1e-3)
+BERT_PARAMS = 465_213_440           # a replica, untied, gated MLP
+BERT_LOGIT_BYTES = 30_522 * 4       # one position's fp32 logits
+BERTMEM_REMAT_TOL = 1e-6            # params after one step, remat variants
+# the microbatch variants: the CPU test's tolerances
+# (test_reference_microbatch_equivalence: loss rtol 1e-3, params 1e-4);
+# the encoder's per-slice mask counts make the 1- and 4-microbatch steps
+# different functions, and LAMB's first update is ~lr·trust·sign(g), so a
+# coordinate whose gradient sign the weighting flips moves 2·lr·trust
+# apart: the params gate is the share of elements beyond 1e-4
+BERTMEM_MB_LOSS = 1e-3
+BERTMEM_MB_TOL = 1e-4
+BERTMEM_MB_SHARE = 1e-3
+# the gradient phase's grads, per leaf ‖g − g_ref‖/‖g_ref‖: the
+# 4-microbatch grads against the mean of the 4 slices' one-batch grads,
+# and "dots"' against "nothing"'s (the same sums; only the gather
+# backward's atomics may differ); the 1-microbatch grads against the
+# 4-microbatch ones differ by the per-slice mask counts (0.1025 at full
+# size on an H100, 0.076 on the reduced config on the CPU), while a wrong
+# accumulation scale reads 0.75 or more
+BERTMEM_GRAD_TOL = 1e-5
+BERTMEM_MB_GRAD_TOL = 0.25
+GLONG = dict(prompt=8192, new=16, s_max=8208)
+GLONG_TOL = 1e-5                    # blocked vs plain attention, of max|plain|
+ENCX_TOL = 1e-5                     # card vs CPU, of max|cpu|
+
+
+def _bert_config(remat_policy: str = "nothing",
+                 microbatches: int = BERT["microbatches"],
+                 steps: int = BERT["steps"], arch: str = "bert-large",
+                 reduced: bool = False):
+    """bert-large phase 1 (BERT's 128-token sequences) as the paper trains
+    it: LAMB with ``warmup_poly``, Gossip-PGA over one_peer_exp on the
+    fused kernel, ``BERT["per_node"]`` sequences a node.  ``reduced``
+    ([encx]): the reduced config at float32, H = 2, 2 sequences of 32 a
+    node."""
+    from repro_torch import configs
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig)
+    cfg = configs.get_model_config(arch, reduced=reduced)
+    H, per_node, seq = BERT["H"], BERT["per_node"], BERT["seq"]
+    if reduced:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        H, per_node, seq = 2, 2, 32
+    return TrainConfig(
+        model=cfg,
+        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
+                        H=H, comm_backend="pallas",
+                        remat_policy=remat_policy),
+        optimizer=OptimizerConfig(name="lamb", lr=BERT["lr"],
+                                  schedule="warmup_poly", warmup_steps=2,
+                                  total_steps=steps + 2, weight_decay=0.01),
+        global_batch=per_node * BERT["n"], seq_len=seq,
+        microbatches=microbatches, steps=steps, log_every=1)
+
+
+def run_bert_path(torch, mc) -> tuple:
+    """``[bert]``: bert-large at its full published size (24 layers, no
+    depth cut), fp32 params from seed 0, bf16 compute, n = 4 stacked
+    nodes, Gossip-PGA H = 4 with the fused consensus round, LAMB, 4
+    microbatches of 8 sequences a node, 8 steps.  Gates: finite losses,
+    consensus exactly 0.0 on the 2 global steps, mix.cu's launches equal
+    to the dispatch groups × steps, one synchronizing call on the steady
+    steps; then one more step under ``torch.profiler`` (``[bprofile]``).
+    Returns ``(launches, one replica's initial params)``."""
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    tag, steps, n = "[bert]", BERT["steps"], BERT["n"]
+    tcfg = _bert_config()
+    tr = Trainer(tcfg, n_nodes=n, with_consensus=True, device=DEVICE)
+    t0 = time.perf_counter()
+    params = tr.model.init(torch.Generator().manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    if n_params != BERT_PARAMS:
+        raise AssertionError(f"{tag} {n_params:,} params, expected "
+                             f"{BERT_PARAMS:,}")
+    state = tr.init_state(params=params)
+    leaves = tree_leaves(state.params)
+    groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
+    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+    del leaves      # the initial stack must not outlive its step
+    print(f"{tag} {tcfg.model.name}: {n_params:,} params a replica "
+          f"({n_params * 4 / 1e9:.3f} GB fp32; init {init_s:.1f} s), "
+          f"{tcfg.model.n_layers} layers, bf16 compute, {n} nodes, "
+          f"Gossip-PGA H={tcfg.dist.H} over {tcfg.dist.topology}, LAMB "
+          f"(warmup_poly, lr {BERT['lr']}), {BERT['per_node']} sequences "
+          f"of {BERT['seq']} a node in {tcfg.microbatches} microbatches, "
+          f"remat {tcfg.dist.remat}/{tcfg.dist.remat_policy}; "
+          f"{len(groups)} mix launches a round (group widths {widths})",
+          flush=True)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, phases, syncs = [], [], []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        state, n_sync = sync_steps(
+            torch, lambda: tr.run(state, steps=1, log_every=1),
+            step_sites(tag, k))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        syncs.append(n_sync)
+        rec = tr.history[-1]
+        phases.append(rec["phase"])
+        print(f"{tag} step {k} phase={rec['phase']} loss={rec['loss']:.4f}"
+              f" lr={rec['lr']:.3e} consensus={rec['consensus']:.6e} "
+              f"step_ms={dt * 1e3:.1f} tokens/s={tokens / dt:.0f} "
+              f"max_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"synchronizing_calls={n_sync}", flush=True)
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{tag} step {k}: loss {rec['loss']}")
+        if rec["phase"] == "global":
+            assert rec["consensus"] == 0.0, rec
+        else:
+            assert rec["consensus"] > 0.0, rec
+    launches = counts()
+    expected = only(mix_vector=len(groups) * steps)
+    if launches != expected or phases.count("global") != 2:
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{expected}; phases {phases}")
+    SYNCS[tag] = syncs
+    gate_one_sync(tag, syncs)
+    steady = statistics.median(times[1:6])
+    STEADY[tag] = steady
+    print(f"{tag} {steps} steps, {len(phases)} fused rounds "
+          f"({phases.count('gossip')} gossip, {phases.count('global')} "
+          f"global) through mix.cu ({launches['mix_vector']} launches of "
+          f"the register instance); steady step {steady * 1e3:.1f} ms "
+          f"(median of steps 1-5), {tokens / steady:.0f} tokens/s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(state, steps=1, log_every=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, wall_ms, "[bprofile]", "one profiled [bert] step")
+    del state, tr, prof
+    return launches, params
+
+
+def _worst_rel(torch, got: list, want: list) -> float:
+    """max over leaves of ‖got − want‖ / ‖want‖ (0 where both are 0)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        diff = float(torch.linalg.vector_norm(g - w))
+        if diff:
+            worst = max(worst, diff / max(
+                float(torch.linalg.vector_norm(w)), 1e-30))
+    return worst
+
+
+def bertmem_grads(torch, params) -> None:
+    """``[bertmem]``'s gradient phase: the step's own
+    (``train.step.build_grad_fn``) on ``[bert]``'s step-0 batch, from
+    the same node-stacked params, in the three variants, each timed on
+    its own with its peak memory above what was allocated before it (the
+    activations, the accumulation buffer and the grads).  Gated per leaf
+    by ``‖g − g_ref‖/‖g_ref‖``: the 4-microbatch grads against the mean
+    of the four slices' one-batch grads and ``"dots"``' against
+    ``"nothing"``'s within :data:`BERTMEM_GRAD_TOL`, the 1-microbatch
+    grads against the 4-microbatch ones within
+    :data:`BERTMEM_MB_GRAD_TOL`."""
+    from repro_torch.train import Trainer
+    from repro_torch.train.state import stack_for_nodes
+    from repro_torch.train.step import build_grad_fn
+    from repro_torch.tree import tree_leaves
+
+    n, m = BERT["n"], BERT["microbatches"]
+    tr = Trainer(_bert_config(), n_nodes=n, device=DEVICE)
+    stacked = stack_for_nodes(params, n)
+    batch = tr.device_batch(0)
+    grads = {}
+    for policy, mb in (("nothing", m), ("dots", m), ("nothing", 1)):
+        grad_fn = build_grad_fn(tr.model, _bert_config(policy, mb))
+        _reset_peak(torch)
+        base = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        g, met = grad_fn(stacked, batch)
+        _sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = _peak_gb(torch) - base
+        grads[policy, mb] = tree_leaves(g)
+        print(f"[bertmem] gradient phase remat_policy={policy!r} "
+              f"microbatches={mb}: {ms:.1f} ms, peak {peak:.2f} GB above "
+              f"the {base:.2f} GB before it, loss {float(met['loss']):.6f}",
+              flush=True)
+        del g
+        if policy == "dots":
+            remat = _worst_rel(torch, grads["dots", m], grads["nothing", m])
+            del grads["dots", m]
+    one = build_grad_fn(tr.model, _bert_config(microbatches=1))
+    b = BERT["per_node"] // m
+    mean = [torch.zeros_like(g) for g in grads["nothing", 1]]
+    for i in range(m):
+        for a, g in zip(mean, tree_leaves(one(stacked, {
+                k: t[:, i * b:(i + 1) * b] for k, t in batch.items()})[0])):
+            a.add_(g)
+    for a in mean:
+        a.div_(m)
+    acc = _worst_rel(torch, grads["nothing", m], mean)
+    del mean, stacked
+    mb_gap = _worst_rel(torch, grads["nothing", 1], grads["nothing", m])
+    print(f"[bertmem] grads (each leaf, ‖g − g_ref‖/‖g_ref‖): "
+          f"{m} microbatches vs the mean of the {m} slices' one-batch grads "
+          f"{acc:.3e}, 'dots' vs 'nothing' {remat:.3e} (gate "
+          f"{BERTMEM_GRAD_TOL:g}); 1 vs {m} microbatches {mb_gap:.3e} (gate "
+          f"{BERTMEM_MB_GRAD_TOL:g}; the per-slice mask counts)", flush=True)
+    del grads
+    torch.cuda.empty_cache()
+    if not (acc <= BERTMEM_GRAD_TOL and remat <= BERTMEM_GRAD_TOL
+            and mb_gap <= BERTMEM_MB_GRAD_TOL):
+        raise AssertionError(f"[bertmem] grads: accumulation {acc:.3e}, "
+                             f"remat {remat:.3e}, 1 vs {m} microbatches "
+                             f"{mb_gap:.3e}")
+
+
+def run_bertmem_path(torch, mc, params) -> dict:
+    """``[bertmem]``: ``[bert]``'s step in three variants from the same
+    initial params: remat_policy ``"nothing"`` and ``"dots"`` at 4
+    microbatches, and 1 microbatch at ``"nothing"``.  First their
+    gradient phase alone (:func:`bertmem_grads`), then two Trainer steps
+    each: the peak memory over the first step (set by the optimizer
+    phase; less the 7.44 GB copy of the first variant's params kept on
+    the card for the gate) and the second step's ms; the params after one
+    step gated against the ``"nothing"``/4 variant's:
+    within :data:`BERTMEM_REMAT_TOL` for the remat variant (recompute
+    changes no number; the gather backward's atomics may), within
+    :data:`BERTMEM_MB_TOL` for the microbatch one."""
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    n = BERT["n"]
+    positions = n * BERT["per_node"] * BERT["seq"]   # one microbatch of all
+    logit_gb = positions * BERT_LOGIT_BYTES * 3 / 1e9
+    saved_gb = positions * 1024 * 2 * 24 / 1e9
+    print(f"[bertmem] reckoned before running microbatches=1: fp32 logits "
+          f"over {positions:,} positions × 30,522, their log-softmax and "
+          f"gradient {logit_gb:.2f} GB, the 24 saved bf16 block inputs "
+          f"{saved_gb:.2f} GB: {logit_gb + saved_gb:.2f} GB of activations "
+          f"over [bert]'s state", flush=True)
+    bertmem_grads(torch, params)
+    launches = {k: 0 for k in counts()}
+    ref, ref_gb = None, 0.0
+    for policy, mb in (("nothing", 4), ("dots", 4), ("nothing", 1)):
+        name = f"remat_policy={policy!r} microbatches={mb}"
+        tr = Trainer(_bert_config(policy, mb, steps=2), n_nodes=n,
+                     with_consensus=True, device=DEVICE)
+        state = tr.init_state(params=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            state = tr.run(state, steps=1, log_every=1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not math.isfinite(tr.history[-1]["loss"]):
+                raise AssertionError(f"[bertmem] {name}: loss "
+                                     f"{tr.history[-1]['loss']}")
+            if k == 0:
+                peak = torch.cuda.max_memory_allocated() / 1e9 - ref_gb
+                after = [p.detach().clone() for p in
+                         tree_leaves(state.params)]
+        for key, v in counts().items():
+            launches[key] += v
+        loss0 = tr.history[0]["loss"]
+        if ref is None:
+            ref, ref_loss = after, loss0
+            ref_gb = sum(a.numel() * a.element_size() for a in ref) / 1e9
+        diff = max(float((a - b).abs().max()) for a, b in zip(after, ref))
+        n_el = sum(a.numel() for a in after)
+        share = sum(int(((a - b).abs() > BERTMEM_MB_TOL).sum())
+                    for a, b in zip(after, ref)) / n_el
+        loss_rel = abs(loss0 - ref_loss) / abs(ref_loss)
+        print(f"[bertmem] {name}: step peak {peak:.2f} GB, step 1 "
+              f"{times[1] * 1e3:.1f} ms (step 0 {times[0] * 1e3:.1f}), "
+              f"loss at step 0 {loss0:.6f} (the 'nothing'/4 variant's "
+              f"{ref_loss:.6f}, rel {loss_rel:.2e}); params after one step "
+              f"within {diff:.3e} of its, a share {share:.3e} of them apart "
+              f"by more than {BERTMEM_MB_TOL:g}", flush=True)
+        if mb == BERT["microbatches"] and not diff <= BERTMEM_REMAT_TOL:
+            raise AssertionError(f"[bertmem] {name}: params after one step "
+                                 f"{diff:.3e} from the 'nothing'/4 "
+                                 f"variant's (tolerance "
+                                 f"{BERTMEM_REMAT_TOL:g})")
+        if mb != BERT["microbatches"] and not (
+                loss_rel <= BERTMEM_MB_LOSS and share <= BERTMEM_MB_SHARE):
+            raise AssertionError(f"[bertmem] {name}: loss {loss_rel:.3e} "
+                                 f"from the 4-microbatch step's (gate "
+                                 f"{BERTMEM_MB_LOSS:g}), {share:.3e} of the "
+                                 f"params apart by more than "
+                                 f"{BERTMEM_MB_TOL:g} (gate "
+                                 f"{BERTMEM_MB_SHARE:g})")
+        del state, tr, after
+        torch.cuda.empty_cache()
+    del ref
+    return launches
+
+
+def run_glong_path(torch, model, params) -> None:
+    """``[glong]``: gemma2-9b at full published size (``[gserve]``'s
+    params), one prompt of 8,192 tokens through ``Engine.generate`` with
+    16 new tokens at ``s_max`` 8,208 (every attention layer's prefill
+    through the blocked path): prefill ms, decode ms a token, peak
+    memory.  Then the gate at float32 (TF32 off), per layer: one
+    ``attn_forward`` of an ``attn_sw`` and one of an ``attn`` layer at S
+    = 8,192 against the plain ``_sdpa`` on the same q, k and v, within
+    :data:`GLONG_TOL` · max|plain|."""
+    import numpy as np
+
+    from repro_torch.models import attention as attn
+    from repro_torch.serve import Engine
+
+    cfg = model.cfg
+    S, n_new, s_max = GLONG["prompt"], GLONG["new"], GLONG["s_max"]
+    assert S >= attn.BLOCKED_THRESHOLD
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(
+        device=DEVICE, dtype=torch.int32)
+    engine = Engine(model, s_max=s_max)
+    _reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(params, prompt, n_new)
+    _sync(torch)
+    gen_s = time.perf_counter() - t0
+    peak = _peak_gb(torch)
+    if counts() != only():
+        raise AssertionError(f"[glong] generate launched {counts()}")
+    assert ids.shape == (1, n_new) and ((ids >= 0)
+                                        & (ids < cfg.vocab_size)).all()
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    logits, caches = engine.prefill(params, prompt)
+    _sync(torch)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = _peak_gb(torch)
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    if int(tok[0, 0]) != int(ids[0, 0]):
+        raise AssertionError(f"[glong] prefill's greedy id {int(tok[0, 0])}"
+                             f" is not generate's first {int(ids[0, 0])}")
+    del logits
+    pos = torch.full((1,), S, dtype=torch.int32, device=DEVICE)
+    _sync(torch)
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        out, caches = engine.decode_step(params, caches, tok, pos + i)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+    _sync(torch)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    del caches, out
+    torch.cuda.empty_cache()
+    print(f"[glong] {cfg.name} Engine.generate B=1 S={S} +{n_new} greedy, "
+          f"s_max {s_max} (attention through the blocked path: "
+          f"{S // attn._Q_CHUNK} query chunks of {attn._Q_CHUNK} a layer): "
+          f"{gen_s * 1e3:.1f} ms in all, peak memory {peak:.2f} GB; prefill "
+          f"alone {prefill_ms:.1f} ms ({S / prefill_ms * 1e3:.0f} prompt "
+          f"tokens/s, peak {prefill_peak:.2f} GB), decode {decode_ms:.2f} "
+          f"ms/token; no kernel launched", flush=True)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    positions = torch.arange(S, device=DEVICE)[None]
+    for j, (kind, _) in enumerate(cfg.pattern):
+        layer = {k: v[0][None] for k, v in
+                 params["stack"]["scan"][f"entry_{j}"]["mixer"].items()}
+        x = torch.randn((1, 1, S, cfg.d_model), generator=gen,
+                        device=DEVICE)
+        q, k, v = attn._project_qkv(layer, cfg32, x, positions)
+        qg = q.reshape(1, 1, S, cfg.n_kv_heads,
+                       cfg.n_heads // cfg.n_kv_heads, -1)
+        window = attn._window(cfg32, kind)
+        scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        blocked = attn._sdpa_blocked(qg, k, v, positions, positions,
+                                     causal=True, window=window, scale=scale,
+                                     cap=cfg.attn_logit_softcap)
+        _sync(torch)
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        blocked_peak = _peak_gb(torch)
+        full, _ = attn.attn_forward(layer, cfg32, x, layer_kind=kind)
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        mask = attn.attention_mask(positions, positions, causal=True,
+                                   window=window)
+        plain = attn._sdpa(qg, k, v, mask, scale=scale,
+                           cap=cfg.attn_logit_softcap)
+        _sync(torch)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_peak = _peak_gb(torch)
+        ref = float(plain.abs().max())
+        err = float((blocked - plain).abs().max())
+        err_fwd = float((full - attn._out(layer, plain, x)).abs().max())
+        ref_fwd = float(full.abs().max())
+        del q, k, v, qg, mask, blocked, plain, full, x
+        torch.cuda.empty_cache()
+        print(f"[glong] float32 {kind} layer at S={S}: blocked vs plain "
+              f"_sdpa max abs err {err:.3e} (max|plain| {ref:.4f}, gate "
+              f"{GLONG_TOL:g}·max); attn_forward (blocked route) vs the "
+              f"plain output projected {err_fwd:.3e} (max {ref_fwd:.4f}); "
+              f"blocked {blocked_ms:.1f} ms peak {blocked_peak:.2f} GB, "
+              f"plain {plain_ms:.1f} ms peak {plain_peak:.2f} GB",
+              flush=True)
+        if not (err <= GLONG_TOL * ref and err_fwd <= GLONG_TOL * ref_fwd):
+            raise AssertionError(f"[glong] {kind}: blocked attention "
+                                 f"{err:.3e} / {err_fwd:.3e} from the plain")
+
+
+def encoder_cross_check(torch) -> None:
+    """``[encx]``: bert-large and hubert-xlarge at their reduced configs,
+    float32, 4 nodes, LAMB with 2 microbatches: the step-0 grads (the
+    step's own gradient phase, ``train.step.build_grad_fn``), the step's
+    loss and the params after one Trainer step, card against CPU
+    from the same weights, each within :data:`ENCX_TOL` · max|cpu|
+    (cuBLAS and the CPU's BLAS sum in other orders; TF32 off)."""
+    from repro_torch import interop
+    from repro_torch.train import Trainer
+    from repro_torch.train.state import stack_for_nodes
+    from repro_torch.train.step import build_grad_fn
+    from repro_torch.tree import tree_leaves
+
+    for arch in ("bert-large", "hubert-xlarge"):
+        tcfg = _bert_config(microbatches=2, steps=1, arch=arch,
+                            reduced=True)
+        host = None
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(tcfg, n_nodes=BERT["n"], with_consensus=True,
+                         device=dev)
+            if host is None:
+                host = interop.to_numpy(tr.model.init(
+                    torch.Generator().manual_seed(1), "cpu"))
+            params = interop.from_numpy(host, dev)
+            grads, _ = build_grad_fn(tr.model, tcfg)(
+                stack_for_nodes(params, BERT["n"]), tr.device_batch(0))
+            state = tr.run(tr.init_state(params=params), steps=1)
+            out[dev] = (tr.history[-1]["loss"],
+                        [g.cpu() for g in tree_leaves(grads)],
+                        [p.cpu() for p in tree_leaves(state.params)])
+        worst = {}
+        for i, what in ((1, "grads"), (2, "params")):
+            worst[what] = max(
+                float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for a, b in zip(out["cuda"][i], out["cpu"][i]))
+        loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        print(f"[encx] {tcfg.model.name} fp32, LAMB, microbatches=2, cuda "
+              f"vs cpu: loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f} "
+              f"(rel {loss_rel:.2e}), grads within {worst['grads']:.3e} "
+              f"and params after one step within {worst['params']:.3e} of "
+              f"max|cpu| (each leaf)", flush=True)
+        if not (loss_rel <= ENCX_TOL and max(worst.values()) <= ENCX_TOL):
+            raise AssertionError(f"[encx] {arch}: loss {loss_rel:.3e}, "
+                                 f"{worst}")
 
 
 def main() -> int:
@@ -5008,9 +5498,22 @@ def main() -> int:
     # card against CPU at their reduced configs
     for tag, kw in DENSE_SERVE.items():
         torch.cuda.empty_cache()
-        run_dense_serve_path(torch, tag, **kw)
+        model, params = run_dense_serve_path(torch, tag, **kw)
+        if tag == "[gserve]":
+            # slice 12: the 8,192-token prefill, on [gserve]'s params
+            torch.cuda.empty_cache()
+            run_glong_path(torch, model, params)
+        del model, params
     torch.cuda.empty_cache()
     dense_cross_check(torch)
+    # slice 12: bert-large training (encoder, LAMB, microbatches, remat)
+    slice12 = {}
+    slice12["[bert]"], bert_params = run_bert_path(torch, mc)
+    torch.cuda.empty_cache()
+    slice12["[bertmem]"] = run_bertmem_path(torch, mc, bert_params)
+    del bert_params
+    torch.cuda.empty_cache()
+    encoder_cross_check(torch)
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -5046,6 +5549,10 @@ def main() -> int:
         records[name]["launches_slice10"] = {
             path: {k: c[k] for k in keys if c[k]}
             for path, c in slice10.items() if any(c[k] for k in keys)}
+    # the slice-12 training paths' launches (B.1 on bert-large's rounds)
+    records["mix_vector_kernel"]["launches_slice12"] = {
+        path: {k: c[k] for k in ("mix", "mix_vector") if c[k]}
+        for path, c in slice12.items()}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

@@ -1,15 +1,16 @@
 """Config registry of the port: ``--arch <id>`` resolution.
 
 Only the architectures the port can run are listed: the dense decoders
-(pga-lm-100m, gemma2-9b, qwen3-0.6b, qwen2-0.5b, qwen1.5-32b) and
-xlstm-125m.  The reference's other archs arrive with their model
-families (ROADMAP A.8).
+(pga-lm-100m, gemma2-9b, qwen3-0.6b, qwen2-0.5b, qwen1.5-32b), the
+encoders (bert-large, hubert-xlarge) and xlstm-125m.  The reference's
+other archs arrive with their model families (ROADMAP A.8).
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
+    AudioStubConfig,
     DataConfig,
     DistConfig,
     ModelConfig,
@@ -19,7 +20,9 @@ from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
 )
 
 _ARCH_MODULES = {
+    "bert-large": "bert_large",
     "gemma2-9b": "gemma2_9b",
+    "hubert-xlarge": "hubert_xlarge",
     "pga-lm-100m": "pga_lm_100m",
     "qwen1.5-32b": "qwen1_5_32b",
     "qwen2-0.5b": "qwen2_0_5b",

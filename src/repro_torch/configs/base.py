@@ -41,6 +41,16 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class AudioStubConfig:
+    """Audio frontend stub (conv feature extractor), the reference's
+    fields: batches carry 20 ms frame embeddings of width ``d_model``
+    directly (``data.synthetic``)."""
+    frame_dim: int = 1280
+    mask_prob: float = 0.08          # HuBERT masked-prediction span starts
+    mask_span: int = 10
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense|encoder|moe|vlm|ssm|hybrid
@@ -68,7 +78,7 @@ class ModelConfig:
     mla: Optional[Any] = None
     ssm: Optional[SSMConfig] = None
     vision: Optional[Any] = None
-    audio: Optional[Any] = None
+    audio: Optional[AudioStubConfig] = None
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"
 
@@ -105,6 +115,10 @@ class ModelConfig:
         if self.n_heads % self.n_kv_heads != 0:
             raise ValueError("n_heads must be divisible by n_kv_heads")
         return self
+
+    @property
+    def is_encoder(self) -> bool:
+        return not self.causal
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +186,10 @@ class DistConfig:
     comm_overlap: bool = False       # overlapped gossip: step t's round
                                      # is applied at step t + 1
     remat: str = "block"             # "none" | "block" (checkpoint per block)
-    remat_policy: str = "nothing"
+    remat_policy: str = "nothing"    # "nothing" | "dots": what a
+                                     # checkpointed block saves besides
+                                     # its input (models.blocks.
+                                     # make_remat)
     fsdp: bool = False
 
     def validate(self) -> "DistConfig":
@@ -223,6 +240,8 @@ class DistConfig:
             raise ValueError("pallas_leaf_threshold must be >= 1")
         if self.remat not in ("none", "block"):
             raise ValueError("remat must be 'none' or 'block'")
+        if self.remat_policy not in ("nothing", "dots"):
+            raise ValueError("remat_policy must be 'nothing' or 'dots'")
         get_algorithm(self.algorithm, caller="DistConfig.validate")
         if self.topology in ("directed_ring", "directed_exp") \
                 and not self.push_sum:
@@ -253,8 +272,6 @@ class DistConfig:
                     "buffer to a fresh iterate (DESIGN.md §2.6)")
         if self.fsdp:
             raise not_ported("FSDP parameter sharding (fsdp)", "A.10")
-        if self.remat_policy != "nothing":
-            raise not_ported(f"remat_policy={self.remat_policy!r}", "A.8")
         return self
 
     def comm_spec(self, n_nodes: int, mesh=None):
@@ -297,7 +314,7 @@ class DistConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sgd"                # sgd | adamw (lamb: not ported)
+    name: str = "sgd"                # sgd | adamw | lamb
     lr: float = 0.1
     momentum: float = 0.9
     nesterov: bool = True
@@ -331,7 +348,8 @@ class TrainConfig:
     data: DataConfig = field(default_factory=DataConfig)
     global_batch: int = 256
     seq_len: int = 4096
-    microbatches: int = 1
+    microbatches: int = 1            # grad-accumulation splits of each
+                                     # node's batch
     steps: int = 200
     log_every: int = 10
     ckpt_every: int = 0              # 0 = disabled
@@ -344,9 +362,9 @@ class TrainConfig:
 
     def validate(self) -> "TrainConfig":
         self.dist.validate()
-        if self.microbatches != 1:
-            raise not_ported("gradient accumulation (microbatches)",
-                              "A.8")
+        if self.microbatches < 1:
+            raise ValueError(f"TrainConfig: microbatches="
+                             f"{self.microbatches} must be >= 1")
         if self.data.kind != "synthetic_lm":
             # the reference's Trainer ignores the field and trains on the
             # LM stream whatever it says; the port refuses instead

@@ -1,11 +1,13 @@
-"""Synthetic LM data stream (numpy copy of the decoder-LM path of
-``repro/data/synthetic.py``): same seeds, same draws, so batches are
-bit-identical to the reference's.
+"""Synthetic data stream (numpy copy of the decoder-LM and encoder paths
+of ``repro/data/synthetic.py``): same seeds, same draws in the same
+order, so batches are bit-identical to the reference's.
 
 Deterministic, seeded batches with learnable structure (an affine
 next-token map corrupted by noise); per-node vocabulary bias implements
-the paper's non-iid regime.  Encoder and VLM batches come with those
-model families (ROADMAP A.8).
+the paper's non-iid regime.  A text encoder's batch adds the masked
+positions (15%); an audio encoder's carries frame embeddings that encode
+the unit to predict, and masks ``mask_prob · mask_span / 2`` of them.
+VLM batches come with that family (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from repro_torch.configs.base import DataConfig, ModelConfig, not_ported
 
 @dataclasses.dataclass
 class SyntheticStream:
-    """get_batch(step) -> {"inputs", "targets"}, int32 (n, B, S)."""
+    """get_batch(step) -> {"inputs", "targets"}, int32 (n, B, S); an
+    encoder adds the boolean ``mask``; an audio encoder has float32
+    ``frames`` (n, B, S, d_model) in place of ``inputs``."""
     model_cfg: ModelConfig
     data_cfg: DataConfig
     n_nodes: int
@@ -63,13 +67,29 @@ class SyntheticStream:
 
     def get_batch(self, step: int) -> Dict[str, np.ndarray]:
         cfg = self.model_cfg
-        if cfg.family in ("encoder", "vlm"):
+        if cfg.family == "vlm":
             raise not_ported(f"{cfg.family} batches", "A.8")
         rng = self._rng(step)
-        tokens = self._sample_tokens(rng, cfg.vocab_size)
-        return {"inputs": tokens,
-                "targets": self._next_token_map(tokens, cfg.vocab_size,
-                                                rng)}
+        V = cfg.vocab_size
+        if cfg.family == "encoder" and cfg.audio is not None:
+            n, b, s = self.n_nodes, self.per_node_batch, self.seq_len
+            d = cfg.d_model
+            targets = self._sample_tokens(rng, V)
+            # frame embeddings carry the unit identity (learnable)
+            basis = np.random.default_rng(self.data_cfg.seed).standard_normal(
+                (V, d)).astype(np.float32) / np.sqrt(d)
+            frames = basis[targets] + 0.1 * rng.standard_normal(
+                (n, b, s, d)).astype(np.float32)
+            mask = (rng.random((n, b, s))
+                    < cfg.audio.mask_prob * cfg.audio.mask_span / 2)
+            return {"frames": frames.astype(np.float32), "mask": mask,
+                    "targets": targets}
+        tokens = self._sample_tokens(rng, V)
+        batch = {"inputs": tokens,
+                 "targets": self._next_token_map(tokens, V, rng)}
+        if cfg.family == "encoder":
+            batch["mask"] = rng.random(tokens.shape) < 0.15
+        return batch
 
 
 def make_stream(model_cfg: ModelConfig, data_cfg: DataConfig, *,

@@ -5,9 +5,12 @@ qk-norm and qkv biases, and its KV cache (counterpart of the GQA path of
 Plain ``matmul`` + fp32 softmax, as the reference computes it outside any
 Pallas kernel.  Two entry modes share one weight set: the full sequence
 (train / prefill, :func:`attn_forward`) and one query position against a
-cache (:func:`attn_decode`).  MLA and the blocked long-sequence path
-(S ≥ 8192) are not ported yet (ROADMAP A.8); no model calls the
-flash-attention kernel (ROADMAP B.6), here or in the reference.
+cache (:func:`attn_decode`).  From ``BLOCKED_THRESHOLD`` positions on, the
+full sequence runs through :func:`_sdpa_blocked`, the reference's
+memory-bounded host path: the same math over query chunks, so no S × S
+score tensor is ever live.  MLA is not ported yet (ROADMAP A.8); no
+model calls the flash-attention kernel (ROADMAP B.6), here or in the
+reference.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, not_ported
 from repro_torch.models.layers import (ParamBuilder, apply_rope, make_rope,
@@ -22,7 +26,9 @@ from repro_torch.models.layers import (ParamBuilder, apply_rope, make_rope,
 
 PyTree = Any
 NEG_INF = -2.3819763e38  # the reference's (XLA's) mask value
+# S >= BLOCKED_THRESHOLD takes the blocked path, query chunks of _Q_CHUNK
 BLOCKED_THRESHOLD = 8192
+_Q_CHUNK = 512
 LAYER_KINDS = ("attn", "attn_sw")
 
 
@@ -74,6 +80,31 @@ def _sdpa(q, k, v, mask, *, scale, cap=None):
     return torch.einsum("nbhgqk,nbkhd->nbqhgd", probs, v)
 
 
+def _sdpa_blocked(q, k, v, q_pos, k_pos, *, causal: bool,
+                  window: Optional[int], scale: float, cap=None,
+                  chunk: int = _Q_CHUNK):
+    """:func:`_sdpa` over query chunks of ``chunk`` rows (positions
+    ``q_pos``/``k_pos`` ``(B, S)``): the live logits are (n, B, nkv, g,
+    chunk, Sk), and each chunk's result is written into one preallocated
+    output.  As in the reference, the last chunk is padded with zero
+    queries at position -1, masked off by ``q_pos >= 0``; those rows stay
+    finite because ``NEG_INF`` is finite, and are dropped."""
+    Sq = q.shape[2]
+    chunk = min(chunk, Sq)
+    pad = (-Sq) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+    out = q.new_empty(q.shape[:2] + (Sq,) + q.shape[3:5] + v.shape[-1:])
+    for s in range(0, Sq, chunk):
+        pi = q_pos[:, s:s + chunk]
+        mask = attention_mask(pi, k_pos, causal=causal, window=window)
+        mask = mask & (pi[..., :, None] >= 0)
+        o = _sdpa(q[:, :, s:s + chunk], k, v, mask, scale=scale, cap=cap)
+        out[:, :, s:s + chunk] = o[:, :, :min(chunk, Sq - s)]
+    return out
+
+
 def _heads(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A per-node ``(n, heads, hd)`` leaf broadcast over ``(B, S)``."""
     return w.to(dtype)[:, None, None]
@@ -116,17 +147,20 @@ def attn_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     ``(out, {"k", "v"})``, the cache leaves ``(n, B, S, nkv, hd)``."""
     n, B, S, _ = x.shape
     window = _window(cfg, layer_kind)
-    if S >= BLOCKED_THRESHOLD:
-        raise not_ported(f"blocked attention for S={S}", "A.8")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x, positions)
     qg = q.reshape(n, B, S, nkv, nh // nkv, hd)
-    mask = attention_mask(positions, positions, causal=cfg.causal,
-                          window=window)
-    out = _sdpa(qg, k, v, mask, scale=1.0 / math.sqrt(hd),
-                cap=cfg.attn_logit_softcap)
+    scale = 1.0 / math.sqrt(hd)
+    if S >= BLOCKED_THRESHOLD:
+        out = _sdpa_blocked(qg, k, v, positions, positions,
+                            causal=cfg.causal, window=window, scale=scale,
+                            cap=cfg.attn_logit_softcap)
+    else:
+        mask = attention_mask(positions, positions, causal=cfg.causal,
+                              window=window)
+        out = _sdpa(qg, k, v, mask, scale=scale, cap=cfg.attn_logit_softcap)
     return _out(params, out, x), {"k": k, "v": v}
 
 

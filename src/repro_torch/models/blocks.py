@@ -1,24 +1,30 @@
 """Block assembly over layer-stacked parameters (counterpart of
 ``repro/models/blocks.py``) for the ported block kinds: dense attention
-(global or sliding-window) + gated MLP, and the xLSTM mixers (mLSTM,
-sLSTM) without an FFN.
+(global or sliding-window) + gated MLP, the encoder's non-causal
+attention + gated MLP with GELU, and the xLSTM mixers (mLSTM, sLSTM)
+without an FFN.
 
 A block is a pre-norm mixer + residual, then, unless its FFN is
-``"none"``, a pre-norm gated MLP + residual; with ``post_block_norm`` each
+``"none"``, a pre-norm gated MLP (SiLU; GELU's tanh form, ``jax.nn.gelu``'s
+default, in the encoder) + residual; with ``post_block_norm`` each
 branch's output is normed before its residual add (Gemma 2).  Parameters
 keep the reference's scan layout ``{"scan": {"entry_<j>": stacked}}`` with
 the layer axis right after the node axis; :func:`apply_stack` loops over
 it where the reference scans, and returns the caches in the same layout
 (``(n, L, B, …)`` leaves).  Decode writes attention KV rows in place into
 the caches it is given and returns those tensors; recurrent states are
-returned as new tensors.  With ``remat="default"`` each training block
-runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
+returned as new tensors.  With ``remat="default"`` or ``"dots"`` each
+training block runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), see :func:`make_remat`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (BlockSpec, ModelConfig, SSMConfig,
@@ -31,24 +37,31 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 PyTree = Any
 FAMILY_BLOCKS = {"dense": {("attn", "dense"), ("attn_sw", "dense")},
+                 "encoder": {("attn", "dense")},
                  "ssm": {("mlstm", "none"), ("slstm", "none")}}
 MODES = ("train", "prefill", "decode")
+REMAT_POLICIES = ("none", "default", "dots")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every model feature outside the ported paths: the dense
     decoder (with qk-norm, qkv biases, softcaps, the sliding window,
-    post-block norms, untied embeddings) and the xLSTM family."""
+    post-block norms, untied embeddings), the encoder (text, or audio
+    frames through the stub) and the xLSTM family."""
     if cfg.family not in FAMILY_BLOCKS or any(
-            c is not None for c in (cfg.moe, cfg.mla, cfg.vision,
-                                    cfg.audio)):
+            c is not None for c in (cfg.moe, cfg.mla, cfg.vision)):
         raise not_ported(f"model family {cfg.family!r}", "A.8")
+    if cfg.audio is not None and cfg.family != "encoder":
+        raise not_ported(f"an audio stub in family {cfg.family!r}", "A.8")
     if (cfg.family == "ssm") != isinstance(cfg.ssm, SSMConfig):
         raise not_ported(f"family {cfg.family!r} with ssm={cfg.ssm!r}",
                          "A.8")
     unported = [name for name, on in (
         ("prefix_pattern", bool(cfg.prefix_pattern)),
-        ("non-causal attention", not cfg.causal)) if on]
+        ("non-causal attention outside the encoder family",
+         not cfg.causal and cfg.family != "encoder"),
+        ("causal attention in the encoder family",
+         cfg.causal and cfg.family == "encoder")) if on]
     if unported:
         raise not_ported(f"model features {unported}", "A.8")
     kinds = set(cfg.layers)
@@ -119,11 +132,37 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
     x = x + out
     if ffn != "none":
         out = apply_mlp(params["ffn"], rms_norm(x, params["ln2"],
-                                                cfg.norm_eps))
+                                                cfg.norm_eps),
+                        act=_gelu if cfg.family == "encoder" else F.silu)
         if cfg.post_block_norm:
             out = rms_norm(out, params["post_ln2"], cfg.norm_eps)
         x = x + out
     return x, new_cache
+
+
+# jax.nn.gelu's default is the tanh form; F.gelu's is erf
+_gelu = functools.partial(F.gelu, approximate="tanh")
+
+
+def make_remat(fn, policy: str):
+    """``fn`` under the reference's remat ``policy`` (one of
+    :data:`REMAT_POLICIES`, checked by :func:`apply_stack`): ``"none"``
+    runs it as it is; ``"default"`` and ``"dots"`` checkpoint it, saving
+    only its inputs (``jax.checkpoint``).  ``"dots"`` is the reference's
+    ``dots_with_no_batch_dims_saveable``, which saves products without
+    batch dimensions; under the reference Trainer's ``jax.vmap`` over the
+    nodes every product has one, and
+    ``jax.ad_checkpoint.print_saved_residuals`` shows it keeps the same
+    residuals as ``"default"``.  Every product of the port's node-stacked
+    blocks is batched over the nodes too, so the same plain checkpoint is
+    its counterpart (``ROADMAP`` C.3)."""
+    if policy == "none":
+        return fn
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return remat
 
 
 def _layer(tree: PyTree, i: int) -> PyTree:
@@ -149,8 +188,9 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     entry's are restacked from the new states."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if remat not in ("none", "default"):
-        raise not_ported(f"remat policy {remat!r}", "A.8")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, "
+                         f"got {remat!r}")
     need_cache = want_cache or mode == "decode"
     scan = params["scan"]
     outs: Dict[int, list] = {j: [] for j in range(len(cfg.pattern))}
@@ -165,9 +205,8 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                                    positions=positions, cache=cache,
                                    pos=pos)
 
-            if remat == "default" and mode == "train" and not need_cache:
-                x = checkpoint(lambda h, run=run: run(h)[0], x,
-                               use_reentrant=False)
+            if remat != "none" and mode == "train" and not need_cache:
+                x = make_remat(lambda h, run=run: run(h)[0], remat)(x)
             else:
                 x, c_out = run(x)
                 if need_cache:

@@ -1,6 +1,7 @@
 """Top-level Model: init / forward / decode / loss for the dense decoder LMs
-(pga-lm-100m, gemma2-9b, the qwen configs) and the xLSTM family
-(counterpart of ``repro/models/model.py``).
+(pga-lm-100m, gemma2-9b, the qwen configs), the encoders (bert-large,
+hubert-xlarge) and the xLSTM family (counterpart of
+``repro/models/model.py``).
 
 Params keep the reference's layout — the same nested keys and, once
 stacked for the nodes, the same ``(n, L, …)`` shapes — so a tree carries
@@ -45,6 +46,8 @@ class Model:
         init_embedding(emb, cfg.vocab_size, cfg.d_model,
                        cfg.tie_embeddings)
         b.attach("embed", emb.params)
+        if cfg.family == "encoder":
+            b.add("mask_emb", (cfg.d_model,), init="normal")
         stack = ParamBuilder(generator, b.param_dtype, b.device)
         blocks.init_stack(stack, cfg)
         b.attach("stack", stack.params)
@@ -63,9 +66,8 @@ class Model:
             raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                              f"got {mode!r} (decode: decode_step)")
         cfg = self.cfg
-        dtype = _DTYPES[cfg.dtype]
-        h = self._embed(params, batch["inputs"], dtype)
-        _, B, S = batch["inputs"].shape
+        h = self._embed_batch(params, batch, _DTYPES[cfg.dtype])
+        _, B, S = h.shape[:3]
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
         h, caches = blocks.apply_stack(params["stack"], cfg, h, mode=mode,
                                        positions=positions, remat=remat,
@@ -96,6 +98,21 @@ class Model:
             params["embed"], tokens, dtype,
             scale_by_dim=self.cfg.final_logit_softcap is not None)
 
+    def _embed_batch(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                     dtype: torch.dtype) -> torch.Tensor:
+        """The full-sequence input: token embeddings, or an audio
+        encoder's frames; an encoder's masked positions take
+        ``mask_emb``."""
+        cfg = self.cfg
+        if cfg.family == "encoder" and cfg.audio is not None:
+            h = batch["frames"].to(dtype)
+        else:
+            h = self._embed(params, batch["inputs"], dtype)
+        if cfg.family == "encoder":
+            me = params["mask_emb"].to(dtype)[:, None, None, :]
+            h = torch.where(batch["mask"][..., None], me, h)
+        return h
+
     def _unembed(self, params: PyTree, h: torch.Tensor) -> torch.Tensor:
         return unembed(params["embed"], h, self.cfg.tie_embeddings,
                        self.cfg.final_logit_softcap)
@@ -112,20 +129,32 @@ class Model:
     def node_losses(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
                     remat: str = "none", z_loss: float = 0.0
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Per-node mean next-token cross entropy (+ z-loss): ``(losses
-        (n,), metrics of (n,))``."""
+        """Per-node mean cross entropy (+ z-loss): ``(losses (n,),
+        metrics of (n,))``.  A decoder averages over every position; an
+        encoder over its masked positions only, each node by its own
+        count ``max(Σ mask, 1)``, as the reference's per-node loss
+        does."""
         logits, _, _ = self.forward(params, batch, remat=remat)
         targets = batch["targets"].long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         n = nll.shape[0]
-        denom = max(float(nll[0].numel()), 1.0)
-        ce = nll.reshape(n, -1).sum(dim=1) / denom
+        weights = None
+        if self.cfg.family == "encoder":
+            weights = batch["mask"].to(torch.float32).reshape(n, -1)
+            denom = torch.clamp(weights.sum(dim=1), min=1.0)
+            ce = (nll.reshape(n, -1) * weights).sum(dim=1) / denom
+        else:
+            denom = max(float(nll[0].numel()), 1.0)
+            ce = nll.reshape(n, -1).sum(dim=1) / denom
         total = ce
         metrics = {"ce": ce, "lb_loss": torch.zeros_like(ce)}
         if z_loss:
-            lse = torch.logsumexp(logits, dim=-1)
-            zl = torch.square(lse).reshape(n, -1).sum(dim=1) / denom
+            lse2 = torch.square(torch.logsumexp(logits, dim=-1)).reshape(
+                n, -1)
+            if weights is not None:
+                lse2 = lse2 * weights
+            zl = lse2.sum(dim=1) / denom
             total = total + z_loss * zl
             metrics["z_loss"] = zl
         metrics["loss"] = total

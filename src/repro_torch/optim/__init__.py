@@ -1,4 +1,4 @@
 from repro_torch.optim.optimizers import (Optimizer, adamw,  # noqa: F401
-                                          clip_by_global_norm,
+                                          clip_by_global_norm, lamb,
                                           make_optimizer, sgd)
 from repro_torch.optim.schedules import make_schedule  # noqa: F401

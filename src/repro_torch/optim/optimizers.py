@@ -1,10 +1,13 @@
-"""Optimizers: SGD (+Nesterov momentum) and AdamW as functional
+"""Optimizers: SGD (+Nesterov momentum), AdamW and LAMB as functional
 ``(init, update)`` pairs over node-stacked dict trees (counterpart of
 ``repro/optim/optimizers.py``).
 
-Elementwise updates vectorise over the leading node axis unchanged.  Like
-the reference, ``update`` returns new tensors and leaves its inputs as they
-were.  LAMB is not ported yet (ROADMAP A.8).
+Elementwise updates vectorise over the leading node axis unchanged.
+LAMB's layerwise trust ratio must be *per node*: ``per_node=True`` takes
+each tensor norm over every axis but the first, so a leaf stacked over
+layers ``(n, L, …)`` gets one ratio per node across all its layers (paper
+§5.3/App. F trains BERT with LAMB).  Like the reference, ``update``
+returns new tensors and leaves its inputs as they were.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import OptimizerConfig, not_ported
+from repro_torch.configs.base import OptimizerConfig
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_unflatten)
 
@@ -27,6 +30,17 @@ class Optimizer(NamedTuple):
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _tensor_norm(x: torch.Tensor, per_node: bool) -> torch.Tensor:
+    """The fp32 L2 norm of ``x``; with ``per_node`` (and ``x`` at least
+    2-D) one norm per node over all the other axes, shaped to broadcast
+    against ``x``."""
+    sq = torch.square(x.to(torch.float32))
+    if per_node and x.dim() > 1:
+        nrm = torch.sqrt(torch.sum(sq, dim=tuple(range(1, x.dim()))))
+        return nrm.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    return torch.sqrt(torch.sum(sq))
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
@@ -61,13 +75,16 @@ def sgd(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
-def adamw(cfg: OptimizerConfig) -> Optimizer:
-    def init(params):
-        return {"m": tree_map(_zeros_f32, params),
-                "v": tree_map(_zeros_f32, params),
-                "count": torch.zeros((), dtype=torch.int32,
-                                     device=tree_leaves(params)[0].device)}
+def _adam_init(params):
+    return {"m": tree_map(_zeros_f32, params),
+            "v": tree_map(_zeros_f32, params),
+            "count": torch.zeros((), dtype=torch.int32,
+                                 device=tree_leaves(params)[0].device)}
 
+
+def _adam(cfg: OptimizerConfig, step) -> Optimizer:
+    """AdamW's moments and bias corrections around ``step(p, u, lr)``, the
+    new parameter from the decayed Adam direction ``u`` (fp32)."""
     def update(grads, state, params, lr):
         # int32 step count; the bias corrections are fp32 powers of it
         count = state["count"] + 1
@@ -84,21 +101,40 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
             v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
             u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
             u = u + cfg.weight_decay * p.to(torch.float32)
-            ps.append((p.to(torch.float32) - lr * u).to(p.dtype))
+            ps.append(step(p, u, lr).to(p.dtype))
             ms.append(m)
             vs.append(v)
         return tree_unflatten(treedef, ps), {
             "m": tree_unflatten(treedef, ms),
             "v": tree_unflatten(treedef, vs), "count": count}
 
-    return Optimizer(init, update)
+    return Optimizer(_adam_init, update)
 
 
-def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
+def adamw(cfg: OptimizerConfig) -> Optimizer:
+    return _adam(cfg, lambda p, u, lr: p.to(torch.float32) - lr * u)
+
+
+def lamb(cfg: OptimizerConfig, per_node: bool = False) -> Optimizer:
+    """AdamW's direction scaled by the trust ratio ‖p‖ / ‖u‖ (1 where
+    either norm is 0), per node with ``per_node``."""
+    def step(p, u, lr):
+        wn = _tensor_norm(p, per_node)
+        un = _tensor_norm(u, per_node)
+        trust = torch.where((wn > 0) & (un > 0),
+                            wn / torch.clamp(un, min=1e-12),
+                            torch.ones_like(wn))
+        return p.to(torch.float32) - lr * trust * u
+
+    return _adam(cfg, step)
+
+
+def make_optimizer(cfg: OptimizerConfig, per_node: bool = False
+                   ) -> Optimizer:
     if cfg.name == "sgd":
         return sgd(cfg)
     if cfg.name == "adamw":
         return adamw(cfg)
     if cfg.name == "lamb":
-        raise not_ported("the LAMB optimizer", "A.8")
+        return lamb(cfg, per_node=per_node)
     raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -29,6 +29,15 @@ unchanged.  An algorithm-owned phase (SlowMo's outer step) runs no round:
 (GT-PGA's tracker) send the joint tree ``{"params": ..., <slot>: ...}``
 through ``communicate``.  The fused consensus rounds bypass
 ``communicate`` and meter themselves (``mixing.meter_round``).
+
+With ``TrainConfig.microbatches`` m > 1 every mode accumulates the grads
+of m slices of each node's batch (rows ``[i·b/m, (i+1)·b/m)``, the
+reference's reshape): their fp32 sum over the slices in order, then
+``/ m``; the metrics are the mean over the slices of each slice's node
+mean (:func:`build_grad_fn`, the step's gradient phase alone).
+``DistConfig.remat`` and ``remat_policy`` map to the blocks' policy as
+in the reference: ``"none"``, else ``"dots"`` or ``"default"``
+(``models.blocks.make_remat``).
 """
 from __future__ import annotations
 
@@ -84,6 +93,73 @@ def _freeze_rows(new: PyTree, old: PyTree, dropped, n_nodes: int) -> PyTree:
             for i in dropped:
                 nw[i].copy_(od[i])
     return new
+
+
+def check_microbatches(per_node_batch: int, microbatches: int) -> None:
+    """The per-node batch must split into equal microbatches (the
+    reference fails at its reshape)."""
+    if per_node_batch % microbatches:
+        raise ValueError(f"per-node batch {per_node_batch} is not divisible "
+                         f"by microbatches={microbatches}")
+
+
+def build_grad_fn(model: Model, tcfg: TrainConfig) -> Callable:
+    """The step's gradient phase alone: ``grad_fn(params, batch) ->
+    (grads, metrics)`` over node-stacked ``params`` and a batch of
+    ``(n_nodes, per_node_batch, …)`` leaves, under the remat policy of
+    ``tcfg.dist`` and with ``tcfg.microbatches`` slices accumulated.
+    ``grads`` are per node and unscaled (the loss is summed over the
+    nodes); ``metrics`` are the node means as device scalars."""
+    # DistConfig.remat/remat_policy -> the blocks' remat policy
+    if tcfg.dist.remat == "none":
+        remat = "none"
+    elif tcfg.dist.remat_policy == "dots":
+        remat = "dots"
+    else:
+        remat = "default"
+
+    def grad_fn(params: PyTree, batch: PyTree):
+        leaves, treedef = tree_flatten(params)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            losses, metrics = model.node_losses(
+                tree_unflatten(treedef, live), batch, remat=remat,
+                z_loss=tcfg.z_loss)
+            # sum over nodes => grads land per node, unscaled (Alg. 1);
+            # a leaf the loss does not read (an audio encoder's token
+            # table) gets zeros, as under jax.grad
+            grads = torch.autograd.grad(losses.sum(), live,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        metrics = {k: v.detach().mean() for k, v in metrics.items()}
+        return tree_unflatten(treedef, list(grads)), metrics
+
+    def accum_grad_fn(params: PyTree, batch: PyTree):
+        """Gradient accumulation over ``tcfg.microbatches`` slices of each
+        node's batch: activation memory drops about m× at the same math
+        (for the encoder each slice has its own mask count, so the mean
+        of the slices is not the full batch's mean, as in the
+        reference)."""
+        m = tcfg.microbatches
+        b = tree_leaves(batch)[0].shape[1]
+        check_microbatches(b, m)
+        bm = b // m
+        leaves, treedef = tree_flatten(params)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        mets = []
+        for i in range(m):
+            g, met = grad_fn(params, {k: t[:, i * bm:(i + 1) * bm]
+                                      for k, t in batch.items()})
+            for a, gi in zip(acc, tree_leaves(g)):
+                a.add_(gi)
+            del g
+            mets.append(met)
+        grads = tree_unflatten(treedef, [a.div_(m) for a in acc])
+        return grads, {k: torch.stack([mt[k] for mt in mets]).mean()
+                       for k in mets[0]}
+
+    return accum_grad_fn if tcfg.microbatches > 1 else grad_fn
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
@@ -158,23 +234,12 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             for s in range(period):
                 hops |= set(topo.shift_weights(dist.topology, n_nodes, s))
             ps_offsets = mixing.push_sum_shard_offsets(n_nodes, k, hops)
-    opt = make_optimizer(tcfg.optimizer)
-    remat = "none" if dist.remat == "none" else "default"
+    opt = make_optimizer(tcfg.optimizer, per_node=True)
     fused_consensus_round = (dist.comm_backend == "pallas" and with_consensus
                              and n_nodes > 1 and not lossy_round
                              and phase in mixing_cuda.KERNEL_PHASES)
 
-    def grad_fn(params: PyTree, batch: PyTree):
-        leaves, treedef = tree_flatten(params)
-        with torch.enable_grad():
-            live = [p.detach().requires_grad_(True) for p in leaves]
-            losses, metrics = model.node_losses(
-                tree_unflatten(treedef, live), batch, remat=remat,
-                z_loss=tcfg.z_loss)
-            # sum over nodes => grads land per node, unscaled (Alg. 1)
-            grads = torch.autograd.grad(losses.sum(), live)
-        metrics = {k: v.detach().mean() for k, v in metrics.items()}
-        return tree_unflatten(treedef, list(grads)), metrics
+    grad_fn = build_grad_fn(model, tcfg)
 
     def _sync_round(extras, params_half, step_seed: int):
         payload = algo.comm_payload(extras, params_half)

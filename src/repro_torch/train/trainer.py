@@ -60,7 +60,7 @@ from repro_torch.models.model import make_model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import make_schedule as make_lr
 from repro_torch.train.state import TrainState, stack_for_nodes
-from repro_torch.train.step import build_train_step
+from repro_torch.train.step import build_train_step, check_microbatches
 from repro_torch.tree import tree_map
 
 PyTree = Any
@@ -114,6 +114,7 @@ class Trainer:
         self.stream = make_stream(tcfg.model, tcfg.data, n_nodes=n_nodes,
                                   global_batch=tcfg.global_batch,
                                   seq_len=tcfg.seq_len)
+        check_microbatches(self.stream.per_node_batch, tcfg.microbatches)
         self._steps: Dict[Any, Any] = {}
         self._metered: set = set()   # step variants that have reported
         # overlap: the in-flight round's buffer and the shift it was
@@ -157,7 +158,8 @@ class Trainer:
                 generator = torch.Generator().manual_seed(self.tcfg.seed)
             params = self.model.init(generator, self.device)
         params = stack_for_nodes(params, self.n_nodes)
-        opt_state = make_optimizer(self.tcfg.optimizer).init(params)
+        opt_state = make_optimizer(self.tcfg.optimizer,
+                                   per_node=True).init(params)
         extras = algo_lib.init_extras(self.tcfg.dist, params, self.n_nodes)
         return TrainState(params=params, opt_state=opt_state, step=0,
                           extras=extras)

@@ -5,6 +5,7 @@ Whether a card is present is decided inside each test, never at import
 time; without one, the default device must raise.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -169,14 +170,26 @@ def test_overlap_options_validate_as_the_reference(over):
 
 
 def test_unported_train_options_raise():
-    """Gradient accumulation still raises A.8; checkpoints (A.7, ported)
-    are accepted, with the reference's default directory."""
+    """Gradient accumulation and LAMB (A.8) and checkpoints (A.7) are
+    ported: the Trainer accepts them, checkpoints with the reference's
+    default directory, a per-node batch the microbatches do not divide
+    raises ``ValueError``; FSDP (A.10) and MoE (A.8) still raise."""
     from repro.configs.base import TrainConfig as JTrain
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        Trainer(_tcfg().replace(microbatches=2), n_nodes=4, device="cpu")
+    tr = Trainer(_tcfg().replace(microbatches=2), n_nodes=4, device="cpu")
+    assert tr.tcfg.microbatches == 2
+    with pytest.raises(ValueError, match="microbatches=3"):
+        Trainer(_tcfg().replace(microbatches=3), n_nodes=4, device="cpu")
     tr = Trainer(_tcfg().replace(ckpt_every=5), n_nodes=4, device="cpu")
     assert tr.tcfg.ckpt_every == 5
     assert tr.tcfg.ckpt_dir == JTrain(model=None).ckpt_dir
+    state = Trainer(_tcfg().replace(optimizer=OptimizerConfig(name="lamb")),
+                    n_nodes=4, device="cpu").init_state()
+    assert sorted(state.opt_state) == ["count", "m", "v"]
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        Trainer(_tcfg().replace(dist=DistConfig(fsdp=True)), n_nodes=4,
+                device="cpu")
+    cfg = _tcfg()
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        Trainer(_tcfg().replace(optimizer=OptimizerConfig(name="lamb")),
-                n_nodes=4, device="cpu").init_state()
+        Trainer(cfg.replace(model=dataclasses.replace(cfg.model,
+                                                      family="moe")),
+                n_nodes=4, device="cpu")
