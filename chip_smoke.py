@@ -140,9 +140,9 @@ line):
    (:func:`run_dense_serve_path`): ``[lmserve]`` pga-lm-100m
    (``Engine.generate`` 8 × 480 + 32; ``BatchedServer`` with prompts of
    6, 100 and 480 on 2 slots, 16 new each), ``[gserve]`` gemma2-9b at
-   all 42 layers (1 × 4,608 + 32 at ``s_max`` 4,672, the sliding window
-   cutting the prefill and every decode step on its 21 ``attn_sw``
-   layers; prompts of 6, 100, 1,000 and 4,608 on 4 slots; the init time,
+   full width and, since slice 13, :data:`GEMMA_LAYERS` of its 42 layers
+   (1 × 4,608 + 32 at ``s_max`` 4,672, the sliding window cutting the
+   prefill and every decode step on its ``attn_sw`` layers; prompts of 6, 100, 1,000 and 4,608 on 4 slots; the init time,
    one profiled window of 4 decode steps and the weight casts alone),
    ``[qserve]`` qwen3-0.6b, qwen2-0.5b and qwen1.5-32b at 2 of its 64
    layers (8 × 1,024 + 32): prefill ms, decode ms a token against the
@@ -167,6 +167,22 @@ line):
    params after one step); ``[encx]`` bert-large and hubert-xlarge at
    their reduced configs card vs CPU (grads, loss and params after one
    LAMB step with 2 microbatches).
+15. slice 13's paths, MoE, MLA and prefix patterns (:data:`SLICE13`):
+   ``[dsserve]`` deepseek-v2-lite-16b at its full published size (27
+   layers, 15,706,484,224 params: the dense prefix layer, 26 MoE layers
+   of 64 routed experts top-6 and 2 shared, MLA with the latent cache;
+   the init timed, ``Engine.generate`` 4 × 1,024 + 16 with the prefill's
+   drop_frac, a 4-slot ``BatchedServer``, the decode gate at float32
+   drop-free), ``[dslong]`` one 8,192-token prompt on its params through
+   the blocked MLA path, then one layer's blocked MLA against the plain
+   at float32 (:func:`run_ds_path`); ``[qmoe]`` qwen3-moe-30b-a3b at full
+   width and 4 of its 48 layers, ``apply_moe`` against the dense oracle
+   and ``_build_dispatch`` card vs CPU bitwise (:func:`run_qmoe_path`);
+   ``[moetrain]`` the Trainer on deepseek-v2-lite at full width with its
+   prefix layer and one MoE layer, n = 2, AdamW, B.1 on every round, one
+   synchronizing call a steady step (:func:`run_moetrain_path`);
+   ``[moex]`` both archs' reduced configs card vs CPU
+   (:func:`moe_cross_check`).  ``--phases`` runs these alone.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -4515,13 +4531,17 @@ DXCROSS_TOL = 1e-4          # card vs CPU at float32, of max|cpu|
 DENSE_ARCHS = ("pga-lm-100m", "gemma2-9b", "qwen3-0.6b", "qwen2-0.5b",
                "qwen1.5-32b")
 QWEN32_LAYERS = 2           # of qwen1.5-32b's 64, at full width
+# of gemma2-9b's 42, at full width: since slice 13 the whole script must
+# finish within 900 s, and the 42 layers' host init alone took 70-77 s
+GEMMA_LAYERS = 10
 # (B, prompt, new tokens, s_max) of Engine.generate, then the
 # BatchedServer's prompt lengths, slots and new tokens per request
 DENSE_SERVE = {
     "[lmserve]": dict(arch="pga-lm-100m", gen=(8, 480, 32, 512),
                       server=((6, 100, 480), 2, 16)),
     "[gserve]": dict(arch="gemma2-9b", gen=(1, 4608, 32, 4672),
-                     server=((6, 100, 1000, 4608), 4, 16)),
+                     server=((6, 100, 1000, 4608), 4, 16),
+                     n_layers=GEMMA_LAYERS),
     "[qserve] qwen3-0.6b": dict(arch="qwen3-0.6b", gen=(8, 1024, 32, 1056)),
     "[qserve] qwen2-0.5b": dict(arch="qwen2-0.5b", gen=(8, 1024, 32, 1056)),
     "[qserve] qwen1.5-32b": dict(arch="qwen1.5-32b", gen=(8, 1024, 32, 1056),
@@ -4602,10 +4622,24 @@ def _gap(torch, got, want, atol: float, rtol: float) -> tuple:
             float((got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
+def gate_config(cfg):
+    """The float32 config of :func:`decode_gate`; an MoE model's also
+    drop-free (``capacity_factor = n_routed``), as
+    ``tests/test_decode_consistency.py`` pins it: the capacity depends on
+    each call's token count, so a prefill, a decode step and a forward
+    would otherwise drop different assignments."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_routed)))
+    return cfg
+
+
 def decode_gate(torch, tag: str, model, params, tokens, s_max: int) -> None:
     """The decode path held against the full forward at full size.
 
-    Gated, at float32 compute (the same fp32 params, TF32 off): the
+    Gated, at float32 compute (the same fp32 params, TF32 off; an MoE
+    model drop-free, :func:`gate_config`): the
     prefill's last logits and 4 decode steps against one forward over
     ``tokens[:, :S0 + 4]``, ``|dec − fwd| ≤ atol + rtol·|fwd|`` elementwise
     at :data:`DENSE_GATE_F32`.  Reported, at bf16 compute (the serving
@@ -4626,7 +4660,7 @@ def decode_gate(torch, tag: str, model, params, tokens, s_max: int) -> None:
     floor = _gap(torch, longer, fwd, *DENSE_GATE)
     ref_max = float(fwd.abs().max())
     del dec, fwd, longer
-    model32 = make_model(dataclasses.replace(model.cfg, dtype="float32"))
+    model32 = make_model(gate_config(model.cfg))
     dec, fwd = _decode_and_forward(torch, model32, params, head, s_max)
     f32 = _gap(torch, dec, fwd, *DENSE_GATE_F32)
     finite = finite and bool(torch.isfinite(dec).all())
@@ -5169,8 +5203,8 @@ def run_bertmem_path(torch, mc, params) -> dict:
 
 
 def run_glong_path(torch, model, params) -> None:
-    """``[glong]``: gemma2-9b at full published size (``[gserve]``'s
-    params), one prompt of 8,192 tokens through ``Engine.generate`` with
+    """``[glong]``: gemma2-9b at full width (``[gserve]``'s params, at
+    :data:`GEMMA_LAYERS` of its 42 layers), one prompt of 8,192 tokens through ``Engine.generate`` with
     16 new tokens at ``s_max`` 8,208 (every attention layer's prefill
     through the blocked path): prefill ms, decode ms a token, peak
     memory.  Then the gate at float32 (TF32 off), per layer: one
@@ -5326,6 +5360,581 @@ def encoder_cross_check(torch) -> None:
                                  f"{worst}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: MoE, MLA and prefix patterns (A.8): deepseek-v2-lite-16b served
+# at full published size, qwen3-moe-30b-a3b at full width, and training a
+# MoE model through the Trainer
+# ---------------------------------------------------------------------------
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_PARAMS = 15_706_484_224          # the reference's init (jax.eval_shape)
+# (B, prompt, new tokens, s_max) of Engine.generate, the BatchedServer's
+# (prompt lengths, slots, new tokens each), and the (B, S) of decode_gate
+DSSERVE = dict(gen=(4, 1024, 16, 1056), server=((6, 100, 480), 4, 16),
+               gate=(2, 256))
+DSLONG = dict(prompt=8192, new=16, s_max=8208)
+DSLONG_TOL = 1e-5                   # blocked vs plain MLA, of max|plain|
+QMOE_ARCH = "qwen3-moe-30b-a3b"
+QMOE_LAYERS = 4                     # of its 48, at full width
+QMOE = dict(gen=(4, 1024, 16, 1056), oracle=(2, 64), dispatch_tokens=4096,
+            dispatch_cf=0.5)
+QMOE_TOL = (2e-5, 1e-3)             # apply_moe vs the dense oracle, fp32:
+                                    # tests/test_moe.py's atol, rtol
+# the Trainer on deepseek-v2-lite at full width, the dense prefix layer +
+# one MoE layer: n = 2 with AdamW.  At n = 4 with SGD (Nesterov) the
+# optimizer phase holds five copies of the 17.4 GB stack (params, momentum,
+# grads, the new params and momentum), more than the card has
+MOETRAIN = dict(n=2, H=3, per_node=1, seq=512, steps=6, n_layers=2,
+                optimizer="adamw", lr=3e-4)
+MOEX_TOL = 1e-5                     # card vs CPU, of max|cpu|
+MOEX_NODES = 4
+MOEX_DEVICES = ("cuda", "cpu")      # card, then the reference run
+
+
+class moe_metrics:
+    """Records every ``apply_moe`` call's ``drop_frac`` and ``lb_loss``
+    ``(n,)`` (device tensors, read after the run) while the block is
+    active: ``models.blocks`` calls ``moe.apply_moe`` through its
+    module."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+        self.real, self.calls = moe_lib.apply_moe, []
+
+        def spy(*args, **kw):
+            out, met = self.real(*args, **kw)
+            self.calls.append({k: v.detach() for k, v in met.items()})
+            return out, met
+
+        moe_lib.apply_moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+        moe_lib.apply_moe = self.real
+
+    def drops(self) -> list:
+        """Every call's drop_frac, node by node."""
+        return [c["drop_frac"].tolist() for c in self.calls]
+
+
+def _drop_summary(drops: list) -> str:
+    flat = [d for call in drops for d in call]
+    return (f"drop_frac over {len(drops)} MoE calls: mean "
+            f"{statistics.fmean(flat):.4f}, min {min(flat):.4f}, max "
+            f"{max(flat):.4f}")
+
+
+def _init_timed(torch, model, tag: str, cut: str = ""):
+    """``model.init`` from seed 0 on ``DEVICE``, timed; prints the count,
+    the fp32 GB and the peak after init."""
+    from repro_torch.tree import tree_leaves
+
+    cfg = model.cfg
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), DEVICE)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"{tag} {cfg.name}: {n_params:,} params ({n_params * 4 / 1e9:.2f}"
+          f" GB fp32){cut}, {cfg.n_layers} layers {sorted(set(cfg.layers))}"
+          f", bf16 compute; init {init_s:.1f} s (drawn on the host from "
+          f"seed 0), peak device memory after init {_peak_gb(torch):.2f} "
+          f"GB", flush=True)
+    return params, n_params
+
+
+def _generate_timed(torch, tag: str, model, params, gen, rng,
+                    n_params: int, profile_tag: str = "") -> None:
+    """``Engine.generate`` at ``gen`` = (B, prompt, new, s_max), greedy,
+    no kernel launched; then its prefill alone (with each MoE layer's
+    drop_frac) and its decode steps alone, timed, and with
+    ``profile_tag`` 4 more decode steps under ``torch.profiler``; a second
+    generate gives the same ids."""
+    import numpy as np
+
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_leaves
+
+    cfg = model.cfg
+    B, S0, n_new, s_max = gen
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S0))).to(
+        device=DEVICE, dtype=torch.int32)
+    engine = Engine(model, s_max=s_max)
+    _reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(params, prompts, n_new)
+    gen_s = time.perf_counter() - t0
+    if counts() != only():
+        raise AssertionError(f"{tag} generate launched {counts()}")
+    peak = _peak_gb(torch)
+    assert ids.shape == (B, n_new), ids.shape
+    assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
+    _sync(torch)
+    with moe_metrics() as rec:
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(params, prompts)
+        _sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    cache_leaves = tree_leaves(caches)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in cache_leaves)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache_leaves)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    if not np.array_equal(tok[:, 0].cpu().numpy(), ids[:, 0]):
+        raise AssertionError(f"{tag} the prefill's greedy ids are not "
+                             f"generate's first")
+    del logits
+    pos = torch.full((B,), S0, dtype=torch.int32, device=DEVICE)
+    _sync(torch)
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        out, caches = engine.decode_step(params, caches, tok, pos + i)
+        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+    _sync(torch)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    if profile_tag and DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(4):
+                engine.decode_step(params, caches, tok, pos + n_new)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profile_report(prof, wall_ms, profile_tag, "4 decode steps")
+    del caches, out
+    floor = decode_floor_bytes(cfg, n_params, cache_bytes)
+    again = engine.generate(params, prompts, n_new)
+    if not np.array_equal(ids, again):
+        raise AssertionError(f"{tag} a second generate gave other ids")
+    print(f"{tag} (a) Engine.generate B={B} S={S0} +{n_new} greedy, s_max "
+          f"{s_max}: {gen_s * 1e3:.1f} ms in all, {B * n_new / gen_s:.1f} "
+          f"generated tokens/s; prefill alone {prefill_ms:.1f} ms "
+          f"({B * S0 / prefill_ms * 1e3:.0f} prompt tokens/s; "
+          f"{_drop_summary(rec.drops())}), decode {decode_ms:.2f} ms/token "
+          f"({B / decode_ms * 1e3:.1f} tokens/s at B={B}; floor "
+          f"{floor / HBM_BYTES_PER_S * 1e3:.2f} ms from {floor / 1e9:.2f} "
+          f"GB a step: weight casts and their reads, the cache of "
+          f"{cache_bytes / 1e9:.3f} GB); peak memory {peak:.2f} GB; no "
+          f"kernel launched; a second run gives the same ids", flush=True)
+
+
+def run_ds_path(torch) -> None:
+    """``[dsserve]`` and ``[dslong]``: deepseek-v2-lite-16b at its full
+    published size (27 layers: the dense prefix layer and 26 MoE layers,
+    MLA with the latent cache; 15,706,484,224 fp32 params from seed 0),
+    bf16 compute, one replica.  ``[dsserve]``: the init timed against the
+    62.83 GB reckoning; ``Engine.generate`` at :data:`DSSERVE`'s ``gen``
+    (prefill ms with the prefill's drop_frac, decode ms a token against
+    its floor, peak); ``BatchedServer`` on mixed prompts; then
+    :func:`decode_gate` at float32 drop-free on ``gate`` tokens.
+    ``[dslong]`` on the same params: one 8,192-token prompt through
+    ``Engine.generate`` (every layer's prefill attention through
+    ``_mla_attend_blocked``), prefill ms and peak; then, the model freed,
+    one layer's blocked MLA against the plain ``_mla_attend`` at float32
+    on the same inputs within :data:`DSLONG_TOL` · max|plain|."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import make_model
+    from repro_torch.serve import Engine
+    from repro_torch.tree import tree_leaves
+
+    tag = "[dsserve]"
+    cfg = configs.get_model_config(DS_ARCH)
+    model = make_model(cfg)
+    params, n_params = _init_timed(torch, model, tag)
+    if cfg.name == DS_ARCH and n_params != DS_PARAMS:
+        raise AssertionError(f"{tag} {n_params:,} params, expected "
+                             f"{DS_PARAMS:,}")
+    print(f"{tag} params {n_params * 4 / 1e9:.2f} GB against the "
+          f"{DS_PARAMS * 4 / 1e9:.2f} GB reckoning (the reference's init, "
+          f"fp32)", flush=True)
+    rng = np.random.default_rng(0)
+    _generate_timed(torch, tag, model, params, DSSERVE["gen"], rng, n_params,
+                    profile_tag="[dsprofile]")
+    _serve_batched(torch, tag, model, params, rng, DSSERVE["gen"][3],
+                   *DSSERVE["server"])
+    B, S = DSSERVE["gate"]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 8))
+                              ).to(device=DEVICE, dtype=torch.int32)
+    decode_gate(torch, tag, model, params, tokens, S + 8)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # [dslong]: the blocked MLA path through the engine
+    S, n_new, s_max = DSLONG["prompt"], DSLONG["new"], DSLONG["s_max"]
+    assert S >= attn.BLOCKED_THRESHOLD
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(
+        device=DEVICE, dtype=torch.int32)
+    engine = Engine(model, s_max=s_max)
+    _reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(params, prompt, n_new)
+    _sync(torch)
+    gen_s = time.perf_counter() - t0
+    peak = _peak_gb(torch)
+    if counts() != only():
+        raise AssertionError(f"[dslong] generate launched {counts()}")
+    assert ids.shape == (1, n_new) and ((ids >= 0)
+                                        & (ids < cfg.vocab_size)).all()
+    _reset_peak(torch)
+    with moe_metrics() as rec:
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(params, prompt)
+        _sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = _peak_gb(torch)
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    if int(torch.argmax(logits[0])) != int(ids[0, 0]):
+        raise AssertionError("[dslong] prefill's greedy id is not "
+                             "generate's first")
+    cache_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves(caches)) / 1e9
+    del logits, caches
+    print(f"[dslong] {cfg.name} Engine.generate B=1 S={S} +{n_new} greedy, "
+          f"s_max {s_max} (MLA through the blocked path: "
+          f"{-(-S // attn._Q_CHUNK)} query chunks of {attn._Q_CHUNK} a layer,"
+          f" the latent expanded once): {gen_s * 1e3:.1f} ms in all, peak "
+          f"memory {peak:.2f} GB; prefill alone {prefill_ms:.1f} ms "
+          f"({S / prefill_ms * 1e3:.0f} prompt tokens/s, peak "
+          f"{prefill_peak:.2f} GB, latent cache {cache_gb:.3f} GB; "
+          f"{_drop_summary(rec.drops())}); no kernel launched", flush=True)
+
+    # one layer's blocked MLA against the plain, the model freed first
+    layer = {k: v[0][None].clone() for k, v in
+             params["stack"]["scan"]["entry_0"]["mixer"].items()}
+    del params, model, engine
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn((1, 1, S, cfg.d_model), generator=gen, device=DEVICE)
+    positions = torch.arange(S, device=DEVICE)[None]
+    q_nope, q_rope, c_kv, k_rope = attn._mla_qkv(layer, cfg32, x, positions)
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    blocked = attn._mla_attend_blocked(layer, cfg32, q_nope, q_rope, c_kv,
+                                       k_rope, positions, positions,
+                                       causal=True)
+    _sync(torch)
+    blocked_ms = (time.perf_counter() - t0) * 1e3
+    blocked_peak = _peak_gb(torch)
+    full, _ = attn.attn_forward(layer, cfg32, x, layer_kind="attn")
+    err_fwd = float((full - blocked).abs().max())
+    del full
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    mask = attn.attention_mask(positions, positions, causal=True,
+                               window=None)
+    plain = attn._mla_attend(layer, cfg32, q_nope, q_rope, c_kv, k_rope,
+                             mask)
+    _sync(torch)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_peak = _peak_gb(torch)
+    ref = float(plain.abs().max())
+    err = float((blocked - plain).abs().max())
+    del plain, blocked, mask, x, q_nope, q_rope, c_kv, k_rope
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[dslong] float32 MLA layer at S={S}: blocked vs plain "
+          f"_mla_attend max abs err {err:.3e} (max|plain| {ref:.4f}, gate "
+          f"{DSLONG_TOL:g}·max); attn_forward (the blocked route) vs the "
+          f"blocked call {err_fwd:.3e}; blocked {blocked_ms:.1f} ms peak "
+          f"{blocked_peak:.2f} GB, plain {plain_ms:.1f} ms peak "
+          f"{plain_peak:.2f} GB", flush=True)
+    if not (err <= DSLONG_TOL * ref and err_fwd == 0.0):
+        raise AssertionError(f"[dslong] blocked MLA {err:.3e} from the "
+                             f"plain, attn_forward {err_fwd:.3e}")
+
+
+def run_qmoe_path(torch) -> None:
+    """``[qmoe]``: qwen3-moe-30b-a3b at full width (d 2,048, 32 heads, GQA
+    kv 4, qk-norm, 128 experts top-8, vocab 151,936) and
+    :data:`QMOE_LAYERS` of its 48 layers, fp32 params from seed 0, bf16
+    compute: ``Engine.generate`` (prefill with its drop_frac, decode);
+    then on layer 0's MoE params at float32 (TF32 off): ``apply_moe``
+    drop-free against ``apply_moe_dense_reference`` elementwise within
+    :data:`QMOE_TOL`, and ``_build_dispatch`` on the card bitwise the
+    port's CPU result on the same routing of ``dispatch_tokens`` tokens at
+    a capacity that drops (expert 0's first slot the sentinel)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import make_model
+
+    tag = "[qmoe]"
+    cfg = configs.get_model_config(QMOE_ARCH)
+    full_layers = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=QMOE_LAYERS)
+    model = make_model(cfg)
+    params, n_params = _init_timed(
+        torch, model, tag, f", depth cut to {QMOE_LAYERS} of its "
+        f"{full_layers} layers")
+    rng = np.random.default_rng(4)
+    _generate_timed(torch, tag, model, params, QMOE["gen"], rng, n_params)
+    ffn = {k: v[0][None] for k, v in
+           params["stack"]["scan"]["entry_0"]["ffn"].items()}
+    del params, model
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    m = cfg.moe
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = QMOE["oracle"]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = torch.randn((1, B, S, cfg.d_model), generator=gen, device=DEVICE)
+    out, met = moe_lib.apply_moe(ffn, cfg32, x,
+                                 capacity_factor=float(m.n_routed))
+    want = moe_lib.apply_moe_dense_reference(ffn, cfg32, x)
+    atol, rtol = QMOE_TOL
+    ratio = float(((out - want).abs() / (atol + rtol * want.abs())).max())
+    drop = float(met["drop_frac"][0])
+    print(f"{tag} apply_moe (sort dispatch, capacity_factor {m.n_routed}) "
+          f"vs apply_moe_dense_reference at float32 on layer 0, x {B}x{S}: "
+          f"max abs err {float((out - want).abs().max()):.3e} (max|ref| "
+          f"{float(want.abs().max()):.4e}), worst ratio to {atol:g} + "
+          f"{rtol:g}·|ref| {ratio:.4f} (gated), drop_frac {drop}",
+          flush=True)
+    if not (ratio <= 1.0 and drop == 0.0):
+        raise AssertionError(f"{tag} apply_moe vs the dense oracle: ratio "
+                             f"{ratio}, drop_frac {drop}")
+    T, cf = QMOE["dispatch_tokens"], QMOE["dispatch_cf"]
+    xt = torch.randn((1, 1, T, cfg.d_model), generator=gen, device=DEVICE)
+    top_w, top_idx, _ = moe_lib.route(ffn, m, xt)
+    top_w, top_idx = top_w[0, 0], top_idx[0, 0]
+    C = moe_lib.expert_capacity(m, T, cf)
+    dev = moe_lib._build_dispatch(top_idx, top_w, m.n_routed, C, T)
+    host = moe_lib._build_dispatch(top_idx.cpu(), top_w.cpu(), m.n_routed,
+                                   C, T)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(dev[:2], host[:2]))
+    same = same and float(dev[2]) == float(host[2])
+    dispatch_ms = (cuda_ms(torch, lambda: moe_lib._build_dispatch(
+        top_idx, top_w, m.n_routed, C, T), iters=10)
+        if DEVICE == "cuda" else float("nan"))
+    print(f"{tag} _build_dispatch T={T} E={m.n_routed} k={m.top_k} C={C} "
+          f"(capacity_factor {cf}): card vs CPU tables and drop_frac "
+          f"{'bitwise equal' if same else 'DIFFER'}; drop_frac "
+          f"{float(dev[2]):.4f}, expert 0's first slot token "
+          f"{int(dev[0][0, 0])} weight {float(dev[1][0, 0])} (the sentinel "
+          f"{T} when anything drops); {dispatch_ms:.3f} ms on the card",
+          flush=True)
+    if not (same and float(dev[2]) > 0.0 and int(dev[0][0, 0]) == T):
+        raise AssertionError(f"{tag} _build_dispatch card vs CPU: equal "
+                             f"{same}, drop_frac {float(dev[2])}")
+
+
+def _moetrain_config(reduced: bool = False, arch: str = DS_ARCH):
+    """The Trainer on an MoE model: Gossip-PGA over one_peer_exp on the
+    fused kernel, :data:`MOETRAIN`'s optimizer (SGD with Nesterov
+    momentum when it says ``"sgd"``).  Full size: deepseek-v2-lite
+    at full width and :data:`MOETRAIN`'s ``n_layers`` (the dense prefix
+    layer + one MoE layer), bf16 compute, ``per_node`` sequences of
+    ``seq`` a node.  ``reduced`` ([moex]): the reduced config at float32,
+    H = 2, 2 sequences of 32 a node on :data:`MOEX_NODES` nodes, SGD at lr
+    0.05 (a linear first step: AdamW's ≈ lr·sign(g) would turn a rounding-level
+    gradient into an lr-sized card/CPU difference)."""
+    from repro_torch import configs
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig)
+    cfg = configs.get_model_config(arch, reduced=reduced)
+    H, per_node, seq = MOETRAIN["H"], MOETRAIN["per_node"], MOETRAIN["seq"]
+    steps, n = MOETRAIN["steps"], MOETRAIN["n"]
+    opt, lr = MOETRAIN["optimizer"], MOETRAIN["lr"]
+    if reduced:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        H, per_node, seq, steps, n = 2, 2, 32, 1, MOEX_NODES
+        opt, lr = "sgd", 0.05
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=MOETRAIN["n_layers"])
+    return TrainConfig(
+        model=cfg,
+        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
+                        H=H, comm_backend="pallas"),
+        optimizer=OptimizerConfig(name=opt, lr=lr, momentum=0.9,
+                                  nesterov=True, schedule="warmup_cosine",
+                                  warmup_steps=2, total_steps=steps + 2),
+        global_batch=per_node * n, seq_len=seq, steps=steps,
+        log_every=1)
+
+
+def run_moetrain_path(torch, mc) -> dict:
+    """``[moetrain]``: the Trainer on deepseek-v2-lite at full width with
+    the dense prefix layer and one MoE layer (64 routed experts top-6, 2
+    shared, MLA), fp32 params from seed 0, bf16 compute, n =
+    ``MOETRAIN["n"]`` stacked nodes, Gossip-PGA H = 3 over one_peer_exp
+    with the fused consensus round (B.1 on every round), AdamW (at n = 2
+    one_peer_exp's gossip round is the exact average), 1 sequence of 512
+    a node, 6 steps.  Gates: finite losses,
+    consensus exactly 0.0 on the global steps, mix.cu's launches equal to
+    the dispatch groups × steps and nothing else launched, one
+    synchronizing call on the steady steps (the MoE dispatch adds none).
+    Reports the step ms, tokens/s, peak, and the last step's ``lb_loss``
+    and ``drop_frac`` per node.  Returns the launches."""
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    tag, steps, n = "[moetrain]", MOETRAIN["steps"], MOETRAIN["n"]
+    tcfg = _moetrain_config()
+    tr = Trainer(tcfg, n_nodes=n, with_consensus=True, device=DEVICE)
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    params = tr.model.init(torch.Generator().manual_seed(0), DEVICE)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state = tr.init_state(params=params)
+    del params
+    leaves = tree_leaves(state.params)
+    groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
+    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+    del leaves
+    print(f"{tag} {tcfg.model.name} at full width, {tcfg.model.n_layers} "
+          f"layers {list(tcfg.model.layers)}: {n_params:,} params a replica "
+          f"({n_params * 4 / 1e9:.3f} GB fp32; init {init_s:.1f} s), bf16 "
+          f"compute, {n} nodes, Gossip-PGA H={tcfg.dist.H} over "
+          f"{tcfg.dist.topology}, {MOETRAIN['optimizer']} (lr "
+          f"{MOETRAIN['lr']}), "
+          f"{MOETRAIN['per_node']} sequence of {MOETRAIN['seq']} a node; "
+          f"state {_state_bytes(state) / 1e9:.2f} GB; {len(groups)} mix "
+          f"launches a round (group widths {widths})", flush=True)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    _reset_peak(torch)
+    reset_counts()
+    times, phases, syncs = [], [], []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        with moe_metrics() as rec:
+            state, n_sync = sync_steps(
+                torch, lambda: tr.run(state, steps=1, log_every=1),
+                step_sites(tag, k))
+        _sync(torch)
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        syncs.append(n_sync)
+        entry = tr.history[-1]
+        phases.append(entry["phase"])
+        print(f"{tag} step {k} phase={entry['phase']} "
+              f"loss={entry['loss']:.4f} lr={entry['lr']:.3e} "
+              f"consensus={entry['consensus']:.6e} step_ms={dt * 1e3:.1f} "
+              f"tokens/s={tokens / dt:.0f} max_mem_GB={_peak_gb(torch):.2f} "
+              f"synchronizing_calls={n_sync}", flush=True)
+        if not math.isfinite(entry["loss"]):
+            raise AssertionError(f"{tag} step {k}: loss {entry['loss']}")
+        if entry["phase"] == "global":
+            assert entry["consensus"] == 0.0, entry
+    launches = counts()
+    mixes = launches["mix"] + launches["mix_vector"]
+    if (mixes != len(groups) * steps
+            or launches != only(mix=launches["mix"],
+                                mix_vector=launches["mix_vector"])
+            or phases.count("global") != 2):
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{len(groups) * steps} of mix.cu; phases "
+                             f"{phases}")
+    SYNCS[tag] = syncs
+    gate_one_sync(tag, syncs)
+    steady = statistics.median(times[1:])
+    STEADY[tag] = steady
+    first = rec.calls[0]
+    print(f"{tag} {steps} steps, {phases.count('gossip')} gossip and "
+          f"{phases.count('global')} global fused rounds through mix.cu "
+          f"({launches['mix_vector']} launches of the register instance, "
+          f"{launches['mix']} of the generic); steady step "
+          f"{steady * 1e3:.1f} ms (median of steps 1-5), "
+          f"{tokens / steady:.0f} tokens/s, peak memory {_peak_gb(torch):.2f}"
+          f" GB; the last step's MoE layer per node: lb_loss "
+          f"{[round(v, 6) for v in first['lb_loss'].tolist()]}, drop_frac "
+          f"{[round(v, 6) for v in first['drop_frac'].tolist()]}",
+          flush=True)
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(state, steps=1, log_every=1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profile_report(prof, wall_ms, "[mtprofile]",
+                       "one profiled [moetrain] step")
+        del prof
+    del state, tr
+    return launches
+
+
+def moe_cross_check(torch) -> None:
+    """``[moex]``: deepseek-v2-lite and qwen3-moe-30b-a3b at their reduced
+    configs, float32, one init (seed 1) on the card and on the CPU: the
+    forward's logits and ``lb_loss`` on 2 × 24 tokens, then one Trainer
+    step (4 nodes, Gossip-PGA, SGD) — its loss and the params after it —
+    each within :data:`MOEX_TOL` · max|cpu| (cuBLAS and the CPU's BLAS sum
+    in other orders; TF32 off), the routing equal (the drop_frac of every
+    MoE call)."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for arch in (DS_ARCH, QMOE_ARCH):
+        tcfg = _moetrain_config(reduced=True, arch=arch)
+        model_cfg = tcfg.model
+        host = None
+        out = []
+        toks = np.random.default_rng(1).integers(
+            0, model_cfg.vocab_size, (1, 2, 24)).astype(np.int32)
+        for dev in MOEX_DEVICES:
+            tr = Trainer(tcfg, n_nodes=MOEX_NODES, with_consensus=True,
+                         device=dev)
+            if host is None:
+                host = interop.to_numpy(tr.model.init(
+                    torch.Generator().manual_seed(1), "cpu"))
+            params = interop.from_numpy(host, dev)
+            with moe_metrics() as rec:
+                logits, _, lb = tr.model.forward(
+                    tree_map(lambda t: t[None], params),
+                    {"inputs": torch.from_numpy(toks).to(dev)})
+            drops = rec.drops()
+            state = tr.run(tr.init_state(params=params), steps=1)
+            out.append((logits.cpu(), lb.cpu(), tr.history[-1]["loss"],
+                        [p.cpu() for p in tree_leaves(state.params)],
+                        drops))
+        card, ref = out
+        worst = {}
+        for i, what in ((0, "logits"), (1, "lb_loss")):
+            worst[what] = float((card[i] - ref[i]).abs().max()) / max(
+                float(ref[i].abs().max()), 1e-30)
+        worst["params"] = max(
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(card[3], ref[3]))
+        loss_rel = abs(card[2] - ref[2]) / abs(ref[2])
+        print(f"[moex] {model_cfg.name} fp32, cuda vs cpu: logits within "
+              f"{worst['logits']:.3e} and lb_loss {worst['lb_loss']:.3e} of "
+              f"max|cpu| (lb_loss {card[1].tolist()}), drop_frac "
+              f"{'equal' if card[4] == ref[4] else 'DIFFER'} {ref[4]}; one "
+              f"Trainer step: loss {card[2]:.6f} vs {ref[2]:.6f} (rel "
+              f"{loss_rel:.2e}), params within {worst['params']:.3e} of "
+              f"max|cpu| (each leaf)", flush=True)
+        if not (max(worst.values()) <= MOEX_TOL and loss_rel <= MOEX_TOL
+                and card[4] == ref[4]):
+            raise AssertionError(f"[moex] {arch}: {worst}, loss "
+                                 f"{loss_rel:.3e}")
+
+
+# slice 13's phases in their order: name -> phase(torch, mc), returning
+# the launch counts of a training path (None for the others)
+SLICE13 = {
+    "dsserve": lambda torch, mc: run_ds_path(torch),
+    "qmoe": lambda torch, mc: run_qmoe_path(torch),
+    "moetrain": run_moetrain_path,
+    "moex": lambda torch, mc: moe_cross_check(torch),
+}
+
+
 def main() -> int:
     import argparse
 
@@ -5334,6 +5943,10 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop (no main "
                          "paths, no ok line)")
+    ap.add_argument("--phases", default="",
+                    help="build, then run only these comma-separated "
+                         f"phases of slice 13 ({', '.join(SLICE13)}) and "
+                         "stop (no kernel checks, no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5370,6 +5983,11 @@ def main() -> int:
             lines += sass_memory_counts(cuda_build, name)
         for line in lines:
             print(f"[build] {name}.cu: {line}", flush=True)
+    if args.phases:
+        for name in args.phases.split(","):
+            SLICE13[name](torch, mc)
+            torch.cuda.empty_cache()
+        return 1
     records = {}
 
     def add(*found):
@@ -5514,6 +6132,14 @@ def main() -> int:
     del bert_params
     torch.cuda.empty_cache()
     encoder_cross_check(torch)
+    # slice 13: MoE, MLA and prefix patterns
+    slice13 = {}
+    for name, phase in SLICE13.items():
+        torch.cuda.empty_cache()
+        launches = phase(torch, mc)
+        if launches is not None:
+            slice13[f"[{name}]"] = launches
+    torch.cuda.empty_cache()
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -5553,6 +6179,10 @@ def main() -> int:
     records["mix_vector_kernel"]["launches_slice12"] = {
         path: {k: c[k] for k in ("mix", "mix_vector") if c[k]}
         for path, c in slice12.items()}
+    # the slice-13 training path's launches (B.1 on the MoE model's rounds)
+    records["mix_vector_kernel"]["launches_slice13"] = {
+        path: {k: c[k] for k in ("mix", "mix_vector") if c[k]}
+        for path, c in slice13.items()}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

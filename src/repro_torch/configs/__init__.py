@@ -2,8 +2,11 @@
 
 Only the architectures the port can run are listed: the dense decoders
 (pga-lm-100m, gemma2-9b, qwen3-0.6b, qwen2-0.5b, qwen1.5-32b), the
-encoders (bert-large, hubert-xlarge) and xlstm-125m.  The reference's
-other archs arrive with their model families (ROADMAP A.8).
+encoders (bert-large, hubert-xlarge), the MoE decoders
+(deepseek-v2-lite-16b with MLA and a dense prefix layer,
+qwen3-moe-30b-a3b) and xlstm-125m.  The reference's other archs
+(jamba-1.5-large-398b, llava-next-mistral-7b) arrive with their model
+families (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
     AudioStubConfig,
     DataConfig,
     DistConfig,
+    MLAConfig,
     ModelConfig,
+    MoEConfig,
     OptimizerConfig,
     SSMConfig,
     TrainConfig,
@@ -21,12 +26,14 @@ from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
 
 _ARCH_MODULES = {
     "bert-large": "bert_large",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "gemma2-9b": "gemma2_9b",
     "hubert-xlarge": "hubert_xlarge",
     "pga-lm-100m": "pga_lm_100m",
     "qwen1.5-32b": "qwen1_5_32b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "xlstm-125m": "xlstm_125m",
 }
 

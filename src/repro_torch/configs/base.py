@@ -22,6 +22,32 @@ BlockSpec = Tuple[str, str]
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Routed (and shared) experts of an ``"moe"`` FFN, the reference's
+    fields and defaults (``models/moe.py``)."""
+    n_routed: int                    # routed experts
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0                # always-on shared experts (DeepSeek-V2)
+    capacity_factor: float = 1.25    # dispatch capacity slack (drops beyond)
+    aux_coef: float = 0.01           # load-balance auxiliary loss coefficient
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434), the
+    reference's fields and defaults.  ``q_lora_rank`` other than None is
+    refused (``models.blocks.check_supported``): the reference defines no
+    params for a compressed query and projects q at full rank."""
+    kv_lora_rank: int                # compressed KV latent dim (c_KV)
+    q_lora_rank: Optional[int] = None  # None => full-rank Q projection
+    rope_head_dim: int = 64          # decoupled RoPE key dim (d_h^R)
+    nope_head_dim: int = 128         # non-RoPE per-head dim (d_h)
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Recurrent mixer parameters (Mamba + xLSTM), the reference's fields
     and defaults.  ``d_state``, ``d_conv``, ``expand``, ``dt_rank`` and
@@ -74,10 +100,10 @@ class ModelConfig:
     final_logit_softcap: Optional[float] = None
     sliding_window: Optional[int] = None
     post_block_norm: bool = False
-    moe: Optional[Any] = None        # family sub-configs: not ported yet
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
-    vision: Optional[Any] = None
+    vision: Optional[Any] = None     # the VLM stub: not ported yet (A.8)
     audio: Optional[AudioStubConfig] = None
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"

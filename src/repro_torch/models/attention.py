@@ -1,16 +1,18 @@
-"""Attention mixer: dense MHA/GQA with RoPE, sliding window, logit softcap,
-qk-norm and qkv biases, and its KV cache (counterpart of the GQA path of
-``repro/models/attention.py``).
+"""Attention mixers (counterpart of ``repro/models/attention.py``): dense
+MHA/GQA with RoPE, sliding window, logit softcap, qk-norm and qkv biases,
+and Multi-head Latent Attention (DeepSeek-V2), with their caches.
 
 Plain ``matmul`` + fp32 softmax, as the reference computes it outside any
 Pallas kernel.  Two entry modes share one weight set: the full sequence
 (train / prefill, :func:`attn_forward`) and one query position against a
 cache (:func:`attn_decode`).  From ``BLOCKED_THRESHOLD`` positions on, the
-full sequence runs through :func:`_sdpa_blocked`, the reference's
-memory-bounded host path: the same math over query chunks, so no S × S
-score tensor is ever live.  MLA is not ported yet (ROADMAP A.8); no
-model calls the flash-attention kernel (ROADMAP B.6), here or in the
-reference.
+full sequence runs through :func:`_sdpa_blocked` (MLA:
+:func:`_mla_attend_blocked`), the reference's memory-bounded host path:
+the same math over query chunks, so no S × S score tensor is ever live.
+MLA caches the compressed latent ``c_kv`` and the shared RoPE key
+``k_rope`` and expands them into per-head keys and values on every call,
+as the reference does.  No model calls the flash-attention kernel
+(ROADMAP B.6), here or in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, not_ported
 from repro_torch.models.layers import (ParamBuilder, apply_rope, make_rope,
-                                       rms_norm, softcap)
+                                       node_matmul, rms_norm, softcap)
 
 PyTree = Any
 NEG_INF = -2.3819763e38  # the reference's (XLA's) mask value
@@ -34,7 +36,16 @@ LAYER_KINDS = ("attn", "attn_sw")
 
 def init_attention(b: ParamBuilder, cfg: ModelConfig) -> None:
     if cfg.mla is not None:
-        raise not_ported("multi-head latent attention (MLA)", "A.8")
+        m = cfg.mla
+        d, nh = cfg.d_model, cfg.n_heads
+        b.add("w_q", (d, nh, m.nope_head_dim + m.rope_head_dim))
+        b.add("w_dkv", (d, m.kv_lora_rank))
+        b.add("w_kr", (d, m.rope_head_dim))
+        b.add("kv_norm", (m.kv_lora_rank,), init="ones")
+        b.add("w_uk", (m.kv_lora_rank, nh, m.nope_head_dim))
+        b.add("w_uv", (m.kv_lora_rank, nh, m.v_head_dim))
+        b.add("w_o", (nh, m.v_head_dim, d))
+        return
     d, nh, nkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim)
     b.add("w_q", (d, nh, hd))
@@ -149,6 +160,8 @@ def attn_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     window = _window(cfg, layer_kind)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.mla is not None:
+        return _mla_forward(params, cfg, x, positions=positions)
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x, positions)
     qg = q.reshape(n, B, S, nkv, nh // nkv, hd)
@@ -182,6 +195,8 @@ def attn_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     n, B = x.shape[:2]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     window = _window(cfg, layer_kind)
+    if cfg.mla is not None:
+        return _mla_decode(params, cfg, x, cache, pos)
     q, k_new, v_new = _project_qkv(params, cfg, x, pos[:, None])
     k, v = cache["k"], cache["v"]
     S_max = k.shape[2]
@@ -197,13 +212,124 @@ def attn_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     return _out(params, out, x), cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): the cache holds the compressed latent + shared RoPE key
+# ---------------------------------------------------------------------------
+def _mla_qkv(params, cfg: ModelConfig, x, positions):
+    """x (n, B, S, d) → (q_nope (n, B, S, nh, nope), q_rope (…, rope),
+    c_kv (n, B, S, r) normed, k_rope (n, B, S, rope) after RoPE)."""
+    m = cfg.mla
+    q = torch.einsum("nbsd,ndhk->nbshk", x, params["w_q"].to(x.dtype))
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    cos, sin = make_rope(positions, m.rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv = node_matmul(x, params["w_dkv"].to(x.dtype))
+    c_kv = rms_norm(c_kv, params["kv_norm"], cfg.norm_eps)
+    k_rope = node_matmul(x, params["w_kr"].to(x.dtype))[..., None, :]
+    k_rope = apply_rope(k_rope, cos, sin)[..., 0, :]          # shared head
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(params, c_kv):
+    """Up-project the compressed latent into per-head keys and values."""
+    k_nope = torch.einsum("nbsr,nrhk->nbshk", c_kv,
+                          params["w_uk"].to(c_kv.dtype))
+    v = torch.einsum("nbsr,nrhk->nbshk", c_kv, params["w_uv"].to(c_kv.dtype))
+    return k_nope, v
+
+
+def _mla_scores(params, cfg: ModelConfig, q_nope, q_rope, k_nope, k_rope,
+                v, mask):
+    """The two logit products summed in the compute dtype, then fp32,
+    scaled and masked (mask (B, Sq, Sk)); the output projected."""
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    logits = torch.einsum("nbqhd,nbkhd->nbhqk", q_nope, k_nope)
+    logits = logits + torch.einsum("nbqhd,nbkd->nbhqk", q_rope, k_rope)
+    logits = logits.to(torch.float32) * scale
+    logits = logits.masked_fill(~mask[None, :, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q_nope.dtype)
+    out = torch.einsum("nbhqk,nbkhd->nbqhd", probs, v)
+    return torch.einsum("nbqhd,nhdo->nbqo", out,
+                        params["w_o"].to(q_nope.dtype))
+
+
+def _mla_attend(params, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
+                mask):
+    k_nope, v = _mla_expand_kv(params, c_kv)
+    return _mla_scores(params, cfg, q_nope, q_rope, k_nope, k_rope, v, mask)
+
+
+def _mla_attend_blocked(params, cfg: ModelConfig, q_nope, q_rope, c_kv,
+                        k_rope, q_pos, k_pos, *, causal: bool,
+                        chunk: int = _Q_CHUNK):
+    """:func:`_mla_attend` over query chunks of ``chunk`` rows, the latent
+    expanded once for all of them; each chunk's output written into one
+    preallocated ``(n, B, Sq, d)`` tensor.  The last chunk is padded with
+    zero queries at position −1, masked off and dropped, as in
+    :func:`_sdpa_blocked`."""
+    Sq = q_nope.shape[2]
+    chunk = min(chunk, Sq)
+    pad = (-Sq) % chunk
+    if pad:
+        q_nope = F.pad(q_nope, (0, 0, 0, 0, 0, pad))
+        q_rope = F.pad(q_rope, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+    k_nope, v = _mla_expand_kv(params, c_kv)   # hoisted: expand once
+    out = q_nope.new_empty(q_nope.shape[:2] + (Sq, params["w_o"].shape[-1]))
+    for s in range(0, Sq, chunk):
+        pi = q_pos[:, s:s + chunk]
+        mask = attention_mask(pi, k_pos, causal=causal, window=None)
+        mask = mask & (pi[..., :, None] >= 0)
+        o = _mla_scores(params, cfg, q_nope[:, :, s:s + chunk],
+                        q_rope[:, :, s:s + chunk], k_nope, k_rope, v, mask)
+        out[:, :, s:s + chunk] = o[:, :, :min(chunk, Sq - s)]
+    return out
+
+
+def _mla_forward(params, cfg: ModelConfig, x, *, positions):
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
+    if x.shape[2] >= BLOCKED_THRESHOLD:
+        out = _mla_attend_blocked(params, cfg, q_nope, q_rope, c_kv, k_rope,
+                                  positions, positions, causal=cfg.causal)
+    else:
+        mask = attention_mask(positions, positions, causal=cfg.causal,
+                              window=None)
+        out = _mla_attend(params, cfg, q_nope, q_rope, c_kv, k_rope, mask)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def _mla_decode(params, cfg: ModelConfig, x, cache, pos):
+    """One-token MLA decode: the new latent and RoPE key rows written **in
+    place** into ``cache`` at the clamped ``pos`` (as :func:`attn_decode`
+    writes keys and values), RoPE and the mask at the raw ``pos``."""
+    B = x.shape[1]
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(params, cfg, x, pos[:, None])
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S_max = c_kv.shape[2]
+    rows = torch.arange(B, device=x.device)
+    at = pos.clamp(0, S_max - 1).long()
+    c_kv[:, rows, at] = c_new[:, :, 0]
+    k_rope[:, rows, at] = kr_new[:, :, 0]
+    k_pos = torch.arange(S_max, device=x.device)[None].expand(B, S_max)
+    mask = attention_mask(pos[:, None], k_pos, causal=True, window=None)
+    out = _mla_attend(params, cfg, q_nope, q_rope, c_kv, k_rope, mask)
+    return out, cache
+
+
 def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int,
                     dtype: torch.dtype, device,
                     layer_kind: str = "attn") -> Dict[str, torch.Tensor]:
-    """Empty ``(B, S_max, nkv, hd)`` key and value caches."""
-    if cfg.mla is not None:
-        raise not_ported("the MLA latent cache", "A.8")
+    """Empty ``(B, S_max, nkv, hd)`` key and value caches; MLA's latent
+    ``c_kv`` ``(B, S_max, kv_lora_rank)`` and shared RoPE key ``k_rope``
+    ``(B, S_max, rope_head_dim)``."""
     _window(cfg, layer_kind)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((batch, s_max, m.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, s_max, m.rope_head_dim),
+                                      dtype=dtype, device=device)}
     shape = (batch, s_max, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

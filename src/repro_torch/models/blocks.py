@@ -1,21 +1,26 @@
 """Block assembly over layer-stacked parameters (counterpart of
-``repro/models/blocks.py``) for the ported block kinds: dense attention
-(global or sliding-window) + gated MLP, the encoder's non-causal
-attention + gated MLP with GELU, and the xLSTM mixers (mLSTM, sLSTM)
-without an FFN.
+``repro/models/blocks.py``) for the ported block kinds: attention (GQA,
+global or sliding-window, or MLA) + gated MLP or MoE FFN, the encoder's
+non-causal attention + gated MLP with GELU, and the xLSTM mixers (mLSTM,
+sLSTM) without an FFN.
 
 A block is a pre-norm mixer + residual, then, unless its FFN is
 ``"none"``, a pre-norm gated MLP (SiLU; GELU's tanh form, ``jax.nn.gelu``'s
-default, in the encoder) + residual; with ``post_block_norm`` each
-branch's output is normed before its residual add (Gemma 2).  Parameters
-keep the reference's scan layout ``{"scan": {"entry_<j>": stacked}}`` with
-the layer axis right after the node axis; :func:`apply_stack` loops over
-it where the reference scans, and returns the caches in the same layout
-(``(n, L, B, …)`` leaves).  Decode writes attention KV rows in place into
+default, in the encoder) or MoE (``models/moe.py``) + residual; with
+``post_block_norm`` each branch's output is normed before its residual add
+(Gemma 2).  A model is an unscanned ``prefix_pattern`` (params
+``{"prefix_<i>": block}``, no layer axis) followed by the scanned pattern
+repeats in the reference's layout ``{"scan": {"entry_<j>": stacked}}``
+with the layer axis right after the node axis; :func:`apply_stack` applies
+the prefix blocks, then loops over the layer axis where the reference
+scans, and returns the caches in the same layout (``(n, B, …)`` prefix
+leaves, ``(n, L, B, …)`` scanned ones) and the summed MoE balance loss
+``(n,)``.  Decode writes attention KV (or MLA latent) rows in place into
 the caches it is given and returns those tensors; recurrent states are
 returned as new tensors.  With ``remat="default"`` or ``"dots"`` each
-training block runs under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint``), see :func:`make_remat`.
+scanned training block runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan body; the prefix blocks are
+not rematerialized, as in the reference), see :func:`make_remat`.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (BlockSpec, ModelConfig, SSMConfig,
                                       not_ported)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, init_mlp,
                                        init_rms_norm, rms_norm)
@@ -38,6 +44,8 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 PyTree = Any
 FAMILY_BLOCKS = {"dense": {("attn", "dense"), ("attn_sw", "dense")},
                  "encoder": {("attn", "dense")},
+                 "moe": {(a, f) for a in attn.LAYER_KINDS
+                         for f in ("dense", "moe")},
                  "ssm": {("mlstm", "none"), ("slstm", "none")}}
 MODES = ("train", "prefill", "decode")
 REMAT_POLICIES = ("none", "default", "dots")
@@ -46,18 +54,30 @@ REMAT_POLICIES = ("none", "default", "dots")
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every model feature outside the ported paths: the dense
     decoder (with qk-norm, qkv biases, softcaps, the sliding window,
-    post-block norms, untied embeddings), the encoder (text, or audio
-    frames through the stub) and the xLSTM family."""
-    if cfg.family not in FAMILY_BLOCKS or any(
-            c is not None for c in (cfg.moe, cfg.mla, cfg.vision)):
-        raise not_ported(f"model family {cfg.family!r}", "A.8")
+    post-block norms, untied embeddings), the MoE decoder (routed and
+    shared experts, MLA, prefix patterns), the encoder (text, or audio
+    frames through the stub) and the xLSTM family.  Mamba, the hybrid
+    family and the VLM stub still raise (ROADMAP A.8).  ``q_lora_rank``
+    raises ``ValueError``: the reference defines no params for a
+    compressed query."""
+    if cfg.family not in FAMILY_BLOCKS or cfg.vision is not None:
+        raise not_ported(f"model family {cfg.family!r}"
+                         + (" with a vision stub" if cfg.vision is not None
+                            else ""), "A.8")
+    if cfg.moe is not None and cfg.family != "moe":
+        raise not_ported(f"an MoE sub-config in family {cfg.family!r}",
+                         "A.8")
+    if cfg.mla is not None and cfg.mla.q_lora_rank is not None:
+        raise ValueError(
+            f"MLAConfig.q_lora_rank={cfg.mla.q_lora_rank}: the reference "
+            f"defines no params for a compressed query (q is projected at "
+            f"full rank); use q_lora_rank=None")
     if cfg.audio is not None and cfg.family != "encoder":
         raise not_ported(f"an audio stub in family {cfg.family!r}", "A.8")
     if (cfg.family == "ssm") != isinstance(cfg.ssm, SSMConfig):
         raise not_ported(f"family {cfg.family!r} with ssm={cfg.ssm!r}",
                          "A.8")
     unported = [name for name, on in (
-        ("prefix_pattern", bool(cfg.prefix_pattern)),
         ("non-causal attention outside the encoder family",
          not cfg.causal and cfg.family != "encoder"),
         ("causal attention in the encoder family",
@@ -91,7 +111,10 @@ def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
     if ffn_kind != "none":
         init_rms_norm(b, "ln2", cfg.d_model)
         ffn = ParamBuilder(b.generator, b.param_dtype, b.device)
-        init_mlp(ffn, cfg.d_model, cfg.d_ff)
+        if ffn_kind == "moe":
+            moe_lib.init_moe(ffn, cfg)
+        else:
+            init_mlp(ffn, cfg.d_model, cfg.d_ff)
         b.attach("ffn", ffn.params)
         if cfg.post_block_norm:
             init_rms_norm(b, "post_ln2", cfg.d_model)
@@ -102,10 +125,11 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[PyTree] = None,
                 pos: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[PyTree]]:
-    """Returns ``(x, new_cache)``.  mode: train|prefill|decode; decode
-    takes x ``(n, B, 1, d)``, the block's ``cache`` and, for attention,
-    ``pos`` ``(B,)``, the position each sequence writes."""
+                ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
+    """Returns ``(x, new_cache, lb_loss)``, ``lb_loss`` the MoE balance
+    loss ``(n,)`` (zeros without an MoE FFN).  mode: train|prefill|decode;
+    decode takes x ``(n, B, 1, d)``, the block's ``cache`` and, for
+    attention, ``pos`` ``(B,)``, the position each sequence writes."""
     mixer, ffn = kind
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer in attn.LAYER_KINDS:
@@ -130,14 +154,19 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
     if cfg.post_block_norm:
         out = rms_norm(out, params["post_ln1"], cfg.norm_eps)
     x = x + out
+    lb_loss = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     if ffn != "none":
-        out = apply_mlp(params["ffn"], rms_norm(x, params["ln2"],
-                                                cfg.norm_eps),
-                        act=_gelu if cfg.family == "encoder" else F.silu)
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        if ffn == "moe":
+            out, moe_metrics = moe_lib.apply_moe(params["ffn"], cfg, h)
+            lb_loss = moe_metrics["lb_loss"]
+        else:
+            out = apply_mlp(params["ffn"], h,
+                            act=_gelu if cfg.family == "encoder" else F.silu)
         if cfg.post_block_norm:
             out = rms_norm(out, params["post_ln2"], cfg.norm_eps)
         x = x + out
-    return x, new_cache
+    return x, new_cache, lb_loss
 
 
 # jax.nn.gelu's default is the tanh form; F.gelu's is erf
@@ -178,20 +207,32 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 pos: Optional[torch.Tensor] = None,
                 remat: str = "none",
                 want_cache: bool = False
-                ) -> Tuple[torch.Tensor, Optional[PyTree]]:
-    """Apply the scanned pattern repeats; params
-    ``{"scan": {"entry_<j>": (n, L, …) stacked}}``.  Returns ``(x,
-    caches)``: with ``want_cache`` or in decode mode, caches
-    ``{"scan": {"entry_<j>": (n, L, B, …) stacked}}``, else None.  Decode
-    reads the same layout from ``caches``; an attention entry's leaves
-    are written in place and returned as they were given, a recurrent
-    entry's are restacked from the new states."""
+                ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
+    """Apply the prefix blocks, then the scanned pattern repeats; params
+    ``{"prefix_<i>": (n, …), "scan": {"entry_<j>": (n, L, …) stacked}}``.
+    Returns ``(x, caches, total_lb)``, ``total_lb`` the blocks' MoE balance
+    losses summed in the reference's order ``(n,)``.  With ``want_cache``
+    or in decode mode, caches ``{"prefix_<i>": (n, B, …), "scan":
+    {"entry_<j>": (n, L, B, …) stacked}}``, else None.  Decode reads the
+    same layout from ``caches``; an attention entry's leaves are written
+    in place and returned as they were given, a recurrent entry's are
+    restacked from the new states."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, "
                          f"got {remat!r}")
     need_cache = want_cache or mode == "decode"
+    total_lb = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    out_caches: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.prefix_pattern):
+        name = f"prefix_{i}"
+        x, c_out, lb = apply_block(
+            params[name], cfg, kind, x, mode=mode, positions=positions,
+            cache=caches[name] if mode == "decode" else None, pos=pos)
+        total_lb = total_lb + lb
+        if need_cache:
+            out_caches[name] = c_out
     scan = params["scan"]
     outs: Dict[int, list] = {j: [] for j in range(len(cfg.pattern))}
     for i in range(cfg.n_scan_blocks):
@@ -206,26 +247,35 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                                    pos=pos)
 
             if remat != "none" and mode == "train" and not need_cache:
-                x = make_remat(lambda h, run=run: run(h)[0], remat)(x)
+                x, lb = make_remat(
+                    lambda h, run=run: run(h)[::2], remat)(x)
             else:
-                x, c_out = run(x)
+                x, c_out, lb = run(x)
                 if need_cache:
                     outs[j].append(c_out)
+            total_lb = total_lb + lb
     if not need_cache:
-        return x, None
-    return x, {"scan": {
+        return x, None, total_lb
+    out_caches["scan"] = {
         f"entry_{j}": (caches["scan"][f"entry_{j}"]
                        if mode == "decode" and kind[0] in attn.LAYER_KINDS
                        else _stack(outs[j], dim=1))
-        for j, kind in enumerate(cfg.pattern)}}
+        for j, kind in enumerate(cfg.pattern)}
+    return x, out_caches, total_lb
 
 
 def init_stack(b: ParamBuilder, cfg: ModelConfig) -> None:
-    """``{"scan": {"entry_<j>": (L, …)}}`` into builder ``b``; layers are
-    drawn one after another on the host and copied into their slot of the
-    stacked leaves on ``b.device``, so the device holds the stack and no
-    per-layer copy (gemma2-9b's 37 GB of fp32 params, not 54 at the
-    peak)."""
+    """``{"prefix_<i>": block, "scan": {"entry_<j>": (L, …)}}`` into
+    builder ``b``; blocks are drawn one after another on the host and
+    copied to ``b.device``, a scanned layer into its slot of the stacked
+    leaves, so the device holds the stack and no per-layer copy
+    (gemma2-9b's 37 GB of fp32 params, not 54 at the peak)."""
+    for i, kind in enumerate(cfg.prefix_pattern):
+        one = ParamBuilder(b.generator, b.param_dtype, "cpu")
+        init_block(one, cfg, kind)
+        leaves, treedef = tree_flatten(one.params)
+        b.attach(f"prefix_{i}", tree_unflatten(
+            treedef, [t.to(b.device) for t in leaves]))
     scan = {}
     for j, kind in enumerate(cfg.pattern):
         stacked = None
@@ -268,13 +318,19 @@ def init_block_cache(cfg: ModelConfig, kind: BlockSpec, batch: int,
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int,
                      dtype: torch.dtype, device) -> PyTree:
-    """Every layer's empty cache for one replica, ``{"scan": {"entry_<j>":
-    (1, L, B, …)}}`` — the layout :func:`apply_stack` returns and decode
-    reads, with a node axis of 1."""
+    """Every layer's empty cache for one replica, ``{"prefix_<i>": (1, B,
+    …), "scan": {"entry_<j>": (1, L, B, …)}}`` — the layout
+    :func:`apply_stack` returns and decode reads, with a node axis of
+    1."""
+    caches: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.prefix_pattern):
+        one = init_block_cache(cfg, kind, batch, s_max, dtype, device)
+        caches[f"prefix_{i}"] = {k: t[None] for k, t in one.items()}
     lead = (1, cfg.n_scan_blocks)
     scan = {}
     for j, kind in enumerate(cfg.pattern):
         one = init_block_cache(cfg, kind, batch, s_max, dtype, device)
         scan[f"entry_{j}"] = {
             k: t.expand(lead + t.shape).clone() for k, t in one.items()}
-    return {"scan": scan}
+    caches["scan"] = scan
+    return caches

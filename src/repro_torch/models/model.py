@@ -1,5 +1,6 @@
 """Top-level Model: init / forward / decode / loss for the dense decoder LMs
-(pga-lm-100m, gemma2-9b, the qwen configs), the encoders (bert-large,
+(pga-lm-100m, gemma2-9b, the qwen configs), the MoE decoders
+(deepseek-v2-lite-16b, qwen3-moe-30b-a3b), the encoders (bert-large,
 hubert-xlarge) and the xLSTM family (counterpart of
 ``repro/models/model.py``).
 
@@ -59,9 +60,9 @@ class Model:
                 want_cache: bool = False
                 ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
         """Node-stacked params and batch → ``(fp32 logits (n, B, S, V),
-        caches or None, lb_loss)``; mode train|prefill.  lb_loss is the MoE
-        balance loss of the reference's call shape: 0 (MoE is not
-        ported)."""
+        caches or None, lb_loss (n,))``; mode train|prefill.  lb_loss is
+        the MoE balance loss summed over the MoE blocks (zeros without
+        one)."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                              f"got {mode!r} (decode: decode_step)")
@@ -69,11 +70,10 @@ class Model:
         h = self._embed_batch(params, batch, _DTYPES[cfg.dtype])
         _, B, S = h.shape[:3]
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
-        h, caches = blocks.apply_stack(params["stack"], cfg, h, mode=mode,
-                                       positions=positions, remat=remat,
-                                       want_cache=want_cache)
+        h, caches, lb_loss = blocks.apply_stack(
+            params["stack"], cfg, h, mode=mode, positions=positions,
+            remat=remat, want_cache=want_cache)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        lb_loss = torch.zeros((), dtype=torch.float32, device=h.device)
         return self._unembed(params, h), caches, lb_loss
 
     def decode_step(self, params: PyTree, caches: PyTree,
@@ -86,8 +86,9 @@ class Model:
         tensors."""
         cfg = self.cfg
         h = self._embed(params, tokens, _DTYPES[cfg.dtype])
-        h, caches = blocks.apply_stack(params["stack"], cfg, h,
-                                       mode="decode", caches=caches, pos=pos)
+        h, caches, _ = blocks.apply_stack(params["stack"], cfg, h,
+                                          mode="decode", caches=caches,
+                                          pos=pos)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, h), caches
 
@@ -129,12 +130,12 @@ class Model:
     def node_losses(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
                     remat: str = "none", z_loss: float = 0.0
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Per-node mean cross entropy (+ z-loss): ``(losses (n,),
-        metrics of (n,))``.  A decoder averages over every position; an
-        encoder over its masked positions only, each node by its own
-        count ``max(Σ mask, 1)``, as the reference's per-node loss
-        does."""
-        logits, _, _ = self.forward(params, batch, remat=remat)
+        """Per-node mean cross entropy (+ the MoE balance loss ×
+        ``aux_coef``, + z-loss): ``(losses (n,), metrics of (n,))``.  A
+        decoder averages over every position; an encoder over its masked
+        positions only, each node by its own count ``max(Σ mask, 1)``, as
+        the reference's per-node loss does."""
+        logits, _, lb_loss = self.forward(params, batch, remat=remat)
         targets = batch["targets"].long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
@@ -148,7 +149,9 @@ class Model:
             denom = max(float(nll[0].numel()), 1.0)
             ce = nll.reshape(n, -1).sum(dim=1) / denom
         total = ce
-        metrics = {"ce": ce, "lb_loss": torch.zeros_like(ce)}
+        metrics = {"ce": ce, "lb_loss": lb_loss}
+        if self.cfg.moe is not None:
+            total = total + self.cfg.moe.aux_coef * lb_loss
         if z_loss:
             lse2 = torch.square(torch.logsumexp(logits, dim=-1)).reshape(
                 n, -1)

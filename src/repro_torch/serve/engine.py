@@ -5,10 +5,12 @@ greedy or temperature sampling, and a slot-based continuous-batching loop
 The serving entry points take one replica's params in the reference's
 layout (``Model.init``'s tree) and add the model's node axis of 1 inside;
 :meth:`Engine.prefill` and :meth:`Engine.decode_step` return and take
-caches in the reference's layout too (``(L, B, …)`` leaves; a KV leaf is
-``(L, B, S_max, nkv, hd)``).  Decode writes each new key and value in
-place into the caches it is given (``Model.decode_step``).  Sampling at
-``temperature > 0`` draws from an explicit ``torch.Generator``.
+caches in the reference's layout too (``(L, B, …)`` leaves of the scanned
+layers, ``(B, …)`` of a prefix block; a KV leaf is ``(L, B, S_max, nkv,
+hd)``, an MLA latent ``(L, B, S_max, r)``).  Decode writes each new key
+and value (or latent row) in place into the caches it is given
+(``Model.decode_step``).  Sampling at ``temperature > 0`` draws from an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -161,8 +163,8 @@ class BatchedServer:
     """Slot-based continuous batching: fixed B decode slots; finished
     requests retire and free their slot for the next queued request.
     Per-slot prefill (B=1) keeps admission simple and bounded.  ``caches``
-    holds every slot's state in the model's node-stacked layout, batch axis
-    2 of every leaf.
+    holds every slot's state in the model's node-stacked layout: batch
+    axis 1 of a prefix block's leaves, 2 of a scanned entry's.
 
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`, optional): each
     retired request emits a ``serve_req`` record (latency, prompt and new
@@ -194,10 +196,12 @@ class BatchedServer:
                                  dtype=torch.int32, device=self.tok.device)
         with self._span("serve/prefill", uid=req.uid, slot=slot):
             logits, cache = self.engine._prefill(self._params1, prompt)
-        # every leaf is (1, L, B, …): a KV leaf (1, L, B, S_max, nkv, hd)
-        # takes the prompt's rows and the padding's zeros
-        for dst, src in zip(tree_leaves(self.caches), tree_leaves(cache)):
-            dst[:, :, slot] = src[:, :, 0]
+        # a prefix block's leaves are (1, B, …), a scanned entry's (1, L,
+        # B, …): a KV leaf takes the prompt's rows and the padding's zeros
+        for name, sub in self.caches.items():
+            axis = 2 if name == "scan" else 1
+            for dst, src in zip(tree_leaves(sub), tree_leaves(cache[name])):
+                dst.select(axis, slot).copy_(src.select(axis, 0))
         first = int(torch.argmax(logits[0]))
         req.generated.append(first)
         self.slots[slot] = req

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import (DistConfig, OptimizerConfig, TrainConfig,
-                                 get_model_config)
+from repro_torch.configs import (DistConfig, OptimizerConfig, SSMConfig,
+                                 TrainConfig, get_model_config)
 from repro_torch.kernels import mixing_cuda
 from repro_torch.train import Trainer
 
@@ -173,7 +173,8 @@ def test_unported_train_options_raise():
     """Gradient accumulation and LAMB (A.8) and checkpoints (A.7) are
     ported: the Trainer accepts them, checkpoints with the reference's
     default directory, a per-node batch the microbatches do not divide
-    raises ``ValueError``; FSDP (A.10) and MoE (A.8) still raise."""
+    raises ``ValueError``; FSDP (A.10), Mamba and the VLM stub (A.8)
+    still raise, and since MoE (A.8) the moe family builds."""
     from repro.configs.base import TrainConfig as JTrain
     tr = Trainer(_tcfg().replace(microbatches=2), n_nodes=4, device="cpu")
     assert tr.tcfg.microbatches == 2
@@ -189,7 +190,11 @@ def test_unported_train_options_raise():
         Trainer(_tcfg().replace(dist=DistConfig(fsdp=True)), n_nodes=4,
                 device="cpu")
     cfg = _tcfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        Trainer(cfg.replace(model=dataclasses.replace(cfg.model,
-                                                      family="moe")),
-                n_nodes=4, device="cpu")
+    for over in (dict(vision=object()),
+                 dict(pattern=(("mamba", "none"),), ssm=SSMConfig())):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+            Trainer(cfg.replace(model=dataclasses.replace(cfg.model,
+                                                          **over)),
+                    n_nodes=4, device="cpu")
+    Trainer(cfg.replace(model=dataclasses.replace(cfg.model, family="moe")),
+            n_nodes=4, device="cpu")

@@ -147,15 +147,27 @@ def test_init_shapes_match_reference_layout():
 
 
 def test_unported_model_features_raise():
-    """What A.8 still waits for raises it: prefix patterns, non-causal
-    attention outside the encoder family, MoE.  The dense features
-    (qk-norm, softcaps, untied embeddings, ...) and the encoder build, and
-    since the blocked path a forward at S ≥ 8192 runs."""
-    for over in (dict(prefix_pattern=(("attn", "dense"),), n_layers=3),
-                 dict(causal=False), dict(family="moe"),
-                 dict(moe=object())):
+    """What A.8 still waits for raises it: Mamba, the hybrid family, the
+    VLM stub, non-causal attention outside the encoder family, an MoE
+    sub-config outside the moe family; a compressed query (MLA's
+    ``q_lora_rank``) raises ``ValueError``, the reference having no params
+    for it.  The dense features (qk-norm, softcaps, untied embeddings,
+    ...), the encoder, and since MoE a prefix pattern and the moe family
+    build, and since the blocked path a forward at S ≥ 8192 runs."""
+    from repro_torch.configs import MLAConfig, SSMConfig, get_model_config
+    for over in (dict(pattern=(("mamba", "none"),), ssm=SSMConfig()),
+                 dict(family="hybrid"), dict(vision=object()),
+                 dict(causal=False), dict(moe=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
             tmake(dataclasses.replace(TCfg(**TINY), **over))
+    ds = get_model_config("deepseek-v2-lite-16b", reduced=True)
+    with pytest.raises(ValueError, match="q_lora_rank"):
+        tmake(dataclasses.replace(ds, mla=MLAConfig(kv_lora_rank=64,
+                                                    q_lora_rank=32)))
+    tmake(ds)
+    tmake(dataclasses.replace(TCfg(**TINY), n_layers=3,
+                              prefix_pattern=(("attn", "dense"),)))
+    tmake(dataclasses.replace(TCfg(**TINY), family="moe"))
     tmake(dataclasses.replace(TCfg(**TINY), family="encoder", causal=False))
     tm = tmake(TCfg(**TINY))
     node = jax.tree.map(lambda t: t[None], tm.init(

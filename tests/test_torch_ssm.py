@@ -579,12 +579,12 @@ def test_attention_decode_raises():
     block = tree_map(lambda t: t[:, 0], node["stack"]["scan"]["entry_0"])
     cache = {k: torch.cat([t[:, 0], t.new_zeros((1, 2, 4, 4, 64))], dim=2)
              for k, t in caches["scan"]["entry_0"].items()}
-    out, new = blocks.apply_block(block, model.cfg, ("attn", "dense"),
-                                  torch.zeros((1, 2, 1, 256),
-                                              dtype=torch.bfloat16),
-                                  mode="decode", cache=cache,
-                                  pos=torch.full((2,), 4, dtype=torch.int32))
+    out, new, lb = blocks.apply_block(
+        block, model.cfg, ("attn", "dense"),
+        torch.zeros((1, 2, 1, 256), dtype=torch.bfloat16), mode="decode",
+        cache=cache, pos=torch.full((2,), 4, dtype=torch.int32))
     assert new is cache and out.shape == (1, 2, 1, 256)
+    assert torch.equal(lb, torch.zeros(1))
     assert bool(torch.isfinite(out).all())
     # a prefill without a cache is the plain forward
     logits, caches, _ = model.forward(node, {"inputs": tokens},
