@@ -167,7 +167,7 @@ line):
    params after one step); ``[encx]`` bert-large and hubert-xlarge at
    their reduced configs card vs CPU (grads, loss and params after one
    LAMB step with 2 microbatches).
-15. slice 13's paths, MoE, MLA and prefix patterns (:data:`SLICE13`):
+15. slice 13's paths, MoE, MLA and prefix patterns:
    ``[dsserve]`` deepseek-v2-lite-16b at its full published size (27
    layers, 15,706,484,224 params: the dense prefix layer, 26 MoE layers
    of 64 routed experts top-6 and 2 shared, MLA with the latent cache;
@@ -175,14 +175,16 @@ line):
    drop_frac, a 4-slot ``BatchedServer``, the decode gate at float32
    drop-free), ``[dslong]`` one 8,192-token prompt on its params through
    the blocked MLA path, then one layer's blocked MLA against the plain
-   at float32 (:func:`run_ds_path`); ``[qmoe]`` qwen3-moe-30b-a3b at full
-   width and 4 of its 48 layers, ``apply_moe`` against the dense oracle
-   and ``_build_dispatch`` card vs CPU bitwise (:func:`run_qmoe_path`);
+   at float32 and what keeps them from bitwise (:func:`run_ds_path`,
+   :func:`mla_blocked_gate`); ``[qmoe]`` qwen3-moe-30b-a3b at full width
+   and 4 of its 48 layers served as ``[dsserve]`` is, ``apply_moe``
+   against the dense oracle and ``_build_dispatch`` card vs CPU bitwise
+   (:func:`run_qmoe_path`);
    ``[moetrain]`` the Trainer on deepseek-v2-lite at full width with its
    prefix layer and one MoE layer, n = 2, AdamW, B.1 on every round, one
    synchronizing call a steady step (:func:`run_moetrain_path`);
    ``[moex]`` both archs' reduced configs card vs CPU
-   (:func:`moe_cross_check`).  ``--phases`` runs these alone.
+   (:func:`moe_cross_check`).
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -4531,8 +4533,8 @@ DXCROSS_TOL = 1e-4          # card vs CPU at float32, of max|cpu|
 DENSE_ARCHS = ("pga-lm-100m", "gemma2-9b", "qwen3-0.6b", "qwen2-0.5b",
                "qwen1.5-32b")
 QWEN32_LAYERS = 2           # of qwen1.5-32b's 64, at full width
-# of gemma2-9b's 42, at full width: since slice 13 the whole script must
-# finish within 900 s, and the 42 layers' host init alone took 70-77 s
+# of gemma2-9b's 42, at full width: at all 42 the whole script overran
+# its 900 s budget by 67 s on an H100 (PERF.md section 7 has the sums)
 GEMMA_LAYERS = 10
 # (B, prompt, new tokens, s_max) of Engine.generate, then the
 # BatchedServer's prompt lengths, slots and new tokens per request
@@ -4541,7 +4543,7 @@ DENSE_SERVE = {
                       server=((6, 100, 480), 2, 16)),
     "[gserve]": dict(arch="gemma2-9b", gen=(1, 4608, 32, 4672),
                      server=((6, 100, 1000, 4608), 4, 16),
-                     n_layers=GEMMA_LAYERS),
+                     n_layers=GEMMA_LAYERS, profile_tag="[gprofile]"),
     "[qserve] qwen3-0.6b": dict(arch="qwen3-0.6b", gen=(8, 1024, 32, 1056)),
     "[qserve] qwen2-0.5b": dict(arch="qwen2-0.5b", gen=(8, 1024, 32, 1056)),
     "[qserve] qwen1.5-32b": dict(arch="qwen1.5-32b", gen=(8, 1024, 32, 1056),
@@ -4682,18 +4684,57 @@ def decode_gate(torch, tag: str, model, params, tokens, s_max: int) -> None:
                              f"ratio {f32[1]} to the gate, finite {finite}")
 
 
+class moe_metrics:
+    """Records every ``apply_moe`` call's ``drop_frac`` and ``lb_loss``
+    ``(n,)`` (device tensors, read after the run) while the block is
+    active: ``models.blocks`` calls ``moe.apply_moe`` through its
+    module."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+        self.real, self.calls = moe_lib.apply_moe, []
+
+        def spy(*args, **kw):
+            out, met = self.real(*args, **kw)
+            self.calls.append({k: v.detach() for k, v in met.items()})
+            return out, met
+
+        moe_lib.apply_moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+        moe_lib.apply_moe = self.real
+
+    def drops(self) -> list:
+        """Every call's drop_frac, node by node."""
+        return [c["drop_frac"].tolist() for c in self.calls]
+
+
+def _drop_summary(drops: list) -> str:
+    flat = [d for call in drops for d in call]
+    return (f"drop_frac over {len(drops)} MoE calls: mean "
+            f"{statistics.fmean(flat):.4f}, min {min(flat):.4f}, max "
+            f"{max(flat):.4f}")
+
+
 def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
-                         n_layers=None) -> None:
-    """Slice 11's serving path on one dense model at full published width
+                         n_layers=None, gate=None,
+                         profile_tag=None) -> tuple:
+    """Slice 11's serving path on one decoder at full published width
     (depth cut to ``n_layers`` where given), fp32 params from seed 0, bf16
     compute: the init timed; (a) ``Engine.generate`` at ``gen`` = (B,
-    prompt, new tokens, s_max) with greedy ids, then its prefill and its
-    decode steps timed alone and a second generate with the same ids;
-    (b) ``BatchedServer.run`` with ``server`` = (prompt lengths, slots,
-    new tokens each); then :func:`decode_gate`.  The model launches none of
-    the port's kernels (no model calls them, here or in the reference):
-    the counts are set to 0 before each run and must read 0 after.
-    Returns ``(model, params)``."""
+    prompt, new tokens, s_max) with greedy ids, then its prefill timed
+    alone (with each MoE layer's drop_frac, :class:`moe_metrics`), its
+    greedy ids generate's first, and its decode steps timed alone; with
+    ``profile_tag``, 4 more decode steps under ``torch.profiler`` and the
+    weight casts alone; a second generate with the same ids; (b)
+    ``BatchedServer.run`` with ``server`` = (prompt lengths, slots, new
+    tokens each); then :func:`decode_gate` on the generate's own tokens,
+    or on ``gate`` = (B, S) fresh ones at ``s_max`` S + 8.  The model
+    launches none of the port's kernels (no model calls them, here or in
+    the reference): the counts are set to 0 before each run and must read
+    0 after.  Returns ``(model, params)``."""
     import numpy as np
 
     from repro_torch import configs
@@ -4737,15 +4778,19 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     assert ids.shape == (B, n_new), ids.shape
     assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
     _sync(torch)
-    t0 = time.perf_counter()
-    logits, caches = engine.prefill(params, prompts)
-    _sync(torch)
-    prefill_ms = (time.perf_counter() - t0) * 1e3
+    with moe_metrics() as rec:
+        t0 = time.perf_counter()
+        logits, caches = engine.prefill(params, prompts)
+        _sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
     assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
     cache_leaves = tree_leaves(caches)
     assert all(bool(torch.isfinite(t.float()).all()) for t in cache_leaves)
     cache_bytes = sum(t.numel() * t.element_size() for t in cache_leaves)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    if not np.array_equal(tok[:, 0].cpu().numpy(), ids[:, 0]):
+        raise AssertionError(f"{tag} the prefill's greedy ids are not "
+                             f"generate's first")
     del logits
     pos = torch.full((B,), S0, dtype=torch.int32, device=DEVICE)
     engine.decode_step(params, caches, tok, pos)
@@ -4757,7 +4802,7 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     _sync(torch)
     decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
     floor = decode_floor_bytes(cfg, n_params, cache_bytes)
-    if tag == "[gserve]" and DEVICE == "cuda":
+    if profile_tag is not None and DEVICE == "cuda":
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4766,7 +4811,7 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
                 engine.decode_step(params, caches, tok, pos + n_new)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        profile_report(prof, wall_ms, "[gprofile]", "4 decode steps")
+        profile_report(prof, wall_ms, profile_tag, "4 decode steps")
         mats = [p for p in leaves if p.dim() >= 3]
 
         def casts():
@@ -4775,7 +4820,7 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
 
         cast_ms = cuda_ms(torch, casts, iters=3, warmup=1)
         moved = sum(6 * p.numel() for p in mats)
-        print(f"[gprofile] the casts alone: every weight matrix to bf16 "
+        print(f"{profile_tag} the casts alone: every weight matrix to bf16 "
               f"once ({len(mats)} leaves, {moved / 1e9:.2f} GB read + "
               f"written): {cast_ms:.2f} ms, bound "
               f"{moved / HBM_BYTES_PER_S * 1e3:.2f} ms", flush=True)
@@ -4783,18 +4828,25 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     again = engine.generate(params, prompts, n_new)
     if not np.array_equal(ids, again):
         raise AssertionError(f"{tag} a second generate gave other ids")
+    drops = f"; {_drop_summary(rec.drops())}" if rec.calls else ""
     print(f"{tag} (a) Engine.generate B={B} S={S0} +{n_new} greedy, s_max "
           f"{s_max}: {gen_s * 1e3:.1f} ms in all, {B * n_new / gen_s:.1f} "
           f"generated tokens/s; prefill alone {prefill_ms:.1f} ms "
-          f"({B * S0 / prefill_ms * 1e3:.0f} prompt tokens/s), decode "
-          f"{decode_ms:.2f} ms/token ({B / decode_ms * 1e3:.1f} tokens/s at "
-          f"B={B}; floor {floor / HBM_BYTES_PER_S * 1e3:.2f} ms from "
-          f"{floor / 1e9:.2f} GB a step: weight casts and their reads, the "
-          f"KV cache of {cache_bytes / 1e9:.3f} GB); peak memory "
+          f"({B * S0 / prefill_ms * 1e3:.0f} prompt tokens/s{drops}), "
+          f"decode {decode_ms:.2f} ms/token ({B / decode_ms * 1e3:.1f} "
+          f"tokens/s at B={B}; floor {floor / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"from {floor / 1e9:.2f} GB a step: weight casts and their reads, "
+          f"the KV cache of {cache_bytes / 1e9:.3f} GB); peak memory "
           f"{peak_a:.2f} GB; no kernel launched; a second run gives the same "
           f"ids", flush=True)
     if server is not None:
         _serve_batched(torch, tag, model, params, rng, s_max, *server)
+    if gate is not None:
+        B, S = gate
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (B, S + 8))).to(
+            device=DEVICE, dtype=torch.int32)
+        s_max = S + 8
     decode_gate(torch, tag, model, params, tokens, s_max)
     return model, params
 
@@ -4916,7 +4968,8 @@ BERTMEM_MB_SHARE = 1e-3
 # accumulation scale reads 0.75 or more
 BERTMEM_GRAD_TOL = 1e-5
 BERTMEM_MB_GRAD_TOL = 0.25
-GLONG = dict(prompt=8192, new=16, s_max=8208)
+# the 8,192-token prefill, on the params of this arch's serving phase
+GLONG = dict(arch="gemma2-9b", prompt=8192, new=16, s_max=8208)
 GLONG_TOL = 1e-5                    # blocked vs plain attention, of max|plain|
 ENCX_TOL = 1e-5                     # card vs CPU, of max|cpu|
 
@@ -5375,8 +5428,9 @@ DSLONG = dict(prompt=8192, new=16, s_max=8208)
 DSLONG_TOL = 1e-5                   # blocked vs plain MLA, of max|plain|
 QMOE_ARCH = "qwen3-moe-30b-a3b"
 QMOE_LAYERS = 4                     # of its 48, at full width
-QMOE = dict(gen=(4, 1024, 16, 1056), oracle=(2, 64), dispatch_tokens=4096,
-            dispatch_cf=0.5)
+QMOE = dict(gen=(4, 1024, 16, 1056), gate=(2, 256), n_layers=QMOE_LAYERS)
+QMOE_ORACLE = (2, 64)               # (B, S) of apply_moe vs the dense oracle
+QMOE_DISPATCH = (4096, 0.5)         # tokens, capacity factor: drops
 QMOE_TOL = (2e-5, 1e-3)             # apply_moe vs the dense oracle, fp32:
                                     # tests/test_moe.py's atol, rtol
 # the Trainer on deepseek-v2-lite at full width, the dense prefix layer +
@@ -5390,182 +5444,41 @@ MOEX_NODES = 4
 MOEX_DEVICES = ("cuda", "cpu")      # card, then the reference run
 
 
-class moe_metrics:
-    """Records every ``apply_moe`` call's ``drop_frac`` and ``lb_loss``
-    ``(n,)`` (device tensors, read after the run) while the block is
-    active: ``models.blocks`` calls ``moe.apply_moe`` through its
-    module."""
-
-    def __enter__(self):
-        from repro_torch.models import moe as moe_lib
-        self.real, self.calls = moe_lib.apply_moe, []
-
-        def spy(*args, **kw):
-            out, met = self.real(*args, **kw)
-            self.calls.append({k: v.detach() for k, v in met.items()})
-            return out, met
-
-        moe_lib.apply_moe = spy
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import moe as moe_lib
-        moe_lib.apply_moe = self.real
-
-    def drops(self) -> list:
-        """Every call's drop_frac, node by node."""
-        return [c["drop_frac"].tolist() for c in self.calls]
-
-
-def _drop_summary(drops: list) -> str:
-    flat = [d for call in drops for d in call]
-    return (f"drop_frac over {len(drops)} MoE calls: mean "
-            f"{statistics.fmean(flat):.4f}, min {min(flat):.4f}, max "
-            f"{max(flat):.4f}")
-
-
-def _init_timed(torch, model, tag: str, cut: str = ""):
-    """``model.init`` from seed 0 on ``DEVICE``, timed; prints the count,
-    the fp32 GB and the peak after init."""
-    from repro_torch.tree import tree_leaves
-
-    cfg = model.cfg
-    _reset_peak(torch)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(0), DEVICE)
-    _sync(torch)
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"{tag} {cfg.name}: {n_params:,} params ({n_params * 4 / 1e9:.2f}"
-          f" GB fp32){cut}, {cfg.n_layers} layers {sorted(set(cfg.layers))}"
-          f", bf16 compute; init {init_s:.1f} s (drawn on the host from "
-          f"seed 0), peak device memory after init {_peak_gb(torch):.2f} "
-          f"GB", flush=True)
-    return params, n_params
-
-
-def _generate_timed(torch, tag: str, model, params, gen, rng,
-                    n_params: int, profile_tag: str = "") -> None:
-    """``Engine.generate`` at ``gen`` = (B, prompt, new, s_max), greedy,
-    no kernel launched; then its prefill alone (with each MoE layer's
-    drop_frac) and its decode steps alone, timed, and with
-    ``profile_tag`` 4 more decode steps under ``torch.profiler``; a second
-    generate gives the same ids."""
-    import numpy as np
-
-    from repro_torch.serve import Engine
-    from repro_torch.tree import tree_leaves
-
-    cfg = model.cfg
-    B, S0, n_new, s_max = gen
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S0))).to(
-        device=DEVICE, dtype=torch.int32)
-    engine = Engine(model, s_max=s_max)
-    _reset_peak(torch)
-    reset_counts()
-    t0 = time.perf_counter()
-    ids = engine.generate(params, prompts, n_new)
-    gen_s = time.perf_counter() - t0
-    if counts() != only():
-        raise AssertionError(f"{tag} generate launched {counts()}")
-    peak = _peak_gb(torch)
-    assert ids.shape == (B, n_new), ids.shape
-    assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
-    _sync(torch)
-    with moe_metrics() as rec:
-        t0 = time.perf_counter()
-        logits, caches = engine.prefill(params, prompts)
-        _sync(torch)
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
-    cache_leaves = tree_leaves(caches)
-    assert all(bool(torch.isfinite(t.float()).all()) for t in cache_leaves)
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache_leaves)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    if not np.array_equal(tok[:, 0].cpu().numpy(), ids[:, 0]):
-        raise AssertionError(f"{tag} the prefill's greedy ids are not "
-                             f"generate's first")
-    del logits
-    pos = torch.full((B,), S0, dtype=torch.int32, device=DEVICE)
-    _sync(torch)
-    t0 = time.perf_counter()
-    for i in range(n_new):
-        out, caches = engine.decode_step(params, caches, tok, pos + i)
-        tok = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
-    _sync(torch)
-    decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
-    if profile_tag and DEVICE == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(4):
-                engine.decode_step(params, caches, tok, pos + n_new)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        profile_report(prof, wall_ms, profile_tag, "4 decode steps")
-    del caches, out
-    floor = decode_floor_bytes(cfg, n_params, cache_bytes)
-    again = engine.generate(params, prompts, n_new)
-    if not np.array_equal(ids, again):
-        raise AssertionError(f"{tag} a second generate gave other ids")
-    print(f"{tag} (a) Engine.generate B={B} S={S0} +{n_new} greedy, s_max "
-          f"{s_max}: {gen_s * 1e3:.1f} ms in all, {B * n_new / gen_s:.1f} "
-          f"generated tokens/s; prefill alone {prefill_ms:.1f} ms "
-          f"({B * S0 / prefill_ms * 1e3:.0f} prompt tokens/s; "
-          f"{_drop_summary(rec.drops())}), decode {decode_ms:.2f} ms/token "
-          f"({B / decode_ms * 1e3:.1f} tokens/s at B={B}; floor "
-          f"{floor / HBM_BYTES_PER_S * 1e3:.2f} ms from {floor / 1e9:.2f} "
-          f"GB a step: weight casts and their reads, the cache of "
-          f"{cache_bytes / 1e9:.3f} GB); peak memory {peak:.2f} GB; no "
-          f"kernel launched; a second run gives the same ids", flush=True)
-
-
 def run_ds_path(torch) -> None:
     """``[dsserve]`` and ``[dslong]``: deepseek-v2-lite-16b at its full
     published size (27 layers: the dense prefix layer and 26 MoE layers,
     MLA with the latent cache; 15,706,484,224 fp32 params from seed 0),
-    bf16 compute, one replica.  ``[dsserve]``: the init timed against the
-    62.83 GB reckoning; ``Engine.generate`` at :data:`DSSERVE`'s ``gen``
-    (prefill ms with the prefill's drop_frac, decode ms a token against
-    its floor, peak); ``BatchedServer`` on mixed prompts; then
-    :func:`decode_gate` at float32 drop-free on ``gate`` tokens.
-    ``[dslong]`` on the same params: one 8,192-token prompt through
-    ``Engine.generate`` (every layer's prefill attention through
-    ``_mla_attend_blocked``), prefill ms and peak; then, the model freed,
-    one layer's blocked MLA against the plain ``_mla_attend`` at float32
-    on the same inputs within :data:`DSLONG_TOL` · max|plain|."""
+    bf16 compute, one replica.  ``[dsserve]``: :func:`run_dense_serve_path`
+    at :data:`DSSERVE` (the init timed; ``Engine.generate`` with the
+    prefill's drop_frac and decode ms a token against its floor, profiled
+    as ``[dsprofile]``; ``BatchedServer`` on mixed prompts;
+    :func:`decode_gate` at float32 drop-free), the params held to the
+    62.83 GB reckoning.  ``[dslong]`` on the same params: one 8,192-token
+    prompt through ``Engine.generate`` (every layer's prefill attention
+    through ``_mla_attend_blocked``), prefill ms and peak; then, the model
+    freed, :func:`mla_blocked_gate`."""
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch.models import attention as attn
-    from repro_torch.models.model import make_model
     from repro_torch.serve import Engine
     from repro_torch.tree import tree_leaves
 
     tag = "[dsserve]"
-    cfg = configs.get_model_config(DS_ARCH)
-    model = make_model(cfg)
-    params, n_params = _init_timed(torch, model, tag)
-    if cfg.name == DS_ARCH and n_params != DS_PARAMS:
-        raise AssertionError(f"{tag} {n_params:,} params, expected "
-                             f"{DS_PARAMS:,}")
+    model, params = run_dense_serve_path(torch, tag, DS_ARCH, **DSSERVE,
+                                         profile_tag="[dsprofile]")
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"{tag} params {n_params * 4 / 1e9:.2f} GB against the "
           f"{DS_PARAMS * 4 / 1e9:.2f} GB reckoning (the reference's init, "
           f"fp32)", flush=True)
-    rng = np.random.default_rng(0)
-    _generate_timed(torch, tag, model, params, DSSERVE["gen"], rng, n_params,
-                    profile_tag="[dsprofile]")
-    _serve_batched(torch, tag, model, params, rng, DSSERVE["gen"][3],
-                   *DSSERVE["server"])
-    B, S = DSSERVE["gate"]
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 8))
-                              ).to(device=DEVICE, dtype=torch.int32)
-    decode_gate(torch, tag, model, params, tokens, S + 8)
+    if n_params != DS_PARAMS:
+        raise AssertionError(f"{tag} {n_params:,} params, expected "
+                             f"{DS_PARAMS:,}")
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
 
     # [dslong]: the blocked MLA path through the engine
+    rng = np.random.default_rng(1)
     S, n_new, s_max = DSLONG["prompt"], DSLONG["new"], DSLONG["s_max"]
     assert S >= attn.BLOCKED_THRESHOLD
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(
@@ -5611,21 +5524,41 @@ def run_ds_path(torch) -> None:
     del params, model, engine
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    mla_blocked_gate(torch, cfg, layer, S)
+
+
+def mla_blocked_gate(torch, cfg, layer, S: int) -> None:
+    """``[dslong]``'s gate: one MLA layer (``layer``, one node's mixer
+    params) at float32 (TF32 off) on S random rows, ``_mla_attend_blocked``
+    against the plain ``_mla_attend`` on the same inputs within
+    :data:`DSLONG_TOL` · max|plain|, and ``attn_forward`` (the blocked
+    route) bitwise the blocked call.  Reported beside it, why the two
+    are not bitwise: the blocked call with one chunk of all S rows against
+    the plain, and each of the chunk's three fp32 products (the logits
+    ``q_nope·k_nope``, ``probs·v``, the ``w_o`` projection) on the first
+    :data:`attention._Q_CHUNK` rows alone against the same rows of the
+    product over all S rows, on random inputs of the layer's shapes."""
+    from repro_torch.models import attention as attn
+
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     x = torch.randn((1, 1, S, cfg.d_model), generator=gen, device=DEVICE)
     positions = torch.arange(S, device=DEVICE)[None]
     q_nope, q_rope, c_kv, k_rope = attn._mla_qkv(layer, cfg32, x, positions)
+
+    def blocked(chunk=attn._Q_CHUNK):
+        return attn._mla_attend_blocked(layer, cfg32, q_nope, q_rope, c_kv,
+                                        k_rope, positions, positions,
+                                        causal=True, chunk=chunk)
+
     _reset_peak(torch)
     t0 = time.perf_counter()
-    blocked = attn._mla_attend_blocked(layer, cfg32, q_nope, q_rope, c_kv,
-                                       k_rope, positions, positions,
-                                       causal=True)
+    out = blocked()
     _sync(torch)
     blocked_ms = (time.perf_counter() - t0) * 1e3
     blocked_peak = _peak_gb(torch)
     full, _ = attn.attn_forward(layer, cfg32, x, layer_kind="attn")
-    err_fwd = float((full - blocked).abs().max())
+    err_fwd = float((full - out).abs().max())
     del full
     _reset_peak(torch)
     t0 = time.perf_counter()
@@ -5637,8 +5570,34 @@ def run_ds_path(torch) -> None:
     plain_ms = (time.perf_counter() - t0) * 1e3
     plain_peak = _peak_gb(torch)
     ref = float(plain.abs().max())
-    err = float((blocked - plain).abs().max())
-    del plain, blocked, mask, x, q_nope, q_rope, c_kv, k_rope
+    err = float((out - plain).abs().max())
+    del out, mask
+    err_one = float((blocked(chunk=S) - plain).abs().max())
+    del plain
+    c, m = attn._Q_CHUNK, cfg.mla
+    nh = cfg.n_heads
+    a = torch.randn((1, 1, S, nh, m.nope_head_dim), generator=gen,
+                    device=DEVICE)
+    k = torch.randn((1, 1, S, nh, m.nope_head_dim), generator=gen,
+                    device=DEVICE)
+    p = torch.rand((1, 1, nh, S, S), generator=gen, device=DEVICE)
+    v = torch.randn((1, 1, S, nh, m.v_head_dim), generator=gen,
+                    device=DEVICE)
+    h = torch.randn((1, 1, S, nh, m.v_head_dim), generator=gen,
+                    device=DEVICE)
+    # (equation, lhs, rhs, the query axis of lhs, of the product)
+    products = {
+        "logits": ("nbqhd,nbkhd->nbhqk", a, k, 2, 3),
+        "probs·v": ("nbhqk,nbkhd->nbqhd", p, v, 3, 2),
+        "w_o": ("nbqhd,nhdo->nbqo", h, layer["w_o"], 2, 2)}
+    gaps = {}
+    for name, (eq, lhs, rhs, ax_in, ax_out) in products.items():
+        whole = torch.einsum(eq, lhs, rhs).narrow(ax_out, 0, c)
+        part = torch.einsum(eq, lhs.narrow(ax_in, 0, c), rhs)
+        gaps[name] = (float((whole - part).abs().max()),
+                      float(whole.abs().max()))
+        del whole, part
+    del a, k, p, v, h, x, q_nope, q_rope, c_kv, k_rope
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     print(f"[dslong] float32 MLA layer at S={S}: blocked vs plain "
@@ -5647,6 +5606,11 @@ def run_ds_path(torch) -> None:
           f"blocked call {err_fwd:.3e}; blocked {blocked_ms:.1f} ms peak "
           f"{blocked_peak:.2f} GB, plain {plain_ms:.1f} ms peak "
           f"{plain_peak:.2f} GB", flush=True)
+    print(f"[dslong] why not bitwise: blocked with one chunk of {S} rows vs "
+          f"plain {err_one:.3e}; the first {c} rows alone vs the same rows "
+          f"of the product over {S} (max abs err, max|whole|): "
+          + ", ".join(f"{name} {g:.3e} ({r:.4f})"
+                      for name, (g, r) in gaps.items()), flush=True)
     if not (err <= DSLONG_TOL * ref and err_fwd == 0.0):
         raise AssertionError(f"[dslong] blocked MLA {err:.3e} from the "
                              f"plain, attn_forward {err_fwd:.3e}")
@@ -5656,28 +5620,19 @@ def run_qmoe_path(torch) -> None:
     """``[qmoe]``: qwen3-moe-30b-a3b at full width (d 2,048, 32 heads, GQA
     kv 4, qk-norm, 128 experts top-8, vocab 151,936) and
     :data:`QMOE_LAYERS` of its 48 layers, fp32 params from seed 0, bf16
-    compute: ``Engine.generate`` (prefill with its drop_frac, decode);
-    then on layer 0's MoE params at float32 (TF32 off): ``apply_moe``
-    drop-free against ``apply_moe_dense_reference`` elementwise within
-    :data:`QMOE_TOL`, and ``_build_dispatch`` on the card bitwise the
-    port's CPU result on the same routing of ``dispatch_tokens`` tokens at
-    a capacity that drops (expert 0's first slot the sentinel)."""
-    import numpy as np
-
-    from repro_torch import configs
+    compute: :func:`run_dense_serve_path` at :data:`QMOE` (prefill with
+    its drop_frac, decode, the decode gate at float32 drop-free); then on
+    layer 0's MoE params at float32 (TF32 off): ``apply_moe`` drop-free
+    against ``apply_moe_dense_reference`` elementwise within
+    :data:`QMOE_TOL` on :data:`QMOE_ORACLE` tokens, and
+    ``_build_dispatch`` on the card bitwise the port's CPU result on the
+    same routing of :data:`QMOE_DISPATCH` tokens at a capacity that drops
+    (expert 0's first slot the sentinel)."""
     from repro_torch.models import moe as moe_lib
-    from repro_torch.models.model import make_model
 
     tag = "[qmoe]"
-    cfg = configs.get_model_config(QMOE_ARCH)
-    full_layers = cfg.n_layers
-    cfg = dataclasses.replace(cfg, n_layers=QMOE_LAYERS)
-    model = make_model(cfg)
-    params, n_params = _init_timed(
-        torch, model, tag, f", depth cut to {QMOE_LAYERS} of its "
-        f"{full_layers} layers")
-    rng = np.random.default_rng(4)
-    _generate_timed(torch, tag, model, params, QMOE["gen"], rng, n_params)
+    model, params = run_dense_serve_path(torch, tag, QMOE_ARCH, **QMOE)
+    cfg = model.cfg
     ffn = {k: v[0][None] for k, v in
            params["stack"]["scan"]["entry_0"]["ffn"].items()}
     del params, model
@@ -5685,7 +5640,7 @@ def run_qmoe_path(torch) -> None:
         torch.cuda.empty_cache()
     m = cfg.moe
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    B, S = QMOE["oracle"]
+    B, S = QMOE_ORACLE
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     x = torch.randn((1, B, S, cfg.d_model), generator=gen, device=DEVICE)
     out, met = moe_lib.apply_moe(ffn, cfg32, x,
@@ -5703,7 +5658,7 @@ def run_qmoe_path(torch) -> None:
     if not (ratio <= 1.0 and drop == 0.0):
         raise AssertionError(f"{tag} apply_moe vs the dense oracle: ratio "
                              f"{ratio}, drop_frac {drop}")
-    T, cf = QMOE["dispatch_tokens"], QMOE["dispatch_cf"]
+    T, cf = QMOE_DISPATCH
     xt = torch.randn((1, 1, T, cfg.d_model), generator=gen, device=DEVICE)
     top_w, top_idx, _ = moe_lib.route(ffn, m, xt)
     top_w, top_idx = top_w[0, 0], top_idx[0, 0]
@@ -5925,16 +5880,6 @@ def moe_cross_check(torch) -> None:
                                  f"{loss_rel:.3e}")
 
 
-# slice 13's phases in their order: name -> phase(torch, mc), returning
-# the launch counts of a training path (None for the others)
-SLICE13 = {
-    "dsserve": lambda torch, mc: run_ds_path(torch),
-    "qmoe": lambda torch, mc: run_qmoe_path(torch),
-    "moetrain": run_moetrain_path,
-    "moex": lambda torch, mc: moe_cross_check(torch),
-}
-
-
 def main() -> int:
     import argparse
 
@@ -5943,11 +5888,13 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop (no main "
                          "paths, no ok line)")
-    ap.add_argument("--phases", default="",
-                    help="build, then run only these comma-separated "
-                         f"phases of slice 13 ({', '.join(SLICE13)}) and "
-                         "stop (no kernel checks, no ok line)")
     args = ap.parse_args()
+    start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"[time] {what} done at {time.perf_counter() - start:.1f} s "
+              f"of the script", flush=True)
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -5983,11 +5930,6 @@ def main() -> int:
             lines += sass_memory_counts(cuda_build, name)
         for line in lines:
             print(f"[build] {name}.cu: {line}", flush=True)
-    if args.phases:
-        for name in args.phases.split(","):
-            SLICE13[name](torch, mc)
-            torch.cuda.empty_cache()
-        return 1
     records = {}
 
     def add(*found):
@@ -6007,6 +5949,7 @@ def main() -> int:
     add(*check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
     add(check_rmsnorm_kernel(torch, rn))
+    lap("the build and the kernel checks")
     if args.kernels_only:
         print(json.dumps({"kernels": list(records.values())}))
         return 1
@@ -6058,6 +6001,7 @@ def main() -> int:
     for algorithm, dist_kw in ALGO_RUNS:
         for k, v in run_algo_path(torch, mc, algorithm, dist_kw).items():
             algos[k] += v
+    lap("slices 1-7")
     # slice 8: push-sum and faults
     push = {}
     push["[psmain]"], tr, state, debiased = run_push_path(torch, mc)
@@ -6081,6 +6025,7 @@ def main() -> int:
     push_cross_check(torch, compressed=True)
     push_cross_check(torch, sharded=True)
     push["[psim]"] = run_push_sim_path(torch, mc)
+    lap("slice 8")
     # slice 9: overlapped gossip
     overlap = {}
     overlap["[ovmain]"], tr, state = run_overlap_path(torch, mc)
@@ -6099,6 +6044,7 @@ def main() -> int:
         cross_check(torch, compressed=compressed, sharded=sharded,
                     dist_kw=OVERLAP_CROSS, steps=4, tag="[ovcross]")
     overlap["[ovsim]"] = run_overlap_sim_path(torch, mc)
+    lap("slice 9")
     # slice 10: checkpoints and resume, the occupancy calibration, the
     # simulator's and the server's telemetry
     slice10["[ckpt]"] = run_ckpt_path(torch, mc, "[ckpt]")
@@ -6112,18 +6058,21 @@ def main() -> int:
     slice10["[occ]"] = run_occ_path(torch, mc)
     slice10["[simtel]"] = run_simtel_path(torch, mc)
     slice10["[servetel]"] = run_servetel_path(torch)
+    lap("slice 10")
     # slice 11: the dense decoders served at full published size, then
     # card against CPU at their reduced configs
     for tag, kw in DENSE_SERVE.items():
         torch.cuda.empty_cache()
         model, params = run_dense_serve_path(torch, tag, **kw)
-        if tag == "[gserve]":
+        if kw["arch"] == GLONG["arch"]:
             # slice 12: the 8,192-token prefill, on [gserve]'s params
             torch.cuda.empty_cache()
             run_glong_path(torch, model, params)
         del model, params
+        lap(tag)
     torch.cuda.empty_cache()
     dense_cross_check(torch)
+    lap("slice 11")
     # slice 12: bert-large training (encoder, LAMB, microbatches, remat)
     slice12 = {}
     slice12["[bert]"], bert_params = run_bert_path(torch, mc)
@@ -6132,14 +6081,21 @@ def main() -> int:
     del bert_params
     torch.cuda.empty_cache()
     encoder_cross_check(torch)
+    lap("slice 12")
     # slice 13: MoE, MLA and prefix patterns
-    slice13 = {}
-    for name, phase in SLICE13.items():
-        torch.cuda.empty_cache()
-        launches = phase(torch, mc)
-        if launches is not None:
-            slice13[f"[{name}]"] = launches
     torch.cuda.empty_cache()
+    run_ds_path(torch)
+    lap("[dsserve] and [dslong]")
+    torch.cuda.empty_cache()
+    run_qmoe_path(torch)
+    lap("[qmoe]")
+    torch.cuda.empty_cache()
+    slice13 = {"[moetrain]": run_moetrain_path(torch, mc)}
+    lap("[moetrain]")
+    torch.cuda.empty_cache()
+    moe_cross_check(torch)
+    torch.cuda.empty_cache()
+    lap("slice 13")
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),

@@ -125,9 +125,10 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[PyTree] = None,
                 pos: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
+                ) -> Tuple[torch.Tensor, Optional[PyTree],
+                           Optional[torch.Tensor]]:
     """Returns ``(x, new_cache, lb_loss)``, ``lb_loss`` the MoE balance
-    loss ``(n,)`` (zeros without an MoE FFN).  mode: train|prefill|decode;
+    loss ``(n,)`` (None without an MoE FFN).  mode: train|prefill|decode;
     decode takes x ``(n, B, 1, d)``, the block's ``cache`` and, for
     attention, ``pos`` ``(B,)``, the position each sequence writes."""
     mixer, ffn = kind
@@ -154,7 +155,7 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
     if cfg.post_block_norm:
         out = rms_norm(out, params["post_ln1"], cfg.norm_eps)
     x = x + out
-    lb_loss = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    lb_loss = None
     if ffn != "none":
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if ffn == "moe":
@@ -200,6 +201,14 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return tree[:, i]
 
 
+def _add_lb(total, lb):
+    """The running balance loss: ``0 + a`` is ``a`` exactly, so starting
+    from the first MoE block's is the reference's sum from zero."""
+    if lb is None:
+        return total
+    return lb if total is None else total + lb
+
+
 def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str = "train",
                 positions: Optional[torch.Tensor] = None,
@@ -211,7 +220,7 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     """Apply the prefix blocks, then the scanned pattern repeats; params
     ``{"prefix_<i>": (n, …), "scan": {"entry_<j>": (n, L, …) stacked}}``.
     Returns ``(x, caches, total_lb)``, ``total_lb`` the blocks' MoE balance
-    losses summed in the reference's order ``(n,)``.  With ``want_cache``
+    losses summed in the reference's order ``(n,)``, zeros without one.  With ``want_cache``
     or in decode mode, caches ``{"prefix_<i>": (n, B, …), "scan":
     {"entry_<j>": (n, L, B, …) stacked}}``, else None.  Decode reads the
     same layout from ``caches``; an attention entry's leaves are written
@@ -223,14 +232,14 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
         raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, "
                          f"got {remat!r}")
     need_cache = want_cache or mode == "decode"
-    total_lb = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    total_lb = None
     out_caches: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.prefix_pattern):
         name = f"prefix_{i}"
         x, c_out, lb = apply_block(
             params[name], cfg, kind, x, mode=mode, positions=positions,
             cache=caches[name] if mode == "decode" else None, pos=pos)
-        total_lb = total_lb + lb
+        total_lb = _add_lb(total_lb, lb)
         if need_cache:
             out_caches[name] = c_out
     scan = params["scan"]
@@ -253,7 +262,10 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
                 x, c_out, lb = run(x)
                 if need_cache:
                     outs[j].append(c_out)
-            total_lb = total_lb + lb
+            total_lb = _add_lb(total_lb, lb)
+    if total_lb is None:
+        total_lb = torch.zeros(x.shape[0], dtype=torch.float32,
+                               device=x.device)
     if not need_cache:
         return x, None, total_lb
     out_caches["scan"] = {
