@@ -184,7 +184,22 @@ line):
    prefix layer and one MoE layer, n = 2, AdamW, B.1 on every round, one
    synchronizing call a steady step (:func:`run_moetrain_path`);
    ``[moex]`` both archs' reduced configs card vs CPU
-   (:func:`moe_cross_check`).
+   (:func:`reduced_cross_check`).
+16. slice 14's paths, Mamba, the hybrid family and the VLM stub (every
+   full-size init printed with its rate, the host's cores and the draw
+   pool): ``[jserve]`` jamba-1.5-large at full width with one layer of
+   each block kind, (mamba, dense), (mamba, moe) and (attn, dense)
+   (12,937,224,192 bf16 params), served as ``[dsserve]`` is
+   (``Engine.generate`` 2 × 1,024 + 16, a 4-slot ``BatchedServer``, the
+   decode gate at float32 drop-free), then one Mamba layer card vs CPU
+   (:func:`run_jserve_path`); ``[lvserve]`` llava-next-mistral-7b at its
+   full published size the same way and ``[lvloss]`` its loss on 4,096
+   positions, 2,880 of them patches (:func:`run_lvserve_path`);
+   ``[jtrain]`` the Trainer on jamba at full width with one Mamba layer
+   and its FFN, n = 2, SGD, B.1 on every round, one synchronizing call a
+   steady step (:func:`run_jtrain_path`);
+   ``[hybx]`` and ``[vlmx]`` both archs' reduced configs card vs CPU,
+   their inits bitwise (:func:`reduced_cross_check`, as ``[moex]``).
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -4572,7 +4587,11 @@ def decode_floor_bytes(cfg, n_params: int, cache_bytes: int) -> int:
     it: every fp32 weight matrix read and cast to a bf16 copy that the
     product reads again (4 + 2 + 2 bytes a parameter), the embedding cast
     for the lookup (4 + 2 bytes an entry) and, when tied, cast again and
-    read by the unembedding (4 + 2 + 2), and the KV cache read once."""
+    read by the unembedding (4 + 2 + 2), and the KV cache read once.  With
+    bf16 params (jamba) the casts are no-ops: every parameter and the
+    caches read once."""
+    if cfg.param_dtype == cfg.dtype:
+        return 2 * n_params + cache_bytes
     emb = cfg.vocab_size * cfg.d_model
     return (8 * (n_params - emb) + 6 * emb
             + (8 * emb if cfg.tie_embeddings else 0) + cache_bytes)
@@ -4719,22 +4738,23 @@ def _drop_summary(drops: list) -> str:
 
 
 def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
-                         n_layers=None, gate=None,
-                         profile_tag=None) -> tuple:
+                         n_layers=None, gate=None, profile_tag=None,
+                         pattern=None) -> tuple:
     """Slice 11's serving path on one decoder at full published width
-    (depth cut to ``n_layers`` where given), fp32 params from seed 0, bf16
-    compute: the init timed; (a) ``Engine.generate`` at ``gen`` = (B,
-    prompt, new tokens, s_max) with greedy ids, then its prefill timed
-    alone (with each MoE layer's drop_frac, :class:`moe_metrics`), its
-    greedy ids generate's first, and its decode steps timed alone; with
-    ``profile_tag``, 4 more decode steps under ``torch.profiler`` and the
-    weight casts alone; a second generate with the same ids; (b)
-    ``BatchedServer.run`` with ``server`` = (prompt lengths, slots, new
-    tokens each); then :func:`decode_gate` on the generate's own tokens,
-    or on ``gate`` = (B, S) fresh ones at ``s_max`` S + 8.  The model
-    launches none of the port's kernels (no model calls them, here or in
-    the reference): the counts are set to 0 before each run and must read
-    0 after.  Returns ``(model, params)``."""
+    (depth cut to ``n_layers`` where given, the block pattern replaced by
+    ``pattern`` where given), its params from seed 0 in the config's
+    ``param_dtype``, bf16 compute: the init timed, with its rate; (a)
+    ``Engine.generate`` at ``gen`` = (B, prompt, new tokens, s_max) with
+    greedy ids, then its prefill timed alone (with each MoE layer's
+    drop_frac, :class:`moe_metrics`), its greedy ids generate's first, and
+    its decode steps timed alone; with ``profile_tag``, 4 more decode steps
+    under ``torch.profiler`` and the weight casts alone; a second generate
+    with the same ids; (b) ``BatchedServer.run`` with ``server`` = (prompt
+    lengths, slots, new tokens each); then :func:`decode_gate` on the
+    generate's own tokens, or on ``gate`` = (B, S) fresh ones at ``s_max``
+    S + 8.  The model launches none of the port's kernels (no model calls
+    them, here or in the reference): the counts are set to 0 before each
+    run and must read 0 after. Returns ``(model, params)``."""
     import numpy as np
 
     from repro_torch import configs
@@ -4746,7 +4766,8 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     cut = ""
     if n_layers is not None:
         cut = f", depth cut to {n_layers} of its {cfg.n_layers} layers"
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  pattern=pattern or cfg.pattern)
     model = make_model(cfg)
     _reset_peak(torch)
     t0 = time.perf_counter()
@@ -4754,13 +4775,12 @@ def run_dense_serve_path(torch, tag: str, arch: str, gen, server=None,
     _sync(torch)
     init_s = time.perf_counter() - t0
     leaves = tree_leaves(params)
-    n_params = sum(p.numel() for p in leaves)
+    n_params = _init_line(torch, tag, model, params, init_s)
     init_peak = _peak_gb(torch)
-    print(f"{tag} {cfg.name}: {n_params:,} params ({n_params * 4 / 1e9:.2f}"
-          f" GB fp32){cut}, {cfg.n_layers} layers {sorted(set(cfg.layers))}"
-          f", bf16 compute; init {init_s:.1f} s (drawn on the host from "
-          f"seed 0), peak device memory after init {init_peak:.2f} GB",
-          flush=True)
+    print(f"{tag} {cfg.name}: {n_params:,} params{cut}, {cfg.n_layers} "
+          f"layers {sorted(set(cfg.layers))}, bf16 compute; init "
+          f"{init_s:.1f} s (drawn on the host from seed 0), peak device "
+          f"memory after init {init_peak:.2f} GB", flush=True)
     B, S0, n_new, s_max = gen
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S0 + 8))
@@ -5022,7 +5042,7 @@ def run_bert_path(torch, mc) -> tuple:
     params = tr.model.init(torch.Generator().manual_seed(0), DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = _init_line(torch, tag, tr.model, params, init_s)
     if n_params != BERT_PARAMS:
         raise AssertionError(f"{tag} {n_params:,} params, expected "
                              f"{BERT_PARAMS:,}")
@@ -5683,38 +5703,33 @@ def run_qmoe_path(torch) -> None:
                              f"{same}, drop_frac {float(dev[2])}")
 
 
-def _moetrain_config(reduced: bool = False, arch: str = DS_ARCH):
-    """The Trainer on an MoE model: Gossip-PGA over one_peer_exp on the
-    fused kernel, :data:`MOETRAIN`'s optimizer (SGD with Nesterov
-    momentum when it says ``"sgd"``).  Full size: deepseek-v2-lite
-    at full width and :data:`MOETRAIN`'s ``n_layers`` (the dense prefix
-    layer + one MoE layer), bf16 compute, ``per_node`` sequences of
-    ``seq`` a node.  ``reduced`` ([moex]): the reduced config at float32,
-    H = 2, 2 sequences of 32 a node on :data:`MOEX_NODES` nodes, SGD at lr
-    0.05 (a linear first step: AdamW's ≈ lr·sign(g) would turn a rounding-level
-    gradient into an lr-sized card/CPU difference)."""
-    from repro_torch import configs
+def _train_config(cfg, *, H: int, per_node: int, seq: int, steps: int,
+                  n: int, optimizer: str, lr: float):
+    """The Trainer on ``cfg``: Gossip-PGA over one_peer_exp on the fused
+    kernel, the optimizer with Nesterov momentum 0.9 where it has
+    momentum, warmup_cosine over ``steps + 2``."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig)
-    cfg = configs.get_model_config(arch, reduced=reduced)
-    H, per_node, seq = MOETRAIN["H"], MOETRAIN["per_node"], MOETRAIN["seq"]
-    steps, n = MOETRAIN["steps"], MOETRAIN["n"]
-    opt, lr = MOETRAIN["optimizer"], MOETRAIN["lr"]
-    if reduced:
-        cfg = dataclasses.replace(cfg, dtype="float32")
-        H, per_node, seq, steps, n = 2, 2, 32, 1, MOEX_NODES
-        opt, lr = "sgd", 0.05
-    else:
-        cfg = dataclasses.replace(cfg, n_layers=MOETRAIN["n_layers"])
     return TrainConfig(
         model=cfg,
         dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
                         H=H, comm_backend="pallas"),
-        optimizer=OptimizerConfig(name=opt, lr=lr, momentum=0.9,
+        optimizer=OptimizerConfig(name=optimizer, lr=lr, momentum=0.9,
                                   nesterov=True, schedule="warmup_cosine",
                                   warmup_steps=2, total_steps=steps + 2),
         global_batch=per_node * n, seq_len=seq, steps=steps,
         log_every=1)
+
+
+def _moetrain_config():
+    """``[moetrain]``'s Trainer: deepseek-v2-lite at full width and
+    :data:`MOETRAIN`'s ``n_layers`` (the dense prefix layer + one MoE
+    layer), bf16 compute, ``per_node`` sequences of ``seq`` a node."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_model_config(DS_ARCH),
+                              n_layers=MOETRAIN["n_layers"])
+    return _train_config(cfg, **{k: MOETRAIN[k] for k in (
+        "H", "per_node", "seq", "steps", "n", "optimizer", "lr")})
 
 
 def run_moetrain_path(torch, mc) -> dict:
@@ -5741,7 +5756,7 @@ def run_moetrain_path(torch, mc) -> dict:
     params = tr.model.init(torch.Generator().manual_seed(0), DEVICE)
     _sync(torch)
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = _init_line(torch, tag, tr.model, params, init_s)
     state = tr.init_state(params=params)
     del params
     leaves = tree_leaves(state.params)
@@ -5821,62 +5836,403 @@ def run_moetrain_path(torch, mc) -> dict:
     return launches
 
 
-def moe_cross_check(torch) -> None:
-    """``[moex]``: deepseek-v2-lite and qwen3-moe-30b-a3b at their reduced
-    configs, float32, one init (seed 1) on the card and on the CPU: the
-    forward's logits and ``lb_loss`` on 2 × 24 tokens, then one Trainer
-    step (4 nodes, Gossip-PGA, SGD) — its loss and the params after it —
-    each within :data:`MOEX_TOL` · max|cpu| (cuBLAS and the CPU's BLAS sum
-    in other orders; TF32 off), the routing equal (the drop_frac of every
-    MoE call)."""
-    import numpy as np
+# ---------------------------------------------------------------------------
+# Slice 14: Mamba and the hybrid family (jamba-1.5-large at full width),
+# the VLM stub (llava-next-mistral-7b at full published size), the Trainer
+# on the hybrid family, and both card against CPU
+# ---------------------------------------------------------------------------
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# one layer of each of jamba's block kinds at full width (bf16 params): its
+# 8-layer pattern is 90.48 GB, more than the card holds
+JSERVE_PATTERN = (("mamba", "dense"), ("mamba", "moe"), ("attn", "dense"))
+JSERVE_PARAMS = 12_937_224_192      # the reference's init (jax.eval_shape)
+JSERVE = dict(gen=(2, 1024, 16, 1040), server=((6, 100, 480), 4, 16),
+              gate=(2, 256), n_layers=3, pattern=JSERVE_PATTERN)
+MAMBA_X = (1, 256)                  # (B, S) of one Mamba layer card vs CPU
+MAMBA_X_TOL = 1e-4                  # of max|cpu|, float32 (TF32 off)
+LLAVA_ARCH = "llava-next-mistral-7b"
+LLAVA_PARAMS = 7_241_732_096
+LVSERVE = dict(gen=(4, 1024, 32, 1056), server=((6, 100, 480), 4, 16),
+               gate=(2, 256))
+LVLOSS = dict(B=1, S=4096)          # 2,880 image positions, 1,216 text
+LVLOSS_TOL = 1e-6                   # Model.loss vs the text positions' mean
+# the Trainer on the hybrid family at full width, n = 2, SGD with momentum
+# (its bf16 state is zeros_like; AdamW's fp32 m and v would double it), one
+# (mamba, dense) layer: with an (attn, dense) layer beside it (2.85e9
+# params) the optimizer phase peaked at 65.56 GB allocated, and each of
+# three runs on an H100 ran out of memory within 7 steps with 24-29 GB
+# reserved but unallocated
+JTRAIN = dict(n=2, H=3, per_node=1, seq=512, steps=6, n_layers=1,
+              pattern=(("mamba", "dense"),), optimizer="sgd", lr=0.01)
+JTRAIN_PARAMS = 2_098_077_696
+BF16_SCAN_TOL = 2e-2                # card vs CPU with the bf16 scan
 
-    from repro_torch import interop
+
+def _init_line(torch, tag: str, model, params, init_s: float) -> int:
+    """The init's params, bytes and rate beside the host's cores and the
+    draw pool; returns the count."""
+    from repro_torch.models import layers
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves)
+    print(f"{tag} init of {n_params:,} params ({nbytes / 1e9:.2f} GB "
+          f"{model.cfg.param_dtype}) in {init_s:.1f} s: "
+          f"{n_params / init_s / 1e6:.0f}e6 params/s drawn on the host and "
+          f"copied ({os.cpu_count()} host cores, a pool of "
+          f"{layers.INIT_THREADS} threads, pieces of {layers.INIT_PIECE})",
+          flush=True)
+    return n_params
+
+
+def mamba_layer_gate(torch, tag: str, cfg, mixer) -> None:
+    """One Mamba layer's ``mamba_forward`` at full width on the card
+    against the port's CPU result on the same inputs, float32 compute (the
+    bf16 params widened exactly, TF32 off), at :data:`MAMBA_X`: the output
+    and the final state within :data:`MAMBA_X_TOL` · max|cpu|."""
+    from repro_torch.models import ssm as ssm_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = MAMBA_X
+    gen = torch.Generator().manual_seed(14)
+    x = 0.5 * torch.randn((1, B, S, cfg.d_model), generator=gen)
+    host = {k: v.detach().to("cpu", torch.float32) for k, v in mixer.items()}
+    card = {k: v.to(torch.float32) for k, v in mixer.items()}
+    _sync(torch)
+    t0 = time.perf_counter()
+    got, gstate = ssm_lib.mamba_forward(card, cfg32, x.to(DEVICE))
+    _sync(torch)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want, wstate = ssm_lib.mamba_forward(host, cfg32, x)
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for name, a, b in (("out", got, want), ("h", gstate["h"], wstate["h"]),
+                       ("conv", gstate["conv"], wstate["conv"])):
+        worst[name] = float((a.cpu() - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+    di, N, _ = ssm_lib._mamba_dims(cfg)
+    print(f"{tag} one Mamba layer (d_inner {di}, N {N}) mamba_forward at "
+          f"float32 on {B}x{S}, card vs CPU: out within {worst['out']:.3e}, "
+          f"h {worst['h']:.3e}, conv {worst['conv']:.3e} of max|cpu| (gated "
+          f"at {MAMBA_X_TOL:g}); card {card_ms:.1f} ms (first call), CPU "
+          f"{cpu_s:.2f} s", flush=True)
+    if not max(worst.values()) <= MAMBA_X_TOL:
+        raise AssertionError(f"{tag} Mamba layer card vs CPU: {worst}")
+
+
+def run_jserve_path(torch) -> None:
+    """``[jserve]``: jamba-1.5-large at full width (d 8,192, d_inner 16,384,
+    N 16, 64 heads GQA kv 8, 16 experts top-2 of d_ff 24,576, vocab 65,536)
+    with one layer of each of its block kinds, :data:`JSERVE_PATTERN`
+    (12,937,224,192 bf16 params from seed 0), bf16 compute, one replica:
+    :func:`run_dense_serve_path` at :data:`JSERVE` (the init timed with its
+    rate; ``Engine.generate`` 2 × 1,024 + 16 with the prefill's drop_frac
+    and peak, decode against its floor; a
+    4-slot ``BatchedServer``; :func:`decode_gate` at float32 drop-free),
+    then :func:`mamba_layer_gate` on layer 0's Mamba mixer."""
+    from repro_torch.tree import tree_leaves
+
+    tag = "[jserve]"
+    _reset_peak(torch)
+    model, params = run_dense_serve_path(torch, tag, JAMBA_ARCH, **JSERVE)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"{tag} params {n_params * 2 / 1e9:.2f} GB against the "
+          f"{JSERVE_PARAMS * 2 / 1e9:.2f} GB reckoning (the reference's "
+          f"init, bf16)", flush=True)
+    if n_params != JSERVE_PARAMS:
+        raise AssertionError(f"{tag} {n_params:,} params, expected "
+                             f"{JSERVE_PARAMS:,}")
+    mixer = {k: v[0][None].clone() for k, v in
+             params["stack"]["scan"]["entry_0"]["mixer"].items()}
+    cfg = model.cfg
+    del params, model
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    mamba_layer_gate(torch, tag, cfg, mixer)
+
+
+def run_lvserve_path(torch) -> None:
+    """``[lvserve]``: llava-next-mistral-7b at its full published size (32
+    layers, 7,241,732,096 fp32 params from seed 0), bf16 compute, one
+    replica: :func:`run_dense_serve_path` at :data:`LVSERVE` (token
+    prompts: the engine takes tokens only, as the reference's).  Then
+    ``[lvloss]`` on the same params: ``Model.loss`` under ``no_grad`` on
+    one 4,096-token batch whose first 2,880 positions are patches (drawn
+    on the card, × 0.02): its ms and peak; gated, that it equals the mean
+    NLL of the 1,216 text positions taken from one forward's logits
+    (within :data:`LVLOSS_TOL` relative), and that the text positions'
+    logits differ from a token-only forward's (the patches are used)."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tag = "[lvserve]"
+    model, params = run_dense_serve_path(torch, tag, LLAVA_ARCH, **LVSERVE)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"{tag} params {n_params * 4 / 1e9:.2f} GB against the "
+          f"{LLAVA_PARAMS * 4 / 1e9:.2f} GB reckoning (the reference's "
+          f"init, fp32)", flush=True)
+    if n_params != LLAVA_PARAMS:
+        raise AssertionError(f"{tag} {n_params:,} params, expected "
+                             f"{LLAVA_PARAMS:,}")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    tag = "[lvloss]"
+    v = cfg.vision
+    n_img = v.n_tiles * v.patches_per_tile
+    B, S = LVLOSS["B"], LVLOSS["S"]
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    batch = {"inputs": toks, "targets": torch.roll(toks, -1, 1),
+             "patches": 0.02 * torch.randn((B, n_img, cfg.d_model),
+                                           generator=gen, device=DEVICE)}
+    with torch.no_grad():
+        model.loss(params, batch)
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        loss, metrics = model.loss(params, batch)
+        _sync(torch)
+        loss_ms = (time.perf_counter() - t0) * 1e3
+        peak = _peak_gb(torch)
+        node = tree_map(lambda t: t[None], params)
+        logits, _, _ = model.forward(node, tree_map(lambda t: t[None],
+                                                    batch))
+        logp = torch.log_softmax(logits[0, :, n_img:], dim=-1)
+        nll = -torch.gather(logp, -1, batch["targets"][:, n_img:, None]
+                            .long())[..., 0]
+        want = float(nll.mean())
+        plain, _, _ = model.forward(node, {"inputs": toks[None]})
+        moved = float((plain[0, :, n_img:] - logits[0, :, n_img:]).abs()
+                      .max())
+        del logits, plain, logp, nll
+    got = float(loss)
+    rel = abs(got - want) / abs(want)
+    print(f"{tag} {cfg.name} Model.loss (no_grad) on B={B} S={S}, the first "
+          f"{n_img} positions patches: {loss_ms:.1f} ms "
+          f"({B * S / loss_ms * 1e3:.0f} positions/s), peak {peak:.2f} GB; "
+          f"loss {got:.6f} vs the mean NLL of the {S - n_img} text "
+          f"positions {want:.6f} (rel {rel:.2e}, gated at {LVLOSS_TOL:g}); "
+          f"text logits moved by the patches: max |Δ| {moved:.4e} against "
+          f"a token-only forward (gated > 0)", flush=True)
+    if not (math.isfinite(got) and rel <= LVLOSS_TOL and moved > 0.0):
+        raise AssertionError(f"{tag} loss {got} vs {want}, moved {moved}")
+    del params, model, batch
+
+
+def _jtrain_config():
+    """``[jtrain]``'s Trainer: jamba at full width with
+    ``JTRAIN["pattern"]``, bf16 params and compute, SGD with Nesterov
+    momentum."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_model_config(JAMBA_ARCH),
+                              n_layers=JTRAIN["n_layers"],
+                              pattern=JTRAIN["pattern"])
+    return _train_config(cfg, **{k: JTRAIN[k] for k in (
+        "H", "per_node", "seq", "steps", "n", "optimizer", "lr")})
+
+
+def run_jtrain_path(torch, mc) -> dict:
+    """``[jtrain]``: the Trainer on jamba at full width with one Mamba
+    layer and its dense FFN (2,098,077,696 bf16 params a replica from seed
+    0),
+    bf16 compute, n = 2 stacked nodes, Gossip-PGA H = 3 over one_peer_exp
+    with the fused consensus round (B.1 on every round, the bf16 leaves
+    packed to fp32), SGD with Nesterov momentum, 1 sequence of 512 a node,
+    6 steps.  Gates: finite losses, consensus exactly 0.0 on the global
+    steps, mix.cu's launches equal to the dispatch groups × steps and
+    nothing else launched, one synchronizing call on the steady steps (the
+    Mamba scan adds none).  Reports the init rate, step ms, tokens/s and
+    peak.  Returns the launches."""
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    tag, steps, n = "[jtrain]", JTRAIN["steps"], JTRAIN["n"]
+    tcfg = _jtrain_config()
+    tr = Trainer(tcfg, n_nodes=n, with_consensus=True, device=DEVICE)
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    params = tr.model.init(torch.Generator().manual_seed(0), DEVICE)
+    _sync(torch)
+    n_params = _init_line(torch, tag, tr.model, params,
+                          time.perf_counter() - t0)
+    if n_params != JTRAIN_PARAMS:
+        raise AssertionError(f"{tag} {n_params:,} params, expected "
+                             f"{JTRAIN_PARAMS:,}")
+    state = tr.init_state(params=params)
+    del params
+    leaves = tree_leaves(state.params)
+    groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
+    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+    del leaves
+    print(f"{tag} {tcfg.model.name} at full width, {tcfg.model.n_layers} "
+          f"layers {list(tcfg.model.layers)}: {n_params:,} params a replica "
+          f"({n_params * 2 / 1e9:.3f} GB bf16), bf16 compute, {n} nodes, "
+          f"Gossip-PGA H={tcfg.dist.H} over {tcfg.dist.topology}, SGD "
+          f"(Nesterov momentum 0.9, lr {JTRAIN['lr']}), "
+          f"{JTRAIN['per_node']} sequence of {JTRAIN['seq']} a node; state "
+          f"{_state_bytes(state) / 1e9:.2f} GB; {len(groups)} mix launches "
+          f"a round (group widths {widths})", flush=True)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    _reset_peak(torch)
+    reset_counts()
+    times, phases, syncs = [], [], []
+    for k in range(steps):
+        # the optimizer phase's fp32 temporaries (4 GiB for the embedding
+        # leaf) fragment the cache: each step starts from an emptied one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, n_sync = sync_steps(
+            torch, lambda: tr.run(state, steps=1, log_every=1),
+            step_sites(tag, k))
+        _sync(torch)
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        syncs.append(n_sync)
+        entry = tr.history[-1]
+        phases.append(entry["phase"])
+        print(f"{tag} step {k} phase={entry['phase']} "
+              f"loss={entry['loss']:.4f} lr={entry['lr']:.3e} "
+              f"consensus={entry['consensus']:.6e} step_ms={dt * 1e3:.1f} "
+              f"tokens/s={tokens / dt:.0f} max_mem_GB={_peak_gb(torch):.2f} "
+              f"reserved_GB={torch.cuda.memory_reserved() / 1e9:.2f} "
+              f"synchronizing_calls={n_sync}", flush=True)
+        if not math.isfinite(entry["loss"]):
+            raise AssertionError(f"{tag} step {k}: loss {entry['loss']}")
+        if entry["phase"] == "global":
+            assert entry["consensus"] == 0.0, entry
+    launches = counts()
+    mixes = launches["mix"] + launches["mix_vector"]
+    if (mixes != len(groups) * steps
+            or launches != only(mix=launches["mix"],
+                                mix_vector=launches["mix_vector"])
+            or phases.count("global") != 2):
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{len(groups) * steps} of mix.cu; phases "
+                             f"{phases}")
+    SYNCS[tag] = syncs
+    gate_one_sync(tag, syncs)
+    steady = statistics.median(times[1:])
+    STEADY[tag] = steady
+    print(f"{tag} {steps} steps, {phases.count('gossip')} gossip and "
+          f"{phases.count('global')} global fused rounds through mix.cu "
+          f"({launches['mix_vector']} launches of the register instance, "
+          f"{launches['mix']} of the generic, {len(groups)} a round as the "
+          f"dispatch groups predict); steady step {steady * 1e3:.1f} ms "
+          f"(median of steps 1-5, each from an emptied cache), "
+          f"{tokens / steady:.0f} tokens/s, peak memory "
+          f"{_peak_gb(torch):.2f} GB", flush=True)
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(state, steps=1, log_every=1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        profile_report(prof, wall_ms, "[jtprofile]",
+                       "one profiled [jtrain] step")
+        del prof
+    del state, tr
+    return launches
+
+
+# (tag, arch, scan_dtype) of each reduced_cross_check run
+MOEX_RUNS = (("[moex]", DS_ARCH, None), ("[moex]", QMOE_ARCH, None))
+SLICE14X_RUNS = (("[hybx]", JAMBA_ARCH, "float32"),
+                 ("[hybx]", JAMBA_ARCH, "bfloat16"),
+                 ("[vlmx]", LLAVA_ARCH, None))
+
+
+def reduced_cross_check(torch, runs) -> None:
+    """``[moex]`` (deepseek-v2-lite, qwen3-moe), ``[hybx]`` (jamba, MoE
+    included; then again with ``scan_dtype="bfloat16"``) and ``[vlmx]``
+    (llava, with patches) at their reduced configs, float32, one init
+    (seed 1) on the card and on the CPU: the two inits bitwise equal (the
+    host draw is the same whatever the device); the forward's logits and
+    ``lb_loss`` on node 0's 2 × 48 batch of the synthetic stream (llava's
+    first 32 positions its patches); a prefill of 36 tokens and 4 decode
+    steps through ``Engine``; one Trainer step (:data:`MOEX_NODES` nodes,
+    Gossip-PGA H = 2, SGD at lr 0.05: a linear first step, where AdamW's
+    ≈ lr·sign(g) would turn a rounding-level gradient into an lr-sized
+    card/CPU difference) — its loss and the params after it; each within
+    :data:`MOEX_TOL` · max|cpu| (cuBLAS and the CPU's BLAS sum in other
+    orders; TF32 off), the bf16 scan within :data:`BF16_SCAN_TOL` (one
+    bf16 rounding of inputs an ulp apart); the routing equal (every MoE
+    call's drop_frac; reported, not gated, with the bf16 scan: a router
+    near a tie may flip there)."""
+    from repro_torch import configs, interop
+    from repro_torch.serve import Engine
     from repro_torch.train import Trainer
     from repro_torch.tree import tree_leaves, tree_map
 
-    for arch in (DS_ARCH, QMOE_ARCH):
-        tcfg = _moetrain_config(reduced=True, arch=arch)
-        model_cfg = tcfg.model
-        host = None
-        out = []
-        toks = np.random.default_rng(1).integers(
-            0, model_cfg.vocab_size, (1, 2, 24)).astype(np.int32)
+    for tag, arch, scan in runs:
+        cfg = dataclasses.replace(configs.get_model_config(arch,
+                                                           reduced=True),
+                                  dtype="float32")
+        if scan is not None:
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, scan_dtype=scan))
+        tcfg = _train_config(cfg, H=2, per_node=2, seq=48, steps=1,
+                             n=MOEX_NODES, optimizer="sgd", lr=0.05)
+        tol = BF16_SCAN_TOL if scan == "bfloat16" else MOEX_TOL
+        out, inits, host = [], [], None
         for dev in MOEX_DEVICES:
             tr = Trainer(tcfg, n_nodes=MOEX_NODES, with_consensus=True,
                          device=dev)
+            inits.append(tree_leaves(tr.model.init(
+                torch.Generator().manual_seed(1), dev)))
             if host is None:
                 host = interop.to_numpy(tr.model.init(
                     torch.Generator().manual_seed(1), "cpu"))
             params = interop.from_numpy(host, dev)
+            batch = {k: v[:1] for k, v in tr.device_batch(0).items()}
             with moe_metrics() as rec:
                 logits, _, lb = tr.model.forward(
-                    tree_map(lambda t: t[None], params),
-                    {"inputs": torch.from_numpy(toks).to(dev)})
+                    tree_map(lambda t: t[None], params), batch)
             drops = rec.drops()
+            eng = Engine(tr.model, s_max=48)
+            toks = batch["inputs"][0]
+            dec, caches = eng.prefill(params, toks[:, :36])
+            decs = [dec]
+            for t in range(4):
+                pos = torch.full((toks.shape[0],), 36 + t,
+                                 dtype=torch.int32, device=dev)
+                dec, caches = eng.decode_step(params, caches,
+                                              toks[:, 36 + t:37 + t], pos)
+                decs.append(dec)
             state = tr.run(tr.init_state(params=params), steps=1)
-            out.append((logits.cpu(), lb.cpu(), tr.history[-1]["loss"],
+            out.append((logits.cpu(), lb.cpu(),
+                        torch.stack(decs, 1).cpu(), tr.history[-1]["loss"],
                         [p.cpu() for p in tree_leaves(state.params)],
                         drops))
+        same_init = all(torch.equal(a.cpu(), b) for a, b in zip(*inits))
         card, ref = out
         worst = {}
-        for i, what in ((0, "logits"), (1, "lb_loss")):
+        for i, what in ((0, "logits"), (1, "lb_loss"), (2, "decode")):
             worst[what] = float((card[i] - ref[i]).abs().max()) / max(
                 float(ref[i].abs().max()), 1e-30)
         worst["params"] = max(
             float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            for a, b in zip(card[3], ref[3]))
-        loss_rel = abs(card[2] - ref[2]) / abs(ref[2])
-        print(f"[moex] {model_cfg.name} fp32, cuda vs cpu: logits within "
-              f"{worst['logits']:.3e} and lb_loss {worst['lb_loss']:.3e} of "
-              f"max|cpu| (lb_loss {card[1].tolist()}), drop_frac "
-              f"{'equal' if card[4] == ref[4] else 'DIFFER'} {ref[4]}; one "
-              f"Trainer step: loss {card[2]:.6f} vs {ref[2]:.6f} (rel "
+            for a, b in zip(card[4], ref[4]))
+        loss_rel = abs(card[3] - ref[3]) / abs(ref[3])
+        scan_note = f", scan {scan}" if scan is not None else ""
+        print(f"{tag} {cfg.name} fp32{scan_note}, cuda vs cpu: init "
+              f"bitwise {'equal' if same_init else 'DIFFERENT'}; logits "
+              f"within {worst['logits']:.3e}, lb_loss "
+              f"{worst['lb_loss']:.3e}, prefill + 4 decode steps "
+              f"{worst['decode']:.3e} of max|cpu| (lb_loss "
+              f"{card[1].tolist()}), drop_frac "
+              f"{'equal' if card[5] == ref[5] else 'DIFFER'} {ref[5]}; one "
+              f"Trainer step: loss {card[3]:.6f} vs {ref[3]:.6f} (rel "
               f"{loss_rel:.2e}), params within {worst['params']:.3e} of "
-              f"max|cpu| (each leaf)", flush=True)
-        if not (max(worst.values()) <= MOEX_TOL and loss_rel <= MOEX_TOL
-                and card[4] == ref[4]):
-            raise AssertionError(f"[moex] {arch}: {worst}, loss "
+              f"max|cpu| (each leaf); gated at {tol:g}", flush=True)
+        if not (same_init and max(worst.values()) <= tol
+                and loss_rel <= tol
+                and (card[5] == ref[5] or scan == "bfloat16")):
+            raise AssertionError(f"{tag} {arch} scan {scan}: init "
+                                 f"{same_init}, {worst}, loss "
                                  f"{loss_rel:.3e}")
 
 
@@ -5906,10 +6262,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.models import layers
     card = smi()
     print(f"[device] {card}; torch {torch.__version__} CUDA "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
-          flush=True)
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; "
+          f"{os.cpu_count()} host cores, the init's draw pool "
+          f"{layers.INIT_THREADS} threads", flush=True)
     t0 = time.perf_counter()
     cuda_build.build()
     print(f"[build] {', '.join(f'{k}.cu' for k in cuda_build.LIBRARIES)} "
@@ -6093,9 +6451,22 @@ def main() -> int:
     slice13 = {"[moetrain]": run_moetrain_path(torch, mc)}
     lap("[moetrain]")
     torch.cuda.empty_cache()
-    moe_cross_check(torch)
+    reduced_cross_check(torch, MOEX_RUNS)
     torch.cuda.empty_cache()
     lap("slice 13")
+    # slice 14: Mamba and the hybrid family, the VLM stub
+    run_jserve_path(torch)
+    lap("[jserve]")
+    torch.cuda.empty_cache()
+    run_lvserve_path(torch)
+    lap("[lvserve] and [lvloss]")
+    torch.cuda.empty_cache()
+    slice14 = {"[jtrain]": run_jtrain_path(torch, mc)}
+    lap("[jtrain]")
+    torch.cuda.empty_cache()
+    reduced_cross_check(torch, SLICE14X_RUNS)
+    torch.cuda.empty_cache()
+    lap("slice 14")
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -6139,6 +6510,11 @@ def main() -> int:
     records["mix_vector_kernel"]["launches_slice13"] = {
         path: {k: c[k] for k in ("mix", "mix_vector") if c[k]}
         for path, c in slice13.items()}
+    # the slice-14 training path's launches (B.1 on the hybrid model's
+    # rounds)
+    records["mix_vector_kernel"]["launches_slice14"] = {
+        path: {k: c[k] for k in ("mix", "mix_vector") if c[k]}
+        for path, c in slice14.items()}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Block-pattern vocabulary (same as the reference)
@@ -51,7 +51,7 @@ class MLAConfig:
 class SSMConfig:
     """Recurrent mixer parameters (Mamba + xLSTM), the reference's fields
     and defaults.  ``d_state``, ``d_conv``, ``expand``, ``dt_rank`` and
-    ``scan_dtype`` only serve Mamba, which is not ported (ROADMAP A.8)."""
+    ``scan_dtype`` serve Mamba (``models/ssm.py``)."""
     d_state: int = 16                # Mamba N (per-channel state)
     d_conv: int = 4                  # Mamba local conv width
     expand: int = 2                  # Mamba inner expansion
@@ -61,9 +61,21 @@ class SSMConfig:
     mlstm_expand: int = 2            # mLSTM up-projection factor
     slstm_heads: int = 4
     mlstm_chunk: int = 64            # chunkwise-parallel chunk length
-    scan_dtype: str = "float32"      # Mamba scan-state dtype
+    scan_dtype: str = "float32"      # Mamba scan-state dtype ("float32"
+                                     # or "bfloat16")
     use_pallas_mlstm: bool = False   # True: the hand-written chunkwise
                                      # mLSTM kernel (kernels/mlstm_cuda)
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM frontend stub (anyres tiling), the reference's fields and
+    defaults: batches carry ``n_tiles · patches_per_tile`` pre-projected
+    patch embeddings of width ``d_model`` (``data.synthetic``), which take
+    the place of the first token embeddings (``models.model``)."""
+    n_tiles: int = 5                 # anyres: base image + 4 tiles
+    patches_per_tile: int = 576      # 24x24 for CLIP-ViT-L/14 @336px
+    embed_dim: int = 4096            # after the (stubbed) mm projector
 
 
 @dataclass(frozen=True)
@@ -103,7 +115,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
-    vision: Optional[Any] = None     # the VLM stub: not ported yet (A.8)
+    vision: Optional[VisionStubConfig] = None
     audio: Optional[AudioStubConfig] = None
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"

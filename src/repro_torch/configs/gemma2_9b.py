@@ -8,9 +8,10 @@ sliding window 4096 on every other layer, attn softcap 50, final softcap 30.
 The port's model runs it: the sliding window on the ``attn_sw`` layers,
 both softcaps, the post-block norms and the embedding scale.  Its widths
 also give the substrate kernels' full-width shapes (``kernels.ops``,
-``chip_smoke.py``).  ``long_context_config`` waits for its first ported
-caller (ROADMAP A.8).
+``chip_smoke.py``).
 """
+import dataclasses
+
 from repro_torch.configs.base import ModelConfig
 
 CITATION = "arXiv:2408.00118 (Gemma 2)"
@@ -36,6 +37,15 @@ def full_config() -> ModelConfig:
         tie_embeddings=True,
         rope_theta=10_000.0,
     ).validate()
+
+
+def long_context_config() -> ModelConfig:
+    """Long-context variant: the global-attention layers switched to the
+    sliding window, so the KV working set is bounded (the reference's
+    documented deviation)."""
+    return dataclasses.replace(
+        full_config(), name="gemma2-9b-sw",
+        pattern=(("attn_sw", "dense"),)).validate()
 
 
 def reduced_config() -> ModelConfig:

@@ -1,4 +1,4 @@
-"""Synthetic data stream (numpy copy of the decoder-LM and encoder paths
+"""Synthetic data stream (numpy copy of the decoder-LM, encoder and VLM paths
 of ``repro/data/synthetic.py``): same seeds, same draws in the same
 order, so batches are bit-identical to the reference's.
 
@@ -6,8 +6,9 @@ Deterministic, seeded batches with learnable structure (an affine
 next-token map corrupted by noise); per-node vocabulary bias implements
 the paper's non-iid regime.  A text encoder's batch adds the masked
 positions (15%); an audio encoder's carries frame embeddings that encode
-the unit to predict, and masks ``mask_prob · mask_span / 2`` of them.
-VLM batches come with that family (ROADMAP A.8).
+the unit to predict, and masks ``mask_prob · mask_span / 2`` of them.  A VLM
+batch adds float32 ``patches`` ``(n, B, n_img, d_model)`` × 0.02, drawn
+right after the targets.
 """
 from __future__ import annotations
 
@@ -16,14 +17,15 @@ from typing import Dict
 
 import numpy as np
 
-from repro_torch.configs.base import DataConfig, ModelConfig, not_ported
+from repro_torch.configs.base import DataConfig, ModelConfig
 
 
 @dataclasses.dataclass
 class SyntheticStream:
     """get_batch(step) -> {"inputs", "targets"}, int32 (n, B, S); an
     encoder adds the boolean ``mask``; an audio encoder has float32
-    ``frames`` (n, B, S, d_model) in place of ``inputs``."""
+    ``frames`` (n, B, S, d_model) in place of ``inputs``; a VLM adds
+    float32 ``patches`` (n, B, n_img, d_model)."""
     model_cfg: ModelConfig
     data_cfg: DataConfig
     n_nodes: int
@@ -67,8 +69,6 @@ class SyntheticStream:
 
     def get_batch(self, step: int) -> Dict[str, np.ndarray]:
         cfg = self.model_cfg
-        if cfg.family == "vlm":
-            raise not_ported(f"{cfg.family} batches", "A.8")
         rng = self._rng(step)
         V = cfg.vocab_size
         if cfg.family == "encoder" and cfg.audio is not None:
@@ -89,6 +89,11 @@ class SyntheticStream:
                  "targets": self._next_token_map(tokens, V, rng)}
         if cfg.family == "encoder":
             batch["mask"] = rng.random(tokens.shape) < 0.15
+        if cfg.family == "vlm" and cfg.vision is not None:
+            n_img = cfg.vision.n_tiles * cfg.vision.patches_per_tile
+            n, b = self.n_nodes, self.per_node_batch
+            batch["patches"] = rng.standard_normal(
+                (n, b, n_img, cfg.d_model)).astype(np.float32) * 0.02
         return batch
 
 

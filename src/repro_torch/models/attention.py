@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, not_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamBuilder, apply_rope, make_rope,
                                        node_matmul, rms_norm, softcap)
 
@@ -140,7 +140,8 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
 
 def _window(cfg: ModelConfig, layer_kind: str) -> Optional[int]:
     if layer_kind not in LAYER_KINDS:
-        raise not_ported(f"attention layer kind {layer_kind!r}", "A.8")
+        raise ValueError(f"unknown attention layer kind {layer_kind!r}; "
+                         f"one of {LAYER_KINDS}")
     return cfg.sliding_window if layer_kind == "attn_sw" else None
 
 

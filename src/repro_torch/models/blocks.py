@@ -1,8 +1,7 @@
 """Block assembly over layer-stacked parameters (counterpart of
-``repro/models/blocks.py``) for the ported block kinds: attention (GQA,
-global or sliding-window, or MLA) + gated MLP or MoE FFN, the encoder's
-non-causal attention + gated MLP with GELU, and the xLSTM mixers (mLSTM,
-sLSTM) without an FFN.
+``repro/models/blocks.py``) for every block kind of the reference: the
+mixers attention (GQA, global or sliding-window, or MLA; causal or not),
+Mamba, mLSTM and sLSTM, and the FFNs gated MLP, MoE or none.
 
 A block is a pre-norm mixer + residual, then, unless its FFN is
 ``"none"``, a pre-norm gated MLP (SiLU; GELU's tanh form, ``jax.nn.gelu``'s
@@ -32,8 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (BlockSpec, ModelConfig, SSMConfig,
-                                      not_ported)
+from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -42,54 +40,26 @@ from repro_torch.models.layers import (ParamBuilder, apply_mlp, init_mlp,
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 PyTree = Any
-FAMILY_BLOCKS = {"dense": {("attn", "dense"), ("attn_sw", "dense")},
-                 "encoder": {("attn", "dense")},
-                 "moe": {(a, f) for a in attn.LAYER_KINDS
-                         for f in ("dense", "moe")},
-                 "ssm": {("mlstm", "none"), ("slstm", "none")}}
 MODES = ("train", "prefill", "decode")
 REMAT_POLICIES = ("none", "default", "dots")
+# the recurrent mixers: (init, forward, decode, init_state) each
+RECURRENT = {"mamba": (ssm_lib.init_mamba, ssm_lib.mamba_forward,
+                       ssm_lib.mamba_decode, ssm_lib.init_mamba_state),
+             "mlstm": (ssm_lib.init_mlstm, ssm_lib.mlstm_forward,
+                       ssm_lib.mlstm_decode, ssm_lib.init_mlstm_state),
+             "slstm": (ssm_lib.init_slstm, ssm_lib.slstm_forward,
+                       ssm_lib.slstm_decode, ssm_lib.init_slstm_state)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for every model feature outside the ported paths: the dense
-    decoder (with qk-norm, qkv biases, softcaps, the sliding window,
-    post-block norms, untied embeddings), the MoE decoder (routed and
-    shared experts, MLA, prefix patterns), the encoder (text, or audio
-    frames through the stub) and the xLSTM family.  Mamba, the hybrid
-    family and the VLM stub still raise (ROADMAP A.8).  ``q_lora_rank``
-    raises ``ValueError``: the reference defines no params for a
-    compressed query."""
-    if cfg.family not in FAMILY_BLOCKS or cfg.vision is not None:
-        raise not_ported(f"model family {cfg.family!r}"
-                         + (" with a vision stub" if cfg.vision is not None
-                            else ""), "A.8")
-    if cfg.moe is not None and cfg.family != "moe":
-        raise not_ported(f"an MoE sub-config in family {cfg.family!r}",
-                         "A.8")
+    """Every block kind, family and stub of the reference builds, as it
+    does there.  ``q_lora_rank`` raises ``ValueError``: the reference
+    defines no params for a compressed query."""
     if cfg.mla is not None and cfg.mla.q_lora_rank is not None:
         raise ValueError(
             f"MLAConfig.q_lora_rank={cfg.mla.q_lora_rank}: the reference "
             f"defines no params for a compressed query (q is projected at "
             f"full rank); use q_lora_rank=None")
-    if cfg.audio is not None and cfg.family != "encoder":
-        raise not_ported(f"an audio stub in family {cfg.family!r}", "A.8")
-    if (cfg.family == "ssm") != isinstance(cfg.ssm, SSMConfig):
-        raise not_ported(f"family {cfg.family!r} with ssm={cfg.ssm!r}",
-                         "A.8")
-    unported = [name for name, on in (
-        ("non-causal attention outside the encoder family",
-         not cfg.causal and cfg.family != "encoder"),
-        ("causal attention in the encoder family",
-         cfg.causal and cfg.family == "encoder")) if on]
-    if unported:
-        raise not_ported(f"model features {unported}", "A.8")
-    kinds = set(cfg.layers)
-    if any(mixer == "mamba" for mixer, _ in kinds):
-        raise not_ported("mamba mixer", "A.8")
-    if not kinds <= FAMILY_BLOCKS[cfg.family]:
-        raise not_ported(f"block kinds {sorted(kinds)} in family "
-                         f"{cfg.family!r}", "A.8")
 
 
 def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
@@ -99,12 +69,8 @@ def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
     mixer = ParamBuilder(b.generator, b.param_dtype, b.device)
     if mixer_kind in attn.LAYER_KINDS:
         attn.init_attention(mixer, cfg)
-    elif mixer_kind == "mlstm":
-        ssm_lib.init_mlstm(mixer, cfg)
-    elif mixer_kind == "slstm":
-        ssm_lib.init_slstm(mixer, cfg)
     else:
-        raise not_ported(f"mixer {mixer_kind!r}", "A.8")
+        RECURRENT[mixer_kind][0](mixer, cfg)
     b.attach("mixer", mixer.params)
     if cfg.post_block_norm:
         init_rms_norm(b, "post_ln1", cfg.d_model)
@@ -140,18 +106,11 @@ def apply_block(params: PyTree, cfg: ModelConfig, kind: BlockSpec,
             if mode == "decode" else
             attn.attn_forward(params["mixer"], cfg, h, layer_kind=mixer,
                               positions=positions))
-    elif mixer == "mlstm":
-        out, new_cache = (
-            ssm_lib.mlstm_decode(params["mixer"], cfg, h, cache)
-            if mode == "decode" else
-            ssm_lib.mlstm_forward(params["mixer"], cfg, h))
-    elif mixer == "slstm":
-        out, new_cache = (
-            ssm_lib.slstm_decode(params["mixer"], cfg, h, cache)
-            if mode == "decode" else
-            ssm_lib.slstm_forward(params["mixer"], cfg, h))
     else:
-        raise not_ported(f"mixer {mixer!r}", "A.8")
+        _, forward, decode, _ = RECURRENT[mixer]
+        out, new_cache = (decode(params["mixer"], cfg, h, cache)
+                          if mode == "decode" else
+                          forward(params["mixer"], cfg, h))
     if cfg.post_block_norm:
         out = rms_norm(out, params["post_ln1"], cfg.norm_eps)
     x = x + out
@@ -321,11 +280,7 @@ def init_block_cache(cfg: ModelConfig, kind: BlockSpec, batch: int,
     mixer, _ = kind
     if mixer in attn.LAYER_KINDS:
         return attn.init_attn_cache(cfg, batch, s_max, dtype, device, mixer)
-    if mixer == "mlstm":
-        return ssm_lib.init_mlstm_state(cfg, batch, dtype, device)
-    if mixer == "slstm":
-        return ssm_lib.init_slstm_state(cfg, batch, dtype, device)
-    raise not_ported(f"mixer {mixer!r}", "A.8")
+    return RECURRENT[mixer][3](cfg, batch, dtype, device)
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int,

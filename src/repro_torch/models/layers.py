@@ -11,6 +11,8 @@ reference ``vmap``s one node's function instead).
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -19,16 +21,66 @@ import torch.nn.functional as F
 PyTree = Any
 
 
+# Every normal leaf takes one seed from the caller's generator, in creation
+# order, and is drawn in pieces of INIT_PIECE elements, each from its own
+# CPU generator seeded from the leaf's seed and the piece's index.  The
+# pieces fill the leaf's host buffer from a pool of INIT_THREADS threads
+# (``torch.randn`` releases the GIL).  INIT_PIECE is part of what an init
+# draws; INIT_THREADS is not: any pool size gives the same values.
+INIT_PIECE = 1 << 20
+INIT_THREADS = min(os.cpu_count() or 1, 16)
+_MIX = 0x9E3779B97F4A7C15           # 2^64 / golden ratio: spreads the seeds
+_POOLS: Dict[int, ThreadPoolExecutor] = {}
+
+
+def _pool(threads: int) -> ThreadPoolExecutor:
+    if threads not in _POOLS:
+        _POOLS[threads] = ThreadPoolExecutor(threads,
+                                             thread_name_prefix="init")
+    return _POOLS[threads]
+
+
+def draw_normal(shape: Tuple[int, ...], std: float, seed: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``std · N(0, 1)`` of ``shape`` on the host, cast to ``dtype``: piece
+    k of :data:`INIT_PIECE` elements (row-major) is drawn in float32 from a
+    generator seeded ``(seed + k · _MIX) mod 2^64``, scaled, and written
+    into its slice of the buffer, the pieces spread over
+    :data:`INIT_THREADS` threads."""
+    out = torch.empty(shape, dtype=dtype)
+    flat = out.view(-1)
+    size, piece = flat.numel(), INIT_PIECE
+
+    def draw(k: int) -> None:
+        lo = k * piece
+        dst = flat[lo:min(size, lo + piece)]
+        gen = torch.Generator().manual_seed((seed + k * _MIX) % 2**64)
+        if dtype == torch.float32:
+            torch.randn(dst.numel(), generator=gen, out=dst).mul_(std)
+        else:
+            dst.copy_(torch.randn(dst.numel(), generator=gen).mul_(std))
+
+    n_pieces = -(-size // piece)
+    if n_pieces <= 1 or INIT_THREADS <= 1:
+        for k in range(n_pieces):
+            draw(k)
+    else:
+        list(_pool(INIT_THREADS).map(draw, range(n_pieces)))
+    return out
+
+
 class ParamBuilder:
     """Creates parameters with the reference's init rules: ``normal``
     (std ``scale`` or 0.02), ``fan_in`` (std ``scale/√fan_in``, fan_in the
     product of all but the last dim), ``zeros``, ``ones``, ``constant``.
 
-    Values are drawn in fp32 from one CPU ``torch.Generator`` in
-    creation order and moved to ``device``, so an init is the same on
-    every device.  The reference draws from split ``jax.random`` keys:
-    the two give different numbers, so cross-package comparisons start
-    from weights carried across (``repro_torch.interop``).
+    Each drawn leaf takes one seed from ``generator`` (a CPU
+    ``torch.Generator``) in creation order and is drawn on the host by
+    :func:`draw_normal`, then moved to ``device``, so an init is the same
+    on every device and at every pool size.  The reference draws from
+    split ``jax.random`` keys: the two give different numbers, so
+    cross-package comparisons start from weights carried across
+    (``repro_torch.interop``).
     """
 
     def __init__(self, generator: torch.Generator, param_dtype: torch.dtype,
@@ -39,9 +91,8 @@ class ParamBuilder:
         self.params: Dict[str, Any] = {}
 
     def _normal(self, shape, std: float) -> torch.Tensor:
-        val = torch.randn(shape, generator=self.generator,
-                          dtype=torch.float32)
-        return (std * val).to(self.param_dtype)
+        seed = int(torch.randint(0, 2**62, (), generator=self.generator))
+        return draw_normal(shape, std, seed, self.param_dtype)
 
     def add(self, name: str, shape: Sequence[int], init: str = "fan_in",
             scale: Optional[float] = None) -> torch.Tensor:

@@ -1,15 +1,18 @@
-"""Top-level Model: init / forward / decode / loss for the dense decoder LMs
-(pga-lm-100m, gemma2-9b, the qwen configs), the MoE decoders
-(deepseek-v2-lite-16b, qwen3-moe-30b-a3b), the encoders (bert-large,
-hubert-xlarge) and the xLSTM family (counterpart of
-``repro/models/model.py``).
+"""Top-level Model: init / forward / decode / loss for every family of the
+reference: the dense decoder LMs (pga-lm-100m, gemma2-9b, the qwen
+configs), the MoE decoders (deepseek-v2-lite-16b, qwen3-moe-30b-a3b), the
+encoders (bert-large, hubert-xlarge), the xLSTM family, the hybrid
+(jamba-1.5-large: Mamba, attention, MoE) and the VLM stub
+(llava-next-mistral-7b) (counterpart of ``repro/models/model.py``).
 
 Params keep the reference's layout — the same nested keys and, once
 stacked for the nodes, the same ``(n, L, …)`` shapes — so a tree carries
 across with ``repro_torch.interop``.  Every method takes node-stacked
 params and inputs: :meth:`Model.node_losses` runs all n node replicas at
 once (the reference ``vmap``s :meth:`Model.loss`), batch ``{"inputs",
-"targets"}`` is ``(n, B, S)`` int; the serving methods (:meth:`forward`
+"targets"}`` is ``(n, B, S)`` int (a VLM's may add float ``patches``
+``(n, B, n_img, d)``, which take the place of the first ``n_img`` token
+embeddings and weigh 0 in the loss); the serving methods (:meth:`forward`
 with ``want_cache``, :meth:`decode_step`, :meth:`init_cache`) keep the
 node axis on the caches too, ``(n, L, B, …)`` leaves.  :meth:`loss` and
 ``repro_torch.serve`` take one replica's tree and add a node axis of 1.
@@ -103,7 +106,10 @@ class Model:
                      dtype: torch.dtype) -> torch.Tensor:
         """The full-sequence input: token embeddings, or an audio
         encoder's frames; an encoder's masked positions take
-        ``mask_emb``."""
+        ``mask_emb``; a VLM's ``patches`` (cast to ``dtype``) take the
+        first ``n_img`` positions.  A VLM batch shorter than its patches
+        raises ``ValueError`` (the reference builds a sequence longer
+        than its targets there and fails later)."""
         cfg = self.cfg
         if cfg.family == "encoder" and cfg.audio is not None:
             h = batch["frames"].to(dtype)
@@ -112,7 +118,20 @@ class Model:
         if cfg.family == "encoder":
             me = params["mask_emb"].to(dtype)[:, None, None, :]
             h = torch.where(batch["mask"][..., None], me, h)
+        if cfg.family == "vlm" and "patches" in batch:
+            n_img = self._n_img(batch)
+            if h.shape[2] < n_img:
+                raise ValueError(f"a VLM batch of {h.shape[2]} positions is "
+                                 f"shorter than its {n_img} patches")
+            h = torch.cat([batch["patches"].to(dtype), h[:, :, n_img:]],
+                          dim=2)
         return h
+
+    def _n_img(self, batch: Dict[str, torch.Tensor]) -> Optional[int]:
+        """The image positions of a VLM batch with patches, else None."""
+        if self.cfg.family == "vlm" and "patches" in batch:
+            return batch["patches"].shape[2]
+        return None
 
     def _unembed(self, params: PyTree, h: torch.Tensor) -> torch.Tensor:
         return unembed(params["embed"], h, self.cfg.tie_embeddings,
@@ -133,16 +152,24 @@ class Model:
         """Per-node mean cross entropy (+ the MoE balance loss ×
         ``aux_coef``, + z-loss): ``(losses (n,), metrics of (n,))``.  A
         decoder averages over every position; an encoder over its masked
-        positions only, each node by its own count ``max(Σ mask, 1)``, as
-        the reference's per-node loss does."""
+        positions only, a VLM with patches over its text positions only,
+        each node by its own count ``max(Σ weights, 1)``, as the
+        reference's per-node loss does."""
         logits, _, lb_loss = self.forward(params, batch, remat=remat)
         targets = batch["targets"].long()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         n = nll.shape[0]
         weights = None
+        n_img = self._n_img(batch)
         if self.cfg.family == "encoder":
             weights = batch["mask"].to(torch.float32).reshape(n, -1)
+        elif n_img is not None:
+            text = torch.arange(targets.shape[-1],
+                                device=targets.device) >= n_img
+            weights = text.to(torch.float32).expand(
+                targets.shape).reshape(n, -1)
+        if weights is not None:
             denom = torch.clamp(weights.sum(dim=1), min=1.0)
             ce = (nll.reshape(n, -1) * weights).sum(dim=1) / denom
         else:

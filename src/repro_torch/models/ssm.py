@@ -1,11 +1,16 @@
-"""Recurrent mixers of the xLSTM family: mLSTM and sLSTM (counterpart of
-the xLSTM part of ``repro/models/ssm.py``).
+"""Recurrent mixers: Mamba (S6), mLSTM and sLSTM (counterpart of
+``repro/models/ssm.py``).
 
 Activations carry the node axis of the port's layout, ``(n, B, S, d)``,
 and weights ``(n, …)``; the chunk scans and the recurrent oracle take the
 reference's ``(B, S, nh, d)`` and the model folds ``(n, B)`` into their
 batch axis.
 
+* Mamba — the first-order recurrence ``h_t = a_t·h_{t−1} + bu_t`` over
+  ``(n, B, S, d_inner, N)`` by :func:`associative_scan`, which keeps
+  ``jax.lax.associative_scan``'s combine order, in ``cfg.ssm.scan_dtype``
+  (on the CPU its ``h`` is bitwise the jitted reference's, float32 and
+  bfloat16).
 * mLSTM — chunkwise-parallel, log-space gate stabilization.  With
   ``cfg.ssm.use_pallas_mlstm`` the prefill goes through
   :func:`repro_torch.kernels.mlstm_cuda.mlstm_chunk` (the hand-written CUDA
@@ -17,7 +22,8 @@ batch axis.
 
 Decode steps are exact single-token recurrences against the state.  The
 caches keep the reference's dtypes: C, n (mLSTM) and c, n, h (sLSTM) in
-the compute dtype, m in float32.  Mamba is not ported (ROADMAP A.8).
+the compute dtype, m in float32; Mamba's conv and h in the compute dtype
+(h rounded there after its float32 update, as the reference stores it).
 """
 from __future__ import annotations
 
@@ -70,6 +76,159 @@ def _final_conv_state(xc: torch.Tensor, width: int) -> torch.Tensor:
 def _bias(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A (n, f) bias broadcast over the middle dims of x (n, …, f)."""
     return b.reshape(b.shape[:1] + (1,) * (x.dim() - 2) + b.shape[1:])
+
+
+# ===========================================================================
+# Mamba (S6)
+# ===========================================================================
+def _slice(t: torch.Tensor, dim: int, start: int, stop=None,
+           step: int = 1) -> torch.Tensor:
+    idx = [slice(None)] * t.dim()
+    idx[dim] = slice(start, stop, step)
+    return t[tuple(idx)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """a0, b0, a1, b1, … along ``dim``; ``a`` as long as ``b`` or one
+    longer."""
+    shape = list(a.shape)
+    shape[dim] = a.shape[dim] + b.shape[dim]
+    out = a.new_empty(shape)
+    _slice(out, dim, 0, None, 2).copy_(a)
+    _slice(out, dim, 1, None, 2).copy_(b)
+    return out
+
+
+def associative_scan(combine, elems, dim: int):
+    """Inclusive scan of the tuple ``elems`` along ``dim`` by the recursion
+    of ``jax.lax.associative_scan``: combine adjacent pairs, scan the half,
+    combine the evens with the odd results, interleave.  Every element is
+    combined in the reference's order, so a combine that rounds the same
+    per operation gives bitwise its results."""
+    def scan(elems):
+        n = elems[0].shape[dim]
+        if n < 2:
+            return elems
+        odd = scan(combine(tuple(_slice(e, dim, 0, -1, 2) for e in elems),
+                           tuple(_slice(e, dim, 1, None, 2) for e in elems)))
+        rest = tuple(_slice(e, dim, 2, None, 2) for e in elems)
+        head = (tuple(_slice(e, dim, 0, -1) for e in odd) if n % 2 == 0
+                else odd)
+        even = tuple(torch.cat([_slice(e, dim, 0, 1), r], dim=dim)
+                     for e, r in zip(elems, combine(head, rest)))
+        return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+    return scan(tuple(elems))
+
+
+def _mamba_combine(lhs, rhs):
+    """``(a_l·a_r, b_l·a_r + b_r)``.  In float32 the second is one fused
+    multiply-add, as XLA contracts the jitted reference's; in bfloat16 each
+    product and sum rounds, as the reference's per-operation converts do."""
+    al, bl = lhs
+    ar, br = rhs
+    if br.dtype == torch.float32:
+        return al * ar, torch.addcmul(br, bl, ar)
+    return al * ar, bl * ar + br
+
+
+def _mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    dt_rank = s.dt_rank or max(cfg.d_model // 16, 1)
+    return d_inner, s.d_state, dt_rank
+
+
+def init_mamba(b: ParamBuilder, cfg: ModelConfig) -> None:
+    d = cfg.d_model
+    di, N, R = _mamba_dims(cfg)
+    b.add("in_proj", (d, 2 * di))
+    b.add("conv_w", (cfg.ssm.d_conv, di))
+    b.add("conv_b", (di,), init="zeros")
+    b.add("x_proj", (di, R + 2 * N))
+    b.add("dt_proj", (R, di))
+    b.add("dt_bias", (di,), init="constant",
+          scale=math.log(math.expm1(0.01)))      # softplus^-1(0.01)
+    # S4D-real: log(1..N) per channel, not drawn (rounded once from
+    # float64; XLA's float32 log is an ulp off at log 7)
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float64)).to(
+        torch.float32)
+    b.attach("A_log", a_log.expand(di, N).to(
+        dtype=b.param_dtype, device=b.device))
+    b.add("D", (di,), init="ones")
+    b.add("out_proj", (di, d))
+
+
+def _mamba_ssm_inputs(params, cfg: ModelConfig, x_conv: torch.Tensor,
+                      dt_rank: int, N: int):
+    """x_conv (n, …, di) → dt (n, …, di) in its dtype, B and C (n, …, N),
+    A (n, di, N) float32."""
+    dtype = x_conv.dtype
+    dbc = node_matmul(x_conv, params["x_proj"].to(dtype))
+    dt, Bc, Cc = dbc.split([dt_rank, N, N], dim=-1)
+    dt = F.softplus(node_matmul(dt, params["dt_proj"].to(dtype))
+                    + _bias(params["dt_bias"].to(dtype), x_conv))
+    A = -torch.exp(params["A_log"].to(torch.float32))
+    return dt, Bc, Cc, A
+
+
+def mamba_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (n, B, S, d) → (out, state): the parallel scan over the whole
+    sequence, its state ``(n, B, S, d_inner, N)`` in ``cfg.ssm.scan_dtype``
+    (the gate and decay math in float32)."""
+    di, N, R = _mamba_dims(cfg)
+    f32 = torch.float32
+    sdt = torch.bfloat16 if cfg.ssm.scan_dtype == "bfloat16" else f32
+    xc, z = node_matmul(x, params["in_proj"].to(x.dtype)).split(di, dim=-1)
+    x_conv = F.silu(_causal_conv(xc, params["conv_w"], params["conv_b"]))
+    dt, Bc, Cc, A = _mamba_ssm_inputs(params, cfg, x_conv, R, N)
+    dt32 = dt.to(f32)
+    a = torch.exp(dt32[..., None] * A[:, None, None]).to(sdt)
+    bu = ((dt32 * x_conv.to(f32))[..., None]
+          * Bc.to(f32)[..., None, :]).to(sdt)
+    del dt32
+    _, h = associative_scan(_mamba_combine, (a, bu), dim=2)
+    del a, bu
+    y = torch.einsum("nbsdk,nbsk->nbsd", h, Cc.to(sdt))
+    y = y.to(f32) + _bias(params["D"].to(f32), x_conv) * x_conv.to(f32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = node_matmul(y, params["out_proj"].to(x.dtype))
+    state = {"conv": _final_conv_state(xc, cfg.ssm.d_conv),
+             "h": h[:, :, -1].to(x.dtype)}
+    return out, state
+
+
+def mamba_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                 state: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (n, B, 1, d); state {conv (n, B, W−1, di), h (n, B, di, N)}: h
+    updated in float32 and stored in x's dtype."""
+    di, N, R = _mamba_dims(cfg)
+    f32 = torch.float32
+    xc, z = node_matmul(x[:, :, 0], params["in_proj"].to(x.dtype)).split(
+        di, dim=-1)
+    x_conv, new_conv = _conv_step(xc, state["conv"], params["conv_w"],
+                                  params["conv_b"])
+    x_conv = F.silu(x_conv)
+    dt, Bc, Cc, A = _mamba_ssm_inputs(params, cfg, x_conv, R, N)
+    a = torch.exp(dt.to(f32)[..., None] * A[:, None])
+    bu = ((dt.to(f32) * x_conv.to(f32))[..., None]
+          * Bc.to(f32)[..., None, :])
+    h = a * state["h"].to(f32) + bu
+    y = torch.einsum("nbdk,nbk->nbd", h, Cc.to(f32))
+    y = y + _bias(params["D"].to(f32), x_conv) * x_conv.to(f32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = node_matmul(y, params["out_proj"].to(x.dtype))[:, :, None]
+    return out, {"conv": new_conv, "h": h.to(x.dtype)}
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    di, N, _ = _mamba_dims(cfg)
+    return {"conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di),
+                                dtype=dtype, device=device),
+            "h": torch.zeros((batch, di, N), dtype=dtype, device=device)}
 
 
 # ===========================================================================

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import (DistConfig, OptimizerConfig, SSMConfig,
-                                 TrainConfig, get_model_config)
+                                 TrainConfig, VisionStubConfig,
+                                 get_model_config)
 from repro_torch.kernels import mixing_cuda
 from repro_torch.train import Trainer
 
@@ -57,7 +58,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.checkpoint, repro_torch.obs, "
             "repro_torch.configs.qwen3_0_6b, repro_torch.configs.qwen2_0_5b, "
             "repro_torch.configs.qwen1_5_32b, repro_torch.models.attention, "
-            "repro_torch.models.blocks, repro_torch.models.model; "
+            "repro_torch.models.blocks, repro_torch.models.model, "
+            "repro_torch.models.layers, repro_torch.data.synthetic, "
+            "repro_torch.configs.jamba_1_5_large, "
+            "repro_torch.configs.llava_next_mistral_7b; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'repro')))")
@@ -173,8 +177,9 @@ def test_unported_train_options_raise():
     """Gradient accumulation and LAMB (A.8) and checkpoints (A.7) are
     ported: the Trainer accepts them, checkpoints with the reference's
     default directory, a per-node batch the microbatches do not divide
-    raises ``ValueError``; FSDP (A.10), Mamba and the VLM stub (A.8)
-    still raise, and since MoE (A.8) the moe family builds."""
+    raises ``ValueError``; FSDP (A.10) still raises; since MoE (A.8) the
+    moe family builds, and since slice 14 Mamba and the VLM stub build
+    and take a finite step (the VLM's batch with its patches)."""
     from repro.configs.base import TrainConfig as JTrain
     tr = Trainer(_tcfg().replace(microbatches=2), n_nodes=4, device="cpu")
     assert tr.tcfg.microbatches == 2
@@ -190,11 +195,14 @@ def test_unported_train_options_raise():
         Trainer(_tcfg().replace(dist=DistConfig(fsdp=True)), n_nodes=4,
                 device="cpu")
     cfg = _tcfg()
-    for over in (dict(vision=object()),
+    for over in (dict(family="vlm", vision=VisionStubConfig(
+                     n_tiles=1, patches_per_tile=4)),
                  dict(pattern=(("mamba", "none"),), ssm=SSMConfig())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            Trainer(cfg.replace(model=dataclasses.replace(cfg.model,
-                                                          **over)),
-                    n_nodes=4, device="cpu")
+        tr = Trainer(cfg.replace(model=dataclasses.replace(cfg.model,
+                                                           **over)),
+                     n_nodes=4, device="cpu")
+        assert ("patches" in tr.device_batch(0)) == ("vision" in over)
+        tr.run(tr.init_state(), steps=1)
+        assert torch.isfinite(torch.tensor(tr.history[-1]["loss"]))
     Trainer(cfg.replace(model=dataclasses.replace(cfg.model, family="moe")),
             n_nodes=4, device="cpu")

@@ -147,19 +147,37 @@ def test_init_shapes_match_reference_layout():
 
 
 def test_unported_model_features_raise():
-    """What A.8 still waits for raises it: Mamba, the hybrid family, the
-    VLM stub, non-causal attention outside the encoder family, an MoE
-    sub-config outside the moe family; a compressed query (MLA's
-    ``q_lora_rank``) raises ``ValueError``, the reference having no params
-    for it.  The dense features (qk-norm, softcaps, untied embeddings,
-    ...), the encoder, and since MoE a prefix pattern and the moe family
-    build, and since the blocked path a forward at S ≥ 8192 runs."""
-    from repro_torch.configs import MLAConfig, SSMConfig, get_model_config
-    for over in (dict(pattern=(("mamba", "none"),), ssm=SSMConfig()),
-                 dict(family="hybrid"), dict(vision=object()),
-                 dict(causal=False), dict(moe=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            tmake(dataclasses.replace(TCfg(**TINY), **over))
+    """What A.8 waited for is ported, and each feature builds and runs:
+    Mamba, the hybrid family, the VLM stub's config (a dense family
+    ignores it, as the reference does), non-causal attention outside the
+    encoder family, an MoE sub-config outside the moe family (no block
+    uses it) — each forward within 2e-5 · max|ref| of the reference's
+    (float32); a compressed query (MLA's ``q_lora_rank``) raises
+    ``ValueError``, the reference having no params for it.  The dense
+    features (qk-norm, softcaps, untied embeddings, ...), the encoder, a
+    prefix pattern and the moe family build, and since the blocked path a
+    forward at S ≥ 8192 runs."""
+    from repro.configs.base import SSMConfig as JSSM
+    from repro.configs.base import VisionStubConfig as JVision
+    from repro_torch.configs import (MLAConfig, SSMConfig,
+                                     VisionStubConfig, get_model_config)
+    from repro_torch.tree import tree_map
+    for jover, tover in (
+            (dict(pattern=(("mamba", "none"),), ssm=JSSM()),
+             dict(pattern=(("mamba", "none"),), ssm=SSMConfig())),
+            (dict(family="hybrid"),) * 2,
+            (dict(vision=JVision()), dict(vision=VisionStubConfig())),
+            (dict(causal=False),) * 2, (dict(moe=object()),) * 2):
+        jm, tm = (jmake(JCfg(**dict(TINY, dtype="float32", **jover))),
+                  tmake(TCfg(**dict(TINY, dtype="float32", **tover))))
+        w = jax.device_get(jm.init(jax.random.PRNGKey(0))[0])
+        toks = _batch(1)["inputs"]
+        jl, _, _ = jm.forward(w, {"inputs": toks})
+        tl, _, _ = tm.forward(
+            tree_map(lambda t: t[None], interop.from_numpy(w, "cpu")),
+            {"inputs": torch.from_numpy(toks)[None]})
+        err = float(np.abs(tl[0].numpy() - np.asarray(jl)).max())
+        assert err <= 2e-5 * float(np.abs(np.asarray(jl)).max()), tover
     ds = get_model_config("deepseek-v2-lite-16b", reduced=True)
     with pytest.raises(ValueError, match="q_lora_rank"):
         tmake(dataclasses.replace(ds, mla=MLAConfig(kv_lora_rank=64,

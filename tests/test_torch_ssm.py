@@ -553,12 +553,24 @@ def test_init_states_match_reference():
 # (h): what the port does not serve yet raises
 # ---------------------------------------------------------------------------
 def test_mamba_raises():
+    """Mamba is ported (ROADMAP A.8): a pure Mamba LM of the ssm family
+    builds, and its prefill's logits are the forward's with its
+    ``{conv, h}`` states in the cache."""
     cfg = ModelConfig(name="m", family="ssm", citation="t", n_layers=2,
                       d_model=64, n_heads=4, n_kv_heads=4, d_ff=0,
                       vocab_size=64, pattern=(("mamba", "none"),),
-                      ssm=SSMConfig(), tie_embeddings=True)
-    with pytest.raises(NotImplementedError, match="mamba mixer.*ROADMAP A.8"):
-        make_model(cfg)
+                      ssm=SSMConfig(), tie_embeddings=True, dtype="float32")
+    model = make_model(cfg)
+    node = tree_map(lambda t: t[None], model.init(
+        torch.Generator().manual_seed(0), "cpu"))
+    toks = {"inputs": torch.arange(10, dtype=torch.int32).reshape(1, 1, 10)}
+    full, _, _ = model.forward(node, toks)
+    pre, caches, _ = model.forward(node, toks, mode="prefill",
+                                   want_cache=True)
+    assert torch.equal(full, pre) and bool(torch.isfinite(full).all())
+    state = caches["scan"]["entry_0"]
+    assert sorted(state) == ["conv", "h"]
+    assert state["h"].shape == (1, 2, 1, 128, 16)
 
 
 def test_attention_decode_raises():
