@@ -201,6 +201,25 @@ line):
    ``[hybx]`` and ``[vlmx]`` both archs' reduced configs card vs CPU,
    their inits bitwise (:func:`reduced_cross_check`, as ``[moex]``).
 
+17. slice 15's paths, the rank mesh (A.10.1; right after ``[sround]``,
+   :func:`run_dist_paths`): four ``torch.distributed`` ranks, one per
+   node shard of ``[smain]``'s mesh, spawned once by
+   ``repro_torch.core.mesh.run_ranks`` on the one card over gloo (every
+   exchange staged through pinned host memory; NCCL refuses two ranks on
+   one card).  ``[dround]``: five round kinds on a synthetic full-width
+   state (gossip hops 1 and 2 and global with the consensus residual;
+   int8 + EF gossip and the int8 collective), each rank's rows
+   fingerprinted (:func:`fingerprint`) against the one-process sharded
+   round's, then timed on the ranks with the exchange's split (staging
+   out, exchange, staging in, the kernel alone, the rest) beside
+   ``[sround]``; ``[dmain]`` and ``[dcmain]``: ``[smain]``'s and
+   ``[scmain]``'s trainers on the ranks, 2 nodes each: B.5 / B.4 once a
+   gossip step on every rank (16 launches summed), no plain twin,
+   consensus 0.0 after every uncompressed global step, finite losses,
+   the slowest rank's step ms, synchronizing calls, each rank's peak
+   memory and pinned host bytes, the final params against the one-process
+   run's.
+
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
 object with the kernel records, and the ok line.  The
@@ -2455,6 +2474,9 @@ def sharded_round_times(torch, mc, tr, state, compressed: bool) -> None:
     for phase in ("gossip", "global"):
         t = [cuda_ms(torch, lambda: run(sp, phase), iters=3, warmup=1)
              for sp in (stacked, spec, spec, stacked)]
+        SROUND[("int8+EF " if compressed else "")
+               + ("gossip hop 1" if phase == "gossip" else "global")] = (
+            f"{t[1]:.1f} / {t[2]:.1f} ms")
         bound = (f"bound of its {k} shard kernels {bound_ms:.3f} ms"
                  if phase == "gossip" else "no shard kernel")
         print(f"[sround] {'compressed int8+EF ' if compressed else ''}"
@@ -6236,6 +6258,436 @@ def reduced_cross_check(torch, runs) -> None:
                                  f"{loss_rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 15: the rank mesh (A.10.1), one torch.distributed rank per node
+# shard, the four ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+DIST_K = 4                          # ranks = node shards ([smain]'s mesh)
+DIST_TIMEOUT_S = 600                # run_ranks' limit for the rank phases
+DIST_SEED = 15
+DIST_ROUNDS = (("gossip hop 1", "gossip", 0, False),
+               ("gossip hop 2", "gossip", 1, False),
+               ("global", "global", 0, False),
+               ("int8+EF gossip hop 1", "gossip", 0, True),
+               ("int8+EF global", "global", 0, True))
+FP_CHUNK = 1 << 26                  # elements per fingerprint pass
+SROUND = {}                         # [sround]'s times, beside [dround]'s
+
+
+def fingerprint(torch, t) -> tuple:
+    """An exact digest of a tensor's bytes, taken on its device: ``(numel,
+    Σ b_i, Σ b_i·w_i)`` over its 32-bit words b_i with position weights
+    w_i, the sums wrapping in int64 (addition mod 2^64: any order gives
+    the same value).  Equal tensors give equal digests; one flipped bit
+    changes both sums."""
+    v = t.detach().contiguous().reshape(-1).view(torch.int32)
+    h1 = h2 = 0
+    for lo in range(0, v.numel(), FP_CHUNK):
+        c = v[lo:lo + FP_CHUNK].to(torch.int64)
+        w = torch.arange(lo, lo + c.numel(), dtype=torch.int64,
+                         device=c.device)
+        w = (w * 2654435761 + 97) % 2147483647
+        h1 += int(c.sum())
+        h2 += int((c * w).sum())
+    return v.numel(), h1 & (2**64 - 1), h2 & (2**64 - 1)
+
+
+def dist_inputs(torch, shapes, rows, device):
+    """The rounds' synthetic inputs ``(x, ef)`` for node ``rows``: one
+    leaf per shape of pga-lm-100m (``leaf00`` …), each node row drawn on
+    the card from its own seed, so any process builds any rows with the
+    same bits (x at 0.02, ef at 1e-3)."""
+    def leaf(i, shape, scale, salt):
+        out = []
+        for g in rows:
+            gen = torch.Generator(device=device).manual_seed(
+                DIST_SEED * 1_000_003 + salt * 10_007 + 100 * i + g)
+            out.append(torch.randn((1,) + tuple(shape), generator=gen,
+                                   device=device) * scale)
+        return torch.cat(out)
+    x = {f"leaf{i:02d}": leaf(i, s, 0.02, 0) for i, s in enumerate(shapes)}
+    ef = {f"leaf{i:02d}": leaf(i, s, 1e-3, 1) for i, s in enumerate(shapes)}
+    return x, ef
+
+
+def dist_round(torch, mesh, x, ef, phase: str, step: int,
+               compressed: bool):
+    """One round of a [dround] kind on ``mesh`` (the one-process mesh of k
+    shards or a rank mesh): uncompressed with the consensus residual, as
+    the Trainer's fused route runs it; compressed int8 + EF through
+    ``communicate`` (the collective on the global phase).  Returns the
+    output tensors, each with whether it is node-stacked (x̄ and the
+    residual are not)."""
+    from repro_torch.core import mixing
+    from repro_torch.tree import tree_leaves
+    spec = mixing.CommSpec(
+        topology="one_peer_exp", n_nodes=MAIN_N, backend="pallas",
+        mesh=mesh, shard_mode="sharded",
+        **(dict(compressor=_codec("int8"), global_compressor=_codec("int8"))
+           if compressed else {})).validate()
+    if compressed:
+        mixed, new_ef = mixing.communicate(x, spec, phase=phase, step=step,
+                                           ef_state=ef, seed=3)
+        return [(t, True) for t in tree_leaves(mixed) + tree_leaves(new_ef)]
+    mixed, xbar, resid = mixing.communicate_sharded(
+        x, spec, phase=phase, step=step, with_residual=True)
+    return ([(t, True) for t in tree_leaves(mixed)]
+            + [(t, False) for t in tree_leaves(xbar)] + [(resid, False)])
+
+
+def _codec(name: str):
+    from repro_torch import compress as C
+    return C.make_compressor(name)
+
+
+def _row_fingerprints(torch, outs, r: int, m: int) -> list:
+    """Rank r's view of a round's outputs: its rows of the node-stacked
+    ones, the others (x̄, the residual) whole."""
+    return [fingerprint(torch, t[r * m:(r + 1) * m] if stacked else t)
+            for t, stacked in outs]
+
+
+def _dist_tcfg(compressed: bool, reduced: bool = False):
+    """[smain]'s / [scmain]'s configuration (run_main_path); ``reduced``
+    (a CPU rehearsal): the reduced model."""
+    from repro_torch.configs import (DistConfig, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+    steps = 6
+    return TrainConfig(
+        model=get_model_config("pga-lm-100m", reduced=reduced),
+        dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
+                        H=3, comm_backend="pallas",
+                        comm_shard_mode="sharded",
+                        **(COMPRESSED if compressed else {})),
+        optimizer=OptimizerConfig(name="adamw", lr=3e-4,
+                                  schedule="warmup_cosine", warmup_steps=2,
+                                  total_steps=steps + 2),
+        global_batch=32 if not reduced else 8,
+        seq_len=512 if not reduced else 16, steps=steps, log_every=1)
+
+
+def _twin_counter(mc):
+    """Count calls of the per-shard kernels' plain twins (none may run on
+    the card): patch the module attributes the wrappers call."""
+    calls = {"shard_mix": 0, "shard_cmix": 0}
+    for key, name in (("shard_mix", "shard_mix_block_plain"),
+                      ("shard_cmix", "shard_comp_mix_block_plain")):
+        fn = getattr(mc, name)
+
+        def counted(*a, _fn=fn, _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        setattr(mc, name, counted)
+    return calls
+
+
+def _dist_rank(rank: int, shapes, smain_fp, device: str = "cuda:0"):
+    """One rank of the slice-15 phases (``run_ranks`` spawns four on
+    cuda:0 over gloo): the [dround] rounds (fingerprints of this rank's
+    rows, then each kind timed with the exchange's split), then [dmain]
+    and [dcmain] (the Trainer on this rank's 2 nodes).  Returns what the
+    parent prints and gates.  ``device="cpu"`` rehearses it at the
+    reduced model (no timing of kernels, no synchronizing-call count)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import mixing_cuda as mc
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device != "cpu"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    twins = _twin_counter(mc)
+    m = MAIN_N // DIST_K
+    mesh = make_mesh((DIST_K,), ("data",), device=device,
+                     group=dist.group.WORLD)
+    ex = mesh.exchange
+    out = {"rank": rank, "rounds": {}, "paths": {}}
+    # [dround]: this rank's rows of the synthetic state
+    rows = range(rank * m, (rank + 1) * m)
+    x, ef = dist_inputs(torch, shapes, rows, mesh.device)
+    D = sum(math.prod(s) for s in shapes)
+    for name, phase, step, compressed in DIST_ROUNDS:
+        reset_counts()
+        outs = dist_round(torch, mesh, x, ef, phase, step, compressed)
+        fps = [fingerprint(torch, t) for t, _ in outs]
+        launches = counts()
+        del outs
+        # timed: 3 rounds after a barrier, the exchange's split on
+        ex.timing = True
+        ex.reset_stats()
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        iters = 3
+        for _ in range(iters):
+            dist_round(torch, mesh, x, ef, phase, step, compressed)
+        sync()
+        total = (time.perf_counter() - t0) * 1e3 / iters
+        st = {k: v / iters for k, v in ex.stats.items()}
+        ex.timing = False
+        kernel_ms = 0.0
+        if phase == "gossip" and card:
+            # B.5 / B.4 alone at this round's shapes on this rank
+            from repro_torch.core.mixing import _device_shard_blocks
+            offsets, Ms, ds, ws = _device_shard_blocks(
+                phase, "one_peer_exp", MAIN_N, step, 1, DIST_K, mesh.device)
+            K = len(offsets) * m
+            xr = torch.randn((m, D), device=mesh.device)
+            xs = torch.randn((K, D), device=mesh.device)
+            o = torch.empty_like(xr)
+            if compressed:
+                kernel_ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block(
+                    xr, xs[:m], xs, ws[rank], Ms[rank], out=o), iters=3,
+                    warmup=1)
+            else:
+                kernel_ms = cuda_ms(torch, lambda: mc.shard_mix_block(
+                    xr, xs, ds[rank], Ms[rank], with_residual=True, out=o),
+                    iters=3, warmup=1)
+            del xr, xs, o
+        dist.barrier()
+        if rank == 0:
+            print(f"[dround] rank 0 {name}: {total:.1f} ms, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9 if card else 0:.2f}"
+                  f" GB", flush=True)
+        out["rounds"][name] = dict(
+            fps=fps, launches=launches, ms=total,
+            stage_out_ms=st["stage_out"] * 1e3,
+            exchange_ms=st["exchange"] * 1e3,
+            stage_in_ms=st["stage_in"] * 1e3, kernel_ms=kernel_ms,
+            bytes_out=st["bytes_out"], bytes_in=st["bytes_in"],
+            syncs=st["syncs"], ops=st["ops"])
+    del x, ef
+    if card:
+        torch.cuda.empty_cache()
+    # [dmain] and [dcmain]: the Trainer on this rank's nodes
+    for compressed in (False, True):
+        tag = "[dcmain]" if compressed else "[dmain]"
+        tr = Trainer(_dist_tcfg(compressed, reduced=not card),
+                     n_nodes=MAIN_N, mesh=mesh, with_consensus=True,
+                     device=device)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_counts()
+        for key in twins:
+            twins[key] = 0
+        steps = []
+        for k in range(tr.tcfg.steps):
+            ex.reset_stats()
+            t0 = time.perf_counter()
+            state, n_sync = (sync_steps(
+                torch, lambda: tr.run(state, steps=1, log_every=1))
+                if card else (tr.run(state, steps=1, log_every=1), 0))
+            sync()
+            dt = time.perf_counter() - t0
+            rec = tr.history[-1]
+            if rank == 0:
+                print(f"{tag} rank 0 step {k} {dt * 1e3:.1f} ms, peak "
+                      f"{torch.cuda.max_memory_allocated() / 1e9 if card else 0:.2f}"
+                      f" GB", flush=True)
+            steps.append(dict(
+                phase=rec["phase"], loss=rec["loss"],
+                consensus=rec["consensus"], ms=dt * 1e3, syncs=n_sync,
+                exchange_syncs=ex.stats["syncs"],
+                bytes_out=ex.stats["bytes_out"],
+                bytes_in=ex.stats["bytes_in"]))
+        launches = counts()
+        leaves = tree_leaves(state.params)
+        fps = [fingerprint(torch, p) for p in leaves]
+        out["paths"][tag] = dict(
+            steps=steps, launches=launches, twins=dict(twins),
+            params_equal=(fps == smain_fp[tag][rank]
+                          if smain_fp.get(tag) else None),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card else 0,
+            pinned_bytes=ex.pinned_bytes)
+        del tr, state, leaves
+        if card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def smain_reference(torch, tr, state, launches) -> tuple:
+    """``(leaf shapes, reference)`` of a finished [smain]/[scmain] run:
+    its step records, launches and each rank's rows' fingerprints of the
+    final params."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(state.params)
+    m = MAIN_N // DIST_K
+    return [tuple(p.shape[1:]) for p in leaves], dict(
+        steps=[{k: h[k] for k in ("phase", "loss", "consensus")}
+               for h in tr.history[:6]],
+        launches=launches,
+        fps=[[fingerprint(torch, p[r * m:(r + 1) * m]) for p in leaves]
+             for r in range(DIST_K)])
+
+
+def dist_parent_fingerprints(torch, shapes, device="cuda") -> dict:
+    """The one-process sharded rounds ([sround]'s mesh of 4 shards on the
+    card) on the synthetic state of all 8 nodes: each rank's fingerprints
+    of each [dround] kind."""
+    from repro_torch.core.mesh import make_mesh
+    mesh = make_mesh((DIST_K,), ("data",), device=device)
+    x, ef = dist_inputs(torch, shapes, range(MAIN_N), mesh.device)
+    want = {}
+    m = MAIN_N // DIST_K
+    for name, phase, step, compressed in DIST_ROUNDS:
+        outs = dist_round(torch, mesh, x, ef, phase, step, compressed)
+        want[name] = [_row_fingerprints(torch, outs, r, m)
+                      for r in range(DIST_K)]
+        del outs
+    del x, ef
+    return want
+
+
+def run_dist_paths(torch, mc, shapes, smain, device="cuda") -> dict:
+    """Slice 15's phases: the parent's fingerprints of the one-process
+    sharded rounds, then one spawn of four ranks on the card over gloo
+    (:func:`_dist_rank`): ``[dround]`` (each rank's rows bitwise the
+    one-process round's, the round split into staging out, exchange,
+    staging in, kernel and the rest, beside ``[sround]``), ``[dmain]``
+    and ``[dcmain]`` (the Trainer on 2 nodes a rank: B.5 / B.4 on every
+    rank, 16 launches summed, consensus 0.0 after every uncompressed
+    global step, finite losses, no plain twin on the card).  ``smain``:
+    ``[smain]``/``[scmain]``'s step records and each rank's rows'
+    fingerprints of their final params.  Returns the launch counts summed
+    over the ranks of each path.  ``device="cpu"`` rehearses the phases
+    at the reduced model (``shapes`` and ``smain`` to match; the launch
+    gates then fail: the CPU launches no kernel)."""
+    from repro_torch.core.mesh import run_ranks
+
+    card = device != "cpu"
+    t0 = time.perf_counter()
+    want = dist_parent_fingerprints(torch, shapes, device)
+    fp_s = time.perf_counter() - t0
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"[dround] before the spawn: this process holds "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the "
+              f"card {free / 1e9:.2f} of {total / 1e9:.2f} GB free",
+              flush=True)
+    t0 = time.perf_counter()
+    # the ranks' allocators map their pools as expandable segments: four
+    # processes share the card, and a pool's reserved but free blocks
+    # are memory the others cannot have
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        res = run_ranks(_dist_rank, DIST_K, backend="gloo",
+                        device="cuda:0" if card else "cpu",
+                        args=(shapes, {t: v["fps"] for t, v in smain.items()},
+                              "cuda:0" if card else "cpu"),
+                        timeout_s=DIST_TIMEOUT_S, threads=2)
+    finally:
+        if prev is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    spawn_s = time.perf_counter() - t0
+    print(f"[dround] fingerprints of the one-process rounds in {fp_s:.1f} "
+          f"s; the {DIST_K} ranks (spawn, init, [dround], [dmain], "
+          f"[dcmain]) in {spawn_s:.1f} s", flush=True)
+    failures = []
+    for name, phase, step, compressed in DIST_ROUNDS:
+        recs = [r["rounds"][name] for r in res]
+        equal = [rec["fps"] == want[name][i] for i, rec in enumerate(recs)]
+        kernel = "shard_cmix" if compressed else "shard_mix"
+        per_rank = [rec["launches"][kernel] for rec in recs]
+        slow = max(range(DIST_K), key=lambda i: recs[i]["ms"])
+        s = recs[slow]
+        rest = s["ms"] - s["stage_out_ms"] - s["exchange_ms"] \
+            - s["stage_in_ms"] - s["kernel_ms"]
+        print(f"[dround] {name}: ranks' rows bitwise the one-process "
+              f"round's {equal}; {kernel} launches per rank {per_rank}; "
+              f"slowest rank {s['ms']:.1f} ms = staging out "
+              f"{s['stage_out_ms']:.1f} + exchange {s['exchange_ms']:.1f} "
+              f"+ staging in {s['stage_in_ms']:.1f} + kernel "
+              f"{s['kernel_ms']:.1f} + the rest (sums, packing, wire "
+              f"build) {rest:.1f} ms; {s['bytes_out'] / 1e9:.3f} GB out, "
+              f"{s['bytes_in'] / 1e9:.3f} GB in, {s['ops']:.0f} exchange "
+              f"calls, {s['syncs']:.0f} staging waits a round; all ranks' "
+              f"ms {[round(r['ms'], 1) for r in recs]}; one process "
+              f"([sround], 4 shards) {SROUND.get(name, 'not measured')}",
+              flush=True)
+        if not all(equal):
+            failures.append(f"[dround] {name}: rows not bitwise {equal}")
+        want_launch = 1 if phase == "gossip" else 0
+        if per_rank != [want_launch] * DIST_K:
+            failures.append(f"[dround] {name}: {kernel} launches "
+                            f"{per_rank}")
+    launches = {}
+    for tag, key in (("[dmain]", "shard_mix"), ("[dcmain]", "shard_cmix")):
+        recs = [r["paths"][tag] for r in res]
+        summed = {k: sum(rec["launches"][k] for rec in recs)
+                  for k in counts()}
+        launches[tag] = summed
+        steps0 = recs[0]["steps"]
+        gossip = sum(s["phase"] == "gossip" for s in steps0)
+        for k, s0 in enumerate(steps0):
+            ms = [rec["steps"][k]["ms"] for rec in recs]
+            ref = smain[tag]["steps"][k] if smain.get(tag) else None
+            gap = (f", loss - {'[scmain]' if tag == '[dcmain]' else '[smain]'}"
+                   f"'s {s0['loss'] - ref['loss']:+.3e}" if ref else "")
+            print(f"{tag} step {k} phase={s0['phase']} loss={s0['loss']:.4f}"
+                  f" consensus={s0['consensus']:.6e} step_ms (slowest "
+                  f"rank)={max(ms):.1f} ranks {[round(v, 1) for v in ms]} "
+                  f"synchronizing_calls="
+                  f"{[rec['steps'][k]['syncs'] for rec in recs]} (staging "
+                  f"waits {recs[0]['steps'][k]['exchange_syncs']}) exchange "
+                  f"{recs[0]['steps'][k]['bytes_out'] / 1e9:.3f} GB out a "
+                  f"rank{gap}", flush=True)
+            for rec in recs:
+                s = rec["steps"][k]
+                if (s["phase"], s["loss"], s["consensus"]) != (
+                        s0["phase"], s0["loss"], s0["consensus"]):
+                    failures.append(f"{tag} step {k}: ranks disagree")
+            if not math.isfinite(s0["loss"]):
+                failures.append(f"{tag} step {k}: loss {s0['loss']}")
+            if tag == "[dmain]" and s0["phase"] == "global":
+                if s0["consensus"] != 0.0:
+                    failures.append(f"{tag} step {k}: consensus "
+                                    f"{s0['consensus']} after a global step")
+            elif not s0["consensus"] > 0.0:
+                failures.append(f"{tag} step {k}: consensus "
+                                f"{s0['consensus']}")
+        steady = statistics.median(
+            max(rec["steps"][k]["ms"] for rec in recs)
+            for k in range(1, len(steps0)))
+        per_rank = [rec["launches"][key] for rec in recs]
+        twins = [rec["twins"] for rec in recs]
+        print(f"{tag} {len(steps0)} steps on {DIST_K} ranks (2 nodes each, "
+              f"gloo through pinned host memory): {key} launches per rank "
+              f"{per_rank}, summed {summed[key]} (one-process "
+              f"{smain[tag]['launches'][key] if smain.get(tag) else '?'}); "
+              f"plain twins called {twins}; steady step {steady:.1f} ms "
+              f"(median of steps 1-5, slowest rank; one process "
+              f"{STEADY.get('[scmain]' if tag == '[dcmain]' else '[smain]', 0) * 1e3:.1f} ms), "
+              f"{32 * 512 / steady * 1e3:.0f} tokens/s; peak memory per "
+              f"rank {[round(rec['peak_gb'], 2) for rec in recs]} GB; "
+              f"pinned host bytes per rank "
+              f"{[rec['pinned_bytes'] for rec in recs]}; final params "
+              f"bitwise the one-process run's rows "
+              f"{[rec['params_equal'] for rec in recs]}", flush=True)
+        if per_rank != [gossip] * DIST_K or \
+                summed != only(**{key: gossip * DIST_K}):
+            failures.append(f"{tag} launches per rank {per_rank}, summed "
+                            f"{summed}")
+        if any(t[key] for t in twins for key in t):
+            failures.append(f"{tag} plain twins called {twins}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+
 def main() -> int:
     import argparse
 
@@ -6337,14 +6789,27 @@ def main() -> int:
     records["cmix_absmax_kernel"]["launches"] = slice2["cmix_absmax"]
     records["mlstm_wgmma_kernel"]["launches"] = run_serving_path(torch)
     torch.cuda.empty_cache()
+    smain, shapes = {}, None
     for compressed in (False, True):
         launches, tr, state = run_main_path(torch, mc, compressed=compressed,
                                             sharded=True)
         key = "shard_cmix" if compressed else "shard_mix"
         records[f"{key}_kernel"]["launches"] = launches[key]
+        # what the rank phases of slice 15 are held against
+        shapes, smain["[dcmain]" if compressed else "[dmain]"] = \
+            smain_reference(torch, tr, state, launches)
         sharded_round_times(torch, mc, tr, state, compressed)
         del tr, state
         torch.cuda.empty_cache()
+    # slice 15: the same paths on a rank mesh, 4 ranks sharing the card
+    dist_launches = run_dist_paths(torch, mc, shapes, smain)
+    for key in ("shard_mix", "shard_cmix"):
+        records[f"{key}_kernel"]["launches_dist"] = {
+            tag: {key: c[key]} for tag, c in dist_launches.items()
+            if c[key]}
+    del smain
+    torch.cuda.empty_cache()
+    lap("slices 1-4 and 15")
     cross_check(torch)
     cross_check(torch, compressed=True)
     cross_check(torch, sharded=True)

@@ -36,6 +36,8 @@ KINDS = ("int8", "fp8")
 SHIFTS = {"int8": 7, "fp8": 8}
 
 _STAGE2 = 0x9E3779B9
+# blocks per pass of quantize_blocks (16,777,216 columns at QBLOCK)
+CHUNK_BLOCKS = 1 << 14
 
 
 def stage_seeds(seed, salt: int = 0) -> Tuple[int, int]:
@@ -78,7 +80,11 @@ def exponent_scales(exps: torch.Tensor) -> torch.Tensor:
 def quantize_blocks(y2: torch.Tensor, kind: str, seed,
                     qblock: int = QBLOCK, col0: int = 0):
     """Blockwise stochastic quantization of a ``(rows, Dp)`` fp32 matrix
-    (``Dp`` a multiple of ``qblock``): ``(codes, scales, q)``."""
+    (``Dp`` a multiple of ``qblock``): ``(codes, scales, q)``.  Runs over
+    :data:`CHUNK_BLOCKS` blocks at a time: every op is per element or per
+    block, so the chunks give the one-pass bits while the column hash's
+    int64 temporaries stay a chunk wide (at 138M columns one pass held
+    about 5 GB of them, whatever the row count)."""
     if kind not in KINDS:
         raise ValueError(f"collective.quantize_blocks: unsupported kind "
                          f"{kind!r} (expected one of {KINDS})")
@@ -88,16 +94,30 @@ def quantize_blocks(y2: torch.Tensor, kind: str, seed,
                          f"multiple of qblock={qblock} (pad_cols first)")
     nb = Dp // qblock
     yb = y2.reshape(rows, nb, qblock)
-    cols = column_range(Dp, y2.device, col0).reshape(1, nb, qblock)
-    scale = pow2_block_scale(yb, SHIFTS[kind])
-    if kind == "int8":
-        codes = cq.int8_codes(yb, scale, uniform_columns(seed, cols))
-        q = cq.int8_dequant(codes, scale)
-        wire = codes.to(torch.int8)
-    else:
-        codes = cq.fp8_codes(yb, scale, column_bits(seed, cols))
-        q = cq.fp8_dequant(codes, scale)
-        wire = codes
+    wire = q = None
+    scale = torch.empty((rows, nb, 1), dtype=torch.float32, device=y2.device)
+    for b0 in range(0, nb, CHUNK_BLOCKS):
+        b1 = min(nb, b0 + CHUNK_BLOCKS)
+        ybc = yb[:, b0:b1]
+        cols = column_range((b1 - b0) * qblock, y2.device,
+                            col0 + b0 * qblock).reshape(1, b1 - b0, qblock)
+        sc = pow2_block_scale(ybc, SHIFTS[kind])
+        if kind == "int8":
+            codes = cq.int8_codes(ybc, sc, uniform_columns(seed, cols))
+            qc = cq.int8_dequant(codes, sc)
+            codes = codes.to(torch.int8)
+        else:
+            codes = cq.fp8_codes(ybc, sc, column_bits(seed, cols))
+            qc = cq.fp8_dequant(codes, sc)
+        if wire is None:
+            wire = torch.empty((rows, nb, qblock), dtype=codes.dtype,
+                               device=y2.device)
+            q = torch.empty((rows, nb, qblock), dtype=qc.dtype,
+                            device=y2.device)
+        wire[:, b0:b1] = codes
+        q[:, b0:b1] = qc
+        scale[:, b0:b1] = sc
+        del codes, qc, cols, sc
     return (wire.reshape(rows, Dp), scale.reshape(rows, nb),
             q.reshape(rows, Dp))
 

@@ -23,11 +23,18 @@ either set, :func:`communicate` returns ``(mixed, new_ef_state)``.
 Sharded rounds (:func:`communicate_sharded`): with a ``CommSpec.mesh``
 whose node axis has more than one shard, the fused backend runs the round
 shard by shard, each shard's ``(m, D)`` row-block through the per-shard
-kernels (``shard_mix.cu``, ``shard_cmix.cu``).  Every shard of a
-:class:`repro_torch.core.mesh.Mesh` sits on one device in this process:
-the shard body runs once per shard in a fixed order, the reference's
-``ppermute`` halo exchange is a gather of the neighbours' row-blocks, and
-its ``psum`` a fixed-order sum over the shards (no interconnect).
+kernels (``shard_mix.cu``, ``shard_cmix.cu``).  The shard body runs once
+per shard this process owns (``Mesh.owned_shards``), in shard order.  On
+a local :class:`repro_torch.core.mesh.Mesh` (every shard in this process)
+the reference's ``ppermute`` halo exchange is a slice of the neighbours'
+row-blocks and its ``psum`` a left fold over the shards; on a rank mesh
+(one ``torch.distributed`` rank per shard, holding only its m rows) the
+row-blocks and wire arrays cross the mesh's ``Exchange.halo`` and every
+sum over shards is ``Exchange.fold``, the same left fold on the gathered
+partials.  Both kinds run the same round code, so a rank's rows are the
+one-process round's bits.  :func:`gossip_ppermute`,
+:func:`global_average_ppermute` and :func:`make_shard_map_mixer` are the
+reference's explicit runtime on either kind.
 
 Push-sum rounds (:func:`communicate_push_sum`): ``(x, w) ← (W·x, W·w)``
 for a runtime column-stochastic W (new data every step under faults),
@@ -59,8 +66,7 @@ route, which bypasses :func:`communicate`, meters through
 step variant's first call only, so a run emits one record per round of
 each variant, as the reference's traced meters do.
 
-2-D ``(node, model)`` meshes and shards on several cards are not ported
-yet (ROADMAP A.10).
+2-D ``(node, model)`` meshes are not ported yet (ROADMAP A.10.2).
 """
 from __future__ import annotations
 
@@ -152,6 +158,8 @@ def _meter(tel, params: PyTree, spec: "CommSpec", *, phase: str, step: int,
     an accounting error degrades to a warning."""
     try:
         from repro_torch.obs import meters as obs_meters
+        if spec.mesh is not None and spec.mesh.distributed:
+            params, wires = _global_shapes(params, wires, spec.n_nodes)
         fields = obs_meters.comm_round_fields(
             params, phase=phase, topology=spec.topology,
             n_nodes=spec.n_nodes, step=int(step), n_pods=spec.n_pods,
@@ -163,6 +171,26 @@ def _meter(tel, params: PyTree, spec: "CommSpec", *, phase: str, step: int,
     except Exception as e:                           # pragma: no cover
         warnings.warn(f"mixing: comm_round meter failed ({e}); "
                       f"round unaffected")
+
+
+def _global_shapes(params: PyTree, wires, n: int):
+    """Shape-only (meta) stand-ins for a rank's rows with the node axis
+    at its full n, so a rank meters the whole round as one process
+    would."""
+    rows = tree_leaves(params)[0].shape[0]
+
+    def full(a):
+        lead = (n,) if a.dim() and a.shape[0] == rows else tuple(a.shape[:1])
+        return torch.empty(lead + tuple(a.shape[1:]), dtype=a.dtype,
+                           device="meta")
+
+    if wires is not None:
+        wires = [{"payload": tuple(full(a) for a in (
+                      w["payload"] if isinstance(w, dict) else w.payload)),
+                  "aux": tuple(full(a) for a in (
+                      w["aux"] if isinstance(w, dict) else w.aux))}
+                 for w in wires]
+    return tree_map(full, params), wires
 
 
 def meter_round(params: PyTree, spec: "CommSpec", *, phase: str,
@@ -230,6 +258,16 @@ def use_sharded_backend(backend: str, mesh, node_axis: str = "data",
     if shard_mode not in SHARD_MODES:
         raise ValueError(f"unknown comm_shard_mode {shard_mode!r} "
                          f"(expected one of {SHARD_MODES})")
+    if mesh is not None and mesh.distributed:
+        # a rank holds only its own rows: there is no stacked round
+        if backend != "pallas" or shard_mode == "stacked" \
+                or node_shard_count(mesh, node_axis) != mesh.size:
+            raise ValueError(
+                "a rank mesh runs only the sharded rounds over all its "
+                "shards (comm_backend='pallas', comm_shard_mode 'auto' or "
+                f"'sharded'; got backend={backend!r}, shard_mode="
+                f"{shard_mode!r}, node_axis={node_axis!r})")
+        return True
     if backend != "pallas" or shard_mode == "stacked":
         return False
     sharded = node_shard_count(mesh, node_axis) > 1
@@ -406,6 +444,78 @@ def pod_average_pytree(params: PyTree, n_pods: int, axis: int = 0,
 
         out = tree_map(avg, params)
     return (out, ef_state) if compressor is not None else out
+
+
+# ---------------------------------------------------------------------------
+# Explicit decentralized runtime: the reference's shard_map + ppermute
+# ---------------------------------------------------------------------------
+def _perm_for_shift(n: int, s: int) -> Tuple[Tuple[int, int], ...]:
+    """The ``(src, dst)`` pairs of a ppermute by shift ``s``: node i
+    receives from node ``(i + s) mod n``."""
+    return tuple(((i + s) % n, i) for i in range(n))
+
+
+def _ppermute(x: torch.Tensor, mesh, axis_name: str, s: int) -> torch.Tensor:
+    """``jax.lax.ppermute(x, axis_name, _perm_for_shift(k, s))`` over the
+    k shards of ``axis_name``: on a rank mesh ``x`` is this shard's block,
+    sent to shard ``(r − s) mod k`` while shard ``(r + s) mod k``'s block
+    arrives (``Exchange.halo``); on a local mesh ``x`` stacks every
+    shard's block and the permutation is a roll by ``s`` blocks."""
+    k = mesh.shape[axis_name]
+    if mesh.distributed:
+        return mesh.exchange.halo(x, (s % k,))
+    return torch.roll(x, -(s % k) * (x.shape[0] // k), dims=0)
+
+
+def gossip_ppermute(x: torch.Tensor, axis_name: str, n: int,
+                    weights: Dict[int, float], *, mesh) -> torch.Tensor:
+    """W·x where each shard along ``axis_name`` of ``mesh`` holds one
+    node's block: ``Σ_s w_s · ppermute(x, s)`` in the decomposition's
+    order, as the reference sums it.  The reference runs it inside
+    ``shard_map`` and reads the mesh from that context; here the mesh is
+    passed (on a rank mesh ``x`` is this rank's block, on a local mesh the
+    stacked blocks of all n shards)."""
+    if mesh.shape[axis_name] != n:
+        raise ValueError(f"gossip_ppermute: {n} nodes on a mesh axis "
+                         f"{axis_name!r} of {mesh.shape[axis_name]} shards")
+    acc = None
+    for s, w in weights.items():
+        term = x if s == 0 else _ppermute(x, mesh, axis_name, s)
+        term = term * torch.tensor(w, dtype=x.dtype)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def global_average_ppermute(x: torch.Tensor, axis_name: str, *,
+                            mesh) -> torch.Tensor:
+    """All-reduce mean over the shards of ``axis_name`` (the reference's
+    ``pmean``): the fixed-order sum over the shards, divided by their
+    count; on a local mesh ``x`` stacks every shard's block and each gets
+    the mean."""
+    k = mesh.shape[axis_name]
+    if mesh.distributed:
+        return _divide(mesh.exchange.fold(x), k)
+    blocks = x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
+    acc = None
+    for b in blocks.unbind(0):
+        acc = b if acc is None else acc + b
+    mean = _divide(acc, k)
+    return mean.unsqueeze(0).expand(blocks.shape).reshape(x.shape)
+
+
+def make_shard_map_mixer(mesh, axis_name: str, topology: str,
+                         step: int = 0):
+    """``f(x) -> W·x`` over the shards of ``axis_name``, one node each:
+    the explicit runtime counterpart of :func:`mix_pytree` (the
+    reference's ``shard_map`` of :func:`gossip_ppermute`).  On a rank mesh
+    ``f`` takes and returns this rank's node block."""
+    n = mesh.shape[axis_name]
+    weights = topo.shift_weights(topology, n, step)
+
+    def node_fn(x: torch.Tensor) -> torch.Tensor:
+        return gossip_ppermute(x, axis_name, n, weights, mesh=mesh)
+
+    return node_fn
 
 
 # ---------------------------------------------------------------------------
@@ -637,13 +747,39 @@ def _shard_count(mesh, node_axis: str, n_nodes: int, who: str) -> int:
     return k
 
 
+def _owned_rows(x: torch.Tensor, mesh, k: int, n: int, who: str):
+    """``(owned shards, m)`` of a sharded round whose packed operand ``x``
+    holds this process's rows: all n on a local mesh, the m = n/k of its
+    shard on a rank mesh."""
+    owned = mesh.owned_shards(k)
+    m = n // k
+    if x.shape[0] != len(owned) * m:
+        raise ValueError(f"{who}: {x.shape[0]} node rows here, expected "
+                         f"{len(owned) * m} ({len(owned)} of {k} shards of "
+                         f"{m} nodes)")
+    return owned, m
+
+
+def _shard_sum(mesh, parts):
+    """The fixed-order sum over all k shards of the partials of the shards
+    this process owns (in shard order): the left fold r = 0 … k − 1, here
+    or on the rank mesh's gathered partials (``Exchange.fold``)."""
+    if mesh.distributed:
+        (part,) = parts
+        return mesh.exchange.fold(part)
+    acc = None
+    for p in parts:
+        acc = p if acc is None else acc + p
+    return acc
+
+
 def _halo_rows(x: torch.Tensor, send: torch.Tensor, r: int, offsets,
                m: int, k: int) -> torch.Tensor:
-    """Shard r's gathered halo: the fp32 ``(|offsets|·m, D)`` stack of the
-    row-blocks ``(r + q) mod k`` of ``send`` (``x`` wire-cast, or ``x``
-    itself), in offset order.  Consecutive row-blocks of an uncast ``x``
-    are a view of it; anything else is a copy the caller frees after the
-    shard's launch."""
+    """Shard r's gathered halo on a local mesh: the fp32 ``(|offsets|·m,
+    D)`` stack of the row-blocks ``(r + q) mod k`` of ``send`` (``x``
+    wire-cast, or ``x`` itself), in offset order.  Consecutive row-blocks
+    of an uncast ``x`` are a view of it; anything else is a copy the
+    caller frees after the shard's launch."""
     src = [(r + q) % k for q in offsets]
     if send is x and src == list(range(src[0], src[0] + len(src))):
         return x[src[0] * m:(src[-1] + 1) * m]
@@ -651,31 +787,46 @@ def _halo_rows(x: torch.Tensor, send: torch.Tensor, r: int, offsets,
         torch.float32)
 
 
+def _halo(mesh, x: torch.Tensor, send: torch.Tensor, r: int, j: int,
+          offsets, m: int, k: int) -> torch.Tensor:
+    """Shard r's fp32 halo stack (owned as this process's j-th shard): a
+    slice of the local rows (:func:`_halo_rows`), or on a rank mesh the
+    row-blocks of ``send`` received through ``Exchange.halo`` (only the
+    own block, as a view of ``x``, when the round gathers nothing
+    else)."""
+    if not mesh.distributed:
+        return _halo_rows(x, send, r, offsets, m, k)
+    if send is x and tuple(offsets) == (0,):
+        return x[j * m:(j + 1) * m]
+    return mesh.exchange.halo(send[j * m:(j + 1) * m], offsets).to(
+        torch.float32)
+
+
 def _shard_mix_rounds(x: torch.Tensor, offsets, Mstack, dstack, k: int,
-                      wire_dtype, with_residual: bool = False):
+                      wire_dtype, with_residual: bool = False, *, mesh,
+                      n: int):
     """The per-shard body of an uncompressed sharded round on the packed
-    ``(n, D)`` fp32 ``x``: shard by shard, the row-blocks at ``offsets``
-    are gathered (wire-cast when ``wire_dtype`` is set, the self block
-    too; consecutive fp32 row-blocks as a view of ``x``, the others copied
-    per shard and freed) and ``shard_mix.cu`` writes ``d_r ⊙ x_r + M_r ·
-    xs`` into the shard's rows of one fresh output.  Returns ``(out, Σ of
-    the shards' column sums or None)``."""
+    fp32 rows ``x`` of the shards this process owns: shard by shard, the
+    row-blocks at ``offsets`` are gathered (wire-cast when ``wire_dtype``
+    is set, the self block too; :func:`_halo`) and ``shard_mix.cu``
+    writes ``d_r ⊙ x_r + M_r · xs`` into the shard's rows of one fresh
+    output.  Returns ``(out, Σ of all k shards' column sums or None)``."""
     from repro_torch.kernels import mixing_cuda
 
-    m = x.shape[0] // k
+    owned, m = _owned_rows(x, mesh, k, n, "communicate_sharded")
     send = x.to(wire_dtype) if wire_dtype is not None else x
     out = torch.empty_like(x)
-    acc = None
-    for r in range(k):
-        xs = _halo_rows(x, send, r, offsets, m, k)
+    parts = []
+    for j, r in enumerate(owned):
+        xs = _halo(mesh, x, send, r, j, offsets, m, k)
         res = mixing_cuda.shard_mix_block(
-            x[r * m:(r + 1) * m], xs, dstack[r], Mstack[r],
-            with_residual=with_residual, out=out[r * m:(r + 1) * m])
+            x[j * m:(j + 1) * m], xs, dstack[r], Mstack[r],
+            with_residual=with_residual, out=out[j * m:(j + 1) * m])
         del xs
         if with_residual:
-            acc = res[1] if acc is None else acc + res[1]
+            parts.append(res[1])
     del send
-    return out, acc
+    return out, (_shard_sum(mesh, parts) if with_residual else None)
 
 
 def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
@@ -689,23 +840,25 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
     calling this function *is* the sharded routing decision.
 
     Each of the k shards owns the ``m = n/k`` rows of its nodes in the
-    packed ``(n, D)`` fp32 matrix.  Shard by shard, in order r = 0 … k−1:
-    the neighbour row-blocks named by the round's block decomposition
-    (:func:`_shard_blocks`) are gathered, wire-cast when ``comm_dtype`` is
-    set (the self block too; the self term ``d ⊙ x`` uses the uncast
-    rows; consecutive fp32 row-blocks are gathered as a view of the
-    input, the others copied per shard and freed), and ``shard_mix.cu``
-    writes ``d ⊙ x + M_r · xs`` into the
-    shard's rows of one fresh ``(n, D)`` output, so no shard reads another
-    shard's mixed rows.  The ``"global"`` phase is the fixed-order sum of
-    the shards' wire-cast column sums, divided by n and broadcast to every
+    packed ``(n, D)`` fp32 matrix; ``params`` holds the rows of the shards
+    this process owns (all n on a local mesh, m on a rank mesh).  Shard by
+    shard, in order: the neighbour row-blocks named by the round's block
+    decomposition (:func:`_shard_blocks`) are gathered, wire-cast when
+    ``comm_dtype`` is set (the self block too; the self term ``d ⊙ x``
+    uses the uncast rows; consecutive fp32 row-blocks of a local mesh are
+    gathered as a view of the input, the others copied per shard and
+    freed), and ``shard_mix.cu`` writes ``d ⊙ x + M_r · xs`` into the
+    shard's rows of one fresh output, so no shard reads another shard's
+    mixed rows.  The ``"global"`` phase is the fixed-order sum of the
+    shards' wire-cast column sums, divided by n and broadcast to every
     row.
 
     With ``grads``/``gamma`` the SGD half-step is applied before the
     exchange.  With ``with_residual`` returns ``(mixed, x̄, Σ_i‖x_i −
-    x̄‖²)``: x̄ from the fixed-order sum of the kernel's per-shard column
-    sums, the residual from a second pass per shard (the cancellation-free
-    form); a global round's residual is exactly 0.
+    x̄‖²)`` over all n nodes: x̄ from the fixed-order sum of the kernel's
+    per-shard column sums, the residual from a second pass per shard (the
+    cancellation-free form) summed in shard order; a global round's
+    residual is exactly 0.
 
     A lossy ``spec.compressor`` compresses each shard's rows, rebuilds
     the gathered neighbours' estimates from their wire arrays and runs
@@ -720,7 +873,8 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
     comm_dtype, n_pods = spec.comm_dtype, spec.n_pods
     compressor, global_compressor = spec.compressor, spec.global_compressor
     who = "communicate_sharded"
-    k = _shard_count(spec.mesh, spec.node_axis, n_nodes, who)
+    mesh = spec.mesh
+    k = _shard_count(mesh, spec.node_axis, n_nodes, who)
     if phase not in ("gossip", "global", "pod_avg"):
         raise ValueError(f"{who}: no sharded kernel for phase {phase!r}")
     if phase == "pod_avg":
@@ -736,7 +890,7 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
             return _communicate_sharded_collective(
                 params, compressor=global_compressor, ef_state=ef_state,
                 seed=seed, phase=phase, n_nodes=n_nodes, n_pods=n_pods,
-                mesh=spec.mesh, node_axis=spec.node_axis,
+                mesh=mesh, node_axis=spec.node_axis,
                 caller="mixing.communicate_sharded")
         # identity collective: the exact path; the global codec supersedes
         # the gossip compressor for the averaging phases
@@ -752,29 +906,29 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
         return _communicate_sharded_compressed(
             params, compressor=compressor, ef_state=ef_state, seed=seed,
             phase=phase, topology=topology, n_nodes=n_nodes, step=step,
-            n_pods=n_pods, k=k, comm_dtype=comm_dtype)
+            n_pods=n_pods, k=k, comm_dtype=comm_dtype, mesh=mesh)
     if grads is not None and gamma is None:
         raise ValueError("grads given without gamma")
     # grid gossip ignores comm_dtype in the reference path — mirror that
     wire_dtype = None if (phase == "gossip" and topology == "grid") \
         else comm_dtype
-    n, m = n_nodes, n_nodes // k
+    n = n_nodes
     x, unflatten = mixing_cuda.flatten_nodes(params)
     x = x.contiguous()
+    owned, m = _owned_rows(x, mesh, k, n, who)
     if grads is not None:
         gam = gamma if torch.is_tensor(gamma) else torch.tensor(
             gamma, dtype=torch.float32)
         x = x - gam.to(torch.float32) * mixing_cuda.flatten_nodes(grads)[0]
 
     if phase == "global":
-        acc = None
-        for r in range(k):
-            xr = x[r * m:(r + 1) * m]
+        parts = []
+        for j in range(len(owned)):
+            xr = x[j * m:(j + 1) * m]
             if wire_dtype is not None:
                 xr = xr.to(wire_dtype).to(torch.float32)
-            cs = torch.sum(xr, dim=0, keepdim=True)
-            acc = cs if acc is None else acc + cs
-        xbar = _divide(acc, n)
+            parts.append(torch.sum(xr, dim=0, keepdim=True))
+        xbar = _divide(_shard_sum(mesh, parts), n)
         mixed = unflatten(xbar.expand(x.shape).contiguous())
         if with_residual:
             return (mixed, unflatten(xbar, drop_node=True),
@@ -784,39 +938,61 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
     offsets, Mstack, dstack, _ = _device_shard_blocks(
         phase, topology, n, step, n_pods, k, x.device)
     out, acc = _shard_mix_rounds(x, offsets, Mstack, dstack, k, wire_dtype,
-                                 with_residual)
+                                 with_residual, mesh=mesh, n=n)
     if not with_residual:
         return unflatten(out)
     xbar = _divide(acc, n)
-    resid = None
-    for r in range(k):
-        part = torch.sum((out[r * m:(r + 1) * m] - xbar).square_())
-        resid = part if resid is None else resid + part
-    return unflatten(out), unflatten(xbar, drop_node=True), resid
+    parts = [torch.sum((out[j * m:(j + 1) * m] - xbar).square_())
+             for j in range(len(owned))]
+    return (unflatten(out), unflatten(xbar, drop_node=True),
+            _shard_sum(mesh, parts))
 
 
-def _shard_rows(arrs, n: int, r: int, m: int):
-    """Shard r's slice of the wire arrays: rows ``r·m … r·m + m − 1`` of the
-    node-stacked ones; node-independent arrays (leading axis 1, e.g.
+def _shard_rows(arrs, rows: int, j: int, m: int):
+    """The j-th local shard's slice of the wire arrays: rows ``j·m … j·m +
+    m − 1`` of the node-stacked ones (leading axis ``rows``, this
+    process's node rows); node-independent arrays (leading axis 1, e.g.
     randk's shared column indices) ride whole."""
-    return [a[r * m:(r + 1) * m] if a.shape[0] == n else a for a in arrs]
+    return [a[j * m:(j + 1) * m] if a.shape[0] == rows else a for a in arrs]
 
 
-def _sharded_wire_build(params: PyTree, *, compressor, ef_state, seed,
-                        n: int):
-    """Row-local compression of the stacked state into per-leaf wire
-    arrays (+ the EF update), as every shard would compress its own rows.
-    Returns ``(wires, new_ef_state, sizes)`` with ``sizes`` the per-leaf
-    column widths the decode side needs."""
+def _halo_wires(mesh, arrs, rows: int, r: int, j: int, offsets, m: int,
+                k: int):
+    """For each offset q, the wire arrays of shard ``(r + q) mod k``'s
+    row-block: slices of the local rows, or on a rank mesh the node-stacked
+    arrays of the own block packed into one message per offset through
+    ``Exchange.halo`` (the node-independent ones, the same on every
+    rank, ride as they are here)."""
+    if not mesh.distributed:
+        return [_shard_rows(arrs, rows, (r + q) % k, m) for q in offsets]
+    from repro_torch.core.mesh import pack_arrays, unpack_arrays
+
+    own = _shard_rows(arrs, rows, j, m)
+    stacked = [a for a, b in zip(own, arrs) if b.shape[0] == rows]
+    msgs = mesh.exchange.halo(pack_arrays(stacked)[None], offsets)
+    out = []
+    for jq in range(len(offsets)):
+        got = iter(unpack_arrays(msgs[jq], stacked))
+        out.append([next(got) if b.shape[0] == rows else a
+                    for a, b in zip(own, arrs)])
+    return out
+
+
+def _sharded_wire_build(params: PyTree, *, compressor, ef_state, seed):
+    """Row-local compression of the node-stacked rows of ``params`` into
+    per-leaf wire arrays (+ the EF update), as every shard compresses its
+    own rows.  Returns ``(wires, new_ef_state, sizes)`` with ``sizes`` the
+    per-leaf column widths the decode side needs."""
     from repro_torch import compress as compress_mod
 
     leaves = tree_leaves(params)
+    rows = leaves[0].shape[0]
     sizes = [int(np.prod(lf.shape[1:], dtype=np.int64)) for lf in leaves]
-    x2 = [lf.reshape(n, -1).to(torch.float32) for lf in leaves]
+    x2 = [lf.reshape(rows, -1).to(torch.float32) for lf in leaves]
     e2 = None
     if ef_state is not None:
         ef_leaves, ef_def = tree_flatten(ef_state)
-        e2 = [e.reshape(n, -1).to(torch.float32) for e in ef_leaves]
+        e2 = [e.reshape(rows, -1).to(torch.float32) for e in ef_leaves]
     wires, new_e2 = compress_mod.compress_tree(compressor, x2, e2, seed)
     new_ef = None
     if ef_state is not None:
@@ -857,7 +1033,7 @@ def _wire_build_q(compressor, wires, sizes):
 def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
                                     seed, phase: str, topology: str,
                                     n_nodes: int, step: int, n_pods: int,
-                                    k: int, comm_dtype=None):
+                                    k: int, comm_dtype=None, mesh):
     """Compressed sharded round: each shard's rows are compressed
     (row-local, :func:`_sharded_wire_build`), then the gossip and pod
     phases run :func:`_sharded_compensated_gossip` on the wires.  The
@@ -867,71 +1043,89 @@ def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
     new_ef_state)``."""
     from repro_torch.kernels import mixing_cuda
 
-    n, m = n_nodes, n_nodes // k
     wires, new_ef, sizes = _sharded_wire_build(
-        params, compressor=compressor, ef_state=ef_state, seed=seed, n=n)
+        params, compressor=compressor, ef_state=ef_state, seed=seed)
     if phase == "global":
         arrs = _wire_arrays(wires)
         build_q = _wire_build_q(compressor, wires, sizes)
         x, unflatten = mixing_cuda.flatten_nodes(params)
         x = x.contiguous()
+        owned, m = _owned_rows(x, mesh, k, n_nodes,
+                               "communicate_sharded")
         q = torch.empty_like(x)
-        acc = None
-        for r in range(k):
-            qr = build_q(_shard_rows(arrs, n, r, m), q[r * m:(r + 1) * m])
+        parts = []
+        for j in range(len(owned)):
+            qr = build_q(_shard_rows(arrs, x.shape[0], j, m),
+                         q[j * m:(j + 1) * m])
             if comm_dtype is not None:
                 qr.copy_(qr.to(comm_dtype))
-            cs = torch.sum(qr, dim=0, keepdim=True)
-            acc = cs if acc is None else acc + cs
-        return unflatten(x + (_divide(acc, n) - q)), new_ef
+            parts.append(torch.sum(qr, dim=0, keepdim=True))
+        return unflatten(x + (_divide(_shard_sum(mesh, parts), n_nodes)
+                              - q)), new_ef
     return _sharded_compensated_gossip(
         params, wires, compressor=compressor, sizes=sizes, phase=phase,
-        topology=topology, n_nodes=n, step=step, n_pods=n_pods,
-        k=k), new_ef
+        topology=topology, n_nodes=n_nodes, step=step, n_pods=n_pods,
+        k=k, mesh=mesh), new_ef
 
 
 def _sharded_compensated_gossip(params: PyTree, wires, *, compressor,
                                 sizes, phase: str, topology: str,
                                 n_nodes: int, step: int, n_pods: int,
-                                k: int) -> PyTree:
+                                k: int, mesh) -> PyTree:
     """The apply half of a compressed sharded gossip (or pod) round: shard
     by shard, the wire arrays of the row-blocks the round's block
-    decomposition names are gathered and decoded into their estimates
-    ``qs`` (``sizes``: each leaf's column width), and ``shard_cmix.cu``
-    writes ``x_r + (M_r · qs − (1 − d_r) ⊙ q_self)`` into the shard's rows
-    of one fresh output.  ``wires`` may be the buffered, one-step-stale
-    payload of an overlapped round (:func:`finish_round`): the compensation
-    keeps the node average for any estimate, so the synchronous and the
-    overlapped rounds share this apply."""
+    decomposition names are gathered (:func:`_halo_wires`) and decoded
+    into their estimates ``qs`` (``sizes``: each leaf's column width), and
+    ``shard_cmix.cu`` writes ``x_r + (M_r · qs − (1 − d_r) ⊙ q_self)``
+    into the shard's rows of one fresh output.  ``wires`` may be the
+    buffered, one-step-stale payload of an overlapped round
+    (:func:`finish_round`): the compensation keeps the node average for
+    any estimate, so the synchronous and the overlapped rounds share this
+    apply."""
     from repro_torch.kernels import mixing_cuda
 
-    n, m = n_nodes, n_nodes // k
+    n = n_nodes
     arrs = _wire_arrays(wires)
     build_q = _wire_build_q(compressor, wires, sizes)
     x, unflatten = mixing_cuda.flatten_nodes(params)
     x = x.contiguous()
-    D = x.shape[1]
+    owned, m = _owned_rows(x, mesh, k, n, "communicate_sharded")
+    rows, D = x.shape
     offsets, Mstack, _, wstack = _device_shard_blocks(
         phase, topology, n, step, n_pods, k, x.device)
     out = torch.empty_like(x)
-    for r in range(k):
+    for j, r in enumerate(owned):
         qs = torch.empty((len(offsets) * m, D), dtype=torch.float32,
                          device=x.device)
-        for j, q in enumerate(offsets):
-            build_q(_shard_rows(arrs, n, (r + q) % k, m),
-                    qs[j * m:(j + 1) * m])
+        for jq, blk in enumerate(_halo_wires(mesh, arrs, rows, r, j,
+                                             offsets, m, k)):
+            build_q(blk, qs[jq * m:(jq + 1) * m])
         if 0 in offsets:
             j0 = offsets.index(0)
             q_self = qs[j0 * m:(j0 + 1) * m]
         else:
-            q_self = build_q(_shard_rows(arrs, n, r, m),
+            q_self = build_q(_shard_rows(arrs, rows, j, m),
                              torch.empty((m, D), dtype=torch.float32,
                                          device=x.device))
         mixing_cuda.shard_comp_mix_block(
-            x[r * m:(r + 1) * m], q_self, qs, wstack[r], Mstack[r],
-            out=out[r * m:(r + 1) * m])
+            x[j * m:(j + 1) * m], q_self, qs, wstack[r], Mstack[r],
+            out=out[j * m:(j + 1) * m])
         del qs, q_self
     return unflatten(out)
+
+
+def _pod_runs(owned, m: int, per: int):
+    """``(lo, hi, pod)``: the runs of this process's local node rows (its
+    owned shards' rows, in order) that lie in one pod of ``per`` nodes."""
+    runs = []
+    for j, r in enumerate(owned):
+        g = r * m
+        while g < (r + 1) * m:
+            p = g // per
+            end = min((r + 1) * m, (p + 1) * per)
+            runs.append((j * m + g - r * m, j * m + end - r * m, p))
+            g = end
+    return runs
 
 
 def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
@@ -950,10 +1144,14 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
     the column segment ``s·seg … (s+1)·seg − 1`` of every row: the owner
     dequantizes it, takes the anchored (per-pod) mean and re-quantizes it
     at its absolute columns (``col0 = s·seg``); the ``all_gather`` of the
-    owners' stage-2 codes is their concatenation.  The packed columns are
-    padded to ``k · qblock`` so every segment starts on a scale block.
-    Returns ``(x + (r − ρ), e')``."""
+    owners' stage-2 codes and exponent bytes is their concatenation.  On a
+    local mesh both are slices of this process's rows; on a rank mesh
+    they are ``Exchange.all_to_all`` and ``Exchange.all_gather`` of the
+    packed codes and exponent bytes.  The packed columns are padded to
+    ``k · qblock`` so every segment starts on a scale block.  Returns
+    ``(x + (r − ρ), e')`` on this process's rows."""
     from repro_torch.compress import collective as ccol
+    from repro_torch.core.mesh import pack_arrays, unpack_arrays
     from repro_torch.kernels import mixing_cuda
 
     who = caller or "mixing._communicate_sharded_collective"
@@ -965,6 +1163,7 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
     qb = ccol.QBLOCK if qblock is None else qblock
 
     xf, unflatten = mixing_cuda.flatten_nodes(params)
+    owned, m = _owned_rows(xf, mesh, k, n, who)
     D = xf.shape[1]
     xp = ccol.pad_cols(xf, k * qb)
     del xf
@@ -984,23 +1183,40 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
     exps1 = ccol.scale_exponents(scales1)
     seg = Dp // k
     nbs = seg // qb
-    r_all = torch.empty((pods, Dp), dtype=torch.float32, device=xp.device)
-    for s in range(k):
-        q_seg = ccol.dequant_blocks(
-            codes1[:, s * seg:(s + 1) * seg],
-            ccol.exponent_scales(exps1[:, s * nbs:(s + 1) * nbs]), qb)
+
+    def segment(s):
+        return [codes1[:, s * seg:(s + 1) * seg],
+                exps1[:, s * nbs:(s + 1) * nbs]]
+
+    def stage2(s, c1, e1):
+        q_seg = ccol.dequant_blocks(c1, ccol.exponent_scales(e1), qb)
         mbar = ccol.anchored_mean(q_seg, pods)
         c2, sc2, _ = ccol.quantize_blocks(mbar, kind, s2, qb, col0=s * seg)
+        return c2, ccol.scale_exponents(sc2)
+
+    r_all = torch.empty((pods, Dp), dtype=torch.float32, device=xp.device)
+    if mesh.distributed:
+        ex = mesh.exchange
+        like = [a.contiguous() for a in segment(0)]
+        got = ex.all_to_all([pack_arrays(segment(s)) for s in range(k)])
+        parts = [unpack_arrays(g, like) for g in got]
+        owner = stage2(mesh.rank, torch.cat([p[0] for p in parts]),
+                       torch.cat([p[1] for p in parts]))
+        del got, parts
+        done = [(s, *unpack_arrays(g, owner))
+                for s, g in enumerate(ex.all_gather(pack_arrays(owner)))]
+    else:
+        done = ((s, *stage2(s, *segment(s))) for s in range(k))
+    for s, c2, e2 in done:
         r_all[:, s * seg:(s + 1) * seg] = ccol.dequant_blocks(
-            c2, ccol.exponent_scales(ccol.scale_exponents(sc2)), qb)
-        del q_seg, mbar, c2
+            c2, ccol.exponent_scales(e2), qb)
+        del c2
     del codes1
-    per = n // pods
-    mixed = (xp.reshape(pods, per, Dp)
-             + (r_all[:, None] - rho.reshape(pods, per, Dp))).reshape(
-                 n, Dp)[:, :D]
-    return unflatten(mixed), (None if ef_unflatten is None
-                              else ef_unflatten(new_ef))
+    mixed = torch.empty_like(xp)
+    for lo, hi, p in _pod_runs(owned, m, n // pods):
+        mixed[lo:hi] = xp[lo:hi] + (r_all[p:p + 1] - rho[lo:hi])
+    return unflatten(mixed[:, :D]), (None if ef_unflatten is None
+                                     else ef_unflatten(new_ef))
 
 
 # ---------------------------------------------------------------------------
@@ -1049,8 +1265,7 @@ def _start_round_impl(params: PyTree, spec: CommSpec, *,
     if spec.uses_sharded():
         _shard_count(spec.mesh, spec.node_axis, n, "mixing.start_round")
         wires, new_ef, _ = _sharded_wire_build(
-            params, compressor=spec.compressor, ef_state=ef_state, seed=seed,
-            n=n)
+            params, compressor=spec.compressor, ef_state=ef_state, seed=seed)
         return {"wire": [{"payload": tuple(w.payload), "aux": tuple(w.aux)}
                          for w in wires]}, new_ef
     from repro_torch import compress as compress_mod
@@ -1142,22 +1357,22 @@ def _overlap_finish_sharded_dense(params: PyTree, q: PyTree,
     the shard's rows of one fresh output."""
     from repro_torch.kernels import mixing_cuda
 
-    n = spec.n_nodes
-    k = _shard_count(spec.mesh, spec.node_axis, n, "mixing.finish_round")
-    m = n // k
+    n, mesh = spec.n_nodes, spec.mesh
+    k = _shard_count(mesh, spec.node_axis, n, "mixing.finish_round")
     x, unflatten = mixing_cuda.flatten_nodes(params)
     x = x.contiguous()
+    owned, m = _owned_rows(x, mesh, k, n, "mixing.finish_round")
     qf = mixing_cuda.flatten_nodes(q)[0].contiguous()
     offsets, Mstack, _, wstack = _device_shard_blocks(
         "gossip", spec.topology, n, step, spec.n_pods, k, x.device)
     wire = spec.comm_dtype
     send = qf.to(wire) if wire is not None else qf
     out = torch.empty_like(x)
-    for r in range(k):
-        qs = _halo_rows(qf, send, r, offsets, m, k)
+    for j, r in enumerate(owned):
+        qs = _halo(mesh, qf, send, r, j, offsets, m, k)
         mixing_cuda.shard_comp_mix_block(
-            x[r * m:(r + 1) * m], qf[r * m:(r + 1) * m], qs, wstack[r],
-            Mstack[r], out=out[r * m:(r + 1) * m])
+            x[j * m:(j + 1) * m], qf[j * m:(j + 1) * m], qs, wstack[r],
+            Mstack[r], out=out[j * m:(j + 1) * m])
         del qs
     del send, qf
     return unflatten(out)
@@ -1179,7 +1394,7 @@ def _overlap_finish_sharded_wire(params: PyTree, round_state,
     return _sharded_compensated_gossip(
         params, wires, compressor=spec.compressor, sizes=sizes,
         phase="gossip", topology=spec.topology, n_nodes=n, step=step,
-        n_pods=spec.n_pods, k=k)
+        n_pods=spec.n_pods, k=k, mesh=spec.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1317,7 +1532,8 @@ def _push_sum_sharded(joint: PyTree, *, W: torch.Tensor,
     x, unflatten = mixing_cuda.flatten_nodes(joint)
     x = x.contiguous()
     Mstack, dstack = _dense_shard_stacks(W, n, k, offsets)
-    out, _ = _shard_mix_rounds(x, offsets, Mstack, dstack, k, comm_dtype)
+    out, _ = _shard_mix_rounds(x, offsets, Mstack, dstack, k, comm_dtype,
+                               mesh=mesh, n=n)
     return unflatten(out)
 
 
@@ -1378,10 +1594,12 @@ def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
     """
     _check_backend(backend, 0, caller="mixing.communicate_push_sum")
     n = n_nodes
-    if weight.shape[0] != n:
+    # a rank mesh's process holds the m = n/k rows of its shard
+    rows = n // mesh.size if mesh is not None and mesh.distributed else n
+    if weight.shape[0] != rows:
         raise ValueError(f"communicate_push_sum: weight has {weight.shape[0]}"
-                         f" rows for n_nodes={n}")
-    w2 = weight.reshape(n, -1).to(torch.float32)
+                         f" rows for n_nodes={n} ({rows} here)")
+    w2 = weight.reshape(rows, -1).to(torch.float32)
     sharded = use_sharded_backend(backend, mesh, node_axis, shard_mode)
     tel = _hub()
     if tel is not None:

@@ -43,12 +43,24 @@ def _tensor_norm(x: torch.Tensor, per_node: bool) -> torch.Tensor:
     return torch.sqrt(torch.sum(sq))
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
+def joint_sq_norm(tree: PyTree, mesh=None) -> torch.Tensor:
+    """``Σ_leaves Σ g²`` in fp32 over all nodes' rows jointly.  On a rank
+    mesh (``mesh.distributed``) each leaf's sum over this rank's rows is
+    folded over the ranks in order (``Exchange.fold``), so every rank
+    gets the same value."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tree_leaves(tree)]
+    if mesh is not None and mesh.distributed:
+        sq = list(mesh.exchange.fold(torch.stack(sq)).unbind(0))
+    return sum(sq)
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        mesh=None) -> PyTree:
     """Scale every leaf by ``min(1, max_norm/‖g‖)`` where ``‖g‖`` is the
-    norm over **all nodes' grads jointly**, as the reference clips."""
-    leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in leaves))
+    norm over **all nodes' grads jointly**, as the reference clips (on a
+    rank mesh, over every rank's nodes: :func:`joint_sq_norm`)."""
+    gn = torch.sqrt(joint_sq_norm(grads, mesh))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)
 

@@ -60,15 +60,103 @@ def stack_for_nodes(tree: PyTree, n_nodes: int) -> PyTree:
         tree)
 
 
-def consensus_distance(params_stacked: PyTree) -> torch.Tensor:
+def consensus_distance(params_stacked: PyTree, mesh=None) -> torch.Tensor:
     """(1/n) Σ_i ‖x_i − x̄‖² summed over all parameters — the paper's
     consensus quantity (§4 Intuition).  x̄ is the node mean taken by
     pairwise halving, as the fused round's residual takes it: for n a
     power of two it is exact on equal rows, so the consensus after an
     exact average is exactly 0.0 (a running sum over the rows is not
-    exact: 3·x rounds)."""
+    exact: 3·x rounds).
+
+    On a rank mesh (``mesh.distributed``) ``params_stacked`` holds this
+    rank's m rows of n = m·k: x̄ is the same halving, each level's row
+    additions made where the destination row lives after its source row
+    crossed the mesh (:func:`pairwise_mean_ranks`, the same bits as
+    :func:`repro_torch.tree.pairwise_mean` on all n rows), and the
+    squared distances are summed per rank and folded over the ranks in
+    order."""
+    if mesh is not None and mesh.distributed:
+        return _consensus_ranks(params_stacked, mesh)
+
     def one(p):
         p32 = p.to(torch.float32)
         xbar = pairwise_mean(p32)
         return torch.sum(torch.square(p32 - xbar)) / p.shape[0]
     return sum(one(p) for p in tree_leaves(params_stacked))
+
+
+def _runs(rows, owner):
+    """``[(owner, first, last + 1)]``: consecutive ``rows`` grouped by
+    ``owner(row)``."""
+    out = []
+    for i in rows:
+        o = owner(i)
+        if out and out[-1][0] == o and out[-1][2] == i:
+            out[-1] = (o, out[-1][1], i + 1)
+        else:
+            out.append((o, i, i + 1))
+    return out
+
+
+def pairwise_mean_ranks(x: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`repro_torch.tree.pairwise_mean` over the n = m·k rows spread
+    over a rank mesh (``x`` this rank's m rows, global rows ``r·m …``):
+    at each level of c rows, row ``c − h + i`` is added into row i (h =
+    c // 2), sent first when another rank holds it; rank 0 ends with row
+    0, divides it by n and sends x̄ to every rank.  Returns the ``(1, D)``
+    x̄ on every rank."""
+    ex = mesh.exchange
+    m, k, r = x.shape[0], mesh.size, mesh.rank
+    n, lo, hi = m * k, r * m, (r + 1) * m
+    s = x.clone()
+
+    def owner(i):
+        return i // m
+
+    c = n
+    while c > 1:
+        h = c // 2
+        base = c - h
+        sends = [(o, s[a - lo:b - lo])
+                 for o, a, b in _runs(range(max(lo, base), min(hi, c)),
+                                      lambda i: owner(i - base))
+                 if o != r]
+        recvs, adds = [], []
+        for o, a, b in _runs(range(lo, min(hi, h)),
+                             lambda i: owner(i + base)):
+            if o == r:
+                adds.append((a, b, s[a + base - lo:b + base - lo]))
+            else:
+                buf = torch.empty((b - a,) + tuple(x.shape[1:]),
+                                  dtype=x.dtype, device=x.device)
+                recvs.append((o, buf))
+                adds.append((a, b, buf))
+        ex.sendrecv(sends, recvs)
+        for a, b, src in adds:
+            s[a - lo:b - lo] += src
+        c = base
+    xbar = s[:1] / n if r == 0 else torch.empty_like(s[:1])
+    ex.sendrecv([(o, xbar) for o in range(1, k)] if r == 0 else [],
+                [(0, xbar)] if r else [])
+    return xbar
+
+
+def _consensus_ranks(params_stacked: PyTree, mesh) -> torch.Tensor:
+    """:func:`consensus_distance` on a rank mesh: x̄ of the packed rows by
+    :func:`pairwise_mean_ranks`, each leaf's squared distances summed on
+    this rank, the per-leaf sums folded over the ranks."""
+    leaves = tree_leaves(params_stacked)
+    m = leaves[0].shape[0]
+    n = m * mesh.size
+    x = torch.cat([p.reshape(m, -1).to(torch.float32) for p in leaves],
+                  dim=1)
+    xbar = pairwise_mean_ranks(x, mesh)
+    parts, col = [], 0
+    for p in leaves:
+        w = p[0].numel()
+        parts.append(torch.sum(torch.square(x[:, col:col + w]
+                                            - xbar[:, col:col + w])))
+        col += w
+    del x
+    sums = mesh.exchange.fold(torch.stack(parts))
+    return sum(t / n for t in sums.unbind(0))

@@ -15,7 +15,11 @@ rounding seed; residual fusion does not compose with compression, so its
 consensus is ``consensus_distance``.  With a ``mesh`` whose node axis has
 several shards (``Trainer(mesh=...)``), the fused backend runs every
 round through the sharded per-shard kernels (``mixing.communicate_sharded``),
-honouring ``DistConfig.comm_shard_mode``.  With ``DistConfig.push_sum``
+honouring ``DistConfig.comm_shard_mode``.  On a rank mesh (one
+``torch.distributed`` rank per node shard, :func:`check_rank_mesh`) the
+step holds this rank's m = n/k nodes: its batch, grads and optimizer rows
+are theirs, and every reduction over the node axis crosses the mesh in a
+fixed order (the metric means, the joint gradient norm, the consensus).  With ``DistConfig.push_sum``
 the step runs every round as a push-sum round of the joint ``(x, w)``
 pair against the round's runtime W (``mixing.communicate_push_sum``).
 With ``DistConfig.comm_overlap`` the step is ``step(state, batch, lr,
@@ -52,17 +56,47 @@ from repro_torch.core import mixing
 from repro_torch.core import topology as topo
 from repro_torch.kernels import mixing_cuda
 from repro_torch.models.model import Model
+from repro_torch.configs.base import not_ported
 from repro_torch.optim import clip_by_global_norm, make_optimizer
+from repro_torch.optim.optimizers import joint_sq_norm
 from repro_torch.train.state import TrainState, consensus_distance, debias
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 PyTree = Any
 
 
-def _grad_global_norm(grads: PyTree) -> torch.Tensor:
+def _grad_global_norm(grads: PyTree, mesh=None) -> torch.Tensor:
     """Global L2 norm over all nodes' grads (an on-device monitor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(grads)))
+    return torch.sqrt(joint_sq_norm(grads, mesh))
+
+
+def check_rank_mesh(tcfg: TrainConfig, mesh) -> None:
+    """What a rank mesh does not run yet raises (ROADMAP A.10.1): SlowMo
+    (its outer step means every node's rows) and checkpoints.  No-op for
+    a local mesh or none."""
+    if mesh is None or not mesh.distributed:
+        return
+    if tcfg.dist.algorithm == "slowmo":
+        raise not_ported("SlowMo over ranks (its outer step's node mean)",
+                         "A.10.1")
+    if tcfg.ckpt_every:
+        raise not_ported("checkpoints over ranks", "A.10.1")
+
+
+def node_means(metrics: Dict[str, torch.Tensor], mesh=None
+               ) -> Dict[str, torch.Tensor]:
+    """The node mean of each per-node metric.  On a rank mesh every
+    rank's rows are gathered first (one ``all_gather`` of them all), so
+    the mean is taken over all n nodes in node order, the same bits as in
+    one process."""
+    if mesh is None or not mesh.distributed:
+        return {k: v.detach().mean() for k, v in metrics.items()}
+    from repro_torch.core.mesh import pack_arrays, unpack_arrays
+    vals = [v.detach().contiguous() for v in metrics.values()]
+    got = [unpack_arrays(g, vals)
+           for g in mesh.exchange.all_gather(pack_arrays(vals))]
+    return {k: torch.cat([g[i] for g in got]).mean()
+            for i, k in enumerate(metrics)}
 
 
 def _host_mask(active, n_nodes: int) -> np.ndarray:
@@ -103,13 +137,14 @@ def check_microbatches(per_node_batch: int, microbatches: int) -> None:
                          f"by microbatches={microbatches}")
 
 
-def build_grad_fn(model: Model, tcfg: TrainConfig) -> Callable:
+def build_grad_fn(model: Model, tcfg: TrainConfig, mesh=None) -> Callable:
     """The step's gradient phase alone: ``grad_fn(params, batch) ->
     (grads, metrics)`` over node-stacked ``params`` and a batch of
     ``(n_nodes, per_node_batch, …)`` leaves, under the remat policy of
     ``tcfg.dist`` and with ``tcfg.microbatches`` slices accumulated.
     ``grads`` are per node and unscaled (the loss is summed over the
-    nodes); ``metrics`` are the node means as device scalars."""
+    nodes); ``metrics`` are the node means as device scalars (over every
+    rank's nodes on a rank ``mesh``: :func:`node_means`)."""
     # DistConfig.remat/remat_policy -> the blocks' remat policy
     if tcfg.dist.remat == "none":
         remat = "none"
@@ -131,8 +166,8 @@ def build_grad_fn(model: Model, tcfg: TrainConfig) -> Callable:
             grads = torch.autograd.grad(losses.sum(), live,
                                         allow_unused=True,
                                         materialize_grads=True)
-        metrics = {k: v.detach().mean() for k, v in metrics.items()}
-        return tree_unflatten(treedef, list(grads)), metrics
+        return tree_unflatten(treedef, list(grads)), node_means(metrics,
+                                                                mesh)
 
     def accum_grad_fn(params: PyTree, batch: PyTree):
         """Gradient accumulation over ``tcfg.microbatches`` slices of each
@@ -175,7 +210,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     ``lb_loss`` and, with ``with_consensus``, ``grad_norm`` and
     ``consensus`` (``(1/n) Σ_i ‖x_i − x̄‖²`` of the mixed params).
     ``mesh``: a :class:`repro_torch.core.mesh.Mesh` for the sharded rounds
-    (None: the stacked rounds).
+    (None: the stacked rounds); on a rank mesh ``state`` and ``batch``
+    hold this rank's m = n/k nodes and ``n_nodes`` stays n.
 
     With ``DistConfig.push_sum`` the step is ``step(state, batch, lr, W,
     active)``: ``W`` the round's ``(n, n)`` column-stochastic matrix and
@@ -202,6 +238,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     tcfg.validate()
     dist = tcfg.dist
     dist.validate_nodes(n_nodes)
+    check_rank_mesh(tcfg, mesh)
     algo = algo_lib.get_algorithm(dist.algorithm, caller="build_train_step")
     # "none" (no round) is every algorithm's: a one-node Trainer and the
     # occupancy calibration's compute-only step run it
@@ -220,6 +257,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     owned = phase in algo.owned_phases
     push = dist.push_sum
     overlap = dist.comm_overlap
+    # the node rows this process holds: all n, or rows row0 … row0 +
+    # rows − 1 on a rank mesh
+    ranked = mesh is not None and mesh.distributed
+    rows = n_nodes // mesh.size if ranked else n_nodes
+    row0 = mesh.rank * rows if ranked else 0
     ps_offsets = None
     if push and sharded_comm:
         # static halo superset: every shift the topology (over its period)
@@ -239,7 +281,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
                              and n_nodes > 1 and not lossy_round
                              and phase in mixing_cuda.KERNEL_PHASES)
 
-    grad_fn = build_grad_fn(model, tcfg)
+    grad_fn = build_grad_fn(model, tcfg, mesh)
 
     def _sync_round(extras, params_half, step_seed: int):
         payload = algo.comm_payload(extras, params_half)
@@ -353,19 +395,23 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         """``(new_state, metrics, new_buf)``; ``new_buf`` is None unless
         the step is overlapped."""
         extras = dict(state.extras)
-        dropped = []
+        dropped, mine = [], []
         if push:
             live = _host_mask(active, n_nodes)
             dropped = [int(i) for i in np.flatnonzero(~live)]
+            # this process's dropped rows, as local row indices
+            mine = [i - row0 for i in dropped if row0 <= i < row0 + rows]
         grads, metrics = grad_fn(state.params, batch)
-        if dropped:
-            a = mixing.upload(live, tree_leaves(grads)[0].device)
+        if mine:
+            a = mixing.upload(live[row0:row0 + rows],
+                              tree_leaves(grads)[0].device)
             for g in tree_leaves(grads):
-                g.mul_(a.reshape((n_nodes,) + (1,) * (g.dim() - 1)))
+                g.mul_(a.reshape((rows,) + (1,) * (g.dim() - 1)))
         if with_consensus:
-            metrics["grad_norm"] = _grad_global_norm(grads)
+            metrics["grad_norm"] = _grad_global_norm(grads, mesh)
         if tcfg.optimizer.grad_clip:
-            grads = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
+            grads = clip_by_global_norm(grads, tcfg.optimizer.grad_clip,
+                                        mesh)
         upd, extras = algo.pre_update(extras, grads)
         params_half, opt_state = opt.update(upd, state.opt_state,
                                             state.params, lr)
@@ -373,10 +419,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr)
         fused_consensus = new_params = new_buf = None
         if push:
-            params_half = _freeze_rows(params_half, state.params, dropped,
-                                       n_nodes)
-            opt_state = _freeze_rows(opt_state, state.opt_state, dropped,
-                                     n_nodes)
+            params_half = _freeze_rows(params_half, state.params, mine,
+                                       rows)
+            opt_state = _freeze_rows(opt_state, state.opt_state, mine, rows)
             mixed = _push_round(extras, params_half, state.step, W,
                                 not dropped)
         elif overlap:
@@ -389,14 +434,17 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             new_params, extras = algo.post_round(extras, mixed, phase, sctx)
         if push:
             new_w = extras[algo_lib.PUSH_SLOT.name]
-            metrics["mass"] = torch.sum(new_w.to(torch.float32))
+            mass = torch.sum(new_w.to(torch.float32))
+            metrics["mass"] = (mesh.exchange.fold(mass.reshape(1))[0]
+                               if ranked else mass)
             if with_consensus:
                 metrics["consensus"] = consensus_distance(
-                    debias(new_params, new_w))
+                    debias(new_params, new_w), mesh)
         elif with_consensus:
             metrics["consensus"] = (fused_consensus
                                     if fused_consensus is not None
-                                    else consensus_distance(new_params))
+                                    else consensus_distance(new_params,
+                                                            mesh))
         new_state = TrainState(params=new_params, opt_state=opt_state,
                                step=state.step + 1, extras=extras)
         return new_state, metrics, new_buf

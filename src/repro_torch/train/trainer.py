@@ -4,7 +4,13 @@ telemetry and checkpoints (counterpart of ``repro/train/trainer.py``).
 n simulated nodes live on one device as a stacked leading axis; with a
 ``mesh`` (:func:`repro_torch.core.mesh.make_mesh`) whose node axis has
 several shards, the fused backend runs the rounds shard by shard through
-the per-shard kernels, every shard on that one device.
+the per-shard kernels, every shard on that one device.  On a rank mesh
+(``make_mesh(..., group=...)``, one ``torch.distributed`` rank per node
+shard) each rank's Trainer holds only its m = n/k nodes: the initial
+state stacks the replica m times, step k's batch is rows ``r·m … r·m + m
+− 1`` of the stream's, every rank keeps its own ring of records and only
+rank 0 prints the step line.  Checkpoints and SlowMo raise there
+(ROADMAP A.10.1).
 
 Each step runs inside the ``train/step`` span (fenced on the loss when
 the hub's tracer fences) and keeps its metrics on the device in a pending
@@ -60,7 +66,8 @@ from repro_torch.models.model import make_model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import make_schedule as make_lr
 from repro_torch.train.state import TrainState, stack_for_nodes
-from repro_torch.train.step import build_train_step, check_microbatches
+from repro_torch.train.step import (build_train_step, check_microbatches,
+                                    check_rank_mesh)
 from repro_torch.tree import tree_map
 
 PyTree = Any
@@ -93,6 +100,14 @@ class Trainer:
         self.mesh = mesh
         tcfg.validate()
         tcfg.dist.validate_nodes(n_nodes)
+        check_rank_mesh(tcfg, mesh)
+        # the node rows this process holds: all n, or one rank's shard
+        ranked = mesh is not None and mesh.distributed
+        if ranked and n_nodes % mesh.size:
+            raise ValueError(f"Trainer: {n_nodes} nodes do not split over "
+                             f"the {mesh.size} ranks of the mesh")
+        self.rows = n_nodes // mesh.size if ranked else n_nodes
+        self.row0 = mesh.rank * self.rows if ranked else 0
         if fault_schedule is not None:
             if not tcfg.dist.push_sum:
                 raise ValueError(
@@ -123,8 +138,10 @@ class Trainer:
         self._comm_buf = None
         self._buf_shift = 0
         if telemetry is None:
+            # one printed step line per run: rank 0's on a rank mesh
             telemetry = obs.Telemetry(
-                sinks=[obs.RingSink(), obs.PrettySink()])
+                sinks=[obs.RingSink()] + ([obs.PrettySink()]
+                                          if self.row0 == 0 else []))
         elif telemetry.ring() is None:
             telemetry.sinks.append(obs.RingSink())
         telemetry.tags.setdefault("algorithm", tcfg.dist.algorithm)
@@ -152,15 +169,15 @@ class Trainer:
         """Stacked initial state from ``Model.init`` drawn with
         ``generator`` (a seeded CPU generator by default), or from a given
         single-replica ``params`` tree (e.g. carried across with
-        ``repro_torch.interop``)."""
+        ``repro_torch.interop``); this process's node rows of it."""
         if params is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(self.tcfg.seed)
             params = self.model.init(generator, self.device)
-        params = stack_for_nodes(params, self.n_nodes)
+        params = stack_for_nodes(params, self.rows)
         opt_state = make_optimizer(self.tcfg.optimizer,
                                    per_node=True).init(params)
-        extras = algo_lib.init_extras(self.tcfg.dist, params, self.n_nodes)
+        extras = algo_lib.init_extras(self.tcfg.dist, params, self.rows)
         return TrainState(params=params, opt_state=opt_state, step=0,
                           extras=extras)
 
@@ -198,10 +215,12 @@ class Trainer:
                                                    ef_name: ef})
 
     def device_batch(self, k: int) -> Dict[str, torch.Tensor]:
-        """Step k's batch on the device (pinned, asynchronous copy)."""
+        """Step k's batch on the device (pinned, asynchronous copy): this
+        process's node rows of the stream's ``(n, B, …)`` batch."""
         out = {}
         for name, arr in self.stream.get_batch(k).items():
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            rows = arr[self.row0:self.row0 + self.rows]
+            t = torch.from_numpy(np.ascontiguousarray(rows))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[name] = t

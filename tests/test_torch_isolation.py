@@ -44,6 +44,37 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+RANK_TEST_FILES = sorted((REPO / "tests").glob("test_torch_dist_*.py"))
+
+
+@pytest.mark.parametrize("path", RANK_TEST_FILES, ids=lambda p: p.name)
+def test_rank_test_modules_import_no_jax_at_module_top(path):
+    """A spawned rank imports its test module to find its worker: the
+    module's top level imports nothing of JAX or ``repro`` (the tests
+    import it inside their bodies)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not {"jax", "jaxlib", "ml_dtypes", "repro"} & roots, roots
+
+
+def test_rank_test_modules_load_no_jax_when_imported():
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import test_torch_dist_mixing, test_torch_dist_train; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.train.trainer, repro_torch.launch.train, "
             "repro_torch.interop, repro_torch.compress.collective, "
