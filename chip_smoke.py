@@ -128,7 +128,8 @@ line):
    fault counters; schedule), with the file size, the save and restore
    seconds and the peak host RSS printed; ``[psckpt]`` and
    ``[agackpt]`` at 2 of the 12 layers (the card's machine stops a run
-   after 45 GiB of disk writes).  ``[occ]``: ``[ovmain]``'s cell
+   after 45 GiB of disk writes), ``[ckpt]`` and ``[cckpt]`` too since
+   slice 16 (the script's time budget).  ``[occ]``: ``[ovmain]``'s cell
    with ``measure_occupancy=True``, its one occupancy record, the params
    bitwise a run's without it.  ``[simtel]``: ``[psim]``'s acceptance
    scenario under ``simulate(telemetry=)``, its fault records the
@@ -219,6 +220,26 @@ line):
    the slowest rank's step ms, synchronizing calls, each rank's peak
    memory and pinned host bytes, the final params against the one-process
    run's.
+18. slice 16's paths, 2-D ``(node, model)`` meshes (A.10.2; right after
+   ``[sround]``, the rank ones in slice 15's spawn): the kernel checks
+   hold B.5 and B.4 at the 2-D block shape (m = 2, W = 69,215,616, K = 4:
+   :func:`two_d_block_record`, the kernels line's ``*_kernel_2d``
+   records); ``[m2round]`` (:func:`run_m2round`) eight round kinds on a
+   synthetic full-width state on a one-process ``(data=4, model=2)``
+   mesh, bitwise the 1-D mesh's rows (the int8 collective within one
+   quantization step), timed beside them, and the 2-D packing alone;
+   ``[m2main]``/``[m2cmain]`` ``[smain]``/``[scmain]``'s trainers on that
+   mesh (8 launches a gossip round), their final params against the 1-D
+   runs' (:func:`m2_against_one_d`); ``[d2main]``/``[d2cmain]`` the same
+   trainers at n = 4 on a ``(data=2, model=2)`` rank mesh of the 4 ranks,
+   each rank holding its node shard's 2 nodes whole and computing one
+   model chunk of every round (exchange bytes on each axis, the last
+   gossip step's split timed; [d2cmain] at 4 steps), against their
+   one-process twins
+   (:func:`d2_references`).  Every rank path is held to its twin with the
+   bound of ``PERF.md`` §2 (:func:`_gate_against_twin`); ``[dcmain]`` is
+   traced step by step against ``[scmain]`` (:func:`_trace_dcmain`,
+   the joint gradient norm as ``[scmain]`` folds it and as one sum).
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -1269,6 +1290,10 @@ def mlstm_work(B, S, nh, dk, dv, L, itemsize=2):
 
 
 SHARD_M = 2                          # nodes per shard on the main path
+# slice 16's 2-D mesh: the main path's 4 node shards x 2 model shards,
+# each block m = 2 rows of one model chunk of the packed node
+MAIN_2D_KM = 2
+MAIN_2D_W = MAIN_PACKED_D // MAIN_2D_KM
 SHARD_CASES = tuple((m, halo) for m in (1, 2, 4)     # (m, K / m)
                     for halo in (1, 2, 3))
 SHARD_WIDTHS = (RAGGED_D, 37, 1)
@@ -1367,16 +1392,17 @@ def check_shard_mix_kernel(torch, mc) -> dict:
           f"(the mix only) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
           f"{bound_by} ({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
           flush=True)
-    print(f"[kernel] shard_mix: {cases} kernel-vs-plain cases within "
-          f"tolerance, max abs err {worst:.3e}", flush=True)
     del x, xs
     torch.cuda.empty_cache()
+    two_d = two_d_block_record(torch, mc, "shard_mix", compare)
+    print(f"[kernel] shard_mix: {cases} kernel-vs-plain cases within "
+          f"tolerance, max abs err {worst:.3e}", flush=True)
     return {"name": "shard_mix_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/shard_mix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:975",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "push_ms": push_ms}
+            "library_ms": library_ms, "push_ms": push_ms}, two_d
 
 
 def push_shard_cases(torch, mc, compare) -> dict:
@@ -1485,6 +1511,7 @@ def check_shard_cmix_kernel(torch, mc) -> dict:
     del x, qs, q
     torch.cuda.empty_cache()
     stacked = stacked_apply_cases(torch, mc, gen, compare)
+    two_d = two_d_block_record(torch, mc, "shard_cmix", compare)
     print(f"[kernel] shard_cmix: {cases} kernel-vs-plain cases within "
           f"tolerance, max abs err {worst:.3e}", flush=True)
     return {"name": "shard_cmix_kernel", "route": "cuda",
@@ -1492,7 +1519,79 @@ def check_shard_cmix_kernel(torch, mc) -> dict:
             "replaces": "src/repro/kernels/mixing_pallas.py:924",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "overlap_apply": stacked}
+            "library_ms": library_ms, "overlap_apply": stacked}, two_d
+
+
+def two_d_block_record(torch, mc, kind: str, compare) -> dict:
+    """B.5 (``kind`` "shard_mix") or B.4 ("shard_cmix") at slice 16's 2-D
+    block shape: m = 2 rows of one model chunk, W = 69,215,616 columns
+    (pga-lm-100m's packed node at k_model = 2), the real one_peer_exp
+    factors of k_node = 4 shards (K = 4 at hop 1, 2 at hop 2), held by
+    ``compare`` (the 1-D cases' tolerances) at both hops; timed at hop 1
+    (K = 4; B.4 with q_self in rows of its own, as its 1-D record) beside
+    the plain twin, ``torch.matmul`` of the factor and the bound by bytes.
+    The kernel's record of the 2-D main paths ([m2main]/[m2cmain], the
+    rank paths [d2main]/[d2cmain])."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m, W = SHARD_M, MAIN_2D_W
+    x = torch.randn(m, W, device="cuda", generator=gen)
+    xs = torch.randn(2 * m, W, device="cuda", generator=gen)
+    q = torch.randn(m, W, device="cuda", generator=gen)
+    mix = kind == "shard_mix"
+    err = 0.0
+    for step, K in ((0, 4), (1, 2)):
+        M, d, w = _main_shard_factors(torch, step)
+        if mix:
+            compare(x, xs[:K], d, M, True)
+            got = mc.shard_mix_block(x, xs[:K], d, M, with_residual=True)
+            ref = mc.shard_mix_block_plain(x, xs[:K], d, M,
+                                           with_residual=True)
+            e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        else:
+            compare(x, q, xs[:K], w, M)
+            e = float((mc.shard_comp_mix_block(x, q, xs[:K], w, M)
+                       - mc.shard_comp_mix_block_plain(x, q, xs[:K], w,
+                                                       M)).abs().max())
+        err = max(err, e)
+    M, d, w = _main_shard_factors(torch, 0)
+    K = 2 * m
+    if mix:
+        def fn():
+            return mc.shard_mix_block(x, xs, d, M, with_residual=True)
+
+        def plain():
+            return mc.shard_mix_block_plain(x, xs, d, M, with_residual=True)
+        bytes_moved = 4 * (m + K + m + 1) * W     # read x, xs; write o, cs
+        flops = (2 * K + 3) * m * W
+    else:
+        def fn():
+            return mc.shard_comp_mix_block(x, q, xs, w, M)
+
+        def plain():
+            return mc.shard_comp_mix_block_plain(x, q, xs, w, M)
+        bytes_moved = 4 * (m + m + K + m) * W     # read x, q, qs; write o
+        flops = (2 * K + 4) * m * W
+    ms = cuda_ms(torch, fn, iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
+    library_ms = cuda_ms(torch, lambda: torch.matmul(M, xs), iters=10,
+                         warmup=2)
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    print(f"[kernel] {kind} 2-D block m={m} K={K} W={W} (one model chunk "
+          f"of k_model = {MAIN_2D_KM}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul(M_r, xs) {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved), max abs "
+          f"err {err:.3e}", flush=True)
+    del x, xs, q
+    torch.cuda.empty_cache()
+    src = "shard_mix.cu" if mix else "shard_cmix.cu"
+    line = 975 if mix else 924
+    return {"name": f"{kind}_kernel_2d", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/mixing_pallas.py:{line}",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": [m, K, W]}
 
 
 def stacked_apply_cases(torch, mc, gen, compare) -> dict:
@@ -2156,7 +2255,8 @@ def reset_counts() -> None:
 
 
 def run_main_path(torch, mc, compressed: bool = False,
-                  sharded: bool = False):
+                  sharded: bool = False, model_shards: int = 1,
+                  trace: bool = False):
     """One main path at full width for 6 steps; returns ``(launches per
     kernel, trainer, state)``.  Slice 1: fused rounds with the consensus
     residual.  Slice 2 (``compressed``): int8 gossip + int8 collective
@@ -2164,7 +2264,10 @@ def run_main_path(torch, mc, compressed: bool = False,
     of 4 node shards on the card, ``comm_shard_mode="sharded"``: one
     per-shard kernel launch per shard per gossip round, the global rounds
     in plain PyTorch (the sum over the shards; the compressed collective's
-    owner segments)."""
+    owner segments).  Slice 16 (``model_shards`` > 1, ``[m2main]`` /
+    ``[m2cmain]``): the same on a 2-D ``(data=4, model)`` mesh, one launch
+    per block per gossip round.  ``trace``: each step's final params
+    fingerprinted per node shard into ``TRACE[tag]``."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
     from repro_torch.core.mesh import make_mesh
@@ -2172,9 +2275,13 @@ def run_main_path(torch, mc, compressed: bool = False,
     from repro_torch.tree import tree_leaves
 
     steps, n_nodes = 6, 8
-    tag = ("[s" if sharded else "[") + ("cmain]" if compressed else "main]")
+    tag = (("[m2" if model_shards > 1 else "[s") if sharded else "[") + (
+        "cmain]" if compressed else "main]")
     shards = n_nodes // SHARD_M
-    mesh = make_mesh((shards,), ("data",)) if sharded else None
+    mesh = None
+    if sharded:
+        mesh = (make_mesh((shards, model_shards), ("data", "model"))
+                if model_shards > 1 else make_mesh((shards,), ("data",)))
     tcfg = TrainConfig(
         model=get_model_config("pga-lm-100m"),
         dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
@@ -2192,12 +2299,14 @@ def run_main_path(torch, mc, compressed: bool = False,
     per_node = sum(p.numel() for p in leaves) // n_nodes
     groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
     if sharded:
+        width = mc.ModelChunks(state.params, model_shards).W
         print(f"{tag} pga-lm-100m on a mesh of {shards} node shards of "
-              f"{SHARD_M} nodes on one card ({mesh.shape}, "
+              f"{SHARD_M} nodes x {model_shards} model shards on one card "
+              f"({mesh.shape}, "
               f"{'compressed int8+EF' if compressed else 'uncompressed'}): "
               f"{per_node:,} params per node, {n_nodes} nodes, one "
               f"{'shard_cmix' if compressed else 'shard_mix'} launch per "
-              f"shard per gossip round over {per_node:,} packed columns",
+              f"block per gossip round over {width:,} packed columns",
               flush=True)
     elif compressed:
         print(f"{tag} pga-lm-100m compressed: {per_node:,} params per node,"
@@ -2211,10 +2320,28 @@ def run_main_path(torch, mc, compressed: bool = False,
               f"nodes, {len(groups)} kernel launches per round (group "
               f"widths {widths})", flush=True)
     tokens = tcfg.global_batch * tcfg.seq_len
+    norms, calls = [], [0]
+    if trace:
+        # the joint gradient norm² the step folds per node shard (the rank
+        # mesh's arithmetic) beside one sum over all rows per leaf (the
+        # one-process step's arithmetic before the fold), on the clip's
+        # grads: one more pass over them a step, inside the step's time
+        from repro_torch.optim import optimizers as opt_mod
+        from repro_torch.train import step as step_mod
+        real_norm = opt_mod.joint_sq_norm
+
+        def traced_norm(tree, mesh=None, node_axis="data"):
+            folded = real_norm(tree, mesh, node_axis)
+            calls[0] += 1
+            if calls[0] % 2 == 0:   # a step's calls: grad_norm, the clip
+                norms.append((folded, real_norm(tree)))
+            return folded
+        opt_mod.joint_sq_norm = step_mod.joint_sq_norm = traced_norm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     times, phases, syncs = [], [], []
+    TRACE[tag] = []
     for k in range(steps):
         t0 = time.perf_counter()
         state, n_sync = sync_steps(
@@ -2240,11 +2367,22 @@ def run_main_path(torch, mc, compressed: bool = False,
             # a compressed global round keeps each node's own state at full
             # precision: the nodes differ by their stage-1 residuals
             assert rec["consensus"] > 0.0, rec
+        if trace:
+            TRACE[tag].append(shard_fingerprints(torch, state.params,
+                                                 shards))
     launches = counts()
+    if trace:
+        opt_mod.joint_sq_norm = step_mod.joint_sq_norm = real_norm
+        pairs = [(float(a), float(b)) for a, b in norms]
+        TRACE[tag + " norms"] = pairs
+        print(f"{tag} the joint gradient norm² per step, folded per node "
+              f"shard as the step takes it (the ranks' arithmetic) vs one "
+              f"sum over all {n_nodes} rows: bits equal "
+              f"{[a == b for a, b in pairs]}; {pairs}", flush=True)
     gossip, glob = phases.count("gossip"), phases.count("global")
     if sharded:
         key = "shard_cmix" if compressed else "shard_mix"
-        expected = only(**{key: gossip * shards})
+        expected = only(**{key: gossip * shards * model_shards})
     elif compressed:
         expected = only(cmix_vector=gossip * len(leaves),
                         cmix_absmax=gossip * len(leaves), collective=glob)
@@ -2262,7 +2400,8 @@ def run_main_path(torch, mc, compressed: bool = False,
     steady = statistics.median(times[1:])
     SYNCS[tag] = syncs
     STEADY[tag] = steady
-    if tag == "[main]":
+    HISTORY[tag] = [dict(h) for h in tr.history[:steps]]
+    if tag in ("[main]", "[m2main]", "[m2cmain]"):
         gate_one_sync(tag, syncs)
     print(f"{tag} {steps} steps through the kernels ({launches}); steady "
           f"step {steady * 1e3:.1f} ms (median of steps 1-5), "
@@ -4050,6 +4189,8 @@ CKPT_WRITTEN = [0]                  # checkpoint bytes this run wrote
 MAIN_OPT = dict(name="adamw", lr=3e-4, schedule="warmup_cosine",
                 warmup_steps=2, total_steps=8)
 STEADY = {}                         # steady step seconds of each path
+TRACE = {}                          # per step, each node shard's params
+HISTORY = {}                        # each trainer path's step records
 DEVICE = "cuda"                     # where slice 10's phases run
 
 
@@ -4106,12 +4247,12 @@ def _bitwise(torch, a, b) -> bool:
 def _slice10_config(tag: str, **dist_kw):
     """[main]'s cell (pga-lm-100m full width, 8 nodes, Gossip-PGA H = 3
     over one_peer_exp, AdamW, batch 32 × 512, fused rounds) with the
-    phase's distributed options; [psckpt] and [agackpt] at
+    phase's distributed options; the resume phases at
     :data:`CKPT_CUT_LAYERS` layers."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
     model = get_model_config("pga-lm-100m")
-    if tag in ("[psckpt]", "[agackpt]"):
+    if tag in ("[ckpt]", "[cckpt]", "[psckpt]", "[agackpt]"):
         model = dataclasses.replace(model, n_layers=CKPT_CUT_LAYERS)
     dist = {"algorithm": "gossip_pga", "topology": "one_peer_exp", "H": 3,
             "comm_backend": "pallas", **dist_kw}
@@ -6265,6 +6406,17 @@ def reduced_cross_check(torch, runs) -> None:
 DIST_K = 4                          # ranks = node shards ([smain]'s mesh)
 DIST_TIMEOUT_S = 600                # run_ranks' limit for the rank phases
 DIST_SEED = 15
+# slice 16's rank paths: (data=2, model=2), 4 nodes (2 a node shard);
+# [d2cmain] at 4 steps (gossip, gossip, global, gossip) to keep the
+# script within its 900 s budget
+D2_N = 4
+D2_AXES = ((2, 2), ("data", "model"))
+D2_STEPS = {"[d2main]": 6, "[d2cmain]": 4}
+# the bound a rank path is held to against its one-process twin (PERF.md
+# §2): each step's loss, and each leaf's float64 Σx and Σx² on every rank
+# when the params are not bitwise
+RANK_LOSS_RTOL = 1e-6
+RANK_STAT_RTOL = 1e-6
 DIST_ROUNDS = (("gossip hop 1", "gossip", 0, False),
                ("gossip hop 2", "gossip", 1, False),
                ("global", "global", 0, False),
@@ -6347,12 +6499,13 @@ def _row_fingerprints(torch, outs, r: int, m: int) -> list:
             for t, stacked in outs]
 
 
-def _dist_tcfg(compressed: bool, reduced: bool = False):
-    """[smain]'s / [scmain]'s configuration (run_main_path); ``reduced``
-    (a CPU rehearsal): the reduced model."""
+def _dist_tcfg(compressed: bool, reduced: bool = False, nodes: int = MAIN_N,
+               steps: int = 6):
+    """[smain]'s / [scmain]'s configuration (run_main_path) for ``nodes``
+    nodes, each with [smain]'s 4 sequences of 512, ``steps`` steps;
+    ``reduced`` (a CPU rehearsal): the reduced model."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
-    steps = 6
     return TrainConfig(
         model=get_model_config("pga-lm-100m", reduced=reduced),
         dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
@@ -6362,7 +6515,7 @@ def _dist_tcfg(compressed: bool, reduced: bool = False):
         optimizer=OptimizerConfig(name="adamw", lr=3e-4,
                                   schedule="warmup_cosine", warmup_steps=2,
                                   total_steps=steps + 2),
-        global_batch=32 if not reduced else 8,
+        global_batch=(32 if not reduced else 8) * nodes // MAIN_N,
         seq_len=512 if not reduced else 16, steps=steps, log_every=1)
 
 
@@ -6381,20 +6534,118 @@ def _twin_counter(mc):
     return calls
 
 
-def _dist_rank(rank: int, shapes, smain_fp, device: str = "cuda:0"):
-    """One rank of the slice-15 phases (``run_ranks`` spawns four on
-    cuda:0 over gloo): the [dround] rounds (fingerprints of this rank's
-    rows, then each kind timed with the exchange's split), then [dmain]
-    and [dcmain] (the Trainer on this rank's 2 nodes).  Returns what the
-    parent prints and gates.  ``device="cpu"`` rehearses it at the
-    reduced model (no timing of kernels, no synchronizing-call count)."""
+def leaf_stats(torch, leaves) -> list:
+    """Per leaf ``(Σx, Σx²)`` in float64: what a rank returns of its final
+    params beside their fingerprints, to give the size of a gap where two
+    runs' params never meet in one process."""
+    out = []
+    for p in leaves:
+        d = p.detach().to(torch.float64)
+        out.append((float(d.sum()), float(d.square().sum())))
+        del d
+    return out
+
+
+def shard_fingerprints(torch, params, k: int) -> list:
+    """Per node shard r of k, the fingerprints of its rows of every
+    leaf."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    m = leaves[0].shape[0] // k
+    return [[fingerprint(torch, p[r * m:(r + 1) * m]) for p in leaves]
+            for r in range(k)]
+
+
+def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
+               twins: dict, trace=None) -> dict:
+    """This rank's run of one trainer path (6 steps): each step's record,
+    synchronizing calls and exchange bytes on each axis, the launches,
+    the final params' fingerprints and float64 stats, the peak memory and
+    pinned bytes; on a 2-D mesh the last gossip step with the exchanges'
+    split timed (the timing's own waits on the stream inside it).
+    ``trace``: the one-process twin's per-step fingerprints of this
+    rank's node shard (the first leaf whose rows leave them)."""
+    from repro_torch.tree import tree_leaves
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    exes = [mesh.exchange] + ([mesh.model_exchange]
+                              if mesh.model_exchange is not None else [])
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    for key in twins:
+        twins[key] = 0
+    steps, first, split = [], [], None
+    H = tr.tcfg.dist.H
+    split_step = max(k for k in range(tr.tcfg.steps) if (k + 1) % H)
+    for k in range(tr.tcfg.steps):
+        timed = mesh.model_exchange is not None and k == split_step
+        for ex in exes:
+            ex.reset_stats()
+            ex.timing = timed
+        t0 = time.perf_counter()
+        state, n_sync = (sync_steps(
+            torch, lambda: tr.run(state, steps=1, log_every=1))
+            if card else (tr.run(state, steps=1, log_every=1), 0))
+        sync()
+        dt = time.perf_counter() - t0
+        rec = tr.history[-1]
+        if timed:
+            split = dict(ms=dt * 1e3, phase=rec["phase"], step=k,
+                         axes=[dict(ex.stats) for ex in exes])
+            for ex in exes:
+                ex.timing = False
+        if mesh.rank == 0:
+            print(f"{tag} rank 0 step {k} {dt * 1e3:.1f} ms, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9 if card else 0:.2f}"
+                  f" GB", flush=True)
+        steps.append(dict(
+            phase=rec["phase"], loss=rec["loss"], consensus=rec["consensus"],
+            grad_norm=rec["grad_norm"], ms=dt * 1e3, syncs=n_sync,
+            exchange_syncs=sum(ex.stats["syncs"] for ex in exes),
+            bytes=[(ex.stats["bytes_out"], ex.stats["bytes_in"])
+                   for ex in exes]))
+        if trace is not None:
+            fps = [fingerprint(torch, p) for p in tree_leaves(state.params)]
+            bad = [i for i, (a, b) in enumerate(zip(fps, trace[k]))
+                   if a != b]
+            first.append((bad[0], len(bad)) if bad else None)
+    launches = counts()
+    leaves = tree_leaves(state.params)
+    fps = [fingerprint(torch, p) for p in leaves]
+    out = dict(steps=steps, launches=launches, twins=dict(twins),
+               params_equal=fps == ref["fps"][mesh.node_rank]
+               if ref else None,
+               stats=leaf_stats(torch, leaves), first_leaf=first,
+               coords=(mesh.node_rank, mesh.model_rank),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card
+               else 0, pinned_bytes=sum(ex.pinned_bytes for ex in exes))
+    del leaves, state
+    if split is not None:
+        out["split"] = split
+    return out
+
+
+def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
+    """One rank of the rank phases (``run_ranks`` spawns four on cuda:0
+    over gloo).  Slice 15 on a mesh of 4 node shards: the [dround] rounds
+    (fingerprints of this rank's rows, then each kind timed with the
+    exchange's split), then [dmain] and [dcmain] (the Trainer on this
+    rank's 2 nodes; [dcmain] fingerprinted after every step against
+    [scmain]'s).  Slice 16 on a (data=2, model=2) mesh: [d2main] and
+    [d2cmain] (the Trainer at n = 4, this rank the 2 nodes of its node
+    shard whole, one model chunk of every round).  ``refs``: the
+    one-process runs' fingerprints.  Returns what the parent prints and
+    gates.  ``device="cpu"`` rehearses it at the reduced model (no timing
+    of kernels, no synchronizing-call count)."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.core.mesh import make_mesh
     from repro_torch.kernels import mixing_cuda as mc
     from repro_torch.train import Trainer
-    from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6416,13 +6667,13 @@ def _dist_rank(rank: int, shapes, smain_fp, device: str = "cuda:0"):
         fps = [fingerprint(torch, t) for t, _ in outs]
         launches = counts()
         del outs
-        # timed: 3 rounds after a barrier, the exchange's split on
+        # timed: 1 round after a barrier, the exchange's split on
         ex.timing = True
         ex.reset_stats()
         dist.barrier()
         sync()
         t0 = time.perf_counter()
-        iters = 3
+        iters = 1
         for _ in range(iters):
             dist_round(torch, mesh, x, ef, phase, step, compressed)
         sync()
@@ -6469,62 +6720,85 @@ def _dist_rank(rank: int, shapes, smain_fp, device: str = "cuda:0"):
         tr = Trainer(_dist_tcfg(compressed, reduced=not card),
                      n_nodes=MAIN_N, mesh=mesh, with_consensus=True,
                      device=device)
-        state = tr.init_state(torch.Generator().manual_seed(0))
+        ref = refs.get(tag)
+        trace = ([t[rank] for t in ref["trace"]]
+                 if ref and ref.get("trace") else None)
+        out["paths"][tag] = _rank_path(torch, dist, tr, mesh, tag, ref, card,
+                                       twins, trace)
+        del tr
         if card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        dist.barrier()
-        reset_counts()
-        for key in twins:
-            twins[key] = 0
-        steps = []
-        for k in range(tr.tcfg.steps):
-            ex.reset_stats()
-            t0 = time.perf_counter()
-            state, n_sync = (sync_steps(
-                torch, lambda: tr.run(state, steps=1, log_every=1))
-                if card else (tr.run(state, steps=1, log_every=1), 0))
-            sync()
-            dt = time.perf_counter() - t0
-            rec = tr.history[-1]
-            if rank == 0:
-                print(f"{tag} rank 0 step {k} {dt * 1e3:.1f} ms, peak "
-                      f"{torch.cuda.max_memory_allocated() / 1e9 if card else 0:.2f}"
-                      f" GB", flush=True)
-            steps.append(dict(
-                phase=rec["phase"], loss=rec["loss"],
-                consensus=rec["consensus"], ms=dt * 1e3, syncs=n_sync,
-                exchange_syncs=ex.stats["syncs"],
-                bytes_out=ex.stats["bytes_out"],
-                bytes_in=ex.stats["bytes_in"]))
-        launches = counts()
-        leaves = tree_leaves(state.params)
-        fps = [fingerprint(torch, p) for p in leaves]
-        out["paths"][tag] = dict(
-            steps=steps, launches=launches, twins=dict(twins),
-            params_equal=(fps == smain_fp[tag][rank]
-                          if smain_fp.get(tag) else None),
-            peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card else 0,
-            pinned_bytes=ex.pinned_bytes)
-        del tr, state, leaves
+            torch.cuda.empty_cache()
+    # slice 16: [d2main] and [d2cmain] on the (data=2, model=2) mesh; the
+    # 1-D mesh's pinned staging buffers go first
+    del mesh, ex
+    mesh2 = make_mesh(*D2_AXES, device=device, group=dist.group.WORLD)
+    for compressed in (False, True):
+        tag = "[d2cmain]" if compressed else "[d2main]"
+        tr = Trainer(_dist_tcfg(compressed, reduced=not card, nodes=D2_N,
+                                steps=D2_STEPS[tag]),
+                     n_nodes=D2_N, mesh=mesh2, with_consensus=True,
+                     device=device)
+        out["paths"][tag] = _rank_path(torch, dist, tr, mesh2, tag,
+                                       refs.get(tag), card, twins)
+        del tr
         if card:
             torch.cuda.empty_cache()
     return out
 
 
-def smain_reference(torch, tr, state, launches) -> tuple:
-    """``(leaf shapes, reference)`` of a finished [smain]/[scmain] run:
-    its step records, launches and each rank's rows' fingerprints of the
-    final params."""
+def smain_reference(torch, tr, state, launches, k: int = DIST_K) -> tuple:
+    """``(leaf shapes, reference)`` of a finished one-process trainer run
+    ([smain]/[scmain], or the one-process twins of the 2-D rank paths):
+    its step records, launches, and each of its k node shards' rows'
+    fingerprints and float64 stats of the final params."""
     from repro_torch.tree import tree_leaves
     leaves = tree_leaves(state.params)
-    m = MAIN_N // DIST_K
+    m = leaves[0].shape[0] // k
     return [tuple(p.shape[1:]) for p in leaves], dict(
-        steps=[{k: h[k] for k in ("phase", "loss", "consensus")}
+        steps=[{key: h[key] for key in ("phase", "loss", "consensus",
+                                        "grad_norm")}
                for h in tr.history[:6]],
         launches=launches,
         fps=[[fingerprint(torch, p[r * m:(r + 1) * m]) for p in leaves]
-             for r in range(DIST_K)])
+             for r in range(k)],
+        stats=[leaf_stats(torch, [p[r * m:(r + 1) * m] for p in leaves])
+               for r in range(k)])
+
+
+def d2_references(torch, device="cuda") -> dict:
+    """The one-process twins of [d2main]/[d2cmain]: the Trainer on the
+    (data=2, model=2) mesh in this process, n = 4, 6 steps, every block
+    here: references for the rank paths (:func:`smain_reference`)."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    card = device != "cpu"
+    refs = {}
+    for compressed in (False, True):
+        tag = "[d2cmain]" if compressed else "[d2main]"
+        mesh = make_mesh(*D2_AXES, device=device)
+        tr = Trainer(_dist_tcfg(compressed, reduced=not card, nodes=D2_N,
+                                steps=D2_STEPS[tag]),
+                     n_nodes=D2_N, mesh=mesh, with_consensus=True,
+                     device=device)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        reset_counts()
+        t0 = time.perf_counter()
+        state = tr.run(state, steps=tr.tcfg.steps, log_every=1)
+        if card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        refs[tag] = smain_reference(torch, tr, state, counts(),
+                                    D2_AXES[0][0])[1]
+        fired = {k: v for k, v in refs[tag]["launches"].items() if v}
+        print(f"{tag} the one-process twin ({mesh.shape}, {D2_N} nodes, "
+              f"every block here): {tr.tcfg.steps} steps in {dt:.1f} s, "
+              f"losses "
+              f"{[round(h['loss'], 4) for h in refs[tag]['steps']]}, "
+              f"launches {fired}", flush=True)
+        del tr, state
+        if card:
+            torch.cuda.empty_cache()
+    return refs
 
 
 def dist_parent_fingerprints(torch, shapes, device="cuda") -> dict:
@@ -6545,20 +6819,171 @@ def dist_parent_fingerprints(torch, shapes, device="cuda") -> dict:
     return want
 
 
-def run_dist_paths(torch, mc, shapes, smain, device="cuda") -> dict:
-    """Slice 15's phases: the parent's fingerprints of the one-process
+def _gate_against_twin(tag: str, twin: str, recs: list, ref: dict,
+                       failures: list) -> None:
+    """Hold a rank path against its one-process twin with the bound of
+    ``PERF.md`` §2: every step's loss within rtol ``RANK_LOSS_RTOL``; the
+    final params bitwise (every rank's fingerprints), else each leaf's
+    float64 Σx and Σx² on every rank within rtol ``RANK_STAT_RTOL`` of
+    the twin's rows (the gap printed)."""
+    worst = 0.0
+    for k, s in enumerate(recs[0]["steps"]):
+        want = ref["steps"][k]["loss"]
+        worst = max(worst, abs(s["loss"] - want) / abs(want))
+    equal = [rec["params_equal"] for rec in recs]
+    gaps = []
+    for rec in recs:
+        mine = ref["stats"][rec["coords"][0]]
+        for (a1, a2), (b1, b2) in zip(rec["stats"], mine):
+            gaps.append(max(abs(a1 - b1) / max(abs(b1), 1e-30),
+                            abs(a2 - b2) / max(abs(b2), 1e-30)))
+    gap = max(gaps) if gaps else 0.0
+    print(f"{tag} against {twin}: losses within rtol {worst:.3e} (bound "
+          f"{RANK_LOSS_RTOL:g}); final params bitwise the twin's rows "
+          f"{equal}; float64 Σx, Σx² per leaf within rtol {gap:.3e} (bound "
+          f"{RANK_STAT_RTOL:g} when not bitwise)", flush=True)
+    if worst > RANK_LOSS_RTOL:
+        failures.append(f"{tag} losses rtol {worst:.3e} against {twin}")
+    if not all(equal) and gap > RANK_STAT_RTOL:
+        failures.append(f"{tag} params not bitwise {equal} and their stats "
+                        f"rtol {gap:.3e} against {twin}")
+
+
+def _report_rank_path(tag: str, twin: str, recs: list, ref: dict,
+                      key: str, nodes: int, failures: list) -> dict:
+    """Print one rank path's steps and summary and gate its launches,
+    phases, consensus and plain twins; returns its launches summed over
+    the ranks."""
+    summed = {k: sum(rec["launches"][k] for rec in recs) for k in counts()}
+    steps0 = recs[0]["steps"]
+    gossip = sum(s["phase"] == "gossip" for s in steps0)
+    axes = len(steps0[0]["bytes"])
+    for k, s0 in enumerate(steps0):
+        ms = [rec["steps"][k]["ms"] for rec in recs]
+        want = ref["steps"][k] if ref else None
+        gap = (f", loss - {twin}'s {s0['loss'] - want['loss']:+.3e}"
+               if want else "")
+        moved = "; ".join(
+            f"{'node' if a == 0 else 'model'} axis "
+            f"{s0['bytes'][a][0] / 1e9:.3f} GB out "
+            f"{s0['bytes'][a][1] / 1e9:.3f} GB in" for a in range(axes))
+        print(f"{tag} step {k} phase={s0['phase']} loss={s0['loss']:.4f}"
+              f" consensus={s0['consensus']:.6e} step_ms (slowest "
+              f"rank)={max(ms):.1f} ranks {[round(v, 1) for v in ms]} "
+              f"synchronizing_calls="
+              f"{[rec['steps'][k]['syncs'] for rec in recs]} (staging "
+              f"waits {s0['exchange_syncs']}) exchange a rank: {moved}{gap}",
+              flush=True)
+        for rec in recs:
+            s = rec["steps"][k]
+            if (s["phase"], s["loss"], s["consensus"]) != (
+                    s0["phase"], s0["loss"], s0["consensus"]):
+                failures.append(f"{tag} step {k}: ranks disagree")
+        if not math.isfinite(s0["loss"]):
+            failures.append(f"{tag} step {k}: loss {s0['loss']}")
+        if key == "shard_mix" and s0["phase"] == "global":
+            if s0["consensus"] != 0.0:
+                failures.append(f"{tag} step {k}: consensus "
+                                f"{s0['consensus']} after a global step")
+        elif not s0["consensus"] > 0.0:
+            failures.append(f"{tag} step {k}: consensus {s0['consensus']}")
+    steady = statistics.median(max(rec["steps"][k]["ms"] for rec in recs)
+                               for k in range(1, len(steps0)))
+    per_rank = [rec["launches"][key] for rec in recs]
+    twins = [rec["twins"] for rec in recs]
+    one = STEADY.get(twin)
+    print(f"{tag} {len(steps0)} steps on {DIST_K} ranks "
+          f"({nodes} nodes, gloo through pinned host memory): {key} "
+          f"launches per rank {per_rank}, summed {summed[key]} "
+          f"({twin} {ref['launches'][key] if ref else '?'}); plain twins "
+          f"called {twins}; steady step {steady:.1f} ms (median of steps "
+          f"1-{len(steps0) - 1}, slowest rank; {twin} "
+          f"{'%.1f ms' % (one * 1e3) if one else 'not timed'}), "
+          f"{512 * 4 * nodes / steady * 1e3:.0f} tokens/s; peak memory per "
+          f"rank {[round(rec['peak_gb'], 2) for rec in recs]} GB; pinned "
+          f"host bytes per rank {[rec['pinned_bytes'] for rec in recs]}",
+          flush=True)
+    if per_rank != [gossip] * DIST_K or \
+            summed != only(**{key: gossip * DIST_K}):
+        failures.append(f"{tag} launches per rank {per_rank}, summed "
+                        f"{summed}")
+    if any(t[key] for t in twins for key in t):
+        failures.append(f"{tag} plain twins called {twins}")
+    if ref:
+        _gate_against_twin(tag, twin, recs, ref, failures)
+    return summed
+
+
+def _report_split(tag: str, recs: list) -> None:
+    """The 2-D rank path's last gossip step with the exchanges' split
+    timed: the slowest rank's ms, staging out, exchange and staging in on
+    each axis, the bytes of each."""
+    slow = max(recs, key=lambda rec: rec["split"]["ms"])
+    sp = slow["split"]
+    parts = []
+    for name, st in zip(("node", "model"), sp["axes"]):
+        parts.append(f"{name} axis staging out {st['stage_out'] * 1e3:.1f} + "
+                     f"exchange {st['exchange'] * 1e3:.1f} + staging in "
+                     f"{st['stage_in'] * 1e3:.1f} ms, "
+                     f"{st['bytes_out'] / 1e9:.3f} GB out "
+                     f"{st['bytes_in'] / 1e9:.3f} GB in, {st['ops']:.0f} "
+                     f"calls")
+    moved = sum(st["stage_out"] + st["exchange"] + st["stage_in"]
+                for st in sp["axes"]) * 1e3
+    print(f"{tag} step {sp['step']} ({sp['phase']}) with the exchanges "
+          f"timed, slowest rank {slow['coords']}: {sp['ms']:.1f} ms = "
+          f"{'; '.join(parts)}; the rest (forward, backward, optimizer, "
+          f"packing, kernels) {sp['ms'] - moved:.1f} ms", flush=True)
+
+
+def _trace_dcmain(recs: list, smain: dict) -> None:
+    """[dcmain] against [scmain] step by step: the joint gradient norms
+    (and where the clip at 1.0 engages, [smain]'s beside), and the first
+    leaf whose rows leave [scmain]'s after each step on any rank."""
+    mine = [s["grad_norm"] for s in recs[0]["steps"]]
+    ref = smain.get("[dcmain]")
+    if not ref:
+        return
+    want = [s["grad_norm"] for s in ref["steps"]]
+    plain = [s["grad_norm"] for s in smain["[dmain]"]["steps"]] \
+        if smain.get("[dmain]") else []
+    first = [(r, k, f) for r, rec in enumerate(recs)
+             for k, f in enumerate(rec["first_leaf"]) if f is not None]
+    where = ("none: every leaf's rows bitwise [scmain]'s after every step "
+             "on every rank" if not first else
+             f"step {first[0][1]}, leaf {first[0][2][0]} (of "
+             f"{first[0][2][1]} differing) on rank {first[0][0]}")
+    folds = TRACE.get("[scmain] norms", [])
+    print(f"[dcmain] trace: grad_norm per step {mine}, [scmain]'s {want}, "
+          f"equal {[a == b for a, b in zip(mine, want)]}; the clip at 1.0 "
+          f"engages at steps {[k for k, g in enumerate(want) if g > 1.0]} "
+          f"([smain]: {[k for k, g in enumerate(plain) if g > 1.0]}); the "
+          f"first leaf whose rows leave [scmain]'s: {where}; [scmain]'s "
+          f"norm² folded per node shard vs one sum over all rows (the "
+          f"one-process step's arithmetic before the fold) differ at steps "
+          f"{[k for k, (a, b) in enumerate(folds) if a != b]}", flush=True)
+
+
+def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
+    """The rank phases: the parent's fingerprints of the one-process
     sharded rounds, then one spawn of four ranks on the card over gloo
-    (:func:`_dist_rank`): ``[dround]`` (each rank's rows bitwise the
-    one-process round's, the round split into staging out, exchange,
-    staging in, kernel and the rest, beside ``[sround]``), ``[dmain]``
-    and ``[dcmain]`` (the Trainer on 2 nodes a rank: B.5 / B.4 on every
-    rank, 16 launches summed, consensus 0.0 after every uncompressed
-    global step, finite losses, no plain twin on the card).  ``smain``:
-    ``[smain]``/``[scmain]``'s step records and each rank's rows'
-    fingerprints of their final params.  Returns the launch counts summed
-    over the ranks of each path.  ``device="cpu"`` rehearses the phases
-    at the reduced model (``shapes`` and ``smain`` to match; the launch
-    gates then fail: the CPU launches no kernel)."""
+    (:func:`_dist_rank`).  Slice 15: ``[dround]`` (each rank's rows
+    bitwise the one-process round's, the round split into staging out,
+    exchange, staging in, kernel and the rest, beside ``[sround]``),
+    ``[dmain]`` and ``[dcmain]`` (the Trainer on 2 nodes a rank: B.5 / B.4
+    on every rank, 16 launches summed, consensus 0.0 after every
+    uncompressed global step, finite losses, no plain twin on the card;
+    [dcmain] traced against [scmain] step by step).  Slice 16:
+    ``[d2main]`` and ``[d2cmain]`` on the (data=2, model=2) mesh (B.5 /
+    B.4 once a gossip step on every rank; exchange bytes on each axis;
+    the last gossip step's split timed).  Every trainer path is
+    held to its one-process twin ([smain], [scmain], ``d2ref``) by
+    :func:`_gate_against_twin`.  ``smain``: [smain]/[scmain]'s references
+    (:func:`smain_reference`, [scmain]'s with its per-step ``trace``).
+    Returns the launch counts summed over the ranks of each path.
+    ``device="cpu"`` rehearses the phases at the reduced model (``shapes``,
+    ``smain`` and ``d2ref`` to match; the launch gates then fail: the CPU
+    launches no kernel)."""
     from repro_torch.core.mesh import run_ranks
 
     card = device != "cpu"
@@ -6574,6 +6999,8 @@ def run_dist_paths(torch, mc, shapes, smain, device="cuda") -> dict:
               f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the "
               f"card {free / 1e9:.2f} of {total / 1e9:.2f} GB free",
               flush=True)
+    refs = {t: {"fps": v["fps"], "trace": v.get("trace")}
+            for t, v in {**smain, **d2ref}.items()}
     t0 = time.perf_counter()
     # the ranks' allocators map their pools as expandable segments: four
     # processes share the card, and a pool's reserved but free blocks
@@ -6583,8 +7010,7 @@ def run_dist_paths(torch, mc, shapes, smain, device="cuda") -> dict:
     try:
         res = run_ranks(_dist_rank, DIST_K, backend="gloo",
                         device="cuda:0" if card else "cpu",
-                        args=(shapes, {t: v["fps"] for t, v in smain.items()},
-                              "cuda:0" if card else "cpu"),
+                        args=(shapes, refs, "cuda:0" if card else "cpu"),
                         timeout_s=DIST_TIMEOUT_S, threads=2)
     finally:
         if prev is None:
@@ -6594,7 +7020,7 @@ def run_dist_paths(torch, mc, shapes, smain, device="cuda") -> dict:
     spawn_s = time.perf_counter() - t0
     print(f"[dround] fingerprints of the one-process rounds in {fp_s:.1f} "
           f"s; the {DIST_K} ranks (spawn, init, [dround], [dmain], "
-          f"[dcmain]) in {spawn_s:.1f} s", flush=True)
+          f"[dcmain], [d2main], [d2cmain]) in {spawn_s:.1f} s", flush=True)
     failures = []
     for name, phase, step, compressed in DIST_ROUNDS:
         recs = [r["rounds"][name] for r in res]
@@ -6624,68 +7050,193 @@ def run_dist_paths(torch, mc, shapes, smain, device="cuda") -> dict:
             failures.append(f"[dround] {name}: {kernel} launches "
                             f"{per_rank}")
     launches = {}
-    for tag, key in (("[dmain]", "shard_mix"), ("[dcmain]", "shard_cmix")):
+    for tag, twin, key, nodes in (
+            ("[dmain]", "[smain]", "shard_mix", MAIN_N),
+            ("[dcmain]", "[scmain]", "shard_cmix", MAIN_N),
+            ("[d2main]", "[d2main] one-process twin", "shard_mix", D2_N),
+            ("[d2cmain]", "[d2cmain] one-process twin", "shard_cmix",
+             D2_N)):
         recs = [r["paths"][tag] for r in res]
-        summed = {k: sum(rec["launches"][k] for rec in recs)
-                  for k in counts()}
-        launches[tag] = summed
-        steps0 = recs[0]["steps"]
-        gossip = sum(s["phase"] == "gossip" for s in steps0)
-        for k, s0 in enumerate(steps0):
-            ms = [rec["steps"][k]["ms"] for rec in recs]
-            ref = smain[tag]["steps"][k] if smain.get(tag) else None
-            gap = (f", loss - {'[scmain]' if tag == '[dcmain]' else '[smain]'}"
-                   f"'s {s0['loss'] - ref['loss']:+.3e}" if ref else "")
-            print(f"{tag} step {k} phase={s0['phase']} loss={s0['loss']:.4f}"
-                  f" consensus={s0['consensus']:.6e} step_ms (slowest "
-                  f"rank)={max(ms):.1f} ranks {[round(v, 1) for v in ms]} "
-                  f"synchronizing_calls="
-                  f"{[rec['steps'][k]['syncs'] for rec in recs]} (staging "
-                  f"waits {recs[0]['steps'][k]['exchange_syncs']}) exchange "
-                  f"{recs[0]['steps'][k]['bytes_out'] / 1e9:.3f} GB out a "
-                  f"rank{gap}", flush=True)
-            for rec in recs:
-                s = rec["steps"][k]
-                if (s["phase"], s["loss"], s["consensus"]) != (
-                        s0["phase"], s0["loss"], s0["consensus"]):
-                    failures.append(f"{tag} step {k}: ranks disagree")
-            if not math.isfinite(s0["loss"]):
-                failures.append(f"{tag} step {k}: loss {s0['loss']}")
-            if tag == "[dmain]" and s0["phase"] == "global":
-                if s0["consensus"] != 0.0:
-                    failures.append(f"{tag} step {k}: consensus "
-                                    f"{s0['consensus']} after a global step")
-            elif not s0["consensus"] > 0.0:
-                failures.append(f"{tag} step {k}: consensus "
-                                f"{s0['consensus']}")
-        steady = statistics.median(
-            max(rec["steps"][k]["ms"] for rec in recs)
-            for k in range(1, len(steps0)))
-        per_rank = [rec["launches"][key] for rec in recs]
-        twins = [rec["twins"] for rec in recs]
-        print(f"{tag} {len(steps0)} steps on {DIST_K} ranks (2 nodes each, "
-              f"gloo through pinned host memory): {key} launches per rank "
-              f"{per_rank}, summed {summed[key]} (one-process "
-              f"{smain[tag]['launches'][key] if smain.get(tag) else '?'}); "
-              f"plain twins called {twins}; steady step {steady:.1f} ms "
-              f"(median of steps 1-5, slowest rank; one process "
-              f"{STEADY.get('[scmain]' if tag == '[dcmain]' else '[smain]', 0) * 1e3:.1f} ms), "
-              f"{32 * 512 / steady * 1e3:.0f} tokens/s; peak memory per "
-              f"rank {[round(rec['peak_gb'], 2) for rec in recs]} GB; "
-              f"pinned host bytes per rank "
-              f"{[rec['pinned_bytes'] for rec in recs]}; final params "
-              f"bitwise the one-process run's rows "
-              f"{[rec['params_equal'] for rec in recs]}", flush=True)
-        if per_rank != [gossip] * DIST_K or \
-                summed != only(**{key: gossip * DIST_K}):
-            failures.append(f"{tag} launches per rank {per_rank}, summed "
-                            f"{summed}")
-        if any(t[key] for t in twins for key in t):
-            failures.append(f"{tag} plain twins called {twins}")
+        ref = smain.get(tag) if nodes == MAIN_N else d2ref.get(tag)
+        launches[tag] = _report_rank_path(tag, twin, recs, ref, key, nodes,
+                                          failures)
+        if tag == "[dcmain]":
+            _trace_dcmain(recs, smain)
+        if "split" in recs[0]:
+            _report_split(tag, recs)
     if failures:
         raise AssertionError("; ".join(failures))
     return launches
 
+
+# ---------------------------------------------------------------------------
+# Slice 16: 2-D (node, model) meshes in one process
+# ---------------------------------------------------------------------------
+M2_ROUNDS = (("gossip hop 1", "gossip", 0, 1, None, None),
+             ("gossip hop 2", "gossip", 1, 1, None, None),
+             ("global", "global", 0, 1, None, None),
+             ("pod_avg", "pod_avg", 0, 2, None, None),
+             ("bf16 gossip hop 1", "gossip", 0, 1, "bfloat16", None),
+             ("int8+EF gossip hop 1", "gossip", 0, 1, None, "int8"),
+             ("int8+EF gossip hop 2", "gossip", 1, 1, None, "int8"),
+             ("int8+EF global", "global", 0, 1, None, "int8"))
+
+
+def _m2_round(torch, mesh, x, ef, phase, step, pods, cd, codec):
+    """One [m2round] kind on ``mesh`` (the 1-D mesh of 4 node shards or
+    the (data=4, model=2) one): uncompressed with the consensus residual
+    (the Trainer's fused route), the bf16 wire, or int8 + EF (gossip codec
+    and collective).  Returns the output tensors."""
+    from repro_torch.core import mixing
+    from repro_torch.tree import tree_leaves
+    spec = mixing.CommSpec(
+        topology="one_peer_exp", n_nodes=MAIN_N, n_pods=pods,
+        backend="pallas", mesh=mesh, shard_mode="sharded",
+        comm_dtype=torch.bfloat16 if cd else None,
+        **(dict(compressor=_codec(codec), global_compressor=_codec(codec))
+           if codec else {})).validate()
+    if codec:
+        mixed, new_ef = mixing.communicate(x, spec, phase=phase, step=step,
+                                           ef_state=ef, seed=3)
+        return tree_leaves(mixed) + tree_leaves(new_ef)
+    if cd:
+        return tree_leaves(mixing.communicate(x, spec, phase=phase,
+                                              step=step))
+    mixed, xbar, resid = mixing.communicate_sharded(
+        x, spec, phase=phase, step=step, with_residual=True)
+    return tree_leaves(mixed) + tree_leaves(xbar) + [resid]
+
+
+def collective_bound(torch, x, ef) -> tuple:
+    """One quantization step per compressed round (``tests/
+    test_torch_mixing_2d.py``): an int8 collective's output moves by at
+    most one stage-2 step of r and one of ρ, 2·2^(⌈log2 max|y|⌉ − 7), its
+    EF by one stage-1 step, y = x + e over the whole operand."""
+    from repro_torch.tree import tree_leaves
+    top = max(float((a + b).abs().max())
+              for a, b in zip(tree_leaves(x), tree_leaves(ef)))
+    step = 2.0 ** (math.ceil(math.log2(top)) - 7)
+    return 2 * step, step
+
+
+def run_m2round(torch, mc, shapes) -> None:
+    """[m2round]: [sround]'s round kinds and three more on a synthetic
+    full-width state of 8 nodes (``dist_inputs``), on the (data=4,
+    model=2) mesh beside the 1-D mesh of the same 4 node shards:
+    uncompressed gossip hops 1 and 2, global and pod_avg with the
+    consensus residual, the bf16 wire, int8 + EF gossip: the mixed rows
+    (and x̄, the EF state) bitwise the 1-D round's, the residual's gap
+    printed; the int8 collective within ``collective_bound`` (and whether
+    bitwise).  B.5 / B.4 launch once a block a gossip or pod round (8) and no
+    plain twin.  Each kind timed in turns (1-D, 2-D, 2-D, 1-D) beside
+    [sround]'s; then the 2-D round's packing alone (the two chunks made
+    contiguous, the leaves put back together)."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.tree import tree_leaves
+
+    twins = _twin_counter(mc)
+    k = MAIN_N // SHARD_M
+    mesh1 = make_mesh((k,), ("data",))
+    mesh2 = make_mesh((k, MAIN_2D_KM), ("data", "model"))
+    x, ef = dist_inputs(torch, shapes, range(MAIN_N), mesh1.device)
+    lay = mc.ModelChunks(x, MAIN_2D_KM)
+    if lay.W != MAIN_2D_W:
+        raise AssertionError(f"[m2round] model chunk of {lay.W} columns, "
+                             f"the kernel records' {MAIN_2D_W}")
+    bound, ef_bound = collective_bound(torch, x, ef)
+    failures = []
+    for name, phase, step, pods, cd, codec in M2_ROUNDS:
+        reset_counts()
+        two = _m2_round(torch, mesh2, x, ef, phase, step, pods, cd, codec)
+        launches = counts()
+        one = _m2_round(torch, mesh1, x, ef, phase, step, pods, cd, codec)
+        resid = codec is None and cd is None
+        cmp_one = one[:-1] if resid else one
+        cmp_two = two[:-1] if resid else two
+        equal = all(torch.equal(a, b) for a, b in zip(cmp_one, cmp_two))
+        err = max(float((a - b).abs().max()) for a, b in zip(cmp_one,
+                                                             cmp_two))
+        extra = ""
+        if resid:
+            r1, r2 = float(one[-1]), float(two[-1])
+            extra = (f"; residual {r2:.9e} vs 1-D {r1:.9e} (rel "
+                     f"{abs(r2 - r1) / max(abs(r1), 1e-30):.2e}: the fold "
+                     f"over 8 blocks, not 4 shards)")
+        del one, two
+        key = "shard_cmix" if codec else "shard_mix"
+        want = (only(**{key: k * MAIN_2D_KM}) if phase != "global"
+                else only())
+        t = [cuda_ms(torch, lambda: _m2_round(torch, m_, x, ef, phase,
+                                              step, pods, cd, codec),
+                     iters=3, warmup=1)
+             for m_ in (mesh1, mesh2, mesh2, mesh1)]
+        collective = codec and phase != "gossip"
+        gate = (f"within the bound {bound:.3e} (EF {ef_bound:.3e}): "
+                f"{err <= bound}" if collective else "gated bitwise")
+        print(f"[m2round] {name}: 2-D rows bitwise the 1-D round's "
+              f"{equal}, max abs diff {err:.3e}, {gate}{extra}; launches "
+              f"{({k2: v for k2, v in launches.items() if v})}; 2-D "
+              f"{t[1]:.1f} / {t[2]:.1f} ms, 1-D {t[0]:.1f} / {t[3]:.1f} ms "
+              f"(in turns, synthetic state); [sround] on the trained "
+              f"state {SROUND.get(name, 'not measured')}", flush=True)
+        if collective:
+            if err > bound:
+                failures.append(f"[m2round] {name}: {err:.3e} > {bound:.3e}")
+        elif not equal:
+            failures.append(f"[m2round] {name}: not bitwise ({err:.3e})")
+        if launches != want:
+            failures.append(f"[m2round] {name}: launches {launches}")
+        torch.cuda.empty_cache()
+    if any(twins.values()):
+        failures.append(f"[m2round] plain twins called {twins}")
+    chunk_ms = cuda_ms(torch, lambda: [lay.chunk(x, c)
+                                       for c in range(MAIN_2D_KM)],
+                       iters=3, warmup=1)
+    parts = [lay.chunk(x, c) for c in range(MAIN_2D_KM)]
+    unflat_ms = cuda_ms(torch, lambda: lay.unflatten(parts), iters=3,
+                        warmup=1)
+    nbytes = 4 * MAIN_N * MAIN_PACKED_D
+    print(f"[m2round] the 2-D packing alone: both chunks made contiguous "
+          f"{chunk_ms:.1f} ms, the leaves put back together "
+          f"{unflat_ms:.1f} ms ({nbytes / 1e9:.2f} GB each way; the 1-D "
+          f"round packs once too)", flush=True)
+    del x, ef, parts
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def m2_against_one_d(torch, tag: str, twin: str, state, ref: list,
+                     compressed: bool) -> None:
+    """[m2main] / [m2cmain]'s final params against [smain] / [scmain]'s
+    (``ref``, copies kept on the card): [m2main] bitwise; [m2cmain] within
+    one quantization step per compressed round of 6 (collective_bound's
+    step at the params' scale), its bitwise flag printed."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(state.params)
+    err, equal, top = 0.0, True, 0.0
+    for p, d in zip(leaves, ref):
+        equal = equal and torch.equal(p, d)
+        err = max(err, float((p - d).abs().max()))
+        top = max(top, float(d.abs().max()))
+    bound = 6 * 2 * 2.0 ** (math.ceil(math.log2(top)) - 7)
+    hist = [(h["loss"], h["consensus"]) for h in
+            HISTORY.get(twin, [])]
+    mine = [(h["loss"], h["consensus"]) for h in HISTORY.get(tag, [])]
+    loss_equal = [a[0] == b[0] for a, b in zip(mine, hist)]
+    cons = [abs(a[1] - b[1]) / max(abs(b[1]), 1e-30) if b[1] else
+            abs(a[1]) for a, b in zip(mine, hist)]
+    print(f"{tag} final params vs {twin}'s: bitwise {equal}, max abs diff "
+          f"{err:.3e}{'' if not compressed else f' (bound {bound:.3e})'}; "
+          f"losses equal per step {loss_equal}; consensus rel gap per "
+          f"step {[f'{c:.1e}' for c in cons]}", flush=True)
+    if compressed:
+        if err > bound:
+            raise AssertionError(f"{tag}: params {err:.3e} from {twin}'s, "
+                                 f"over {bound:.3e}")
+    elif not equal or not all(loss_equal):
+        raise AssertionError(f"{tag}: not bitwise {twin} (params {equal}, "
+                             f"losses {loss_equal})")
 
 
 def main() -> int:
@@ -6754,8 +7305,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     add(*check_mlstm_kernel(torch, mk))
     torch.cuda.empty_cache()
-    add(check_shard_mix_kernel(torch, mc))
-    add(check_shard_cmix_kernel(torch, mc))
+    add(*check_shard_mix_kernel(torch, mc))
+    add(*check_shard_cmix_kernel(torch, mc))
     add(*check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
     add(check_rmsnorm_kernel(torch, rn))
@@ -6789,27 +7340,50 @@ def main() -> int:
     records["cmix_absmax_kernel"]["launches"] = slice2["cmix_absmax"]
     records["mlstm_wgmma_kernel"]["launches"] = run_serving_path(torch)
     torch.cuda.empty_cache()
-    smain, shapes = {}, None
+    from repro_torch.tree import tree_leaves
+    smain, shapes, ref_params = {}, None, {}
     for compressed in (False, True):
         launches, tr, state = run_main_path(torch, mc, compressed=compressed,
-                                            sharded=True)
+                                            sharded=True, trace=compressed)
         key = "shard_cmix" if compressed else "shard_mix"
         records[f"{key}_kernel"]["launches"] = launches[key]
-        # what the rank phases of slice 15 are held against
-        shapes, smain["[dcmain]" if compressed else "[dmain]"] = \
-            smain_reference(torch, tr, state, launches)
+        # what the rank phases of slice 15 and the 2-D paths of slice 16
+        # are held against
+        tag = "[dcmain]" if compressed else "[dmain]"
+        shapes, smain[tag] = smain_reference(torch, tr, state, launches)
+        if compressed:
+            smain[tag]["trace"] = TRACE["[scmain]"]
+        ref_params["[scmain]" if compressed else "[smain]"] = [
+            p.detach().clone() for p in tree_leaves(state.params)]
         sharded_round_times(torch, mc, tr, state, compressed)
         del tr, state
         torch.cuda.empty_cache()
-    # slice 15: the same paths on a rank mesh, 4 ranks sharing the card
-    dist_launches = run_dist_paths(torch, mc, shapes, smain)
+    # slice 16: the same paths on a (data=4, model=2) mesh in this process
+    run_m2round(torch, mc, shapes)
+    for compressed in (False, True):
+        launches, tr, state = run_main_path(torch, mc, compressed=compressed,
+                                            sharded=True,
+                                            model_shards=MAIN_2D_KM)
+        key = "shard_cmix" if compressed else "shard_mix"
+        records[f"{key}_kernel_2d"]["launches"] = launches[key]
+        twin = "[scmain]" if compressed else "[smain]"
+        m2_against_one_d(torch, "[m2cmain]" if compressed else "[m2main]",
+                         twin, state, ref_params.pop(twin), compressed)
+        del tr, state
+        torch.cuda.empty_cache()
+    d2ref = d2_references(torch)
+    # slices 15 and 16: the same paths on rank meshes, 4 ranks sharing the
+    # card
+    dist_launches = run_dist_paths(torch, mc, shapes, smain, d2ref)
     for key in ("shard_mix", "shard_cmix"):
-        records[f"{key}_kernel"]["launches_dist"] = {
-            tag: {key: c[key]} for tag, c in dist_launches.items()
-            if c[key]}
-    del smain
+        for name, tags in ((f"{key}_kernel", ("[dmain]", "[dcmain]")),
+                           (f"{key}_kernel_2d", ("[d2main]", "[d2cmain]"))):
+            records[name]["launches_dist"] = {
+                tag: {key: c[key]} for tag, c in dist_launches.items()
+                if c[key] and tag in tags}
+    del smain, d2ref
     torch.cuda.empty_cache()
-    lap("slices 1-4 and 15")
+    lap("slices 1-4, 15 and 16")
     cross_check(torch)
     cross_check(torch, compressed=True)
     cross_check(torch, sharded=True)

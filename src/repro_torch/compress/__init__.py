@@ -55,29 +55,53 @@ def round_wire_bytes(phase: str, topology: str, n_nodes: int,
                      per_node_params: int, *, comm_dtype: str = "float32",
                      compression: str = "none", k: int = 32,
                      step: int = 0, n_pods: int = 1,
-                     leaf_sizes=None, global_compression: str = "none") -> int:
+                     leaf_sizes=None, global_compression: str = "none",
+                     model_shards: int = 1) -> int:
     """Per-node bytes crossing the interconnect for one round, as the
     reference models them on one device per node: gossip counts one
     payload per nonzero off-diagonal shift; global/pod_avg one operand's
     worth (the compressed collective's codes + exponent bytes when
     ``global_compression`` is lossy); a lossy gossip compressor on pod_avg
     reaches the other ``n/n_pods − 1`` pod members.  Sparsifier ``k`` and
-    quantizer scales are per leaf, hence ``leaf_sizes``."""
+    quantizer scales are per leaf, hence ``leaf_sizes``.
+
+    ``model_shards`` (the model axis of a 2-D ``(node, model)`` mesh)
+    makes the answer per device: the packed columns and the quantizers'
+    code arrays slice over the model axis, each leaf padded to the model
+    grid (hence the per-leaf ceil); the quantizers' per-row scale words
+    and the sparsifiers' payloads ride whole; the compressed collective
+    moves whole ``QBLOCK`` blocks per model slice."""
     from repro_torch.core import topology as topo
 
     elem = 2 if comm_dtype == "bfloat16" else 4
     comp = make_compressor(compression, k=k)
     lossy = comp is not None and comp.lossy
+    quant = lossy and comp.name in ("int8", "fp8")
+    ms = max(int(model_shards), 1)
     sizes = list(leaf_sizes) if leaf_sizes else [per_node_params]
-    dense_cols = sum(sizes)
-    payload = (sum(int(comp.wire_bytes_per_send(1, d)) for d in sizes)
-               if lossy else None)
+    dense_cols = sum(-(-d // ms) for d in sizes)
+    # a sparsifier's round runs model-replicated end to end: its global
+    # phase's operand stays full width per device
+    psum_cols = sum(sizes) if (lossy and not quant) else dense_cols
+    payload = None
+    if lossy:
+        if quant and ms > 1:
+            # code bytes slice; the per-row scale word stays whole
+            payload = sum(-(-d // ms)
+                          + int(comp.wire_bytes_per_send(1, d)) - d
+                          for d in sizes)
+        else:
+            payload = sum(int(comp.wire_bytes_per_send(1, d))
+                          for d in sizes)
     if phase in ("global", "pod_avg") and global_compression in ("int8",
                                                                  "fp8"):
-        return collective_wire_bytes(global_compression, per_node_params)
-    if phase == "global" or (phase == "pod_avg" and not lossy):
-        return dense_cols * elem
+        nb = -(-per_node_params // QBLOCK)
+        return -(-nb // ms) * (QBLOCK + 1)
+    if phase == "global":
+        return psum_cols * elem
     if phase == "pod_avg":
+        if not lossy:
+            return dense_cols * elem
         return (max(n_nodes // max(n_pods, 1), 1) - 1) * payload
     if phase != "gossip" or topology == "disconnected" or n_nodes == 1:
         return 0

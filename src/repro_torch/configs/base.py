@@ -190,6 +190,13 @@ class DistConfig:
     aga_warmup: int = 64             # K_w warmup iterations of the F_init
                                      # running average
     aga_h_max: int = 64              # Corollary 1 requires bounded H
+    # Mesh axes
+    data_axis: str = "data"
+    model_axis: str = "model"        # tensor-parallel mesh axis: on a mesh
+                                     # that has it, the sharded rounds run
+                                     # 2-D (node, model), the packed
+                                     # columns sliced over it
+    pod_axis: str = "pod"
     comm_dtype: str = "float32"      # "bfloat16": bf16 wire cast
     comm_backend: str = "reference"  # "reference": roll/mean mixing
                                      # "pallas": the fused hand-written
@@ -243,6 +250,13 @@ class DistConfig:
             raise ValueError("H must be >= 1")
         if self.node_axis not in ("data", "pod"):
             raise ValueError("node_axis must be 'data' or 'pod'")
+        if (not self.model_axis
+                or self.model_axis in (self.data_axis, self.pod_axis)):
+            raise ValueError(
+                f"model_axis must be a mesh axis name distinct from "
+                f"data_axis={self.data_axis!r} and "
+                f"pod_axis={self.pod_axis!r} (got {self.model_axis!r}) — "
+                f"the 2-D comm path slices packed columns over it")
         if self.comm_backend not in ("reference", "pallas"):
             raise ValueError("comm_backend must be 'reference' or 'pallas'")
         if self.comm_dtype not in ("float32", "bfloat16"):
@@ -327,6 +341,7 @@ class DistConfig:
             backend=self.comm_backend,
             mesh=mesh,
             node_axis=self.node_axis,
+            model_axis=self.model_axis,
             shard_mode=self.comm_shard_mode,
             leaf_threshold=self.pallas_leaf_threshold,
             comm_dtype=(torch.bfloat16 if self.comm_dtype == "bfloat16"

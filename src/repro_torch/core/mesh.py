@@ -35,9 +35,22 @@ directory), joins them under a time limit and raises with the failing
 rank's traceback: the one-machine counterpart of the reference's forced
 host devices, used by the rank tests and ``chip_smoke.py``.
 
-Not ported (``NotImplementedError``, ROADMAP A.10): a model axis of more
-than one shard (2-D ``(node, model)`` meshes, A.10.2), and a local mesh
-over several cards.
+2-D ``(node, model)`` meshes (ROADMAP A.10.2): a mesh may carry a model
+axis (``DistConfig.model_axis``, ``"model"`` by default) beside its node
+axes, ``(data, model)`` or ``(pod, data, model)``.  The sharded rounds
+then also slice the packed columns over it (``core/mixing.py``): block
+(node shard r, model shard c) is the m rows of shard r in column chunk c.
+On a local mesh every block lives in this process.  A rank mesh has one
+rank per block, row-major over the axes; a rank holds the m rows of its
+node shard whole (the forward needs whole params) and owns column chunk
+c in a round.  Its ``exchange`` is then the node-axis sub-exchange (the
+k ranks with the same c: halo, fixed-order sum, ``all_to_all``,
+``all_gather``) and ``model_exchange`` the model-axis one (the k_model
+ranks with the same r), whose ``all_gather`` puts a round's chunks back
+into whole rows.  Every rank creates the sub-groups in the same order.
+
+Not ported (``NotImplementedError``, ROADMAP A.10): a local mesh over
+several cards.
 """
 from __future__ import annotations
 
@@ -62,8 +75,11 @@ _ALIGN = 16          # byte alignment of each array in a packed message
 class Mesh:
     """Named mesh axes over shards that sit on ``device``.  ``group`` (a
     ``torch.distributed`` process group of one rank per shard) makes it a
-    rank mesh: this process is shard ``rank`` and moves rows through
-    ``exchange``."""
+    rank mesh: this process is shard ``rank`` (row-major over the axes),
+    node shard ``node_rank`` of ``node_count`` and model shard
+    ``model_rank`` of ``k_model``; it moves rows through ``exchange``
+    (over the node axes) and ``model_exchange`` (over ``model_axis``,
+    None when that axis has one shard)."""
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: torch.device
@@ -71,6 +87,11 @@ class Mesh:
     rank: int = 0
     exchange: Optional["Exchange"] = dataclasses.field(default=None,
                                                        compare=False)
+    model_axis: Optional[str] = None
+    node_rank: int = 0
+    model_rank: int = 0
+    model_exchange: Optional["Exchange"] = dataclasses.field(
+        default=None, compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -89,13 +110,23 @@ class Mesh:
 
     @property
     def distributed(self) -> bool:
-        """True for a rank mesh (one process per node shard)."""
+        """True for a rank mesh (one process per block)."""
         return self.group is not None
+
+    @property
+    def k_model(self) -> int:
+        """A rank mesh's model shards (1 without a model axis)."""
+        return self.shape.get(self.model_axis, 1) if self.model_axis else 1
+
+    @property
+    def node_count(self) -> int:
+        """A rank mesh's node shards: its ranks over ``k_model``."""
+        return self.size // self.k_model
 
     def owned_shards(self, k: int) -> Tuple[int, ...]:
         """Of a round's k node shards, the ones this process holds rows
         of, in row order: all k, or this rank's."""
-        return (self.rank,) if self.distributed else tuple(range(k))
+        return (self.node_rank,) if self.distributed else tuple(range(k))
 
 
 def _physical(device) -> Tuple[str, int]:
@@ -116,7 +147,10 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
 
     With ``group``, a ``torch.distributed`` process group of one rank per
     shard: this process is shard ``group.rank()``, on ``devices[rank]``
-    when ``devices`` is given, else on ``device``.
+    when ``devices`` is given, else on ``device``.  Its node axes are
+    ``pod`` and ``data``; one more axis, of more than one shard, is the
+    model axis, and the group is then split into node-axis and model-axis
+    sub-groups (collectively: every rank of ``group`` must call this).
     """
     shapes = tuple(int(s) for s in axis_shapes)
     names = tuple(axis_names)
@@ -131,30 +165,93 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
     if devices is not None and len(devices) != size:
         raise ValueError(f"make_mesh: {len(devices)} devices for a mesh "
                          f"of {shapes}")
-    if dict(zip(names, shapes)).get("model", 1) > 1:
-        # the reference's tensor-parallel axis (DistConfig.model_axis)
-        raise not_ported("2-D (node, model) meshes", "A.10.2")
-    rank = 0
-    if group is not None:
-        import torch.distributed as dist
-        if dist.get_world_size(group) != size:
-            raise ValueError(f"make_mesh: a group of "
-                             f"{dist.get_world_size(group)} ranks for a "
-                             f"mesh of {size} shards")
-        rank = dist.get_rank(group)
+    if group is None:
         if devices is not None:
-            device = devices[rank]
-    elif devices is not None:
-        if len({_physical(d) for d in devices}) > 1:
-            raise not_ported("a one-process mesh over several cards (give "
-                             "make_mesh a process group instead)", "A.10")
-        device = devices[0]
+            if len({_physical(d) for d in devices}) > 1:
+                raise not_ported("a one-process mesh over several cards "
+                                 "(give make_mesh a process group "
+                                 "instead)", "A.10")
+            device = devices[0]
+        return Mesh(axis_names=names, axis_sizes=shapes,
+                    device=_resolve(device))
+    import torch.distributed as dist
+    if dist.get_world_size(group) != size:
+        raise ValueError(f"make_mesh: a group of {dist.get_world_size(group)}"
+                         f" ranks for a mesh of {size} shards")
+    rank = dist.get_rank(group)
+    dev = _resolve(devices[rank] if devices is not None else device)
+    others = [a for a, k in zip(names, shapes)
+              if a not in ("pod", "data") and k > 1]
+    if len(others) > 1:
+        raise ValueError(f"make_mesh: a rank mesh has node axes (pod, "
+                         f"data) and at most one model axis, got "
+                         f"{dict(zip(names, shapes))}")
+    if not others or len(names) == 1:     # one node shard a rank
+        return Mesh(axis_names=names, axis_sizes=shapes, device=dev,
+                    group=group, rank=rank, exchange=Exchange(group, dev),
+                    node_rank=rank)
+    model_axis = others[0]
+    node_group, model_group, node_rank, model_rank = _sub_groups(
+        group, shapes, names, model_axis)
+    return Mesh(axis_names=names, axis_sizes=shapes, device=dev, group=group,
+                rank=rank, exchange=Exchange(node_group, dev),
+                model_axis=model_axis, node_rank=node_rank,
+                model_rank=model_rank,
+                model_exchange=Exchange(model_group, dev))
+
+
+def _resolve(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    exchange = Exchange(group, dev) if group is not None else None
-    return Mesh(axis_names=names, axis_sizes=shapes, device=dev,
-                group=group, rank=rank, exchange=exchange)
+    return dev
+
+
+def _sub_groups(group, shapes, names, model_axis: str):
+    """The node-axis and model-axis sub-groups of a 2-D rank mesh and this
+    rank's ``(node_group, model_group, node_rank, model_rank)``.  Block
+    coordinates are row-major over the axes; the node index is row-major
+    over the node axes in ``(pod, data)`` order, which must be the order
+    of the ranks (a group lists its ranks in ascending order).  Every rank
+    creates every sub-group, model chunks first, in the same order."""
+    import torch.distributed as dist
+    size = int(np.prod(shapes, dtype=np.int64))
+    mi = names.index(model_axis)
+    node_axes = [i for i in range(len(names)) if i != mi]
+    order = sorted(node_axes, key=lambda i: ("pod", "data").index(names[i])
+                   if names[i] in ("pod", "data") else 2)
+    gl = [dist.get_global_rank(group, g) for g in range(size)]
+    coords = [np.unravel_index(g, shapes) for g in range(size)]
+
+    def node_index(cd):
+        idx = 0
+        for i in order:
+            idx = idx * shapes[i] + int(cd[i])
+        return idx
+
+    k_model = shapes[mi]
+    k = size // k_model
+    by_chunk = [[g for g in range(size) if int(coords[g][mi]) == c]
+                for c in range(k_model)]
+    by_node = [[g for g in range(size) if node_index(coords[g]) == r]
+               for r in range(k)]
+    for ranks in by_chunk:
+        if [node_index(coords[g]) for g in ranks] != list(range(k)):
+            raise ValueError(f"make_mesh: the rank mesh "
+                             f"{dict(zip(names, shapes))} must list its node "
+                             f"axes in (pod, data) order")
+    me = dist.get_rank(group)
+    node_group = model_group = None
+    for ranks in by_chunk:
+        g = dist.new_group([gl[i] for i in ranks])
+        if me in ranks:
+            node_group = g
+    for ranks in by_node:
+        g = dist.new_group([gl[i] for i in ranks])
+        if me in ranks:
+            model_group = g
+    return (node_group, model_group, node_index(coords[me]),
+            int(coords[me][mi]))
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +304,8 @@ class Exchange:
         self.group = group
         self.k = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        # point-to-point ops name their peers by global rank
+        self._peers = [dist.get_global_rank(group, g) for g in range(self.k)]
         self.device = torch.device(device)
         self.backend = str(dist.get_backend(group)).lower()
         kind = (self.backend, self.device.type)
@@ -295,10 +394,10 @@ class Exchange:
     def sendrecv(self, sends: Sequence[Tuple[int, torch.Tensor]],
                  recvs: Sequence[Tuple[int, torch.Tensor]]) -> None:
         """Point-to-point: each ``(peer, tensor)`` of ``sends`` goes to
-        ``peer``, each of ``recvs`` is filled (in place, its bytes) from
-        ``peer``.  Every send and receive is posted together
-        (``batch_isend_irecv``) and waited for; at most one message a
-        direction between two ranks."""
+        ``peer`` (a rank of this exchange's group), each of ``recvs`` is
+        filled (in place, its bytes) from ``peer``.  Every send and
+        receive is posted together (``batch_isend_irecv``) and waited for;
+        at most one message a direction between two ranks."""
         import torch.distributed as dist
         if not sends and not recvs:
             return
@@ -310,9 +409,9 @@ class Exchange:
                if self.staged else [t.view(-1).view(torch.uint8)
                                     for t in dsts])
         t0 = time.perf_counter()
-        ops = ([dist.P2POp(dist.isend, m, p, self.group)
+        ops = ([dist.P2POp(dist.isend, m, self._peers[p], self.group)
                 for (p, _), m in zip(sends, out)]
-               + [dist.P2POp(dist.irecv, m, p, self.group)
+               + [dist.P2POp(dist.irecv, m, self._peers[p], self.group)
                   for (p, _), m in zip(recvs, inb)])
         for req in dist.batch_isend_irecv(ops):
             req.wait()

@@ -66,7 +66,13 @@ route, which bypasses :func:`communicate`, meters through
 step variant's first call only, so a run emits one record per round of
 each variant, as the reference's traced meters do.
 
-2-D ``(node, model)`` meshes are not ported yet (ROADMAP A.10.2).
+2-D rounds (ROADMAP A.10.2): on a mesh that also has a model axis
+(``CommSpec.model_axis``) every sharded round slices the packed columns
+into k_model chunks (the reference's ``flatten_nodes_sharded`` layout),
+each packed into its own contiguous tensor, and runs the shard bodies
+chunk by chunk on ``(m, D/k_model)`` blocks (see
+:func:`communicate_sharded`); the compressed collective slices the plain
+packed columns, as the reference does.
 """
 from __future__ import annotations
 
@@ -94,14 +100,16 @@ SHARD_MODES = ("auto", "stacked", "sharded")
 class CommSpec:
     """Round-invariant communication configuration.  ``mesh`` (a
     :class:`repro_torch.core.mesh.Mesh`, or None), ``node_axis`` and
-    ``shard_mode`` route the fused backend through the sharded rounds.
-    Build it with ``DistConfig.comm_spec``."""
+    ``shard_mode`` route the fused backend through the sharded rounds;
+    ``model_axis`` names the mesh axis they slice the packed columns over
+    (2-D rounds).  Build it with ``DistConfig.comm_spec``."""
     topology: str
     n_nodes: int
     n_pods: int = 1
     backend: str = "reference"
     mesh: Any = None
     node_axis: str = "data"
+    model_axis: str = "model"
     shard_mode: str = "auto"
     leaf_threshold: Optional[int] = None
     comm_dtype: Any = None           # None or torch.bfloat16
@@ -140,7 +148,7 @@ class CommSpec:
     def uses_sharded(self) -> bool:
         """True when rounds route through the sharded per-shard path."""
         return use_sharded_backend(self.backend, self.mesh, self.node_axis,
-                                   self.shard_mode)
+                                   self.shard_mode, self.model_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -160,13 +168,16 @@ def _meter(tel, params: PyTree, spec: "CommSpec", *, phase: str, step: int,
         from repro_torch.obs import meters as obs_meters
         if spec.mesh is not None and spec.mesh.distributed:
             params, wires = _global_shapes(params, wires, spec.n_nodes)
+        sharded = spec.uses_sharded()
+        km = (model_shard_count(spec.mesh, spec.model_axis, spec.node_axis)
+              if sharded else 1)
         fields = obs_meters.comm_round_fields(
             params, phase=phase, topology=spec.topology,
             n_nodes=spec.n_nodes, step=int(step), n_pods=spec.n_pods,
-            backend=spec.backend, sharded=spec.uses_sharded(),
+            backend=spec.backend, sharded=sharded,
             comm_dtype=spec.comm_dtype, compressor=spec.compressor,
-            global_compressor=spec.global_compressor, wires=wires,
-            role=role)
+            global_compressor=spec.global_compressor, model_shards=km,
+            wires=wires, role=role)
         tel.emit("comm_round", **fields)
     except Exception as e:                           # pragma: no cover
         warnings.warn(f"mixing: comm_round meter failed ({e}); "
@@ -250,8 +261,42 @@ def node_shard_count(mesh, node_axis: str = "data") -> int:
         if names else 1
 
 
+def model_axis_names(mesh, model_axis: str = "model",
+                     node_names: Tuple[str, ...] = ()) -> Tuple[str, ...]:
+    """Mesh axis names forming the tensor-parallel model axis of the 2-D
+    ``(node, model)`` sharded rounds (``DistConfig.model_axis``): the
+    named axis when ``mesh`` has it and it is not part of the node axis,
+    else ``()`` (columns replicated: the 1-D rounds)."""
+    if not model_axis:
+        return ()
+    axes = dict(mesh.shape)
+    if model_axis in axes and model_axis not in node_names:
+        return (model_axis,)
+    return ()
+
+
+def _model_names_count(mesh, model_axis: str, node_names: Tuple[str, ...]):
+    """``(mnames, k_model)`` of one sharded round: the one resolution of
+    the model axis every sharded entry point shares."""
+    mnames = model_axis_names(mesh, model_axis, node_names=node_names)
+    km = int(np.prod([mesh.shape[a] for a in mnames], dtype=np.int64)) \
+        if mnames else 1
+    return mnames, km
+
+
+def model_shard_count(mesh, model_axis: str = "model",
+                      node_axis: str = "data") -> int:
+    """How many column slices the model axis splits the packed state into
+    on ``mesh`` (1 = replicated columns, the 1-D rounds)."""
+    if mesh is None:
+        return 1
+    names = node_axis_names(mesh, node_axis)
+    return _model_names_count(mesh, model_axis, names)[1]
+
+
 def use_sharded_backend(backend: str, mesh, node_axis: str = "data",
-                        shard_mode: str = "auto") -> bool:
+                        shard_mode: str = "auto",
+                        model_axis: str = "model") -> bool:
     """True when ``communicate`` should route the fused backend through
     the sharded rounds: the node axis has several shards and the mode
     allows it."""
@@ -259,14 +304,19 @@ def use_sharded_backend(backend: str, mesh, node_axis: str = "data",
         raise ValueError(f"unknown comm_shard_mode {shard_mode!r} "
                          f"(expected one of {SHARD_MODES})")
     if mesh is not None and mesh.distributed:
-        # a rank holds only its own rows: there is no stacked round
+        # a rank holds only its own rows: there is no stacked round, and
+        # every mesh axis is a node axis or the model axis
+        km = model_shard_count(mesh, model_axis, node_axis)
         if backend != "pallas" or shard_mode == "stacked" \
-                or node_shard_count(mesh, node_axis) != mesh.size:
+                or node_shard_count(mesh, node_axis) * km != mesh.size \
+                or km != mesh.k_model:
             raise ValueError(
                 "a rank mesh runs only the sharded rounds over all its "
                 "shards (comm_backend='pallas', comm_shard_mode 'auto' or "
                 f"'sharded'; got backend={backend!r}, shard_mode="
-                f"{shard_mode!r}, node_axis={node_axis!r})")
+                f"{shard_mode!r}, node_axis={node_axis!r}, model_axis="
+                f"{model_axis!r} on a mesh {dict(mesh.shape)} split over "
+                f"{mesh.model_axis!r})")
         return True
     if backend != "pallas" or shard_mode == "stacked":
         return False
@@ -829,6 +879,57 @@ def _shard_mix_rounds(x: torch.Tensor, offsets, Mstack, dstack, k: int,
     return out, (_shard_sum(mesh, parts) if with_residual else None)
 
 
+# ---------------------------------------------------------------------------
+# 2-D rounds: the packed columns in model chunks
+# ---------------------------------------------------------------------------
+def _owned_chunks(mesh, kc: int) -> Tuple[int, ...]:
+    """Of a round's ``kc`` column chunks, the ones this process computes:
+    all of them on a local mesh, this rank's on a 2-D rank mesh (a round
+    of one chunk on a 2-D rank mesh, a sparsifier's, runs whole on every
+    model rank)."""
+    if mesh.distributed and kc > 1:
+        return (mesh.model_rank,)
+    return tuple(range(kc))
+
+
+def _gather_chunks(mesh, kc: int, outs: Dict[int, list]) -> list:
+    """Per output, its ``kc`` column chunks in chunk order: ``outs[c]``
+    holds the outputs (tensors of the same rows) of each chunk c this
+    process computed; on a 2-D rank mesh every model rank's chunk is
+    gathered across the model axis (``model_exchange.all_gather`` of one
+    packed message; exact: the chunks' columns are disjoint)."""
+    if not (mesh.distributed and kc > 1):
+        return [[outs[c][i] for c in range(kc)] for i in range(len(outs[0]))]
+    from repro_torch.core.mesh import pack_arrays, unpack_arrays
+    (mine,) = outs.values()
+    got = [unpack_arrays(g, mine)
+           for g in mesh.model_exchange.all_gather(pack_arrays(mine))]
+    return [[g[i] for g in got] for i in range(len(mine))]
+
+
+def _chunk_sum(mesh, kc: int, vals: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """The left fold over the ``kc`` column chunks, in chunk order, of
+    one scalar per chunk (gathered across the model axis on a 2-D rank
+    mesh): one chunk's scalar as it is."""
+    if mesh.distributed and kc > 1:
+        (v,) = vals.values()
+        seq = [g[0] for g in mesh.model_exchange.all_gather(v.reshape(1))]
+    else:
+        seq = [vals[c] for c in range(kc)]
+    acc = None
+    for v in seq:
+        acc = v if acc is None else acc + v
+    return acc
+
+
+def _quant_chunks(compressor, km: int) -> int:
+    """The column chunks of a compressed gossip round on a mesh of ``km``
+    model shards: the quantizers' code arrays share the leaves' column
+    layout and slice; the sparsifiers' payloads (values and leaf-global
+    index sets) cannot, and ride whole (one chunk, the 1-D round)."""
+    return km if compressor.name in ("int8", "fp8") else 1
+
+
 def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
                         step: int = 0, grads: Optional[PyTree] = None,
                         gamma=None, with_residual: bool = False,
@@ -852,6 +953,18 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
     mixed rows.  The ``"global"`` phase is the fixed-order sum of the
     shards' wire-cast column sums, divided by n and broadcast to every
     row.
+
+    On a mesh with a model axis (``spec.model_axis``, k_model > 1) the
+    round runs **2-D**: the packed columns are sliced into k_model chunks
+    in the reference's ``flatten_nodes_sharded`` layout
+    (:class:`repro_torch.kernels.mixing_cuda.ModelChunks`), each chunk
+    packed into its own contiguous ``(rows, W)`` tensor, and the round
+    above runs chunk by chunk on ``(m, W)`` blocks: halos move only the
+    chunk's columns, sums run over the node shards only.  Every column's
+    result is the 1-D round's bits; only the consensus residual, a sum
+    over blocks, folds in another order (over the shards per chunk, then
+    over the chunks).  On a 2-D rank mesh a rank computes its own chunk,
+    then the chunks are gathered across the model axis into whole rows.
 
     With ``grads``/``gamma`` the SGD half-step is applied before the
     exchange.  With ``with_residual`` returns ``(mixed, x̄, Σ_i‖x_i −
@@ -879,6 +992,7 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
         raise ValueError(f"{who}: no sharded kernel for phase {phase!r}")
     if phase == "pod_avg":
         _check_pods(n_nodes, n_pods, "mixing.communicate_sharded")
+    km = model_shard_count(mesh, spec.model_axis, spec.node_axis)
     exact = spec.replace(compressor=None, global_compressor=None)
     fused = grads is not None or with_residual
     if global_compressor is not None and phase in ("global", "pod_avg"):
@@ -891,6 +1005,7 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
                 params, compressor=global_compressor, ef_state=ef_state,
                 seed=seed, phase=phase, n_nodes=n_nodes, n_pods=n_pods,
                 mesh=mesh, node_axis=spec.node_axis,
+                model_axis=spec.model_axis,
                 caller="mixing.communicate_sharded")
         # identity collective: the exact path; the global codec supersedes
         # the gossip compressor for the averaging phases
@@ -906,46 +1021,64 @@ def communicate_sharded(params: PyTree, spec: CommSpec, *, phase: str,
         return _communicate_sharded_compressed(
             params, compressor=compressor, ef_state=ef_state, seed=seed,
             phase=phase, topology=topology, n_nodes=n_nodes, step=step,
-            n_pods=n_pods, k=k, comm_dtype=comm_dtype, mesh=mesh)
+            n_pods=n_pods, k=k, comm_dtype=comm_dtype, mesh=mesh, km=km)
     if grads is not None and gamma is None:
         raise ValueError("grads given without gamma")
     # grid gossip ignores comm_dtype in the reference path — mirror that
     wire_dtype = None if (phase == "gossip" and topology == "grid") \
         else comm_dtype
     n = n_nodes
-    x, unflatten = mixing_cuda.flatten_nodes(params)
-    x = x.contiguous()
-    owned, m = _owned_rows(x, mesh, k, n, who)
+    lay = mixing_cuda.ModelChunks(params, km)
+    gam = None
     if grads is not None:
-        gam = gamma if torch.is_tensor(gamma) else torch.tensor(
-            gamma, dtype=torch.float32)
-        x = x - gam.to(torch.float32) * mixing_cuda.flatten_nodes(grads)[0]
-
-    if phase == "global":
-        parts = []
-        for j in range(len(owned)):
-            xr = x[j * m:(j + 1) * m]
-            if wire_dtype is not None:
-                xr = xr.to(wire_dtype).to(torch.float32)
-            parts.append(torch.sum(xr, dim=0, keepdim=True))
-        xbar = _divide(_shard_sum(mesh, parts), n)
-        mixed = unflatten(xbar.expand(x.shape).contiguous())
+        gam = (gamma if torch.is_tensor(gamma) else torch.tensor(
+            gamma, dtype=torch.float32)).to(torch.float32)
+    if phase != "global":
+        offsets, Mstack, dstack, _ = _device_shard_blocks(
+            phase, topology, n, step, n_pods, k,
+            tree_leaves(params)[0].device)
+    outs, resids, rows = {}, {}, 0
+    for c in _owned_chunks(mesh, km):
+        x = lay.chunk(params, c)
+        owned, m = _owned_rows(x, mesh, k, n, who)
+        rows = x.shape[0]
+        if grads is not None:
+            x = x - gam * lay.chunk(grads, c)
+        if phase == "global":
+            parts = []
+            for j in range(len(owned)):
+                xr = x[j * m:(j + 1) * m]
+                if wire_dtype is not None:
+                    xr = xr.to(wire_dtype).to(torch.float32)
+                parts.append(torch.sum(xr, dim=0, keepdim=True))
+            outs[c] = [_divide(_shard_sum(mesh, parts), n)]
+            continue
+        out, acc = _shard_mix_rounds(x, offsets, Mstack, dstack, k,
+                                     wire_dtype, with_residual, mesh=mesh,
+                                     n=n)
+        del x
+        outs[c] = [out]
         if with_residual:
-            return (mixed, unflatten(xbar, drop_node=True),
-                    torch.zeros((), dtype=torch.float32, device=x.device))
+            xbar = _divide(acc, n)
+            outs[c].append(xbar)
+            resids[c] = _shard_sum(mesh, [
+                torch.sum((out[j * m:(j + 1) * m] - xbar).square_())
+                for j in range(len(owned))])
+    got = _gather_chunks(mesh, km, outs)
+    del outs
+    if phase == "global":
+        xbar = lay.unflatten(got[0], drop_node=True)
+        mixed = tree_map(lambda p: p[None].expand(
+            (rows,) + tuple(p.shape)).contiguous(), xbar)
+        if with_residual:
+            return mixed, xbar, torch.zeros((), dtype=torch.float32,
+                                            device=got[0][0].device)
         return mixed
-
-    offsets, Mstack, dstack, _ = _device_shard_blocks(
-        phase, topology, n, step, n_pods, k, x.device)
-    out, acc = _shard_mix_rounds(x, offsets, Mstack, dstack, k, wire_dtype,
-                                 with_residual, mesh=mesh, n=n)
+    mixed = lay.unflatten(got[0])
     if not with_residual:
-        return unflatten(out)
-    xbar = _divide(acc, n)
-    parts = [torch.sum((out[j * m:(j + 1) * m] - xbar).square_())
-             for j in range(len(owned))]
-    return (unflatten(out), unflatten(xbar, drop_node=True),
-            _shard_sum(mesh, parts))
+        return mixed
+    return (mixed, lay.unflatten(got[1], drop_node=True),
+            _chunk_sum(mesh, km, resids))
 
 
 def _shard_rows(arrs, rows: int, j: int, m: int):
@@ -954,6 +1087,27 @@ def _shard_rows(arrs, rows: int, j: int, m: int):
     process's node rows); node-independent arrays (leading axis 1, e.g.
     randk's shared column indices) ride whole."""
     return [a[j * m:(j + 1) * m] if a.shape[0] == rows else a for a in arrs]
+
+
+def _chunk_wires(arrs, rows: int, c: int, kc: int):
+    """Column chunk c of a round's flat wire arrays: an array whose
+    columns slice over the model axis
+    (:func:`repro_torch.models.sharding.wire_column_spec`: node-stacked,
+    its columns a multiple of ``kc``) gives its c-th column slice; the
+    others (per-row scales, node-independent arrays) ride whole."""
+    if kc == 1:
+        return arrs
+    from repro_torch.models.sharding import wire_column_spec
+    out = []
+    for a in arrs:
+        spec = wire_column_spec(tuple(a.shape), rows, ("node",), ("model",),
+                                kc)
+        if len(spec) >= 2 and spec[-1] is not None:
+            w = a.shape[-1] // kc
+            out.append(a[..., c * w:(c + 1) * w])
+        else:
+            out.append(a)
+    return out
 
 
 def _halo_wires(mesh, arrs, rows: int, r: int, j: int, offsets, m: int,
@@ -978,28 +1132,35 @@ def _halo_wires(mesh, arrs, rows: int, r: int, j: int, offsets, m: int,
     return out
 
 
-def _sharded_wire_build(params: PyTree, *, compressor, ef_state, seed):
+def _sharded_wire_build(params: PyTree, *, compressor, ef_state, seed,
+                        kc: int = 1):
     """Row-local compression of the node-stacked rows of ``params`` into
     per-leaf wire arrays (+ the EF update), as every shard compresses its
-    own rows.  Returns ``(wires, new_ef_state, sizes)`` with ``sizes`` the
-    per-leaf column widths the decode side needs."""
+    own rows.  With ``kc`` column chunks each leaf's rows are zero-padded
+    to a multiple of ``kc`` first (appended zero columns: the scales and
+    the column hash's draws on real columns are the 1-D round's, and pad
+    columns code to zero).  Returns ``(wires, new_ef_state, widths)``,
+    ``widths`` each leaf's columns in one chunk (the decode side's)."""
     from repro_torch import compress as compress_mod
+    from repro_torch.compress.collective import pad_cols
 
     leaves = tree_leaves(params)
     rows = leaves[0].shape[0]
     sizes = [int(np.prod(lf.shape[1:], dtype=np.int64)) for lf in leaves]
-    x2 = [lf.reshape(rows, -1).to(torch.float32) for lf in leaves]
+    x2 = [pad_cols(lf.reshape(rows, -1).to(torch.float32), kc)
+          for lf in leaves]
     e2 = None
     if ef_state is not None:
         ef_leaves, ef_def = tree_flatten(ef_state)
-        e2 = [e.reshape(rows, -1).to(torch.float32) for e in ef_leaves]
+        e2 = [pad_cols(e.reshape(rows, -1).to(torch.float32), kc)
+              for e in ef_leaves]
     wires, new_e2 = compress_mod.compress_tree(compressor, x2, e2, seed)
     new_ef = None
     if ef_state is not None:
         new_ef = tree_unflatten(ef_def, [
-            e.reshape(lf.shape).to(lf.dtype)
-            for e, lf in zip(new_e2, ef_leaves)])
-    return wires, new_ef, sizes
+            e[:, :s].reshape(lf.shape).to(lf.dtype)
+            for e, s, lf in zip(new_e2, sizes, ef_leaves)])
+    return wires, new_ef, [-(-s // kc) for s in sizes]
 
 
 def _wire_arrays(wires):
@@ -1010,7 +1171,8 @@ def _wire_arrays(wires):
 def _wire_build_q(compressor, wires, sizes):
     """Factory of the row-block estimate rebuild: ``build_q(arrs, out)``
     decodes a flat list of wire arrays into the dense ``(rows, D)``
-    estimate, leaf by leaf into ``out``'s column ranges."""
+    estimate, leaf by leaf into ``out``'s column ranges (``sizes``: each
+    leaf's columns, one chunk's on a 2-D round)."""
     from repro_torch.compress import LeafWire
 
     counts = [len(w.payload) + len(w.aux) for w in wires]
@@ -1033,85 +1195,97 @@ def _wire_build_q(compressor, wires, sizes):
 def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
                                     seed, phase: str, topology: str,
                                     n_nodes: int, step: int, n_pods: int,
-                                    k: int, comm_dtype=None, mesh):
+                                    k: int, comm_dtype=None, mesh,
+                                    km: int = 1):
     """Compressed sharded round: each shard's rows are compressed
     (row-local, :func:`_sharded_wire_build`), then the gossip and pod
     phases run :func:`_sharded_compensated_gossip` on the wires.  The
     ``"global"`` phase applies ``x + (q̄ − q)``
     around the fixed-order sum of the shards' column sums of ``q``,
-    wire-cast per ``comm_dtype`` (both occurrences).  Returns ``(mixed,
-    new_ef_state)``."""
+    wire-cast per ``comm_dtype`` (both occurrences).  On ``km`` model
+    shards a quantizer's round runs 2-D (its code arrays column-sliced
+    with the packed matrix, the per-row scales whole), a sparsifier's
+    1-D (:func:`_quant_chunks`).  Returns ``(mixed, new_ef_state)``."""
     from repro_torch.kernels import mixing_cuda
 
-    wires, new_ef, sizes = _sharded_wire_build(
-        params, compressor=compressor, ef_state=ef_state, seed=seed)
-    if phase == "global":
-        arrs = _wire_arrays(wires)
-        build_q = _wire_build_q(compressor, wires, sizes)
-        x, unflatten = mixing_cuda.flatten_nodes(params)
-        x = x.contiguous()
-        owned, m = _owned_rows(x, mesh, k, n_nodes,
-                               "communicate_sharded")
+    kc = _quant_chunks(compressor, km)
+    wires, new_ef, widths = _sharded_wire_build(
+        params, compressor=compressor, ef_state=ef_state, seed=seed, kc=kc)
+    if phase != "global":
+        return _sharded_compensated_gossip(
+            params, wires, compressor=compressor, widths=widths,
+            phase=phase, topology=topology, n_nodes=n_nodes, step=step,
+            n_pods=n_pods, k=k, mesh=mesh, kc=kc), new_ef
+    arrs = _wire_arrays(wires)
+    build_q = _wire_build_q(compressor, wires, widths)
+    lay = mixing_cuda.ModelChunks(params, kc)
+    outs = {}
+    for c in _owned_chunks(mesh, kc):
+        x = lay.chunk(params, c)
+        owned, m = _owned_rows(x, mesh, k, n_nodes, "communicate_sharded")
+        arrs_c = _chunk_wires(arrs, x.shape[0], c, kc)
         q = torch.empty_like(x)
         parts = []
         for j in range(len(owned)):
-            qr = build_q(_shard_rows(arrs, x.shape[0], j, m),
+            qr = build_q(_shard_rows(arrs_c, x.shape[0], j, m),
                          q[j * m:(j + 1) * m])
             if comm_dtype is not None:
                 qr.copy_(qr.to(comm_dtype))
             parts.append(torch.sum(qr, dim=0, keepdim=True))
-        return unflatten(x + (_divide(_shard_sum(mesh, parts), n_nodes)
-                              - q)), new_ef
-    return _sharded_compensated_gossip(
-        params, wires, compressor=compressor, sizes=sizes, phase=phase,
-        topology=topology, n_nodes=n_nodes, step=step, n_pods=n_pods,
-        k=k, mesh=mesh), new_ef
+        outs[c] = [x + (_divide(_shard_sum(mesh, parts), n_nodes) - q)]
+        del x, q
+    return lay.unflatten(_gather_chunks(mesh, kc, outs)[0]), new_ef
 
 
 def _sharded_compensated_gossip(params: PyTree, wires, *, compressor,
-                                sizes, phase: str, topology: str,
+                                widths, phase: str, topology: str,
                                 n_nodes: int, step: int, n_pods: int,
-                                k: int, mesh) -> PyTree:
+                                k: int, mesh, kc: int = 1) -> PyTree:
     """The apply half of a compressed sharded gossip (or pod) round: shard
     by shard, the wire arrays of the row-blocks the round's block
     decomposition names are gathered (:func:`_halo_wires`) and decoded
-    into their estimates ``qs`` (``sizes``: each leaf's column width), and
-    ``shard_cmix.cu`` writes ``x_r + (M_r · qs − (1 − d_r) ⊙ q_self)``
-    into the shard's rows of one fresh output.  ``wires`` may be the
-    buffered, one-step-stale payload of an overlapped round
-    (:func:`finish_round`): the compensation keeps the node average for
-    any estimate, so the synchronous and the overlapped rounds share this
-    apply."""
+    into their estimates ``qs`` (``widths``: each leaf's columns in one of
+    the ``kc`` column chunks), and ``shard_cmix.cu`` writes ``x_r + (M_r ·
+    qs − (1 − d_r) ⊙ q_self)`` into the shard's rows of one fresh output,
+    chunk by chunk.  ``wires`` may be the buffered, one-step-stale payload
+    of an overlapped round (:func:`finish_round`): the compensation keeps
+    the node average for any estimate, so the synchronous and the
+    overlapped rounds share this apply."""
     from repro_torch.kernels import mixing_cuda
 
     n = n_nodes
     arrs = _wire_arrays(wires)
-    build_q = _wire_build_q(compressor, wires, sizes)
-    x, unflatten = mixing_cuda.flatten_nodes(params)
-    x = x.contiguous()
-    owned, m = _owned_rows(x, mesh, k, n, "communicate_sharded")
-    rows, D = x.shape
+    build_q = _wire_build_q(compressor, wires, widths)
+    lay = mixing_cuda.ModelChunks(params, kc)
     offsets, Mstack, _, wstack = _device_shard_blocks(
-        phase, topology, n, step, n_pods, k, x.device)
-    out = torch.empty_like(x)
-    for j, r in enumerate(owned):
-        qs = torch.empty((len(offsets) * m, D), dtype=torch.float32,
-                         device=x.device)
-        for jq, blk in enumerate(_halo_wires(mesh, arrs, rows, r, j,
-                                             offsets, m, k)):
-            build_q(blk, qs[jq * m:(jq + 1) * m])
-        if 0 in offsets:
-            j0 = offsets.index(0)
-            q_self = qs[j0 * m:(j0 + 1) * m]
-        else:
-            q_self = build_q(_shard_rows(arrs, rows, j, m),
-                             torch.empty((m, D), dtype=torch.float32,
-                                         device=x.device))
-        mixing_cuda.shard_comp_mix_block(
-            x[j * m:(j + 1) * m], q_self, qs, wstack[r], Mstack[r],
-            out=out[j * m:(j + 1) * m])
-        del qs, q_self
-    return unflatten(out)
+        phase, topology, n, step, n_pods, k, tree_leaves(params)[0].device)
+    outs = {}
+    for c in _owned_chunks(mesh, kc):
+        x = lay.chunk(params, c)
+        owned, m = _owned_rows(x, mesh, k, n, "communicate_sharded")
+        rows, D = x.shape
+        arrs_c = _chunk_wires(arrs, rows, c, kc)
+        out = torch.empty_like(x)
+        for j, r in enumerate(owned):
+            qs = torch.empty((len(offsets) * m, D), dtype=torch.float32,
+                             device=x.device)
+            for jq, blk in enumerate(_halo_wires(mesh, arrs_c, rows, r, j,
+                                                 offsets, m, k)):
+                build_q(blk, qs[jq * m:(jq + 1) * m])
+            if 0 in offsets:
+                j0 = offsets.index(0)
+                q_self = qs[j0 * m:(j0 + 1) * m]
+            else:
+                q_self = build_q(_shard_rows(arrs_c, rows, j, m),
+                                 torch.empty((m, D), dtype=torch.float32,
+                                             device=x.device))
+            mixing_cuda.shard_comp_mix_block(
+                x[j * m:(j + 1) * m], q_self, qs, wstack[r], Mstack[r],
+                out=out[j * m:(j + 1) * m])
+            del qs, q_self
+        outs[c] = [out]
+        del x
+    return lay.unflatten(_gather_chunks(mesh, kc, outs)[0])
 
 
 def _pod_runs(owned, m: int, per: int):
@@ -1132,6 +1306,7 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
                                     seed, phase: str, n_nodes: int,
                                     n_pods: int, mesh,
                                     node_axis: str = "data",
+                                    model_axis: str = "model",
                                     qblock: Optional[int] = None,
                                     caller: Optional[str] = None):
     """Compressed global/pod-averaging collective with the node axis
@@ -1148,7 +1323,17 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
     local mesh both are slices of this process's rows; on a rank mesh
     they are ``Exchange.all_to_all`` and ``Exchange.all_gather`` of the
     packed codes and exponent bytes.  The packed columns are padded to
-    ``k · qblock`` so every segment starts on a scale block.  Returns
+    ``k_model · k · qblock`` so every segment starts on a scale block.
+
+    On k_model > 1 model shards (2-D) the padded columns split into
+    k_model contiguous slices of ``width`` columns (the reference slices
+    the plain packed matrix here, not the chunk layout), each slice into
+    k node segments of ``seg = width / k``: owner (s, c) re-quantizes at
+    ``col0 = c·width + s·seg``.  Every operation is per column or per
+    block at absolute columns, so each real column gets the 1-D round's
+    bits.  A 2-D rank computes its slice c only (stage 1 at ``col0 =
+    c·width``, the exchanges among the node ranks of slice c), then the
+    slices are gathered across the model axis into whole rows.  Returns
     ``(x + (r − ρ), e')`` on this process's rows."""
     from repro_torch.compress import collective as ccol
     from repro_torch.core.mesh import pack_arrays, unpack_arrays
@@ -1156,6 +1341,7 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
 
     who = caller or "mixing._communicate_sharded_collective"
     k = _shard_count(mesh, node_axis, n_nodes, who)
+    km = model_shard_count(mesh, model_axis, node_axis)
     n = n_nodes
     pods = n_pods if phase == "pod_avg" else 1
     _check_pods(n, pods, who)
@@ -1165,58 +1351,72 @@ def _communicate_sharded_collective(params: PyTree, *, compressor, ef_state,
     xf, unflatten = mixing_cuda.flatten_nodes(params)
     owned, m = _owned_rows(xf, mesh, k, n, who)
     D = xf.shape[1]
-    xp = ccol.pad_cols(xf, k * qb)
+    xp = ccol.pad_cols(xf, km * k * qb)
     del xf
-    y = xp
+    Dp = xp.shape[1]
+    width = Dp // km
+    seg = width // k
+    nbs = seg // qb
+    cs = _owned_chunks(mesh, km)
+    lo, hi = cs[0] * width, (cs[-1] + 1) * width
+    xs = xp[:, lo:hi]
+    y = xs
     ef_unflatten = None
     if ef_state is not None:
         ef2, ef_unflatten = mixing_cuda.flatten_nodes(ef_state)
-        y = xp + ccol.pad_cols(ef2, k * qb)
+        y = xs + ccol.pad_cols(ef2, km * k * qb)[:, lo:hi]
         del ef2
-    Dp = xp.shape[1]
     s1, s2 = ccol.stage_seeds(seed)
-    codes1, scales1, q1 = ccol.quantize_blocks(y, kind, s1, qb)
-    new_ef = None if ef_unflatten is None else (y - q1)[:, :D]
+    codes1, scales1, q1 = ccol.quantize_blocks(y, kind, s1, qb, col0=lo)
+    new_ef = None if ef_unflatten is None else y - q1
     del y
-    rho = ccol.quantize_blocks(q1, kind, s2, qb)[2]
+    rho = ccol.quantize_blocks(q1, kind, s2, qb, col0=lo)[2]
     del q1
     exps1 = ccol.scale_exponents(scales1)
-    seg = Dp // k
-    nbs = seg // qb
 
-    def segment(s):
-        return [codes1[:, s * seg:(s + 1) * seg],
-                exps1[:, s * nbs:(s + 1) * nbs]]
+    def segment(t):
+        return [codes1[:, t * seg:(t + 1) * seg],
+                exps1[:, t * nbs:(t + 1) * nbs]]
 
-    def stage2(s, c1, e1):
+    def stage2(t, c1, e1):
         q_seg = ccol.dequant_blocks(c1, ccol.exponent_scales(e1), qb)
         mbar = ccol.anchored_mean(q_seg, pods)
-        c2, sc2, _ = ccol.quantize_blocks(mbar, kind, s2, qb, col0=s * seg)
+        c2, sc2, _ = ccol.quantize_blocks(mbar, kind, s2, qb,
+                                          col0=lo + t * seg)
         return c2, ccol.scale_exponents(sc2)
 
-    r_all = torch.empty((pods, Dp), dtype=torch.float32, device=xp.device)
+    r_all = torch.empty((pods, hi - lo), dtype=torch.float32,
+                        device=xp.device)
     if mesh.distributed:
         ex = mesh.exchange
         like = [a.contiguous() for a in segment(0)]
         got = ex.all_to_all([pack_arrays(segment(s)) for s in range(k)])
         parts = [unpack_arrays(g, like) for g in got]
-        owner = stage2(mesh.rank, torch.cat([p[0] for p in parts]),
+        owner = stage2(mesh.node_rank, torch.cat([p[0] for p in parts]),
                        torch.cat([p[1] for p in parts]))
         del got, parts
         done = [(s, *unpack_arrays(g, owner))
                 for s, g in enumerate(ex.all_gather(pack_arrays(owner)))]
     else:
-        done = ((s, *stage2(s, *segment(s))) for s in range(k))
-    for s, c2, e2 in done:
-        r_all[:, s * seg:(s + 1) * seg] = ccol.dequant_blocks(
+        done = ((t, *stage2(t, *segment(t)))
+                for t in range((hi - lo) // seg))
+    for t, c2, e2 in done:
+        r_all[:, t * seg:(t + 1) * seg] = ccol.dequant_blocks(
             c2, ccol.exponent_scales(e2), qb)
         del c2
     del codes1
-    mixed = torch.empty_like(xp)
-    for lo, hi, p in _pod_runs(owned, m, n // pods):
-        mixed[lo:hi] = xp[lo:hi] + (r_all[p:p + 1] - rho[lo:hi])
+    mixed = torch.empty_like(xs)
+    for a, b, p in _pod_runs(owned, m, n // pods):
+        mixed[a:b] = xs[a:b] + (r_all[p:p + 1] - rho[a:b])
+    del rho, xp, xs
+    if mesh.distributed and km > 1:
+        outs = [mixed] + ([new_ef] if new_ef is not None else [])
+        got = _gather_chunks(mesh, km, {cs[0]: outs})
+        mixed = torch.cat(got[0], dim=1)
+        if new_ef is not None:
+            new_ef = torch.cat(got[1], dim=1)
     return unflatten(mixed[:, :D]), (None if ef_unflatten is None
-                                     else ef_unflatten(new_ef))
+                                     else ef_unflatten(new_ef[:, :D]))
 
 
 # ---------------------------------------------------------------------------
@@ -1264,8 +1464,10 @@ def _start_round_impl(params: PyTree, spec: CommSpec, *,
                            copy=True), params)}, ef_state
     if spec.uses_sharded():
         _shard_count(spec.mesh, spec.node_axis, n, "mixing.start_round")
+        km = model_shard_count(spec.mesh, spec.model_axis, spec.node_axis)
         wires, new_ef, _ = _sharded_wire_build(
-            params, compressor=spec.compressor, ef_state=ef_state, seed=seed)
+            params, compressor=spec.compressor, ef_state=ef_state, seed=seed,
+            kc=_quant_chunks(spec.compressor, km))
         return {"wire": [{"payload": tuple(w.payload), "aux": tuple(w.aux)}
                          for w in wires]}, new_ef
     from repro_torch import compress as compress_mod
@@ -1350,51 +1552,59 @@ def overlap_flush(params: PyTree, spec: CommSpec, *, phase: str,
 
 def _overlap_finish_sharded_dense(params: PyTree, q: PyTree,
                                   spec: CommSpec, *, step: int) -> PyTree:
-    """Sharded apply of a dense buffer: shard by shard, the buffered
-    row-blocks at the round's halo offsets are gathered (wire-cast as they
-    are sent, then upcast: exact, the buffer was cast at capture) and
-    ``shard_cmix.cu`` writes ``x_r + (M_r · qs − (1 − d_r) ⊙ b_r)`` into
-    the shard's rows of one fresh output."""
+    """Sharded apply of a dense buffer: shard by shard (chunk by chunk on
+    a 2-D mesh), the buffered row-blocks at the round's halo offsets are
+    gathered (wire-cast as they are sent, then upcast: exact, the buffer
+    was cast at capture) and ``shard_cmix.cu`` writes ``x_r + (M_r · qs −
+    (1 − d_r) ⊙ b_r)`` into the shard's rows of one fresh output."""
     from repro_torch.kernels import mixing_cuda
 
     n, mesh = spec.n_nodes, spec.mesh
     k = _shard_count(mesh, spec.node_axis, n, "mixing.finish_round")
-    x, unflatten = mixing_cuda.flatten_nodes(params)
-    x = x.contiguous()
-    owned, m = _owned_rows(x, mesh, k, n, "mixing.finish_round")
-    qf = mixing_cuda.flatten_nodes(q)[0].contiguous()
+    km = model_shard_count(mesh, spec.model_axis, spec.node_axis)
+    lay = mixing_cuda.ModelChunks(params, km)
     offsets, Mstack, _, wstack = _device_shard_blocks(
-        "gossip", spec.topology, n, step, spec.n_pods, k, x.device)
+        "gossip", spec.topology, n, step, spec.n_pods, k,
+        tree_leaves(params)[0].device)
     wire = spec.comm_dtype
-    send = qf.to(wire) if wire is not None else qf
-    out = torch.empty_like(x)
-    for j, r in enumerate(owned):
-        qs = _halo(mesh, qf, send, r, j, offsets, m, k)
-        mixing_cuda.shard_comp_mix_block(
-            x[j * m:(j + 1) * m], qf[j * m:(j + 1) * m], qs, wstack[r],
-            Mstack[r], out=out[j * m:(j + 1) * m])
-        del qs
-    del send, qf
-    return unflatten(out)
+    outs = {}
+    for c in _owned_chunks(mesh, km):
+        x = lay.chunk(params, c)
+        owned, m = _owned_rows(x, mesh, k, n, "mixing.finish_round")
+        qf = lay.chunk(q, c)
+        send = qf.to(wire) if wire is not None else qf
+        out = torch.empty_like(x)
+        for j, r in enumerate(owned):
+            qs = _halo(mesh, qf, send, r, j, offsets, m, k)
+            mixing_cuda.shard_comp_mix_block(
+                x[j * m:(j + 1) * m], qf[j * m:(j + 1) * m], qs, wstack[r],
+                Mstack[r], out=out[j * m:(j + 1) * m])
+            del qs
+        del send, qf, x
+        outs[c] = [out]
+    return lay.unflatten(_gather_chunks(mesh, km, outs)[0])
 
 
 def _overlap_finish_sharded_wire(params: PyTree, round_state,
                                  spec: CommSpec, *, step: int) -> PyTree:
     """Sharded apply of a lossy buffer: rebuild the leaves' wires from
     ``round_state`` and run the apply half of the synchronous compressed
-    round on them (:func:`_sharded_compensated_gossip`)."""
+    round on them (:func:`_sharded_compensated_gossip`), in the column
+    chunks :func:`start_round` compressed them for."""
     from repro_torch.compress import LeafWire
 
     n = spec.n_nodes
     k = _shard_count(spec.mesh, spec.node_axis, n, "mixing.finish_round")
-    sizes = [int(np.prod(lf.shape[1:], dtype=np.int64))
-             for lf in tree_leaves(params)]
+    kc = _quant_chunks(spec.compressor, model_shard_count(
+        spec.mesh, spec.model_axis, spec.node_axis))
+    widths = [-(-int(np.prod(lf.shape[1:], dtype=np.int64)) // kc)
+              for lf in tree_leaves(params)]
     wires = [LeafWire(payload=tuple(w["payload"]), aux=tuple(w["aux"]))
              for w in round_state["wire"]]
     return _sharded_compensated_gossip(
-        params, wires, compressor=spec.compressor, sizes=sizes,
+        params, wires, compressor=spec.compressor, widths=widths,
         phase="gossip", topology=spec.topology, n_nodes=n, step=step,
-        n_pods=spec.n_pods, k=k, mesh=spec.mesh)
+        n_pods=spec.n_pods, k=k, mesh=spec.mesh, kc=kc)
 
 
 # ---------------------------------------------------------------------------
@@ -1511,15 +1721,18 @@ def _compressed_round_dense(params: PyTree, q: PyTree, W: torch.Tensor,
 
 def _push_sum_sharded(joint: PyTree, *, W: torch.Tensor,
                       W_host: Optional[np.ndarray], n_nodes: int, offsets,
-                      comm_dtype, mesh, node_axis: str) -> PyTree:
+                      comm_dtype, mesh, node_axis: str,
+                      model_axis: str = "model") -> PyTree:
     """Sharded push-sum round: the joint ``(x, w)`` tree packed into one
-    ``(n, D + 1)`` matrix (the weight column rides it, wire-cast with it),
-    each shard's factor gathered from the runtime W over the static halo
-    ``offsets`` (default: every shard offset), and the per-shard body of
-    the sharded gossip round (:func:`_shard_mix_rounds`, ``shard_mix.cu``).
-    A W that mixes rows from outside the halo raises ``ValueError``; it is
-    checked on the host copy, read back from the device only when the
-    caller passed a device W with a restricted halo."""
+    ``(n, D + 1)`` matrix (the weight column rides it, wire-cast with it;
+    on a 2-D mesh chunk by chunk, the weight in chunk 0 and zero pad
+    columns in the others), each shard's factor gathered from the runtime
+    W over the static halo ``offsets`` (default: every shard offset), and
+    the per-shard body of the sharded gossip round
+    (:func:`_shard_mix_rounds`, ``shard_mix.cu``).  A W that mixes rows
+    from outside the halo raises ``ValueError``; it is checked on the host
+    copy, read back from the device only when the caller passed a device W
+    with a restricted halo."""
     from repro_torch.kernels import mixing_cuda
 
     who = "mixing._push_sum_sharded"
@@ -1529,12 +1742,16 @@ def _push_sum_sharded(joint: PyTree, *, W: torch.Tensor,
     if set(range(k)) - {q % k for q in offsets}:
         _check_halo(W_host if W_host is not None else W.cpu().numpy(), n, k,
                     offsets)
-    x, unflatten = mixing_cuda.flatten_nodes(joint)
-    x = x.contiguous()
+    km = model_shard_count(mesh, model_axis, node_axis)
+    lay = mixing_cuda.ModelChunks(joint, km)
     Mstack, dstack = _dense_shard_stacks(W, n, k, offsets)
-    out, _ = _shard_mix_rounds(x, offsets, Mstack, dstack, k, comm_dtype,
-                               mesh=mesh, n=n)
-    return unflatten(out)
+    outs = {}
+    for c in _owned_chunks(mesh, km):
+        x = lay.chunk(joint, c)
+        outs[c] = [_shard_mix_rounds(x, offsets, Mstack, dstack, k,
+                                     comm_dtype, mesh=mesh, n=n)[0]]
+        del x
+    return lay.unflatten(_gather_chunks(mesh, km, outs)[0])
 
 
 def _meter_push_sum(tel, params: PyTree, n: int, *, backend: str,
@@ -1565,6 +1782,7 @@ def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
                          n_nodes: int, comm_dtype=None,
                          backend: str = "reference", mesh=None,
                          node_axis: str = "data", shard_mode: str = "auto",
+                         model_axis: str = "model",
                          leaf_threshold: Optional[int] = None, offsets=None,
                          compressor=None, ef_state: Optional[PyTree] = None,
                          seed: int = 0):
@@ -1594,13 +1812,15 @@ def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
     """
     _check_backend(backend, 0, caller="mixing.communicate_push_sum")
     n = n_nodes
-    # a rank mesh's process holds the m = n/k rows of its shard
-    rows = n // mesh.size if mesh is not None and mesh.distributed else n
+    # a rank mesh's process holds the m = n/k rows of its node shard
+    rows = (n // mesh.node_count if mesh is not None and mesh.distributed
+            else n)
     if weight.shape[0] != rows:
         raise ValueError(f"communicate_push_sum: weight has {weight.shape[0]}"
                          f" rows for n_nodes={n} ({rows} here)")
     w2 = weight.reshape(rows, -1).to(torch.float32)
-    sharded = use_sharded_backend(backend, mesh, node_axis, shard_mode)
+    sharded = use_sharded_backend(backend, mesh, node_axis, shard_mode,
+                                  model_axis)
     tel = _hub()
     if tel is not None:
         _meter_push_sum(tel, params, n, backend=backend, sharded=sharded,
@@ -1633,7 +1853,8 @@ def communicate_push_sum(params: PyTree, weight: torch.Tensor, *, W,
     if sharded:
         out = _push_sum_sharded(joint, W=Wd, W_host=W_host, n_nodes=n,
                                 offsets=offsets, comm_dtype=comm_dtype,
-                                mesh=mesh, node_axis=node_axis)
+                                mesh=mesh, node_axis=node_axis,
+                                model_axis=model_axis)
     elif backend == "pallas":
         from repro_torch.kernels import mixing_cuda
         out = mixing_cuda.fused_step_mix_dense(

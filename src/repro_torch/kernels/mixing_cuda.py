@@ -65,7 +65,8 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.kernels import cuda_build
-from repro_torch.tree import pairwise_mean, tree_flatten, tree_unflatten
+from repro_torch.tree import (pairwise_mean, tree_flatten, tree_leaves,
+                              tree_unflatten)
 
 PyTree = Any
 
@@ -160,6 +161,94 @@ def flatten_nodes(tree: PyTree):
             out.append(piece.reshape(lead + tuple(shape[1:])).to(dtype))
             off += size
         return tree_unflatten(treedef, out)
+
+    return flat, unflatten
+
+
+class ModelChunks:
+    """The column layout of a node-stacked pytree sliced over ``k_model``
+    model shards, the reference's ``flatten_nodes_sharded``: each leaf's
+    columns are zero-padded to a multiple of ``k_model`` and split into
+    ``k_model`` chunks of ``widths[i]`` columns; model chunk j is chunk j
+    of every leaf, in leaf order, ``W`` columns wide.
+
+    :meth:`chunk` packs one model chunk of a tree of this layout into its
+    own contiguous fp32 ``(rows, W)`` tensor (the per-shard kernels take
+    contiguous operands); :meth:`unflatten` puts the ``k_model`` chunks of
+    an output back into leaves.  At ``k_model == 1`` both are
+    :func:`flatten_nodes`' (chunk 0 is its matrix, made contiguous)."""
+
+    def __init__(self, tree: PyTree, k_model: int):
+        leaves, self.treedef = tree_flatten(tree)
+        self.k_model = max(int(k_model), 1)
+        self.shapes = [tuple(lf.shape) for lf in leaves]
+        self.dtypes = [lf.dtype for lf in leaves]
+        self.sizes = [_leaf_size(lf) for lf in leaves]
+        self.widths = [-(-s // self.k_model) for s in self.sizes]
+        self.W = sum(self.widths)
+
+    def chunk(self, tree: PyTree, j: int) -> torch.Tensor:
+        """Model chunk ``j`` of ``tree`` (this layout's structure, any row
+        count) as a contiguous fp32 ``(rows, W)`` tensor."""
+        leaves = tree_leaves(tree)
+        rows = leaves[0].shape[0]
+        if self.k_model == 1:
+            return _pack_rows(leaves, rows).contiguous()
+        out = torch.empty((rows, self.W), dtype=torch.float32,
+                          device=leaves[0].device)
+        off = 0
+        for lf, size, c in zip(leaves, self.sizes, self.widths):
+            lo, hi = min(j * c, size), min((j + 1) * c, size)
+            if hi > lo:
+                out[:, off:off + hi - lo] = lf.reshape(rows, -1)[:, lo:hi]
+            if hi - lo < c:
+                out[:, off + hi - lo:off + c] = 0.0
+            off += c
+        return out
+
+    def unflatten(self, parts, drop_node: bool = False) -> PyTree:
+        """The tree whose model chunk j is ``parts[j]`` (``k_model`` fp32
+        ``(rows, W)`` tensors); ``drop_node`` maps ``(1, W)`` chunks to
+        unstacked leaves.  Pad columns are dropped."""
+        rows = parts[0].shape[0]
+        if self.k_model == 1:
+            out, off = [], 0
+            for shape, dtype, size in zip(self.shapes, self.dtypes,
+                                          self.sizes):
+                lead = () if drop_node else (rows,)
+                out.append(parts[0][:, off:off + size].reshape(
+                    lead + shape[1:]).to(dtype))
+                off += size
+            return tree_unflatten(self.treedef, out)
+        out, off = [], 0
+        for shape, dtype, size, c in zip(self.shapes, self.dtypes,
+                                         self.sizes, self.widths):
+            leaf = torch.empty((rows, size), dtype=torch.float32,
+                               device=parts[0].device)
+            for j, part in enumerate(parts):
+                lo, hi = min(j * c, size), min((j + 1) * c, size)
+                if hi > lo:
+                    leaf[:, lo:hi] = part[:, off:off + hi - lo]
+            lead = () if drop_node else (rows,)
+            out.append(leaf.reshape(lead + shape[1:]).to(dtype))
+            off += c
+        return tree_unflatten(self.treedef, out)
+
+
+def flatten_nodes_sharded(tree: PyTree, k_model: int):
+    """``(flat, unflatten)`` in the reference's model-sharded layout
+    (``flatten_nodes_sharded``): the ``k_model`` chunks of
+    :class:`ModelChunks` side by side in one ``(n, k_model·W)`` fp32
+    matrix, so columns ``j·W … (j+1)·W − 1`` are model shard j's.
+    ``k_model <= 1`` is :func:`flatten_nodes`, byte for byte."""
+    if k_model <= 1:
+        return flatten_nodes(tree)
+    lay = ModelChunks(tree, k_model)
+    flat = torch.cat([lay.chunk(tree, j) for j in range(lay.k_model)], dim=1)
+
+    def unflatten(f: torch.Tensor, drop_node: bool = False) -> PyTree:
+        return lay.unflatten([f[:, j * lay.W:(j + 1) * lay.W]
+                              for j in range(lay.k_model)], drop_node)
 
     return flat, unflatten
 

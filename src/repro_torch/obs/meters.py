@@ -11,8 +11,10 @@ Every ``comm_round`` record carries two independent byte figures:
 
 Their agreeing is the cross-check.  Both are host arithmetic on shapes
 and dtypes: no tensor value is read.  Byte figures are **per node per
-round**, as ``round_wire_bytes`` counts them.  The port has no
-``(node, model)`` meshes (ROADMAP A.10.2): ``model_shards`` is 1.
+round**, as ``round_wire_bytes`` counts them; on a 2-D ``(node, model)``
+mesh ``model_shards`` is its k_model and the figures are per device (the
+columns and the quantizers' codes sliced, scales and sparsifier payloads
+whole).
 
 Occupancy of an overlapped pipeline, the share of the synchronous
 round's cost hidden under compute::
@@ -74,11 +76,12 @@ def round_sends(phase: str, topology: str, n_nodes: int,
 def measured_round_bytes(params: PyTree, *, phase: str, topology: str,
                          n_nodes: int, step: int = 0, n_pods: int = 1,
                          comm_dtype=None, compressor=None,
-                         global_compressor=None, wires=None) -> int:
-    """Per-node wire bytes of one round, from the live tree (or wire
-    arrays)."""
+                         global_compressor=None, model_shards: int = 1,
+                         wires=None) -> int:
+    """Per-node (per-device when ``model_shards > 1``) wire bytes of one
+    round, from the live tree (or wire arrays)."""
     leaves = tree_leaves(params)
-    n = n_nodes
+    n, ms = n_nodes, max(int(model_shards), 1)
     if not leaves or n <= 1 or phase == "none":
         return 0
     sizes = per_node_leaf_sizes(params, n)
@@ -87,14 +90,16 @@ def measured_round_bytes(params: PyTree, *, phase: str, topology: str,
     if phase == "gossip" and topology == "grid":
         elems = [4] * len(elems)   # grid gossip ignores comm_dtype
     lossy = compressor is not None and compressor.lossy
+    quant = lossy and compressor.name in ("int8", "fp8")
     glossy = global_compressor is not None and global_compressor.lossy
     sends = round_sends(phase, topology, n, step)
 
     if phase in ("global", "pod_avg") and glossy:
         # compressed collective: whole QBLOCK blocks of codes + one
-        # exponent byte each
+        # exponent byte each, model-sliced on block boundaries
         from repro_torch.compress import QBLOCK
-        return -(-sum(sizes) // QBLOCK) * (QBLOCK + 1)
+        nb = -(-sum(sizes) // QBLOCK)
+        return -(-nb // ms) * (QBLOCK + 1)
 
     if wires is not None:
         # sharded lossy path: the wire arrays ARE the payload (a leading
@@ -111,13 +116,25 @@ def measured_round_bytes(params: PyTree, *, phase: str, topology: str,
         return sends * per_send
 
     if lossy and phase in ("gossip", "pod_avg"):
-        per_send = sum(int(compressor.wire_bytes_per_send(1, d))
-                       for d in sizes)
+        if quant and ms > 1:
+            # code bytes slice over the model axis; the per-row scale
+            # word stays whole
+            per_send = sum(-(-d // ms)
+                           + int(compressor.wire_bytes_per_send(1, d)) - d
+                           for d in sizes)
+        else:
+            per_send = sum(int(compressor.wire_bytes_per_send(1, d))
+                           for d in sizes)
         if phase == "pod_avg":
             return (max(n // max(n_pods, 1), 1) - 1) * per_send
         return sends * per_send
 
-    return sends * sum(s * e for s, e in zip(sizes, elems))
+    if phase == "global" and lossy and not quant:
+        # a sparsifier's round runs model-replicated: its global operand
+        # stays full width per device
+        return sum(s * e for s, e in zip(sizes, elems))
+    # the dense operand, column-sliced over the model axis per leaf
+    return sends * sum((-(-s // ms)) * e for s, e in zip(sizes, elems))
 
 
 def _dtype_name(comm_dtype) -> str:
@@ -129,8 +146,8 @@ def comm_round_fields(params: PyTree, *, phase: str, topology: str,
                       n_nodes: int, step: int = 0, n_pods: int = 1,
                       backend: str = "reference", sharded: bool = False,
                       comm_dtype=None, compressor=None,
-                      global_compressor=None, wires=None,
-                      role: str = "round") -> Dict[str, Any]:
+                      global_compressor=None, model_shards: int = 1,
+                      wires=None, role: str = "round") -> Dict[str, Any]:
     """One ``comm_round`` record's fields: tags, analytic bytes
     (``round_wire_bytes``) and measured bytes (live tree or wires).
     ``traced`` is False: the port runs every round eagerly."""
@@ -143,16 +160,18 @@ def comm_round_fields(params: PyTree, *, phase: str, topology: str,
     analytic = round_wire_bytes(
         phase, topology, n_nodes, sum(sizes), comm_dtype=dtype_name,
         compression=comp_name, k=getattr(compressor, "k", 32), step=step,
-        n_pods=n_pods, leaf_sizes=sizes, global_compression=gcomp_name)
+        n_pods=n_pods, leaf_sizes=sizes, global_compression=gcomp_name,
+        model_shards=model_shards)
     measured = measured_round_bytes(
         params, phase=phase, topology=topology, n_nodes=n_nodes,
         step=step, n_pods=n_pods, comm_dtype=comm_dtype,
         compressor=compressor, global_compressor=global_compressor,
-        wires=wires)
+        model_shards=model_shards, wires=wires)
     return {
         "phase": phase, "role": role, "shift": int(step),
         "topology": topology, "backend": backend, "sharded": bool(sharded),
-        "n_nodes": int(n_nodes), "n_pods": int(n_pods), "model_shards": 1,
+        "n_nodes": int(n_nodes), "n_pods": int(n_pods),
+        "model_shards": int(model_shards),
         "comm_dtype": dtype_name, "compression": comp_name,
         "global_compression": gcomp_name,
         "sends": round_sends(phase, topology, n_nodes, step),

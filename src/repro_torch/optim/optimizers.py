@@ -43,24 +43,39 @@ def _tensor_norm(x: torch.Tensor, per_node: bool) -> torch.Tensor:
     return torch.sqrt(torch.sum(sq))
 
 
-def joint_sq_norm(tree: PyTree, mesh=None) -> torch.Tensor:
-    """``Σ_leaves Σ g²`` in fp32 over all nodes' rows jointly.  On a rank
-    mesh (``mesh.distributed``) each leaf's sum over this rank's rows is
-    folded over the ranks in order (``Exchange.fold``), so every rank
-    gets the same value."""
-    sq = [torch.sum(torch.square(g.to(torch.float32)))
-          for g in tree_leaves(tree)]
+def joint_sq_norm(tree: PyTree, mesh=None, node_axis: str = "data"
+                  ) -> torch.Tensor:
+    """``Σ_leaves Σ g²`` in fp32 over all nodes' rows jointly.  With a
+    ``mesh`` whose node axis (``node_axis``) has k > 1 shards each leaf's
+    sum is taken per node shard and the k partial sums are folded in
+    shard order: on a rank mesh (``mesh.distributed``) each rank sums its
+    rows and ``mesh.exchange.fold`` folds over the node-axis ranks (on a
+    2-D mesh the model ranks of one node shard hold the same grads and
+    are not counted again); on a one-process mesh each shard's m = n/k
+    rows are summed here and folded the same way, so both meshes give
+    the same bits."""
+    leaves = tree_leaves(tree)
     if mesh is not None and mesh.distributed:
-        sq = list(mesh.exchange.fold(torch.stack(sq)).unbind(0))
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves]
+        return sum(mesh.exchange.fold(torch.stack(sq)).unbind(0))
+    from repro_torch.core.mixing import node_shard_count
+    k = node_shard_count(mesh, node_axis) if mesh is not None else 1
+    sq = []
+    for g in leaves:
+        acc = None
+        for block in (g.chunk(k) if k > 1 else (g,)):
+            p = torch.sum(torch.square(block.to(torch.float32)))
+            acc = p if acc is None else acc + p
+        sq.append(acc)
     return sum(sq)
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float,
-                        mesh=None) -> PyTree:
+def clip_by_global_norm(grads: PyTree, max_norm: float, mesh=None,
+                        node_axis: str = "data") -> PyTree:
     """Scale every leaf by ``min(1, max_norm/‖g‖)`` where ``‖g‖`` is the
-    norm over **all nodes' grads jointly**, as the reference clips (on a
-    rank mesh, over every rank's nodes: :func:`joint_sq_norm`)."""
-    gn = torch.sqrt(joint_sq_norm(grads, mesh))
+    norm over **all nodes' grads jointly**, as the reference clips (over
+    a sharded ``mesh``'s node shards as :func:`joint_sq_norm` folds it)."""
+    gn = torch.sqrt(joint_sq_norm(grads, mesh, node_axis))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)
 

@@ -74,7 +74,8 @@ def consensus_distance(params_stacked: PyTree, mesh=None) -> torch.Tensor:
     crossed the mesh (:func:`pairwise_mean_ranks`, the same bits as
     :func:`repro_torch.tree.pairwise_mean` on all n rows), and the
     squared distances are summed per rank and folded over the ranks in
-    order."""
+    order.  Both run over the node-axis ranks (``mesh.exchange``): on a
+    2-D mesh the model ranks of one node shard hold the same rows."""
     if mesh is not None and mesh.distributed:
         return _consensus_ranks(params_stacked, mesh)
 
@@ -100,13 +101,14 @@ def _runs(rows, owner):
 
 def pairwise_mean_ranks(x: torch.Tensor, mesh) -> torch.Tensor:
     """:func:`repro_torch.tree.pairwise_mean` over the n = m·k rows spread
-    over a rank mesh (``x`` this rank's m rows, global rows ``r·m …``):
+    over the k node shards of a rank mesh (``x`` this rank's m rows,
+    global rows ``r·m …``, r its node shard; ``mesh.exchange``):
     at each level of c rows, row ``c − h + i`` is added into row i (h =
     c // 2), sent first when another rank holds it; rank 0 ends with row
     0, divides it by n and sends x̄ to every rank.  Returns the ``(1, D)``
     x̄ on every rank."""
     ex = mesh.exchange
-    m, k, r = x.shape[0], mesh.size, mesh.rank
+    m, k, r = x.shape[0], ex.k, ex.rank
     n, lo, hi = m * k, r * m, (r + 1) * m
     s = x.clone()
 
@@ -147,7 +149,7 @@ def _consensus_ranks(params_stacked: PyTree, mesh) -> torch.Tensor:
     this rank, the per-leaf sums folded over the ranks."""
     leaves = tree_leaves(params_stacked)
     m = leaves[0].shape[0]
-    n = m * mesh.size
+    n = m * mesh.exchange.k
     x = torch.cat([p.reshape(m, -1).to(torch.float32) for p in leaves],
                   dim=1)
     xbar = pairwise_mean_ranks(x, mesh)

@@ -15,13 +15,19 @@ rounding seed; residual fusion does not compose with compression, so its
 consensus is ``consensus_distance``.  With a ``mesh`` whose node axis has
 several shards (``Trainer(mesh=...)``), the fused backend runs every
 round through the sharded per-shard kernels (``mixing.communicate_sharded``),
-honouring ``DistConfig.comm_shard_mode``.  On a rank mesh (one
-``torch.distributed`` rank per node shard, :func:`check_rank_mesh`) the
-step holds this rank's m = n/k nodes: its batch, grads and optimizer rows
-are theirs, and every reduction over the node axis crosses the mesh in a
-fixed order (the metric means, the joint gradient norm, the consensus).  With ``DistConfig.push_sum``
-the step runs every round as a push-sum round of the joint ``(x, w)``
-pair against the round's runtime W (``mixing.communicate_push_sum``).
+honouring ``DistConfig.comm_shard_mode``; a mesh that also has
+``DistConfig.model_axis`` runs them 2-D.  On a rank mesh (one
+``torch.distributed`` rank per block, :func:`check_rank_mesh`) the step
+holds the m = n/k nodes of this rank's node shard, whole: its batch,
+grads and optimizer rows are theirs, the rounds put whole rows back
+together across the model axis, and every reduction over the node axis
+crosses the node-axis ranks only (``mesh.exchange``), in a fixed order
+(the metric means, the joint gradient norm, the consensus, push-sum's
+mass): the k_model ranks of a node shard hold the same values, so a
+fold over the whole world would count them k_model times.  With
+``DistConfig.push_sum`` the step runs every round as a push-sum round of
+the joint ``(x, w)`` pair against the round's runtime W
+(``mixing.communicate_push_sum``).
 With ``DistConfig.comm_overlap`` the step is ``step(state, batch, lr,
 comm_buf) -> (state, metrics, new_buf)``: a gossip step finishes the
 round buffered one step ago (``mixing.finish_round`` with the buffer's
@@ -65,9 +71,10 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 PyTree = Any
 
 
-def _grad_global_norm(grads: PyTree, mesh=None) -> torch.Tensor:
+def _grad_global_norm(grads: PyTree, mesh=None,
+                      node_axis: str = "data") -> torch.Tensor:
     """Global L2 norm over all nodes' grads (an on-device monitor)."""
-    return torch.sqrt(joint_sq_norm(grads, mesh))
+    return torch.sqrt(joint_sq_norm(grads, mesh, node_axis))
 
 
 def check_rank_mesh(tcfg: TrainConfig, mesh) -> None:
@@ -85,10 +92,10 @@ def check_rank_mesh(tcfg: TrainConfig, mesh) -> None:
 
 def node_means(metrics: Dict[str, torch.Tensor], mesh=None
                ) -> Dict[str, torch.Tensor]:
-    """The node mean of each per-node metric.  On a rank mesh every
-    rank's rows are gathered first (one ``all_gather`` of them all), so
-    the mean is taken over all n nodes in node order, the same bits as in
-    one process."""
+    """The node mean of each per-node metric.  On a rank mesh every node
+    shard's rows are gathered first (one ``all_gather`` of them all over
+    the node-axis ranks), so the mean is taken over all n nodes in node
+    order, the same bits as in one process."""
     if mesh is None or not mesh.distributed:
         return {k: v.detach().mean() for k, v in metrics.items()}
     from repro_torch.core.mesh import pack_arrays, unpack_arrays
@@ -246,7 +253,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         raise ValueError(f"build_train_step: phase {phase!r} is not one of "
                          f"{dist.algorithm}'s phases {algo.phases}")
     sharded_comm = mixing.use_sharded_backend(
-        dist.comm_backend, mesh, dist.node_axis, dist.comm_shard_mode)
+        dist.comm_backend, mesh, dist.node_axis, dist.comm_shard_mode,
+        dist.model_axis)
     spec = dist.comm_spec(n_nodes, mesh=mesh)
     spec_plain = spec.replace(compressor=None, global_compressor=None)
     lossy_global = (spec.global_compressor is not None
@@ -260,8 +268,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     # the node rows this process holds: all n, or rows row0 … row0 +
     # rows − 1 on a rank mesh
     ranked = mesh is not None and mesh.distributed
-    rows = n_nodes // mesh.size if ranked else n_nodes
-    row0 = mesh.rank * rows if ranked else 0
+    rows = n_nodes // mesh.node_count if ranked else n_nodes
+    row0 = mesh.node_rank * rows if ranked else 0
     ps_offsets = None
     if push and sharded_comm:
         # static halo superset: every shift the topology (over its period)
@@ -276,6 +284,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             for s in range(period):
                 hops |= set(topo.shift_weights(dist.topology, n_nodes, s))
             ps_offsets = mixing.push_sum_shard_offsets(n_nodes, k, hops)
+    # the joint gradient norm folds per node shard under the sharded
+    # rounds, on a rank mesh and in one process alike (joint_sq_norm)
+    norm_mesh = mesh if sharded_comm else None
     opt = make_optimizer(tcfg.optimizer, per_node=True)
     fused_consensus_round = (dist.comm_backend == "pallas" and with_consensus
                              and n_nodes > 1 and not lossy_round
@@ -329,6 +340,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
         kw = dict(W=W, n_nodes=n_nodes, comm_dtype=spec.comm_dtype,
                   backend=dist.comm_backend, mesh=mesh,
                   node_axis=dist.node_axis, shard_mode=dist.comm_shard_mode,
+                  model_axis=dist.model_axis,
                   leaf_threshold=dist.pallas_leaf_threshold,
                   offsets=ps_offsets)
         if phase == "none" or n_nodes == 1:
@@ -408,10 +420,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             for g in tree_leaves(grads):
                 g.mul_(a.reshape((rows,) + (1,) * (g.dim() - 1)))
         if with_consensus:
-            metrics["grad_norm"] = _grad_global_norm(grads, mesh)
+            metrics["grad_norm"] = _grad_global_norm(grads, norm_mesh,
+                                                     dist.node_axis)
         if tcfg.optimizer.grad_clip:
             grads = clip_by_global_norm(grads, tcfg.optimizer.grad_clip,
-                                        mesh)
+                                        norm_mesh, dist.node_axis)
         upd, extras = algo.pre_update(extras, grads)
         params_half, opt_state = opt.update(upd, state.opt_state,
                                             state.params, lr)

@@ -9,8 +9,12 @@ the per-shard kernels, every shard on that one device.  On a rank mesh
 shard) each rank's Trainer holds only its m = n/k nodes: the initial
 state stacks the replica m times, step k's batch is rows ``r·m … r·m + m
 − 1`` of the stream's, every rank keeps its own ring of records and only
-rank 0 prints the step line.  Checkpoints and SlowMo raise there
-(ROADMAP A.10.1).
+rank 0 prints the step line.  On a 2-D ``(node, model)`` mesh the rounds
+also slice the columns over the model axis (``core/mixing.py``); a rank
+mesh then has k·k_model ranks, the k_model ranks of node shard r holding
+its m rows whole.  Checkpoints and SlowMo raise on a rank mesh (ROADMAP
+A.10.1); a one-process 2-D mesh holds whole leaves and checkpoints as
+any other.
 
 Each step runs inside the ``train/step`` span (fenced on the loss when
 the hub's tracer fences) and keeps its metrics on the device in a pending
@@ -103,11 +107,12 @@ class Trainer:
         check_rank_mesh(tcfg, mesh)
         # the node rows this process holds: all n, or one rank's shard
         ranked = mesh is not None and mesh.distributed
-        if ranked and n_nodes % mesh.size:
+        if ranked and n_nodes % mesh.node_count:
             raise ValueError(f"Trainer: {n_nodes} nodes do not split over "
-                             f"the {mesh.size} ranks of the mesh")
-        self.rows = n_nodes // mesh.size if ranked else n_nodes
-        self.row0 = mesh.rank * self.rows if ranked else 0
+                             f"the {mesh.node_count} node shards of the "
+                             f"mesh")
+        self.rows = n_nodes // mesh.node_count if ranked else n_nodes
+        self.row0 = mesh.node_rank * self.rows if ranked else 0
         if fault_schedule is not None:
             if not tcfg.dist.push_sum:
                 raise ValueError(
@@ -141,7 +146,8 @@ class Trainer:
             # one printed step line per run: rank 0's on a rank mesh
             telemetry = obs.Telemetry(
                 sinks=[obs.RingSink()] + ([obs.PrettySink()]
-                                          if self.row0 == 0 else []))
+                                          if not ranked or mesh.rank == 0
+                                          else []))
         elif telemetry.ring() is None:
             telemetry.sinks.append(obs.RingSink())
         telemetry.tags.setdefault("algorithm", tcfg.dist.algorithm)

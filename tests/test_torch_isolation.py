@@ -64,7 +64,8 @@ def test_rank_test_modules_import_no_jax_at_module_top(path):
 
 def test_rank_test_modules_load_no_jax_when_imported():
     code = ("import sys; sys.path.insert(0, 'tests'); "
-            "import test_torch_dist_mixing, test_torch_dist_train; "
+            "import test_torch_dist_mixing, test_torch_dist_train, "
+            "test_torch_dist_mixing_2d; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'repro')))")
@@ -92,7 +93,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.blocks, repro_torch.models.model, "
             "repro_torch.models.layers, repro_torch.data.synthetic, "
             "repro_torch.configs.jamba_1_5_large, "
-            "repro_torch.configs.llava_next_mistral_7b; "
+            "repro_torch.configs.llava_next_mistral_7b, "
+            "repro_torch.models.sharding, repro_torch.launch.mesh; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'repro')))")

@@ -495,14 +495,20 @@ def test_sharded_mode_without_a_mesh_raises_value_error():
 
 
 def test_two_d_and_multi_device_meshes_raise_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        make_mesh((2, 4), ("data", "model"), device="cpu")
+    """A one-process mesh over several cards raises (ROADMAP A.10); the
+    2-D ``(data, model)`` and ``(pod, data, model)`` meshes build (A.10.2,
+    ``tests/test_torch_mixing_2d.py`` runs their rounds)."""
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    assert mesh.shape == {"data": 2, "model": 4} and not mesh.distributed
+    assert tmix.node_shard_count(mesh) == 2
+    assert tmix.model_shard_count(mesh) == 4
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         make_mesh((2,), ("data",), devices=["cuda:0", "cuda:1"])
     with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         make_mesh((2,), ("data",), devices=["cpu", "cuda:0"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    assert tmix.node_shard_count(mesh) == 4
+    assert tmix.model_shard_count(mesh) == 2
     make_mesh((4, 1), ("data", "model"), device="cpu")   # one model shard
     assert make_mesh((4,), ("data",), devices=["cpu"] * 4).device == \
         torch.device("cpu")
