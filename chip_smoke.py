@@ -240,6 +240,24 @@ line):
    bound of ``PERF.md`` §2 (:func:`_gate_against_twin`); ``[dcmain]`` is
    traced step by step against ``[scmain]`` (:func:`_trace_dcmain`,
    the joint gradient norm as ``[scmain]`` folds it and as one sum).
+19. slice 17's paths, SlowMo and checkpoints on the rank meshes (closing
+   A.10.1; right after slice 16's twins, the rank ones in slice 15's
+   spawn), and the examples: ``[sslowmo]`` (:func:`run_sslowmo`) SlowMo
+   H = 2 on ``[smain]``'s cell and mesh of 4 node shards in this process,
+   its outer step's x̄ the pairwise halving over all 8 rows; ``[dslowmo]``
+   the same on the 4 ranks after ``[dcmain]``, held to ``[sslowmo]`` by
+   :func:`_gate_against_twin`, its slots bitwise ``[sslowmo]``'s on every
+   rank (:func:`_report_dslowmo`), consensus 0.0 after every outer step,
+   B.5 once a rank a gossip step; ``[d2ckpt]`` (:func:`_d2ckpt_rank`)
+   ``[d2cmain]``'s cell at :data:`CKPT_CUT_LAYERS` layers on the
+   ``(data=2, model=2)`` ranks: steps 0-2 write one checkpoint
+   collectively, fresh rank Trainers restore it and run steps 3-5, their
+   state bitwise the one-process twin's uninterrupted run
+   (:func:`d2ckpt_reference`), then the twin restores the same file
+   bitwise its own step-3 state (:func:`_d2ckpt_twin_restores`); save and
+   restore seconds, the bytes gathered, the pinned peak.  After slice
+   14, ``[examples]`` (:func:`run_examples`) runs the four
+   ``examples/torch_*.py`` on the card at small arguments.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -4342,9 +4360,9 @@ def run_ckpt_path(torch, mc, tag: str, **dist_kw) -> dict:
     saves = []
     real_save = ck.save_checkpoint
 
-    def timed_save(d, st, step):
+    def timed_save(d, st, step, **kw):
         t0 = time.perf_counter()
-        path = real_save(d, st, step)
+        path = real_save(d, st, step, **kw)
         saves.append((step, time.perf_counter() - t0,
                       os.path.getsize(path)))
         return path
@@ -6621,7 +6639,8 @@ def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
                stats=leaf_stats(torch, leaves), first_leaf=first,
                coords=(mesh.node_rank, mesh.model_rank),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card
-               else 0, pinned_bytes=sum(ex.pinned_bytes for ex in exes))
+               else 0, pinned_bytes=sum(ex.pinned_bytes for ex in exes),
+               slot_fps=slot_fingerprints(torch, state))
     del leaves, state
     if split is not None:
         out["split"] = split
@@ -6636,8 +6655,10 @@ def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
     rank's 2 nodes; [dcmain] fingerprinted after every step against
     [scmain]'s).  Slice 16 on a (data=2, model=2) mesh: [d2main] and
     [d2cmain] (the Trainer at n = 4, this rank the 2 nodes of its node
-    shard whole, one model chunk of every round).  ``refs``: the
-    one-process runs' fingerprints.  Returns what the parent prints and
+    shard whole, one model chunk of every round).  Slice 17: [dslowmo]
+    after [dcmain] (SlowMo on the 4 node shards) and [d2ckpt] after
+    [d2cmain] (:func:`_d2ckpt_rank`).  ``refs``: the one-process runs'
+    fingerprints.  Returns what the parent prints and
     gates.  ``device="cpu"`` rehearses it at the reduced model (no timing
     of kernels, no synchronizing-call count)."""
     import torch
@@ -6728,6 +6749,15 @@ def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
         del tr
         if card:
             torch.cuda.empty_cache()
+    # slice 17: [dslowmo], SlowMo on this rank's nodes
+    tr = Trainer(_slowmo_tcfg(reduced=not card), n_nodes=MAIN_N, mesh=mesh,
+                 with_consensus=True, device=device)
+    out["paths"]["[dslowmo]"] = _rank_path(
+        torch, dist, tr, mesh, "[dslowmo]", refs.get("[dslowmo]"), card,
+        twins)
+    del tr
+    if card:
+        torch.cuda.empty_cache()
     # slice 16: [d2main] and [d2cmain] on the (data=2, model=2) mesh; the
     # 1-D mesh's pinned staging buffers go first
     del mesh, ex
@@ -6743,6 +6773,9 @@ def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
         del tr
         if card:
             torch.cuda.empty_cache()
+    # slice 17: [d2ckpt], a checkpoint written and resumed on this mesh
+    out["d2ckpt"] = _d2ckpt_rank(torch, dist, mesh2, refs.get("[d2ckpt]"),
+                                 card, twins)
     return out
 
 
@@ -6881,7 +6914,7 @@ def _report_rank_path(tag: str, twin: str, recs: list, ref: dict,
                 failures.append(f"{tag} step {k}: ranks disagree")
         if not math.isfinite(s0["loss"]):
             failures.append(f"{tag} step {k}: loss {s0['loss']}")
-        if key == "shard_mix" and s0["phase"] == "global":
+        if key == "shard_mix" and s0["phase"] in ("global", "slowmo"):
             if s0["consensus"] != 0.0:
                 failures.append(f"{tag} step {k}: consensus "
                                 f"{s0['consensus']} after a global step")
@@ -6976,9 +7009,12 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     [dcmain] traced against [scmain] step by step).  Slice 16:
     ``[d2main]`` and ``[d2cmain]`` on the (data=2, model=2) mesh (B.5 /
     B.4 once a gossip step on every rank; exchange bytes on each axis;
-    the last gossip step's split timed).  Every trainer path is
-    held to its one-process twin ([smain], [scmain], ``d2ref``) by
-    :func:`_gate_against_twin`.  ``smain``: [smain]/[scmain]'s references
+    the last gossip step's split timed).  Slice 17: ``[dslowmo]`` (SlowMo,
+    its slots bitwise ``[sslowmo]``'s on every rank, the outer steps'
+    ms and bytes) and ``[d2ckpt]`` (:func:`_report_d2ckpt`, then the twin
+    restores the ranks' file: :func:`_d2ckpt_twin_restores`).  Every
+    trainer path is held to its one-process twin ([smain], [scmain],
+    [sslowmo], ``d2ref``) by :func:`_gate_against_twin`.  ``smain``: [smain]/[scmain]'s references
     (:func:`smain_reference`, [scmain]'s with its per-step ``trace``).
     Returns the launch counts summed over the ranks of each path.
     ``device="cpu"`` rehearses the phases at the reduced model (``shapes``,
@@ -6999,7 +7035,8 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
               f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the "
               f"card {free / 1e9:.2f} of {total / 1e9:.2f} GB free",
               flush=True)
-    refs = {t: {"fps": v["fps"], "trace": v.get("trace")}
+    refs = {t: {"fps": v["fps"], "trace": v.get("trace"),
+                "slots": v.get("slots")}
             for t, v in {**smain, **d2ref}.items()}
     t0 = time.perf_counter()
     # the ranks' allocators map their pools as expandable segments: four
@@ -7020,7 +7057,8 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     spawn_s = time.perf_counter() - t0
     print(f"[dround] fingerprints of the one-process rounds in {fp_s:.1f} "
           f"s; the {DIST_K} ranks (spawn, init, [dround], [dmain], "
-          f"[dcmain], [d2main], [d2cmain]) in {spawn_s:.1f} s", flush=True)
+          f"[dcmain], [dslowmo], [d2main], [d2cmain], [d2ckpt]) in "
+          f"{spawn_s:.1f} s", flush=True)
     failures = []
     for name, phase, step, compressed in DIST_ROUNDS:
         recs = [r["rounds"][name] for r in res]
@@ -7053,6 +7091,7 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     for tag, twin, key, nodes in (
             ("[dmain]", "[smain]", "shard_mix", MAIN_N),
             ("[dcmain]", "[scmain]", "shard_cmix", MAIN_N),
+            ("[dslowmo]", "[sslowmo]", "shard_mix", MAIN_N),
             ("[d2main]", "[d2main] one-process twin", "shard_mix", D2_N),
             ("[d2cmain]", "[d2cmain] one-process twin", "shard_cmix",
              D2_N)):
@@ -7062,8 +7101,14 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
                                           failures)
         if tag == "[dcmain]":
             _trace_dcmain(recs, smain)
+        if tag == "[dslowmo]":
+            _report_dslowmo(recs, ref, failures)
         if "split" in recs[0]:
             _report_split(tag, recs)
+    launches["[d2ckpt]"] = _report_d2ckpt([r["d2ckpt"] for r in res],
+                                          d2ref.get("[d2ckpt]"), failures)
+    if d2ref.get("[d2ckpt]"):
+        _d2ckpt_twin_restores(torch, d2ref["[d2ckpt]"], device, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     return launches
@@ -7239,6 +7284,447 @@ def m2_against_one_d(torch, tag: str, twin: str, state, ref: list,
                              f"losses {loss_equal})")
 
 
+# ---------------------------------------------------------------------------
+# Slice 17: SlowMo and checkpoints on the rank meshes (closing A.10.1), the
+# examples
+# ---------------------------------------------------------------------------
+SLOWMO_STEPS = 4                    # gossip, slowmo, gossip, slowmo
+SLOWMO_LAYERS = None                # pga-lm-100m's depth for [sslowmo] and
+#                                     [dslowmo] (None: all 12)
+SLOWMO_SLOTS = ("slow_params", "slow_u")
+D2CKPT_STEPS = 6                    # steps 0-2 write the file, 3-5 resume
+EXAMPLES_DIR = ROOT / "_examples_smoke"     # listed in .gitignore
+# each example at small arguments on the card, and the lines it must print
+EXAMPLES = (
+    ("torch_quickstart.py", ("--steps", "4"),
+     (r"^=== final metrics \(non-iid ring, H=6\) ===$",
+      r"^gossip +loss=\d+\.\d{4} consensus=", r"^local +loss=",
+      r"^gossip_pga +loss=")),
+    ("torch_train_lm.py", ("--steps", "4", "--ckpt-dir", str(EXAMPLES_DIR)),
+     (r"^model pga-lm-reduced: ~\d+\.\dM params, 8 nodes, "
+      r"gossip_pga/one_peer_exp H=6$",
+      r"^loss \d+\.\d{4} -> \d+\.\d{4} over 4 steps; final consensus ")),
+    ("torch_serve_requests.py", (),
+     (r"^served 6 requests / 48 tokens in .* on \w+, 2 slots\)$",
+      r"^  req 5: prompt\[\d+\] -> \[(\d+, ){7}\d+\]$")),
+    ("torch_logistic_regression.py", ("--steps", "100"),
+     (r"^n=20 topology=ring non-iid H=16$", r"^    99( +\d+\.\d{5}){5}$",
+      r"^  gossip_pga +\d\.\d{3}e[-+]\d\d$")),
+)
+
+
+# the kernel record each launch counter of :func:`counts` belongs to
+KERNEL_OF_COUNT = {"mix": "mix_vector_kernel",
+                   "mix_vector": "mix_vector_kernel",
+                   "cmix": "cmix_vector_kernel",
+                   "cmix_vector": "cmix_vector_kernel",
+                   "cmix_absmax": "cmix_absmax_kernel",
+                   "collective": "collective_kernel",
+                   "mlstm": "mlstm_kernel",
+                   "mlstm_wgmma": "mlstm_wgmma_kernel",
+                   "shard_mix": "shard_mix_kernel",
+                   "shard_cmix": "shard_cmix_kernel",
+                   "flash": "flash_attention_kernel",
+                   "flash_wgmma": "flash_attention_wgmma_kernel",
+                   "rmsnorm": "rmsnorm_kernel",
+                   "rmsnorm_vector": "rmsnorm_kernel"}
+
+
+def _slowmo_tcfg(reduced: bool = False):
+    """[sslowmo]'s / [dslowmo]'s configuration: [smain]'s (pga-lm-100m,
+    8 nodes, one_peer_exp, fused sharded rounds, AdamW, 32 x 512) with
+    SlowMo H = 2, β 0.5, 4 steps (:data:`SLOWMO_LAYERS` layers)."""
+    tcfg = _dist_tcfg(False, reduced=reduced, steps=SLOWMO_STEPS)
+    model = tcfg.model
+    if SLOWMO_LAYERS is not None and not reduced:
+        model = dataclasses.replace(model, n_layers=SLOWMO_LAYERS)
+    return tcfg.replace(model=model, dist=dataclasses.replace(
+        tcfg.dist, algorithm="slowmo", H=2, slowmo_beta=0.5))
+
+
+def slot_fingerprints(torch, state) -> list:
+    """SlowMo's slots, each leaf fingerprinted whole (every rank holds
+    them whole)."""
+    from repro_torch.tree import tree_leaves
+    return [[fingerprint(torch, p) for p in tree_leaves(state.extras[s])]
+            for s in SLOWMO_SLOTS if s in state.extras]
+
+
+def run_sslowmo(torch, mc, device: str = "cuda") -> tuple:
+    """``[sslowmo]``: SlowMo on a one-process mesh of 4 node shards
+    (:func:`_slowmo_tcfg`), the twin of ``[dslowmo]``: B.5 once a shard a
+    gossip step, the outer step's x̄ the pairwise halving over all 8 rows;
+    consensus 0.0 after every outer step, finite losses.  Returns ``(its
+    launches, its reference)``: :func:`smain_reference` and the slots'
+    fingerprints."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    card = device != "cpu"
+    tag = "[sslowmo]"
+    tcfg = _slowmo_tcfg(reduced=not card)
+    tr = Trainer(tcfg, n_nodes=MAIN_N, mesh=make_mesh((DIST_K,), ("data",),
+                                                      device=device),
+                 with_consensus=True, device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, phases = [], []
+    for k in range(tcfg.steps):
+        t0 = time.perf_counter()
+        state = tr.run(state, steps=1, log_every=1)
+        if card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rec = tr.history[-1]
+        phases.append(rec["phase"])
+        print(f"{tag} step {k} phase={rec['phase']} loss={rec['loss']:.4f}"
+              f" consensus={rec['consensus']:.6e} step_ms="
+              f"{times[-1] * 1e3:.1f}", flush=True)
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{tag} step {k}: loss {rec['loss']}")
+        if (rec["phase"] == "slowmo") != (rec["consensus"] == 0.0):
+            raise AssertionError(f"{tag} step {k}: consensus "
+                                 f"{rec['consensus']} after a "
+                                 f"{rec['phase']} step")
+    launches = counts()
+    expected = only(shard_mix=phases.count("gossip") * DIST_K)
+    if card and launches != expected:
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{expected} (phases {phases})")
+    ref = smain_reference(torch, tr, state, launches)[1]
+    ref["slots"] = slot_fingerprints(torch, state)
+    steady = statistics.median(times[1:])
+    STEADY[tag] = steady
+    tokens = tcfg.global_batch * tcfg.seq_len
+    print(f"{tag} pga-lm-100m, {tcfg.model.n_layers} layers, {MAIN_N} nodes "
+          f"on {DIST_K} node shards in this process, SlowMo H=2 beta 0.5: "
+          f"phases {phases}, shard_mix launches {launches['shard_mix']}; "
+          f"steady step {steady * 1e3:.1f} ms (median of steps 1-"
+          f"{tcfg.steps - 1}; the outer steps "
+          f"{[round(t * 1e3, 1) for t, p in zip(times, phases) if p == 'slowmo']}"
+          f" ms), {tokens / steady:.0f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9 if card else 0:.2f} GB",
+          flush=True)
+    del tr, state
+    if card:
+        torch.cuda.empty_cache()
+    return launches, ref
+
+
+def _d2ckpt_tcfg(card: bool):
+    """[d2ckpt]'s configuration: [d2cmain]'s (int8 gossip + int8
+    collective + EF, H = 3, AdamW, n = 4) at :data:`CKPT_CUT_LAYERS`
+    layers, 6 steps, a checkpoint after step 2 into :data:`CKPT_DIR`."""
+    tcfg = _dist_tcfg(True, reduced=not card, nodes=D2_N,
+                      steps=D2CKPT_STEPS)
+    return tcfg.replace(model=dataclasses.replace(
+        tcfg.model, n_layers=CKPT_CUT_LAYERS), ckpt_every=3,
+        ckpt_dir=str(CKPT_DIR))
+
+
+def state_fingerprints(torch, state, k: int) -> list:
+    """Per node shard r of k, ``{checkpoint key: fingerprint}`` of every
+    tensor of the state (params, optimizer state, extras): its rows of the
+    node-stacked leaves, the others whole."""
+    from repro_torch.checkpoint.ckpt import _flatten, _node_axis_keys
+    flat = {key: v for key, v in _flatten(state).items()
+            if torch.is_tensor(v)}
+    rows = flat[next(key for key in flat if key.startswith(".params/"))]
+    m = rows.shape[0] // k
+    stacked = _node_axis_keys(flat, rows.shape[0])
+    return [{key: fingerprint(torch, v[r * m:(r + 1) * m] if key in stacked
+                              else v) for key, v in flat.items()}
+            for r in range(k)]
+
+
+def d2ckpt_reference(torch, device: str = "cuda") -> dict:
+    """The one-process twin of ``[d2ckpt]``: the (data=2, model=2) Trainer
+    in this process, its 6 steps uninterrupted; its state after step 2
+    kept on the host (a clone), its final state's fingerprints per node
+    shard.  Checks the disk and this run's write budget for the ranks'
+    file and counts it in :data:`CKPT_WRITTEN`."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    card = device != "cpu"
+    tcfg = _d2ckpt_tcfg(card).replace(ckpt_every=0)
+    tr = Trainer(tcfg, n_nodes=D2_N, mesh=make_mesh(*D2_AXES, device=device),
+                 with_consensus=True, device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    nbytes = _state_bytes(state)
+    free = shutil.disk_usage(ROOT).free
+    if free < nbytes + (1 << 30):
+        raise AssertionError(f"[d2ckpt]: {free / 1e9:.1f} GB free on the "
+                             f"disk, the ranks write a {nbytes / 1e9:.2f} GB "
+                             f"checkpoint")
+    if CKPT_WRITTEN[0] + nbytes > CKPT_WRITE_BUDGET:
+        raise AssertionError(f"[d2ckpt]: a {nbytes / 1e9:.2f} GB checkpoint "
+                             f"after {CKPT_WRITTEN[0] / 1e9:.2f} GB would "
+                             f"pass this run's write budget of "
+                             f"{CKPT_WRITE_BUDGET / 2**30:.0f} GiB")
+    CKPT_WRITTEN[0] += nbytes
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    state = tr.run(state, steps=3, log_every=1)
+    at3 = {key: v.detach().cpu().clone() if torch.is_tensor(v) else v
+           for key, v in _flatten(state).items()}
+    state = tr.run(state, steps=3, log_every=1)
+    ref = dict(fps=state_fingerprints(torch, state, D2_AXES[0][0]),
+               losses=[h["loss"] for h in tr.history], at3=at3,
+               nbytes=nbytes)
+    print(f"[d2ckpt] the one-process twin "
+          f"({dict(zip(D2_AXES[1], D2_AXES[0]))}, "
+          f"{D2_N} nodes, {tcfg.model.n_layers} layers, int8+EF): 6 steps "
+          f"uninterrupted, losses {[round(x, 4) for x in ref['losses']]}; "
+          f"state {nbytes / 1e9:.3f} GB, the step-3 state kept on the host; "
+          f"{free / 1e9:.1f} GB free on the disk, "
+          f"{CKPT_WRITTEN[0] / 1e9:.2f} GB of this run's checkpoint writes",
+          flush=True)
+    del tr, state
+    if card:
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _d2ckpt_rank(torch, dist, mesh, ref, card: bool, twins: dict) -> dict:
+    """This rank's ``[d2ckpt]``: steps 0-2 of :func:`_d2ckpt_tcfg` with
+    ``ckpt_every=3`` (one collective save, timed, the exchange's bytes and
+    pinned peak read around it), then a fresh Trainer restores the file on
+    the same (data=2, model=2) mesh (timed) and runs steps 3-5.  Returns
+    the times, bytes, losses, launches and whether each part of the
+    resumed state is bitwise the twin's rows (``ref``)."""
+    from repro_torch import checkpoint as ck
+    from repro_torch.train import Trainer
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    tcfg = _d2ckpt_tcfg(card)
+    tr = Trainer(tcfg, n_nodes=D2_N, mesh=mesh, with_consensus=True,
+                 device=mesh.device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    ex = mesh.exchange                  # the save gathers over the node axis
+    sync()
+    dist.barrier()
+    reset_counts()
+    for key in twins:
+        twins[key] = 0
+    saves = []
+    real_save = ck.save_checkpoint
+
+    def timed_save(d, st, step, **kw):
+        ex.reset_stats()
+        sync()
+        t0 = time.perf_counter()
+        path = real_save(d, st, step, **kw)
+        saves.append(dict(step=step, s=time.perf_counter() - t0,
+                          bytes_in=ex.stats["bytes_in"],
+                          bytes_out=ex.stats["bytes_out"],
+                          size=os.path.getsize(path),
+                          pinned_after=ex.pinned_bytes))
+        return path
+
+    ck.save_checkpoint = timed_save
+    try:
+        state = tr.run(state, steps=3, log_every=1)
+    finally:
+        ck.save_checkpoint = real_save
+    losses = [h["loss"] for h in tr.history]
+    del state, tr
+    tr = Trainer(tcfg.replace(ckpt_every=0), n_nodes=D2_N, mesh=mesh,
+                 with_consensus=True, device=mesh.device)
+    template = tr.init_state(torch.Generator().manual_seed(0))
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    restored = ck.restore_checkpoint(str(CKPT_DIR), template, step=3,
+                                     mesh=mesh)
+    sync()
+    restore_s = time.perf_counter() - t0
+    del template
+    resumed = tr.run(restored, steps=3, log_every=1)
+    sync()
+    del restored
+    losses += [h["loss"] for h in tr.history]
+    launches = counts()
+    # each part of the resumed state bitwise the twin's rows of this
+    # rank's node shard (whole leaves: the rank holds its rows only)
+    from repro_torch.checkpoint.ckpt import _flatten
+    equal = {}
+    want = ref["fps"][mesh.node_rank] if ref else {}
+    for key, v in _flatten(resumed).items():
+        if not torch.is_tensor(v) or not ref:
+            continue
+        parts = key.lstrip(".").split("/")
+        group = "/".join(parts[:2]) if parts[0] in ("opt_state", "extras") \
+            else parts[0]
+        equal[group] = equal.get(group, True) and \
+            fingerprint(torch, v) == want.get(key)
+    out = dict(saves=saves, restore_s=restore_s, losses=losses,
+               launches=launches, twins=dict(twins), equal=equal,
+               coords=(mesh.node_rank, mesh.model_rank),
+               pinned_peak=mesh.exchange.pinned_peak,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card
+               else 0)
+    del resumed, tr
+    return out
+
+
+def _report_dslowmo(recs: list, ref: dict, failures: list) -> None:
+    """[dslowmo]'s slots against [sslowmo]'s on every rank, and its outer
+    steps: the slowest rank's ms, each rank's exchange bytes (x̄'s halving
+    and its broadcast)."""
+    want = ref["slots"] if ref else None
+    equal = [rec.get("slot_fps") == want for rec in recs]
+    outer = []
+    for k, s in enumerate(recs[0]["steps"]):
+        if s["phase"] != "slowmo":
+            continue
+        moved = [(round(rec["steps"][k]["bytes"][0][0] / 1e9, 3),
+                  round(rec["steps"][k]["bytes"][0][1] / 1e9, 3))
+                 for rec in recs]
+        outer.append(f"step {k} {max(rec['steps'][k]['ms'] for rec in recs):.1f}"
+                     f" ms, GB (out, in) per rank {moved}")
+    print(f"[dslowmo] slow_params and slow_u bitwise [sslowmo]'s on every "
+          f"rank {equal}; the outer steps (slowest rank): "
+          f"{'; '.join(outer)}", flush=True)
+    if not all(equal):
+        failures.append(f"[dslowmo] slots not bitwise [sslowmo]'s {equal}")
+
+
+def _report_d2ckpt(recs: list, ref: dict, failures: list) -> dict:
+    """[d2ckpt]: the save and restore times and rates, the bytes gathered
+    to the writer, the pinned peak, and the gates: one save (after step 2)
+    on every rank, the resumed state bitwise the twin's rows on every
+    rank, its losses the twin's within rtol ``RANK_LOSS_RTOL``, B.4 once a
+    rank a gossip step, no plain twin.  Returns the launches summed over
+    the ranks."""
+    summed = {k: sum(rec["launches"][k] for rec in recs) for k in counts()}
+    per_rank = [rec["launches"]["shard_cmix"] for rec in recs]
+    saves = [rec["saves"] for rec in recs]
+    writer = recs[0]["saves"][0] if recs[0]["saves"] else None
+    equal = [rec["equal"] for rec in recs]
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(recs[0]["losses"], ref["losses"])) if ref else 0.0
+    restore_s = max(rec["restore_s"] for rec in recs)
+    if writer:
+        size, save_s = writer["size"], max(s[0]["s"] for s in saves if s)
+        print(f"[d2ckpt] pga-lm-100m at {CKPT_CUT_LAYERS} of 12 layers, "
+              f"{D2_N} nodes on {DIST_K} ranks of {dict(zip(D2_AXES[1], D2_AXES[0]))}"
+              f", int8+EF H=3: file {size / 1e9:.3f} GB ({size:,} bytes); "
+              f"save {save_s:.2f} s (slowest rank, gathers and the write), "
+              f"{size / save_s / 1e9:.2f} GB/s; restore {restore_s:.2f} s "
+              f"(slowest rank, each reading its rows of every member), "
+              f"{size / restore_s / 1e9:.2f} GB/s of the file; bytes gathered "
+              f"to rank 0 {writer['bytes_in']:,}, sent per rank "
+              f"{[s[0]['bytes_out'] if s else 0 for s in saves]}; pinned "
+              f"peak per rank {[rec['pinned_peak'] for rec in recs]} bytes, "
+              f"after the save {[s[0]['pinned_after'] if s else 0 for s in saves]}"
+              f"; losses within rtol {worst:.3e} of the twin's; resumed "
+              f"state bitwise the twin's rows per rank {equal}; shard_cmix "
+              f"launches per rank {per_rank}; peak memory per rank "
+              f"{[round(rec['peak_gb'], 2) for rec in recs]} GB", flush=True)
+    if [[s["step"] for s in sv] for sv in saves] != [[3]] * DIST_K:
+        failures.append(f"[d2ckpt] saves {[[s['step'] for s in sv] for sv in saves]}")
+    if not all(e and all(e.values()) for e in equal):
+        failures.append(f"[d2ckpt] resumed state not bitwise the twin's "
+                        f"{equal}")
+    if worst > RANK_LOSS_RTOL:
+        failures.append(f"[d2ckpt] losses rtol {worst:.3e} against the twin")
+    if per_rank != [4] * DIST_K or summed != only(shard_cmix=4 * DIST_K):
+        failures.append(f"[d2ckpt] launches per rank {per_rank}, summed "
+                        f"{summed}")
+    if any(v for rec in recs for v in rec["twins"].values()):
+        failures.append(f"[d2ckpt] plain twins called "
+                        f"{[rec['twins'] for rec in recs]}")
+    return summed
+
+
+def _d2ckpt_twin_restores(torch, ref: dict, device: str,
+                          failures: list) -> None:
+    """Gate 2 of [d2ckpt]: the one-process twin restores the ranks' file
+    (``mesh=`` its one-process (data=2, model=2) mesh) and its state is
+    bitwise its own step-3 state, kept on the host; then the file goes."""
+    import shutil
+
+    from repro_torch import checkpoint as ck
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    card = device != "cpu"
+    tr = Trainer(_d2ckpt_tcfg(card).replace(ckpt_every=0), n_nodes=D2_N,
+                 mesh=make_mesh(*D2_AXES, device=device),
+                 with_consensus=True, device=device)
+    t0 = time.perf_counter()
+    restored = ck.restore_checkpoint(str(CKPT_DIR), tr.init_state(
+        torch.Generator().manual_seed(0)), step=3, mesh=tr.mesh)
+    dt = time.perf_counter() - t0
+    flat = _flatten(restored)
+    want = ref["at3"]
+    bad = [key for key, v in flat.items() if key not in want or (
+        not _bitwise(torch, v.detach().cpu(), want[key])
+        if torch.is_tensor(v) else v != want[key])]
+    print(f"[d2ckpt] the one-process twin restores the ranks' file in "
+          f"{dt:.2f} s: its state bitwise its own step-3 state "
+          f"{not bad and len(flat) == len(want)} ({len(flat)} leaves)",
+          flush=True)
+    if bad or len(flat) != len(want):
+        failures.append(f"[d2ckpt] the twin's restore differs at {bad[:5]}")
+    del restored, tr
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if card:
+        torch.cuda.empty_cache()
+
+
+def run_examples(torch) -> dict:
+    """``[examples]``: each ``examples/torch_*.py`` on :data:`DEVICE` (the
+    card) at small arguments (:data:`EXAMPLES`), run in this process
+    (``runpy``), its output captured and held to the lines it must print.
+    Returns each one's launches."""
+    import contextlib
+    import io
+    import re
+    import runpy
+    import shutil
+    launches = {}
+    t_all = time.perf_counter()
+    for script, args, lines in EXAMPLES:
+        shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+        buf = io.StringIO()
+        argv = sys.argv
+        sys.argv = [script, "--device", DEVICE, *args]
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(ROOT / "examples" / script),
+                               run_name="__main__")
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+        dt = time.perf_counter() - t0
+        if EXAMPLES_DIR.exists():
+            CKPT_WRITTEN[0] += sum(p.stat().st_size
+                                   for p in EXAMPLES_DIR.iterdir())
+        out = buf.getvalue()
+        missing = [p for p in lines if not re.search(p, out, re.M)]
+        launches[script] = {k: v for k, v in counts().items() if v}
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        print(f"[examples] {script} {' '.join(args)}: {dt:.1f} s, launches "
+              f"{launches[script]}; {len(out.splitlines())} lines, the last "
+              f"{last!r}", flush=True)
+        if missing:
+            raise AssertionError(f"[examples] {script} printed none of "
+                                 f"{missing}:\n{out[-2000:]}")
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    print(f"[examples] the four examples in "
+          f"{time.perf_counter() - t_all:.1f} s; this run's checkpoint "
+          f"writes {CKPT_WRITTEN[0] / 1e9:.2f} GB of the "
+          f"{CKPT_WRITE_BUDGET / 2**30:.0f} GiB budget", flush=True)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -7372,9 +7858,15 @@ def main() -> int:
         del tr, state
         torch.cuda.empty_cache()
     d2ref = d2_references(torch)
-    # slices 15 and 16: the same paths on rank meshes, 4 ranks sharing the
-    # card
+    # slice 17: SlowMo on the one-process twin of [dslowmo], and the twin of
+    # the 2-D rank checkpoint
+    slice17 = {}
+    slice17["[sslowmo]"], smain["[dslowmo]"] = run_sslowmo(torch, mc)
+    d2ref["[d2ckpt]"] = d2ckpt_reference(torch)
+    # slices 15-17: the same paths on rank meshes, 4 ranks sharing the card
     dist_launches = run_dist_paths(torch, mc, shapes, smain, d2ref)
+    for tag in ("[dslowmo]", "[d2ckpt]"):
+        slice17[tag] = dist_launches.pop(tag)
     for key in ("shard_mix", "shard_cmix"):
         for name, tags in ((f"{key}_kernel", ("[dmain]", "[dcmain]")),
                            (f"{key}_kernel_2d", ("[d2main]", "[d2cmain]"))):
@@ -7506,6 +7998,8 @@ def main() -> int:
     reduced_cross_check(torch, SLICE14X_RUNS)
     torch.cuda.empty_cache()
     lap("slice 14")
+    slice17["[examples]"] = run_examples(torch)
+    lap("[examples]")
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
@@ -7554,6 +8048,17 @@ def main() -> int:
     records["mix_vector_kernel"]["launches_slice14"] = {
         path: {k: c[k] for k in ("mix", "mix_vector") if c[k]}
         for path, c in slice14.items()}
+    # the slice-17 phases' launches (B.5 on the SlowMo paths, B.4 at the
+    # 2-D block shape on [d2ckpt], whatever the examples launch)
+    for name, key in (("shard_mix_kernel", "[sslowmo]"),
+                      ("shard_mix_kernel", "[dslowmo]"),
+                      ("shard_cmix_kernel_2d", "[d2ckpt]")):
+        records[name].setdefault("launches_slice17", {})[key] = {
+            k: v for k, v in slice17[key].items() if v}
+    for script, fired in slice17["[examples]"].items():
+        for k, v in fired.items():
+            records[KERNEL_OF_COUNT[k]].setdefault("launches_slice17", {})[
+                f"[examples] {script}"] = {k: v}
     missing = [k for k, r in records.items() if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")

@@ -35,6 +35,25 @@ Checkpoints written before the extras dict (top-level ``.ef_state/...``,
 ``.push_weight``, ``.slow_params/...``) restore through a per-key alias.
 Restore places each leaf on its template leaf's device and dtype.  A
 checkpoint or restore error raises.
+
+**Meshes** (``mesh=``).  The file does not depend on the mesh: it holds
+every node-stacked leaf's n rows in node order and the unstacked leaves
+(SlowMo's slots, AdamW's count) and ``.step`` once, so a file written on
+any mesh, or by the reference, resumes on any mesh with the same n.  On
+a rank mesh (``mesh.distributed``) a process holds its node shard's m
+rows: the save is collective — leaf by leaf, the node-axis ranks of model
+chunk 0 send their rows to global rank 0 (``Exchange.gather`` through
+pinned buffers of its own, released after the save), which writes the
+file (``.part``, then renamed) and the manifest holding one leaf of n
+rows at a time; then every rank passes a barrier (``Mesh.barrier``) and
+returns the path.  The ranks must share the directory's file system.
+The restore gives each rank its node shard's rows (``mesh.node_rank``),
+read from their offset in the member (only those bytes), and the
+unstacked leaves whole; a file whose n is not the template's rows times
+the mesh's node shards raises ``ValueError``.
+Which leaves carry the node axis: every ``.params`` leaf, each extras
+slot by its registered kind (``unstacked`` slots do not), any other leaf
+whose leading axis has the state's row count.
 """
 from __future__ import annotations
 
@@ -173,17 +192,95 @@ def _write_member(zf: zipfile.ZipFile, key: str, arr: np.ndarray) -> None:
         np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
 
 
-def save_checkpoint(ckpt_dir: str, state: PyTree, step: int) -> str:
+def _node_axis_keys(flat: Dict[str, Any], rows: int) -> set:
+    """The keys of ``flat`` whose leaves carry the node axis (``rows`` of
+    it): see the module docstring."""
+    from repro_torch.core.algo import known_slot_names, slot_kind
+    known = set(known_slot_names())
+    out = set()
+    for key, leaf in flat.items():
+        if not (torch.is_tensor(leaf) or isinstance(leaf, _Spec)):
+            continue
+        slot = _slot_of_key(key, known)
+        kind = slot_kind(slot) if slot is not None else None
+        if kind is not None:
+            if kind != "unstacked":
+                out.add(key)
+        elif key.startswith(".params/") or (
+                len(leaf.shape) and leaf.shape[0] == rows):
+            out.add(key)
+    return out
+
+
+def _state_rows(flat: Dict[str, Any]) -> int:
+    """The node rows of a state: its params' leading axis."""
+    for key, leaf in flat.items():
+        if key.startswith(".params/"):
+            return leaf.shape[0]
+    raise ValueError("checkpoint: a state on a mesh needs its .params")
+
+
+_CKPT_BUFFERS = ("ckpt_out", "ckpt_in")   # the save's pinned staging
+
+
+def _gathered_leaves(flat: Dict[str, Any], mesh
+                     ) -> Iterator[Tuple[str, Any]]:
+    """A rank mesh's save, leaf by leaf: on global rank 0 each key with its
+    whole leaf (a stacked leaf's rows of every node shard, in node
+    order); the other node-axis ranks of model chunk 0 send their rows of
+    each stacked leaf; the other ranks do nothing.  Yields on rank 0
+    only."""
+    stacked = _node_axis_keys(flat, _state_rows(flat))
+    for key, leaf in flat.items():
+        if key in stacked:
+            if mesh.model_rank != 0:
+                continue
+            got = mesh.exchange.gather(leaf.detach().contiguous(), 0,
+                                       _CKPT_BUFFERS)
+            if got is None:
+                continue
+            leaf = torch.cat(got)
+            del got
+        if mesh.rank == 0:
+            yield key, leaf
+
+
+def save_checkpoint(ckpt_dir: str, state: PyTree, step: int, *,
+                    mesh=None) -> str:
     """Write ``state`` as ``<ckpt_dir>/ckpt_{step:08d}.npz`` (and the
-    manifest); returns the file's path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    flat = _flatten(state)
-    dtypes: Dict[str, str] = {}
+    manifest); returns the file's path.  On a rank ``mesh`` every rank
+    calls it with its own rows (see the module docstring): global rank 0
+    writes, and every rank returns after the barrier."""
     path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+    if mesh is None or not mesh.distributed:
+        _write(ckpt_dir, path, step, _flatten(state).items())
+        return path
+    try:
+        leaves = _gathered_leaves(_flatten(state), mesh)
+        if mesh.rank == 0:
+            _write(ckpt_dir, path, step, leaves)
+        else:
+            for _ in leaves:
+                pass
+    finally:
+        mesh.exchange.release(*_CKPT_BUFFERS)
+    mesh.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, path: str, step: int, items) -> None:
+    """The npz at ``path`` from ``(key, leaf)`` items, one leaf on the
+    host at a time, then the manifest."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    dtypes: Dict[str, str] = {}
+    keys: List[str] = []
     tmp = path + ".part"
     with zipfile.ZipFile(tmp, "w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for key, arr, name in _host_leaves(flat):
+        for key, leaf in items:
+            keys.append(key)
+            ((_, arr, name),) = _host_leaves({key: leaf})
+            del leaf
             if name is not None:
                 dtypes[key] = name
             _write_member(zf, key, arr)
@@ -193,9 +290,8 @@ def save_checkpoint(ckpt_dir: str, state: PyTree, step: int) -> str:
         _write_member(zf, _DTYPES_KEY, np.asarray(json.dumps(dtypes)))
     os.replace(tmp, path)
     with open(os.path.join(ckpt_dir, _MANIFEST), "w") as f:
-        json.dump({"latest_step": step, "keys": sorted(flat),
+        json.dump({"latest_step": step, "keys": sorted(keys),
                    "dtypes": dtypes}, f, indent=1)
-    return path
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -292,10 +388,43 @@ def _np_of(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def _read_rows(data, key: str, lo: int, rows: int, shards: int):
+    """Rows ``lo … lo + rows − 1`` of the npz member ``key``, a leaf of
+    ``rows × shards`` nodes, or the node count it holds when that is
+    another.  A C-ordered member of a stored (uncompressed) zip is read
+    from its rows' offset, so a rank reads only its node shard's bytes;
+    any other member is read whole and sliced."""
+    with data.zip.open(key + ".npy") as f:
+        version = np.lib.format.read_magic(f)
+        read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}.get(
+                           version)
+        if read_header is not None:
+            shape, fortran, dtype = read_header(f)
+            have = shape[0] if shape else 0
+            if have != rows * shards:
+                return have
+            if not fortran and dtype.kind != "V" and not dtype.hasobject:
+                out = np.empty((rows,) + tuple(shape[1:]), dtype)
+                row = out[:1].nbytes
+                f.seek(f.tell() + lo * row)
+                if f.readinto(memoryview(out.reshape(-1).view(np.uint8))) \
+                        != out.nbytes:
+                    raise ValueError(f"restore_checkpoint: {key!r} is "
+                                     f"shorter than its header says")
+                return out
+    arr = data[key]
+    have = arr.shape[0] if arr.ndim else 0
+    return arr[lo:lo + rows] if have == rows * shards else have
+
+
 def restore_checkpoint(ckpt_dir: str, template: PyTree,
-                       step: Optional[int] = None) -> PyTree:
+                       step: Optional[int] = None, *, mesh=None) -> PyTree:
     """The checkpoint at ``step`` (default: the latest) in ``template``'s
-    structure, each leaf on its template leaf's device and dtype."""
+    structure, each leaf on its template leaf's device and dtype.  With a
+    ``mesh`` the file's n must be the template's rows times the mesh's
+    node shards (``ValueError`` otherwise); on a rank mesh each rank takes
+    its node shard's rows of every stacked leaf."""
     from repro_torch.core.algo import backfill_kind, known_slot_names
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -309,6 +438,12 @@ def restore_checkpoint(ckpt_dir: str, template: PyTree,
         flat = _flatten(template)
         known = set(known_slot_names())
         leaves: Dict[str, Any] = {}
+        stacked, lo, rows, shards = set(), 0, 0, 1
+        if mesh is not None:
+            rows = _state_rows(flat)
+            stacked = _node_axis_keys(flat, rows)
+            if mesh.distributed:
+                shards, lo = mesh.node_count, mesh.node_rank * rows
         for key, tmpl in flat.items():
             src = key
             if key not in data.files:
@@ -327,7 +462,16 @@ def restore_checkpoint(ckpt_dir: str, template: PyTree,
                 else:
                     raise KeyError(f"restore_checkpoint: {key!r} is not in "
                                    f"{ckpt_dir} step {step}")
-            arr = data[src]
+            if key in stacked:
+                arr = _read_rows(data, src, lo, rows, shards)
+                if not isinstance(arr, np.ndarray):
+                    raise ValueError(
+                        f"restore_checkpoint: {src!r} of {ckpt_dir} step "
+                        f"{step} holds {arr} nodes; the template holds "
+                        f"{rows} rows x {shards} node shards of the mesh "
+                        f"= {rows * shards}")
+            else:
+                arr = data[src]
             if not (torch.is_tensor(tmpl) or isinstance(tmpl, _Spec)):
                 leaves[key] = type(tmpl)(arr.item())   # the host step
                 continue

@@ -20,6 +20,12 @@ mode slots (the error-feedback memory, the push-sum weight) are declared
 here too, with what a checkpoint that predates a slot restores into it
 (``backfill``).  The slots' sharding axes (``axes_value``,
 ``extras_axes``) wait for ROADMAP A.10.
+
+On a rank mesh a process holds its node shard's m rows of every stacked
+slot, and every ``unstacked`` slot whole, bitwise equal on every rank:
+the ``row0`` init is node 0's row sent by the rank that holds it
+(:meth:`ExtraSlot.init_value`), and SlowMo's outer step takes x̄ over all
+n nodes across the node-axis ranks (:func:`node_mean`).
 """
 from __future__ import annotations
 
@@ -43,9 +49,11 @@ __all__ = [
     "init_extras",
     "join_payload",
     "known_slot_names",
+    "node_mean",
     "phases_for_algorithm",
     "push_sum_algorithm_names",
     "register",
+    "slot_kind",
     "state_slots",
     "unwrap_mixed",
     "wrap_mixed",
@@ -73,7 +81,11 @@ class ExtraSlot:
     backfill: str = "zeros"       # zeros | ones
     payload: bool = False
 
-    def init_value(self, params_stacked: Any, n_nodes: int) -> Any:
+    def init_value(self, params_stacked: Any, n_nodes: int,
+                   mesh: Any = None) -> Any:
+        """The slot's initial value for ``params_stacked`` (this process's
+        rows).  On a rank ``mesh`` a ``row0`` slot is node 0's params on
+        every rank, broadcast over the node-axis ranks by node shard 0."""
         if self.kind == "node_scalar":
             fill = 1.0 if self.init == "ones" else 0.0
             if self.init not in ("ones", "zeros"):
@@ -89,6 +101,11 @@ class ExtraSlot:
         if self.kind == "unstacked":
             base = tree_map(lambda p: p[0], params_stacked)
         if self.init == "row0":
+            if self.kind == "unstacked" and mesh is not None \
+                    and mesh.distributed:
+                ex = mesh.exchange
+                return tree_map(lambda p: ex.broadcast(p.contiguous().clone(),
+                                                       0), base)
             return tree_map(torch.clone, base)
         if self.init != "zeros":
             raise ValueError(f"ExtraSlot {self.name!r}: unknown init "
@@ -109,10 +126,12 @@ PUSH_SLOT = ExtraSlot("push_weight", kind="node_scalar", init="ones",
 
 @dataclasses.dataclass(frozen=True)
 class StepContext:
-    """Per-step constants handed to hooks."""
+    """Per-step constants handed to hooks; ``mesh`` is the mesh of the
+    sharded rounds (None for the stacked ones)."""
     dist: Any
     n_nodes: int
     lr: Any
+    mesh: Any = None
 
 
 class Algorithm:
@@ -202,16 +221,28 @@ def known_slot_names() -> Tuple[str, ...]:
     return tuple(names)
 
 
-def backfill_kind(slot_name: str) -> str:
-    """Checkpoint backfill for a slot missing from an older checkpoint."""
+def _find_slot(slot_name: str):
+    """The registered :class:`ExtraSlot` of that name, else None."""
     for algo in _REGISTRY.values():
         for slot in algo.slots:
             if slot.name == slot_name:
-                return slot.backfill
+                return slot
     for slot in (EF_SLOT, PUSH_SLOT):
         if slot.name == slot_name:
-            return slot.backfill
-    return "zeros"
+            return slot
+    return None
+
+
+def backfill_kind(slot_name: str) -> str:
+    """Checkpoint backfill for a slot missing from an older checkpoint."""
+    slot = _find_slot(slot_name)
+    return slot.backfill if slot is not None else "zeros"
+
+
+def slot_kind(slot_name: str):
+    """The ``ExtraSlot.kind`` of a registered slot name, else None."""
+    slot = _find_slot(slot_name)
+    return slot.kind if slot is not None else None
 
 
 def state_slots(dist: Any) -> Tuple[ExtraSlot, ...]:
@@ -225,16 +256,17 @@ def state_slots(dist: Any) -> Tuple[ExtraSlot, ...]:
     return slots
 
 
-def init_extras(dist: Any, params_stacked: Any,
-                n_nodes: int) -> Dict[str, Any]:
+def init_extras(dist: Any, params_stacked: Any, n_nodes: int,
+                mesh: Any = None) -> Dict[str, Any]:
     """Initial ``TrainState.extras`` for a config.  The error-feedback slot
     mirrors the joint round payload (params plus any payload slots), so
-    compressed GT-PGA keeps one residual per transmitted leaf."""
+    compressed GT-PGA keeps one residual per transmitted leaf.  On a rank
+    ``mesh``, ``params_stacked`` and ``n_nodes`` are this rank's rows."""
     algo = get_algorithm(dist.algorithm, caller="init_extras")
     slots = state_slots(dist)
     extras: Dict[str, Any] = {}
     for slot in algo.slots:
-        extras[slot.name] = slot.init_value(params_stacked, n_nodes)
+        extras[slot.name] = slot.init_value(params_stacked, n_nodes, mesh)
     if EF_SLOT in slots:
         from repro_torch.compress import init_ef_state
         payload = algo.comm_payload(extras, params_stacked)
@@ -271,6 +303,33 @@ def _f32_product(a, b):
         return torch.as_tensor(a, dtype=torch.float32) * torch.as_tensor(
             b, dtype=torch.float32)
     return float(np.float32(a) * np.float32(b))
+
+
+def node_mean(tree: Any, mesh: Any = None) -> Any:
+    """Each leaf's float32 mean over the node axis, without it.  Without
+    a mesh ``torch.mean``; on a mesh of the sharded rounds the pairwise
+    halving of :func:`repro_torch.tree.pairwise_mean`, in one process over
+    all n rows and on a rank mesh across the node-axis ranks
+    (:func:`repro_torch.train.state.pairwise_mean_ranks` over every leaf's
+    rows packed side by side), so a rank's x̄ is bitwise the one-process
+    mesh's."""
+    from repro_torch.tree import pairwise_mean
+    f32 = torch.float32
+    if mesh is None:
+        return tree_map(lambda p: torch.mean(p.to(f32), dim=0), tree)
+    if not mesh.distributed:
+        return tree_map(lambda p: pairwise_mean(p.to(f32))[0], tree)
+    from repro_torch.train.state import pairwise_mean_ranks
+    leaves, treedef = tree_flatten(tree)
+    m = leaves[0].shape[0]
+    xbar = pairwise_mean_ranks(torch.cat(
+        [p.reshape(m, -1).to(f32) for p in leaves], dim=1), mesh)[0]
+    out, col = [], 0
+    for p in leaves:
+        w = p[0].numel()
+        out.append(xbar[col:col + w].reshape(p.shape[1:]))
+        col += w
+    return tree_unflatten(treedef, out)
 
 
 def _zip(fn, *trees):
@@ -332,8 +391,7 @@ class _SlowMo(Algorithm):
         beta = ctx.dist.slowmo_beta
         lr = ctx.lr
         step = _f32_product(ctx.dist.slowmo_lr, lr)
-        xbar = tree_map(lambda p: torch.mean(p.to(torch.float32), dim=0),
-                        params_half)
+        xbar = node_mean(params_half, ctx.mesh)
         f32 = torch.float32
         slow_u = _zip(lambda u, s, xb: beta * u.to(f32)
                       + (s.to(f32) - xb) / lr,

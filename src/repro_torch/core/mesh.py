@@ -22,12 +22,17 @@ mod k``'s, every offset's sends and receives posted together), the
 fixed-order sum over shards (:meth:`Exchange.fold`: an ``all_gather`` of
 each rank's partial, then the left fold r = 0 … k − 1 — not
 ``all_reduce``, whose order is the backend's), ``all_to_all`` of column
-segments and ``all_gather``.  Payloads travel as bytes, so every dtype
-moves bit for bit.  The transport follows the group's backend: ``nccl``
-takes CUDA tensors as they are; ``gloo`` takes CPU tensors as they are
-and CUDA tensors through pinned host buffers (copy out, exchange, copy
-in), allocated once per rank, grown to the largest round and reused.
-Any other combination raises.
+segments and ``all_gather``.  A checkpoint adds :meth:`Exchange.gather`
+(every rank's part on one rank) and :meth:`Exchange.broadcast` (one
+rank's tensor on every rank), both point-to-point through
+:meth:`Exchange.sendrecv`, and :meth:`Mesh.barrier` over every rank.
+Payloads travel as bytes, so every dtype moves bit for bit.  The
+transport follows the group's backend: ``nccl`` takes CUDA tensors as
+they are; ``gloo`` takes CPU tensors as they are and CUDA tensors
+through pinned host buffers (copy out, exchange, copy in), allocated
+once per rank, grown to the largest round and reused (a checkpoint's
+gathers stage through buffers of their own, released after the save:
+:meth:`Exchange.release`).  Any other combination raises.
 
 :func:`run_ranks` starts the k rank processes on one machine (the
 ``spawn`` start method, a ``file://`` store in a fresh temporary
@@ -122,6 +127,13 @@ class Mesh:
     def node_count(self) -> int:
         """A rank mesh's node shards: its ranks over ``k_model``."""
         return self.size // self.k_model
+
+    def barrier(self) -> None:
+        """A rank mesh: wait until every rank of ``group`` has reached
+        this call (a no-op in one process)."""
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
 
     def owned_shards(self, k: int) -> Tuple[int, ...]:
         """Of a round's k node shards, the ones this process holds rows
@@ -297,7 +309,8 @@ class Exchange:
     exchange) and, while ``timing`` is set, the seconds spent in
     ``stage_out`` (device to pinned host, waited for), ``exchange`` (the
     backend's transfer) and ``stage_in`` (pinned host to device, waited
-    for: ``timing`` adds that wait)."""
+    for: ``timing`` adds that wait).  ``pinned_peak`` is the most pinned
+    host bytes this rank has held at once."""
 
     def __init__(self, group, device: torch.device):
         import torch.distributed as dist
@@ -316,6 +329,7 @@ class Exchange:
                              f"tensors, nccl CUDA tensors)")
         self.staged = kind == ("gloo", "cuda")
         self._pinned: Dict[str, torch.Tensor] = {}
+        self.pinned_peak = 0
         self.timing = False
         self.stats: Dict[str, float] = {}
         self.reset_stats()
@@ -338,15 +352,22 @@ class Exchange:
             buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                               pin_memory=True)
             self._pinned[name] = buf
+            self.pinned_peak = max(self.pinned_peak, self.pinned_bytes)
         return buf[:nbytes]
 
-    def _out(self, msgs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def release(self, *names: str) -> None:
+        """Free the pinned staging buffers ``names``."""
+        for name in names:
+            self._pinned.pop(name, None)
+
+    def _out(self, msgs: Sequence[torch.Tensor], name: str = "out"
+             ) -> List[torch.Tensor]:
         """The flat uint8 messages as the backend sends them: staged into
-        the pinned ``out`` buffer (one stream wait) or as they are."""
+        the pinned buffer ``name`` (one stream wait) or as they are."""
         if not self.staged:
             return [m.contiguous() for m in msgs]
         t0 = time.perf_counter()
-        buf = self._buffer("out", sum(m.numel() for m in msgs))
+        buf = self._buffer(name, sum(m.numel() for m in msgs))
         host, off = [], 0
         for m in msgs:
             h = buf[off:off + m.numel()]
@@ -360,13 +381,14 @@ class Exchange:
         self.stats["stage_out"] += time.perf_counter() - t0
         return host
 
-    def _in(self, sizes: Sequence[int]) -> List[torch.Tensor]:
-        """Receive buffers of ``sizes`` bytes: pinned host memory when
-        staged, else fresh tensors on the device."""
+    def _in(self, sizes: Sequence[int], name: str = "in"
+            ) -> List[torch.Tensor]:
+        """Receive buffers of ``sizes`` bytes: the pinned host buffer
+        ``name`` when staged, else fresh tensors on the device."""
         if not self.staged:
             return [torch.empty(s, dtype=torch.uint8, device=self.device)
                     for s in sizes]
-        buf = self._buffer("in", sum(sizes))
+        buf = self._buffer(name, sum(sizes))
         out, off = [], 0
         for s in sizes:
             out.append(buf[off:off + s])
@@ -392,20 +414,23 @@ class Exchange:
 
     # -- primitives --------------------------------------------------------
     def sendrecv(self, sends: Sequence[Tuple[int, torch.Tensor]],
-                 recvs: Sequence[Tuple[int, torch.Tensor]]) -> None:
+                 recvs: Sequence[Tuple[int, torch.Tensor]],
+                 buffers: Tuple[str, str] = ("out", "in")) -> None:
         """Point-to-point: each ``(peer, tensor)`` of ``sends`` goes to
         ``peer`` (a rank of this exchange's group), each of ``recvs`` is
         filled (in place, its bytes) from ``peer``.  Every send and
         receive is posted together (``batch_isend_irecv``) and waited for;
-        at most one message a direction between two ranks."""
+        at most one message a direction between two ranks.  ``buffers``
+        names the pinned staging buffers (out, in)."""
         import torch.distributed as dist
         if not sends and not recvs:
             return
         self._sync_for_timing()
-        out = self._out([_as_bytes(t) for _, t in sends])
+        out = self._out([_as_bytes(t) for _, t in sends], buffers[0])
         dsts = [t for _, t in recvs]
         # unstaged, a receive lands in its destination's bytes directly
-        inb = (self._in([t.numel() * t.element_size() for t in dsts])
+        inb = (self._in([t.numel() * t.element_size() for t in dsts],
+                        buffers[1])
                if self.staged else [t.view(-1).view(torch.uint8)
                                     for t in dsts])
         t0 = time.perf_counter()
@@ -470,6 +495,33 @@ class Exchange:
         for p in self.all_gather(part):
             acc = p if acc is None else acc + p
         return acc
+
+    def gather(self, part: torch.Tensor, dst: int = 0,
+               buffers: Tuple[str, str] = ("out", "in")
+               ) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``part`` (one shape and dtype on all ranks) on
+        rank ``dst``, in rank order (``dst``'s own is ``part`` itself);
+        None on the other ranks.  Each other rank sends one message to
+        ``dst``, which receives them together."""
+        if self.rank != dst:
+            self.sendrecv([(dst, part)], [], buffers)
+            return None
+        got = [part if r == dst else torch.empty_like(part)
+               for r in range(self.k)]
+        self.sendrecv([], [(r, got[r]) for r in range(self.k) if r != dst],
+                      buffers)
+        return got
+
+    def broadcast(self, t: torch.Tensor, src: int = 0,
+                  buffers: Tuple[str, str] = ("out", "in")) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank: the other ranks' ``t``
+        (its shape and dtype) is filled in place and returned."""
+        if self.rank == src:
+            self.sendrecv([(r, t) for r in range(self.k) if r != src], [],
+                          buffers)
+        else:
+            self.sendrecv([], [(src, t)], buffers)
+        return t
 
     def all_to_all(self, chunks: Sequence[torch.Tensor]
                    ) -> List[torch.Tensor]:

@@ -1,6 +1,6 @@
 """Gossip topologies: circulant shift decompositions, dense mixing
-matrices W, the mixing rate β and the push-sum matrices (numpy copy of
-``repro/core/topology.py`` less the paper's transient-stage formulas).
+matrices W, the mixing rate β, the push-sum matrices and the paper's
+transient-stage quantities (numpy copy of ``repro/core/topology.py``).
 
 Every topology here is circulant (or 2-D circulant on a torus), so
 ``W·x = Σ_s w_s · roll(x, s)`` along the node axis.  The directed
@@ -8,9 +8,9 @@ circulants (``directed_ring``, ``directed_exp``) are asymmetric but
 doubly stochastic under full participation; faults make a push-sum round
 only column-stochastic (:func:`push_sum_matrix` renormalizes a sender's
 column over its surviving receivers), which keeps the mass ``Σw = n``.
-The transient-stage formulas, which only
-``benchmarks/bench_transient_theory.py`` reads (ROADMAP A.11), are not
-copied yet.
+:func:`c_beta`, :func:`d_beta` and :func:`transient_stage` are the
+paper's Tables 2–3 (App. D), :func:`effective_beta` the β they take for
+a topology; numpy and Python floats only.
 """
 from __future__ import annotations
 
@@ -149,6 +149,21 @@ def beta(W: np.ndarray) -> float:
                                compute_uv=False)[0])
 
 
+def effective_beta(topology: str, n: int) -> float:
+    """β for static topologies; for the time-varying one-peer exponential
+    graph, the per-period contraction ‖Π_k (W_k − J)‖^(1/p) (0 for n a
+    power of two: exact averaging after log2 n steps, paper §3)."""
+    if n == 1:
+        return 0.0
+    if topology == "one_peer_exp":
+        p = _require_power_of_two(n, "one-peer exp topology")
+        P = np.eye(n)
+        for k in range(p):
+            P = mixing_matrix(topology, n, step=k) @ P
+        return beta(P) ** (1.0 / p) if beta(P) > 0 else 0.0
+    return beta(mixing_matrix(topology, n))
+
+
 def schedule_period(topology: str, n: int) -> int:
     """Distinct mixing matrices over time: log2(n) for the one-peer
     exponential graph, 1 for static topologies; unknown names raise."""
@@ -215,3 +230,38 @@ def global_push_matrix(n: int, active: Optional[np.ndarray] = None
     if n_live == 0:
         return np.eye(n)
     return np.outer(a, a) / n_live + np.diag(1.0 - a)
+
+
+# ---------------------------------------------------------------------------
+# Paper quantities: C_β, D_β, transient stages (Tables 2, 3)
+# ---------------------------------------------------------------------------
+def c_beta(b: float, H: int) -> float:
+    """C_β = Σ_{k=0}^{H-1} β^k = (1 − β^H)/(1 − β); H when β ≥ 1."""
+    if b >= 1.0:
+        return float(H)
+    return (1.0 - b ** H) / (1.0 - b)
+
+
+def d_beta(b: float, H: int) -> float:
+    """D_β = min{H, 1/(1 − β)}; H when β ≥ 1."""
+    if b >= 1.0:
+        return float(H)
+    return min(float(H), 1.0 / (1.0 - b))
+
+
+def transient_stage(algorithm: str, n: int, b: float, H: int,
+                    iid: bool = False) -> float:
+    """Transient-stage length in iterations (paper Tables 2 and 3, App. D)
+    of ``parallel``, ``gossip``, ``local``, ``gossip_pga`` and
+    ``gossip_aga``; any other algorithm raises ``ValueError``."""
+    if algorithm == "parallel":
+        return 0.0
+    if algorithm == "gossip":
+        g = 1.0 - b
+        return n ** 3 * b ** 4 / (g ** 2 if iid else g ** 4)
+    if algorithm == "local":
+        return n ** 3 * (H ** 2 if iid else H ** 4)
+    if algorithm in ("gossip_pga", "gossip_aga"):
+        cb, db = c_beta(b, H), d_beta(b, H)
+        return n ** 3 * b ** 4 * cb ** 2 * (1.0 if iid else db ** 2)
+    raise ValueError(f"no transient model for {algorithm!r}")

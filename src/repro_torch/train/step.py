@@ -17,13 +17,12 @@ several shards (``Trainer(mesh=...)``), the fused backend runs every
 round through the sharded per-shard kernels (``mixing.communicate_sharded``),
 honouring ``DistConfig.comm_shard_mode``; a mesh that also has
 ``DistConfig.model_axis`` runs them 2-D.  On a rank mesh (one
-``torch.distributed`` rank per block, :func:`check_rank_mesh`) the step
-holds the m = n/k nodes of this rank's node shard, whole: its batch,
+``torch.distributed`` rank per block) the step holds the m = n/k nodes of this rank's node shard, whole: its batch,
 grads and optimizer rows are theirs, the rounds put whole rows back
 together across the model axis, and every reduction over the node axis
 crosses the node-axis ranks only (``mesh.exchange``), in a fixed order
 (the metric means, the joint gradient norm, the consensus, push-sum's
-mass): the k_model ranks of a node shard hold the same values, so a
+mass, SlowMo's x̄): the k_model ranks of a node shard hold the same values, so a
 fold over the whole world would count them k_model times.  With
 ``DistConfig.push_sum`` the step runs every round as a push-sum round of
 the joint ``(x, w)`` pair against the round's runtime W
@@ -35,7 +34,9 @@ shift) and starts the next from its half-step iterate
 (``mixing.start_round``); global and pod steps flush synchronously and
 re-prime (``mixing.overlap_flush``); ``"none"`` returns the buffer
 unchanged.  An algorithm-owned phase (SlowMo's outer step) runs no round:
-``post_round`` consumes the half-step iterate.  Algorithms with a payload
+``post_round`` consumes the half-step iterate (on a mesh of the sharded
+rounds its x̄ is the pairwise halving over all n nodes,
+``algo.node_mean``).  Algorithms with a payload
 (GT-PGA's tracker) send the joint tree ``{"params": ..., <slot>: ...}``
 through ``communicate``.  The fused consensus rounds bypass
 ``communicate`` and meter themselves (``mixing.meter_round``).
@@ -62,7 +63,6 @@ from repro_torch.core import mixing
 from repro_torch.core import topology as topo
 from repro_torch.kernels import mixing_cuda
 from repro_torch.models.model import Model
-from repro_torch.configs.base import not_ported
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.optimizers import joint_sq_norm
 from repro_torch.train.state import TrainState, consensus_distance, debias
@@ -75,19 +75,6 @@ def _grad_global_norm(grads: PyTree, mesh=None,
                       node_axis: str = "data") -> torch.Tensor:
     """Global L2 norm over all nodes' grads (an on-device monitor)."""
     return torch.sqrt(joint_sq_norm(grads, mesh, node_axis))
-
-
-def check_rank_mesh(tcfg: TrainConfig, mesh) -> None:
-    """What a rank mesh does not run yet raises (ROADMAP A.10.1): SlowMo
-    (its outer step means every node's rows) and checkpoints.  No-op for
-    a local mesh or none."""
-    if mesh is None or not mesh.distributed:
-        return
-    if tcfg.dist.algorithm == "slowmo":
-        raise not_ported("SlowMo over ranks (its outer step's node mean)",
-                         "A.10.1")
-    if tcfg.ckpt_every:
-        raise not_ported("checkpoints over ranks", "A.10.1")
 
 
 def node_means(metrics: Dict[str, torch.Tensor], mesh=None
@@ -245,7 +232,6 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
     tcfg.validate()
     dist = tcfg.dist
     dist.validate_nodes(n_nodes)
-    check_rank_mesh(tcfg, mesh)
     algo = algo_lib.get_algorithm(dist.algorithm, caller="build_train_step")
     # "none" (no round) is every algorithm's: a one-node Trainer and the
     # occupancy calibration's compute-only step run it
@@ -285,8 +271,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
                 hops |= set(topo.shift_weights(dist.topology, n_nodes, s))
             ps_offsets = mixing.push_sum_shard_offsets(n_nodes, k, hops)
     # the joint gradient norm folds per node shard under the sharded
-    # rounds, on a rank mesh and in one process alike (joint_sq_norm)
-    norm_mesh = mesh if sharded_comm else None
+    # rounds, on a rank mesh and in one process alike (joint_sq_norm), and
+    # SlowMo's x̄ is the pairwise halving there (algo.node_mean)
+    shard_mesh = mesh if sharded_comm else None
     opt = make_optimizer(tcfg.optimizer, per_node=True)
     fused_consensus_round = (dist.comm_backend == "pallas" and with_consensus
                              and n_nodes > 1 and not lossy_round
@@ -420,16 +407,17 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
             for g in tree_leaves(grads):
                 g.mul_(a.reshape((rows,) + (1,) * (g.dim() - 1)))
         if with_consensus:
-            metrics["grad_norm"] = _grad_global_norm(grads, norm_mesh,
+            metrics["grad_norm"] = _grad_global_norm(grads, shard_mesh,
                                                      dist.node_axis)
         if tcfg.optimizer.grad_clip:
             grads = clip_by_global_norm(grads, tcfg.optimizer.grad_clip,
-                                        norm_mesh, dist.node_axis)
+                                        shard_mesh, dist.node_axis)
         upd, extras = algo.pre_update(extras, grads)
         params_half, opt_state = opt.update(upd, state.opt_state,
                                             state.params, lr)
         del grads, upd
-        sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr)
+        sctx = algo_lib.StepContext(dist=dist, n_nodes=n_nodes, lr=lr,
+                                    mesh=shard_mesh)
         fused_consensus = new_params = new_buf = None
         if push:
             params_half = _freeze_rows(params_half, state.params, mine,

@@ -12,9 +12,9 @@ state stacks the replica m times, step k's batch is rows ``r·m … r·m + m
 rank 0 prints the step line.  On a 2-D ``(node, model)`` mesh the rounds
 also slice the columns over the model axis (``core/mixing.py``); a rank
 mesh then has k·k_model ranks, the k_model ranks of node shard r holding
-its m rows whole.  Checkpoints and SlowMo raise on a rank mesh (ROADMAP
-A.10.1); a one-process 2-D mesh holds whole leaves and checkpoints as
-any other.
+its m rows whole.  SlowMo runs on every mesh: its slots are whole and
+bitwise equal on every rank (the anchor node 0's row, sent by the rank
+that holds it; x̄ over all n nodes, ``core.algo.node_mean``).
 
 Each step runs inside the ``train/step`` span (fenced on the loss when
 the hub's tracer fences) and keeps its metrics on the device in a pending
@@ -40,10 +40,18 @@ boundary emits a ``flush`` record.
 Checkpoints: with ``TrainConfig.ckpt_every`` the state is saved after
 every ``ckpt_every``-th step (``checkpoint.save_checkpoint``, with the
 ``schedule_*.json`` and ``faults_*.json`` sidecars and a ``ckpt``
-record).  A fresh Trainer given a restored state (``step > 0``) reloads
-both sidecars at its first ``run()``; the overlap buffer is re-primed from
-the restored params (the stale buffer is not checkpointed: resume is a
-flush).
+record).  The file is the same on every mesh.  On a rank mesh every rank
+calls the collective save: global rank 0 writes the sidecars, then the
+npz from every node shard's rows, and emits the ``ckpt`` record (rank 0
+only, as the step line); every rank returns after the save's barrier, so
+no rank reads a file before it is whole.  The ranks must share the
+checkpoint directory's file system (the reference's single controller
+takes the same for granted).  A fresh Trainer given a restored state
+(``step > 0``; ``checkpoint.restore_checkpoint(dir, template,
+mesh=mesh)`` on a rank mesh) reloads both sidecars at its first
+``run()``, on every rank; the overlap buffer is re-primed from the
+restored params, a rank's from its own rows (the stale buffer is not
+checkpointed: resume is a flush).
 """
 from __future__ import annotations
 
@@ -70,8 +78,7 @@ from repro_torch.models.model import make_model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim import make_schedule as make_lr
 from repro_torch.train.state import TrainState, stack_for_nodes
-from repro_torch.train.step import (build_train_step, check_microbatches,
-                                    check_rank_mesh)
+from repro_torch.train.step import build_train_step, check_microbatches
 from repro_torch.tree import tree_map
 
 PyTree = Any
@@ -104,7 +111,6 @@ class Trainer:
         self.mesh = mesh
         tcfg.validate()
         tcfg.dist.validate_nodes(n_nodes)
-        check_rank_mesh(tcfg, mesh)
         # the node rows this process holds: all n, or one rank's shard
         ranked = mesh is not None and mesh.distributed
         if ranked and n_nodes % mesh.node_count:
@@ -183,7 +189,8 @@ class Trainer:
         params = stack_for_nodes(params, self.rows)
         opt_state = make_optimizer(self.tcfg.optimizer,
                                    per_node=True).init(params)
-        extras = algo_lib.init_extras(self.tcfg.dist, params, self.rows)
+        extras = algo_lib.init_extras(self.tcfg.dist, params, self.rows,
+                                      mesh=self.mesh)
         return TrainState(params=params, opt_state=opt_state, step=0,
                           extras=extras)
 
@@ -332,12 +339,24 @@ class Trainer:
                     self._occ_measured = True
                     self._measure_occupancy(state, k)
             if tcfg.ckpt_every and (k + 1) % tcfg.ckpt_every == 0:
-                from repro_torch.checkpoint import save_checkpoint
-                save_checkpoint(tcfg.ckpt_dir, state, k + 1)
-                self._save_schedule(k + 1)
-                self._save_faults(k + 1)
-                self.telemetry.emit("ckpt", step=k + 1, path=tcfg.ckpt_dir)
+                self._checkpoint(state, k + 1)
         return state
+
+    def _checkpoint(self, state: TrainState, step: int) -> None:
+        """Save ``state`` after ``step`` steps with its sidecars; on a rank
+        mesh collectively, global rank 0 the writer (module docstring)."""
+        from repro_torch.checkpoint import save_checkpoint
+        mesh = self.mesh
+        ranked = mesh is not None and mesh.distributed
+        writer = not ranked or mesh.rank == 0
+        if writer:
+            os.makedirs(self.tcfg.ckpt_dir, exist_ok=True)
+            self._save_schedule(step)
+            self._save_faults(step)
+        save_checkpoint(self.tcfg.ckpt_dir, state, step,
+                        mesh=mesh if ranked else None)
+        if writer:
+            self.telemetry.emit("ckpt", step=step, path=self.tcfg.ckpt_dir)
 
     def _log_boundary(self, k: int, phase: str, t0: float) -> None:
         """Bring the pending window back in ONE counted transfer
@@ -473,3 +492,18 @@ class Trainer:
         if os.path.exists(path):
             with open(path) as f:
                 self.fault_schedule.load_state_dict(json.load(f))
+
+
+def quick_train(tcfg: TrainConfig, n_nodes: int, steps: int, *,
+                seed: int = 0, with_consensus: bool = False,
+                device=None) -> Trainer:
+    """Build, init, run: returns the Trainer (with ``.history``).  On the
+    card unless ``device="cpu"``.  ``seed`` seeds the CPU
+    ``torch.Generator`` of :meth:`Trainer.init_state`; the port's init
+    draws other values than ``jax.random`` from the same seed, so the run
+    is not the reference ``quick_train``'s."""
+    tr = Trainer(tcfg, n_nodes, with_consensus=with_consensus,
+                 device="cuda" if device is None else device)
+    state = tr.init_state(torch.Generator().manual_seed(seed))
+    tr.run(state, steps)
+    return tr

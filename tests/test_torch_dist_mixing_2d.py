@@ -32,13 +32,17 @@ Held to, with the tolerances and their reasons:
   times it would be √2 larger, and the clip would scale the step by
   1/√2); the rank Trainer's Gossip-PGA run against the JAX Trainer
   without a mesh as that file holds the 1-D ranks (params rtol 1e-5 atol
-  1e-7, the loss rtol 1e-5); checkpoints raise naming A.10.1.
+  1e-7, the loss rtol 1e-5); a checkpoint the ranks write after step 2,
+  restored by fresh rank Trainers on the same layout, runs steps 2-3
+  bitwise the uninterrupted rank run (params, optimizer state, extras).
 
 JAX is imported inside the tests, never at module top: a spawned rank
 imports this module to find its worker and must load no JAX
 (``tests/test_torch_isolation.py`` holds this).
 """
 import dataclasses
+import shutil
+import tempfile
 
 import numpy as np
 import pytest
@@ -87,9 +91,7 @@ TCASES = [("pga", {}, {}, {}),
                               comm_global_compression="int8",
                               comm_error_feedback=True), {}, {}),
           ("overlap", dict(comm_overlap=True), {}, {}),
-          ("push", dict(topology="directed_exp", push_sum=True), {}, {}),
-          ("ckpt", {}, {}, dict(ckpt_every=2, ckpt_dir="unused"))]
-REFUSED = ("ckpt",)
+          ("push", dict(topology="directed_exp", push_sum=True), {}, {})]
 
 
 def _id(case) -> str:
@@ -217,25 +219,42 @@ def _config(dist_kw, opt_kw, extra):
 
 def _train(case, mesh, row0):
     """``(params leaves, [(phase, loss, consensus, grad_norm)])`` of one
-    Trainer case on ``mesh``, or the ``NotImplementedError`` message."""
+    Trainer case on ``mesh``."""
     name, dist_kw, opt_kw, extra = case
-    try:
-        tr = Trainer(_config(dist_kw, opt_kw, extra), TN, mesh=mesh,
-                     with_consensus=True, device="cpu")
-        st = tr.init_state(params=interop.from_numpy(row0, "cpu"))
-        st = tr.run(st, steps=STEPS, log_every=1)
-    except NotImplementedError as e:
-        return str(e)
+    tr = Trainer(_config(dist_kw, opt_kw, extra), TN, mesh=mesh,
+                 with_consensus=True, device="cpu")
+    st = tr.init_state(params=interop.from_numpy(row0, "cpu"))
+    st = tr.run(st, steps=STEPS, log_every=1)
     return ([p.clone() for p in tree_leaves(st.params)],
             [(h["phase"], h["loss"], h["consensus"], h["grad_norm"])
              for h in tr.history])
 
 
-def _rank_worker(rank: int, row0):
+def _resume(mesh, row0, ckpt_dir):
+    """The uninterrupted rank run writing a checkpoint after steps 2 and
+    4, and fresh rank Trainers restoring step 2 and running steps 2-3:
+    whether their params, optimizer state and extras are bitwise the
+    uninterrupted run's, leaf by leaf."""
+    from repro_torch.checkpoint import restore_checkpoint
+    cfg = _config({}, {}, dict(ckpt_every=2, ckpt_dir=ckpt_dir))
+    tr = Trainer(cfg, TN, mesh=mesh, with_consensus=True, device="cpu")
+    u = tr.run(tr.init_state(params=interop.from_numpy(row0, "cpu")),
+               steps=STEPS, log_every=1)
+    tr = Trainer(cfg.replace(ckpt_every=0), TN, mesh=mesh,
+                 with_consensus=True, device="cpu")
+    st = restore_checkpoint(ckpt_dir, tr.init_state(
+        params=interop.from_numpy(row0, "cpu")), step=2, mesh=mesh)
+    b = tr.run(st, steps=2, log_every=1)
+    return [torch.equal(x, y) for x, y in zip(
+        tree_leaves((u.params, u.opt_state, u.extras)),
+        tree_leaves((b.params, b.opt_state, b.extras)))]
+
+
+def _rank_worker(rank: int, row0, ckpt_dir):
     """One rank of the (data=2, model=2) mesh: every round case on its
     node shard's rows (with its column block before the gather for the
     uncompressed rounds), the exchange bytes of one gossip round on each
-    axis, then every Trainer case."""
+    axis, then every Trainer case and a checkpoint resume."""
     import torch.distributed as dist
     mesh = make_mesh(*AXES, device="cpu", group=dist.group.WORLD)
     m = N // KN
@@ -267,6 +286,7 @@ def _rank_worker(rank: int, row0):
     for case in TCASES:
         out[("train", case[0])] = _train(case, mesh, row0)
     out["rows"] = (mesh.node_rank * tm, (mesh.node_rank + 1) * tm)
+    out["resume"] = _resume(mesh, row0, ckpt_dir)
     return out
 
 
@@ -338,11 +358,12 @@ def runs():
     row0 = jax.tree.map(lambda p: np.asarray(p[0]),
                         jax.device_get(jst.params))
     box = {}
+    ckpt_dir = tempfile.mkdtemp(prefix="rank_ckpt_2d_")
 
     def spawn():
         try:
-            box["ranks"] = run_ranks(_rank_worker, RANKS, args=(row0,),
-                                     timeout_s=170)
+            box["ranks"] = run_ranks(_rank_worker, RANKS,
+                                     args=(row0, ckpt_dir), timeout_s=170)
         except BaseException as e:             # re-raised below
             box["error"] = e
 
@@ -356,12 +377,13 @@ def runs():
                        for kind, case in CASES
                        if kind in ("round", "compressed", "collective")}}
         out["train_local"] = {case[0]: _train(case, mesh, row0)
-                              for case in TCASES if case[0] not in REFUSED}
+                              for case in TCASES}
         jst = jtr.run(jst, steps=STEPS, log_every=1)
         out["train_jax"] = (jax.tree.leaves(jax.device_get(jst.params)),
                             jtr.history)
     finally:
         th.join()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     if "error" in box:
         raise box["error"]
     out["ranks"] = box["ranks"]
@@ -498,8 +520,7 @@ def _rank_params(runs, name):
             for i in range(len(by_node[0]))]
 
 
-@pytest.mark.parametrize("name", [c[0] for c in TCASES
-                                  if c[0] not in REFUSED])
+@pytest.mark.parametrize("name", [c[0] for c in TCASES])
 def test_rank_trainer_is_the_one_process_two_d_trainer(runs, name):
     """Params within atol 1e-7, rtol 1e-6 of the one-process 2-D
     Trainer's rows, the model ranks of one node shard bitwise each other,
@@ -555,7 +576,11 @@ def test_rank_trainer_matches_jax_trainer(runs):
                                    rtol=1e-5, atol=1e-7)
 
 
-def test_rank_checkpoints_are_refused(runs):
+def test_rank_checkpoint_resumes_bitwise_on_the_same_layout(runs):
+    """The (data=2, model=2) ranks' step-2 checkpoint, restored by fresh
+    rank Trainers on the same layout: steps 2-3 leave every leaf of the
+    params, optimizer state and extras bitwise the uninterrupted run's on
+    every rank."""
     for r in range(RANKS):
-        msg = runs["ranks"][r][("train", "ckpt")]
-        assert isinstance(msg, str) and "ROADMAP A.10.1" in msg, msg
+        equal = runs["ranks"][r]["resume"]
+        assert equal and all(equal), (r, equal)

@@ -24,11 +24,13 @@ Held to, with the tolerances and their reasons:
   rank 1 (3.0e-8 the largest params gap measured, with a forward and
   backward on the reduced model; the clipped case's joint gradient norm
   is besides the fold of the ranks' partial sums);
-* every registered algorithm either runs (parallel, gossip, local,
-  gossip_pga, gossip_aga, hier_pga, gt_pga, as many steps as show
-  their phases, Gossip-PGA the 4-step case above: against the one-process
-  Trainer as above) or raises ``NotImplementedError`` naming A.10.1
-  (slowmo); checkpoints raise the same way.  Push-sum over directed_exp
+* every registered algorithm runs (parallel, gossip, local, gossip_pga,
+  gossip_aga, hier_pga, gt_pga, slowmo, as many steps as show their
+  phases, Gossip-PGA the 4-step case above: against the one-process
+  Trainer as above; SlowMo's momentum ``(anchor − x̄)/lr`` within its
+  anchor's bound over lr, as ``tests/test_torch_trainer_algos.py`` holds
+  it; checkpoints are ``tests/test_torch_dist_ckpt.py``'s).  Push-sum
+  over directed_exp
   runs with a fault schedule (nodes 2 and 5, on two ranks, down at steps
   1–2, their rows frozen there): against the one-process
   Trainer as above, and the mass Σw (a fold of the ranks' sums) within
@@ -76,9 +78,7 @@ CASES = ([("pga", {}, {}, {}, STEPS),
          + [(f"algo-{a}", dict(algorithm=a, **ALGO_KW.get(a, {})), {}, {},
              ALGO_STEPS.get(a, 2))
             for a in algorithm_names() if a != DIST["algorithm"]]
-         + [("push_faults", PUSH, {}, {}, STEPS),
-            ("ckpt", {}, {}, dict(ckpt_every=2, ckpt_dir="unused"), 1)])
-REFUSED = ("algo-slowmo", "ckpt")
+         + [("push_faults", PUSH, {}, {}, STEPS)])
 
 
 def _config(dist_kw, opt_kw, extra):
@@ -90,24 +90,23 @@ def _config(dist_kw, opt_kw, extra):
 
 
 def _run(case, mesh, row0):
-    """``(params leaves, [(phase, loss, consensus, mass)])`` of one case's
-    steps on ``mesh``, or the ``NotImplementedError`` message."""
+    """``(params leaves, [(phase, loss, consensus, mass), slots])`` of one
+    case's steps on ``mesh``; ``slots``: SlowMo's ``(anchor, momentum)``
+    leaves."""
     from repro_torch.core.faults import FaultSchedule
     name, dist_kw, opt_kw, extra, steps = case
     faults = (FaultSchedule(n_nodes=N, **FAULTS) if name == "push_faults"
               else None)
-    try:
-        tr = Trainer(_config(dist_kw, opt_kw, extra), N, mesh=mesh,
-                     with_consensus=True, fault_schedule=faults,
-                     device="cpu")
-        st = tr.init_state(params=interop.from_numpy(row0, "cpu"))
-        st = tr.run(st, steps=steps, log_every=1)
-    except NotImplementedError as e:
-        return str(e)
+    tr = Trainer(_config(dist_kw, opt_kw, extra), N, mesh=mesh,
+                 with_consensus=True, fault_schedule=faults, device="cpu")
+    st = tr.init_state(params=interop.from_numpy(row0, "cpu"))
+    st = tr.run(st, steps=steps, log_every=1)
     from repro_torch.tree import tree_leaves
+    slots = tuple([p.clone() for p in tree_leaves(st.extras[s])]
+                  for s in ("slow_params", "slow_u") if s in st.extras)
     return ([p.clone() for p in tree_leaves(st.params)],
             [(h["phase"], h["loss"], h["consensus"], h.get("mass"))
-             for h in tr.history])
+             for h in tr.history], slots)
 
 
 def _rank_worker(rank: int, row0):
@@ -155,8 +154,7 @@ def runs():
         out = {"jax": (jax.tree.leaves(jax.device_get(jst.params)),
                        jtr.history)}
         mesh = make_mesh((K,), ("data",), device="cpu")
-        out["local"] = {case[0]: _run(case, mesh, row0) for case in CASES
-                        if case[0] not in REFUSED}
+        out["local"] = {case[0]: _run(case, mesh, row0) for case in CASES}
     finally:
         th.join()
     if "error" in box:
@@ -195,14 +193,27 @@ def test_rank_trainer_matches_jax_trainer(runs):
                                    rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("name", [c[0] for c in CASES
-                                  if c[0] not in REFUSED])
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
 def test_rank_trainer_is_the_one_process_trainer(runs, name):
     """Each rank's params are its rows of the one-process sharded
     Trainer's within atol 1e-7, rtol 1e-6, and every rank logs the same
-    phases and losses (rtol 1e-6) as the one-process Trainer."""
+    phases and losses (rtol 1e-6) as the one-process Trainer; SlowMo's
+    slots are whole on every rank, the anchor within atol 1e-7, rtol 1e-6
+    and the momentum within the anchor's bound over lr."""
     ranks = runs["ranks"]
-    want_params, want_hist = runs["local"][name]
+    want_params, want_hist, want_slots = runs["local"][name]
+    for r in range(K):
+        slots = ranks[r][name][2]
+        assert len(slots) == len(want_slots)
+        if want_slots:
+            (anchor, mom), (w_anchor, w_mom) = slots, want_slots
+            for g, w in zip(anchor, w_anchor):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                           atol=1e-7)
+            for g, w, a in zip(mom, w_mom, w_anchor):
+                bound = (1e-7 + 1e-6 * float(a.abs().max())) / OPT["lr"]
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                           atol=bound)
     got = _rank_params(ranks, name)
     for g, w in zip(got, want_params):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
@@ -220,15 +231,6 @@ def test_rank_trainer_clip_engages(runs):
     clipped = _rank_params(runs["ranks"], "clip")
     plain = _rank_params(runs["ranks"], "pga")
     assert any(not torch.equal(a, b) for a, b in zip(clipped, plain))
-
-
-@pytest.mark.parametrize("name", REFUSED)
-def test_rank_trainer_refuses_what_it_does_not_run(runs, name):
-    """SlowMo and checkpoints raise NotImplementedError naming A.10.1 on
-    a rank mesh (neither may run on its own rows only)."""
-    for r in range(K):
-        msg = runs["ranks"][r][name]
-        assert isinstance(msg, str) and "ROADMAP A.10.1" in msg, msg
 
 
 def test_every_registered_algorithm_is_covered():
@@ -266,7 +268,8 @@ def test_rank_algorithm_runs_show_their_phases(runs):
             "algo-local": ["none", "global"],
             "algo-gossip_aga": ["gossip", "global"],
             "algo-gt_pga": ["gossip", "global"],
-            "algo-hier_pga": ["gossip", "pod_avg", "gossip", "global"]}
+            "algo-hier_pga": ["gossip", "pod_avg", "gossip", "global"],
+            "algo-slowmo": ["gossip", "slowmo"]}
     for name, phases in want.items():
         for r in range(K):
             assert [h[0] for h in runs["ranks"][r][name][1]] == phases

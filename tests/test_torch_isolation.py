@@ -22,8 +22,9 @@ from repro_torch.kernels import mixing_cuda
 from repro_torch.train import Trainer
 
 REPO = Path(__file__).resolve().parents[1]
+EXAMPLE_FILES = sorted((REPO / "examples").glob("torch_*.py"))
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + EXAMPLE_FILES
 
 
 def _imported_roots(path: Path):
@@ -65,8 +66,27 @@ def test_rank_test_modules_import_no_jax_at_module_top(path):
 def test_rank_test_modules_load_no_jax_when_imported():
     code = ("import sys; sys.path.insert(0, 'tests'); "
             "import test_torch_dist_mixing, test_torch_dist_train, "
-            "test_torch_dist_mixing_2d; "
+            "test_torch_dist_mixing_2d, test_torch_dist_ckpt; "
             "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_examples_loads_no_jax():
+    """The port's four examples, imported as modules (their ``main`` not
+    run), load nothing of JAX or ``repro``."""
+    assert [p.name for p in EXAMPLE_FILES] == [
+        "torch_logistic_regression.py", "torch_quickstart.py",
+        "torch_serve_requests.py", "torch_train_lm.py"]
+    code = ("import sys, importlib; sys.path.insert(0, 'examples'); "
+            + "; ".join(f"importlib.import_module({p.stem!r})"
+                        for p in EXAMPLE_FILES)
+            + "; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'repro')))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
