@@ -266,6 +266,7 @@ script imports nothing of JAX: the card's machine has none.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -4730,8 +4731,9 @@ DENSE_ARCHS = ("pga-lm-100m", "gemma2-9b", "qwen3-0.6b", "qwen2-0.5b",
                "qwen1.5-32b")
 QWEN32_LAYERS = 2           # of qwen1.5-32b's 64, at full width
 # of gemma2-9b's 42, at full width: at all 42 the whole script overran
-# its 900 s budget by 67 s on an H100 (PERF.md section 7 has the sums)
-GEMMA_LAYERS = 10
+# its 900 s budget by 67 s on an H100, and at 10 by 13 s once the
+# dry-run phases came (PERF.md section 7 has the sums)
+GEMMA_LAYERS = 4
 # (B, prompt, new tokens, s_max) of Engine.generate, then the
 # BatchedServer's prompt lengths, slots and new tokens per request
 DENSE_SERVE = {
@@ -7289,8 +7291,9 @@ def m2_against_one_d(torch, tag: str, twin: str, state, ref: list,
 # examples
 # ---------------------------------------------------------------------------
 SLOWMO_STEPS = 4                    # gossip, slowmo, gossip, slowmo
-SLOWMO_LAYERS = None                # pga-lm-100m's depth for [sslowmo] and
-#                                     [dslowmo] (None: all 12)
+SLOWMO_LAYERS = 4                   # pga-lm-100m's depth for [sslowmo] and
+#                                     [dslowmo] (None: all 12), cut for the
+#                                     900 s budget (PERF.md section 7)
 SLOWMO_SLOTS = ("slow_params", "slow_u")
 D2CKPT_STEPS = 6                    # steps 0-2 write the file, 3-5 resume
 EXAMPLES_DIR = ROOT / "_examples_smoke"     # listed in .gitignore
@@ -7725,6 +7728,306 @@ def run_examples(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 18: the dry-run and roofline tooling on meta tensors with H100
+# peaks ([dryrun]), held against a real pga-lm-100m step on the card
+# ([drycard]); [main]'s step against the roofline ([roofline]); row 1b of
+# the kernel table (mix.cu's generic instance at n = 2)
+# ---------------------------------------------------------------------------
+# [main]'s n, batch, length, topology and H (its optimizer is MAIN_OPT)
+DRYCARD = dict(n=8, per_node=4, seq=512, topology="one_peer_exp", H=3)
+# |measured - predicted| peak of a [drycard] step, in bytes: the caching
+# allocator rounds every block up to 512 bytes (1,520-3,556 B over
+# thousands of live blocks measured on an H100) and a CUDA op may take
+# scratch the meta run does not see (PERF.md §2)
+DRYCARD_PEAK_TOL = 16 * 2**20
+DRYSERVE = ("2d", "tp_seq")                     # hillclimb exp1's variants
+
+
+def _roofline_line(tag: str, what: str, rl: dict, wall_s: float,
+                   coll_modelled: str) -> None:
+    """One record's roofline terms; ``coll_modelled`` "none" (a serve
+    step) prints no collective term and no collective verdict."""
+    if coll_modelled == "none":
+        coll = ("collective not modelled (of compute and memory, dominant "
+                f"{rl['dominant']}")
+    else:
+        coll = (f"collective ({coll_modelled} only) {rl['collective_s']:.4e}"
+                f" s a chip (dominant {rl['dominant']}; "
+                f"{rl['coll_bytes']:.4e} collective bytes")
+    print(f"{tag} {what}: compute {rl['compute_s']:.4e} s, memory "
+          f"{rl['memory_s']:.4e} s, {coll}; {rl['flops']:.4e} FLOPs, "
+          f"{rl['hlo_bytes']:.4e} bytes a chip; model FLOPs "
+          f"{rl['model_flops']:.4e}); meta run {wall_s:.2f} s", flush=True)
+
+
+def run_dryrun_path() -> dict:
+    """``[dryrun]``: the dry-run on the host, on meta tensors, at full
+    published size on the ``(data=16, model=16)`` production mesh
+    description: ``run_one("pga-lm-100m", "train_4k", "single")`` (both
+    phases) and gemma2-9b × decode_32k under ``param_sharding`` "2d" and
+    "tp_seq" (hill-climb exp1's two variants).  Every figure is analytic
+    for the H100 (``repro_torch.roofline``); a record that is not ok
+    fails the run."""
+    from repro_torch.configs import INPUT_SHAPES, get_model_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    rec = dryrun.run_one("pga-lm-100m", "train_4k", "single")
+    wall = time.perf_counter() - t0
+    if not rec.get("ok"):
+        raise AssertionError(f"{tag} pga-lm-100m train_4k: "
+                             f"{rec.get('error')}\n{rec.get('traceback')}")
+    for phase, p in rec["phases"].items():
+        _roofline_line(tag, f"pga-lm-100m train_4k single {phase} "
+                       f"({rec['n_nodes']} nodes, {rec['mode']})",
+                       p["roofline"], p["compile_s"], p["coll_modelled"])
+    gossip = rec["phases"]["gossip"]
+    print(f"{tag} pga-lm-100m train_4k: memory a chip {gossip['memory']}, "
+          f"wire {gossip['wire']}; run_one {wall:.2f} s", flush=True)
+    mesh = make_production_mesh(device="meta")
+    cfg = get_model_config("gemma2-9b")
+    serve = {}
+    for ps in DRYSERVE:
+        t0 = time.perf_counter()
+        r = dryrun.dryrun_serve(cfg, INPUT_SHAPES["decode_32k"], mesh,
+                                param_sharding=ps)
+        wall = time.perf_counter() - t0
+        _roofline_line(tag, f"gemma2-9b decode_32k {ps} ({r['mode']})",
+                       r["roofline"], wall, r["coll_modelled"])
+        print(f"{tag} gemma2-9b decode_32k {ps}: memory a chip "
+              f"{r['memory']}", flush=True)
+        serve[ps] = r
+    return {"train": rec, "serve": serve}
+
+
+def run_drycard_path(torch) -> dict:
+    """``[drycard]``: the dry-run held against the card.  pga-lm-100m at
+    full width with [main]'s n = 8, per-node batch, sequence length,
+    topology, H = 3 and optimizer (:data:`MAIN_OPT`), the default
+    ``DistConfig()`` backend ("reference", where [main] runs mix.cu), on
+    a one-process ``make_mesh((8, 1), ("data", "model"))`` with every
+    block on this card, beside ``dryrun_train`` of the same config,
+    optimizer, shape and mesh on meta tensors.  Three steps, each after
+    ``reset_peak_memory_stats``: step 0 (gossip) and step 2 (global)
+    under ``FlopCounterMode``, step 1 (gossip) under no dispatch mode (a
+    Python dispatch mode makes autograd accumulate gradients out of
+    place, so step 1 is the step users run).  Gates: the card's FLOPs
+    equal the dry-run's (per chip × 8) in both phases; the argument bytes
+    (per chip × 8, the replicated leaves once) equal the state's and the
+    batch's bytes on the card; every step's peak above what else is live
+    within :data:`DRYCARD_PEAK_TOL` of its phase's predicted argument +
+    temp."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import (DistConfig, InputShape, OptimizerConfig,
+                                     TrainConfig, get_model_config)
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import train_specs
+    from repro_torch.train import Trainer
+
+    tag, n = "[drycard]", DRYCARD["n"]
+    cfg = get_model_config("pga-lm-100m")
+    dist = DistConfig(algorithm="gossip_pga", topology=DRYCARD["topology"],
+                      H=DRYCARD["H"])
+    opt = OptimizerConfig(**MAIN_OPT)
+    shape = InputShape("drycard", DRYCARD["seq"], n * DRYCARD["per_node"],
+                       "train")
+    meta_mesh = make_mesh((n, 1), ("data", "model"), device="meta")
+    t0 = time.perf_counter()
+    rec = dryrun.dryrun_train(cfg, shape, meta_mesh, dist=dist,
+                              optimizer=opt)
+    specs = train_specs(cfg, meta_mesh, shape, dist=dist, optimizer=opt)
+    _, replicated = dryrun.argument_bytes(
+        (specs.state_sds, specs.batch_sds),
+        (specs.state_shardings, specs.batch_shardings), meta_mesh)
+    dry_s = time.perf_counter() - t0
+    del specs
+    tcfg = TrainConfig(model=cfg, dist=dist, optimizer=opt,
+                       global_batch=shape.global_batch, seq_len=shape.seq_len,
+                       steps=3, log_every=1)
+    tr = Trainer(tcfg, n_nodes=n, device=DEVICE,
+                 mesh=make_mesh((n, 1), ("data", "model"), device=DEVICE))
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state_b = _state_bytes(state)
+    batch_b = sum(t.numel() * t.element_size()
+                  for t in tr.device_batch(0).values())
+    print(f"{tag} pga-lm-100m at full width, {n} nodes x {DRYCARD['per_node']}"
+          f" sequences of {DRYCARD['seq']}, {dist.algorithm} over "
+          f"{dist.topology} H={dist.H}, backend {dist.comm_backend}, "
+          f"{tcfg.optimizer.name} ({tcfg.optimizer.schedule}), mesh "
+          f"(data={n}, model=1) on the card; state {state_b:,} bytes, batch "
+          f"{batch_b:,}; dryrun_train {dry_s:.2f} s", flush=True)
+    out = {"flops": {}, "bytes": {}, "peak": {}}
+    failures = []
+    card = DEVICE == "cuda"
+    for k, (phase, counted) in enumerate((("gossip", True),
+                                          ("gossip", False),
+                                          ("global", True))):
+        _sync(torch)
+        other = torch.cuda.memory_allocated() - state_b if card else 0
+        _reset_peak(torch)
+        t0 = time.perf_counter()
+        with (FlopCounterMode(display=False) if counted
+              else contextlib.nullcontext()) as fc:
+            state = tr.run(state, steps=1, log_every=1)
+        _sync(torch)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - other if card else 0
+        got = tr.history[-1]["phase"]
+        p = rec["phases"][phase]
+        predicted = (p["memory"]["argument_size_in_bytes"] - replicated) * n \
+            + replicated + p["memory"]["temp_size_in_bytes"]
+        mode = "under FlopCounterMode" if counted else "under no mode"
+        print(f"{tag} step {k} phase={got} {mode}: peak predicted "
+              f"{predicted:,} (argument + temp "
+              f"{p['memory']['temp_size_in_bytes']:,}) vs "
+              f"torch.cuda.max_memory_allocated {peak:,} above the "
+              f"{other:,} other live bytes (measured - predicted "
+              f"{peak - predicted:+,}, "
+              f"{100 * (peak - predicted) / predicted:+.3f}%); step "
+              f"{step_ms:.1f} ms", flush=True)
+        out["peak"][phase if counted else "plain"] = (predicted, peak)
+        if got != phase:
+            failures.append(f"step {k} ran {got}, not {phase}")
+        if abs(peak - predicted) > DRYCARD_PEAK_TOL:
+            failures.append(f"step {k} {phase}: peak {peak} vs predicted "
+                            f"{predicted} beyond {DRYCARD_PEAK_TOL}")
+        if not counted:
+            continue
+        card_flops = fc.get_total_flops()
+        dry_flops = p["roofline"]["flops"] * n
+        arg = p["memory"]["argument_size_in_bytes"]
+        arg_total = (arg - replicated) * n + replicated
+        print(f"{tag} step {k} phase={got}: FLOPs on the card "
+              f"{card_flops:,} (FlopCounterMode), dry-run {dry_flops:,.0f} "
+              f"({p['roofline']['flops']:,.0f} a chip x {n}): equal "
+              f"{card_flops == dry_flops}; argument bytes {arg:,} a chip x "
+              f"{n} ({replicated:,} replicated, once) = {arg_total:,} vs the "
+              f"state {state_b:,} + batch {batch_b:,} on the card: equal "
+              f"{arg_total == state_b + batch_b}", flush=True)
+        out["flops"][phase] = card_flops
+        out["bytes"][phase] = p["roofline"]["hlo_bytes"] * n
+        if card_flops != dry_flops:
+            failures.append(f"{phase}: FLOPs {card_flops} != {dry_flops}")
+        if arg_total != state_b + batch_b:
+            failures.append(f"{phase}: argument bytes {arg_total} != "
+                            f"{state_b + batch_b}")
+    del state, tr
+    if failures:
+        raise AssertionError(f"{tag} {failures}")
+    return out
+
+
+def run_roofline_report(drycard: dict) -> None:
+    """``[roofline]``: [main]'s steady step (its ``STEADY`` entry) against
+    the H100 roofline: the model-FLOP share ``model_flops_for(cfg, shape,
+    1) / (step_s · PEAK_FLOPS)``, the counted FLOPs' share (the matmul
+    FLOPs that ``FlopCounterMode`` counted in [drycard]'s gossip step:
+    [main]'s model, batch, length, optimizer, topology and H) and the
+    memory term (that step's unfused bytes from the dry-run, over
+    ``HBM_BW``) against the step.  [drycard]'s round is the reference
+    backend's where [main]'s is mix.cu, so the memory term counts the
+    round's unfused passes, not the fused kernel's.  A share over 1.0
+    fails the run: a count would be wrong."""
+    from repro_torch.configs import InputShape, get_model_config
+    from repro_torch.roofline import HBM_BW, PEAK_FLOPS, model_flops_for
+    tag = "[roofline]"
+    cfg = get_model_config("pga-lm-100m")
+    shape = InputShape("[main]", DRYCARD["seq"],
+                       DRYCARD["n"] * DRYCARD["per_node"], "train")
+    step_s = STEADY["[main]"]
+    mf = model_flops_for(cfg, shape, 1)
+    shares = {"model FLOPs": mf / (step_s * PEAK_FLOPS),
+              "counted FLOPs": drycard["flops"]["gossip"]
+              / (step_s * PEAK_FLOPS)}
+    mem_s = drycard["bytes"]["gossip"] / HBM_BW
+    print(f"{tag} [main] steady step {step_s * 1e3:.1f} ms: model FLOPs "
+          f"{mf:.4e} (6 x {mf / 6 / (shape.global_batch * shape.seq_len):,.0f}"
+          f" active params x {shape.global_batch * shape.seq_len:,} tokens), "
+          f"share {shares['model FLOPs']:.4f}; counted FLOPs "
+          f"{drycard['flops']['gossip']:.4e}, share "
+          f"{shares['counted FLOPs']:.4f}; memory term "
+          f"{mem_s * 1e3:.1f} ms ({drycard['bytes']['gossip']:.4e} unfused "
+          f"bytes of [drycard]'s gossip step, the reference round in "
+          f"place of mix.cu, at {HBM_BW / 1e12:.2f} TB/s), "
+          f"{mem_s / step_s:.3f} of the step", flush=True)
+    print(f"{tag} each share divides by the step times PEAK_FLOPS = "
+          f"{PEAK_FLOPS / 1e12:.1f} TFLOP/s, the H100's dense bf16 "
+          f"tensor-core peak; [main] trains fp32 params with bf16 "
+          f"matmuls and fp32 optimizer passes, and no peak is chosen here "
+          f"for a benchmark", flush=True)
+    over = {k: v for k, v in shares.items() if not 0.0 < v <= 1.0}
+    if over:
+        raise AssertionError(f"{tag} shares outside (0, 1]: {over}")
+
+
+def check_mix_n2_kernel(torch, mc) -> dict:
+    """Row 1b: mix.cu's generic instance at n = 2 (``use_vector_mix``
+    takes n in ``VECTOR_NODES`` = (4, 8, 16, 32) only), at [moetrain]'s
+    widest dispatch group, read from the meta init of its config (no
+    card memory): the fused gossip round with the consensus residual as
+    the Trainer launches it, against its plain version (max|o − o_plain|
+    and max|x̄ − x̄_plain| ≤ 1e-5·max|x|, the residual within rtol 1e-5),
+    then timed by :func:`device_ms` beside its bound by bytes and
+    ``torch.matmul`` of its mixing factor."""
+    from repro_torch.models.model import make_model
+    from repro_torch.train.state import stack_for_nodes
+    from repro_torch.tree import tree_leaves
+
+    tcfg = _moetrain_config()
+    n = MOETRAIN["n"]
+    params, _ = make_model(tcfg.model).abstract_init()
+    leaves = tree_leaves(stack_for_nodes(params, n))
+    groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
+    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+    del params, leaves
+    D = max(widths)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    if mc.use_vector_mix(x):
+        raise AssertionError("n = 2 is taken by the register instance")
+    d, M = (torch.from_numpy(a).cuda()
+            for a in mc.phase_matrices("gossip", "one_peer_exp", n))
+    kw = dict(with_g=False, with_residual=True, wire=False)
+    out = mc.mix_generic(x, None, None, d, M, **kw)
+    ref = mc.mix_flat_plain(x, None, None, d, M, **kw)
+    err = max(float((out[0] - ref[0]).abs().max()),
+              float((out[1] - ref[1]).abs().max()))
+    rel = abs(float(out[2]) - float(ref[2])) / max(abs(float(ref[2])), 1e-30)
+    tol = 1e-5 * float(x.abs().max())
+    del out, ref
+    if err > tol or rel > 1e-5:
+        raise AssertionError(f"mix n=2 D={D}: max abs err {err:.3e} (tol "
+                             f"{tol:.3e}), residual rel err {rel:.3e}")
+    ms = device_ms(torch, lambda: mc.mix_generic(x, None, None, d, M, **kw))
+    plain_ms = cuda_ms(torch,
+                       lambda: mc.mix_flat_plain(x, None, None, d, M, **kw))
+    W = M + torch.diag(d[:, 0])
+    # the card's host takes ~8.5 ms to queue one such product: five fit
+    # in device_ms's spin
+    library_ms = device_ms(torch, lambda: torch.matmul(W, x), iters=5)
+    bytes_moved = 4 * (n * D + n * D + D)      # read x, write o and x̄
+    flops = 2 * n * n * D + 4 * n * D
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    print(f"[kernel] mix n={n} D={D:,} residual ([moetrain]'s widest of "
+          f"{len(groups)} dispatch groups {widths}): generic instance "
+          f"{ms:.4f} ms (device_ms), plain {plain_ms:.4f} ms, "
+          f"torch.matmul(W, x) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s "
+          f"achieved, {100 * bound_ms / ms:.1f}% of the bound); max abs err "
+          f"{err:.3e}", flush=True)
+    del x
+    return {"name": "mix_kernel_n2", "route": "cuda",
+            "source": "src/repro_torch/csrc/mix.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:215",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": [n, D]}
+
+
 def main() -> int:
     import argparse
 
@@ -7784,6 +8087,8 @@ def main() -> int:
             records[rec["name"]] = rec
 
     add(check_mix_kernel(torch, mc))
+    torch.cuda.empty_cache()
+    add(check_mix_n2_kernel(torch, mc))
     torch.cuda.empty_cache()
     add(*check_cmix_kernel(torch, mc))
     torch.cuda.empty_cache()
@@ -8000,6 +8305,22 @@ def main() -> int:
     lap("slice 14")
     slice17["[examples]"] = run_examples(torch)
     lap("[examples]")
+    # slice 18: the dry-run on meta tensors, held against the card, and
+    # [main]'s step against the H100 roofline
+    run_dryrun_path()
+    lap("[dryrun]")
+    torch.cuda.empty_cache()
+    drycard = run_drycard_path(torch)
+    torch.cuda.empty_cache()
+    lap("[drycard]")
+    run_roofline_report(drycard)
+    # row 1b: mix.cu's generic instance at n = 2 on the two-node trainers
+    records["mix_kernel_n2"]["launches"] = (slice13["[moetrain]"]["mix"]
+                                            + slice14["[jtrain]"]["mix"])
+    records["mix_kernel_n2"]["launches_by_path"] = {
+        path: {"mix": c["mix"]} for path, c in (
+            ("[moetrain]", slice13["[moetrain]"]),
+            ("[jtrain]", slice14["[jtrain]"]))}
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),

@@ -13,8 +13,10 @@ import importlib
 
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
     AudioStubConfig,
+    INPUT_SHAPES,
     DataConfig,
     DistConfig,
+    InputShape,
     MLAConfig,
     ModelConfig,
     MoEConfig,
@@ -38,6 +40,13 @@ _ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "xlstm-125m": "xlstm_125m",
 }
+
+# the reference's ten assigned architectures, in its order (the dry-run's
+# --all); the table above is alphabetical
+ASSIGNED_ARCHS = ("gemma2-9b", "qwen3-0.6b", "qwen2-0.5b", "hubert-xlarge",
+                  "deepseek-v2-lite-16b", "llava-next-mistral-7b",
+                  "qwen3-moe-30b-a3b", "xlstm-125m", "jamba-1.5-large-398b",
+                  "qwen1.5-32b")
 
 
 def get_model_config(arch: str, *, reduced: bool = False,

@@ -154,6 +154,19 @@ class ModelConfig:
             raise ValueError("n_heads must be divisible by n_kv_heads")
         return self
 
+    def has_mixer(self, *kinds: str) -> bool:
+        return any(m in kinds for m, _ in self.layers)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if decode with a 500k context is sub-quadratic or of
+        bounded state in every layer (SSM/hybrid), or all attention is
+        sliding-window."""
+        for mixer, _ in self.layers:
+            if mixer == "attn":
+                return False
+        return True
+
     @property
     def is_encoder(self) -> bool:
         return not self.causal
@@ -427,3 +440,22 @@ class TrainConfig:
                 f"problem runs through repro_torch.core.algorithms."
                 f"simulate")
         return self
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (the dry-run's step kinds)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",  524_288,    1, "decode"),
+}

@@ -18,8 +18,8 @@ communication round — and ``train/step.py`` and ``core/algorithms.py``
 Lookups raise caller-named ``ValueError`` listing valid names.  The
 mode slots (the error-feedback memory, the push-sum weight) are declared
 here too, with what a checkpoint that predates a slot restores into it
-(``backfill``).  The slots' sharding axes (``axes_value``,
-``extras_axes``) wait for ROADMAP A.10.
+(``backfill``), and the logical axes of each slot (``axes_value``,
+:func:`extras_axes`) that the dry-run's specs resolve.
 
 On a rank mesh a process holds its node shard's m rows of every stacked
 slot, and every ``unstacked`` slot whole, bitwise equal on every rank:
@@ -45,6 +45,7 @@ __all__ = [
     "StepContext",
     "algorithm_names",
     "backfill_kind",
+    "extras_axes",
     "get_algorithm",
     "init_extras",
     "join_payload",
@@ -112,6 +113,16 @@ class ExtraSlot:
                              f"{self.init!r}")
         return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device), base)
+
+    def axes_value(self, params_axes_stacked: Any,
+                   params_axes_unstacked: Any) -> Any:
+        """The slot's logical axes: ``("node", None)`` for a node scalar,
+        else the stacked or the one-replica params axes."""
+        if self.kind == "node_scalar":
+            return ("node", None)
+        if self.kind == "unstacked":
+            return params_axes_unstacked
+        return params_axes_stacked
 
 
 #: the per-node error-feedback memory, owned by the communication stack
@@ -276,6 +287,23 @@ def init_extras(dist: Any, params_stacked: Any, n_nodes: int,
         extras[PUSH_SLOT.name] = PUSH_SLOT.init_value(params_stacked,
                                                       n_nodes)
     return extras
+
+
+def extras_axes(dist: Any, params_axes_stacked: Any,
+                params_axes_unstacked: Any) -> Dict[str, Any]:
+    """The logical-axes tree matching :func:`init_extras`'s structure."""
+    algo = get_algorithm(dist.algorithm, caller="extras_axes")
+    axes: Dict[str, Any] = {}
+    for slot in algo.slots:
+        axes[slot.name] = slot.axes_value(params_axes_stacked,
+                                          params_axes_unstacked)
+    if dist.comm_error_feedback:
+        payload_axes = {n: params_axes_stacked for n in algo.payload_names()}
+        axes[EF_SLOT.name] = join_payload(payload_axes, params_axes_stacked)
+    if dist.push_sum:
+        axes[PUSH_SLOT.name] = PUSH_SLOT.axes_value(params_axes_stacked,
+                                                    params_axes_unstacked)
+    return axes
 
 
 def join_payload(payload: Dict[str, Any], params: Any) -> Any:

@@ -154,8 +154,9 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
 
     Without ``group``: every shard on one device in this process.
     ``device`` is resolved as every entry point of the port resolves it
-    (the card unless ``"cpu"`` is passed); ``devices`` optionally names a
-    device per shard, all the same device.
+    (the card unless ``"cpu"`` is passed; ``"meta"`` gives a description
+    of the mesh for the dry-run, which places nothing); ``devices``
+    optionally names a device per shard, all the same device.
 
     With ``group``, a ``torch.distributed`` process group of one rank per
     shard: this process is shard ``group.rank()``, on ``devices[rank]``
@@ -213,6 +214,9 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
 
 
 def _resolve(device) -> torch.device:
+    if torch.device(device).type == "meta":
+        # a mesh description that places nothing: the dry-run's
+        return torch.device("meta")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

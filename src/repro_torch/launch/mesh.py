@@ -17,7 +17,8 @@ from repro_torch.core.mixing import (model_axis_names,  # noqa: F401
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     """The reference's production mesh, ``(data=16, model=16)`` or
     ``(pod=2, data=16, model=16)``, as a local mesh description on
-    ``device`` (every block in this process)."""
+    ``device`` (every block in this process; ``"meta"`` for the
+    dry-run's description)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device=device)

@@ -38,27 +38,30 @@ def init_attention(b: ParamBuilder, cfg: ModelConfig) -> None:
     if cfg.mla is not None:
         m = cfg.mla
         d, nh = cfg.d_model, cfg.n_heads
-        b.add("w_q", (d, nh, m.nope_head_dim + m.rope_head_dim))
-        b.add("w_dkv", (d, m.kv_lora_rank))
-        b.add("w_kr", (d, m.rope_head_dim))
-        b.add("kv_norm", (m.kv_lora_rank,), init="ones")
-        b.add("w_uk", (m.kv_lora_rank, nh, m.nope_head_dim))
-        b.add("w_uv", (m.kv_lora_rank, nh, m.v_head_dim))
-        b.add("w_o", (nh, m.v_head_dim, d))
+        b.add("w_q", (d, nh, m.nope_head_dim + m.rope_head_dim),
+              ("embed", "heads", None))
+        b.add("w_dkv", (d, m.kv_lora_rank), ("embed", None))
+        b.add("w_kr", (d, m.rope_head_dim), ("embed", None))
+        b.add("kv_norm", (m.kv_lora_rank,), (None,), init="ones")
+        b.add("w_uk", (m.kv_lora_rank, nh, m.nope_head_dim),
+              (None, "heads", None))
+        b.add("w_uv", (m.kv_lora_rank, nh, m.v_head_dim),
+              (None, "heads", None))
+        b.add("w_o", (nh, m.v_head_dim, d), ("heads", None, "embed"))
         return
     d, nh, nkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim)
-    b.add("w_q", (d, nh, hd))
-    b.add("w_k", (d, nkv, hd))
-    b.add("w_v", (d, nkv, hd))
-    b.add("w_o", (nh, hd, d))
+    b.add("w_q", (d, nh, hd), ("embed", "heads", None))
+    b.add("w_k", (d, nkv, hd), ("embed", "kv_heads", None))
+    b.add("w_v", (d, nkv, hd), ("embed", "kv_heads", None))
+    b.add("w_o", (nh, hd, d), ("heads", None, "embed"))
     if cfg.qkv_bias:
-        b.add("b_q", (nh, hd), init="zeros")
-        b.add("b_k", (nkv, hd), init="zeros")
-        b.add("b_v", (nkv, hd), init="zeros")
+        b.add("b_q", (nh, hd), ("heads", None), init="zeros")
+        b.add("b_k", (nkv, hd), ("kv_heads", None), init="zeros")
+        b.add("b_v", (nkv, hd), ("kv_heads", None), init="zeros")
     if cfg.qk_norm:
-        b.add("q_norm", (hd,), init="ones")
-        b.add("k_norm", (hd,), init="ones")
+        b.add("q_norm", (hd,), (None,), init="ones")
+        b.add("k_norm", (hd,), (None,), init="ones")
 
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
@@ -334,3 +337,12 @@ def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int,
     shape = (batch, s_max, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_cache_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of :func:`init_attn_cache`'s leaves (one replica)."""
+    if cfg.mla is not None:
+        return {"c_kv": ("batch", "kv_seq", None),
+                "k_rope": ("batch", "kv_seq", None)}
+    return {"k": ("batch", "kv_seq", "kv_heads", None),
+            "v": ("batch", "kv_seq", "kv_heads", None)}

@@ -36,8 +36,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamBuilder, apply_mlp, init_mlp,
-                                       init_rms_norm, rms_norm)
-from repro_torch.tree import tree_flatten, tree_unflatten
+                                       init_rms_norm, rms_norm, stack_inits)
+from repro_torch.tree import tree_map
 
 PyTree = Any
 MODES = ("train", "prefill", "decode")
@@ -49,6 +49,10 @@ RECURRENT = {"mamba": (ssm_lib.init_mamba, ssm_lib.mamba_forward,
                        ssm_lib.mlstm_decode, ssm_lib.init_mlstm_state),
              "slstm": (ssm_lib.init_slstm, ssm_lib.slstm_forward,
                        ssm_lib.slstm_decode, ssm_lib.init_slstm_state)}
+# their states' logical axes
+STATE_AXES = {"mamba": ssm_lib.mamba_state_axes,
+              "mlstm": ssm_lib.mlstm_state_axes,
+              "slstm": ssm_lib.slstm_state_axes}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -63,25 +67,25 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
-    """One block's params into builder ``b``."""
+    """One block's params and axes into builder ``b``."""
     mixer_kind, ffn_kind = kind
     init_rms_norm(b, "ln1", cfg.d_model)
-    mixer = ParamBuilder(b.generator, b.param_dtype, b.device)
+    mixer = b.child()
     if mixer_kind in attn.LAYER_KINDS:
         attn.init_attention(mixer, cfg)
     else:
         RECURRENT[mixer_kind][0](mixer, cfg)
-    b.attach("mixer", mixer.params)
+    b.attach("mixer", mixer.params, mixer.axes)
     if cfg.post_block_norm:
         init_rms_norm(b, "post_ln1", cfg.d_model)
     if ffn_kind != "none":
         init_rms_norm(b, "ln2", cfg.d_model)
-        ffn = ParamBuilder(b.generator, b.param_dtype, b.device)
+        ffn = b.child()
         if ffn_kind == "moe":
             moe_lib.init_moe(ffn, cfg)
         else:
             init_mlp(ffn, cfg.d_model, cfg.d_ff)
-        b.attach("ffn", ffn.params)
+        b.attach("ffn", ffn.params, ffn.axes)
         if cfg.post_block_norm:
             init_rms_norm(b, "post_ln2", cfg.d_model)
 
@@ -236,32 +240,25 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def init_stack(b: ParamBuilder, cfg: ModelConfig) -> None:
-    """``{"prefix_<i>": block, "scan": {"entry_<j>": (L, …)}}`` into
-    builder ``b``; blocks are drawn one after another on the host and
-    copied to ``b.device``, a scanned layer into its slot of the stacked
-    leaves, so the device holds the stack and no per-layer copy
-    (gemma2-9b's 37 GB of fp32 params, not 54 at the peak)."""
+    """``{"prefix_<i>": block, "scan": {"entry_<j>": (L, …)}}`` and its
+    axes into builder ``b``; blocks are drawn one after another on the
+    host and copied to ``b.device``, a scanned layer into its slot of the
+    stacked leaves (:func:`stack_inits`), so the device holds the stack
+    and no per-layer copy (gemma2-9b's 37 GB of fp32 params, not 54 at
+    the peak)."""
+    host = "meta" if b.abstract else "cpu"
     for i, kind in enumerate(cfg.prefix_pattern):
-        one = ParamBuilder(b.generator, b.param_dtype, "cpu")
+        one = b.child(host)
         init_block(one, cfg, kind)
-        leaves, treedef = tree_flatten(one.params)
-        b.attach(f"prefix_{i}", tree_unflatten(
-            treedef, [t.to(b.device) for t in leaves]))
-    scan = {}
+        b.attach(f"prefix_{i}", tree_map(lambda t: t.to(b.device),
+                                         one.params), one.axes)
+    scan_p, scan_a = {}, {}
     for j, kind in enumerate(cfg.pattern):
-        stacked = None
-        for i in range(cfg.n_scan_blocks):
-            one = ParamBuilder(b.generator, b.param_dtype, "cpu")
-            init_block(one, cfg, kind)
-            leaves, treedef = tree_flatten(one.params)
-            if stacked is None:
-                stacked = [torch.empty((cfg.n_scan_blocks,) + t.shape,
-                                       dtype=t.dtype, device=b.device)
-                           for t in leaves]
-            for dst, src in zip(stacked, leaves):
-                dst[i].copy_(src)
-        scan[f"entry_{j}"] = tree_unflatten(treedef, stacked)
-    b.attach("scan", scan)
+        scan_p[f"entry_{j}"], scan_a[f"entry_{j}"] = stack_inits(
+            lambda one, kind=kind: init_block(one, cfg, kind), b,
+            cfg.n_scan_blocks)
+    b.attach("scan", scan_p, scan_a)
+
 
 
 def _stack(trees, dim: int = 0):
@@ -283,6 +280,14 @@ def init_block_cache(cfg: ModelConfig, kind: BlockSpec, batch: int,
     return RECURRENT[mixer][3](cfg, batch, dtype, device)
 
 
+def block_cache_axes(cfg: ModelConfig, kind: BlockSpec) -> PyTree:
+    """Logical axes of one block's cache (:func:`init_block_cache`)."""
+    mixer, _ = kind
+    if mixer in attn.LAYER_KINDS:
+        return attn.attn_cache_axes(cfg)
+    return STATE_AXES[mixer](cfg)
+
+
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int,
                      dtype: torch.dtype, device) -> PyTree:
     """Every layer's empty cache for one replica, ``{"prefix_<i>": (1, B,
@@ -301,3 +306,16 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int,
             k: t.expand(lead + t.shape).clone() for k, t in one.items()}
     caches["scan"] = scan
     return caches
+
+
+def stack_cache_axes(cfg: ModelConfig) -> PyTree:
+    """Logical axes of one replica's caches in the reference's layout:
+    ``{"prefix_<i>": block axes, "scan": {"entry_<j>": ("layers",) +
+    block axes}}`` (the port's caches add a leading node axis of 1)."""
+    axes: Dict[str, Any] = {f"prefix_{i}": block_cache_axes(cfg, kind)
+                            for i, kind in enumerate(cfg.prefix_pattern)}
+    axes["scan"] = {
+        f"entry_{j}": {k: ("layers",) + tuple(a)
+                       for k, a in block_cache_axes(cfg, kind).items()}
+        for j, kind in enumerate(cfg.pattern)}
+    return axes

@@ -1,8 +1,12 @@
 """Shared building blocks (counterpart of ``repro/models/layers.py``):
-parameter builder, RMSNorm, logit softcap, rotary embedding, gated MLP,
-embedding.
+parameter builder with logical sharding axes, RMSNorm, logit softcap,
+rotary embedding, gated MLP, embedding.
 
 Parameters are nested dicts of tensors in the reference's layout.  Every
+parameter is created through :class:`ParamBuilder`, which records a
+parallel tree of *logical axis names* (resolved to mesh specs by
+``repro_torch.models.sharding``), so the value tree and the axes tree are
+built by the same calls.  Every
 function below takes tensors that carry the leading node axis ``n`` of
 the decentralized layout — activations ``(n, B, S, …)``, weights
 ``(n, …)`` — so the n node replicas run as batched matrix products (the
@@ -13,12 +17,23 @@ from __future__ import annotations
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 PyTree = Any
+Axes = Tuple[Optional[str], ...]
+
+# Logical axis vocabulary (resolved by sharding rules):
+#   "node"   — decentralized replica axis (the paper's n nodes)
+#   "vocab"  — vocabulary dim
+#   "embed"  — model dim (the FSDP shard target in hierarchical mode)
+#   "heads" / "kv_heads" — attention heads
+#   "ffn"    — feed-forward hidden
+#   "expert" — MoE expert dim
+#   "layers" — stacked-layer dim (never sharded)
+#   None     — replicated
 
 
 # Every normal leaf takes one seed from the caller's generator, in creation
@@ -70,9 +85,10 @@ def draw_normal(shape: Tuple[int, ...], std: float, seed: int,
 
 
 class ParamBuilder:
-    """Creates parameters with the reference's init rules: ``normal``
-    (std ``scale`` or 0.02), ``fan_in`` (std ``scale/√fan_in``, fan_in the
-    product of all but the last dim), ``zeros``, ``ones``, ``constant``.
+    """Creates parameters and their logical-axes tree in lockstep, with
+    the reference's init rules: ``normal`` (std ``scale`` or 0.02),
+    ``fan_in`` (std ``scale/√fan_in``, fan_in the product of all but the
+    last dim), ``zeros``, ``ones``, ``constant``.
 
     Each drawn leaf takes one seed from ``generator`` (a CPU
     ``torch.Generator``) in creation order and is drawn on the host by
@@ -81,23 +97,46 @@ class ParamBuilder:
     split ``jax.random`` keys: the two give different numbers, so
     cross-package comparisons start from weights carried across
     (``repro_torch.interop``).
+
+    On ``device="meta"`` the builder is shapes-only: every leaf is
+    ``torch.empty(shape, dtype, device="meta")``, nothing is drawn and no
+    seed is taken (``generator`` may be None), so a real init's seed
+    stream does not depend on whether a meta init ran before it.
     """
 
-    def __init__(self, generator: torch.Generator, param_dtype: torch.dtype,
-                 device):
+    def __init__(self, generator: Optional[torch.Generator],
+                 param_dtype: torch.dtype, device):
         self.generator = generator
         self.param_dtype = param_dtype
         self.device = torch.device(device)
         self.params: Dict[str, Any] = {}
+        self.axes: Dict[str, Any] = {}
+
+    @property
+    def abstract(self) -> bool:
+        """True for the shapes-only builder (``device="meta"``)."""
+        return self.device.type == "meta"
+
+    def child(self, device=None) -> "ParamBuilder":
+        """An empty builder on the same generator and dtype (on
+        ``device``, default this one's)."""
+        return ParamBuilder(self.generator, self.param_dtype,
+                            self.device if device is None else device)
 
     def _normal(self, shape, std: float) -> torch.Tensor:
         seed = int(torch.randint(0, 2**62, (), generator=self.generator))
         return draw_normal(shape, std, seed, self.param_dtype)
 
-    def add(self, name: str, shape: Sequence[int], init: str = "fan_in",
-            scale: Optional[float] = None) -> torch.Tensor:
+    def add(self, name: str, shape: Sequence[int], axes: Axes,
+            init: str = "fan_in", scale: Optional[float] = None
+            ) -> torch.Tensor:
+        assert len(axes) == len(shape), (name, shape, axes)
         shape = tuple(int(s) for s in shape)
-        if init == "zeros":
+        if init not in ("zeros", "ones", "normal", "fan_in", "constant"):
+            raise ValueError(f"unknown init {init!r}")
+        if self.abstract:
+            val = torch.empty(shape, dtype=self.param_dtype, device="meta")
+        elif init == "zeros":
             val = torch.zeros(shape, dtype=self.param_dtype)
         elif init == "ones":
             val = torch.ones(shape, dtype=self.param_dtype)
@@ -108,16 +147,43 @@ class ParamBuilder:
             std = ((scale if scale is not None else 1.0)
                    / math.sqrt(max(fan_in, 1)))
             val = self._normal(shape, std)
-        elif init == "constant":
-            val = torch.full(shape, scale, dtype=self.param_dtype)
         else:
-            raise ValueError(f"unknown init {init!r}")
+            val = torch.full(shape, scale, dtype=self.param_dtype)
         val = val.to(self.device)
         self.params[name] = val
+        self.axes[name] = tuple(axes)
         return val
 
-    def attach(self, name: str, params: PyTree) -> None:
+    def attach(self, name: str, params: PyTree, axes: PyTree) -> None:
         self.params[name] = params
+        self.axes[name] = axes
+
+
+def stack_inits(init_fn: Callable[["ParamBuilder"], None],
+                b: "ParamBuilder", n: int) -> Tuple[PyTree, PyTree]:
+    """``n`` structurally identical blocks, each built by ``init_fn`` into
+    a fresh builder, stacked leaf-wise on a new leading "layers" axis:
+    ``(stacked params on b.device, ("layers",) + axes of every leaf)``.
+
+    Blocks are drawn one after another on the host (on ``b.generator``,
+    in block order) and copied into their slot of the stacked leaves, so
+    the device holds the stack and no per-layer copy.  The shapes-only
+    builder builds one block and stacks its shapes."""
+    from repro_torch.models.sharding import _map_axes
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    stacked = axes = None
+    for i in range(n if not b.abstract else 1):
+        one = b.child("meta" if b.abstract else "cpu")
+        init_fn(one)
+        leaves, treedef = tree_flatten(one.params)
+        if stacked is None:
+            axes = _map_axes(lambda a: ("layers",) + tuple(a), one.axes)
+            stacked = [torch.empty((n,) + t.shape, dtype=t.dtype,
+                                   device=b.device) for t in leaves]
+        if not b.abstract:
+            for dst, src in zip(stacked, leaves):
+                dst[i].copy_(src)
+    return tree_unflatten(treedef, stacked), axes
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +203,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 
 def init_rms_norm(b: ParamBuilder, name: str, dim: int) -> None:
-    b.add(name, (dim,), init="ones")
+    b.add(name, (dim,), (None,), init="ones")
 
 
 def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -181,9 +247,9 @@ def node_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # MLP (SwiGLU)
 # ---------------------------------------------------------------------------
 def init_mlp(b: ParamBuilder, d_model: int, d_ff: int) -> None:
-    b.add("w_gate", (d_model, d_ff))
-    b.add("w_up", (d_model, d_ff))
-    b.add("w_down", (d_ff, d_model))
+    b.add("w_gate", (d_model, d_ff), ("embed", "ffn"))
+    b.add("w_up", (d_model, d_ff), ("embed", "ffn"))
+    b.add("w_down", (d_ff, d_model), ("ffn", "embed"))
 
 
 def apply_mlp(params: PyTree, x: torch.Tensor, *, act=F.silu) -> torch.Tensor:
@@ -197,9 +263,10 @@ def apply_mlp(params: PyTree, x: torch.Tensor, *, act=F.silu) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def init_embedding(b: ParamBuilder, vocab: int, d_model: int,
                    tie: bool) -> None:
-    b.add("embedding", (vocab, d_model), init="normal", scale=0.02)
+    b.add("embedding", (vocab, d_model), ("vocab", "embed"), init="normal",
+          scale=0.02)
     if not tie:
-        b.add("unembed", (d_model, vocab))
+        b.add("unembed", (d_model, vocab), ("embed", "vocab"))
 
 
 def embed_tokens(params: PyTree, tokens: torch.Tensor, dtype: torch.dtype,

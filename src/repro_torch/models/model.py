@@ -44,19 +44,33 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda") -> PyTree:
         """One replica's params, drawn from ``generator`` (a CPU
         ``torch.Generator``) and placed on ``device``."""
+        return self._build(ParamBuilder(
+            generator, _DTYPES[self.cfg.param_dtype], device)).params
+
+    def abstract_init(self) -> Tuple[PyTree, PyTree]:
+        """``(params, axes)``: one replica's params as ``meta`` tensors of
+        the real shapes and dtypes, from the same builder calls as
+        :meth:`init` on the shapes-only builder (nothing drawn, no seed
+        taken: the counterpart of ``jax.eval_shape(model.init)``), and the
+        logical-axes tree those calls record, as the reference's
+        ``Model.init`` returns it."""
+        b = self._build(ParamBuilder(None, _DTYPES[self.cfg.param_dtype],
+                                     "meta"))
+        return b.params, b.axes
+
+    def _build(self, b: ParamBuilder) -> ParamBuilder:
         cfg = self.cfg
-        b = ParamBuilder(generator, _DTYPES[cfg.param_dtype], device)
-        emb = ParamBuilder(generator, b.param_dtype, b.device)
+        emb = b.child()
         init_embedding(emb, cfg.vocab_size, cfg.d_model,
                        cfg.tie_embeddings)
-        b.attach("embed", emb.params)
+        b.attach("embed", emb.params, emb.axes)
         if cfg.family == "encoder":
-            b.add("mask_emb", (cfg.d_model,), init="normal")
-        stack = ParamBuilder(generator, b.param_dtype, b.device)
+            b.add("mask_emb", (cfg.d_model,), (None,), init="normal")
+        stack = b.child()
         blocks.init_stack(stack, cfg)
-        b.attach("stack", stack.params)
+        b.attach("stack", stack.params, stack.axes)
         init_rms_norm(b, "final_norm", cfg.d_model)
-        return b.params
+        return b
 
     def forward(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
                 mode: str = "train", remat: str = "none",
@@ -145,6 +159,11 @@ class Model:
         return blocks.init_stack_cache(
             self.cfg, batch, s_max, _DTYPES[dtype_name or self.cfg.dtype],
             device)
+
+    def cache_axes(self) -> PyTree:
+        """Logical axes of one replica's caches in the reference's layout
+        (no node axis; :meth:`init_cache`'s leaves add one of 1)."""
+        return blocks.stack_cache_axes(self.cfg)
 
     def node_losses(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
                     remat: str = "none", z_loss: float = 0.0

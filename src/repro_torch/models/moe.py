@@ -48,14 +48,14 @@ DEFAULT_CAPACITY_FACTOR = 1.25
 def init_moe(b: ParamBuilder, cfg: ModelConfig) -> None:
     m = cfg.moe
     d = cfg.d_model
-    b.add("router", (d, m.n_routed))
-    b.add("w_gate", (m.n_routed, d, m.d_ff_expert))
-    b.add("w_up", (m.n_routed, d, m.d_ff_expert))
-    b.add("w_down", (m.n_routed, m.d_ff_expert, d))
+    b.add("router", (d, m.n_routed), ("embed", None))
+    b.add("w_gate", (m.n_routed, d, m.d_ff_expert), ("expert", "embed", None))
+    b.add("w_up", (m.n_routed, d, m.d_ff_expert), ("expert", "embed", None))
+    b.add("w_down", (m.n_routed, m.d_ff_expert, d), ("expert", None, "embed"))
     if m.n_shared:
-        b.add("sw_gate", (d, m.n_shared * m.d_ff_expert))
-        b.add("sw_up", (d, m.n_shared * m.d_ff_expert))
-        b.add("sw_down", (m.n_shared * m.d_ff_expert, d))
+        b.add("sw_gate", (d, m.n_shared * m.d_ff_expert), ("embed", "ffn"))
+        b.add("sw_up", (d, m.n_shared * m.d_ff_expert), ("embed", "ffn"))
+        b.add("sw_down", (m.n_shared * m.d_ff_expert, d), ("ffn", "embed"))
 
 
 def route(params: PyTree, m: MoEConfig, x: torch.Tensor

@@ -142,21 +142,21 @@ def _mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 def init_mamba(b: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     di, N, R = _mamba_dims(cfg)
-    b.add("in_proj", (d, 2 * di))
-    b.add("conv_w", (cfg.ssm.d_conv, di))
-    b.add("conv_b", (di,), init="zeros")
-    b.add("x_proj", (di, R + 2 * N))
-    b.add("dt_proj", (R, di))
-    b.add("dt_bias", (di,), init="constant",
+    b.add("in_proj", (d, 2 * di), ("embed", "ffn"))
+    b.add("conv_w", (cfg.ssm.d_conv, di), (None, "ffn"))
+    b.add("conv_b", (di,), ("ffn",), init="zeros")
+    b.add("x_proj", (di, R + 2 * N), ("ffn", None))
+    b.add("dt_proj", (R, di), (None, "ffn"))
+    b.add("dt_bias", (di,), ("ffn",), init="constant",
           scale=math.log(math.expm1(0.01)))      # softplus^-1(0.01)
     # S4D-real: log(1..N) per channel, not drawn (rounded once from
     # float64; XLA's float32 log is an ulp off at log 7)
     a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float64)).to(
         torch.float32)
     b.attach("A_log", a_log.expand(di, N).to(
-        dtype=b.param_dtype, device=b.device))
-    b.add("D", (di,), init="ones")
-    b.add("out_proj", (di, d))
+        dtype=b.param_dtype, device=b.device), ("ffn", None))
+    b.add("D", (di,), ("ffn",), init="ones")
+    b.add("out_proj", (di, d), ("ffn", "embed"))
 
 
 def _mamba_ssm_inputs(params, cfg: ModelConfig, x_conv: torch.Tensor,
@@ -231,6 +231,10 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
             "h": torch.zeros((batch, di, N), dtype=dtype, device=device)}
 
 
+def mamba_state_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    return {"conv": ("batch", None, "ffn"), "h": ("batch", "ffn", None)}
+
+
 # ===========================================================================
 # mLSTM
 # ===========================================================================
@@ -244,18 +248,19 @@ def _mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 def init_mlstm(b: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     di, nh, dk = _mlstm_dims(cfg)
-    b.add("up_proj", (d, 2 * di))
-    b.add("conv_w", (CONV_WIDTH, di))
-    b.add("conv_b", (di,), init="zeros")
-    b.add("w_q", (di, nh, dk))
-    b.add("w_k", (di, nh, dk))
-    b.add("w_v", (di, nh, di // nh))
-    b.add("w_i", (di, nh), init="fan_in")
-    b.add("b_i", (nh,), init="zeros")
-    b.add("w_f", (di, nh), init="fan_in")
-    b.add("b_f", (nh,), init="constant", scale=3.0)   # open forget gate
-    b.add("gn", (di,), init="ones")                   # group norm
-    b.add("down_proj", (di, d))
+    b.add("up_proj", (d, 2 * di), ("embed", "ffn"))
+    b.add("conv_w", (CONV_WIDTH, di), (None, "ffn"))
+    b.add("conv_b", (di,), ("ffn",), init="zeros")
+    b.add("w_q", (di, nh, dk), ("ffn", "heads", None))
+    b.add("w_k", (di, nh, dk), ("ffn", "heads", None))
+    b.add("w_v", (di, nh, di // nh), ("ffn", "heads", None))
+    b.add("w_i", (di, nh), ("ffn", "heads"), init="fan_in")
+    b.add("b_i", (nh,), ("heads",), init="zeros")
+    b.add("w_f", (di, nh), ("ffn", "heads"), init="fan_in")
+    b.add("b_f", (nh,), ("heads",), init="constant",
+          scale=3.0)                                   # open forget gate
+    b.add("gn", (di,), ("ffn",), init="ones")          # group norm
+    b.add("down_proj", (di, d), ("ffn", "embed"))
 
 
 def _gate(params, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -390,6 +395,13 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                                 device=device)}
 
 
+def mlstm_state_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    return {"C": ("batch", "heads", None, None),
+            "n": ("batch", "heads", None),
+            "m": ("batch", "heads"),
+            "conv": ("batch", None, "ffn")}
+
+
 # ===========================================================================
 # sLSTM
 # ===========================================================================
@@ -401,11 +413,12 @@ def _slstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
 def init_slstm(b: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     nh, dh = _slstm_dims(cfg)
-    b.add("w_x", (d, 4, nh, dh))              # gate inputs i, f, z, o
-    b.add("r_h", (4, nh, dh, dh), init="fan_in")  # block-diagonal recurrence
-    b.add("bias", (4, nh, dh), init="zeros")
-    b.add("gn", (d,), init="ones")
-    b.add("out_proj", (d, d))
+    # gate inputs i, f, z, o; a block-diagonal recurrence
+    b.add("w_x", (d, 4, nh, dh), ("embed", None, "heads", None))
+    b.add("r_h", (4, nh, dh, dh), (None, "heads", None, None), init="fan_in")
+    b.add("bias", (4, nh, dh), (None, "heads", None), init="zeros")
+    b.add("gn", (d,), (None,), init="ones")
+    b.add("out_proj", (d, d), ("embed", "embed"))
 
 
 def _slstm_step(r_h: torch.Tensor, bias: torch.Tensor, carry, x_t):
@@ -479,3 +492,8 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     return {"c": zeros(), "n": zeros(), "h": zeros(),
             "m": torch.full((batch, nh, dh), NEG_BIG, dtype=torch.float32,
                             device=device)}
+
+
+def slstm_state_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    return {"c": ("batch", "heads", None), "n": ("batch", "heads", None),
+            "h": ("batch", "heads", None), "m": ("batch", "heads", None)}

@@ -7,11 +7,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.tree import pairwise_mean, tree_leaves, tree_map
+from repro_torch.tree import (pairwise_mean, register_node, tree_leaves,
+                              tree_map)
 
 PyTree = Any
 
 
+@register_node
 @dataclasses.dataclass
 class TrainState:
     params: PyTree               # stacked: leading node axis
@@ -58,6 +60,33 @@ def stack_for_nodes(tree: PyTree, n_nodes: int) -> PyTree:
     return tree_map(
         lambda p: p[None].expand((n_nodes,) + tuple(p.shape)).contiguous(),
         tree)
+
+
+def stacked_axes(axes_tree: PyTree) -> PyTree:
+    """``("node",) + axes`` on every leaf of a one-replica axes tree."""
+    from repro_torch.models.sharding import _map_axes
+    return _map_axes(lambda a: ("node",) + tuple(a), axes_tree)
+
+
+def opt_state_axes(opt_name: str, params_axes: PyTree) -> PyTree:
+    if opt_name == "sgd":
+        return {"momentum": params_axes}
+    if opt_name in ("adamw", "lamb"):
+        return {"m": params_axes, "v": params_axes, "count": ()}
+    raise ValueError(opt_name)
+
+
+def state_axes(params_axes_stacked: PyTree, opt_name: str,
+               extras: Optional[Dict[str, PyTree]] = None) -> TrainState:
+    """Axes tree mirroring a :class:`TrainState`; ``extras`` axes come
+    from ``repro_torch.core.algo.extras_axes``.  ``step`` is ``()``, the
+    reference's scalar, though the port's step is a host int."""
+    return TrainState(
+        params=params_axes_stacked,
+        opt_state=opt_state_axes(opt_name, params_axes_stacked),
+        step=(),
+        extras=dict(extras) if extras else {},
+    )
 
 
 def consensus_distance(params_stacked: PyTree, mesh=None) -> torch.Tensor:

@@ -4,13 +4,25 @@ Dict keys are visited in **sorted** order, as ``jax.tree.flatten`` visits
 them: that order fixes each leaf's packing offset in
 ``kernels.mixing_cuda.flatten_nodes`` and the summation order of the
 consensus residual, so the port must not follow insertion order (which
-``torch.utils._pytree`` does).
+``torch.utils._pytree`` does).  A dataclass registered with
+:func:`register_node` (``TrainState``) is a node of its fields, in
+declaration order; any other object is a leaf.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Tuple
 
 PyTree = Any
+
+_NODES: set = set()
+
+
+def register_node(cls):
+    """Make the dataclass ``cls`` a node of its fields (a class
+    decorator)."""
+    _NODES.add(cls)
+    return cls
 
 
 def _walk(t, leaves: List[Any]):
@@ -21,6 +33,10 @@ def _walk(t, leaves: List[Any]):
         return (type(t).__name__, len(t), [_walk(c, leaves) for c in t])
     if t is None:
         return ("none",)
+    if type(t) in _NODES:
+        names = [f.name for f in dataclasses.fields(t)]
+        return ("node", type(t), names,
+                [_walk(getattr(t, n), leaves) for n in names])
     leaves.append(t)
     return ("leaf",)
 
@@ -33,6 +49,8 @@ def _build(d, it):
         return None
     if kind == "dict":
         return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "node":
+        return d[1](**{n: _build(c, it) for n, c in zip(d[2], d[3])})
     children = [_build(c, it) for c in d[2]]
     return tuple(children) if kind == "tuple" else children
 

@@ -75,10 +75,10 @@ def test_a_leaf_is_its_pieces(dtype, monkeypatch):
 def test_one_seed_per_drawn_leaf_in_creation_order():
     gen = torch.Generator().manual_seed(7)
     b = layers.ParamBuilder(gen, torch.float32, "cpu")
-    b.add("z", (3,), init="zeros")
-    b.add("w", (4, 5), init="fan_in")
-    b.add("c", (2,), init="constant", scale=1.5)
-    b.add("e", (6,), init="normal")
+    b.add("z", (3,), (None,), init="zeros")
+    b.add("w", (4, 5), (None, None), init="fan_in")
+    b.add("c", (2,), (None,), init="constant", scale=1.5)
+    b.add("e", (6,), (None,), init="normal")
     ref = torch.Generator().manual_seed(7)
     seeds = [int(torch.randint(0, 2**62, (), generator=ref))
              for _ in range(2)]
@@ -95,7 +95,7 @@ def test_drawn_values_have_the_init_rule_scale():
     mean 0 to sampling error."""
     b = layers.ParamBuilder(torch.Generator().manual_seed(0), torch.float32,
                             "cpu")
-    w = b.add("w", (4000, 1000))
+    w = b.add("w", (4000, 1000), (None, None))
     std = 1 / np.sqrt(4000)
     assert abs(float(w.std()) / std - 1) < 5e-3
     assert abs(float(w.mean())) < 5 * std / 2000     # 5 standard errors

@@ -114,7 +114,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.layers, repro_torch.data.synthetic, "
             "repro_torch.configs.jamba_1_5_large, "
             "repro_torch.configs.llava_next_mistral_7b, "
-            "repro_torch.models.sharding, repro_torch.launch.mesh; "
+            "repro_torch.models.sharding, repro_torch.launch.mesh, "
+            "repro_torch.roofline, repro_torch.roofline.analysis, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb, repro_torch.launch.hillclimb_exp3, "
+            "repro_torch.launch.hillclimb_finish; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'repro')))")
