@@ -258,6 +258,11 @@ line):
    restore seconds, the bytes gathered, the pinned peak.  After slice
    14, ``[examples]`` (:func:`run_examples`) runs the four
    ``examples/torch_*.py`` on the card at small arguments.
+20. slice 19's phase, the port's own static analysis (A.12; after
+   ``[roofline]``): ``[analysis]`` (:func:`run_analysis_path`) runs
+   ``python -m repro_torch.analysis``'s ``main`` in this process over the
+   checkout, with no JAX on the machine: exit 0 required, its finding,
+   allow-marker and baseline counts and its seconds printed.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -7921,6 +7926,30 @@ def run_drycard_path(torch) -> dict:
     return out
 
 
+def run_analysis_path() -> None:
+    """``[analysis]``: the port's static analysis (RPR001-RPR006 over its
+    default targets: ``src/repro_torch``, ``tests/test_torch_*.py``,
+    ``examples/torch_*.py`` and this script) through the CLI's ``main``,
+    in this process.  Fails unless it exits 0, i.e. no finding outside
+    an allow marker or the port's baseline."""
+    import io
+
+    from repro_torch.analysis.__main__ import main as analysis_main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main(["--root", str(ROOT), "--format", "json"])
+    seconds = time.perf_counter() - t0
+    doc = json.loads(out.getvalue())
+    print(f"[analysis] python -m repro_torch.analysis --root {ROOT}: exit "
+          f"{rc}, {len(doc['findings'])} finding(s), {doc['suppressed']} "
+          f"suppressed by allow markers, {doc['baselined']} baselined, in "
+          f"{seconds:.2f} s", flush=True)
+    if rc != 0:
+        raise AssertionError(f"[analysis] exit {rc}: "
+                             f"{json.dumps(doc['findings'], indent=1)}")
+
+
 def run_roofline_report(drycard: dict) -> None:
     """``[roofline]``: [main]'s steady step (its ``STEADY`` entry) against
     the H100 roofline: the model-FLOP share ``model_flops_for(cfg, shape,
@@ -8314,6 +8343,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("[drycard]")
     run_roofline_report(drycard)
+    # slice 19: the port's own static analysis over this checkout
+    run_analysis_path()
+    lap("[analysis]")
     # row 1b: mix.cu's generic instance at n = 2 on the two-node trainers
     records["mix_kernel_n2"]["launches"] = (slice13["[moetrain]"]["mix"]
                                             + slice14["[jtrain]"]["mix"])

@@ -330,6 +330,7 @@ def _f32_product(a, b):
     if torch.is_tensor(a) or torch.is_tensor(b):
         return torch.as_tensor(a, dtype=torch.float32) * torch.as_tensor(
             b, dtype=torch.float32)
+    # repro: allow(RPR001) host floats: a tensor took the branch above
     return float(np.float32(a) * np.float32(b))
 
 

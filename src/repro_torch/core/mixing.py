@@ -776,7 +776,7 @@ def _device_shard_blocks(phase: str, topology: str, n: int, step: int,
 def _divide(acc: torch.Tensor, count: int) -> torch.Tensor:
     """``acc / count`` by a tensor divisor: CUDA division by a Python
     scalar multiplies by its reciprocal, one bit off the IEEE quotient."""
-    return acc / torch.full_like(acc[..., :1], float(count))
+    return acc / torch.full_like(acc[..., :1], count)
 
 
 def _shard_count(mesh, node_axis: str, n_nodes: int, who: str) -> int:
@@ -1547,6 +1547,7 @@ def overlap_flush(params: PyTree, spec: CommSpec, *, phase: str,
         else:
             mixed, ef2 = out, ef_state
         buf, ef3 = start_round(mixed, spec, ef_state=ef2, seed=seed)
+    # repro: allow(RPR003) start_round copies: buf shares nothing with mixed
     return mixed, buf, ef3
 
 
@@ -1646,7 +1647,9 @@ def upload(a, device: torch.device) -> torch.Tensor:
 def _host_matrix(W) -> Optional[np.ndarray]:
     """W as a host array when it is one (no device read), else None."""
     if not torch.is_tensor(W):
+        # repro: allow(RPR001) W is a host array here, never a device read
         return np.asarray(W, dtype=np.float32)
+    # repro: allow(RPR001) .numpy() of a CPU tensor only: no device read
     return W.numpy() if W.device.type == "cpu" else None
 
 
@@ -1740,6 +1743,7 @@ def _push_sum_sharded(joint: PyTree, *, W: torch.Tensor,
     k = _shard_count(mesh, node_axis, n, who)
     offsets = tuple(range(k)) if offsets is None else tuple(offsets)
     if set(range(k)) - {q % k for q in offsets}:
+        # repro: allow(RPR001) a device W without W_host: off the step path
         _check_halo(W_host if W_host is not None else W.cpu().numpy(), n, k,
                     offsets)
     km = model_shard_count(mesh, model_axis, node_axis)

@@ -42,6 +42,11 @@ class CommSchedule:
         """Phase of step k, with no side effects."""
         raise NotImplementedError
 
+    def phase(self, step: int) -> str:
+        """Pure alias of :meth:`peek_phase` (the reference keeps it for
+        callers predating the peek/advance split)."""
+        return self.peek_phase(step)
+
     def advance(self, step: int) -> str:
         """Phase of step k, committing schedule state.  Call exactly once
         per executed step, in step order."""

@@ -156,6 +156,7 @@ def wgmma_tolerance(v: torch.Tensor) -> Tuple[float, float]:
     """``(atol, rtol)`` of the tensor-core kernel against the fp32 twin
     for values v (bf16 or fp16): ``1e-5 + u·max|v|`` and one output ulp."""
     u = _UNIT_ROUNDOFF[v.dtype]
+    # repro: allow(RPR001) a check helper (tests, chip_smoke), not a launch
     return 1e-5 + u * float(v.float().abs().max()), _OUTPUT_ULP[v.dtype]
 
 
@@ -164,8 +165,9 @@ def rms_ratio(out: torch.Tensor, twin: torch.Tensor,
     """RMS(out − exact) / RMS(twin − exact), with ``exact`` the float64
     twin: how much larger the kernel's typical error is than the fp32
     twin's rounded to the same type (0 where both are exact)."""
-    num = float((out.double() - exact).pow(2).mean().sqrt())
-    den = float((twin.double() - exact).pow(2).mean().sqrt())
+    # repro: allow(RPR001) a check helper (tests, chip_smoke), not a launch
+    num, den = (float((t.double() - exact).pow(2).mean().sqrt())
+                for t in (out, twin))
     return num / den if den > 0 else (0.0 if num == 0 else math.inf)
 
 

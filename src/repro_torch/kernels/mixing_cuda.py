@@ -342,6 +342,8 @@ def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace,
     n, D = xf.shape
     if xf.device.type != "cuda":
         raise ValueError("mix kernel: CUDA operands expected")
+    _check_operands("mix kernel", xf, [d, M] + ([gf, gamma] if with_g
+                                                else []))
     if vector and not use_vector_mix(xf, gf if with_g else None):
         raise ValueError("mix_vector: operands outside use_vector_mix's rule")
     o = xf if inplace else torch.empty_like(xf)

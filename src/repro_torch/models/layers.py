@@ -154,6 +154,13 @@ class ParamBuilder:
         self.axes[name] = tuple(axes)
         return val
 
+    def sub(self, name: str) -> "ParamBuilder":
+        """A child builder attached under ``name``: what it adds later
+        lands in this builder's trees (``child()`` + ``attach()``)."""
+        child = self.child()
+        self.attach(name, child.params, child.axes)
+        return child
+
     def attach(self, name: str, params: PyTree, axes: PyTree) -> None:
         self.params[name] = params
         self.axes[name] = axes
@@ -202,8 +209,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return (y * (offset + w)).to(dtype)
 
 
-def init_rms_norm(b: ParamBuilder, name: str, dim: int) -> None:
-    b.add(name, (dim,), (None,), init="ones")
+def init_rms_norm(b: ParamBuilder, name: str, dim: int,
+                  zeros: bool = False) -> None:
+    b.add(name, (dim,), (None,), init="zeros" if zeros else "ones")
 
 
 def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -214,15 +222,17 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
-def make_rope(positions: torch.Tensor, head_dim: int, theta: float
+def make_rope(positions: torch.Tensor, head_dim: int, theta: float,
+              dtype: torch.dtype = torch.float32
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 cos/sin tables for rotary embedding; positions (..., S)."""
+    """cos/sin tables for rotary embedding, computed in fp32 and cast to
+    ``dtype``; positions (..., S)."""
     half = head_dim // 2
     expo = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
     freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), expo)
     angles = positions.to(torch.float32)[..., None] * freqs
-    return torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

@@ -127,6 +127,7 @@ class Engine:
             logits, caches = self._decode(params1, caches, tok[:, None], pos)
             tok = self._sample(logits, temperature, generator)
             pos = pos + 1
+        # repro: allow(RPR001) the caller's ids: one fetch a call, after it
         return torch.stack(out, dim=1).cpu().numpy()
 
     @staticmethod
@@ -231,7 +232,7 @@ class BatchedServer:
                 nxt_dev = torch.argmax(logits, dim=-1).to(torch.int32)
                 # the scheduler is host-side by design: admission and
                 # completion need this tick's ids, so one fetch per tick
-                nxt = nxt_dev.cpu().numpy()
+                nxt = nxt_dev.cpu().numpy()  # repro: allow(RPR001) per tick
             self.pos = self.pos + 1
             # every slot takes its own argmax; a free slot's is never read
             self.tok = nxt_dev[:, None]

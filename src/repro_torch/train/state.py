@@ -12,14 +12,44 @@ from repro_torch.tree import (pairwise_mean, register_node, tree_leaves,
 
 PyTree = Any
 
+#: extras keys that the reference's legacy TrainState fields mapped to,
+#: accepted as keyword arguments by ``TrainState`` and read as attributes.
+LEGACY_SLOTS = ("slow_params", "slow_u", "ef_state", "push_weight")
+
 
 @register_node
-@dataclasses.dataclass
+@dataclasses.dataclass(init=False)
 class TrainState:
     params: PyTree               # stacked: leading node axis
     opt_state: PyTree
     step: int                    # host counter of executed steps
-    extras: Dict[str, PyTree] = dataclasses.field(default_factory=dict)
+    extras: Dict[str, PyTree]    # algorithm and mode slots (core.algo)
+
+    def __init__(self, params: PyTree, opt_state: PyTree, step: int,
+                 extras: Optional[Dict[str, PyTree]] = None,
+                 slow_params: Optional[PyTree] = None,
+                 slow_u: Optional[PyTree] = None,
+                 ef_state: Optional[PyTree] = None,
+                 push_weight: Optional[torch.Tensor] = None):
+        self.params = params
+        self.opt_state = opt_state
+        self.step = step
+        merged = dict(extras) if extras else {}
+        for name, value in zip(LEGACY_SLOTS,
+                               (slow_params, slow_u, ef_state, push_weight)):
+            if value is not None:
+                merged[name] = value
+        self.extras = merged
+
+    @property
+    def slow_params(self) -> Optional[PyTree]:
+        """SlowMo's outer iterate (None for other algorithms)."""
+        return self.extras.get("slow_params")
+
+    @property
+    def slow_u(self) -> Optional[PyTree]:
+        """SlowMo's slow momentum (None for other algorithms)."""
+        return self.extras.get("slow_u")
 
     @property
     def ef_state(self) -> Optional[PyTree]:
@@ -31,6 +61,17 @@ class TrainState:
         """The ``(n, 1)`` float32 push-sum weight (None without push-sum);
         readers de-bias with :func:`debias`, and ``Σw = n`` holds."""
         return self.extras.get("push_weight")
+
+    def with_extras(self, **updates: PyTree) -> "TrainState":
+        """Copy with the named extras entries replaced (None deletes)."""
+        extras = dict(self.extras)
+        for name, value in updates.items():
+            if value is None:
+                extras.pop(name, None)
+            else:
+                extras[name] = value
+        return TrainState(params=self.params, opt_state=self.opt_state,
+                          step=self.step, extras=extras)
 
 
 def init_push_weight(n_nodes: int, device="cpu") -> torch.Tensor:

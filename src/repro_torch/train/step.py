@@ -101,8 +101,8 @@ def _host_mask(active, n_nodes: int) -> np.ndarray:
             raise ValueError("push step: pass the live mask as a host array "
                              "(the step decides on it without a device "
                              "read)")
-        active = active.numpy()
-    live = np.asarray(active) > 0
+        active = active.numpy()  # repro: allow(RPR001) a CPU tensor
+    live = np.asarray(active) > 0  # repro: allow(RPR001) a host mask
     if live.shape != (n_nodes,):
         raise ValueError(f"push step: active mask of shape {live.shape} for "
                          f"{n_nodes} nodes")
