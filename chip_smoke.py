@@ -211,15 +211,15 @@ line):
    state (gossip hops 1 and 2 and global with the consensus residual;
    int8 + EF gossip and the int8 collective), each rank's rows
    fingerprinted (:func:`fingerprint`) against the one-process sharded
-   round's, then timed on the ranks with the exchange's split (staging
+   round's, timed on the ranks with the exchange's split (staging
    out, exchange, staging in, the kernel alone, the rest) beside
-   ``[sround]``; ``[dmain]`` and ``[dcmain]``: ``[smain]``'s and
-   ``[scmain]``'s trainers on the ranks, 2 nodes each: B.5 / B.4 once a
-   gossip step on every rank (16 launches summed), no plain twin,
-   consensus 0.0 after every uncompressed global step, finite losses,
-   the slowest rank's step ms, synchronizing calls, each rank's peak
-   memory and pinned host bytes, the final params against the one-process
-   run's.
+   ``[sround]``; ``[dmain]`` and ``[dcmain]``: the first 4 steps of
+   ``[smain]``'s and ``[scmain]``'s trainers on the ranks, 2 nodes each:
+   B.5 / B.4 once a gossip step on every rank (12 launches summed), no
+   plain twin, consensus 0.0 after every uncompressed global step, finite
+   losses, the slowest rank's step ms, synchronizing calls, each rank's
+   peak memory and pinned host bytes, the params against the one-process
+   run's after its step 3 (:func:`twin_snapshot`).
 18. slice 16's paths, 2-D ``(node, model)`` meshes (A.10.2; right after
    ``[sround]``, the rank ones in slice 15's spawn): the kernel checks
    hold B.5 and B.4 at the 2-D block shape (m = 2, W = 69,215,616, K = 4:
@@ -234,7 +234,7 @@ line):
    trainers at n = 4 on a ``(data=2, model=2)`` rank mesh of the 4 ranks,
    each rank holding its node shard's 2 nodes whole and computing one
    model chunk of every round (exchange bytes on each axis, the last
-   gossip step's split timed; [d2cmain] at 4 steps), against their
+   gossip step's split timed; both at 4 steps), against their
    one-process twins
    (:func:`d2_references`).  Every rank path is held to its twin with the
    bound of ``PERF.md`` §2 (:func:`_gate_against_twin`); ``[dcmain]`` is
@@ -263,6 +263,26 @@ line):
    ``python -m repro_torch.analysis``'s ``main`` in this process over the
    checkout, with no JAX on the machine: exit 0 required, its finding,
    allow-marker and baseline counts and its seconds printed.
+21. slice 20's paths, real overlap (A.10.6): each overlapped gossip step
+   on the sharded rounds issues the buffered round's halo gather before
+   its forward (``mixing.issue_round``) and the apply waits for it.
+   ``[sovround]`` (:func:`sovround`, right after ``[sovmain]``, whose
+   steps now issue): one finish on its mesh of 4 node shards, the halos
+   issued on the side stream and serial, bitwise equal or the run fails,
+   both timed; ``[dovmain]`` (in slice 15's spawn after ``[dcmain]``):
+   ``[dmain]``'s configuration with ``comm_overlap=True``, 4 steps
+   (gossip, gossip, global, gossip), each rank's halo in flight on the
+   node axis's own process group, held to its one-process twin
+   (:func:`dov_reference`, computed before the spawn) by
+   :func:`_gate_against_twin`: losses within rtol 1e-6, params bitwise,
+   B.4 once a gossip step a rank (12 launches summed), consensus 0.0
+   after the flush, no plain twin, a wait for a halo on every gossip step
+   and none on the others; per rank and step the worker's and the
+   wait's seconds, the hidden part, staging waits, synchronizing calls,
+   pinned and memory peaks (:func:`_report_dovmain`).  ``python3
+   chip_smoke.py --overlap-compare`` times the overlapped step serial
+   against issued in turns, in one process and on the ranks
+   (:func:`run_overlap_compare`), and stops without an ok line.
 
 Every kernel's record must show launches on a main path.  The last three
 lines of standard output are the card's name and power limit, one JSON
@@ -2280,7 +2300,7 @@ def reset_counts() -> None:
 
 def run_main_path(torch, mc, compressed: bool = False,
                   sharded: bool = False, model_shards: int = 1,
-                  trace: bool = False):
+                  trace: bool = False, snapshot_at: int = -1):
     """One main path at full width for 6 steps; returns ``(launches per
     kernel, trainer, state)``.  Slice 1: fused rounds with the consensus
     residual.  Slice 2 (``compressed``): int8 gossip + int8 collective
@@ -2291,7 +2311,9 @@ def run_main_path(torch, mc, compressed: bool = False,
     owner segments).  Slice 16 (``model_shards`` > 1, ``[m2main]`` /
     ``[m2cmain]``): the same on a 2-D ``(data=4, model)`` mesh, one launch
     per block per gossip round.  ``trace``: each step's final params
-    fingerprinted per node shard into ``TRACE[tag]``."""
+    fingerprinted per node shard into ``TRACE[tag]``.  ``snapshot_at``:
+    after that step, the state a rank path that stops there is held to
+    (:func:`twin_snapshot`) into ``SNAPSHOT[tag]``."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
     from repro_torch.core.mesh import make_mesh
@@ -2394,6 +2416,8 @@ def run_main_path(torch, mc, compressed: bool = False,
         if trace:
             TRACE[tag].append(shard_fingerprints(torch, state.params,
                                                  shards))
+        if k == snapshot_at:
+            SNAPSHOT[tag] = twin_snapshot(torch, state, shards)
     launches = counts()
     if trace:
         opt_mod.joint_sq_norm = step_mod.joint_sq_norm = real_norm
@@ -4098,6 +4122,59 @@ def overlap_round_times(torch, mc, tr, state) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     profile_report(prof, wall_ms, "[ovprofile]",
                    "profiled overlapped gossip step")
+    torch.cuda.empty_cache()
+
+
+def sovround(torch, mc, tr, state) -> None:
+    """[sovround]: one overlapped gossip finish on [sovmain]'s mesh of 4
+    node shards, its trainer's buffer applied to its params with the
+    buffer's shift: serial (``finish_round`` gathers the halos) and
+    issued (``issue_round`` gathers them on the side stream first, as a
+    gossip step does before its forward; ``finish_round`` waits for the
+    event).  The run fails unless the two outputs are bitwise equal.
+    Times by CUDA events over 10 rounds in turns (serial, issued, issued,
+    serial): the issued one's includes the issue, nothing hides it here;
+    then the issue alone on the host clock (what it holds the step's
+    thread) and the halo bytes it holds."""
+    from repro_torch.core import mixing
+    from repro_torch.tree import tree_leaves
+
+    spec = tr.tcfg.dist.comm_spec(tr.n_nodes, mesh=tr.mesh)
+    buf, shift = tr._comm_buf, tr._buf_shift
+
+    def serial():
+        return mixing.finish_round(state.params, buf, spec, step=shift)
+
+    def issued():
+        return mixing.finish_round(
+            state.params, mixing.issue_round(buf, spec, step=shift), spec,
+            step=shift)
+
+    reset_counts()
+    a, b = serial(), issued()
+    launched = {k: v for k, v in counts().items() if v}
+    equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                   tree_leaves(b)))
+    del a, b
+    t = [cuda_ms(torch, f, iters=10, warmup=2)
+         for f in (serial, issued, issued, serial)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = mixing.issue_round(buf, spec, step=shift)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    held = sum(p.get().numel() * 4 for p in rs["halo"]["pending"]) / 1e9
+    mixing.drain_round(rs)
+    del rs
+    print(f"[sovround] overlapped gossip finish on {dict(tr.mesh.shape)} "
+          f"(shift {shift}, launches {launched} for the two): issued "
+          f"bitwise the serial finish {equal}; serial {t[0]:.3f} / "
+          f"{t[3]:.3f} ms, issued {t[1]:.3f} / {t[2]:.3f} ms (CUDA events, "
+          f"in turns); the issue alone {host_ms:.3f} ms on the host; its "
+          f"halo stacks {held:.2f} GB (views of the packed buffer "
+          f"included)", flush=True)
+    if not equal:
+        raise AssertionError("[sovround] the issued finish is not bitwise "
+                             "the serial one")
     torch.cuda.empty_cache()
 
 
@@ -6436,7 +6513,13 @@ DIST_SEED = 15
 # script within its 900 s budget
 D2_N = 4
 D2_AXES = ((2, 2), ("data", "model"))
-D2_STEPS = {"[d2main]": 6, "[d2cmain]": 4}
+D2_STEPS = {"[d2main]": 4, "[d2cmain]": 4}
+# the 1-D rank paths' steps (gossip, gossip, global, gossip): [dmain] and
+# [dcmain] run the first 4 of [smain]'s / [scmain]'s 6 (their learning
+# rates, held against the twins' state after step 3: SNAPSHOT), and
+# slice 20's [dovmain] 4 of its own
+DIST_STEPS = {"[dmain]": 4, "[dcmain]": 4, "[dovmain]": 4}
+SNAPSHOT = {}                       # a one-process twin's state mid-run
 # the bound a rank path is held to against its one-process twin (PERF.md
 # §2): each step's loss, and each leaf's float64 Σx and Σx² on every rank
 # when the params are not bitwise
@@ -6525,17 +6608,18 @@ def _row_fingerprints(torch, outs, r: int, m: int) -> list:
 
 
 def _dist_tcfg(compressed: bool, reduced: bool = False, nodes: int = MAIN_N,
-               steps: int = 6):
+               steps: int = 6, overlap: bool = False):
     """[smain]'s / [scmain]'s configuration (run_main_path) for ``nodes``
     nodes, each with [smain]'s 4 sequences of 512, ``steps`` steps;
-    ``reduced`` (a CPU rehearsal): the reduced model."""
+    ``reduced`` (a CPU rehearsal): the reduced model; ``overlap``: the
+    overlapped rounds ([dovmain])."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
     return TrainConfig(
         model=get_model_config("pga-lm-100m", reduced=reduced),
         dist=DistConfig(algorithm="gossip_pga", topology="one_peer_exp",
                         H=3, comm_backend="pallas",
-                        comm_shard_mode="sharded",
+                        comm_shard_mode="sharded", comm_overlap=overlap,
                         **(COMPRESSED if compressed else {})),
         optimizer=OptimizerConfig(name="adamw", lr=3e-4,
                                   schedule="warmup_cosine", warmup_steps=2,
@@ -6582,14 +6666,17 @@ def shard_fingerprints(torch, params, k: int) -> list:
 
 
 def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
-               twins: dict, trace=None) -> dict:
-    """This rank's run of one trainer path (6 steps): each step's record,
-    synchronizing calls and exchange bytes on each axis, the launches,
-    the final params' fingerprints and float64 stats, the peak memory and
-    pinned bytes; on a 2-D mesh the last gossip step with the exchanges'
-    split timed (the timing's own waits on the stream inside it).
-    ``trace``: the one-process twin's per-step fingerprints of this
-    rank's node shard (the first leaf whose rows leave them)."""
+               twins: dict, trace=None, steps: int = 0) -> dict:
+    """This rank's run of one trainer path (``steps``, by default the
+    configuration's): each step's record, synchronizing calls, exchange
+    bytes on each axis and the node axis's halo in flight (the worker's
+    seconds, the caller's wait, staging waits on this thread), the
+    launches, the final params' fingerprints and float64 stats, the peak
+    memory and pinned bytes (now and at most); on a 2-D mesh the last
+    gossip step with the exchanges' split timed (the timing's own waits
+    on the stream inside it).  ``trace``: the one-process twin's per-step
+    fingerprints of this rank's node shard (the first leaf whose rows
+    leave them)."""
     from repro_torch.tree import tree_leaves
     sync = torch.cuda.synchronize if card else (lambda: None)
     exes = [mesh.exchange] + ([mesh.model_exchange]
@@ -6602,10 +6689,11 @@ def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
     reset_counts()
     for key in twins:
         twins[key] = 0
+    n_steps = steps or tr.tcfg.steps
     steps, first, split = [], [], None
     H = tr.tcfg.dist.H
-    split_step = max(k for k in range(tr.tcfg.steps) if (k + 1) % H)
-    for k in range(tr.tcfg.steps):
+    split_step = max(k for k in range(n_steps) if (k + 1) % H)
+    for k in range(n_steps):
         timed = mesh.model_exchange is not None and k == split_step
         for ex in exes:
             ex.reset_stats()
@@ -6631,7 +6719,8 @@ def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
             grad_norm=rec["grad_norm"], ms=dt * 1e3, syncs=n_sync,
             exchange_syncs=sum(ex.stats["syncs"] for ex in exes),
             bytes=[(ex.stats["bytes_out"], ex.stats["bytes_in"])
-                   for ex in exes]))
+                   for ex in exes],
+            flight_s=exes[0].stats["flight"], wait_s=exes[0].stats["wait"]))
         if trace is not None:
             fps = [fingerprint(torch, p) for p in tree_leaves(state.params)]
             bad = [i for i, (a, b) in enumerate(zip(fps, trace[k]))
@@ -6647,6 +6736,7 @@ def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
                coords=(mesh.node_rank, mesh.model_rank),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card
                else 0, pinned_bytes=sum(ex.pinned_bytes for ex in exes),
+               pinned_peak=max(ex.pinned_peak for ex in exes),
                slot_fps=slot_fingerprints(torch, state))
     del leaves, state
     if split is not None:
@@ -6657,10 +6747,12 @@ def _rank_path(torch, dist, tr, mesh, tag: str, ref: dict, card: bool,
 def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
     """One rank of the rank phases (``run_ranks`` spawns four on cuda:0
     over gloo).  Slice 15 on a mesh of 4 node shards: the [dround] rounds
-    (fingerprints of this rank's rows, then each kind timed with the
-    exchange's split), then [dmain] and [dcmain] (the Trainer on this
-    rank's 2 nodes; [dcmain] fingerprinted after every step against
-    [scmain]'s).  Slice 16 on a (data=2, model=2) mesh: [d2main] and
+    (one untimed round first, then each kind once, timed with the
+    exchange's split, its outputs' fingerprints of this rank's rows
+    taken after), then [dmain] and [dcmain] (the Trainer on this
+    rank's 2 nodes, 4 steps; [dcmain] fingerprinted after every step
+    against [scmain]'s), then slice 20's [dovmain] (the overlapped
+    Trainer, 4 steps).  Slice 16 on a (data=2, model=2) mesh: [d2main] and
     [d2cmain] (the Trainer at n = 4, this rank the 2 nodes of its node
     shard whole, one model chunk of every round).  Slice 17: [dslowmo]
     after [dcmain] (SlowMo on the 4 node shards) and [d2ckpt] after
@@ -6689,25 +6781,27 @@ def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
     rows = range(rank * m, (rank + 1) * m)
     x, ef = dist_inputs(torch, shapes, rows, mesh.device)
     D = sum(math.prod(s) for s in shapes)
-    for name, phase, step, compressed in DIST_ROUNDS:
+    for i, (name, phase, step, compressed) in enumerate(DIST_ROUNDS):
+        if i == 0:
+            # one untimed round first: the pinned staging buffers grow to
+            # a round's size there, not inside the timed one
+            dist_round(torch, mesh, x, ef, phase, step, compressed)
+        # timed: 1 round after a barrier, the exchange's split on; its
+        # outputs fingerprinted after the timing
         reset_counts()
-        outs = dist_round(torch, mesh, x, ef, phase, step, compressed)
-        fps = [fingerprint(torch, t) for t, _ in outs]
-        launches = counts()
-        del outs
-        # timed: 1 round after a barrier, the exchange's split on
         ex.timing = True
         ex.reset_stats()
         dist.barrier()
         sync()
         t0 = time.perf_counter()
-        iters = 1
-        for _ in range(iters):
-            dist_round(torch, mesh, x, ef, phase, step, compressed)
+        outs = dist_round(torch, mesh, x, ef, phase, step, compressed)
         sync()
-        total = (time.perf_counter() - t0) * 1e3 / iters
-        st = {k: v / iters for k, v in ex.stats.items()}
+        total = (time.perf_counter() - t0) * 1e3
+        st = dict(ex.stats)
         ex.timing = False
+        launches = counts()
+        fps = [fingerprint(torch, t) for t, _ in outs]
+        del outs
         kernel_ms = 0.0
         if phase == "gossip" and card:
             # B.5 / B.4 alone at this round's shapes on this rank
@@ -6742,17 +6836,23 @@ def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
     del x, ef
     if card:
         torch.cuda.empty_cache()
-    # [dmain] and [dcmain]: the Trainer on this rank's nodes
-    for compressed in (False, True):
-        tag = "[dcmain]" if compressed else "[dmain]"
-        tr = Trainer(_dist_tcfg(compressed, reduced=not card),
+    # [dmain] and [dcmain]: the Trainer on this rank's nodes, the first
+    # DIST_STEPS of [smain]'s / [scmain]'s run; slice 20's [dovmain]: the
+    # overlapped Trainer, each gossip step's halo in flight under its
+    # forward and backward
+    for tag, compressed, overlap in (("[dmain]", False, False),
+                                     ("[dcmain]", True, False),
+                                     ("[dovmain]", False, True)):
+        tr = Trainer(_dist_tcfg(compressed, reduced=not card,
+                                steps=DIST_STEPS[tag] if overlap else 6,
+                                overlap=overlap),
                      n_nodes=MAIN_N, mesh=mesh, with_consensus=True,
                      device=device)
         ref = refs.get(tag)
         trace = ([t[rank] for t in ref["trace"]]
                  if ref and ref.get("trace") else None)
         out["paths"][tag] = _rank_path(torch, dist, tr, mesh, tag, ref, card,
-                                       twins, trace)
+                                       twins, trace, steps=DIST_STEPS[tag])
         del tr
         if card:
             torch.cuda.empty_cache()
@@ -6786,23 +6886,205 @@ def _dist_rank(rank: int, shapes, refs, device: str = "cuda:0"):
     return out
 
 
-def smain_reference(torch, tr, state, launches, k: int = DIST_K) -> tuple:
-    """``(leaf shapes, reference)`` of a finished one-process trainer run
-    ([smain]/[scmain], or the one-process twins of the 2-D rank paths):
-    its step records, launches, and each of its k node shards' rows'
-    fingerprints and float64 stats of the final params."""
+def twin_snapshot(torch, state, k: int = DIST_K) -> dict:
+    """What a rank path is held to of a one-process twin's state: each of
+    its k node shards' rows' fingerprints and float64 stats of the
+    params, and the launches so far."""
     from repro_torch.tree import tree_leaves
     leaves = tree_leaves(state.params)
     m = leaves[0].shape[0] // k
-    return [tuple(p.shape[1:]) for p in leaves], dict(
-        steps=[{key: h[key] for key in ("phase", "loss", "consensus",
-                                        "grad_norm")}
-               for h in tr.history[:6]],
-        launches=launches,
+    return dict(
+        launches=counts(),
         fps=[[fingerprint(torch, p[r * m:(r + 1) * m]) for p in leaves]
              for r in range(k)],
         stats=[leaf_stats(torch, [p[r * m:(r + 1) * m] for p in leaves])
                for r in range(k)])
+
+
+OVERLAP_TURNS = ("serial", "issued", "issued", "serial")
+
+
+@contextlib.contextmanager
+def serial_overlap(on: bool):
+    """While ``on``: the overlapped step's ``mixing.issue_round`` is the
+    identity, so ``finish_round`` gathers the halo itself after the
+    optimizer (the serial overlap, as before slice 20)."""
+    from repro_torch.core import mixing
+    real = mixing.issue_round
+    if on:
+        mixing.issue_round = lambda round_state, spec, *, step: round_state
+    try:
+        yield
+    finally:
+        mixing.issue_round = real
+
+
+def _overlap_compare_rank(rank: int, device: str):
+    """One rank of ``--overlap-compare``: [dovmain]'s Trainer 4 steps at a
+    time, serial and issued in turns (:data:`OVERLAP_TURNS`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import mixing_cuda as mc
+    from repro_torch.train import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device != "cpu"
+    twins = _twin_counter(mc)
+    mesh = make_mesh((DIST_K,), ("data",), device=device,
+                     group=dist.group.WORLD)
+    out = []
+    for kind in OVERLAP_TURNS:
+        with serial_overlap(kind == "serial"):
+            tr = Trainer(_dist_tcfg(False, reduced=not card,
+                                    steps=DIST_STEPS["[dovmain]"],
+                                    overlap=True),
+                         n_nodes=MAIN_N, mesh=mesh, with_consensus=True,
+                         device=device)
+            rec = _rank_path(torch, dist, tr, mesh, f"[ovcompare] {kind}",
+                             None, card, twins,
+                             steps=DIST_STEPS["[dovmain]"])
+        out.append(dict(kind=kind, steps=rec["steps"], peak_gb=rec["peak_gb"],
+                        pinned_peak=rec["pinned_peak"]))
+        del tr
+        if card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_overlap_compare(torch, device: str = "cuda") -> None:
+    """``--overlap-compare``: what issuing the halo before the forward
+    changes in an overlapped step, serial against issued in turns
+    (serial, issued, issued, serial), each a fresh 4-step run of
+    [dovmain]'s configuration: in one process on the mesh of 4 node
+    shards (the side stream), then on 4 gloo ranks of the card.  Prints
+    each run's step ms, peak memory and, on the ranks, the worker's and
+    the wait's seconds, then the medians of the steady gossip steps
+    (steps 1 and 3).  Reports; gates nothing."""
+    from repro_torch.core.mesh import make_mesh, run_ranks
+    from repro_torch.train import Trainer
+    card = device != "cpu"
+    one = {"serial": [], "issued": []}
+    for kind in OVERLAP_TURNS:
+        with serial_overlap(kind == "serial"):
+            tr = Trainer(_dist_tcfg(False, reduced=not card,
+                                    steps=DIST_STEPS["[dovmain]"],
+                                    overlap=True),
+                         n_nodes=MAIN_N,
+                         mesh=make_mesh((DIST_K,), ("data",), device=device),
+                         with_consensus=True, device=device)
+            state = tr.init_state(torch.Generator().manual_seed(0))
+            if card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(DIST_STEPS["[dovmain]"]):
+                t0 = time.perf_counter()
+                state = tr.run(state, steps=1, log_every=1)
+                if card:
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        phases = [h["phase"] for h in tr.history]
+        one[kind] += [v for k, v in enumerate(ms)
+                      if k and phases[k] == "gossip"]
+        print(f"[ovcompare] one process ({DIST_K} node shards) {kind}: steps "
+              f"{[round(v, 1) for v in ms]} ms ({phases}), peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9 if card else 0:.2f}"
+              f" GB", flush=True)
+        del tr, state
+        if card:
+            torch.cuda.empty_cache()
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        res = run_ranks(_overlap_compare_rank, DIST_K, backend="gloo",
+                        device="cuda:0" if card else "cpu",
+                        args=("cuda:0" if card else "cpu",),
+                        timeout_s=DIST_TIMEOUT_S, threads=2)
+    finally:
+        if prev is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    ranks = {"serial": [], "issued": []}
+    for i, kind in enumerate(OVERLAP_TURNS):
+        runs = [res[r][i] for r in range(DIST_K)]
+        steps0 = runs[0]["steps"]
+        slow = [max(run["steps"][k]["ms"] for run in runs)
+                for k in range(len(steps0))]
+        ranks[kind] += [v for k, v in enumerate(slow)
+                        if k and steps0[k]["phase"] == "gossip"]
+        flew = [(round(s["flight_s"], 3), round(s["wait_s"], 3))
+                for s in steps0]
+        print(f"[ovcompare] {DIST_K} ranks {kind}: steps (slowest rank) "
+              f"{[round(v, 1) for v in slow]} ms; rank 0's worker and wait "
+              f"seconds {flew}; peak "
+              f"{[round(run['peak_gb'], 2) for run in runs]} GB, pinned "
+              f"peak {[run['pinned_peak'] for run in runs]} bytes",
+              flush=True)
+    for where, got in (("one process", one), (f"{DIST_K} ranks", ranks)):
+        print(f"[ovcompare] {where}: steady gossip steps serial "
+              f"{[round(v, 1) for v in got['serial']]} (median "
+              f"{statistics.median(got['serial']):.1f} ms), issued "
+              f"{[round(v, 1) for v in got['issued']]} (median "
+              f"{statistics.median(got['issued']):.1f} ms)", flush=True)
+
+
+def smain_reference(torch, tr, state, launches, k: int = DIST_K,
+                    at: dict = None) -> tuple:
+    """``(leaf shapes, reference)`` of a finished one-process trainer run
+    ([smain]/[scmain], or the one-process twins of the 2-D rank paths):
+    its step records, launches, and each of its k node shards' rows'
+    fingerprints and float64 stats of the final params; ``at`` (a
+    :func:`twin_snapshot` taken mid-run) in place of the last three."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(state.params)
+    ref = dict(steps=[{key: h[key] for key in ("phase", "loss", "consensus",
+                                               "grad_norm")}
+                      for h in tr.history[:6]])
+    ref.update(at or dict(twin_snapshot(torch, state, k),
+                          launches=launches))
+    return [tuple(p.shape[1:]) for p in leaves], ref
+
+
+def dov_reference(torch, device="cuda") -> dict:
+    """[dovmain]'s one-process twin: the overlapped Trainer ([dmain]'s
+    configuration with ``comm_overlap=True``, 4 steps) on the mesh of 4
+    node shards in this process, every gossip step's halo gathered on a
+    side stream; the reference the rank path is held to
+    (:func:`smain_reference`), with each step's host ms."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.train import Trainer
+    card = device != "cpu"
+    tag = "[dovmain]"
+    mesh = make_mesh((DIST_K,), ("data",), device=device)
+    tr = Trainer(_dist_tcfg(False, reduced=not card, steps=DIST_STEPS[tag],
+                            overlap=True),
+                 n_nodes=MAIN_N, mesh=mesh, with_consensus=True,
+                 device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    reset_counts()
+    times = []
+    for _ in range(DIST_STEPS[tag]):
+        t0 = time.perf_counter()
+        state = tr.run(state, steps=1, log_every=1)
+        if card:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ref = smain_reference(torch, tr, state, counts())[1]
+    ref["ms"] = times
+    fired = {k: v for k, v in ref["launches"].items() if v}
+    print(f"{tag} the one-process twin ({mesh.shape}, {MAIN_N} nodes, "
+          f"overlapped, the halos on a side stream): steps "
+          f"{[round(t, 1) for t in times]} ms, phases "
+          f"{[h['phase'] for h in ref['steps']]}, losses "
+          f"{[round(h['loss'], 4) for h in ref['steps']]}, launches "
+          f"{fired}", flush=True)
+    del tr, state
+    if card:
+        torch.cuda.empty_cache()
+    return ref
 
 
 def d2_references(torch, device="cuda") -> dict:
@@ -6890,10 +7172,12 @@ def _gate_against_twin(tag: str, twin: str, recs: list, ref: dict,
 
 
 def _report_rank_path(tag: str, twin: str, recs: list, ref: dict,
-                      key: str, nodes: int, failures: list) -> dict:
+                      key: str, nodes: int, failures: list,
+                      exact_global: bool = False) -> dict:
     """Print one rank path's steps and summary and gate its launches,
-    phases, consensus and plain twins; returns its launches summed over
-    the ranks."""
+    phases, consensus (0.0 after every global step of an uncompressed
+    path: ``key`` shard_mix, or ``exact_global``; > 0 otherwise) and plain
+    twins; returns its launches summed over the ranks."""
     summed = {k: sum(rec["launches"][k] for rec in recs) for k in counts()}
     steps0 = recs[0]["steps"]
     gossip = sum(s["phase"] == "gossip" for s in steps0)
@@ -6921,7 +7205,8 @@ def _report_rank_path(tag: str, twin: str, recs: list, ref: dict,
                 failures.append(f"{tag} step {k}: ranks disagree")
         if not math.isfinite(s0["loss"]):
             failures.append(f"{tag} step {k}: loss {s0['loss']}")
-        if key == "shard_mix" and s0["phase"] in ("global", "slowmo"):
+        if (key == "shard_mix" or exact_global) \
+                and s0["phase"] in ("global", "slowmo"):
             if s0["consensus"] != 0.0:
                 failures.append(f"{tag} step {k}: consensus "
                                 f"{s0['consensus']} after a global step")
@@ -6952,6 +7237,56 @@ def _report_rank_path(tag: str, twin: str, recs: list, ref: dict,
     if ref:
         _gate_against_twin(tag, twin, recs, ref, failures)
     return summed
+
+
+def _report_dovmain(recs: list, dmain: list, ref: dict,
+                    failures: list) -> None:
+    """[dovmain]'s halo in flight, per rank and step: the step's ms, the
+    worker's seconds (copy out and exchange), the caller's wait in
+    ``finish_round`` and the hidden part (worker − wait), staging waits
+    on the step's thread, synchronizing calls; each rank's pinned peak
+    and peak memory; [dmain]'s gossip steps (the serial exchange) and the
+    one-process twin's beside.  A gossip step must have waited for the
+    halo it issued (the overlap ran), the others for none."""
+    steps0 = recs[0]["steps"]
+    for k, s0 in enumerate(steps0):
+        per = []
+        for r, rec in enumerate(recs):
+            s = rec["steps"][k]
+            per.append(f"rank {r} {s['ms']:.1f} ms, worker "
+                       f"{s['flight_s']:.3f} s, wait {s['wait_s']:.3f} s, "
+                       f"hidden {s['flight_s'] - s['wait_s']:.3f} s, "
+                       f"staging waits {s['exchange_syncs']}, "
+                       f"synchronizing calls {s['syncs']}")
+            if (s["wait_s"] > 0.0) != (s0["phase"] == "gossip"):
+                failures.append(f"[dovmain] step {k} ({s0['phase']}) rank "
+                                f"{r}: waited {s['wait_s']} s for a halo "
+                                f"in flight")
+        print(f"[dovmain] step {k} phase={s0['phase']}: " + "; ".join(per),
+              flush=True)
+    gossip = [k for k, s in enumerate(steps0) if s["phase"] == "gossip"]
+    slow = [max(rec["steps"][k]["ms"] for rec in recs) for k in gossip]
+    hidden = []
+    for rec in recs:
+        flew = sum(rec["steps"][k]["flight_s"] for k in gossip)
+        waited = sum(rec["steps"][k]["wait_s"] for k in gossip)
+        # the worker's seconds are the staged transport's (on the card)
+        hidden.append(round((flew - waited) / flew, 3) if flew > 0
+                      else "not measured")
+    serial = [max(rec["steps"][k]["ms"] for rec in dmain)
+              for k, s in enumerate(dmain[0]["steps"])
+              if s["phase"] == "gossip"]
+    twin = ref.get("ms") if ref else None
+    print(f"[dovmain] gossip steps (slowest rank) "
+          f"{[round(v, 1) for v in slow]} ms against [dmain]'s serial "
+          f"exchange {[round(v, 1) for v in serial]} ms; share of the "
+          f"worker's seconds hidden under the step per rank {hidden}; "
+          f"pinned peak per rank {[rec['pinned_peak'] for rec in recs]} "
+          f"bytes; peak memory per rank "
+          f"{[round(rec['peak_gb'], 2) for rec in recs]} GB; the "
+          f"one-process twin's steps "
+          f"{[round(v, 1) for v in twin] if twin else 'not timed'} ms",
+          flush=True)
 
 
 def _report_split(tag: str, recs: list) -> None:
@@ -7010,10 +7345,13 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     (:func:`_dist_rank`).  Slice 15: ``[dround]`` (each rank's rows
     bitwise the one-process round's, the round split into staging out,
     exchange, staging in, kernel and the rest, beside ``[sround]``),
-    ``[dmain]`` and ``[dcmain]`` (the Trainer on 2 nodes a rank: B.5 / B.4
-    on every rank, 16 launches summed, consensus 0.0 after every
+    ``[dmain]`` and ``[dcmain]`` (the Trainer on 2 nodes a rank, 4 steps:
+    B.5 / B.4 on every rank, 12 launches summed, consensus 0.0 after every
     uncompressed global step, finite losses, no plain twin on the card;
-    [dcmain] traced against [scmain] step by step).  Slice 16:
+    [dcmain] traced against [scmain] step by step).  Slice 20:
+    ``[dovmain]`` (the overlapped Trainer, 4 steps, each gossip step's
+    halo in flight under its forward and backward, held to
+    :func:`dov_reference`; :func:`_report_dovmain`).  Slice 16:
     ``[d2main]`` and ``[d2cmain]`` on the (data=2, model=2) mesh (B.5 /
     B.4 once a gossip step on every rank; exchange bytes on each axis;
     the last gossip step's split timed).  Slice 17: ``[dslowmo]`` (SlowMo,
@@ -7021,8 +7359,10 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     ms and bytes) and ``[d2ckpt]`` (:func:`_report_d2ckpt`, then the twin
     restores the ranks' file: :func:`_d2ckpt_twin_restores`).  Every
     trainer path is held to its one-process twin ([smain], [scmain],
-    [sslowmo], ``d2ref``) by :func:`_gate_against_twin`.  ``smain``: [smain]/[scmain]'s references
-    (:func:`smain_reference`, [scmain]'s with its per-step ``trace``).
+    [sslowmo], [dovmain]'s twin, ``d2ref``) by
+    :func:`_gate_against_twin`.  ``smain``: [smain]/[scmain]'s references
+    at step 3 (:func:`smain_reference`, [scmain]'s with its per-step
+    ``trace``), [sslowmo]'s and [dovmain]'s twin's.
     Returns the launch counts summed over the ranks of each path.
     ``device="cpu"`` rehearses the phases at the reduced model (``shapes``,
     ``smain`` and ``d2ref`` to match; the launch gates then fail: the CPU
@@ -7064,8 +7404,8 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     spawn_s = time.perf_counter() - t0
     print(f"[dround] fingerprints of the one-process rounds in {fp_s:.1f} "
           f"s; the {DIST_K} ranks (spawn, init, [dround], [dmain], "
-          f"[dcmain], [dslowmo], [d2main], [d2cmain], [d2ckpt]) in "
-          f"{spawn_s:.1f} s", flush=True)
+          f"[dcmain], [dovmain], [dslowmo], [d2main], [d2cmain], [d2ckpt]) "
+          f"in {spawn_s:.1f} s", flush=True)
     failures = []
     for name, phase, step, compressed in DIST_ROUNDS:
         recs = [r["rounds"][name] for r in res]
@@ -7098,6 +7438,8 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
     for tag, twin, key, nodes in (
             ("[dmain]", "[smain]", "shard_mix", MAIN_N),
             ("[dcmain]", "[scmain]", "shard_cmix", MAIN_N),
+            ("[dovmain]", "[dovmain] one-process twin", "shard_cmix",
+             MAIN_N),
             ("[dslowmo]", "[sslowmo]", "shard_mix", MAIN_N),
             ("[d2main]", "[d2main] one-process twin", "shard_mix", D2_N),
             ("[d2cmain]", "[d2cmain] one-process twin", "shard_cmix",
@@ -7105,9 +7447,13 @@ def run_dist_paths(torch, mc, shapes, smain, d2ref, device="cuda") -> dict:
         recs = [r["paths"][tag] for r in res]
         ref = smain.get(tag) if nodes == MAIN_N else d2ref.get(tag)
         launches[tag] = _report_rank_path(tag, twin, recs, ref, key, nodes,
-                                          failures)
+                                          failures,
+                                          exact_global=tag == "[dovmain]")
         if tag == "[dcmain]":
             _trace_dcmain(recs, smain)
+        if tag == "[dovmain]":
+            _report_dovmain(recs, [r["paths"]["[dmain]"] for r in res], ref,
+                            failures)
         if tag == "[dslowmo]":
             _report_dslowmo(recs, ref, failures)
         if "split" in recs[0]:
@@ -8065,6 +8411,10 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, then stop (no main "
                          "paths, no ok line)")
+    ap.add_argument("--overlap-compare", action="store_true",
+                    help="build, then time the overlapped step serial "
+                         "against issued in turns, in one process and on 4 "
+                         "ranks, and stop (no ok line)")
     args = ap.parse_args()
     start = time.perf_counter()
 
@@ -8091,6 +8441,9 @@ def main() -> int:
           f"{layers.INIT_THREADS} threads", flush=True)
     t0 = time.perf_counter()
     cuda_build.build()
+    if args.overlap_compare:
+        run_overlap_compare(torch)
+        return 1
     print(f"[build] {', '.join(f'{k}.cu' for k in cuda_build.LIBRARIES)} "
           f"in {time.perf_counter() - t0:.1f} s, one nvcc each in parallel "
           f"({cuda_build._Libs.build_seconds})", flush=True)
@@ -8163,14 +8516,17 @@ def main() -> int:
     from repro_torch.tree import tree_leaves
     smain, shapes, ref_params = {}, None, {}
     for compressed in (False, True):
-        launches, tr, state = run_main_path(torch, mc, compressed=compressed,
-                                            sharded=True, trace=compressed)
+        tag = "[dcmain]" if compressed else "[dmain]"
+        launches, tr, state = run_main_path(
+            torch, mc, compressed=compressed, sharded=True, trace=compressed,
+            snapshot_at=DIST_STEPS[tag] - 1)
         key = "shard_cmix" if compressed else "shard_mix"
         records[f"{key}_kernel"]["launches"] = launches[key]
         # what the rank phases of slice 15 and the 2-D paths of slice 16
-        # are held against
-        tag = "[dcmain]" if compressed else "[dmain]"
-        shapes, smain[tag] = smain_reference(torch, tr, state, launches)
+        # are held against: the 1-D rank paths at their last step
+        shapes, smain[tag] = smain_reference(
+            torch, tr, state, launches,
+            at=SNAPSHOT.pop("[scmain]" if compressed else "[smain]"))
         if compressed:
             smain[tag]["trace"] = TRACE["[scmain]"]
         ref_params["[scmain]" if compressed else "[smain]"] = [
@@ -8197,12 +8553,15 @@ def main() -> int:
     slice17 = {}
     slice17["[sslowmo]"], smain["[dslowmo]"] = run_sslowmo(torch, mc)
     d2ref["[d2ckpt]"] = d2ckpt_reference(torch)
+    # slice 20: the one-process twin of the overlapped rank path
+    smain["[dovmain]"] = dov_reference(torch)
     # slices 15-17: the same paths on rank meshes, 4 ranks sharing the card
     dist_launches = run_dist_paths(torch, mc, shapes, smain, d2ref)
     for tag in ("[dslowmo]", "[d2ckpt]"):
         slice17[tag] = dist_launches.pop(tag)
     for key in ("shard_mix", "shard_cmix"):
-        for name, tags in ((f"{key}_kernel", ("[dmain]", "[dcmain]")),
+        for name, tags in ((f"{key}_kernel", ("[dmain]", "[dcmain]",
+                                              "[dovmain]")),
                            (f"{key}_kernel_2d", ("[d2main]", "[d2cmain]"))):
             records[name]["launches_dist"] = {
                 tag: {key: c[key]} for tag, c in dist_launches.items()
@@ -8261,6 +8620,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     overlap["[sovmain]"], tr, state = run_overlap_path(torch, mc,
                                                        sharded=True)
+    # slice 20: its finish with the halos issued ahead, against serial
+    sovround(torch, mc, tr, state)
     del tr, state
     torch.cuda.empty_cache()
     for compressed, sharded in ((False, False), (True, False), (True, True)):

@@ -34,6 +34,15 @@ once per rank, grown to the largest round and reused (a checkpoint's
 gathers stage through buffers of their own, released after the save:
 :meth:`Exchange.release`).  Any other combination raises.
 
+A halo may also be left in flight (:meth:`Exchange.halo_start`, the
+overlapped round's, ROADMAP A.10.6): it travels on a second process group
+over the same ranks that ``make_mesh`` builds beside each node-axis
+group, so the collectives the caller runs meanwhile on the first (the
+step's folds and gathers) never interleave with it.  Staged, a worker
+thread copies out on a side stream, exchanges and copies in; otherwise
+the sends and receives are posted and their works kept.  ``wait()`` on
+the handle gives the stack :meth:`Exchange.halo` gives.
+
 :func:`run_ranks` starts the k rank processes on one machine (the
 ``spawn`` start method, a ``file://`` store in a fresh temporary
 directory), joins them under a time limit and raises with the failing
@@ -200,14 +209,19 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
                          f"data) and at most one model axis, got "
                          f"{dict(zip(names, shapes))}")
     if not others or len(names) == 1:     # one node shard a rank
+        # the in-flight halo's group: the same ranks, a group of its own
+        twin = dist.new_group([dist.get_global_rank(group, g)
+                               for g in range(size)])
         return Mesh(axis_names=names, axis_sizes=shapes, device=dev,
-                    group=group, rank=rank, exchange=Exchange(group, dev),
+                    group=group, rank=rank,
+                    exchange=Exchange(group, dev, flight_group=twin),
                     node_rank=rank)
     model_axis = others[0]
-    node_group, model_group, node_rank, model_rank = _sub_groups(
+    node_group, node_twin, model_group, node_rank, model_rank = _sub_groups(
         group, shapes, names, model_axis)
     return Mesh(axis_names=names, axis_sizes=shapes, device=dev, group=group,
-                rank=rank, exchange=Exchange(node_group, dev),
+                rank=rank,
+                exchange=Exchange(node_group, dev, flight_group=node_twin),
                 model_axis=model_axis, node_rank=node_rank,
                 model_rank=model_rank,
                 model_exchange=Exchange(model_group, dev))
@@ -225,11 +239,13 @@ def _resolve(device) -> torch.device:
 
 def _sub_groups(group, shapes, names, model_axis: str):
     """The node-axis and model-axis sub-groups of a 2-D rank mesh and this
-    rank's ``(node_group, model_group, node_rank, model_rank)``.  Block
-    coordinates are row-major over the axes; the node index is row-major
-    over the node axes in ``(pod, data)`` order, which must be the order
-    of the ranks (a group lists its ranks in ascending order).  Every rank
-    creates every sub-group, model chunks first, in the same order."""
+    rank's ``(node_group, node_twin, model_group, node_rank,
+    model_rank)``, ``node_twin`` a second group over ``node_group``'s
+    ranks (the in-flight halo's).  Block coordinates are row-major over
+    the axes; the node index is row-major over the node axes in ``(pod,
+    data)`` order, which must be the order of the ranks (a group lists its
+    ranks in ascending order).  Every rank creates every sub-group, model
+    chunks first, then the node-axis twins, in the same order."""
     import torch.distributed as dist
     size = int(np.prod(shapes, dtype=np.int64))
     mi = names.index(model_axis)
@@ -257,7 +273,7 @@ def _sub_groups(group, shapes, names, model_axis: str):
                              f"{dict(zip(names, shapes))} must list its node "
                              f"axes in (pod, data) order")
     me = dist.get_rank(group)
-    node_group = model_group = None
+    node_group = model_group = node_twin = None
     for ranks in by_chunk:
         g = dist.new_group([gl[i] for i in ranks])
         if me in ranks:
@@ -266,7 +282,11 @@ def _sub_groups(group, shapes, names, model_axis: str):
         g = dist.new_group([gl[i] for i in ranks])
         if me in ranks:
             model_group = g
-    return (node_group, model_group, node_index(coords[me]),
+    for ranks in by_chunk:
+        g = dist.new_group([gl[i] for i in ranks])
+        if me in ranks:
+            node_twin = g
+    return (node_group, node_twin, model_group, node_index(coords[me]),
             int(coords[me][mi]))
 
 
@@ -310,15 +330,26 @@ class Exchange:
     ``stats`` counts, since the last :meth:`reset_stats`: ``bytes_out`` /
     ``bytes_in`` (payload bytes sent and received), ``ops`` (primitive
     calls), ``syncs`` (host waits for the stream before a staged
-    exchange) and, while ``timing`` is set, the seconds spent in
-    ``stage_out`` (device to pinned host, waited for), ``exchange`` (the
-    backend's transfer) and ``stage_in`` (pinned host to device, waited
-    for: ``timing`` adds that wait).  ``pinned_peak`` is the most pinned
-    host bytes this rank has held at once."""
+    exchange, on the caller's thread) and, while ``timing`` is set, the
+    seconds spent in ``stage_out`` (device to pinned host, waited for),
+    ``exchange`` (the backend's transfer) and ``stage_in`` (pinned host to
+    device, waited for: ``timing`` adds that wait).  A staged halo in
+    flight (:meth:`halo_start`) adds its worker's ``stage_out`` and
+    ``exchange`` seconds whatever ``timing`` is, and their sum to
+    ``flight``; any halo in flight adds ``wait``: the seconds the caller
+    blocked in its handle's ``wait()`` (``flight − wait`` is the part the
+    caller's work hid).  ``pinned_peak`` is the most
+    pinned host bytes this rank has held at once.
 
-    def __init__(self, group, device: torch.device):
+    ``flight_group`` (``make_mesh`` builds it): a second process group
+    over ``group``'s ranks, the one :meth:`halo_start` posts on."""
+
+    def __init__(self, group, device: torch.device, flight_group=None):
         import torch.distributed as dist
         self.group = group
+        self.flight_group = flight_group
+        self._in_flight: Optional["HaloInFlight"] = None
+        self._side = None          # the staged halo's side stream
         self.k = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         # point-to-point ops name their peers by global rank
@@ -340,7 +371,8 @@ class Exchange:
 
     def reset_stats(self) -> None:
         self.stats = {"bytes_out": 0, "bytes_in": 0, "ops": 0, "syncs": 0,
-                      "stage_out": 0.0, "exchange": 0.0, "stage_in": 0.0}
+                      "stage_out": 0.0, "exchange": 0.0, "stage_in": 0.0,
+                      "flight": 0.0, "wait": 0.0}
 
     @property
     def pinned_bytes(self) -> int:
@@ -472,6 +504,110 @@ class Exchange:
         self.sendrecv(sends, recvs)
         return stack
 
+    def halo_start(self, block: torch.Tensor, offsets: Sequence[int]
+                   ) -> "HaloInFlight":
+        """:meth:`halo` left in flight on ``flight_group``: the own block
+        is copied into the stack now, the other offsets' row-blocks travel
+        while the caller goes on; the handle's ``wait()`` returns the
+        stack, with :meth:`halo`'s bytes.  One halo at a time is in flight
+        (its pinned buffers are ``"halo_out"``/``"halo_in"``, apart from
+        the step's).  Staged (gloo, CUDA tensors): a worker thread copies
+        ``block`` to pinned memory on a side stream (which first waits for
+        the caller's stream), exchanges, and copies the received blocks in
+        on the side stream, recording an event that ``wait()`` makes the
+        caller's stream wait for.  Unstaged (gloo with CPU tensors, nccl):
+        the sends and receives are posted here and ``wait()`` waits for
+        their works.  ``block`` must not change until ``wait()``."""
+        import torch.distributed as dist
+        if self.flight_group is None:
+            raise ValueError("Exchange.halo_start: this exchange has no "
+                             "process group for a halo in flight (make_mesh "
+                             "builds one)")
+        if self._in_flight is not None:
+            raise RuntimeError("Exchange.halo_start: a halo is already in "
+                               "flight on this exchange (wait for it first)")
+        m = block.shape[0]
+        stack = torch.empty((len(offsets) * m,) + tuple(block.shape[1:]),
+                            dtype=block.dtype, device=block.device)
+        sends, recvs = [], []
+        for j, q in enumerate(offsets):
+            dst = stack[j * m:(j + 1) * m]
+            if q % self.k == 0:
+                dst.copy_(block)
+                continue
+            sends.append(self._peers[(self.rank - q) % self.k])
+            recvs.append((self._peers[(self.rank + q) % self.k],
+                          dst.view(-1).view(torch.uint8)))
+        msg = _as_bytes(block)
+        h = HaloInFlight(self, stack, keep=(block, msg))
+        h.bytes = (msg.numel() * len(sends),
+                   sum(d.numel() for _, d in recvs))
+        if sends or recvs:
+            if self.staged:
+                self._start_staged(h, msg, sends, recvs)
+            else:
+                ops = ([dist.P2POp(dist.isend, msg, p, self.flight_group)
+                        for p in sends]
+                       + [dist.P2POp(dist.irecv, d, p, self.flight_group)
+                          for p, d in recvs])
+                h.works = dist.batch_isend_irecv(ops)
+        self._in_flight = h
+        return h
+
+    def _start_staged(self, h: "HaloInFlight", msg: torch.Tensor, sends,
+                      recvs) -> None:
+        """Start the worker thread of a staged halo (:meth:`halo_start`)."""
+        import threading
+
+        import torch.distributed as dist
+        if self._side is None:
+            # one stream for every halo: the blocks the allocator caches
+            # for a stream are reused only by that stream
+            self._side = torch.cuda.Stream(self.device)
+        side = self._side
+        out = self._buffer("halo_out", msg.numel())
+        inb, off = [], 0
+        whole = self._buffer("halo_in", sum(d.numel() for _, d in recvs))
+        for _, d in recvs:
+            inb.append(whole[off:off + d.numel()])
+            off += d.numel()
+        # everything the side stream touches was made on the caller's
+        # stream before this point: the side stream waits for it
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        for t in h.keep + tuple(d for _, d in recvs):
+            t.record_stream(side)
+
+        def work():
+            try:
+                t0 = time.perf_counter()
+                with torch.cuda.device(self.device), torch.cuda.stream(side):
+                    side.wait_event(ready)
+                    out.copy_(msg, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(side)
+                copied.synchronize()
+                t1 = time.perf_counter()
+                ops = ([dist.P2POp(dist.isend, out, p, self.flight_group)
+                        for p in sends]
+                       + [dist.P2POp(dist.irecv, b, p, self.flight_group)
+                          for (p, _), b in zip(recvs, inb)])
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+                t2 = time.perf_counter()
+                with torch.cuda.device(self.device), torch.cuda.stream(side):
+                    for (_, d), b in zip(recvs, inb):
+                        d.copy_(b, non_blocking=True)
+                    h.event = torch.cuda.Event()
+                    h.event.record(side)
+                h.seconds = {"stage_out": t1 - t0, "exchange": t2 - t1}
+            except BaseException as e:   # re-raised by wait()
+                h.error = e
+
+        h.thread = threading.Thread(target=work, daemon=True,
+                                    name="repro-halo")
+        h.thread.start()
+
     def all_gather(self, part: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``part`` (one shape and dtype on all ranks), in
         rank order."""
@@ -547,6 +683,54 @@ class Exchange:
         self._land(inb, got)
         self._account(msg.numel(), msg.numel())
         return list(got.unbind(0))
+
+
+class HaloInFlight:
+    """A halo exchange in flight (:meth:`Exchange.halo_start`).
+    :meth:`wait` blocks until it has landed and returns the stack; a
+    second call returns it again.  A failure of the transfer is raised by
+    every call."""
+
+    def __init__(self, exchange: Exchange, stack: torch.Tensor, keep):
+        self.exchange = exchange
+        self.stack = stack
+        self.keep = keep          # what the transfer reads, kept alive
+        self.bytes = (0, 0)
+        self.works = ()           # unstaged: the posted sends/receives
+        self.thread = None        # staged: the worker
+        self.event = None         # staged: the copy in, on the side stream
+        self.seconds: Dict[str, float] = {}
+        self.error: Optional[BaseException] = None
+        self.done = False
+
+    def wait(self) -> torch.Tensor:
+        ex = self.exchange
+        if not self.done:
+            self.done = True
+            t0 = time.perf_counter()
+            try:
+                if self.thread is not None:
+                    self.thread.join()
+                for w in self.works:
+                    w.wait()
+            except BaseException as e:
+                self.error = e
+            finally:
+                ex._in_flight = None
+                ex.stats["wait"] += time.perf_counter() - t0
+            self.keep = self.works = None
+            if self.error is None:
+                if self.event is not None:
+                    torch.cuda.current_stream(ex.device).wait_event(
+                        self.event)
+                for key, v in self.seconds.items():
+                    ex.stats[key] += v
+                    ex.stats["flight"] += v
+                ex._account(*self.bytes)
+        if self.error is not None:
+            raise RuntimeError("Exchange.halo_start: the halo exchange "
+                               "failed") from self.error
+        return self.stack
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,13 @@ apply stages at most one group's operands where packing the full tree
 would copy x, b and the output whole.  The sharded apply gathers the
 buffered row-blocks (dense) or wire arrays (lossy) over the round's halo
 offsets and runs ``shard_cmix.cu`` per shard.  Global and pod rounds
-flush synchronously and re-prime the buffer.
+flush synchronously and re-prime the buffer.  :func:`issue_round` starts
+that gather before the step that applies it runs its forward and
+backward (the reference's ``ppermute`` inside the next step's graph): on
+a rank mesh an exchange in flight on its own process group
+(``Exchange.halo_start``), on a one-process mesh on the card a side
+stream, on CPU tensors at once; :func:`finish_round` then waits for it,
+and the apply's operands are the serial gather's bytes.
 
 Telemetry: with an ambient :class:`repro_torch.obs.Telemetry` hub
 installed, every public round entry point (:func:`communicate`,
@@ -1111,25 +1117,34 @@ def _chunk_wires(arrs, rows: int, c: int, kc: int):
 
 
 def _halo_wires(mesh, arrs, rows: int, r: int, j: int, offsets, m: int,
-                k: int):
+                k: int, *, in_flight: bool = False):
     """For each offset q, the wire arrays of shard ``(r + q) mod k``'s
     row-block: slices of the local rows, or on a rank mesh the node-stacked
     arrays of the own block packed into one message per offset through
     ``Exchange.halo`` (the node-independent ones, the same on every
-    rank, ride as they are here)."""
+    rank, ride as they are here).  ``in_flight``: a :class:`_Pending` of
+    that list, the rank mesh's message left in flight
+    (``Exchange.halo_start``)."""
     if not mesh.distributed:
-        return [_shard_rows(arrs, rows, (r + q) % k, m) for q in offsets]
+        out = [_shard_rows(arrs, rows, (r + q) % k, m) for q in offsets]
+        return _Pending(lambda: out) if in_flight else out
     from repro_torch.core.mesh import pack_arrays, unpack_arrays
 
     own = _shard_rows(arrs, rows, j, m)
     stacked = [a for a, b in zip(own, arrs) if b.shape[0] == rows]
-    msgs = mesh.exchange.halo(pack_arrays(stacked)[None], offsets)
-    out = []
-    for jq in range(len(offsets)):
-        got = iter(unpack_arrays(msgs[jq], stacked))
-        out.append([next(got) if b.shape[0] == rows else a
-                    for a, b in zip(own, arrs)])
-    return out
+
+    def unpack(msgs):
+        out = []
+        for jq in range(len(offsets)):
+            got = iter(unpack_arrays(msgs[jq], stacked))
+            out.append([next(got) if b.shape[0] == rows else a
+                        for a, b in zip(own, arrs)])
+        return out
+
+    msg = pack_arrays(stacked)[None]
+    if in_flight:
+        return _Pending(mesh.exchange.halo_start(msg, offsets).wait, unpack)
+    return unpack(mesh.exchange.halo(msg, offsets))
 
 
 def _sharded_wire_build(params: PyTree, *, compressor, ef_state, seed,
@@ -1240,7 +1255,8 @@ def _communicate_sharded_compressed(params: PyTree, *, compressor, ef_state,
 def _sharded_compensated_gossip(params: PyTree, wires, *, compressor,
                                 widths, phase: str, topology: str,
                                 n_nodes: int, step: int, n_pods: int,
-                                k: int, mesh, kc: int = 1) -> PyTree:
+                                k: int, mesh, kc: int = 1,
+                                halos=None) -> PyTree:
     """The apply half of a compressed sharded gossip (or pod) round: shard
     by shard, the wire arrays of the row-blocks the round's block
     decomposition names are gathered (:func:`_halo_wires`) and decoded
@@ -1250,7 +1266,10 @@ def _sharded_compensated_gossip(params: PyTree, wires, *, compressor,
     chunk by chunk.  ``wires`` may be the buffered, one-step-stale payload
     of an overlapped round (:func:`finish_round`): the compensation keeps
     the node average for any estimate, so the synchronous and the
-    overlapped rounds share this apply."""
+    overlapped rounds share this apply.  ``halos`` (an issued round's,
+    :func:`issue_round`): per ``(chunk, local shard)`` the
+    :class:`_Pending` gather of the wire arrays, in place of gathering
+    them here."""
     from repro_torch.kernels import mixing_cuda
 
     n = n_nodes
@@ -1269,8 +1288,9 @@ def _sharded_compensated_gossip(params: PyTree, wires, *, compressor,
         for j, r in enumerate(owned):
             qs = torch.empty((len(offsets) * m, D), dtype=torch.float32,
                              device=x.device)
-            for jq, blk in enumerate(_halo_wires(mesh, arrs_c, rows, r, j,
-                                                 offsets, m, k)):
+            got = (halos[c, j].get() if halos is not None else
+                   _halo_wires(mesh, arrs_c, rows, r, j, offsets, m, k))
+            for jq, blk in enumerate(got):
                 build_q(blk, qs[jq * m:(jq + 1) * m])
             if 0 in offsets:
                 j0 = offsets.index(0)
@@ -1492,7 +1512,9 @@ def finish_round(params: PyTree, round_state, spec: CommSpec, *,
     (:func:`repro_torch.kernels.mixing_cuda.compensated_apply`); stacked
     ``"reference"`` the dense matmul oracle; sharded, the per-shard
     compensated kernel over the gathered halo of the buffer (dense) or
-    of its wire arrays (lossy)."""
+    of its wire arrays (lossy).  A round state from :func:`issue_round`
+    carries that halo in flight: the apply waits for it (``step`` must be
+    the shift it was issued for) and launches on the same operands."""
     tel = _hub()
     if tel is None:
         return _finish_round_impl(params, round_state, spec, step=step)
@@ -1508,12 +1530,17 @@ def _finish_round_impl(params: PyTree, round_state, spec: CommSpec, *,
     n = spec.n_nodes
     if n == 1:
         return params
+    halo = round_state.get("halo")
+    if halo is not None and halo["step"] != step:
+        raise ValueError(f"mixing.finish_round: the round's halo was issued "
+                         f"for shift {halo['step']}, applied with {step}")
     if "wire" in round_state:
         return _overlap_finish_sharded_wire(params, round_state, spec,
                                             step=step)
     q = round_state["q"]
     if spec.uses_sharded():
-        return _overlap_finish_sharded_dense(params, q, spec, step=step)
+        return _overlap_finish_sharded_dense(params, q, spec, step=step,
+                                             halo=halo)
     if spec.backend == "pallas":
         from repro_torch.kernels import mixing_cuda
         return mixing_cuda.compensated_apply(
@@ -1552,12 +1579,15 @@ def overlap_flush(params: PyTree, spec: CommSpec, *, phase: str,
 
 
 def _overlap_finish_sharded_dense(params: PyTree, q: PyTree,
-                                  spec: CommSpec, *, step: int) -> PyTree:
+                                  spec: CommSpec, *, step: int,
+                                  halo=None) -> PyTree:
     """Sharded apply of a dense buffer: shard by shard (chunk by chunk on
     a 2-D mesh), the buffered row-blocks at the round's halo offsets are
     gathered (wire-cast as they are sent, then upcast: exact, the buffer
     was cast at capture) and ``shard_cmix.cu`` writes ``x_r + (M_r · qs −
-    (1 − d_r) ⊙ b_r)`` into the shard's rows of one fresh output."""
+    (1 − d_r) ⊙ b_r)`` into the shard's rows of one fresh output.
+    ``halo`` (:func:`issue_round`'s): each chunk's packed buffer and its
+    shards' :class:`_Pending` gathered stacks."""
     from repro_torch.kernels import mixing_cuda
 
     n, mesh = spec.n_nodes, spec.mesh
@@ -1572,16 +1602,22 @@ def _overlap_finish_sharded_dense(params: PyTree, q: PyTree,
     for c in _owned_chunks(mesh, km):
         x = lay.chunk(params, c)
         owned, m = _owned_rows(x, mesh, k, n, "mixing.finish_round")
-        qf = lay.chunk(q, c)
-        send = qf.to(wire) if wire is not None else qf
+        if halo is not None:
+            qf, pending = halo["chunks"][c]
+        else:
+            qf = lay.chunk(q, c)
+            send = qf.to(wire) if wire is not None else qf
         out = torch.empty_like(x)
         for j, r in enumerate(owned):
-            qs = _halo(mesh, qf, send, r, j, offsets, m, k)
+            qs = (pending[j].get() if halo is not None
+                  else _halo(mesh, qf, send, r, j, offsets, m, k))
             mixing_cuda.shard_comp_mix_block(
                 x[j * m:(j + 1) * m], qf[j * m:(j + 1) * m], qs, wstack[r],
                 Mstack[r], out=out[j * m:(j + 1) * m])
             del qs
-        del send, qf, x
+        if halo is None:
+            del send
+        del qf, x
         outs[c] = [out]
     return lay.unflatten(_gather_chunks(mesh, km, outs)[0])
 
@@ -1602,10 +1638,159 @@ def _overlap_finish_sharded_wire(params: PyTree, round_state,
               for lf in tree_leaves(params)]
     wires = [LeafWire(payload=tuple(w["payload"]), aux=tuple(w["aux"]))
              for w in round_state["wire"]]
+    halo = round_state.get("halo")
     return _sharded_compensated_gossip(
         params, wires, compressor=spec.compressor, widths=widths,
         phase="gossip", topology=spec.topology, n_nodes=n, step=step,
-        n_pods=spec.n_pods, k=k, mesh=spec.mesh, kc=kc)
+        n_pods=spec.n_pods, k=k, mesh=spec.mesh, kc=kc,
+        halos=None if halo is None else halo["chunks"])
+
+
+def issue_round(round_state, spec: CommSpec, *, step: int):
+    """Start the exchange of an overlapped round's buffered halos, so it
+    runs under the step that will apply it (the reference's ``ppermute``
+    of the buffered row-blocks inside the next step's graph, ahead of its
+    forward and backward).  Returns ``round_state`` with ``"halo"``: for
+    each column chunk and node shard this process owns, the gather
+    :func:`finish_round` would make of the buffer at the halo offsets of
+    shift ``step`` — the row-blocks of a dense buffer, wire-cast as the
+    serial apply casts them, or each leaf's packed wire arrays of a lossy
+    one — in flight:
+
+    * on a rank mesh, through ``Exchange.halo_start`` (its own process
+      group, so the step's folds and gathers run meanwhile);
+    * on a one-process mesh on the card, on a side CUDA stream (it waits
+      for the caller's stream first; an event closes it, and every tensor
+      it reads or makes is recorded on the stream that frees it last);
+    * on CPU tensors, at once.
+
+    :func:`finish_round` with the same ``step`` waits for it and applies;
+    call :func:`drain_round` on the result if the step fails in between.
+    A stacked spec's round (nothing to gather) is returned as it is.
+    Nothing falls back: a failed exchange raises where it is waited for.
+    """
+    n = spec.n_nodes
+    if n == 1 or not spec.uses_sharded():
+        return round_state
+    if "halo" in round_state:
+        raise ValueError("mixing.issue_round: the round is already issued")
+    from repro_torch.kernels import mixing_cuda
+
+    mesh = spec.mesh
+    k = _shard_count(mesh, spec.node_axis, n, "mixing.issue_round")
+    km = model_shard_count(mesh, spec.model_axis, spec.node_axis)
+    m = n // k
+    chunks = {}
+    if "wire" in round_state:
+        from repro_torch.compress import LeafWire
+        kc = _quant_chunks(spec.compressor, km)
+        arrs = _wire_arrays([LeafWire(payload=tuple(w["payload"]),
+                                      aux=tuple(w["aux"]))
+                             for w in round_state["wire"]])
+        offsets = _device_shard_blocks("gossip", spec.topology, n, step,
+                                       spec.n_pods, k, arrs[0].device)[0]
+        rows = len(mesh.owned_shards(k)) * m
+        for c in _owned_chunks(mesh, kc):
+            arrs_c = _chunk_wires(arrs, rows, c, kc)
+            for j, r in enumerate(mesh.owned_shards(k)):
+                chunks[c, j] = _halo_wires(mesh, arrs_c, rows, r, j,
+                                           offsets, m, k, in_flight=True)
+        return {**round_state, "halo": {"step": step, "chunks": chunks,
+                                        "pending": list(chunks.values())}}
+    q = round_state["q"]
+    lay = mixing_cuda.ModelChunks(q, km)
+    offsets = _device_shard_blocks("gossip", spec.topology, n, step,
+                                   spec.n_pods, k,
+                                   tree_leaves(q)[0].device)[0]
+    pending = []
+    for c in _owned_chunks(mesh, km):
+        qf = lay.chunk(q, c)
+        owned, _ = _owned_rows(qf, mesh, k, n, "mixing.issue_round")
+        chunks[c] = (qf, _issue_halos(mesh, qf, spec.comm_dtype, owned,
+                                      offsets, m, k))
+        pending += chunks[c][1]
+    return {**round_state, "halo": {"step": step, "chunks": chunks,
+                                    "pending": pending}}
+
+
+def drain_round(round_state) -> None:
+    """Wait for every halo :func:`issue_round` left in flight in
+    ``round_state`` (a no-op for one already applied or never issued), so
+    no exchange stays pending when a step fails between the issue and the
+    apply.  Every halo is waited for; the first failure is raised."""
+    halo = round_state.get("halo") if round_state is not None else None
+    if halo is None:
+        return
+    first = None
+    for pending in halo["pending"]:
+        try:
+            pending.wait()
+        except Exception as e:   # waited for all, the first re-raised
+            first = first or e
+    if first is not None:
+        raise first
+
+
+class _Pending:
+    """One gather of an issued round: :meth:`wait` waits for it and
+    returns what it landed (a rank mesh's ``HaloInFlight.wait``, the side
+    stream's event, or the value itself); :meth:`get` also maps that
+    through ``then`` into what the apply takes."""
+
+    def __init__(self, wait, then=None):
+        self.wait, self.then = wait, then
+
+    def get(self):
+        got = self.wait()
+        return got if self.then is None else self.then(got)
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device):
+    """The side stream of the one-process halo gathers on ``device``, one
+    for every round: the blocks the allocator caches for a stream are
+    reused only by that stream."""
+    return torch.cuda.Stream(device)
+
+
+def _issue_halos(mesh, qf: torch.Tensor, wire, owned, offsets, m: int,
+                 k: int) -> list:
+    """Per local shard j, the :class:`_Pending` fp32 halo stack that
+    :func:`_halo` gathers from the packed buffer chunk ``qf`` (sent as
+    ``wire`` when set), the gather started now (:func:`issue_round`)."""
+    if mesh.distributed:
+        (j,) = range(len(owned))
+        if wire is None and tuple(offsets) == (0,):
+            own = qf[j * m:(j + 1) * m]
+            return [_Pending(lambda: own)]
+        send = qf.to(wire) if wire is not None else qf
+        handle = mesh.exchange.halo_start(send[j * m:(j + 1) * m], offsets)
+        return [_Pending(handle.wait, lambda t: t.to(torch.float32))]
+    if qf.device.type != "cuda":
+        send = qf.to(wire) if wire is not None else qf
+        got = [_halo_rows(qf, send, r, offsets, m, k) for r in owned]
+        return [_Pending(functools.partial(got.__getitem__, j))
+                for j in range(len(owned))]
+    main = torch.cuda.current_stream(qf.device)
+    side = _side_stream(qf.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        send = qf.to(wire) if wire is not None else qf
+        got = [_halo_rows(qf, send, r, offsets, m, k) for r in owned]
+        done = torch.cuda.Event()
+        done.record(side)
+    # qf is read on the side stream; the stacks made there are freed
+    # after the caller's stream has read them
+    qf.record_stream(side)
+    for t in got:
+        t.record_stream(main)
+    del send
+
+    def landed(j: int) -> torch.Tensor:
+        torch.cuda.current_stream(qf.device).wait_event(done)
+        return got[j]
+    return [_Pending(functools.partial(landed, j))
+            for j in range(len(owned))]
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,10 @@ With ``DistConfig.comm_overlap`` the step is ``step(state, batch, lr,
 comm_buf) -> (state, metrics, new_buf)``: a gossip step finishes the
 round buffered one step ago (``mixing.finish_round`` with the buffer's
 shift) and starts the next from its half-step iterate
-(``mixing.start_round``); global and pod steps flush synchronously and
+(``mixing.start_round``); on the sharded rounds it issues the buffered
+round's halo gather first (``mixing.issue_round``, before the forward),
+so the exchange runs under the forward and backward and only the apply
+waits for it; global and pod steps flush synchronously and
 re-prime (``mixing.overlap_flush``); ``"none"`` returns the buffer
 unchanged.  An algorithm-owned phase (SlowMo's outer step) runs no round:
 ``post_round`` consumes the half-step iterate (on a mesh of the sharded
@@ -393,6 +396,18 @@ def build_train_step(model: Model, tcfg: TrainConfig, n_nodes: int, *,
               comm_buf=None):
         """``(new_state, metrics, new_buf)``; ``new_buf`` is None unless
         the step is overlapped."""
+        if overlap and phase == "gossip" and n_nodes > 1:
+            # the buffered round's halo travels under this step's forward
+            # and backward; a failure before the apply drains it, so no
+            # exchange is left pending on any rank
+            comm_buf = mixing.issue_round(comm_buf, spec, step=buf_shift)
+            try:
+                return _body(state, batch, lr, W, active, comm_buf)
+            finally:
+                mixing.drain_round(comm_buf)
+        return _body(state, batch, lr, W, active, comm_buf)
+
+    def _body(state: TrainState, batch: PyTree, lr, W, active, comm_buf):
         extras = dict(state.extras)
         dropped, mine = [], []
         if push:

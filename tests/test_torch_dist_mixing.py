@@ -59,6 +59,8 @@ CPHASES = (("gossip", "one_peer_exp", 0), ("gossip", "one_peer_exp", 1),
            ("pod_avg", "ring", 0))
 PPERMUTE = (("ring", 0), ("exp", 0), ("one_peer_exp", 0),
             ("one_peer_exp", 1), ("one_peer_exp", 2))
+# the overlapped round's buffer kinds, issued ahead of the apply
+ISSUED = ("fp32", "bf16", "int8", "topk")
 
 
 def _id(case) -> str:
@@ -185,6 +187,52 @@ def _meter_records(mesh, rows):
     return tel.ring().records("comm_round")
 
 
+def _issued_case(buf, mesh, rows):
+    """An overlapped round's apply at three issuing shifts, serial and
+    issued (``issue_round``, then ``finish_round``), with the step's
+    collectives run on the mesh's own group while the halo is in flight:
+    a node-axis ``fold`` and ``pairwise_mean_ranks`` (their one-process
+    values without a mesh); then a step that fails between issue and
+    finish (the round drained) and the next issued round on the same
+    mesh.  Returns ``[serial..., issued..., fold, x̄]`` per shift, then
+    the round after the failure."""
+    from repro_torch.train.state import pairwise_mean_ranks
+    from repro_torch.tree import pairwise_mean
+    n = 2 * K
+    name = buf if buf in ("int8", "topk") else "none"
+    spec = _spec(mesh, n, "one_peer_exp",
+                 cd="bfloat16" if buf == "bf16" else None, name=name)
+    rs, _ = tmix.start_round(_rows(_ctree(7, n), rows), spec,
+                             ef_state=(_rows(_cef(3, n), rows)
+                                       if name != "none" else None), seed=4)
+    y = _rows(_ctree(8, n), rows)
+    x = y["c"]
+    out = []
+    for step in (0, 1, 2):
+        serial = tmix.finish_round(y, rs, spec, step=step)
+        issued = tmix.issue_round(rs, spec, step=step)
+        if mesh.distributed:
+            folded = mesh.exchange.fold(torch.arange(3.0) + mesh.rank)
+            xbar = pairwise_mean_ranks(x, mesh)
+        else:
+            folded = None
+            for r in range(K):
+                part = torch.arange(3.0) + r
+                folded = part if folded is None else folded + part
+            xbar = pairwise_mean(x)
+        out += (_flat(serial) + _flat(tmix.finish_round(y, issued, spec,
+                                                        step=step))
+                + [folded, xbar])
+    issued = tmix.issue_round(rs, spec, step=1)
+    with pytest.raises(RuntimeError, match="fails between"):
+        try:
+            raise RuntimeError("the step fails between issue and finish")
+        finally:
+            tmix.drain_round(issued)
+    return out + _flat(tmix.finish_round(
+        y, tmix.issue_round(rs, spec, step=1), spec, step=1))
+
+
 def _ppermute_case(case, mesh, rows):
     topology, step = case
     x = _rows(_tree(6, K, [(3, 4)]), rows)["leaf0"]
@@ -197,10 +245,12 @@ CASES = ([("round", c) for c in ROUNDS]
          + [("half_step", ("ring",))]
          + [("compressed", c) for c in COMPRESSED]
          + [("collective", c) for c in COLLECTIVE]
-         + [("ppermute", c) for c in PPERMUTE])
+         + [("ppermute", c) for c in PPERMUTE]
+         + [("issued", c) for c in ISSUED])
 RUN = {"round": _round_case, "residual": _residual_case,
        "half_step": _half_step_case, "compressed": _compressed_case,
-       "collective": _collective_case, "ppermute": _ppermute_case}
+       "collective": _collective_case, "ppermute": _ppermute_case,
+       "issued": _issued_case}
 
 
 def _m(kind, case) -> int:
@@ -233,6 +283,19 @@ def _rank_worker(rank: int):
         out[(kind, case)] = RUN[kind](case, mesh,
                                       slice(rank * m, (rank + 1) * m))
     out[("meter",)] = _meter_records(mesh, slice(rank * 2, rank * 2 + 2))
+    ex = mesh.exchange
+    h = ex.halo_start(torch.full((1, 3), float(rank)), (0, 1))
+    try:
+        ex.halo_start(torch.zeros(1, 3), (0, 1))
+        second = "accepted"
+    except RuntimeError as e:
+        second = "in flight" if "in flight" in str(e) else str(e)
+    got = h.wait()
+    out[("flight",)] = (
+        ex.flight_group is not ex.group
+        and dist.get_world_size(ex.flight_group) == K
+        and torch.equal(got[1], torch.full((3,), float((rank + 1) % K))),
+        dist.get_world_size(ex.flight_group), second)
     return out
 
 
@@ -345,7 +408,7 @@ def runs():
         out = {"local": {(kind, case): RUN[kind](case, mesh, slice(None))
                          for kind, case in CASES},
                "jax": {(kind, case): _jax_reference(kind, case)
-                       for kind, case in CASES}}
+                       for kind, case in CASES if kind != "issued"}}
     finally:
         th.join()
     if "error" in box:
@@ -465,6 +528,43 @@ def test_rank_collective_is_the_one_process_collective_bitwise(runs, case):
 def test_rank_collective_matches_jax_stacked_reference(runs, case):
     _close(runs["jax"][("collective", case)],
            _stacked_outputs(runs, "collective", case), atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The overlapped round issued ahead of its apply
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("buf", ISSUED)
+def test_rank_issued_round_is_the_serial_round_bitwise(runs, buf):
+    """On 4 ranks the halo exchange in flight on its own group
+    (``Exchange.halo_start``) gives the serial apply's bits at every
+    shift, for the dense fp32 and bf16-wire buffers and the int8 and
+    top-k wire arrays, while a node-axis fold and ``pairwise_mean_ranks``
+    run on the mesh's group (their values the one-process ones); each
+    rank's rows are the one-process round's; after a step that failed
+    between issue and finish (drained), the next round completes with the
+    same bits."""
+    _bitwise(runs, "issued", buf)
+    for r in range(K):
+        got = runs["ranks"][r][("issued", buf)]
+        n_out = (len(got) - 6) // 7   # 3 × (2·n_out + 2) + n_out outputs
+        assert 3 * (2 * n_out + 2) + n_out == len(got)
+        for s in range(3):
+            base = s * (2 * n_out + 2)
+            serial = got[base:base + n_out]
+            issued = got[base + n_out:base + 2 * n_out]
+            for a, b in zip(serial, issued):
+                assert torch.equal(a, b), (buf, r, s)
+        after = got[3 * (2 * n_out + 2):]
+        for a, b in zip(got[2 * n_out + 2:3 * n_out + 2], after):
+            assert torch.equal(a, b), (buf, r)
+
+
+def test_rank_mesh_issues_on_a_group_of_its_own(runs):
+    """The halo in flight travels on ``Exchange.flight_group``, a second
+    group over the node-axis ranks, and one halo at a time is in
+    flight."""
+    for r in range(K):
+        assert runs["ranks"][r][("flight",)] == (True, K, "in flight")
 
 
 # ---------------------------------------------------------------------------

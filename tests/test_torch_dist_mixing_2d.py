@@ -193,17 +193,49 @@ def _overlap_case(name, mesh, rows):
     return _flat(mixed) + (_flat(ef1) if ef1 is not None else [])
 
 
+ISSUED = ("fp32", "bf16", "int8", "topk")
+
+
+def _issued_case(buf, mesh, rows):
+    """The overlapped apply at three issuing shifts, serial then issued
+    (``issue_round``, a node-axis fold run while the halo is in flight,
+    ``finish_round``): ``[serial..., issued..., fold]`` per shift."""
+    name = buf if buf in ("int8", "topk") else "none"
+    spec = _spec(mesh, "one_peer_exp", cd="bfloat16" if buf == "bf16"
+                 else None, name=name)
+    rs, _ = tmix.start_round(_rows(_tree(11), rows), spec,
+                             ef_state=(_rows(_ef(4), rows)
+                                       if name != "none" else None), seed=6)
+    y = _rows(_tree(12), rows)
+    out = []
+    for step in (0, 1, 2):
+        serial = tmix.finish_round(y, rs, spec, step=step)
+        issued = tmix.issue_round(rs, spec, step=step)
+        if mesh.distributed:
+            folded = mesh.exchange.fold(torch.arange(3.0) + mesh.node_rank)
+        else:
+            folded = None
+            for r in range(KN):
+                part = torch.arange(3.0) + r
+                folded = part if folded is None else folded + part
+        out += (_flat(serial) + _flat(tmix.finish_round(y, issued, spec,
+                                                        step=step))
+                + [folded])
+    return out
+
+
 CASES = ([("round", c) for c in ROUNDS]
          + [("residual", c) for c in RESIDUAL]
          + [("half_step", ("ring",))]
          + [("compressed", c) for c in COMPRESSED]
          + [("collective", c) for c in COLLECTIVE]
          + [("push", ("directed_exp",))]
-         + [("overlap", c) for c in OVERLAP])
+         + [("overlap", c) for c in OVERLAP]
+         + [("issued", c) for c in ISSUED])
 RUN = {"round": _round_case, "residual": _residual_case,
        "half_step": _half_step_case, "compressed": _compressed_case,
        "collective": _collective_case, "push": _push_case,
-       "overlap": _overlap_case}
+       "overlap": _overlap_case, "issued": _issued_case}
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +499,24 @@ def test_rank_fused_push_and_overlap_rounds_bitwise(runs, kind, case):
     fused half-step, push-sum (x and w) and the overlapped apply (dense,
     int8 with its EF, top-k whole on every model rank)."""
     _whole_rows_bitwise(runs, kind, case)
+
+
+@pytest.mark.parametrize("buf", ISSUED)
+def test_rank_issued_round_is_the_serial_round_bitwise(runs, buf):
+    """On the (data=2, model=2) ranks the halo in flight on the node
+    axis's own group gives the serial apply's whole rows at every shift
+    (dense fp32 and bf16 wire, int8 sliced by column, top-k whole on
+    every model rank), with a node-axis fold run meanwhile; every rank's
+    rows are the one-process 2-D round's."""
+    _whole_rows_bitwise(runs, "issued", buf)
+    for r in range(RANKS):
+        got = runs["ranks"][r][("issued", buf)]
+        n_out = (len(got) // 3 - 1) // 2
+        for s in range(3):
+            base = s * (2 * n_out + 1)
+            for a, b in zip(got[base:base + n_out],
+                            got[base + n_out:base + 2 * n_out]):
+                assert torch.equal(a, b), (buf, r, s)
 
 
 @pytest.mark.parametrize("name", COMPRESSED)

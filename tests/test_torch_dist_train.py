@@ -74,7 +74,9 @@ CASES = ([("pga", {}, {}, {}, STEPS),
           ("compressed", dict(comm_compression="int8",
                               comm_global_compression="int8",
                               comm_error_feedback=True), {}, {}, STEPS),
-          ("overlap", dict(comm_overlap=True), {}, {}, STEPS)]
+          ("overlap", dict(comm_overlap=True), {}, {}, STEPS),
+          ("overlap_int8", dict(comm_overlap=True, comm_compression="int8",
+                                comm_error_feedback=True), {}, {}, STEPS)]
          + [(f"algo-{a}", dict(algorithm=a, **ALGO_KW.get(a, {})), {}, {},
              ALGO_STEPS.get(a, 2))
             for a in algorithm_names() if a != DIST["algorithm"]]
@@ -109,10 +111,54 @@ def _run(case, mesh, row0):
              for h in tr.history], slots)
 
 
+OVERLAPPED = ("overlap", "overlap_int8")
+
+
+def _serial_runs(mesh, row0):
+    """The overlapped cases with the apply gathering its own halo (the
+    serial overlap: ``mixing.issue_round`` made the identity)."""
+    from repro_torch.core import mixing
+    real = mixing.issue_round
+    mixing.issue_round = lambda round_state, spec, *, step: round_state
+    try:
+        return {c[0]: _run(c, mesh, row0) for c in CASES
+                if c[0] in OVERLAPPED}
+    finally:
+        mixing.issue_round = real
+
+
+def _failed_step(mesh, row0):
+    """The overlapped Trainer's gossip step 2 fails in its loss, after it
+    issued its halo (a batch without its targets); the Trainer then runs
+    steps 2 and 3.  Returns ``(what the step raised, final params)``."""
+    case = next(c for c in CASES if c[0] == "overlap")
+    tr = Trainer(_config(*case[1:4]), N, mesh=mesh, with_consensus=True,
+                 device="cpu")
+    st = tr.run(tr.init_state(params=interop.from_numpy(row0, "cpu")),
+                steps=2, log_every=1)
+    k = st.step
+    phase = tr.schedule.peek_phase(k)
+    step_fn = tr._get_step_fn(phase, tr.schedule.gossip_shift_step(
+        k, tr.period), buf_shift=tr._buf_shift)
+    bad = {key: v for key, v in tr.device_batch(k).items()
+           if key != "targets"}
+    try:
+        step_fn(st, bad, tr.lr_fn(k), tr._comm_buf)
+        raised = None
+    except KeyError as e:
+        raised = (phase, str(e))
+    st = tr.run(st, steps=2, log_every=1)
+    from repro_torch.tree import tree_leaves
+    return raised, [p.clone() for p in tree_leaves(st.params)]
+
+
 def _rank_worker(rank: int, row0):
     import torch.distributed as dist
     mesh = make_mesh((K,), ("data",), device="cpu", group=dist.group.WORLD)
-    return {case[0]: _run(case, mesh, row0) for case in CASES}
+    out = {case[0]: _run(case, mesh, row0) for case in CASES}
+    out["serial"] = _serial_runs(mesh, row0)
+    out["failed_step"] = _failed_step(mesh, row0)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -155,6 +201,7 @@ def runs():
                        jtr.history)}
         mesh = make_mesh((K,), ("data",), device="cpu")
         out["local"] = {case[0]: _run(case, mesh, row0) for case in CASES}
+        out["local_serial"] = _serial_runs(mesh, row0)
     finally:
         th.join()
     if "error" in box:
@@ -223,6 +270,34 @@ def test_rank_trainer_is_the_one_process_trainer(runs, name):
         assert [h[0] for h in hist] == [h[0] for h in want_hist]
         np.testing.assert_allclose([h[1] for h in hist],
                                    [h[1] for h in want_hist], rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", OVERLAPPED)
+@pytest.mark.parametrize("where", ("ranks", "local"))
+def test_issued_overlap_is_the_serial_overlap_bitwise(runs, name, where):
+    """The overlapped Trainer issues its gossip steps' halo before the
+    forward (``mixing.issue_round``; on the ranks an exchange in flight
+    on its own group): params, phases, losses and consensus bitwise the
+    serial overlap's (the apply gathering the halo itself), dense and
+    int8 + EF, on every rank and in one process."""
+    pairs = ([(runs["ranks"][r][name], runs["ranks"][r]["serial"][name])
+              for r in range(K)] if where == "ranks" else
+             [(runs["local"][name], runs["local_serial"][name])])
+    for (params, hist, _), (want_params, want_hist, _) in pairs:
+        assert hist == want_hist
+        for g, w in zip(params, want_params):
+            assert torch.equal(g, w)
+
+
+def test_rank_step_failing_after_its_issue_drains_the_halo(runs):
+    """A gossip step that raises in its forward, after issuing its halo,
+    drains the exchange on every rank: the Trainer then runs on, and its
+    params after 4 steps are bitwise the uninterrupted run's."""
+    for r in range(K):
+        raised, params = runs["ranks"][r]["failed_step"]
+        assert raised == ("gossip", "'targets'")
+        for g, w in zip(params, runs["ranks"][r]["overlap"][0]):
+            assert torch.equal(g, w)
 
 
 def test_rank_trainer_clip_engages(runs):

@@ -211,6 +211,55 @@ def test_sharded_wire_apply_is_the_synchronous_rounds(compressed):
             assert torch.equal(a, b)
 
 
+ISSUED = [(where, buf) for where in ("1d", "2d")
+          for buf in ("fp32", "bf16", "int8", "topk")]
+
+
+@pytest.mark.parametrize("where,buf", ISSUED, ids=lambda v: v)
+def test_issued_round_is_the_serial_round_bitwise(where, buf):
+    """``finish_round(issue_round(b))`` is ``finish_round(b)`` bit for bit
+    on one-process meshes of 4 node shards and of (data=2, model=2), for
+    the dense fp32 and bf16-wire buffers and the int8 and top-k wire
+    arrays, at three issuing shifts (on CPU tensors the issue gathers at
+    once); each also matches the JAX ``finish_round`` (dense atol 1e-6,
+    lossy 2e-5, as above).  An issued round is not issued again, and its
+    halo is not applied with another shift."""
+    mesh = (_mesh() if where == "1d"
+            else make_mesh((2, 2), ("data", "model"), device="cpu"))
+    name = buf if buf in ("int8", "topk") else "none"
+    jspec, tspec = _specs("one_peer_exp", cd="bf16" if buf == "bf16"
+                          else None, name=name, mesh=mesh)
+    y, b = _tree(5), _tree(6)
+    ef0 = jax.tree.map(np.zeros_like, b) if name != "none" else None
+    jrs, _ = jmix.start_round(_jax(b), jspec, ef_state=_jax(ef0), seed=3)
+    trs, _ = tmix.start_round(_torch(b), tspec, ef_state=_torch(ef0),
+                              seed=3)
+    for step in (0, 1, 2):
+        serial = tmix.finish_round(_torch(y), trs, tspec, step=step)
+        issued = tmix.issue_round(trs, tspec, step=step)
+        assert "halo" in issued and "halo" not in trs
+        got = tmix.finish_round(_torch(y), issued, tspec, step=step)
+        tmix.drain_round(issued)
+        for a, g in zip(tree_leaves(serial), tree_leaves(got)):
+            assert a.dtype == g.dtype and torch.equal(a, g)
+        _close(jmix.finish_round(_jax(y), jrs, jspec, step=step), got,
+               atol=1e-6 if name == "none" else 2e-5)
+    with pytest.raises(ValueError, match="already issued"):
+        tmix.issue_round(issued, tspec, step=2)
+    with pytest.raises(ValueError, match="issued for shift 2"):
+        tmix.finish_round(_torch(y), issued, tspec, step=1)
+
+
+@pytest.mark.parametrize("backend", ("reference", "pallas"))
+def test_stacked_round_has_nothing_to_issue(backend):
+    """The stacked apply gathers nothing (``q_self is qs``): its round
+    state comes back from ``issue_round`` as it went in."""
+    _, tspec = _specs("one_peer_exp", backend=backend)
+    trs, _ = tmix.start_round(_torch(_tree(7)), tspec)
+    assert tmix.issue_round(trs, tspec, step=1) is trs
+    tmix.drain_round(trs)
+
+
 # ---------------------------------------------------------------------------
 # Flush, EF, the buffer's storage
 # ---------------------------------------------------------------------------
