@@ -323,10 +323,16 @@ SIM_COMP_SHAPES = ((16, 10), (32, 10), (100, 10))
 MAIN_PACKED_D = 138_431_232         # every parameter of one node, packed
 # the push-sum paths' round operands (slice 8): the staging group of the
 # norms with the weight column (19,201: not a multiple of 4, so the
-# generic instance), the large leaves, and the simulator's joint (x, w)
-# trees ([psim]: d = 6 at n = 16, d = 10 at n = 100)
+# register instance at V = 1; the generic one until PR 33), the large
+# leaves, and the simulator's joint (x, w) trees ([psim]: d = 6 at n = 16,
+# d = 10 at n = 100)
 PUSH_MIX_SHAPES = ((8, 19_201), (8, 7_077_888), (8, MAIN_D),
                    (8, 28_311_552), (16, 7), (100, 11))
+PUSH_GROUP_D = 19_201               # row 1c: the push staging group
+SHADOW_COLUMNS = 1 << 25            # GenericShadow's columns a launch
+# every (n, V) instance of mix.cu's register kernel (V: columns a thread)
+MIX_INSTANCES = ((2, 4), (2, 1), (4, 4), (4, 1), (8, 4), (8, 1), (16, 2),
+                 (16, 1), (32, 1))
 
 
 def smi() -> str:
@@ -358,8 +364,8 @@ def hgmma_count(cuda_build, name: str) -> str:
 # piece of their mangled names: mix with the residual (no g, no wire);
 # cmix int8 with error feedback (no wire)
 SASS_KERNELS = {"mix": (("mix_kernel", "10mix_kernelE"),
-                        ("mix_vector_kernel<8, residual>",
-                         "mix_vector_kernelILi8ELb0ELb0ELb1E")),
+                        ("mix_vector_kernel<8, 4, residual>",
+                         "mix_vector_kernelILi8ELi4ELb0ELb0ELb1E")),
                 "cmix": (("cmix_kernel<int8, EF>", "cmix_kernelILi0ELb1ELb0E"),
                          ("cmix_vector_kernel<8, int8, EF>",
                           "cmix_vector_kernelILi8ELi0ELb1ELb0E"))}
@@ -506,34 +512,57 @@ def push_matrices(n: int) -> list:
                       topo.global_push_matrix(n, fs.active_mask(0)))]
 
 
+def two_node_widths(mc) -> dict:
+    """The dispatch groups' widths of the two n = 2 trainers,
+    ``[moetrain]`` and ``[jtrain]``, from the meta init of their configs
+    (no card memory)."""
+    from repro_torch.models.model import make_model
+    from repro_torch.train.state import stack_for_nodes
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for tag, tcfg in (("[moetrain]", _moetrain_config()),
+                      ("[jtrain]", _jtrain_config())):
+        params, _ = make_model(tcfg.model).abstract_init()
+        leaves = tree_leaves(stack_for_nodes(params, 2))
+        groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
+        out[tag] = [sum(leaves[i][0].numel() for i in g) for g in groups]
+        del params, leaves
+    return out
+
+
 def check_mix_kernel(torch, mc) -> dict:
     """Kernel vs plain version, each case on the instance that
-    ``use_vector_mix`` picks.  Tolerances: max|o − o_plain| and
+    ``mix_vector_width`` picks.  Tolerances: max|o − o_plain| and
     max|x̄ − x̄_plain| ≤ 1e-5·max|x| (the plain version's matmul sums the
     n terms in another order than the kernel's loop), residual relative
     error ≤ 1e-5 (another summation order over D columns), and the rows
     of a global round bitwise equal with a residual of exactly 0.  Where
     the register instance takes a case, it also runs on the generic
     instance: o and x̄ bitwise equal, and the register instance's residual
-    bitwise the same in two runs.  For n not a power of two the mean of n
-    equal rows is not always exact, so a global round's residual is held
-    to n·D·(2⁻²⁰·max|o|)² instead of 0.  The simulator's shapes ([sim],
-    [simx]: n = 16 and 100 at D = 10, and D = 20 for GT-PGA's joint tree)
-    run on a ring with and without the half-step and the residual.  The
-    push-sum rounds (:data:`PUSH_MIX_SHAPES`) run with d and M built on
-    the card from two runtime matrices (:func:`push_matrices`), fp32 and
-    bf16 wire."""
+    bitwise the same in two runs; every (n, V) of :data:`MIX_INSTANCES`
+    must be among them (V = 1 at ragged widths and at views one float
+    off a 16-byte boundary), or the run fails.  For n not a power of two
+    the mean of n equal rows is not always exact, so a global round's
+    residual is held to n·D·(2⁻²⁰·max|o|)² instead of 0.  The simulator's
+    shapes ([sim], [simx]: n = 16 and 100 at D = 10, and D = 20 for
+    GT-PGA's joint tree) run on a ring with and without the half-step and
+    the residual.  The push-sum rounds (:data:`PUSH_MIX_SHAPES`) run with
+    d and M built on the card from two runtime matrices
+    (:func:`push_matrices`), fp32 and bf16 wire; row 1c times their
+    staging group (n = 8, D = 19,201: V = 1) on both instances."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     gamma = torch.tensor([0.05], device="cuda")
     worst = 0.0
     cases = vector_cases = 0
+    covered = {}
 
     def compare(x, g, d, M, with_g, with_residual, wire, bitwise_rows,
                 inplace=False):
         nonlocal worst, cases, vector_cases
         args = (x, g if with_g else None, gamma if with_g else None, d, M)
         kw = dict(with_g=with_g, with_residual=with_residual, wire=wire)
-        vector = mc.use_vector_mix(x, g if with_g else None)
+        vec = mc.mix_vector_width(x, g if with_g else None)
         if inplace:
             stage = x.clone()
             out = mc.mix_flat(stage, *args[1:], **kw, inplace=True)
@@ -560,11 +589,11 @@ def check_mix_kernel(torch, mc) -> dict:
                 raise AssertionError(f"residual rel err {rel:.3e}")
         if err > tol:
             raise AssertionError(
-                f"mix kernel n={x.shape[0]} D={x.shape[1]} {kw} vector="
-                f"{vector}: max abs err {err:.3e} > {tol:.3e}")
+                f"mix kernel n={x.shape[0]} D={x.shape[1]} {kw} vector "
+                f"width={vec}: max abs err {err:.3e} > {tol:.3e}")
         if bitwise_rows:
             assert torch.equal(o, o[:1].expand_as(o)), "global rows differ"
-        if vector:
+        if vec:
             if inplace:
                 stage = x.clone()
                 old = mc.mix_generic(stage, *args[1:], **kw, inplace=True)
@@ -575,8 +604,8 @@ def check_mix_kernel(torch, mc) -> dict:
             for a, b in pairs:
                 if not torch.equal(a, b):
                     raise AssertionError(
-                        f"mix n={x.shape[0]} D={x.shape[1]} {kw}: register "
-                        f"instance differs from the generic one by "
+                        f"mix n={x.shape[0]} D={x.shape[1]} {kw} V={vec}: "
+                        f"register instance differs from the generic one by "
                         f"{float((a - b).abs().max()):.3e}")
             if with_residual and not torch.equal(out[2], again[2]):
                 raise AssertionError(f"mix residual differs between two "
@@ -584,17 +613,27 @@ def check_mix_kernel(torch, mc) -> dict:
                                      f"{float(again[2])!r}")
             del old, again
             vector_cases += 1
+            key = (x.shape[0], vec)
+            covered[key] = covered.get(key, 0) + 1
         worst = max(worst, err)
         cases += 1
 
-    # n = 4, 8 at D = 1,000,003 and 32 at any D, and 256, on the generic
-    # instance (n = 256 opts into more than 48 KB of shared memory); n = 4,
-    # 8, 16, 32 at D a multiple of 4 on the register instance
-    for n, width in ((4, RAGGED_D), (4, RAGGED_D - 3), (8, RAGGED_D),
-                     (8, RAGGED_D - 3), (16, RAGGED_D - 1), (32, RAGGED_D),
+    def rows(n, width, offset=0):
+        """A random (n, width) operand, ``offset`` floats past the start
+        of its allocation (1: every row off a 16-byte boundary)."""
+        buf = torch.randn(n * width + offset, device="cuda", generator=gen)
+        return buf[offset:].view(n, width)
+
+    # n = 2, 4, 8 and 16 at D = 1,000,003 (V = 1) and at D a multiple of
+    # their vector width (V = 4, 4, 4, 2), n = 32 (V = 1), all on the
+    # register instance; n = 256 on the generic one (it opts into more
+    # than 48 KB of shared memory)
+    for n, width in ((2, RAGGED_D), (2, RAGGED_D - 3), (4, RAGGED_D),
+                     (4, RAGGED_D - 3), (8, RAGGED_D), (8, RAGGED_D - 3),
+                     (16, RAGGED_D), (16, RAGGED_D - 1), (32, RAGGED_D),
                      (256, 100_003)):
-        x = torch.randn(n, width, device="cuda", generator=gen)
-        g = torch.randn(n, width, device="cuda", generator=gen)
+        x = rows(n, width)
+        g = rows(n, width)
         for phase, topo in (("gossip", "exp"), ("global", "ring")):
             d, M = (torch.from_numpy(a).cuda()
                     for a in mc.phase_matrices(phase, topo, n))
@@ -607,6 +646,19 @@ def check_mix_kernel(torch, mc) -> dict:
         d, M = (torch.from_numpy(a).cuda()
                 for a in mc.phase_matrices("gossip", "ring", n))
         compare(x, g, d, M, True, True, True, False, inplace=True)
+        del x, g
+
+    # rows one float off a 16-byte boundary at a width that is a multiple
+    # of every vector width: V = 1, with and without the half-step (whose
+    # g is aligned: the rule reads every row operand)
+    for n in (2, 4, 8, 16):
+        x = rows(n, RAGGED_D - 3, offset=1)
+        g = rows(n, RAGGED_D - 3)
+        d, M = (torch.from_numpy(a).cuda()
+                for a in mc.phase_matrices("gossip", "exp", n))
+        for with_g in (False, True):
+            for wire in (False, True):
+                compare(x, g, d, M, with_g, True, wire, False)
         del x, g
 
     # the simulator's rounds: ring gossip and global at n = 16 and 100,
@@ -635,6 +687,23 @@ def check_mix_kernel(torch, mc) -> dict:
                 compare(x, None, d, M, False, False, wire, False)
                 push_cases += 1
         del x
+    missing = [nv for nv in MIX_INSTANCES if nv not in covered]
+    if missing:
+        raise AssertionError(f"mix: no case on the register instances "
+                             f"(n, V) = {missing}")
+
+    # every launch width of the main path (n = 8) and of the two-node
+    # trainers ([moetrain], [jtrain]: n = 2) takes the register instance
+    # at its vector width; meta tensors stand in for the operands
+    widths = {"[main]": (MAIN_N, list(MAIN_WIDTHS))}
+    widths.update((tag, (2, ws)) for tag, ws in two_node_widths(mc).items())
+    for tag, (n, ws) in widths.items():
+        for width in ws:
+            meta = torch.empty((n, width), device="meta")
+            if mc.mix_vector_width(meta) != mc.vector_width(n):
+                raise AssertionError(
+                    f"{tag} width {width} at n = {n} is not taken by the "
+                    f"register instance at V = {mc.vector_width(n)}")
 
     # the main path's calls (n = 8, fp32 wire, consensus residual on, as
     # Trainer's fused round launches them), timed at the embedding leaf
@@ -642,9 +711,6 @@ def check_mix_kernel(torch, mc) -> dict:
             for a in mc.phase_matrices("gossip", "one_peer_exp", MAIN_N))
     for width in MAIN_WIDTHS:
         x = torch.randn(MAIN_N, width, device="cuda", generator=gen)
-        if not mc.use_vector_mix(x):
-            raise AssertionError(f"main-path width {width} is not taken by "
-                                 f"the register instance")
         compare(x, None, d, M, False, True, False, False)
     x = torch.randn(MAIN_N, MAIN_D, device="cuda", generator=gen)
     kw = dict(with_g=False, with_residual=True, wire=False)
@@ -665,16 +731,55 @@ def check_mix_kernel(torch, mc) -> dict:
           f" bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved, "
           f"{100 * bound_ms / ms:.1f}% of the bound)", flush=True)
+    del x
+    push_group = push_group_times(torch, mc, gen)
     print(f"[kernel] mix: {cases} kernel-vs-plain cases within tolerance, "
           f"max abs err {worst:.3e}; {vector_cases} of them on the register "
-          f"instance, bitwise equal to the generic one; {push_cases} with a "
-          f"runtime push-sum W at {PUSH_MIX_SHAPES}", flush=True)
+          f"instance, bitwise equal to the generic one, covering all "
+          f"{len(MIX_INSTANCES)} (n, V) instances "
+          f"{dict(sorted(covered.items()))}; {push_cases} with a "
+          f"runtime push-sum W at {PUSH_MIX_SHAPES}; every launch width of "
+          f"{', '.join(widths)} on the register instance at its vector "
+          f"width", flush=True)
     return {"name": "mix_vector_kernel", "route": "cuda",
             "source": "src/repro_torch/csrc/mix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:215",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "old_ms": old_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "push_group": push_group}
+
+
+def push_group_times(torch, mc, gen) -> dict:
+    """Row 1c: the push paths' staging group (n = 8, D = 19,201, the norms
+    and the weight column: V = 1) as ``fused_step_mix_dense`` launches it
+    (a runtime W, fp32 wire, no residual) on the register instance and the
+    generic one, by :func:`device_ms` in turns, beside the plain version,
+    ``torch.matmul`` of W and the bound by bytes.  A round this small may
+    be bound by its launch, not its bytes."""
+    n, D = MAIN_N, PUSH_GROUP_D
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    W = torch.from_numpy(push_matrices(n)[0]).cuda()
+    d, M = mc.dense_factors(W, n)
+    if mc.mix_vector_width(x) != 1:
+        raise AssertionError(f"row 1c: width {mc.mix_vector_width(x)}")
+    kw = dict(with_g=False, with_residual=False, wire=False)
+    old_ms, ms = _turns(
+        torch, lambda: mc.mix_generic(x, None, None, d, M, **kw),
+        lambda: mc.mix_vector(x, None, None, d, M, **kw))
+    plain_ms = cuda_ms(torch,
+                       lambda: mc.mix_flat_plain(x, None, None, d, M, **kw))
+    library_ms = device_ms(torch, lambda: torch.matmul(W, x))
+    bound_ms, bound_by = _bound(4 * 2 * n * D, 2 * n * n * D)
+    print(f"[kernel] mix row 1c n={n} D={D:,} (the push paths' staging "
+          f"group, runtime W, no residual): register instance V = 1 "
+          f"{ms:.4f} ms, generic instance {old_ms:.4f} ms (device_ms, in "
+          f"turns), plain {plain_ms:.4f} ms, torch.matmul(W, x) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({100 * bound_ms / ms:.1f}% of the bound)", flush=True)
+    return {"shape": [n, D], "vector_width": 1, "ms": ms, "old_ms": old_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _nan_equal(torch, a, b) -> bool:
@@ -1808,10 +1913,12 @@ def check_flash_kernel(torch, fa) -> list:
     multiples).  Cases: the reference sweep (7) in float32 and bf16, the
     rows-without-a-key case (those rows exactly 0), four cases at D = 256
     and 160, q, k, v as strided views of one packed projection, float16 at
-    two shapes, the two bf16 cases of the fp32 kernel, and the three
-    full-width calls in float32 and bf16.  Tolerance (:data:`FLASH_TOL`):
-    2e-5 atol and rtol in float32, the reference suite's; one output ulp
-    plus 1e-5 for the fp32 kernel in bf16; for the tensor-core kernel
+    two shapes, the two bf16 cases of the fp32 kernel, two float32 cases
+    it cannot copy by ``cp.async`` (D = 18, views at 108-byte head
+    strides), and the three full-width calls in float32 and bf16.
+    Tolerance (:data:`FLASH_TOL`): 2e-5 atol and rtol in float32, the
+    reference suite's; one output ulp plus 1e-5 for the fp32 kernel in
+    bf16; for the tensor-core kernel
     ``wgmma_tolerance`` and the RMS error against the float64 twin at most
     ``WGMMA_RMS_RATIO`` times the fp32 twin's.  The lm100m call is also
     held to the port model's ``_sdpa`` (one node), whose bf16 products
@@ -1896,6 +2003,17 @@ def check_flash_kernel(torch, fa) -> list:
             operands=(wide[:, :, :4, :24], wide[:, :, 4:5, :24],
                       wide[:, :, 5:, :24]))
     del wide
+    # float32 operands cp.async cannot copy into flash_attention.cu's tiles
+    # (D % 4 != 0; views whose strides are not 16-byte multiples): widened
+    # through registers instead
+    compare(((1, 70, 90, 4, 2, 18), False, 33, None), torch.float32,
+            where="fp32 D = 18")
+    wide = torch.randn(2, 100, 6, 27, device="cuda", generator=gen)
+    compare(((2, 100, 100, 4, 1, 24), True, 16, 30.0), torch.float32,
+            where="fp32 misaligned views",
+            operands=(wide[:, :, :4, :24], wide[:, :, 4:5, :24],
+                      wide[:, :, 5:, :24]))
+    del wide
     attention, _ = substrate_shapes()
     timings = {}
     for name, args in attention.items():
@@ -1903,23 +2021,26 @@ def check_flash_kernel(torch, fa) -> list:
         kw = dict(causal=causal, window=window, softcap=cap)
         q, k, v, o = compare(args, torch.float32, where=name)
         if name == "lm100m_attn":
-            ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms, ms = _turns(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True),
+                lambda: fa.flash_attention(q, k, v, **kw))
             plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, **kw), iters=5, warmup=1)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
             bytes_moved, flops, _ = flash_work(*dims, causal, window,
                                                itemsize=4)
             bound_ms, bound_by = _bound(bytes_moved, flops)
             timings["fp32"] = (ms, plain_ms, bound_ms, bound_by, library_ms)
             print(f"[kernel] flash {name} {dims} float32 (flash_attention.cu)"
-                  f": kernel {ms:.4f} ms on the card, plain {plain_ms:.4f} "
-                  f"ms, scaled_dot_product_attention(is_causal=True) "
-                  f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-                  f"{bound_by} (fp32 operations at 67 TFLOP/s, "
-                  f"{bytes_moved / 1e6:.1f} MB)", flush=True)
+                  f": kernel {ms:.4f} ms on the card, "
+                  f"scaled_dot_product_attention(is_causal=True) "
+                  f"{library_ms:.4f} ms (device_ms, in turns; kernel / SDPA "
+                  f"{ms / library_ms:.2f}), plain {plain_ms:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms by {bound_by} (fp32 operations at 67 "
+                  f"TFLOP/s, {bytes_moved / 1e6:.1f} MB): "
+                  f"{100 * bound_ms / ms:.1f}% of the bound, "
+                  f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
             del qt, kt, vt
         del q, k, v, o
         torch.cuda.empty_cache()
@@ -3054,6 +3175,69 @@ class PlainCalls:
             setattr(self.mc, name, fn)
 
 
+class GenericShadow:
+    """While active, every launch of mix.cu's register instance at an
+    (n, V) new in PR 33 (n = 2, or V = 1) also runs the generic instance
+    on the same operands, :data:`SHADOW_COLUMNS` columns at a time (the
+    round is column by column; a copy of x's columns where the launch
+    consumes x in place), and the outputs' bits (o, and x̄ with the
+    residual) are compared on the card: the path's rounds, and so its
+    losses and params, are then bit for bit what the generic instance
+    gives.  The comparison's launches are not counted, and nothing is read
+    on the host until :meth:`check` (the paths' one synchronizing call a
+    step stands)."""
+
+    def __init__(self, torch, mc):
+        self.torch, self.mc, self.launches = torch, mc, 0
+        self.bad = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def __enter__(self):
+        mc, torch = self.mc, self.torch
+        self.vector = launch = mc.mix_vector
+
+        def same_bits(a, b):
+            self.bad |= (a.view(torch.int32) != b.view(torch.int32)).any()
+
+        def shadowed(xf, gf, gamma, d, M, *, with_g, with_residual, wire,
+                     inplace=False):
+            kw = dict(with_g=with_g, with_residual=with_residual, wire=wire)
+            new = (xf.shape[0] == 2
+                   or mc.mix_vector_width(xf, gf if with_g else None) == 1)
+            x0 = xf.clone() if new and inplace else xf
+            out = launch(xf, gf, gamma, d, M, inplace=inplace, **kw)
+            if not new:
+                return out
+            counted = mc.mix_flat.launches
+            o = out[0] if with_residual else out
+            for c0 in range(0, xf.shape[1], SHADOW_COLUMNS):
+                cols = slice(c0, c0 + SHADOW_COLUMNS)
+                ref = mc.mix_generic(
+                    x0[:, cols].contiguous(),
+                    gf[:, cols].contiguous() if with_g else None, gamma, d,
+                    M, **kw)
+                same_bits(o[:, cols], ref[0] if with_residual else ref)
+                if with_residual:
+                    same_bits(out[1][:, cols], ref[1])
+                del ref
+            mc.mix_flat.launches = counted
+            self.launches += 1
+            return out
+
+        mc.mix_vector = shadowed
+        return self
+
+    def __exit__(self, *exc):
+        self.mc.mix_vector = self.vector
+
+    def check(self, tag: str) -> str:
+        """Raises if any shadowed launch differed; else a line's text."""
+        if bool(self.bad):
+            raise AssertionError(f"{tag}: a register-instance launch differs "
+                                 f"from the generic instance's")
+        return (f"{self.launches} launches at n = 2 or V = 1, each bitwise "
+                f"the generic instance's on the same operands")
+
+
 def replay_phases(algorithm: str, steps: int, losses_at, **dist_kw) -> list:
     """Each step's phase, from the port's schedule fed the losses the run
     observed (``losses_at(k)``: the loss observed after step k, or None):
@@ -3472,7 +3656,7 @@ def push_expected_launches(mc, tr, state, phases, compressed: bool,
     per_round, widths = {}, {}
     for g in groups:
         D = sum(leaves[i][0].numel() for i in g)
-        key = "mix_vector" if mc._vector_rows(n, D, []) else "mix"
+        key = "mix_vector" if mc._mix_rows(n, D, []) else "mix"
         per_round[key] = per_round.get(key, 0) + 1
         widths.setdefault(key, []).append(D)
     mix_rounds = rounds - gossip if compressed else rounds
@@ -3480,7 +3664,7 @@ def push_expected_launches(mc, tr, state, phases, compressed: bool,
     if compressed:
         for lf in tree_leaves(state.params):
             D = lf[0].numel()
-            key = "cmix_vector" if mc._vector_rows(n, D, []) else "cmix"
+            key = "cmix_vector" if mc._cmix_rows(n, D, []) else "cmix"
             want[key] = want.get(key, 0) + gossip
             want["cmix_absmax"] = want.get("cmix_absmax", 0) + gossip
     return only(**want), widths
@@ -3500,9 +3684,11 @@ def run_push_path(torch, mc, compressed: bool = False,
     nodes 2 and 5's params and AdamW m/v rows after step 3 bitwise those
     after step 0, finite losses, the phases the schedule gives, the launch
     counts the dispatch rule gives (reset just before, read just after),
-    no plain-twin call; ``[psmain]`` no more synchronizing calls per step
-    than ``[main]``.  Returns ``(launches, trainer, state, host copy of
-    the de-biased params)``."""
+    no generic mix (the 19,201-wide staging group on the register instance
+    at V = 1, each such launch bitwise the generic instance's:
+    :class:`GenericShadow`), no plain-twin call; ``[psmain]`` no more
+    synchronizing calls per step than ``[main]``.  Returns ``(launches,
+    trainer, state, host copy of the de-biased params)``."""
     from repro_torch.configs import (DistConfig, OptimizerConfig,
                                      TrainConfig, get_model_config)
     from repro_torch.core.faults import FaultSchedule
@@ -3553,7 +3739,7 @@ def run_push_path(torch, mc, compressed: bool = False,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     times, syncs, rows0 = [], [], None
-    with PlainCalls(mc) as plain:
+    with PlainCalls(mc) as plain, GenericShadow(torch, mc) as shadow:
         for k in range(steps):
             t0 = time.perf_counter()
             state, n_sync = sync_steps(
@@ -3591,12 +3777,14 @@ def run_push_path(torch, mc, compressed: bool = False,
             state.push_weight)):
         raise AssertionError(f"{tag}: w after the full global round of step "
                              f"5 is not ones: {state.push_weight.flatten()}")
-    if launches != expected:
+    if launches != expected or launches["mix"]:
         raise AssertionError(f"{tag} launches {launches}, the dispatch rule "
-                             f"gives {expected}")
+                             f"gives {expected}, no generic mix")
     if plain.calls:
         raise AssertionError(f"{tag}: {plain.calls} plain-twin calls on the "
                              f"card")
+    if not sharded:
+        print(f"{tag} {shadow.check(tag)}", flush=True)
     main_tag = ("[smain]" if sharded else "[cmain]" if compressed
                 else "[main]")
     base = SYNCS.get(main_tag)
@@ -3756,7 +3944,7 @@ def run_push_sim_path(torch, mc) -> dict:
     t_phase = time.perf_counter()
 
     def mix_key(n, d):
-        return ("mix_vector" if mc._vector_rows(n, d + 1, []) else "mix")
+        return ("mix_vector" if mc._mix_rows(n, d + 1, []) else "mix")
 
     def checked(tag, n, d, fn):
         torch.cuda.synchronize()
@@ -3936,7 +4124,7 @@ def overlap_expected_launches(mc, tr, state, phases, compressed: bool,
         want["collective"] = flushes
     else:
         for D in widths:
-            key = "mix_vector" if mc._vector_rows(n, D, []) else "mix"
+            key = "mix_vector" if mc._mix_rows(n, D, []) else "mix"
             want[key] = want.get(key, 0) + flushes
     return only(**want), widths
 
@@ -4365,7 +4553,7 @@ def _slice10_config(tag: str, **dist_kw):
 def ckpt_expected_launches(mc, tr, state, phases, tag: str) -> dict:
     """The dispatch rule's launches over a resume phase's 9 steps (A's 6,
     B's 3): one mix.cu launch per dispatch group per round, on the
-    instance ``_vector_rows`` gives fresh contiguous operands;
+    instance ``_mix_rows`` gives fresh contiguous operands;
     compressed: one cmix and one row-maxima launch per leaf per gossip
     step, one collective launch per global step; push-sum:
     :func:`push_expected_launches`."""
@@ -4381,7 +4569,7 @@ def ckpt_expected_launches(mc, tr, state, phases, tag: str) -> dict:
     want = {}
     for g in mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold):
         D = sum(leaves[i][0].numel() for i in g)
-        key = "mix_vector" if mc._vector_rows(tr.n_nodes, D, []) else "mix"
+        key = "mix_vector" if mc._mix_rows(tr.n_nodes, D, []) else "mix"
         want[key] = want.get(key, 0) + rounds
     return only(**want)
 
@@ -4454,7 +4642,7 @@ def run_ckpt_path(torch, mc, tag: str, **dist_kw) -> dict:
     reset_counts()
     ck.save_checkpoint = timed_save
     try:
-        with PlainCalls(mc) as plain:
+        with PlainCalls(mc) as plain, GenericShadow(torch, mc) as shadow:
             full = tr_u.run(state, steps=6, log_every=1)
             del state
             tr_a = trainer(CKPT_EVERY)
@@ -4484,11 +4672,16 @@ def run_ckpt_path(torch, mc, tag: str, **dist_kw) -> dict:
     launches = counts()
     phases = [r["phase"] for tr in (tr_u, tr_a, tr_b) for r in tr.history]
     expected = ckpt_expected_launches(mc, tr_u, full, phases, tag)
-    if launches != expected:
+    if launches != expected or launches["mix"]:
         raise AssertionError(f"{tag} launches {launches}, the dispatch rule "
-                             f"gives {expected} (phases {phases})")
+                             f"gives {expected} (phases {phases}), no "
+                             f"generic mix")
     if plain.calls:
         raise AssertionError(f"{tag}: {plain.calls} plain-twin calls")
+    if shadow.launches:
+        extra_shadow = f"; {shadow.check(tag)}"
+    else:
+        extra_shadow = ""
     if [s[0] for s in saves] != [3]:
         raise AssertionError(f"{tag}: saves {saves}")
     for what, a, b in (("params", full.params, resumed.params),
@@ -4529,9 +4722,9 @@ def run_ckpt_path(torch, mc, tag: str, **dist_kw) -> dict:
           f"({rss_restore.start / 1e9:.2f} before; sampled every 10 ms); "
           f"launches "
           f"{ {k: v for k, v in launches.items() if v} } as the dispatch "
-          f"rule gives, no plain twin; B's params, AdamW m, v, count and "
-          f"extras after step 5 bitwise U's{extra}; phase wall time "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"rule gives, no plain twin{extra_shadow}; B's params, AdamW m, "
+          f"v, count and extras after step 5 bitwise U's{extra}; phase wall "
+          f"time {time.perf_counter() - t_phase:.1f} s", flush=True)
     del full, resumed, tr_u, tr_a, tr_b
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -6006,7 +6199,9 @@ def run_moetrain_path(torch, mc) -> dict:
     one_peer_exp's gossip round is the exact average), 1 sequence of 512
     a node, 6 steps.  Gates: finite losses,
     consensus exactly 0.0 on the global steps, mix.cu's launches equal to
-    the dispatch groups × steps and nothing else launched, one
+    the dispatch groups × steps, all on the register instance (n = 2,
+    each launch bitwise the generic instance's: :class:`GenericShadow`),
+    and nothing else launched, one
     synchronizing call on the steady steps (the MoE dispatch adds none).
     Reports the step ms, tokens/s, peak, and the last step's ``lb_loss``
     and ``drop_frac`` per node.  Returns the launches."""
@@ -6041,9 +6236,10 @@ def run_moetrain_path(torch, mc) -> dict:
     _reset_peak(torch)
     reset_counts()
     times, phases, syncs = [], [], []
+    shadow = GenericShadow(torch, mc)
     for k in range(steps):
         t0 = time.perf_counter()
-        with moe_metrics() as rec:
+        with moe_metrics() as rec, shadow:
             state, n_sync = sync_steps(
                 torch, lambda: tr.run(state, steps=1, log_every=1),
                 step_sites(tag, k))
@@ -6063,14 +6259,13 @@ def run_moetrain_path(torch, mc) -> dict:
         if entry["phase"] == "global":
             assert entry["consensus"] == 0.0, entry
     launches = counts()
-    mixes = launches["mix"] + launches["mix_vector"]
-    if (mixes != len(groups) * steps
-            or launches != only(mix=launches["mix"],
-                                mix_vector=launches["mix_vector"])
+    if (launches != only(mix_vector=len(groups) * steps)
             or phases.count("global") != 2):
         raise AssertionError(f"{tag} launches {launches}, expected "
-                             f"{len(groups) * steps} of mix.cu; phases "
-                             f"{phases}")
+                             f"{len(groups) * steps} of mix.cu's register "
+                             f"instance and no generic one; phases {phases}")
+    print(f"{tag} {shadow.check(tag)} (the steps' times include the "
+          f"generic launches and the comparisons)", flush=True)
     SYNCS[tag] = syncs
     gate_one_sync(tag, syncs)
     steady = statistics.median(times[1:])
@@ -6305,10 +6500,11 @@ def run_jtrain_path(torch, mc) -> dict:
     with the fused consensus round (B.1 on every round, the bf16 leaves
     packed to fp32), SGD with Nesterov momentum, 1 sequence of 512 a node,
     6 steps.  Gates: finite losses, consensus exactly 0.0 on the global
-    steps, mix.cu's launches equal to the dispatch groups × steps and
-    nothing else launched, one synchronizing call on the steady steps (the
-    Mamba scan adds none).  Reports the init rate, step ms, tokens/s and
-    peak.  Returns the launches."""
+    steps, mix.cu's launches equal to the dispatch groups × steps, all on
+    the register instance (n = 2, each bitwise the generic instance's:
+    :class:`GenericShadow`), and nothing else launched, one synchronizing
+    call on the steady steps (the Mamba scan adds none).  Reports the init
+    rate, step ms, tokens/s and peak.  Returns the launches."""
     from repro_torch.train import Trainer
     from repro_torch.tree import tree_leaves
 
@@ -6342,14 +6538,16 @@ def run_jtrain_path(torch, mc) -> dict:
     _reset_peak(torch)
     reset_counts()
     times, phases, syncs = [], [], []
+    shadow = GenericShadow(torch, mc)
     for k in range(steps):
         # the optimizer phase's fp32 temporaries (4 GiB for the embedding
         # leaf) fragment the cache: each step starts from an emptied one
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        state, n_sync = sync_steps(
-            torch, lambda: tr.run(state, steps=1, log_every=1),
-            step_sites(tag, k))
+        with shadow:
+            state, n_sync = sync_steps(
+                torch, lambda: tr.run(state, steps=1, log_every=1),
+                step_sites(tag, k))
         _sync(torch)
         dt = time.perf_counter() - t0
         times.append(dt)
@@ -6367,14 +6565,13 @@ def run_jtrain_path(torch, mc) -> dict:
         if entry["phase"] == "global":
             assert entry["consensus"] == 0.0, entry
     launches = counts()
-    mixes = launches["mix"] + launches["mix_vector"]
-    if (mixes != len(groups) * steps
-            or launches != only(mix=launches["mix"],
-                                mix_vector=launches["mix_vector"])
+    if (launches != only(mix_vector=len(groups) * steps)
             or phases.count("global") != 2):
         raise AssertionError(f"{tag} launches {launches}, expected "
-                             f"{len(groups) * steps} of mix.cu; phases "
-                             f"{phases}")
+                             f"{len(groups) * steps} of mix.cu's register "
+                             f"instance and no generic one; phases {phases}")
+    print(f"{tag} {shadow.check(tag)} (the steps' times include the "
+          f"generic launches and the comparisons)", flush=True)
     SYNCS[tag] = syncs
     gate_one_sync(tag, syncs)
     steady = statistics.median(times[1:])
@@ -8340,44 +8537,44 @@ def run_roofline_report(drycard: dict) -> None:
 
 
 def check_mix_n2_kernel(torch, mc) -> dict:
-    """Row 1b: mix.cu's generic instance at n = 2 (``use_vector_mix``
-    takes n in ``VECTOR_NODES`` = (4, 8, 16, 32) only), at [moetrain]'s
-    widest dispatch group, read from the meta init of its config (no
-    card memory): the fused gossip round with the consensus residual as
-    the Trainer launches it, against its plain version (max|o − o_plain|
-    and max|x̄ − x̄_plain| ≤ 1e-5·max|x|, the residual within rtol 1e-5),
-    then timed by :func:`device_ms` beside its bound by bytes and
-    ``torch.matmul`` of its mixing factor."""
-    from repro_torch.models.model import make_model
-    from repro_torch.train.state import stack_for_nodes
-    from repro_torch.tree import tree_leaves
-
-    tcfg = _moetrain_config()
+    """Row 1b: mix.cu at n = 2 (the register instance at V = 4 since PR
+    33; the generic one before), at [moetrain]'s widest dispatch group,
+    read from the meta init of its config (no card memory): the fused
+    gossip round with the consensus residual as the Trainer launches it,
+    against its plain version (max|o − o_plain| and max|x̄ − x̄_plain| ≤
+    1e-5·max|x|, the residual within rtol 1e-5) and bitwise against the
+    generic instance (o and x̄), then both instances timed by
+    :func:`device_ms` in turns beside the bound by bytes and
+    ``torch.matmul`` of the mixing factor."""
     n = MOETRAIN["n"]
-    params, _ = make_model(tcfg.model).abstract_init()
-    leaves = tree_leaves(stack_for_nodes(params, n))
-    groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
-    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
-    del params, leaves
+    widths = two_node_widths(mc)["[moetrain]"]
     D = max(widths)
     gen = torch.Generator(device="cuda").manual_seed(12)
     x = torch.randn(n, D, device="cuda", generator=gen)
-    if mc.use_vector_mix(x):
-        raise AssertionError("n = 2 is taken by the register instance")
+    if mc.mix_vector_width(x) != 4:
+        raise AssertionError(f"n = 2 at D = {D}: vector width "
+                             f"{mc.mix_vector_width(x)}, not 4")
     d, M = (torch.from_numpy(a).cuda()
             for a in mc.phase_matrices("gossip", "one_peer_exp", n))
     kw = dict(with_g=False, with_residual=True, wire=False)
-    out = mc.mix_generic(x, None, None, d, M, **kw)
+    out = mc.mix_flat(x, None, None, d, M, **kw)
     ref = mc.mix_flat_plain(x, None, None, d, M, **kw)
     err = max(float((out[0] - ref[0]).abs().max()),
               float((out[1] - ref[1]).abs().max()))
     rel = abs(float(out[2]) - float(ref[2])) / max(abs(float(ref[2])), 1e-30)
     tol = 1e-5 * float(x.abs().max())
-    del out, ref
+    del ref
     if err > tol or rel > 1e-5:
         raise AssertionError(f"mix n=2 D={D}: max abs err {err:.3e} (tol "
                              f"{tol:.3e}), residual rel err {rel:.3e}")
-    ms = device_ms(torch, lambda: mc.mix_generic(x, None, None, d, M, **kw))
+    old = mc.mix_generic(x, None, None, d, M, **kw)
+    if not (torch.equal(out[0], old[0]) and torch.equal(out[1], old[1])):
+        raise AssertionError(f"mix n=2 D={D}: the register instance differs "
+                             f"from the generic one")
+    del out, old
+    old_ms, ms = _turns(
+        torch, lambda: mc.mix_generic(x, None, None, d, M, **kw),
+        lambda: mc.mix_vector(x, None, None, d, M, **kw))
     plain_ms = cuda_ms(torch,
                        lambda: mc.mix_flat_plain(x, None, None, d, M, **kw))
     W = M + torch.diag(d[:, 0])
@@ -8388,8 +8585,9 @@ def check_mix_n2_kernel(torch, mc) -> dict:
     flops = 2 * n * n * D + 4 * n * D
     bound_ms, bound_by = _bound(bytes_moved, flops)
     print(f"[kernel] mix n={n} D={D:,} residual ([moetrain]'s widest of "
-          f"{len(groups)} dispatch groups {widths}): generic instance "
-          f"{ms:.4f} ms (device_ms), plain {plain_ms:.4f} ms, "
+          f"{len(widths)} dispatch groups {widths}): register instance V = 4 "
+          f"{ms:.4f} ms, generic instance {old_ms:.4f} ms (device_ms, in "
+          f"turns; bitwise equal), plain {plain_ms:.4f} ms, "
           f"torch.matmul(W, x) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"by {bound_by} ({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s "
           f"achieved, {100 * bound_ms / ms:.1f}% of the bound); max abs err "
@@ -8399,8 +8597,9 @@ def check_mix_n2_kernel(torch, mc) -> dict:
             "source": "src/repro_torch/csrc/mix.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:215",
             "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": [n, D]}
+            "old_ms": old_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": [n, D], "vector_width": 4}
 
 
 def main() -> int:
@@ -8454,7 +8653,8 @@ def main() -> int:
               flush=True)
     for name, kernel in (("mix", "mix_vector_kernel"),
                          ("cmix", "cmix_vector_kernel"),
-                         ("mlstm_wgmma", "mlstm_wgmma_kernel")):
+                         ("mlstm_wgmma", "mlstm_wgmma_kernel"),
+                         ("flash_attention", "flash_kernel")):
         log = cuda_build._Libs.build_log.get(name)
         lines = (["built before this run: no ptxas report"] if log is None
                  else register_report(log, kernel))
@@ -8707,11 +8907,12 @@ def main() -> int:
     # slice 19: the port's own static analysis over this checkout
     run_analysis_path()
     lap("[analysis]")
-    # row 1b: mix.cu's generic instance at n = 2 on the two-node trainers
-    records["mix_kernel_n2"]["launches"] = (slice13["[moetrain]"]["mix"]
-                                            + slice14["[jtrain]"]["mix"])
+    # row 1b: mix.cu's register instance at n = 2 on the two-node trainers
+    records["mix_kernel_n2"]["launches"] = (
+        slice13["[moetrain]"]["mix_vector"]
+        + slice14["[jtrain]"]["mix_vector"])
     records["mix_kernel_n2"]["launches_by_path"] = {
-        path: {"mix": c["mix"]} for path, c in (
+        path: {"mix_vector": c["mix_vector"]} for path, c in (
             ("[moetrain]", slice13["[moetrain]"]),
             ("[jtrain]", slice14["[jtrain]"]))}
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)

@@ -32,29 +32,35 @@
 // FMA: the half-step rounds exactly as the plain `x - gamma * g` does.
 //
 // Two instances of the round, picked by the wrapper's rule
-// (kernels/mixing_cuda.py `use_vector_mix`):
+// (kernels/mixing_cuda.py `mix_vector_width`):
 //
-// * `mix_vector_kernel`, for n in {4, 8, 16, 32}, D a multiple of the
-//   vector width and 16-byte aligned pointers.  Timing variants of the
-//   generic kernel on the H100 showed what held it well above its bound:
-//   not the n dependent chains of the mix, but the column's round trips
-//   through shared memory (the residual's halving among them), the n^2
-//   loads of M from inside the i-k loop, and 4-byte accesses from loops
-//   that cannot unroll (PERF.md).  So n is a template parameter,
-//   every loop unrolls, and a thread holds VEC adjacent columns in
-//   registers (VEC = 4 at n <= 8: one 16-byte load or store per row).  It
-//   issues all n row loads before any arithmetic, runs the mix, the
-//   halving and the residual in registers, and keeps no column in shared
-//   memory.  M and d are read once a block into shared memory; each group
-//   reads them from there by 16-byte loads, and each M value serves VEC
-//   columns.  The wire cast is made once per (k, column).
-//   The arithmetic is the generic kernel's, in the same order with the same
+// * `mix_vector_kernel<N, V, ...>`, for n in {2, 4, 8, 16, 32} at any D
+//   and alignment.  Timing variants of the generic kernel on the H100
+//   showed what held it well above its bound: not the n dependent chains
+//   of the mix, but the column's round trips through shared memory (the
+//   residual's halving among them), the n^2 loads of M from inside the
+//   i-k loop, and 4-byte accesses from loops that cannot unroll
+//   (PERF.md).  So n is a template parameter, every loop unrolls, and a
+//   thread holds V adjacent columns of every row in registers.  V is a
+//   template parameter of its own: vec_width(n) (4 at n <= 8: one 16-byte
+//   load or store per row; 2 at n = 16; 1 at n = 32) when D is a multiple
+//   of it and every row operand is 16-byte aligned, else 1.  Rows of a
+//   ragged D sit at different 16-byte phases, so no vector prologue could
+//   serve them all; at V = 1 a thread still holds its column in registers
+//   and a warp still reads 128 contiguous bytes a row.  A thread issues
+//   all n row loads before any arithmetic, runs the mix, the halving and
+//   the residual in registers, and keeps no column in shared memory.  M
+//   and d are read once a block into shared memory; each group reads them
+//   from there by 16-byte loads (8-byte at n = 2), and each M value serves
+//   V columns.  The wire cast is made once per (k, column).  The
+//   arithmetic is the generic kernel's, in the same order with the same
 //   _rn intrinsics, so o and xbar come out bit for bit the same.  A
 //   grid-stride loop over column groups, with a grid of as many blocks as
 //   fit on the card at once, keeps the residual's partials to one per
 //   block; they are added in a fixed order by `sum_partials`.
 // * `mix_kernel`, one thread per column, the n x n mix out of shared
-//   memory: every other n, D and alignment.
+//   memory: every other n (the simulators' n = 100, where D = 10 or 20
+//   and a round is bound by its launch, not its bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,11 +70,16 @@
 namespace {
 
 using repro::kVecBlock;
-using repro::load_row;
 using repro::load_vec;
 using repro::store_vec;
 
 constexpr int kMaxBlock = 1024;
+
+// The node counts that have a register instance of the mix (cmix.cu's
+// are columns.cuh's `vector_nodes`, without n = 2).
+bool mix_vector_nodes(int n) {
+  return n == 2 || n == 4 || n == 8 || n == 16 || n == 32;
+}
 
 __device__ __forceinline__ float wire_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -171,6 +182,20 @@ __device__ __forceinline__ void halve(float* s) {
   }
 }
 
+// Row i of the block's shared (N, N) weights: columns.cuh's 16-byte
+// loads, or one 8-byte load at N = 2.
+template <int N>
+__device__ __forceinline__ void weights_row(const float* sM, int i,
+                                            float (&m)[N]) {
+  if constexpr (N % 4 == 0) {
+    repro::load_row<N>(sM, i, m);
+  } else {
+    static_assert(N == 2, "register instances at N = 2 or a multiple of 4");
+    const float2 t = *reinterpret_cast<const float2*>(sM + i * N);
+    m[0] = t.x; m[1] = t.y;
+  }
+}
+
 // Sum over the block in a fixed order (shuffle tree in each warp, then the
 // warps' sums in order), written by thread 0.
 __device__ __forceinline__ void block_sum_to(float r, float* out) {
@@ -191,8 +216,10 @@ __device__ __forceinline__ void block_sum_to(float r, float* out) {
 
 // `o` may alias `x` (the staging buffer consumed in place): in each group a
 // thread loads every row of its columns before it stores any, and no thread
-// touches another's columns, so neither pointer is __restrict__.
-template <int N, bool WITH_G, bool WIRE, bool RESID>
+// touches another's columns, so neither pointer is __restrict__.  V = 1
+// takes any D and 4-byte alignment; V > 1 needs D % V == 0 and 16-byte
+// aligned rows.
+template <int N, int V, bool WITH_G, bool WIRE, bool RESID>
 __global__ void __launch_bounds__(kVecBlock)
     mix_vector_kernel(const float* x, const float* __restrict__ g,
                       const float* __restrict__ gamma,
@@ -200,7 +227,6 @@ __global__ void __launch_bounds__(kVecBlock)
                       const float* __restrict__ M, float* o,
                       float* __restrict__ xbar, float* __restrict__ partial,
                       long long D) {
-  constexpr int V = repro::vec_width(N);
   __shared__ __align__(16) float sM[N * N];
   __shared__ float sd[N];
   for (int q = threadIdx.x; q < N * N; q += kVecBlock) sM[q] = M[q];
@@ -236,7 +262,7 @@ __global__ void __launch_bounds__(kVecBlock)
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       float m[N];
-      load_row<N>(sM + z, i, m);
+      weights_row<N>(sM + z, i, m);
       const float di = sd[z + i];
 #pragma unroll
       for (int u = 0; u < V; ++u) {
@@ -269,14 +295,14 @@ __global__ void __launch_bounds__(kVecBlock)
   if constexpr (RESID) block_sum_to(r, partial + blockIdx.x);
 }
 
-template <int N, bool WITH_G, bool WIRE, bool RESID>
+template <int N, int V, bool WITH_G, bool WIRE, bool RESID>
 cudaError_t launch_vector(const float* x, const float* g, const float* gamma,
                           const float* d, const float* M, float* o,
                           float* xbar, float* partial, float* resid,
                           long long D, int max_grid, cudaStream_t s) {
-  const auto kernel = mix_vector_kernel<N, WITH_G, WIRE, RESID>;
+  const auto kernel = mix_vector_kernel<N, V, WITH_G, WIRE, RESID>;
   long long grid = 0;
-  cudaError_t e = repro::resident_grid(kernel, D / repro::vec_width(N), &grid);
+  cudaError_t e = repro::resident_grid(kernel, D / V, &grid);
   if (e != cudaSuccess) return e;
   grid = grid < max_grid ? grid : max_grid;
   kernel<<<static_cast<unsigned>(grid), kVecBlock, 0, s>>>(
@@ -287,7 +313,7 @@ cudaError_t launch_vector(const float* x, const float* g, const float* gamma,
   return cudaGetLastError();
 }
 
-template <int N>
+template <int N, int V>
 cudaError_t launch_vector_n(int with_g, int wire, int with_residual,
                             const float* x, const float* g,
                             const float* gamma, const float* d,
@@ -297,8 +323,8 @@ cudaError_t launch_vector_n(int with_g, int wire, int with_residual,
   const int sel = (with_g ? 4 : 0) | (wire ? 2 : 0) | (with_residual ? 1 : 0);
 #define REPRO_MIX_VECTOR(G, W, R)                                           \
   case (G ? 4 : 0) | (W ? 2 : 0) | (R ? 1 : 0):                             \
-    return launch_vector<N, G, W, R>(x, g, gamma, d, M, o, xbar, partial,   \
-                                     resid, D, max_grid, s);
+    return launch_vector<N, V, G, W, R>(x, g, gamma, d, M, o, xbar,         \
+                                        partial, resid, D, max_grid, s);
   switch (sel) {
     REPRO_MIX_VECTOR(false, false, false)
     REPRO_MIX_VECTOR(false, false, true)
@@ -308,9 +334,9 @@ cudaError_t launch_vector_n(int with_g, int wire, int with_residual,
     REPRO_MIX_VECTOR(true, false, true)
     REPRO_MIX_VECTOR(true, true, false)
     default:
-      return launch_vector<N, true, true, true>(x, g, gamma, d, M, o, xbar,
-                                                partial, resid, D, max_grid,
-                                                s);
+      return launch_vector<N, V, true, true, true>(x, g, gamma, d, M, o, xbar,
+                                                   partial, resid, D,
+                                                   max_grid, s);
   }
 #undef REPRO_MIX_VECTOR
 }
@@ -351,21 +377,27 @@ extern "C" int repro_mix(const void* x, const void* g, const void* gamma,
 }
 
 // Plain C entry point of the register instance (bound with ctypes).
-// n must be 4, 8, 16 or 32, D a multiple of the instance's vector width
-// (4, 4, 2, 1) and every pointer 16-byte aligned; `partial` holds
-// `max_grid` floats (the grid is at most that many blocks).  Returns
-// cudaGetLastError() after the launches (0 = success).
+// n must be 2, 4, 8, 16 or 32 and vec its vector width (4, 4, 4, 2, 1) or
+// 1; at vec > 1, D must be a multiple of vec and every row operand's
+// pointer 16-byte aligned; at vec = 1 any D and 4-byte alignment.
+// `partial` holds `max_grid` floats (the grid is at most that many
+// blocks).  Returns cudaGetLastError() after the launches (0 = success),
+// or cudaErrorInvalidValue for an (n, vec) with no instance: the caller
+// picks the instance, nothing here picks another.
 extern "C" int repro_mix_vector(const void* x, const void* g,
                                 const void* gamma, const void* d,
                                 const void* M, void* o, void* xbar,
                                 void* partial, void* resid, long long D,
                                 int n, int with_g, int wire,
-                                int with_residual, int max_grid,
+                                int with_residual, int vec, int max_grid,
                                 void* stream) {
   const auto aligned = repro::aligned16;
-  if (!repro::vector_nodes(n) || D < 1 || D % repro::vec_width(n) != 0 ||
-      max_grid < 1 || !aligned(x) || !aligned(o) ||
-      (with_g && !aligned(g)) || (with_residual && !aligned(xbar)))
+  if (!mix_vector_nodes(n) || D < 1 || max_grid < 1 ||
+      (vec != 1 && vec != repro::vec_width(n)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec > 1 && (D % vec != 0 || !aligned(x) || !aligned(o) ||
+                  (with_g && !aligned(g)) ||
+                  (with_residual && !aligned(xbar))))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xf = static_cast<const float*>(x);
   const float* gf = static_cast<const float*>(g);
@@ -377,23 +409,27 @@ extern "C" int repro_mix_vector(const void* x, const void* g,
   float* pa = static_cast<float*>(partial);
   float* rs = static_cast<float*>(resid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_MIX_NV(N, V)                                                  \
+  launch_vector_n<N, V>(with_g, wire, with_residual, xf, gf, gm, df, Mf, of, \
+                        xb, pa, rs, D, max_grid, s)
   cudaError_t e;
+  const bool wide = vec > 1;
   switch (n) {
+    case 2:
+      e = wide ? REPRO_MIX_NV(2, 4) : REPRO_MIX_NV(2, 1);
+      break;
     case 4:
-      e = launch_vector_n<4>(with_g, wire, with_residual, xf, gf, gm, df, Mf,
-                             of, xb, pa, rs, D, max_grid, s);
+      e = wide ? REPRO_MIX_NV(4, 4) : REPRO_MIX_NV(4, 1);
       break;
     case 8:
-      e = launch_vector_n<8>(with_g, wire, with_residual, xf, gf, gm, df, Mf,
-                             of, xb, pa, rs, D, max_grid, s);
+      e = wide ? REPRO_MIX_NV(8, 4) : REPRO_MIX_NV(8, 1);
       break;
     case 16:
-      e = launch_vector_n<16>(with_g, wire, with_residual, xf, gf, gm, df,
-                              Mf, of, xb, pa, rs, D, max_grid, s);
+      e = wide ? REPRO_MIX_NV(16, 2) : REPRO_MIX_NV(16, 1);
       break;
     default:
-      e = launch_vector_n<32>(with_g, wire, with_residual, xf, gf, gm, df,
-                              Mf, of, xb, pa, rs, D, max_grid, s);
+      e = REPRO_MIX_NV(32, 1);
   }
+#undef REPRO_MIX_NV
   return static_cast<int>(e);
 }

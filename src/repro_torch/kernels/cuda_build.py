@@ -32,7 +32,7 @@ _P, _LL, _I, _U, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 ENTRY_POINTS = {
     "mix": ("mix", "repro_mix", [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
     "mix_vector": ("mix", "repro_mix_vector",
-                   [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
+                   [_P] * 9 + [_LL] + [_I] * 6 + [_P]),
     "cmix": ("cmix", "repro_cmix", [_P] * 8 + [_U, _LL] + [_I] * 5 + [_P]),
     "cmix_vector": ("cmix", "repro_cmix_vector",
                     [_P] * 8 + [_U, _LL] + [_I] * 4 + [_P]),

@@ -21,8 +21,10 @@ after a tensor whose last stride is not 1 is made contiguous:
   which the fp32 twin does not;
 * ``csrc/flash_attention.cu`` (counted in ``flash_attention.launches``)
   for everything else: float32 (held to the reference's 2e-5, which a
-  TF32 product cannot meet), other head dims and misaligned views.  Its
-  fp32 tiles refuse ``D >= 285`` (:func:`check_smem`).
+  TF32 product cannot meet), other head dims and misaligned views: fp32
+  FMAs out of registers, tiles by the head dim padded to 64, 128 or 256
+  (:func:`head_dim_pad`, :data:`SIMT_TILES`); it refuses ``D > 256``
+  (:func:`check_smem`).
 
 Nothing falls back from one kernel to the other: a launch error raises.
 
@@ -51,6 +53,7 @@ from repro_torch.models.layers import softcap as _softcap
 
 NEG_INF = -1e30
 BLOCK_Q = 64             # csrc/flash_attention.cu's kBlockQ
+SIMT_MAX_HEAD_DIM = 256  # csrc/flash_attention.cu's kMaxHeadDim
 WGMMA_BLOCK_Q = 128      # csrc/flash_attention_wgmma.cu's kBlockQ
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -88,35 +91,51 @@ def kv_range(q0: int, q1: int, Sk: int, causal: bool,
     return lo, hi
 
 
+def head_dim_pad(D: int) -> int:
+    """The head dim padded (in shared memory only) to 64, 128 or 256: both
+    kernels' tile bucket (``head_dim_pad`` in csrc/flash_attention.cu,
+    ``D_pad`` in csrc/flash_attention_wgmma.cu)."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+# csrc/flash_attention.cu's Tile<D_pad>: kv rows a tile, threads a block,
+# query rows a lane (a warp is 4 row groups of 8 lanes)
+SIMT_TILES = {64: (64, 128, 4), 128: (64, 128, 4), 256: (32, 256, 2)}
+
+
 def block_k(D: int) -> int:
-    """csrc/flash_attention.cu's ``block_k``: kv rows per tile."""
-    return 64 if D <= 128 else 32
+    """csrc/flash_attention.cu's ``Tile<D_pad>::BK``: kv rows per tile."""
+    return SIMT_TILES[head_dim_pad(D)][0]
+
+
+def _tile_floats(rows: int, width: int, group: int) -> int:
+    """csrc/flash_attention.cu's ``tile_floats``: a tile skewed by 4 floats
+    for every group of ``group`` rows."""
+    return rows * width + (4 * (rows // group) if group else 0)
 
 
 def smem_bytes(D: int) -> int:
-    """csrc/flash_attention.cu's ``smem_bytes``: fp32 tiles of q, k, v, p
-    and acc."""
-    bk = block_k(D)
-    acc_ld = -(-D // 32) * 32 + 16
-    return 4 * (BLOCK_Q * (D + 1) + 2 * bk * (D + 1) + BLOCK_Q * (bk + 1)
-                + BLOCK_Q * acc_ld)
+    """csrc/flash_attention.cu's ``smem_bytes``: fp32 tiles of q
+    (``BLOCK_Q`` rows), k and v (``block_k`` rows), all ``head_dim_pad(D)``
+    wide, and p (``BLOCK_Q`` x ``block_k``), with their skews."""
+    dp = head_dim_pad(D)
+    bk, _, rm = SIMT_TILES[dp]
+    return 4 * (_tile_floats(BLOCK_Q, dp, rm) + _tile_floats(bk, dp, bk // 8)
+                + _tile_floats(bk, dp, 0) + _tile_floats(BLOCK_Q, bk, rm))
 
 
 def check_smem(D: int) -> int:
-    """The kernel's shared memory at head dim D; raises past the card's
-    budget (``cuda_build.MAX_SMEM``)."""
+    """The kernel's shared memory at head dim D; raises past its widest
+    tile (``SIMT_MAX_HEAD_DIM``) or the card's budget
+    (``cuda_build.MAX_SMEM``)."""
     need = smem_bytes(D)
-    if need > cuda_build.MAX_SMEM:
-        raise ValueError(f"flash_attention kernel: head dim {D} needs {need} "
-                         f"bytes of shared memory per block (at most "
+    if D > SIMT_MAX_HEAD_DIM or need > cuda_build.MAX_SMEM:
+        raise ValueError(f"flash_attention kernel: head dim {D} is past its "
+                         f"widest tile (D <= {SIMT_MAX_HEAD_DIM}, "
+                         f"{smem_bytes(SIMT_MAX_HEAD_DIM)} bytes of shared "
+                         f"memory per block, at most "
                          f"{cuda_build.MAX_SMEM})")
     return need
-
-
-def head_dim_pad(D: int) -> int:
-    """csrc/flash_attention_wgmma.cu's D_pad: the head dim padded (in
-    shared memory only) to 64, 128 or 256."""
-    return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
 def wgmma_block_k(D_pad: int) -> int:

@@ -29,16 +29,18 @@ the kernel's oracle on the card — for a CPU tensor:
   (:func:`compensated_apply`).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  The mix and
-cmix rounds have two instances each, picked by one rule
-(:func:`use_vector_mix`, :func:`use_vector_cmix`): the register instance
-(16-byte accesses, the columns in registers; counted in
-``mix_flat.vector_launches`` / ``cmix_flat.vector_launches``) for n in
-:data:`VECTOR_NODES`, D a multiple of its vector width and 16-byte aligned
-rows, and the generic one (``.launches``) for the rest; the two compute
-the same bits.  :func:`cmix_absmax` counts in
-``cmix_flat.absmax_launches``.  The kernels are built on first use by
-:mod:`repro_torch.kernels.cuda_build`; importing this module builds
-nothing.
+cmix rounds have two instances each, each picked by a rule of its own
+(:func:`mix_vector_width`, :func:`use_vector_cmix`): the register instance
+(the columns in registers; counted in ``mix_flat.vector_launches`` /
+``cmix_flat.vector_launches``) and the generic one (``.launches``); the
+two compute the same bits.  mix.cu's register instance takes n in
+:data:`MIX_VECTOR_NODES` at any D and alignment, V columns a thread:
+:func:`vector_width` where D is a multiple of it and the rows 16-byte
+aligned, else 1.  cmix.cu's takes n in :data:`CMIX_VECTOR_NODES`, D a
+multiple of its vector width and 16-byte aligned rows only.
+:func:`cmix_absmax` counts in ``cmix_flat.absmax_launches``.  The kernels
+are built on first use by :mod:`repro_torch.kernels.cuda_build`;
+importing this module builds nothing.
 
 The round factors come from the round kind (``phase_matrices``, made once
 per kind on the device) or, for push-sum, from a runtime ``(n, n)`` W
@@ -76,8 +78,10 @@ LEAF_DISPATCH_THRESHOLD = 262_144
 # dynamic shared memory a block of mix.cu may opt into: the H100's 227 KB
 # less the kernel's 4 KB static reduction buffer
 _MAX_SMEM = cuda_build.MAX_SMEM - 4_096
-# node counts of the register instances of mix.cu and cmix.cu
-VECTOR_NODES = (4, 8, 16, 32)
+# node counts of the register instances of mix.cu (any D and alignment)
+# and of cmix.cu (D a multiple of the vector width, 16-byte aligned rows)
+MIX_VECTOR_NODES = (2, 4, 8, 16, 32)
+CMIX_VECTOR_NODES = (4, 8, 16, 32)
 # the register instance of mix.cu: at most this many blocks, one residual
 # partial each (the H100 holds at most 8 blocks of 256 threads on each of
 # its 132 multiprocessors)
@@ -315,26 +319,54 @@ def _check_operands(caller: str, xf: torch.Tensor, others) -> torch.device:
 
 
 def vector_width(n: int) -> int:
-    """Columns a thread of the register instances holds at n nodes (16
-    bytes a row up to n = 8), as ``vec_width`` in mix.cu and cmix.cu."""
+    """Columns a thread of the register instances holds at n nodes where
+    the rows allow vector accesses (16 bytes a row up to n = 8), as
+    ``vec_width`` in mix.cu and cmix.cu."""
     return 4 if n <= 8 else (2 if n <= 16 else 1)
 
 
-def _vector_rows(n: int, D: int, tensors) -> bool:
-    return (n in VECTOR_NODES and D % vector_width(n) == 0
-            and all(t.is_contiguous() and t.data_ptr() % 16 == 0
-                    for t in tensors))
+def _aligned_rows(tensors) -> bool:
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def _cmix_rows(n: int, D: int, tensors) -> bool:
+    """cmix.cu's rule: n in :data:`CMIX_VECTOR_NODES`, D a multiple of
+    :func:`vector_width` and contiguous 16-byte aligned row operands."""
+    return (n in CMIX_VECTOR_NODES and D % vector_width(n) == 0
+            and _aligned_rows(tensors))
+
+
+def _mix_rows(n: int, D: int, tensors) -> int:
+    """mix.cu's rule: the register instance's V, or 0 for the generic
+    instance.  n outside :data:`MIX_VECTOR_NODES` or a non-contiguous
+    operand: 0; D a multiple of :func:`vector_width` with 16-byte aligned
+    rows: that width; else 1."""
+    if n not in MIX_VECTOR_NODES or not all(t.is_contiguous()
+                                            for t in tensors):
+        return 0
+    V = vector_width(n)
+    return V if D % V == 0 and _aligned_rows(tensors) else 1
+
+
+def mix_vector_width(xf: torch.Tensor,
+                     gf: Optional[torch.Tensor] = None) -> int:
+    """The columns V a thread of mix.cu's register instance holds in a
+    CUDA round on ``xf`` (n, D) (and ``gf``), or 0 where the generic
+    instance runs: n in :data:`MIX_VECTOR_NODES` and contiguous operands
+    take the register instance, at :func:`vector_width` where D is a
+    multiple of it and every pointer is 16-byte aligned (so every row is;
+    the outputs are fresh or ``xf``), at V = 1 otherwise.  Pure: reads
+    shapes, strides and pointers only."""
+    n, D = xf.shape
+    return _mix_rows(n, D, [xf] + ([gf] if gf is not None else []))
 
 
 def use_vector_mix(xf: torch.Tensor,
                    gf: Optional[torch.Tensor] = None) -> bool:
-    """Whether a CUDA round on ``xf`` (n, D) (and ``gf``) launches the
-    register instance of mix.cu: n in :data:`VECTOR_NODES`, D a multiple
-    of :func:`vector_width`, contiguous operands at 16-byte aligned
-    pointers (so every row is aligned; the outputs are fresh or ``xf``).
-    Pure: reads shapes, strides and pointers only."""
-    n, D = xf.shape
-    return _vector_rows(n, D, [xf] + ([gf] if gf is not None else []))
+    """Whether a CUDA round on ``xf`` (and ``gf``) launches mix.cu's
+    register instance (:func:`mix_vector_width` > 0)."""
+    return mix_vector_width(xf, gf) > 0
 
 
 def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace,
@@ -344,8 +376,10 @@ def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace,
         raise ValueError("mix kernel: CUDA operands expected")
     _check_operands("mix kernel", xf, [d, M] + ([gf, gamma] if with_g
                                                 else []))
-    if vector and not use_vector_mix(xf, gf if with_g else None):
-        raise ValueError("mix_vector: operands outside use_vector_mix's rule")
+    vec = mix_vector_width(xf, gf if with_g else None) if vector else 0
+    if vector and not vec:
+        raise ValueError("mix_vector: operands outside mix_vector_width's "
+                         "rule")
     o = xf if inplace else torch.empty_like(xf)
     block = _block_size(n)
     dev = xf.device
@@ -360,11 +394,11 @@ def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace,
             _ptr(xbar), _ptr(partial), _ptr(resid), D, n, int(with_g),
             int(wire), int(with_residual))
     if vector:
-        err = cuda_build.entry("mix_vector")(*args, VECTOR_MAX_GRID,
+        err = cuda_build.entry("mix_vector")(*args, vec, VECTOR_MAX_GRID,
                                              _stream(dev))
     else:
         err = cuda_build.entry("mix")(*args, block, _stream(dev))
-    _check_launch(err, f"mix (n={n}, D={D}, vector={vector})")
+    _check_launch(err, f"mix (n={n}, D={D}, vector width={vec})")
     return (o, xbar, resid) if with_residual else o
 
 
@@ -381,9 +415,9 @@ def mix_generic(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
 
 def mix_vector(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
                wire: bool, inplace: bool = False):
-    """Launch mix.cu's register instance on CUDA operands that
-    :func:`use_vector_mix` accepts (raises otherwise); counted in
-    ``mix_flat.vector_launches``."""
+    """Launch mix.cu's register instance, at the width
+    :func:`mix_vector_width` gives, on CUDA operands it accepts (raises
+    otherwise); counted in ``mix_flat.vector_launches``."""
     out = _launch(xf, gf, gamma, d, M, with_g=with_g,
                   with_residual=with_residual, wire=wire, inplace=inplace,
                   vector=True)
@@ -417,7 +451,7 @@ def mix_flat(xf: torch.Tensor, gf: Optional[torch.Tensor],
 
     Returns ``o`` or, with ``with_residual``, ``(o, xbar (1, D),
     residual)``.  A CUDA ``xf`` launches the instance of mix.cu that
-    :func:`use_vector_mix` picks (:func:`mix_vector` or
+    :func:`mix_vector_width` picks (:func:`mix_vector` or
     :func:`mix_generic`); a CPU ``xf`` takes :func:`mix_flat_plain`.
     ``inplace`` lets the kernel write ``o`` into ``xf``: only for a private
     staging buffer that nobody reads again.
@@ -631,11 +665,12 @@ def cmix_flat_plain(xf, ef, qf, seed, scale, w, M, *, kind: str,
 def use_vector_cmix(xf: torch.Tensor, ef: Optional[torch.Tensor] = None,
                     qf: Optional[torch.Tensor] = None) -> bool:
     """Whether a CUDA round on ``xf`` (n, D) (with ``ef`` or ``qf``)
-    launches the register instance of cmix.cu: the rule of
-    :func:`use_vector_mix` over every row operand (the outputs are fresh).
-    Pure: reads shapes, strides and pointers only."""
+    launches the register instance of cmix.cu: n in
+    :data:`CMIX_VECTOR_NODES`, D a multiple of :func:`vector_width`, every
+    row operand contiguous at a 16-byte aligned pointer (the outputs are
+    fresh).  Pure: reads shapes, strides and pointers only."""
     n, D = xf.shape
-    return _vector_rows(n, D, [t for t in (xf, ef, qf) if t is not None])
+    return _cmix_rows(n, D, [t for t in (xf, ef, qf) if t is not None])
 
 
 def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],

@@ -279,18 +279,45 @@ def test_other_devices_raise_and_never_take_the_twin():
                        torch.ones(16, device="meta"))
 
 
-@pytest.mark.parametrize("D,need", [(64, 87_040), (256, 209_664),
-                                    (284, 232_192), (285, None),
+@pytest.mark.parametrize("D,need", [(12, 66_176), (64, 66_176),
+                                    (128, 115_328), (160, 140_416),
+                                    (256, 140_416), (257, None),
                                     (512, None)])
 def test_head_dim_past_shared_memory_raises(D, need):
-    """The fp32 kernel's tiles: D = 284 is the widest head that fits
-    (232,192 of the card's 232,448 bytes), D = 285 needs 232,704 and the
-    wrapper raises before any launch."""
+    """The fp32 kernel's tiles by head-dim bucket: q (64 rows), k and v
+    (64 kv rows at D padded to 64 or 128, 32 at 256) and p in fp32, each
+    skewed by 16 bytes a row group: 66,176, 115,328 and 140,416 bytes.
+    D = 256 is the widest head it takes; past it the wrapper raises before
+    any launch."""
     if need is None:
         with pytest.raises(ValueError, match="shared memory"):
             flash_attention_cuda.check_smem(D)
     else:
         assert flash_attention_cuda.check_smem(D) == need
+
+
+@pytest.mark.parametrize("D_pad,bk,threads,blocks", [(64, 64, 128, 3),
+                                                     (128, 64, 128, 2),
+                                                     (256, 32, 256, 1)])
+def test_simt_tiles(D_pad, bk, threads, blocks):
+    """csrc/flash_attention.cu's ``Tile<D_pad>``, mirrored: kv rows a
+    tile, threads a block (a row group of 8 lanes for every 4 query rows,
+    2 at D_pad = 256), the tiles' floats with one 16-byte skew a row group
+    (8 lanes' keys for k), and the blocks a multiprocessor holds by shared
+    memory (the H100's 228 KB an SM, 1 KB of it reserved for each
+    block)."""
+    fa = flash_attention_cuda
+    assert fa.SIMT_TILES[D_pad][:2] == (bk, threads)
+    assert fa.block_k(D_pad) == bk
+    rows_a_lane = fa.SIMT_TILES[D_pad][2]
+    assert fa.BLOCK_Q // rows_a_lane * 8 == threads
+    need = fa.smem_bytes(D_pad)
+    assert need == 4 * (fa.BLOCK_Q * D_pad + 4 * (fa.BLOCK_Q // rows_a_lane)
+                        + bk * D_pad + 4 * 8 + bk * D_pad
+                        + fa.BLOCK_Q * bk + 4 * (fa.BLOCK_Q // rows_a_lane))
+    assert need <= cuda_build.MAX_SMEM
+    per_sm = 228 * 1024
+    assert blocks * (need + 1024) <= per_sm < (blocks + 1) * (need + 1024)
 
 
 @pytest.mark.parametrize("D_pad,need", [(64, 83_072), (128, 164_992),
@@ -480,6 +507,21 @@ def test_direct_launchers_refuse_cpu_operands(launcher):
             fn(q, q, q)
     assert mlstm_cuda.mlstm_chunk.launches == 0
     assert mlstm_cuda.mlstm_chunk.wgmma_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [12, 64, 160, 256])
+def test_flash_simt_refuses_cpu_operands_and_counts_nothing(dtype, D):
+    """csrc/flash_attention.cu's launcher takes CUDA operands only, at
+    every head dim its tiles take: a CPU q raises before anything
+    launches, and no launch is counted."""
+    q = torch.zeros((1, 8, 2, D), dtype=dtype)
+    before = (flash_attention_cuda.flash_attention.launches,
+              flash_attention_cuda.flash_attention.wgmma_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda.flash_simt(q, q, q)
+    assert (flash_attention_cuda.flash_attention.launches,
+            flash_attention_cuda.flash_attention.wgmma_launches) == before
 
 
 def test_kv_range_skips_only_masked_tiles():

@@ -240,17 +240,25 @@ def _rows(n, D, offset=0):
     return buf[start:start + n * D].view(n, D)
 
 
-# (n, D, offset of x, offset of g (None: no g), want)
+# (n, D, offset of x, offset of g (None: no g), want): want is the
+# register instance's width V (mix_vector_width), 0 for the generic
+# instance.  n in MIX_VECTOR_NODES takes the register instance at any D
+# and alignment: at vector_width(n) where D is a multiple of it and the
+# rows are 16-byte aligned, at V = 1 otherwise.
 VECTOR_RULE = [
-    (4, 1000, 0, None, True), (8, 1000, 0, None, True),
-    (16, 1002, 0, None, True), (32, 1001, 0, None, True),
-    (8, 1000, 0, 0, True),
-    (2, 1000, 0, None, False), (5, 1000, 0, None, False),
-    (64, 1000, 0, None, False),
-    (8, 1001, 0, None, False), (4, 1002, 0, None, False),
-    (16, 1001, 0, None, False),
-    (8, 1000, 1, None, False), (8, 1000, 2, None, False),
-    (8, 1000, 0, 1, False),
+    (4, 1000, 0, None, 4), (8, 1000, 0, None, 4),
+    (16, 1002, 0, None, 2), (32, 1001, 0, None, 1),
+    (8, 1000, 0, 0, 4),
+    (2, 1000, 0, None, 4), (5, 1000, 0, None, 0),
+    (64, 1000, 0, None, 0),
+    (8, 1001, 0, None, 1), (4, 1002, 0, None, 1),
+    (16, 1001, 0, None, 1),
+    (8, 1000, 1, None, 1), (8, 1000, 2, None, 1),
+    (8, 1000, 0, 1, 1),
+    # n = 2 ragged and misaligned, n = 16 at an odd width, n = 32
+    # misaligned, the simulator's n = 100
+    (2, 1001, 0, None, 1), (2, 1000, 3, None, 1), (2, 1000, 0, 2, 1),
+    (16, 7, 0, None, 1), (32, 1000, 1, None, 1), (100, 10, 0, None, 0),
 ]
 
 
@@ -258,7 +266,8 @@ VECTOR_RULE = [
 def test_use_vector_mix_rule(n, D, x_off, g_off, want):
     x = _rows(n, D, x_off)
     g = None if g_off is None else _rows(n, D, g_off)
-    assert tmc.use_vector_mix(x, g) is want
+    assert tmc.mix_vector_width(x, g) == want
+    assert tmc.use_vector_mix(x, g) is (want > 0)
 
 
 @pytest.mark.parametrize("D", (19_200, 7_077_888, 25_165_824, 28_311_552))
@@ -269,6 +278,70 @@ def test_use_vector_mix_takes_the_main_path_widths(D):
     the gigabyte operands (their pointer is 0, so aligned)."""
     x = torch.empty((8, D), device="meta")
     assert tmc.use_vector_mix(x) and tmc.use_vector_mix(x, x)
+
+
+# the two-node trainers: deepseek-v2-lite's dense prefix layer and one MoE
+# layer, jamba's one (mamba, dense) layer, at full width
+TWO_NODE_TRAINERS = {
+    "moetrain": ("deepseek-v2-lite-16b", dict(n_layers=2)),
+    "jtrain": ("jamba-1.5-large-398b",
+               dict(n_layers=1, pattern=(("mamba", "dense"),))),
+}
+
+
+@pytest.mark.parametrize("path", sorted(TWO_NODE_TRAINERS))
+def test_use_vector_mix_takes_the_two_node_widths(path):
+    """Every dispatch group of the two n = 2 trainers (their params' meta
+    init, stacked for 2 nodes, grouped at the default leaf threshold) takes
+    the register instance at V = 4: each width is a multiple of 4, and a
+    packed or fresh operand is aligned."""
+    import dataclasses
+
+    from repro_torch.configs import DistConfig, get_model_config
+    from repro_torch.models.model import make_model
+    from repro_torch.train.state import stack_for_nodes
+    from repro_torch.tree import tree_leaves
+
+    arch, kw = TWO_NODE_TRAINERS[path]
+    cfg = dataclasses.replace(get_model_config(arch), **kw)
+    params, _ = make_model(cfg).abstract_init()
+    leaves = tree_leaves(stack_for_nodes(params, 2))
+    groups = tmc._dispatch_groups(leaves, DistConfig().pallas_leaf_threshold)
+    widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
+    assert len(widths) == {"moetrain": 22, "jtrain": 11}[path]
+    for D in widths:
+        x = torch.empty((2, D), device="meta")
+        assert tmc.mix_vector_width(x) == 4, D
+
+
+def test_push_staging_group_takes_the_register_instance_at_width_one():
+    """The push-sum paths' staging group (the norms and the weight column,
+    19,201 wide: not a multiple of 4) takes the register instance at
+    V = 1."""
+    x = torch.empty((8, 19_201), device="meta")
+    assert tmc.mix_vector_width(x) == 1
+    assert tmc.mix_vector_width(x, torch.empty_like(x)) == 1
+
+
+@pytest.mark.parametrize("n", (5, 64, 100))
+@pytest.mark.parametrize("D", (10, 1000, 1001))
+def test_other_node_counts_stay_generic(n, D):
+    assert tmc.mix_vector_width(_rows(n, D)) == 0
+
+
+@pytest.mark.parametrize("n,D,offset", [(2, 1000, 0), (2, 1001, 0),
+                                        (8, 1001, 0), (4, 1002, 0),
+                                        (16, 1001, 0), (8, 1000, 1)])
+def test_use_vector_cmix_keeps_its_rule(n, D, offset):
+    """cmix.cu's rule does not follow mix.cu's: n = 2, a D that is not a
+    multiple of the vector width and misaligned rows stay on cmix.cu's
+    generic instance, where mix.cu's register instance takes them."""
+    x = _rows(n, D, offset)
+    assert tmc.use_vector_mix(x)
+    assert tmc.CMIX_VECTOR_NODES == (4, 8, 16, 32)
+    assert not tmc.use_vector_cmix(x)
+    assert not tmc.use_vector_cmix(x, x)
+    assert not tmc.use_vector_cmix(x, None, x)
 
 
 def test_use_vector_mix_refuses_strided_rows():
