@@ -1144,11 +1144,25 @@ def check_collective_kernel(torch, mc) -> dict:
     flops = 60 * n * D                          # two codecs, pod mean
     bound_ms, bound_by = _bound(bytes_moved, flops)
     print(f"[kernel] collective int8+EF n={n} D={D}: kernel {ms:.4f} ms "
-          f"(the untiled instance {untiled_ms:.4f} ms), plain "
+          f"(the untiled instance {untiled_ms:.4f} ms, "
+          f"{bound_ms / untiled_ms:.1%} of the bound), plain "
           f"{plain_ms:.4f} ms, no single PyTorch call computes it, "
           f"bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
           flush=True)
+    # the untiled instance where a path runs it: [sim]'s int8 + EF global
+    # rounds at n = 100, D = 10
+    n_sim, d_sim = SIM_COMP_SHAPES[-1]
+    xs = torch.randn(n_sim, d_sim, device="cuda", generator=gen)
+    es = 0.01 * torch.randn(n_sim, d_sim, device="cuda", generator=gen)
+    sim_ms = device_ms(torch, lambda: mc.collective_flat(xs, es, s1, s2,
+                                                         **kw))
+    sim_bound, sim_by = _bound(4 * 4 * n_sim * d_sim, 60 * n_sim * d_sim)
+    print(f"[kernel] collective int8+EF n={n_sim} D={d_sim} ([sim]'s "
+          f"shape, the untiled instance): {sim_ms:.4f} ms on the card, "
+          f"bound {sim_bound:.6f} ms by {sim_by} (launch-bound)",
+          flush=True)
+    del xs, es
     print(f"[kernel] collective: {cases} kernel-vs-plain cases within "
           f"tolerance (those at n = 16, 32 and 100 bitwise), max abs err "
           f"{worst:.3e}; {untiled_cases} untiled-vs-tiled cases bitwise; "
@@ -1160,7 +1174,8 @@ def check_collective_kernel(torch, mc) -> dict:
             "source": "src/repro_torch/csrc/collective.cu",
             "replaces": "src/repro/kernels/mixing_pallas.py:765",
             "launches": None, "max_abs_err": worst, "ms": ms,
-            "untiled_ms": untiled_ms, "plain_ms": plain_ms,
+            "untiled_ms": untiled_ms, "untiled_sim_ms": sim_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
@@ -1216,7 +1231,12 @@ def check_mlstm_kernel(torch, mk) -> list:
     2048}, the serving admissions' B = 1 × S ∈ {6, 100, 1000} (S = 6 takes
     the padded L = 8 layout), one case read through strided views, all
     with wide gates, and B = 8 × S = 2048 and B = 1 × S = 1000 with gates
-    at the model's scale; each in float32 and with bf16 q, k, v.
+    at the model's scale; ``mlstm.cu``'s edges, with wide gates: dv = 200
+    and 33 (not multiples of its 32-column v tile: clusters of 7 and 2),
+    dk = 13, L = 128 at the widest dk it takes
+    (``mlstm_cuda.max_simt_dk``), S = 1, and strided views whose strides
+    are not multiples of 16 bytes (dk 13, dv 33); each in float32 and with
+    bf16 q, k, v.
 
     Tolerances.  State, both kernels: max abs error ≤ 1e-5 · max|ref| on
     C, n and m, and m bit for bit the twin's.  ``mlstm.cu``, h element by
@@ -1238,9 +1258,9 @@ def check_mlstm_kernel(torch, mk) -> list:
     Timing at the serving shape (B = 8, S = 2048) and at B = 1: both
     kernels on the same bf16 operands by :func:`device_ms` in turns, the
     tensor-core instance against the bytes and bf16 tensor-core bound, the
-    twin by :func:`cuda_ms`; ``mlstm.cu``'s float32 call at B = 8 against
-    its fp32 bound.  Returns the records of ``mlstm.cu`` (the float32
-    path) and ``mlstm_wgmma.cu``."""
+    twin by :func:`cuda_ms`; ``mlstm.cu``'s float32 call at B = 8 and at
+    B = 1 against its fp32 bound.  Returns the records of ``mlstm.cu`` (the
+    float32 path, timed at B = 8) and ``mlstm_wgmma.cu``."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = [c + (False, "wide") for c in MLSTM_SWEEP]
     full = (MLSTM_FULL["nh"], MLSTM_FULL["dk"], MLSTM_FULL["dv"],
@@ -1251,6 +1271,15 @@ def check_mlstm_kernel(torch, mk) -> list:
     cases.append((2, 300) + full + (True, "wide"))
     cases += [(8, 2048) + full + (False, "model"),
               (1, 1000) + full + (False, "model")]
+    # mlstm.cu's edges: dv past a multiple of its 32-column v tile (a
+    # cluster of 7, of 2), dk not a multiple of 4, L = 128 at the widest
+    # dk it takes, S = 1, strides that are not multiples of 16 bytes
+    cases += [(1, 130, 2, 16, 200, 64, False, "wide"),
+              (2, 70, 3, 8, 33, 32, False, "wide"),
+              (2, 100, 2, 13, 24, 64, False, "wide"),
+              (1, 256, 1, mk.max_simt_dk(128), 40, 128, False, "wide"),
+              (1, 1, 2, 8, 16, 64, False, "wide"),
+              (2, 90, 2, 13, 33, 64, True, "wide")]
     worst = {"mlstm": 0.0, "mlstm_wgmma": 0.0}
     n_cases = {"mlstm": 0, "mlstm_wgmma": 0}
     m_equal = {"mlstm": True, "mlstm_wgmma": True}
@@ -1400,17 +1429,39 @@ def check_mlstm_kernel(torch, mk) -> list:
               f"{plain_ms:.4f} ms; no single PyTorch call computes it",
               flush=True)
         del args
-    B = 8
-    args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, torch.float32)
-    ms32 = device_ms(torch, lambda: mk.mlstm_chunk(*args, chunk=L))
-    plain32 = cuda_ms(torch, lambda: mk.mlstm_chunk_plain(*args, chunk=L),
-                      iters=5, warmup=1)
-    bound32, by32 = _bound(*mlstm_work(B, S, nh, dk, dv, L, itemsize=4))
-    print(f"[kernel] mlstm B={B} S={S} nh={nh} dk={dk} dv={dv} L={L} float32"
-          f": mlstm.cu {ms32:.4f} ms on the card, plain {plain32:.4f} ms, "
-          f"bound {bound32:.4f} ms by {by32} (fp32 operations at 67 "
-          f"TFLOP/s)", flush=True)
-    del args
+    f32 = {}
+    for B in (8, 1):
+        args = mlstm_inputs(torch, gen, B, S, nh, dk, dv, torch.float32)
+        # the cluster's shared scores against every block scoring the
+        # whole chunk itself (max_cluster = 1), in turns
+        own_ms, ms32 = _turns(
+            torch, lambda: mk.mlstm_simt(*args, chunk=L, max_cluster=1),
+            lambda: mk.mlstm_chunk(*args, chunk=L))
+        plain32 = cuda_ms(torch, lambda: mk.mlstm_chunk_plain(*args,
+                                                              chunk=L),
+                          iters=5, warmup=1)
+        bound32, by32 = _bound(*mlstm_work(B, S, nh, dk, dv, L, itemsize=4))
+        cap = mk.simt_max_cluster(
+            B * nh * -(-dv // mk.SIMT_TILE_V),
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        cs, gy = mk.simt_grid(dv, cap)
+        # the widest clusters, where the cap holds them back
+        wide = ""
+        if cap < mk.SIMT_MAX_CLUSTER:
+            wide_ms = device_ms(torch, lambda: mk.mlstm_simt(
+                *args, chunk=L, max_cluster=mk.SIMT_MAX_CLUSTER))
+            wide = (f", in clusters of {mk.simt_grid(dv)[0]} "
+                    f"{wide_ms:.4f} ms")
+        f32[B] = (ms32, plain32, bound32, by32)
+        print(f"[kernel] mlstm B={B} S={S} nh={nh} dk={dk} dv={dv} L={L} "
+              f"float32: mlstm.cu {ms32:.4f} ms on the card "
+              f"({bound32 / ms32:.1%} of its bound; grid {B * nh} x {gy} "
+              f"blocks in clusters of {cs}), without the clusters "
+              f"{own_ms:.4f} ms, in turns{wide}; plain {plain32:.4f} ms, "
+              f"bound {bound32:.4f} ms by {by32} (fp32 operations at 67 "
+              f"TFLOP/s)", flush=True)
+        del args
+    ms32, plain32, bound32, by32 = f32[8]
     ms, plain_ms, bound_ms, bound_by = timings[8]
     record = dict(route="cuda", replaces="src/repro/kernels/mlstm_chunk.py:32",
                   launches=None, library_ms=None)
@@ -8653,6 +8704,7 @@ def main() -> int:
               flush=True)
     for name, kernel in (("mix", "mix_vector_kernel"),
                          ("cmix", "cmix_vector_kernel"),
+                         ("mlstm", "mlstm_kernel"),
                          ("mlstm_wgmma", "mlstm_wgmma_kernel"),
                          ("flash_attention", "flash_kernel")):
         log = cuda_build._Libs.build_log.get(name)

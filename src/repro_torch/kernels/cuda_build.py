@@ -40,7 +40,7 @@ ENTRY_POINTS = {
                     [_P] * 4 + [_LL] + [_I] * 3 + [_P]),
     "collective": ("collective", "repro_collective",
                    [_P] * 4 + [_U, _U, _LL] + [_I] * 7 + [_P]),
-    "mlstm": ("mlstm", "repro_mlstm", [_P] * 10 + [_I] * 7 + [_P]),
+    "mlstm": ("mlstm", "repro_mlstm", [_P] * 10 + [_I] * 8 + [_P]),
     "mlstm_wgmma": ("mlstm_wgmma", "repro_mlstm_wgmma",
                     [_P] * 10 + [_I] * 5 + [_P]),
     "shard_mix": ("shard_mix", "repro_shard_mix",

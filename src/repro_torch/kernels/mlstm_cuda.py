@@ -44,6 +44,9 @@ from repro_torch.kernels import cuda_build
 
 NEG_BIG = -1e9
 MAX_CHUNK = 128          # csrc/mlstm.cu's kMaxChunk
+SIMT_TILE_V = 32         # csrc/mlstm.cu's kTileV: v columns a block
+SIMT_PIECE = 32          # csrc/mlstm.cu's kPiece: dk columns at a time
+SIMT_MAX_CLUSTER = 8     # csrc/mlstm.cu's kMaxCluster
 WGMMA_CHUNK = 64         # csrc/mlstm_wgmma.cu's kL
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -197,9 +200,77 @@ def mlstm_chunk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _smem_bytes(dk: int, L: int) -> int:
-    """csrc/mlstm.cu's ``smem_bytes``."""
-    return 4 * (dk * 64 + dk + 2 * L * (dk + 1) + L * 64 + L * (L + 1)
-                + 6 * L + 2)
+    """csrc/mlstm.cu's ``smem_bytes``: C[:, tile] and n with dk padded to
+    :data:`SIMT_PIECE`, the q and k pieces (rows of SIMT_PIECE + 4), the v
+    tile and kg·v, P (L padded to 16 rows, rows of Lr + 4), seven per-row
+    vectors and the four warps' shares of a piece's n update, in
+    float32."""
+    Lr = -(-L // 16) * 16
+    dkp = -(-dk // SIMT_PIECE) * SIMT_PIECE
+    return 4 * (dkp * (SIMT_TILE_V + 1) + 2 * Lr * (SIMT_PIECE + 4)
+                + 2 * Lr * SIMT_TILE_V + Lr * (Lr + 4) + 7 * Lr
+                + 4 * SIMT_PIECE)
+
+
+def simt_grid(dv: int, max_cluster: int = SIMT_MAX_CLUSTER
+              ) -> Tuple[int, int]:
+    """csrc/mlstm.cu's ``cluster_shape``: ``(cluster size, grid.y)``.  A
+    block owns :data:`SIMT_TILE_V` columns of v; the tiles of a (b, h)
+    form clusters of equal size, at most ``max_cluster`` blocks, that
+    share the chunk's score tiles (a cluster's spare block, where the
+    tiles do not divide, only scores)."""
+    tiles = -(-dv // SIMT_TILE_V)
+    clusters = -(-tiles // max_cluster)
+    cs = -(-tiles // clusters)
+    return cs, clusters * cs
+
+
+def simt_max_cluster(blocks: int, sms: int) -> int:
+    """The cluster cap a call of csrc/mlstm.cu gets: :data:`SIMT_MAX_CLUSTER`
+    when the grid's ``blocks`` (B · nh · ⌈dv / 32⌉) are at most one a
+    multiprocessor (``sms`` of them), else 2.  Clusters of more blocks
+    share more of the scores, but on a full card they leave slots empty:
+    a cluster's blocks must sit in one GPC, and at the serving shape
+    (384 blocks, three an SM) the H100 seats every pair at once but not
+    every cluster of 6 or 3, whose last blocks then run as a second wave
+    (``chip_smoke.py`` times the clusters of 6 there)."""
+    return SIMT_MAX_CLUSTER if blocks <= sms else 2
+
+
+def scan_cumsum(log_f: torch.Tensor) -> torch.Tensor:
+    """F, the inclusive cumulative sum of float32 ``log_f (..., L)`` over
+    its last axis, in csrc/mlstm.cu's order: lane l of a warp sums its
+    positions l·per … l·per + per − 1 (per = ⌈L / 32⌉) left to right in
+    double, the 32 lanes' totals are scanned by shuffles (step d adds lane
+    l − d's running total to lane l's, d = 1, 2, 4, 8, 16), and each
+    position adds the lanes before its own to its lane's running sum.
+    Rounded to float32."""
+    L = log_f.shape[-1]
+    per = -(-L // 32)
+    x = log_f.double()
+    x = torch.cat([x, x.new_zeros(x.shape[:-1] + (32 * per - L,))], -1)
+    x = x.reshape(x.shape[:-1] + (32, per))
+    runs = [x[..., 0]]
+    for j in range(1, per):
+        runs.append(runs[-1] + x[..., j])
+    s = torch.stack(runs, -1)                       # (..., 32, per)
+    incl = s[..., -1].clone()
+    lane = torch.arange(32, device=x.device)
+    for d in (1, 2, 4, 8, 16):
+        shifted = torch.cat([incl[..., :d], incl[..., :-d]], -1)
+        incl = torch.where(lane >= d, incl + shifted, incl)
+    excl = torch.cat([incl[..., :1], incl[..., :-1]], -1)
+    F = torch.where((lane > 0)[:, None], excl[..., None] + s, s)
+    return F.reshape(F.shape[:-2] + (32 * per,))[..., :L].float()
+
+
+def max_simt_dk(L: int) -> int:
+    """The widest dk csrc/mlstm.cu takes at chunk length L (a multiple of
+    :data:`SIMT_PIECE`; the padded C rows grow with it)."""
+    dk = SIMT_PIECE
+    while _smem_bytes(dk + SIMT_PIECE, L) <= cuda_build.MAX_SMEM:
+        dk += SIMT_PIECE
+    return dk
 
 
 def dk_pad(dk: int) -> int:
@@ -310,11 +381,17 @@ def _launch(lib: str, q, k, v, log_i, log_f, *extra):
     return h, (C, n, m)
 
 
-def mlstm_simt(q, k, v, log_i, log_f, *, chunk: int = 64
+def mlstm_simt(q, k, v, log_i, log_f, *, chunk: int = 64,
+               max_cluster: Optional[int] = None
                ) -> Tuple[torch.Tensor, State]:
     """Launch ``csrc/mlstm.cu`` (fp32 FMAs, float32 or bf16 q, k, v) on
     CUDA operands with a unit stride on the last axis; counted in
-    ``mlstm_chunk.launches``."""
+    ``mlstm_chunk.launches``.  ``max_cluster`` caps the v tiles that share
+    a chunk's scores (:func:`simt_grid`): :func:`simt_max_cluster` by
+    default, 1 for every block scoring the whole chunk itself (the layout
+    ``chip_smoke.py`` times the clusters against).  Shapes past the
+    kernel's shared memory raise ValueError before anything is
+    launched."""
     dk, S = q.shape[-1], q.shape[1]
     L = chunk_len(chunk, S)
     if L > MAX_CHUNK or _smem_bytes(dk, L) > cuda_build.MAX_SMEM:
@@ -322,8 +399,15 @@ def mlstm_simt(q, k, v, log_i, log_f, *, chunk: int = 64
                          f"{_smem_bytes(dk, L)} bytes of shared memory per "
                          f"block (at most {cuda_build.MAX_SMEM}, chunk <= "
                          f"{MAX_CHUNK})")
+    if max_cluster is not None and not 1 <= max_cluster <= SIMT_MAX_CLUSTER:
+        raise ValueError(f"mlstm kernel: max_cluster {max_cluster} outside "
+                         f"1 .. {SIMT_MAX_CLUSTER}")
+    if max_cluster is None and q.device.type == "cuda":
+        blocks = q.shape[0] * q.shape[2] * -(-v.shape[-1] // SIMT_TILE_V)
+        max_cluster = simt_max_cluster(blocks, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
     out = _launch("mlstm", q, k, v, log_i, log_f, L,
-                  int(q.dtype == torch.bfloat16))
+                  int(q.dtype == torch.bfloat16), max_cluster)
     mlstm_chunk.launches += 1
     return out
 

@@ -25,6 +25,8 @@ Tolerances (each stated where it is used):
   max|h − ex| ≤ 8e-3 · max|ex|.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +41,7 @@ from repro.models import ssm as jssm
 from repro_torch import interop
 from repro_torch.configs import get_model_config
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.kernels import mlstm_cuda
+from repro_torch.kernels import cuda_build, mlstm_cuda
 from repro_torch.models import blocks
 from repro_torch.models import ssm as tssm
 from repro_torch.models.model import make_model
@@ -371,6 +373,134 @@ def test_wgmma_smem_bytes(dk, pad):
                     + 4 * pad + 3072 + 16)
     assert need <= 232_448
     assert (2 * (need + 1024) <= 233_472) == (pad <= 128)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 kernel's layout, grid rule and F order (csrc/mlstm.cu)
+# ---------------------------------------------------------------------------
+_MLSTM_CU = (Path(mlstm_cuda.__file__).resolve().parent.parent / "csrc"
+             / "mlstm.cu").read_text()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _MLSTM_CU)
+               .group(1))
+
+
+def _old_smem_bytes(dk, L):
+    """The first version's smem_bytes: every operand in shared memory."""
+    return 4 * (dk * 64 + dk + 2 * L * (dk + 1) + L * 64 + L * (L + 1)
+                + 6 * L + 2)
+
+
+@pytest.mark.parametrize("dk,L,need", [(96, 64, 67_200), (13, 8, 15_168),
+                                       (255, 64, 88_320),
+                                       (100, 128, 158_208)])
+def test_simt_smem_bytes(dk, L, need):
+    """csrc/mlstm.cu's smem_bytes and constants, mirrored: C[:, tile] and n
+    (dk padded to 32), the q and k pieces (rows of 36 floats), the v tile
+    and kg v, P (rows padded to 16, stride Lr + 4), seven per-row vectors
+    and four warps' shares of a piece's n update; three blocks a
+    multiprocessor (228 KB, 1 KB reserved for each block) at the serving
+    shape (dk 96, L 64)."""
+    assert (mlstm_cuda.SIMT_TILE_V, mlstm_cuda.SIMT_PIECE,
+            mlstm_cuda.SIMT_MAX_CLUSTER, mlstm_cuda.MAX_CHUNK) == (
+        _cu_const("kTileV"), _cu_const("kPiece"), _cu_const("kMaxCluster"),
+        _cu_const("kMaxChunk"))
+    assert "constexpr int kPieceStride = kPiece + 4;" in _MLSTM_CU
+    Lr, dkp = -(-L // 16) * 16, -(-dk // 32) * 32
+    assert mlstm_cuda._smem_bytes(dk, L) == need == 4 * (
+        dkp * 33 + 2 * Lr * 36 + 2 * Lr * 32 + Lr * (Lr + 4) + 7 * Lr + 128)
+    assert need <= cuda_build.MAX_SMEM
+    if (dk, L) == (96, 64):
+        assert 3 * (need + 1024) <= 228 * 1024 < 4 * (need + 1024)
+
+
+def test_simt_takes_every_shape_the_first_version_took():
+    """Every (dk, L) within the first version's shared memory fits the new
+    layout, whose widest dk (a multiple of 32, the C rows grow with it) is
+    far past the old one's 255 at L = 64 and 100 at L = 128."""
+    for L in range(8, mlstm_cuda.MAX_CHUNK + 1):
+        dk = 1
+        while _old_smem_bytes(dk + 1, L) <= cuda_build.MAX_SMEM:
+            dk += 1
+        assert mlstm_cuda._smem_bytes(dk, L) <= cuda_build.MAX_SMEM, (dk, L)
+        assert mlstm_cuda.max_simt_dk(L) >= dk
+    assert mlstm_cuda.max_simt_dk(64) == 1344
+    assert mlstm_cuda.max_simt_dk(128) == 672
+    assert mlstm_cuda._smem_bytes(673, 128) > cuda_build.MAX_SMEM
+
+
+@pytest.mark.parametrize("dv,max_cluster,want", [
+    (192, 8, (6, 6)), (192, 2, (2, 6)), (192, 1, (1, 6)), (200, 8, (7, 7)),
+    (200, 2, (2, 8)), (33, 8, (2, 2)), (16, 8, (1, 1)), (300, 8, (5, 10)),
+    (1000, 8, (8, 32))])
+def test_simt_grid(dv, max_cluster, want):
+    """csrc/mlstm.cu's cluster_shape: 32-column v tiles, as many clusters
+    as the cap needs, of equal size (a spare block where they do not
+    divide, which only scores)."""
+    cs, gy = mlstm_cuda.simt_grid(dv, max_cluster)
+    assert (cs, gy) == want
+    assert gy % cs == 0 and gy >= -(-dv // 32) > gy - cs
+
+
+@pytest.mark.parametrize("blocks,want", [(48, 8), (132, 8), (133, 2),
+                                         (384, 2)])
+def test_simt_max_cluster(blocks, want):
+    """The cluster cap: up to 8 while the grid has at most one block a
+    multiprocessor (B = 1 at the serving width: 48 of 132), pairs on a
+    fuller card (B = 8: 384 blocks)."""
+    assert mlstm_cuda.simt_max_cluster(blocks, 132) == want
+
+
+@pytest.mark.parametrize("what", ["chunk 200", "dk 673 at L 128",
+                                  "max_cluster 9", "max_cluster 0"])
+def test_simt_refuses_shapes_past_its_limits(what):
+    """Past csrc/mlstm.cu's limits the launcher raises ValueError on its
+    operands' shapes, before it looks at their device (CPU here) or
+    launches anything; no launch is counted."""
+    dk, S, chunk, kw = 8, 300, 64, {}
+    if what == "chunk 200":
+        chunk = 200
+    elif what.startswith("dk"):
+        dk, chunk = 673, 128
+    else:
+        kw["max_cluster"] = int(what.split()[1])
+    q = torch.zeros((1, S, 1, dk))
+    v, gate = torch.zeros((1, S, 1, 16)), torch.zeros((1, S, 1))
+    before = (mlstm_cuda.mlstm_chunk.launches,
+              mlstm_cuda.mlstm_chunk.wgmma_launches)
+    with pytest.raises(ValueError, match="mlstm kernel"):
+        mlstm_cuda.mlstm_simt(q, q, v, gate, gate, chunk=chunk, **kw)
+    assert (mlstm_cuda.mlstm_chunk.launches,
+            mlstm_cuda.mlstm_chunk.wgmma_launches) == before
+
+
+@pytest.mark.parametrize("gates", ["wide", "model"])
+@pytest.mark.parametrize("L", [8, 37, 64, 100, 128])
+def test_scan_cumsum_is_the_twins_double_cumsum(L, gates):
+    """F in csrc/mlstm.cu's order (each lane's positions in order, the
+    lanes' totals by a shuffle scan; ``scan_cumsum``) rounds to the same
+    float32 values as the twin's left-to-right double cumsum, bit for bit,
+    on chip_smoke.py's wide and model-scale log f: the partial sums are
+    exact in double in either order."""
+    case = (64, L, 8, 4, 4, 64)
+    log_f = _wide(case, seed=L, gates=gates)[4].movedim(1, -1)
+    got = mlstm_cuda.scan_cumsum(log_f)
+    want = torch.cumsum(log_f.double(), dim=-1).float()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_scan_cumsum_follows_the_kernels_order():
+    """Where the double sums are not exact the order shows.  Of 2^60,
+    -2^60, 1, 1 left to right, F_3 = 2; in the kernel's order (one position
+    a lane at L = 8) the scan's first step adds 1 to -2^60 and loses it,
+    so F_3 = 1."""
+    x = torch.tensor([[2.0 ** 60, -2.0 ** 60, 1.0, 1.0, 0, 0, 0, 0]])
+    left = torch.cumsum(x.double(), dim=-1).float()
+    got = mlstm_cuda.scan_cumsum(x)
+    assert (float(left[0, 3]), float(got[0, 3])) == (2.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
