@@ -20,15 +20,18 @@ line):
    shared loads and stores) and of the tensor-core mLSTM kernel;
 2. every kernel against its plain PyTorch version on the card, at ragged
    and main-path shapes, each case on the instance its dispatch rule
-   picks (the mix and cmix register instances also bitwise against the
-   generic ones), with the tolerances stated in
+   picks (the mix and cmix register and node-parallel instances also
+   bitwise against the generic ones: :func:`check_mix_nodes_kernel`,
+   :func:`check_cmix_nodes_kernel`; the node-parallel rule's crossovers
+   timed by :func:`nodes_rule_times`), with the tolerances stated in
    :func:`check_mix_kernel`, :func:`check_cmix_kernel` (with the
    compressed round's row maxima, :func:`check_absmax`),
    :func:`check_collective_kernel`, :func:`check_mlstm_kernel`,
    :func:`check_shard_mix_kernel`, :func:`check_shard_cmix_kernel`,
    :func:`check_flash_kernel` and :func:`check_rmsnorm_kernel`; timing by
    CUDA events against the kernel's bound and, where one exists, one
-   PyTorch library call (``--kernels-only`` stops here);
+   PyTorch library call; rows 4d and 3 at the simulators' n = 100
+   (:func:`sim_shape_rows`) (``--kernels-only`` stops here);
 3. slice 5's path (``[ops]``, :func:`run_ops_path`): the substrate entry
    points ``repro_torch.kernels.ops`` at full width (pga-lm-100m's and
    gemma2-9b's attention and norm calls, the xlstm-125m mLSTM call, and
@@ -65,9 +68,12 @@ line):
    protocol through ``repro_torch.core.simulate(backend="pallas")`` at
    n = 100, M = 8000, d = 10 (ring, H = 16, lr 0.2 halved every 1000
    steps, batch 8, 3000 steps) for all eight algorithms, each with its
-   launch counts against the dispatch rule, no plain-twin call, and the
-   consensus after the global rounds an eval falls on; the suboptimality
-   AUC against parallel SGD (f* by full-batch gradient descent here);
+   launch counts against the dispatch rule (the node-parallel mix and
+   cmix instances at n = 100, no generic launch), no plain-twin call,
+   and the consensus after the global rounds an eval falls on; the
+   suboptimality AUC against parallel SGD (f* by full-batch gradient
+   descent here); ``[simsplit]`` (:func:`sim_split`): gossip's first
+   steps under ``torch.profiler``, the device's share of the wall time;
    one compressed run at the same size (int8 gossip + EF, int8
    collective); then the non-IID crossover of
    ``benchmarks/bench_logistic_transient.py`` with its two gates.
@@ -333,6 +339,27 @@ SHADOW_COLUMNS = 1 << 25            # GenericShadow's columns a launch
 # every (n, V) instance of mix.cu's register kernel (V: columns a thread)
 MIX_INSTANCES = ((2, 4), (2, 1), (4, 4), (4, 1), (8, 4), (8, 1), (16, 2),
                  (16, 1), (32, 1))
+# the node-parallel instances (slice 23) against the generic ones: node
+# counts (892, the largest the generic instance takes at 32 threads a
+# block), widths, and the two node counts also held at RAGGED_D
+NODES_N = (3, 5, 33, 64, 100, 256, 892)
+NODES_D = (1, 10, 11, 20, 1000)
+NODES_WIDE_N = (100, 256)
+# cmix at the register instance's n, at widths it refuses (not a multiple
+# of the vector width): the node-parallel instance, by the rule
+CMIX_NODES_RAGGED = ((4, 10), (8, 11), (16, 11))
+# the dispatch rule's thresholds (NODES_MIN_N = 48, NODES_NARROW_D = 8,192)
+# either side, and cmix at n = 2 on a trainer leaf's width (the generic
+# instance, by the rule)
+NODES_RULE_SHAPES = (("mix", 3, 8_001), ("mix", 3, 16_001),
+                     ("mix", 33, RAGGED_D), ("mix", 48, RAGGED_D),
+                     ("cmix", 3, 8_001), ("cmix", 3, 16_001),
+                     ("cmix", 33, RAGGED_D), ("cmix", 48, RAGGED_D),
+                     ("cmix", 2, 8_001), ("cmix", 2, 25_165_824))
+# row 1d: the simulators' mix calls (n, D, with_g, factors): [sim] (the
+# half-step fused), GT-PGA's joint tree, [psim]'s (x, w) tree
+SIM_ROUND_CALLS = ((100, 10, True, "ring"), (100, 20, False, "ring"),
+                   (100, 11, False, "push"))
 
 
 def smi() -> str:
@@ -487,10 +514,11 @@ def _bound(bytes_moved: float, flops: float):
     return max(b, f), "bytes" if b >= f else "operations"
 
 
-def _turns(torch, old, new) -> tuple:
+def _turns(torch, old, new, iters=20) -> tuple:
     """``(old ms, new ms)`` by :func:`device_ms`, timed in turns (old, new,
     new, old) and averaged per version."""
-    o1, n1, n2, o2 = (device_ms(torch, f) for f in (old, new, new, old))
+    o1, n1, n2, o2 = (device_ms(torch, f, iters=iters, warmup=min(iters, 3))
+                      for f in (old, new, new, old))
     return (o1 + o2) / 2, (n1 + n2) / 2
 
 
@@ -554,12 +582,12 @@ def check_mix_kernel(torch, mc) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gamma = torch.tensor([0.05], device="cuda")
     worst = 0.0
-    cases = vector_cases = 0
+    cases = vector_cases = nodes_cases = 0
     covered = {}
 
     def compare(x, g, d, M, with_g, with_residual, wire, bitwise_rows,
                 inplace=False):
-        nonlocal worst, cases, vector_cases
+        nonlocal worst, cases, vector_cases, nodes_cases
         args = (x, g if with_g else None, gamma if with_g else None, d, M)
         kw = dict(with_g=with_g, with_residual=with_residual, wire=wire)
         vec = mc.mix_vector_width(x, g if with_g else None)
@@ -615,6 +643,20 @@ def check_mix_kernel(torch, mc) -> dict:
             vector_cases += 1
             key = (x.shape[0], vec)
             covered[key] = covered.get(key, 0) + 1
+        elif mc.use_nodes_mix(x, g if with_g else None):
+            # the node-parallel instance: o, x̄ and the residual bitwise
+            if inplace:
+                stage = x.clone()
+                old = mc.mix_generic(stage, *args[1:], **kw, inplace=True)
+            else:
+                old = mc.mix_generic(*args, **kw)
+            pairs = list(zip(out, old)) if with_residual else [(out, old)]
+            if not all(_same_bits(torch, a, b) for a, b in pairs):
+                raise AssertionError(f"mix n={x.shape[0]} D={x.shape[1]} "
+                                     f"{kw}: the node-parallel instance "
+                                     f"differs from the generic one")
+            del old
+            nodes_cases += 1
         worst = max(worst, err)
         cases += 1
 
@@ -737,7 +779,9 @@ def check_mix_kernel(torch, mc) -> dict:
           f"max abs err {worst:.3e}; {vector_cases} of them on the register "
           f"instance, bitwise equal to the generic one, covering all "
           f"{len(MIX_INSTANCES)} (n, V) instances "
-          f"{dict(sorted(covered.items()))}; {push_cases} with a "
+          f"{dict(sorted(covered.items()))}; {nodes_cases} on the "
+          f"node-parallel instance, o, x̄ and residual bitwise the generic "
+          f"one's; {push_cases} with a "
           f"runtime push-sum W at {PUSH_MIX_SHAPES}; every launch width of "
           f"{', '.join(widths)} on the register instance at its vector "
           f"width", flush=True)
@@ -862,7 +906,7 @@ def check_cmix_kernel(torch, mc) -> tuple:
     from repro_torch.compress import quantize as cq
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst, cases, vector_cases = 0.0, 0, 0
+    worst, cases, vector_cases, nodes_cases = 0.0, 0, 0, 0
     phases = (("gossip", "one_peer_exp", 1, False), ("global", "ring", 1,
                                                      False),
               ("global", "ring", 1, True), ("pod_avg", "ring", 2, False))
@@ -884,7 +928,7 @@ def check_cmix_kernel(torch, mc) -> tuple:
 
     def compare(x, e, kind, phase, topo, pods, wire, seed=7, q=None,
                 bitwise=False, factors=None):
-        nonlocal worst, cases, vector_cases
+        nonlocal worst, cases, vector_cases, nodes_cases
         (o, ef), (po, pef) = run(x, e, kind, phase, topo, pods, wire, seed,
                                  q, factors=factors)
         torch.cuda.synchronize()
@@ -900,14 +944,19 @@ def check_cmix_kernel(torch, mc) -> tuple:
         if err > tol:
             raise AssertionError(f"{what}: max abs err {err:.3e} > "
                                  f"{tol:.3e}")
-        if mc.use_vector_cmix(x, e, q):
+        vector = mc.use_vector_cmix(x, e, q)
+        if vector or mc.use_nodes_cmix(x, e, q):
             (go, gef), _ = run(x, e, kind, phase, topo, pods, wire, seed, q,
                                launch=mc.cmix_generic, factors=factors)
+            which = "register" if vector else "node-parallel"
             if not (torch.equal(o, go) and (ef is None
                                             or torch.equal(ef, gef))):
-                raise AssertionError(f"{what}: register instance differs "
+                raise AssertionError(f"{what}: the {which} instance differs "
                                      f"from the generic one")
-            vector_cases += 1
+            if vector:
+                vector_cases += 1
+            else:
+                nodes_cases += 1
         worst = max(worst, err)
         cases += 1
 
@@ -1000,9 +1049,9 @@ def check_cmix_kernel(torch, mc) -> tuple:
           f"{100 * bound_ms / ms:.1f}% of the bound)", flush=True)
     print(f"[kernel] cmix: {cases} kernel-vs-plain cases within tolerance, "
           f"max abs err {worst:.3e}; {vector_cases} of them on the register "
-          f"instance, bitwise equal to the generic one; constant fixed "
-          f"point bitwise for int8, fp8, topk, randk on both instances",
-          flush=True)
+          f"instance and {nodes_cases} on the node-parallel one, each "
+          f"bitwise equal to the generic one; constant fixed point bitwise "
+          f"for int8, fp8, topk, randk on both instances", flush=True)
     cmix_rec = {"name": "cmix_vector_kernel", "route": "cuda",
                 "source": "src/repro_torch/csrc/cmix.cu",
                 "replaces": "src/repro/kernels/mixing_pallas.py:504",
@@ -1028,6 +1077,381 @@ def check_cmix_kernel(torch, mc) -> tuple:
                   "plain_ms": a_plain_ms, "bound_ms": a_bound,
                   "bound_by": a_by, "library_ms": None}
     return cmix_rec, absmax_rec
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _dense_factors(torch, gen, n):
+    """A dense (n, 1) d and (n, n) M on the card, every product of the
+    round nonzero: each M row sums to 1/2."""
+    M = torch.rand(n, n, device="cuda", generator=gen)
+    M = M / (2 * M.sum(dim=1, keepdim=True))
+    return torch.rand(n, 1, device="cuda", generator=gen) / 2, M.contiguous()
+
+
+def check_mix_nodes_kernel(torch, mc) -> dict:
+    """mix.cu's node-parallel instance bit for bit against the generic
+    one: o, x̄ and the residual at every n of :data:`NODES_N` and D of
+    :data:`NODES_D` (and D = RAGGED_D at :data:`NODES_WIDE_N`), every
+    (with_g, wire, residual), dense factors (every product nonzero), and
+    in place (o written over a private copy of x, both instances) at every
+    (n, D) with the half-step, the wire and the residual; o within
+    1e-5·max|x′| of the plain twin.  Row 1d: the simulators' calls
+    (:data:`SIM_ROUND_CALLS`, ring or runtime push-sum factors) on both
+    instances in turns, beside a one-element launch (the floor), the plain
+    twin, ``torch.matmul`` of W and the bound; then both instances at
+    n = 100 and 256, D = RAGGED_D, for the dispatch rule."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gamma = torch.tensor([0.05], device="cuda")
+    t0 = time.perf_counter()
+    cases, inplace_cases, worst = 0, 0, 0.0
+
+    def run(launch, x, g, d, M, kw, inplace=False):
+        gg, gm = (g, gamma) if kw["with_g"] else (None, None)
+        out = launch(x, gg, gm, d, M, **kw, inplace=inplace)
+        return out if kw["with_residual"] else (out,)
+
+    shapes = [(n, D) for n in NODES_N for D in NODES_D] + [
+        (n, RAGGED_D) for n in NODES_WIDE_N]
+    for n, D in shapes:
+        d, M = _dense_factors(torch, gen, n)
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        g = torch.randn(n, D, device="cuda", generator=gen)
+        if not mc.use_nodes_mix(x, g):
+            raise AssertionError(f"mix n={n} D={D}: not taken by the "
+                                 f"node-parallel instance")
+        for with_g in (False, True):
+            for wire in (False, True):
+                for with_residual in (False, True):
+                    kw = dict(with_g=with_g, wire=wire,
+                              with_residual=with_residual)
+                    new = run(mc.mix_nodes, x, g, d, M, kw)
+                    old = run(mc.mix_generic, x, g, d, M, kw)
+                    if not all(_same_bits(torch, a, b)
+                               for a, b in zip(new, old)):
+                        raise AssertionError(
+                            f"mix n={n} D={D} {kw}: the node-parallel "
+                            f"instance differs from the generic one")
+                    plain = mc.mix_flat_plain(
+                        x, g if with_g else None, gamma if with_g else None,
+                        d, M, **kw)
+                    o_plain = plain[0] if with_residual else plain
+                    xs = x - gamma * g if with_g else x
+                    err = float((new[0] - o_plain).abs().max())
+                    if err > 1e-5 * float(xs.abs().max()):
+                        raise AssertionError(f"mix n={n} D={D} {kw}: "
+                                             f"{err:.3e} from the plain twin")
+                    worst = max(worst, err)
+                    cases += 1
+                    del new, old, plain, xs
+        kw = dict(with_g=True, wire=True, with_residual=True)
+        outs = []
+        for launch in (mc.mix_nodes, mc.mix_generic):
+            stage = x.clone()
+            outs.append(run(launch, stage, g, d, M, kw, inplace=True))
+            if outs[-1][0].data_ptr() != stage.data_ptr():
+                raise AssertionError(f"mix n={n} D={D}: not in place")
+        if not all(_same_bits(torch, a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"mix n={n} D={D}: in place, the "
+                                 f"node-parallel instance differs")
+        inplace_cases += 1
+        del x, g, outs, stage
+    torch.cuda.empty_cache()
+    print(f"[kernel] mix_nodes: {cases} cases bitwise the generic instance "
+          f"(o, x̄, residual) at n {NODES_N} x D {NODES_D} and "
+          f"{NODES_WIDE_N} x {RAGGED_D:,}, every (with_g, wire, residual), "
+          f"dense factors; {inplace_cases} in place (o over x) bitwise; o "
+          f"within {worst:.3e} of the plain twin; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rows = []
+    for n, D, with_g, factors in SIM_ROUND_CALLS:
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        g = torch.randn(n, D, device="cuda", generator=gen)
+        if factors == "ring":
+            d, M = (torch.from_numpy(a).cuda()
+                    for a in mc.phase_matrices("gossip", "ring", n, step=1))
+        else:
+            d, M = mc.dense_factors(
+                torch.from_numpy(push_matrices(n)[0]).cuda(), n)
+        gg, gm = (g, gamma) if with_g else (None, None)
+        kw = dict(with_g=with_g, with_residual=False, wire=False)
+        old_ms, ms = _turns(torch, lambda: mc.mix_generic(x, gg, gm, d, M,
+                                                          **kw),
+                            lambda: mc.mix_nodes(x, gg, gm, d, M, **kw))
+        one = torch.randn(1, 1, device="cuda", generator=gen)
+        d1, M1 = torch.ones(1, 1, device="cuda"), torch.ones(1, 1,
+                                                             device="cuda")
+        floor_ms = device_ms(torch, lambda: mc.mix_nodes(
+            one, one if with_g else None, gm, d1, M1, **kw))
+        plain_ms = cuda_ms(torch, lambda: mc.mix_flat_plain(x, gg, gm, d, M,
+                                                            **kw))
+        W = M + torch.diag(d[:, 0])
+        library_ms = device_ms(torch, lambda: torch.matmul(W, x))
+        # read x (and g), write o; the mix and the half-step
+        bound_ms, bound_by = _bound(4 * (3 if with_g else 2) * n * D,
+                                    2 * n * n * D + (2 * n * D if with_g
+                                                     else 0))
+        print(f"[kernel] mix row 1d n={n} D={D} {factors} factors, "
+              f"half-step {with_g}, no residual: node-parallel {ms:.4f} "
+              f"ms, generic {old_ms:.4f} ms (device_ms, in turns; "
+              f"{old_ms / ms:.1f}x), a one-element "
+              f"launch {floor_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul(W, x) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by}", flush=True)
+        rows.append({"shape": [n, D], "with_g": with_g, "ms": ms,
+                     "old_ms": old_ms, "floor_ms": floor_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, g
+    wide = []
+    for n in NODES_WIDE_N:
+        x = torch.randn(n, RAGGED_D, device="cuda", generator=gen)
+        d, M = _dense_factors(torch, gen, n)
+        kw = dict(with_g=False, with_residual=False, wire=False)
+        old_ms, ms = _turns(
+            torch, lambda: mc.mix_generic(x, None, None, d, M, **kw),
+            lambda: mc.mix_nodes(x, None, None, d, M, **kw), iters=3)
+        plan = mc.nodes_plan(n, RAGGED_D)
+        bound_ms, bound_by = _bound(4 * 2 * n * RAGGED_D,
+                                    2 * n * n * RAGGED_D)
+        print(f"[kernel] mix n={n} D={RAGGED_D:,} (the dispatch rule's "
+              f"width): node-parallel {ms:.4f} ms (grid {plan['grid']}), "
+              f"generic {old_ms:.4f} ms (device_ms, in "
+              f"turns; {old_ms / ms:.1f}x), bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({100 * bound_ms / ms:.1f}% of it)", flush=True)
+        wide.append({"shape": [n, RAGGED_D], "ms": ms, "old_ms": old_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        del x
+    torch.cuda.empty_cache()
+    head = rows[0]
+    return {"name": "mix_nodes_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/mix.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:215",
+            "launches": None, "max_abs_err": worst, "ms": head["ms"],
+            "old_ms": head["old_ms"], "floor_ms": head["floor_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "row_1d": rows, "wide": wide}
+
+
+def check_cmix_nodes_kernel(torch, mc) -> dict:
+    """cmix.cu's node-parallel instance bit for bit against the generic
+    one: o and the new EF for int8 and fp8 codes (EF on and off) and
+    precomputed q, each with and without the bf16 wire, at n = 2 (where
+    the rule keeps the generic instance) and every n of :data:`NODES_N`,
+    D = 10 and 11, at n = 100, D = RAGGED_D, and at
+    :data:`CMIX_NODES_RAGGED`; dense factors; o and EF also bitwise the
+    plain twin.  Row 2b: [sim]'s compressed gossip call (n = 100, D = 10,
+    int8 + EF, ring) on both instances in turns, beside a one-element
+    launch, the plain twin, ``torch.matmul(M, q)`` and the bound; then
+    both at n = 100, D = RAGGED_D, for the dispatch rule."""
+    from repro_torch.compress import quantize as cq
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    cases = 0
+
+    def run(launch, x, e, q, w, M, kind, wire, seed=7):
+        scale = None
+        if kind != "precomputed":
+            y = x if e is None else x + e
+            scale = cq.int8_scale(y) if kind == "int8" else cq.fp8_scale(y)
+        args = (x, e, q, seed, scale, w, M)
+        kw = dict(kind=kind, with_ef=e is not None, wire=wire)
+        return launch(*args, **kw), (args, kw)
+
+    shapes = [(n, D) for n in (2,) + NODES_N for D in (10, 11)] + [
+        (100, RAGGED_D)] + list(CMIX_NODES_RAGGED)
+    for n, D in shapes:
+        d, M = _dense_factors(torch, gen, n)
+        w = 1.0 - d
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+        q = torch.round(8 * torch.randn(n, D, device="cuda",
+                                        generator=gen)) / 8
+        if mc.use_nodes_cmix(x, e, q) != (n >= 3):
+            raise AssertionError(f"cmix n={n} D={D}: the rule sends it to "
+                                 f"the wrong instance")
+        combos = [(kind, ef) for kind in ("int8", "fp8")
+                  for ef in (None, e)] + [("precomputed", None)]
+        for kind, ef in combos:
+            qq = q if kind == "precomputed" else None
+            for wire in (False, True):
+                (o, new_ef), (args, kw) = run(mc.cmix_nodes, x, ef, qq, w, M,
+                                              kind, wire)
+                (go, gef), _ = run(mc.cmix_generic, x, ef, qq, w, M, kind,
+                                   wire)
+                po, pef = mc.cmix_flat_plain(*args, **kw)
+                same = _same_bits(torch, o, go) and _same_bits(torch, o, po)
+                if ef is not None:
+                    same = same and _same_bits(torch, new_ef, gef) and \
+                        _same_bits(torch, new_ef, pef)
+                if not same:
+                    raise AssertionError(f"cmix n={n} D={D} {kw}: the "
+                                         f"node-parallel instance differs")
+                cases += 1
+                del o, new_ef, go, gef, po, pef
+        del x, e, q
+    torch.cuda.empty_cache()
+    print(f"[kernel] cmix_nodes: {cases} cases bitwise the generic instance "
+          f"and the plain twin (o and EF) at n {(2,) + NODES_N} x D (10, 11), "
+          f"n = 100 x {RAGGED_D:,} and (n, D) {CMIX_NODES_RAGGED} (the "
+          f"register instance's n at widths it refuses): int8 and fp8 with "
+          f"EF on and off, "
+          f"precomputed q, wire on and off; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    n, D = SIM_COMP_SHAPES[-1]
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+    w, M = mc._device_compensated("gossip", "ring", n, 1, 1,
+                                  torch.device("cuda"))
+    scale = cq.int8_scale(x + e)
+    kw = dict(kind="int8", with_ef=True, wire=False)
+    old_ms, ms = _turns(
+        torch, lambda: mc.cmix_generic(x, e, None, 7, scale, w, M, **kw),
+        lambda: mc.cmix_nodes(x, e, None, 7, scale, w, M, **kw))
+    one = torch.randn(1, 1, device="cuda", generator=gen)
+    ones = torch.ones(1, 1, device="cuda")
+    floor_ms = device_ms(torch, lambda: mc.cmix_nodes(
+        one, one, None, 7, ones, ones, ones, **kw))
+    plain_ms = cuda_ms(torch, lambda: mc.cmix_flat_plain(
+        x, e, None, 7, scale, w, M, **kw))
+    library_ms = device_ms(torch, lambda: torch.matmul(M, x))
+    bound_ms, bound_by = _bound(4 * 4 * n * D, (2 * n + 12) * n * D)
+    print(f"[kernel] cmix row 2b n={n} D={D} int8+EF ring gossip: "
+          f"node-parallel {ms:.4f} ms, generic {old_ms:.4f} ms (device_ms, in "
+          f"turns; {old_ms / ms:.1f}x), a one-element launch {floor_ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, torch.matmul(M, q) (the mix part "
+          f"only) {library_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}",
+          flush=True)
+    rec = {"name": "cmix_nodes_kernel", "route": "cuda",
+           "source": "src/repro_torch/csrc/cmix.cu",
+           "replaces": "src/repro/kernels/mixing_pallas.py:504",
+           "launches": None, "max_abs_err": 0.0, "ms": ms, "old_ms": old_ms,
+           "floor_ms": floor_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    n, D = 100, RAGGED_D
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+    d, M = _dense_factors(torch, gen, n)
+    w = 1.0 - d
+    scale = cq.int8_scale(x + e)
+    old_ms, ms = _turns(
+        torch, lambda: mc.cmix_generic(x, e, None, 7, scale, w, M, **kw),
+        lambda: mc.cmix_nodes(x, e, None, 7, scale, w, M, **kw), iters=3)
+    bound_ms, bound_by = _bound(4 * 4 * n * D, (2 * n + 12) * n * D)
+    print(f"[kernel] cmix n={n} D={D:,} int8+EF (the dispatch rule's width): "
+          f"node-parallel {ms:.4f} ms, generic {old_ms:.4f} ms (device_ms, in "
+          f"turns; {old_ms / ms:.1f}x), bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({100 * bound_ms / ms:.1f}% of it)", flush=True)
+    rec["wide"] = [{"shape": [n, D], "ms": ms, "old_ms": old_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}]
+    del x, e
+    torch.cuda.empty_cache()
+    return rec
+
+
+def nodes_rule_times(torch, mc) -> list:
+    """The dispatch rule's crossovers (``mixing_cuda._nodes_rows``): the
+    node-parallel and the generic instance of mix.cu (no half-step, wire
+    or residual) and cmix.cu (int8 + EF) in turns at
+    :data:`NODES_RULE_SHAPES`, either side of each threshold, and cmix at
+    n = 2 on a trainer leaf's width, each beside the instance the rule
+    picks."""
+    from repro_torch.compress import quantize as cq
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for kernel, n, D in NODES_RULE_SHAPES:
+        d, M = _dense_factors(torch, gen, n)
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        iters = 20 if n * D < 2e6 else 5
+        if kernel == "mix":
+            kw = dict(with_g=False, with_residual=False, wire=False)
+            old_ms, ms = _turns(
+                torch, lambda: mc.mix_generic(x, None, None, d, M, **kw),
+                lambda: mc.mix_nodes(x, None, None, d, M, **kw), iters=iters)
+            picks = mc.use_nodes_mix(x)
+        else:
+            e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+            scale = cq.int8_scale(x + e)
+            kw = dict(kind="int8", with_ef=True, wire=False)
+            old_ms, ms = _turns(
+                torch, lambda: mc.cmix_generic(x, e, None, 7, scale, 1.0 - d,
+                                               M, **kw),
+                lambda: mc.cmix_nodes(x, e, None, 7, scale, 1.0 - d, M,
+                                      **kw), iters=iters)
+            picks = mc.use_nodes_cmix(x, e)
+            del e
+        print(f"[kernel] {kernel} rule n={n} D={D:,}: node-parallel "
+              f"{ms:.4f} ms, generic {old_ms:.4f} ms (device_ms, in turns; "
+              f"{old_ms / ms:.2f}x); the rule picks "
+              f"{'node-parallel' if picks else 'generic'}", flush=True)
+        out.append({"kernel": kernel, "shape": [n, D], "ms": ms,
+                    "old_ms": old_ms, "nodes": picks})
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def sim_shape_rows(torch, mc) -> dict:
+    """Rows 4d and 3's untiled instance at the simulators' n = 100:
+    ``shard_cmix`` as ``compensated_apply`` runs it in [ovsim] (m = K = 100,
+    D = 10, q_self = qs, ring factors) and the compressed collective
+    (int8 + EF, global) at n = 100, D = 10; each by :func:`device_ms` beside
+    a one-element launch of the same kernel, its plain twin, one PyTorch
+    call (``torch.matmul(M, q)``; the exact average ``x.mean(0)``) and
+    the bound."""
+    from repro_torch.compress import collective as ccol
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, D = 100, 10
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    q = torch.randn(n, D, device="cuda", generator=gen)
+    w, M = mc._device_compensated("gossip", "ring", n, 1, 1,
+                                  torch.device("cuda"))
+    ms = device_ms(torch, lambda: mc.shard_comp_mix_block(x, q, q, w, M))
+    one = torch.randn(1, 1, device="cuda", generator=gen)
+    ones = torch.ones(1, 1, device="cuda")
+    floor_ms = device_ms(torch, lambda: mc.shard_comp_mix_block(
+        one, one, one, ones, ones))
+    plain_ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block_plain(
+        x, q, q, w, M))
+    library_ms = device_ms(torch, lambda: torch.matmul(M, q))
+    bound_ms, bound_by = _bound(4 * 3 * n * D, (2 * n + 4) * n * D)
+    print(f"[kernel] shard_cmix row 4d m=K={n} D={D} ([ovsim]'s stacked "
+          f"apply, q_self is qs): {ms:.4f} ms (device_ms), a one-element "
+          f"launch {floor_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul(M, q) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"by {bound_by}", flush=True)
+    apply = {"shape": [n, n, D], "ms": ms, "floor_ms": floor_ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by}
+    e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+    s1, s2 = ccol.stage_seeds(7)
+    kw = dict(kind="int8", with_ef=True, n_pods=1, qblock=ccol.QBLOCK)
+    c_ms = device_ms(torch, lambda: mc.collective_flat(x, e, s1, s2, **kw))
+    e1 = 0.01 * one
+    c_floor = device_ms(torch, lambda: mc.collective_flat(
+        one, e1, s1, s2, tiled=False, **kw))
+    c_plain = cuda_ms(torch, lambda: mc.collective_flat_plain(x, e, s1, s2,
+                                                              **kw))
+    c_lib = device_ms(torch, lambda: x.mean(dim=0, keepdim=True))
+    c_bound, c_by = _bound(4 * 4 * n * D, 60 * n * D)
+    print(f"[kernel] collective row 3 untiled n={n} D={D} int8+EF ([sim]'s "
+          f"global round): {c_ms:.4f} ms (device_ms), a one-element launch "
+          f"{c_floor:.4f} ms, plain {c_plain:.4f} ms, x.mean(0) (the exact "
+          f"average only) {c_lib:.4f} ms, bound {c_bound:.6f} ms by {c_by}",
+          flush=True)
+    untiled = {"shape": [n, D], "ms": c_ms, "floor_ms": c_floor,
+               "plain_ms": c_plain, "library_ms": c_lib, "bound_ms": c_bound,
+               "bound_by": c_by}
+    return {"apply": apply, "untiled": untiled}
 
 
 def check_collective_kernel(torch, mc) -> dict:
@@ -1160,8 +1584,8 @@ def check_collective_kernel(torch, mc) -> dict:
     sim_bound, sim_by = _bound(4 * 4 * n_sim * d_sim, 60 * n_sim * d_sim)
     print(f"[kernel] collective int8+EF n={n_sim} D={d_sim} ([sim]'s "
           f"shape, the untiled instance): {sim_ms:.4f} ms on the card, "
-          f"bound {sim_bound:.6f} ms by {sim_by} (launch-bound)",
-          flush=True)
+          f"bound {sim_bound:.6f} ms by {sim_by} (its launch floor: "
+          f"[kernel] collective row 3)", flush=True)
     del xs, es
     print(f"[kernel] collective: {cases} kernel-vs-plain cases within "
           f"tolerance (those at n = 16, 32 and 100 bitwise), max abs err "
@@ -2382,8 +2806,10 @@ def counts() -> dict:
     from repro_torch.kernels import rmsnorm_cuda as rn
     return {"mix": mc.mix_flat.launches,
             "mix_vector": mc.mix_flat.vector_launches,
+            "mix_nodes": mc.mix_flat.nodes_launches,
             "cmix": mc.cmix_flat.launches,
             "cmix_vector": mc.cmix_flat.vector_launches,
+            "cmix_nodes": mc.cmix_flat.nodes_launches,
             "cmix_absmax": mc.cmix_flat.absmax_launches,
             "collective": mc.collective_flat.launches,
             "mlstm": mk.mlstm_chunk.launches,
@@ -2399,6 +2825,29 @@ def counts() -> dict:
 def only(**launches) -> dict:
     """The launch counts of a path that launches only the named kernels."""
     return {**{k: 0 for k in counts()}, **launches}
+
+
+def mix_key(mc, n: int, D: int) -> str:
+    """The launch count a mix.cu round on a fresh contiguous (n, D)
+    operand adds to, by the dispatch rule (register, node-parallel or
+    generic instance)."""
+    if mc._mix_rows(n, D, []):
+        return "mix_vector"
+    return "mix_nodes" if mc._nodes_rows(n, D, []) else "mix"
+
+
+def cmix_key(mc, n: int, D: int) -> str:
+    """The same for a cmix.cu round (16-byte aligned fresh rows)."""
+    if mc._cmix_rows(n, D, []):
+        return "cmix_vector"
+    return "cmix_nodes" if mc._nodes_rows(n, D, []) else "cmix"
+
+
+def gate_no_generic(tag: str, launches: dict) -> None:
+    """A simulator path at n = 100 launches no generic mix or cmix: the
+    rule sends every round there to the node-parallel instances."""
+    if launches["mix"] or launches["cmix"]:
+        raise AssertionError(f"{tag}: generic launches {launches}")
 
 
 # synchronizing calls per step of each trainer path, and where in the
@@ -2460,8 +2909,10 @@ def reset_counts() -> None:
     rn.rmsnorm.vector_launches = 0
     mc.mix_flat.launches = 0
     mc.mix_flat.vector_launches = 0
+    mc.mix_flat.nodes_launches = 0
     mc.cmix_flat.launches = 0
     mc.cmix_flat.vector_launches = 0
+    mc.cmix_flat.nodes_launches = 0
     mc.cmix_flat.absmax_launches = 0
     mc.collective_flat.launches = 0
     mk.mlstm_chunk.launches = 0
@@ -2634,9 +3085,9 @@ def run_main_path(torch, mc, compressed: bool = False,
 
 KERNEL_KINDS = (("shard kernels", ("shard_mix_kernel", "shard_cmix_kernel")),
                 ("cmix round", ("cmix_kernel", "cmix_vector_kernel",
-                                "absmax")),
+                                "cmix_nodes_kernel", "absmax")),
                 ("mix round", ("mix_kernel", "mix_vector_kernel",
-                               "sum_partials")),
+                               "mix_nodes", "sum_partials")),
                 ("mlstm kernel", ("mlstm_kernel",)),
                 ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
                 ("softmax", ("softmax",)),
@@ -3311,22 +3762,19 @@ def sim_round_launches(torch, mc, algorithm: str, phases, n: int, d: int,
     run, stated before it runs: one round per gossip/global/pod_avg step
     (none for SlowMo's outer step or Local SGD's "none"); uncompressed,
     one mix.cu launch a round (the joint tree of GT-PGA, params and
-    tracker, packs into one (n, 2d) staging buffer), on the register
-    instance where ``use_vector_mix`` takes the (n, width) operand;
-    compressed (one leaf), a gossip round is one row maxima and one
-    cmix.cu launch, a global round one collective.cu launch."""
+    tracker, packs into one (n, 2d) staging buffer), on the instance the
+    rule takes for the (n, width) operand (:func:`mix_key`: at n = 100
+    the node-parallel one); compressed (one leaf), a gossip round is one
+    row maxima and one cmix.cu launch, a global round one collective.cu
+    launch."""
     kinds = mc.KERNEL_PHASES
     rounds = [ph for ph in phases if ph in kinds]
     if compressed:
-        x = torch.empty(n, d, device="cuda")
         gossip = rounds.count("gossip")
-        key = "cmix_vector" if mc.use_vector_cmix(x, x) else "cmix"
-        return only(**{key: gossip, "cmix_absmax": gossip,
+        return only(**{cmix_key(mc, n, d): gossip, "cmix_absmax": gossip,
                        "collective": len(rounds) - gossip})
     width = 2 * d if algorithm == "gt_pga" else d
-    x = torch.empty(n, width, device="cuda")
-    key = "mix_vector" if mc.use_vector_mix(x, x) else "mix"
-    return only(**{key: len(rounds)})
+    return only(**{mix_key(mc, n, width): len(rounds)})
 
 
 def _sim_run(torch, prob, algorithm: str, *, steps, lr, H, eval_every,
@@ -3373,6 +3821,8 @@ def _sim_checked(torch, mc, prob, algorithm: str, tag: str, *,
     if launches != expected:
         raise AssertionError(f"{tag} {algorithm}: launches {launches}, the "
                              f"dispatch rule gives {expected}")
+    if prob.n not in mc.MIX_VECTOR_NODES:
+        gate_no_generic(f"{tag} {algorithm}", launches)
     if plain.calls:
         raise AssertionError(f"{tag} {algorithm}: {plain.calls} plain-twin "
                              f"calls on the card")
@@ -3385,6 +3835,28 @@ def _sim_checked(torch, mc, prob, algorithm: str, tag: str, *,
                 raise AssertionError(f"{tag} {algorithm}: consensus {c!r} "
                                      f"after the global round of step {k}")
     return out, wall * 1e3 / steps, launches
+
+
+SIM_SPLIT_STEPS = 100
+
+
+def sim_split(torch, prob, run_kw) -> None:
+    """``[simsplit]``: where a [sim] step's wall time goes: gossip's first
+    :data:`SIM_SPLIT_STEPS` steps under ``torch.profiler``, the device's
+    busy share of the wall time and its time by kernel (the profiler's
+    own host cost inflates the wall time; the device times stand)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(run_kw, steps=SIM_SPLIT_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _sim_run(torch, prob, "gossip", **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, wall_ms, "[simsplit]",
+                   f"gossip, {SIM_SPLIT_STEPS} steps at n = {prob.n}")
 
 
 def run_sim_path(torch, mc) -> dict:
@@ -3429,6 +3901,7 @@ def run_sim_path(torch, mc) -> dict:
         print(line, flush=True)
     SIM_REFERENCE.update(f_star=fs, parallel_auc=float(
         np.trapezoid(sub_ref)), aucs=dict(aucs))
+    sim_split(torch, prob, run_kw)
     print(f"[sim] AUC ordering (printed, one seed): PGA "
           f"{aucs['gossip_pga']:.4f} <= 1.05 x Gossip {aucs['gossip']:.4f}: "
           f"{aucs['gossip_pga'] <= 1.05 * aucs['gossip']}; PGA <= 1.05 x "
@@ -3601,10 +4074,8 @@ def run_algo_path(torch, mc, algorithm: str, dist_kw: dict) -> dict:
         impl.comm_payload(state.extras, state.params), state.params)
     leaves = tree_leaves(joint)
     groups = mc._dispatch_groups(leaves, tcfg.dist.pallas_leaf_threshold)
-    vector = all(mc.use_vector_mix(
-        leaves[g[0]].reshape(n_nodes, -1) if len(g) == 1 else
-        torch.empty(n_nodes, sum(leaves[i][0].numel() for i in g),
-                    device="cuda")) for g in groups)
+    keys = {mix_key(mc, n_nodes, sum(leaves[i][0].numel() for i in g))
+            for g in groups}
     extra_gb = sum(p.numel() * p.element_size()
                    for name in state.extras
                    for p in tree_leaves(state.extras[name])) / 1e9
@@ -3638,8 +4109,10 @@ def run_algo_path(torch, mc, algorithm: str, dist_kw: dict) -> dict:
         raise AssertionError(f"[algos] {algorithm}: phases {phases}, the "
                              f"schedule gives {want_phases}")
     rounds = sum(ph in mc.KERNEL_PHASES for ph in phases)
-    expected = only(**{("mix_vector" if vector else "mix"):
-                       len(groups) * rounds})
+    if len(keys) != 1:
+        raise AssertionError(f"[algos] {algorithm}: groups on instances "
+                             f"{keys}")
+    expected = only(**{keys.pop(): len(groups) * rounds})
     if launches != expected:
         raise AssertionError(f"[algos] {algorithm}: launches {launches}, "
                              f"expected {expected}")
@@ -3707,15 +4180,14 @@ def push_expected_launches(mc, tr, state, phases, compressed: bool,
     per_round, widths = {}, {}
     for g in groups:
         D = sum(leaves[i][0].numel() for i in g)
-        key = "mix_vector" if mc._mix_rows(n, D, []) else "mix"
+        key = mix_key(mc, n, D)
         per_round[key] = per_round.get(key, 0) + 1
         widths.setdefault(key, []).append(D)
     mix_rounds = rounds - gossip if compressed else rounds
     want = {k: v * mix_rounds for k, v in per_round.items()}
     if compressed:
         for lf in tree_leaves(state.params):
-            D = lf[0].numel()
-            key = "cmix_vector" if mc._cmix_rows(n, D, []) else "cmix"
+            key = cmix_key(mc, n, lf[0].numel())
             want[key] = want.get(key, 0) + gossip
             want["cmix_absmax"] = want.get("cmix_absmax", 0) + gossip
     return only(**want), widths
@@ -3994,9 +4466,6 @@ def run_push_sim_path(torch, mc) -> dict:
     total = {k: 0 for k in counts()}
     t_phase = time.perf_counter()
 
-    def mix_key(n, d):
-        return ("mix_vector" if mc._mix_rows(n, d + 1, []) else "mix")
-
     def checked(tag, n, d, fn):
         torch.cuda.synchronize()
         reset_counts()
@@ -4007,10 +4476,12 @@ def run_push_sim_path(torch, mc) -> dict:
             wall = time.perf_counter() - t0
         launches = counts()
         steps = len(out["mass"])
-        want = only(**{mix_key(n, d): steps})
+        want = only(**{mix_key(mc, n, d + 1): steps})
         if launches != want:
             raise AssertionError(f"{tag}: launches {launches}, the dispatch "
                                  f"rule gives {want}")
+        if n not in mc.MIX_VECTOR_NODES:
+            gate_no_generic(tag, launches)
         if plain.calls:
             raise AssertionError(f"{tag}: {plain.calls} plain-twin calls")
         for k, v in launches.items():
@@ -4175,7 +4646,7 @@ def overlap_expected_launches(mc, tr, state, phases, compressed: bool,
         want["collective"] = flushes
     else:
         for D in widths:
-            key = "mix_vector" if mc._mix_rows(n, D, []) else "mix"
+            key = mix_key(mc, n, D)
             want[key] = want.get(key, 0) + flushes
     return only(**want), widths
 
@@ -4443,8 +4914,7 @@ def run_overlap_sim_path(torch, mc) -> dict:
     fs, ref = SIM_REFERENCE["f_star"], SIM_REFERENCE["parallel_auc"]
     run_kw = dict(steps=SIM["steps"], lr=sim_lr, H=SIM["H"],
                   eval_every=SIM["eval_every"], batch=SIM["batch"])
-    x = torch.empty(prob.n, prob.d, device="cuda")
-    mix_key = "mix_vector" if mc.use_vector_mix(x, x) else "mix"
+    flush_key = mix_key(mc, prob.n, prob.d)
     for alg in ("gossip_pga", "gossip"):
         torch.cuda.synchronize()
         reset_counts()
@@ -4457,11 +4927,12 @@ def run_overlap_sim_path(torch, mc) -> dict:
         phases = replay_phases(alg, SIM["steps"], lambda k: None,
                                H=SIM["H"])
         expected = only(**{"shard_cmix": phases.count("gossip"),
-                           mix_key: phases.count("global")})
+                           flush_key: phases.count("global")})
         if launches != expected or plain.calls:
             raise AssertionError(f"[ovsim] {alg}: launches {launches} (the "
                                  f"dispatch rule gives {expected}), "
                                  f"{plain.calls} plain-twin calls")
+        gate_no_generic(f"[ovsim] {alg}", launches)
         for k, c in zip(out["iteration"].tolist(),
                         out["consensus"].tolist()):
             if phases[k] == "global" and abs(c) > 1e-12:
@@ -4604,7 +5075,7 @@ def _slice10_config(tag: str, **dist_kw):
 def ckpt_expected_launches(mc, tr, state, phases, tag: str) -> dict:
     """The dispatch rule's launches over a resume phase's 9 steps (A's 6,
     B's 3): one mix.cu launch per dispatch group per round, on the
-    instance ``_mix_rows`` gives fresh contiguous operands;
+    instance :func:`mix_key` gives fresh contiguous operands;
     compressed: one cmix and one row-maxima launch per leaf per gossip
     step, one collective launch per global step; push-sum:
     :func:`push_expected_launches`."""
@@ -4620,7 +5091,7 @@ def ckpt_expected_launches(mc, tr, state, phases, tag: str) -> dict:
     want = {}
     for g in mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold):
         D = sum(leaves[i][0].numel() for i in g)
-        key = "mix_vector" if mc._mix_rows(tr.n_nodes, D, []) else "mix"
+        key = mix_key(mc, tr.n_nodes, D)
         want[key] = want.get(key, 0) + rounds
     return only(**want)
 
@@ -7918,8 +8389,10 @@ EXAMPLES = (
 # the kernel record each launch counter of :func:`counts` belongs to
 KERNEL_OF_COUNT = {"mix": "mix_vector_kernel",
                    "mix_vector": "mix_vector_kernel",
+                   "mix_nodes": "mix_nodes_kernel",
                    "cmix": "cmix_vector_kernel",
                    "cmix_vector": "cmix_vector_kernel",
+                   "cmix_nodes": "cmix_nodes_kernel",
                    "cmix_absmax": "cmix_absmax_kernel",
                    "collective": "collective_kernel",
                    "mlstm": "mlstm_kernel",
@@ -8703,14 +9176,16 @@ def main() -> int:
         print(f"[build] {name}.cu: {hgmma_count(cuda_build, name)}",
               flush=True)
     for name, kernel in (("mix", "mix_vector_kernel"),
+                         ("mix", "mix_nodes_kernel"),
                          ("cmix", "cmix_vector_kernel"),
+                         ("cmix", "cmix_nodes_kernel"),
                          ("mlstm", "mlstm_kernel"),
                          ("mlstm_wgmma", "mlstm_wgmma_kernel"),
                          ("flash_attention", "flash_kernel")):
         log = cuda_build._Libs.build_log.get(name)
         lines = (["built before this run: no ptxas report"] if log is None
                  else register_report(log, kernel))
-        if name in SASS_KERNELS:
+        if name in SASS_KERNELS and kernel.endswith("vector_kernel"):
             lines += sass_memory_counts(cuda_build, name)
         for line in lines:
             print(f"[build] {name}.cu: {line}", flush=True)
@@ -8722,10 +9197,13 @@ def main() -> int:
 
     add(check_mix_kernel(torch, mc))
     torch.cuda.empty_cache()
+    add(check_mix_nodes_kernel(torch, mc))
     add(check_mix_n2_kernel(torch, mc))
     torch.cuda.empty_cache()
     add(*check_cmix_kernel(torch, mc))
     torch.cuda.empty_cache()
+    add(check_cmix_nodes_kernel(torch, mc))
+    records["mix_nodes_kernel"]["rule"] = nodes_rule_times(torch, mc)
     add(check_collective_kernel(torch, mc))
     torch.cuda.empty_cache()
     add(*check_mlstm_kernel(torch, mk))
@@ -8735,6 +9213,10 @@ def main() -> int:
     add(*check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
     add(check_rmsnorm_kernel(torch, rn))
+    # rows 4d and 3 at the simulators' n = 100
+    sim_rows = sim_shape_rows(torch, mc)
+    records["shard_cmix_kernel"]["sim_apply"] = sim_rows["apply"]
+    records["collective_kernel"]["untiled_sim"] = sim_rows["untiled"]
     lap("the build and the kernel checks")
     if args.kernels_only:
         print(json.dumps({"kernels": list(records.values())}))
@@ -8830,6 +9312,8 @@ def main() -> int:
     serving_cross_check(torch)
     torch.cuda.empty_cache()
     sim = run_sim_path(torch, mc)
+    records["mix_nodes_kernel"]["launches"] = sim["mix_nodes"]
+    records["cmix_nodes_kernel"]["launches"] = sim["cmix_nodes"]
     run_sim_cross_check(torch)
     algos = {k: 0 for k in counts()}
     for algorithm, dist_kw in ALGO_RUNS:
@@ -8969,7 +9453,9 @@ def main() -> int:
             ("[jtrain]", slice14["[jtrain]"]))}
     # the slice-7 paths' launches beside the main paths' (B.1 to B.3)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("mix_nodes_kernel", ("mix_nodes",)),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
+                       ("cmix_nodes_kernel", ("cmix_nodes",)),
                        ("cmix_absmax_kernel", ("cmix_absmax",)),
                        ("collective_kernel", ("collective",))):
         records[name]["launches_sim_algos"] = {
@@ -8977,6 +9463,7 @@ def main() -> int:
             for path, c in (("[sim]", sim), ("[algos]", algos))}
     # the push paths' launches (B.1, B.2 and its row maxima, B.5)
     for name, keys in (("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("mix_nodes_kernel", ("mix_nodes",)),
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
                        ("cmix_absmax_kernel", ("cmix_absmax",)),
                        ("shard_mix_kernel", ("shard_mix",))):
@@ -8987,6 +9474,7 @@ def main() -> int:
     # B.1 and B.3 on the flushes)
     for name, keys in (("shard_cmix_kernel", ("shard_cmix",)),
                        ("mix_vector_kernel", ("mix", "mix_vector")),
+                       ("mix_nodes_kernel", ("mix_nodes",)),
                        ("collective_kernel", ("collective",))):
         records[name]["launches_overlap"] = {
             path: {k: c[k] for k in keys if c[k]}

@@ -33,18 +33,24 @@
 //
 // The output is always a fresh buffer: x is a view of the caller's leaf.
 //
-// Two instances, picked by the wrapper's rule (kernels/mixing_cuda.py
-// `use_vector_cmix`): `cmix_kernel` above, one thread per column with the
-// column in shared memory, for any n, D and alignment; and
-// `cmix_vector_kernel`, for n in {4, 8, 16, 32}, D a multiple of the
-// vector width and 16-byte aligned pointers.  The second follows what the
+// Three instances, picked by the wrapper's rules (kernels/mixing_cuda.py
+// `use_vector_cmix`, `use_nodes_cmix`): `cmix_kernel` above, one thread
+// per column with the column in shared memory, for any n, D and
+// alignment (the route of strided rows, of n = 2 and of n < 48 on a
+// D over 8,192 where the register instance refuses the round, and the
+// oracle of the others); `cmix_nodes_kernel` (nodes.cuh), contiguous rows
+// at n >= 48, or at n >= 3 on D <= 8,192 (the wrapper's `_nodes_rows`):
+// the n x n mix spread over its outputs, the codes of a column tile made
+// once a block (at the simulators' n = 100, D = 10: 0.007 ms a call, the
+// generic one's single warp 0.27 ms; PERF.md, row 2b); and `cmix_vector_kernel`, for n in {4, 8, 16, 32}, D a multiple of
+// the vector width and 16-byte aligned pointers.  The last follows what the
 // timing of mix.cu's variants showed: a thread holds VEC adjacent columns
 // in registers (VEC = 4 at n <= 8: 16-byte loads of x and e, 16-byte stores
 // of o and ef), issues every row's loads before any arithmetic, hashes each
 // column once, reads the n row scales once and M and w once a block (into
 // shared memory), and walks the column groups in a grid-stride loop.  Its
-// operations and their order are the first instance's, so both agree with
-// the twin bit for bit.
+// operations and their order are the first instance's, as are the
+// node-parallel one's, so all three agree with the twin bit for bit.
 //
 // `repro_cmix_absmax` computes the row maxima max_j |x_kj + e_kj| (or
 // |x_kj|) from which the wrapper makes the int8/fp8 scales, reading x and e
@@ -57,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "columns.cuh"
+#include "nodes.cuh"
 #include "quant.cuh"
 
 namespace {
@@ -266,6 +273,88 @@ cudaError_t launch_vector_n(int kind, int with_ef, int wire, const float* x,
 }
 
 // ---------------------------------------------------------------------------
+// The node-parallel instance (nodes.cuh)
+// ---------------------------------------------------------------------------
+// Each block makes the codes of its column tile for every row, as
+// `cmix_kernel` makes them (the column's hash, the row's scale, the EF
+// residual, the wire cast), into shared memory; only the blocks at
+// blockIdx.y = 0 write the new EF, so each element of it is written once.
+// o = x + (sum_k M_ik q_k - w_i q_i), x read at the output.  The output is
+// always a fresh buffer.  The code's kind, the EF and the wire cast act in
+// the staging only, so they are runtime flags: one instance in all.
+__global__ void __launch_bounds__(repro::kNodesBlock)
+    cmix_nodes_kernel(const float* __restrict__ x,
+                      const float* __restrict__ e,
+                      const float* __restrict__ q_in,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ w,
+                      const float* __restrict__ M, float* __restrict__ o,
+                      float* __restrict__ ef, uint32_t seed, int n,
+                      long long D, int kind, int with_ef, int wire) {
+  using repro::kNodesBlock;
+  using repro::kNodesCols;
+  using repro::kNodesRows;
+  extern __shared__ __align__(16) float nodes_buf[];
+  float* sq = nodes_buf;
+  float* sM = nodes_buf + n * kNodesCols;
+  const int lane = threadIdx.x % 32;
+  const int c0 = (threadIdx.x / 32) * 4;
+  const long long col_tiles = (D + kNodesCols - 1) / kNodesCols;
+  const int row_tiles = (n + kNodesRows - 1) / kNodesRows;
+  const bool write_ef = with_ef && blockIdx.y == 0;
+  int staged = -1;
+  for (long long ct = blockIdx.x; ct < col_tiles; ct += gridDim.x) {
+    const long long j0 = ct * kNodesCols;
+    const int cols = repro::live_cols(j0, D);
+    __syncthreads();  // the last tile's products are done with sq and sM
+#pragma unroll 8
+    for (int p = threadIdx.x; p < n * cols; p += kNodesBlock) {
+      const int k = cols == kNodesCols ? p / kNodesCols : p / cols;
+      const int c = p - k * cols;
+      const long long j = j0 + c;
+      const long long at = k * D + j;
+      float q;
+      if (kind == kPrecomputed) {
+        q = q_in[at];
+      } else {
+        const uint32_t bits =
+            repro::column_bits(seed, static_cast<uint32_t>(j));
+        const float y = with_ef ? __fadd_rn(x[at], e[at]) : x[at];
+        q = kind == kInt8 ? repro::int8_q(y, scale[k],
+                                          repro::uniform_of(bits))
+                          : repro::fp8_q(y, scale[k], bits);
+        if (write_ef) ef[at] = __fsub_rn(y, q);
+      }
+      if (wire) q = __bfloat162float(__float2bfloat16_rn(q));
+      sq[k * kNodesCols + c] = q;
+    }
+    bool first = true;
+    for (int r = blockIdx.y; r < row_tiles; r += gridDim.y) {
+      if (r != staged) {  // uniform over the block
+        if (!first) __syncthreads();  // the last row tile's products
+        repro::stage_rows(M, sM, n, r * kNodesRows);
+        staged = r;
+      }
+      first = false;
+      __syncthreads();
+      const int i = r * kNodesRows + lane;
+      if (j0 + c0 >= D || i >= n) continue;  // past the ragged edges
+      float acc[4] = {};
+      repro::nodes_products(sq, sM, n, lane, c0, acc);
+      const float wi = __ldg(w + i);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long j = j0 + c0 + c;
+        if (j >= D) continue;
+        const float corr =
+            __fsub_rn(acc[c], __fmul_rn(wi, sq[i * kNodesCols + c0 + c]));
+        o[i * D + j] = __fadd_rn(x[i * D + j], corr);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Row maxima of |x + e| for the int8/fp8 scales
 // ---------------------------------------------------------------------------
 constexpr int kAbsmaxBlock = 256;
@@ -432,6 +521,39 @@ extern "C" int repro_cmix_vector(const void* x, const void* e, const void* q,
                                 Mf, of, ef_out, seed, D, s);
   }
   return static_cast<int>(err);
+}
+
+// Plain C entry point of the node-parallel instance (bound with ctypes):
+// the arguments of repro_cmix less `block`, then the grid, `grid_x` column
+// tiles by `grid_y` row tiles at most (the blocks walk the rest).  Any n,
+// D and 4-byte alignment.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_cmix_nodes(const void* x, const void* e, const void* q,
+                                const void* scale, const void* w,
+                                const void* M, void* o, void* ef,
+                                unsigned int seed, long long D, int n,
+                                int kind, int with_ef, int wire, int grid_x,
+                                int grid_y, void* stream) {
+  if (n < 1 || D < 1 || kind < 0 || kind > 2 ||
+      (kind == kPrecomputed && with_ef) || grid_x < 1 || grid_y < 1 ||
+      grid_y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = repro::nodes_smem(n);
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cmix_nodes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cmix_nodes_kernel<<<dim3(static_cast<unsigned>(grid_x),
+                           static_cast<unsigned>(grid_y)),
+                      repro::kNodesBlock, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(e),
+      static_cast<const float*>(q), static_cast<const float*>(scale),
+      static_cast<const float*>(w), static_cast<const float*>(M),
+      static_cast<float*>(o), static_cast<float*>(ef), seed, n, D, kind,
+      with_ef, wire);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Plain C entry point of the row maxima (bound with ctypes): m[k] =

@@ -31,8 +31,8 @@
 // Products and sums use the _rn intrinsics so nvcc contracts nothing into an
 // FMA: the half-step rounds exactly as the plain `x - gamma * g` does.
 //
-// Two instances of the round, picked by the wrapper's rule
-// (kernels/mixing_cuda.py `mix_vector_width`):
+// Three instances of the round, picked by the wrapper's rules
+// (kernels/mixing_cuda.py `mix_vector_width`, `use_nodes_mix`):
 //
 // * `mix_vector_kernel<N, V, ...>`, for n in {2, 4, 8, 16, 32} at any D
 //   and alignment.  Timing variants of the generic kernel on the H100
@@ -58,22 +58,45 @@
 //   grid-stride loop over column groups, with a grid of as many blocks as
 //   fit on the card at once, keeps the residual's partials to one per
 //   block; they are added in a fixed order by `sum_partials`.
+// * `mix_nodes_kernel` (nodes.cuh), contiguous rows at n >= 48, or at
+//   n >= 3 on D <= 8,192 (the wrapper's `_nodes_rows`, from timings in
+//   turns): the n x n mix spread over its outputs, 4 of them a thread,
+//   each the generic chain in the generic order; the residual in a pass of
+//   its own at the generic kernel's block width
+//   (`mix_nodes_residual_kernel`, the generic kernel's tail:
+//   `residual_column`, `block_tree`), so x̄ and the partials are the
+//   generic instance's.  At the simulators' n = 100, D = 10 the generic
+//   kernel ran the whole round on one warp, 10 of its lanes each through a
+//   10,000-term chain: 0.34 ms a call against 0.003 ms for a one-element
+//   launch, not launch-bound; this instance takes 0.006 ms, and 2.56 ms
+//   against the generic 11.93 at n = 100, D = 1,000,003 (PERF.md, row
+//   1d).  A lane takes one row, so at few nodes most lanes idle: there
+//   the generic kernel wins on a wide D.
 // * `mix_kernel`, one thread per column, the n x n mix out of shared
-//   memory: every other n (the simulators' n = 100, where D = 10 or 20
-//   and a round is bound by its launch, not its bytes).
+//   memory: any n, D and alignment; the route of strided rows and of
+//   n < 48 on a D over 8,192 outside the register instance's n, and the
+//   oracle the other two are held to bit for bit (`chip_smoke.py`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "columns.cuh"
+#include "nodes.cuh"
 
 namespace {
 
+using repro::kNodesBlock;
+using repro::kNodesCols;
+using repro::kNodesRows;
 using repro::kVecBlock;
 using repro::load_vec;
 using repro::store_vec;
 
 constexpr int kMaxBlock = 1024;
+// Bytes of dynamic shared memory a kernel with the static reduction buffer
+// `red[kMaxBlock]` (4 KB) may take without opting in: the 48 KB a block
+// gets by default hold both.
+constexpr size_t kRedDefaultSmem = 48u * 1024u - kMaxBlock * sizeof(float);
 
 // The node counts that have a register instance of the mix (cmix.cu's
 // are columns.cuh's `vector_nodes`, without n = 2).
@@ -83,6 +106,43 @@ bool mix_vector_nodes(int n) {
 
 __device__ __forceinline__ float wire_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// x̄ of one column and the column's sum of squares about it: `s` holds the
+// column's n values at a stride of `bd` words and is overwritten by the
+// pairwise halving (s[i] += s[m - h + i]); `col` holds them again, at a
+// stride of `stride`, for the sum of squares in row order.
+__device__ __forceinline__ float residual_column(float* s, int bd,
+                                                 const float* col,
+                                                 long long stride, int n,
+                                                 float* xbar_j) {
+  for (int m = n; m > 1;) {
+    const int h = m / 2;
+    for (int i = 0; i < h; ++i)
+      s[i * bd] = __fadd_rn(s[i * bd], s[(m - h + i) * bd]);
+    m -= h;
+  }
+  const float mean = __fdiv_rn(s[0], static_cast<float>(n));
+  *xbar_j = mean;
+  float r = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float e = __fsub_rn(col[i * stride], mean);
+    r = __fadd_rn(r, __fmul_rn(e, e));
+  }
+  return r;
+}
+
+// The block's threads' values added by a halving tree into *out (zeros from
+// threads past D); every thread of the block calls it.
+__device__ __forceinline__ void block_tree(float* red, float r, float* out) {
+  const int t = threadIdx.x;
+  red[t] = r;
+  __syncthreads();
+  for (int k = blockDim.x / 2; k > 0; k >>= 1) {
+    if (t < k) red[t] = __fadd_rn(red[t], red[t + k]);
+    __syncthreads();
+  }
+  if (t == 0) *out = red[0];
 }
 
 // One thread per column.  Dynamic shared memory holds, per thread, the
@@ -122,32 +182,13 @@ __global__ void mix_kernel(const float* x, const float* __restrict__ g,
       so[i * bd + t] = __fadd_rn(acc, __fmul_rn(__ldg(d + i), sx[i * bd + t]));
     }
     for (int i = 0; i < n; ++i) o[i * D + j] = so[i * bd + t];
-    if (with_residual) {
-      // sx is free now: halve pairwise, s[i] += s[m - h + i]
+    if (with_residual) {  // sx is free now: it takes the halving
       for (int i = 0; i < n; ++i) sx[i * bd + t] = so[i * bd + t];
-      for (int m = n; m > 1;) {
-        const int h = m / 2;
-        for (int i = 0; i < h; ++i)
-          sx[i * bd + t] = __fadd_rn(sx[i * bd + t], sx[(m - h + i) * bd + t]);
-        m -= h;
-      }
-      const float mean = __fdiv_rn(sx[t], static_cast<float>(n));
-      xbar[j] = mean;
-      for (int i = 0; i < n; ++i) {
-        const float e = __fsub_rn(so[i * bd + t], mean);
-        r = __fadd_rn(r, __fmul_rn(e, e));
-      }
+      r = residual_column(sx + t, bd, so + t, bd, n, xbar + j);
     }
   }
-  if (with_residual) {  // uniform over the block
-    red[t] = r;
-    __syncthreads();
-    for (int s = bd / 2; s > 0; s >>= 1) {
-      if (t < s) red[t] = __fadd_rn(red[t], red[t + s]);
-      __syncthreads();
-    }
-    if (t == 0) partial[blockIdx.x] = red[0];
-  }
+  // uniform over the block
+  if (with_residual) block_tree(red, r, partial + blockIdx.x);
 }
 
 // One block adds the per-block partials in a fixed order.
@@ -158,13 +199,7 @@ __global__ void sum_partials(const float* __restrict__ partial,
   float s = 0.f;
   for (long long i = t; i < count; i += blockDim.x)
     s = __fadd_rn(s, partial[i]);
-  red[t] = s;
-  __syncthreads();
-  for (int k = blockDim.x / 2; k > 0; k >>= 1) {
-    if (t < k) red[t] = __fadd_rn(red[t], red[t + k]);
-    __syncthreads();
-  }
-  if (t == 0) out[0] = red[0];
+  block_tree(red, s, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -341,6 +376,96 @@ cudaError_t launch_vector_n(int with_g, int wire, int with_residual,
 #undef REPRO_MIX_VECTOR
 }
 
+// ---------------------------------------------------------------------------
+// The node-parallel instance (nodes.cuh)
+// ---------------------------------------------------------------------------
+// o only: the residual is a pass of its own (`mix_nodes_residual_kernel`),
+// since a column's rows may be spread over several blocks.  `o` may alias
+// `x` only at gridDim.y = 1 (the entry point refuses the rest): a block
+// then stages every row of its column tile before it writes any, and each
+// thread reads x at its own outputs only before it writes them.  The
+// half-step and the wire cast act in the staging and the closing term
+// only, so they are runtime flags: one instance in all.
+__global__ void __launch_bounds__(kNodesBlock)
+    mix_nodes_kernel(const float* x, const float* __restrict__ g,
+                     const float* __restrict__ gamma,
+                     const float* __restrict__ d,
+                     const float* __restrict__ M, float* o, int n,
+                     long long D, int with_g, int wire) {
+  extern __shared__ __align__(16) float nodes_buf[];
+  float* sv = nodes_buf;
+  float* sM = nodes_buf + n * kNodesCols;
+  const int lane = threadIdx.x % 32;
+  const int c0 = (threadIdx.x / 32) * 4;
+  const long long col_tiles = (D + kNodesCols - 1) / kNodesCols;
+  const int row_tiles = (n + kNodesRows - 1) / kNodesRows;
+  const float gam = with_g ? gamma[0] : 0.f;
+  int staged = -1;
+  for (long long ct = blockIdx.x; ct < col_tiles; ct += gridDim.x) {
+    const long long j0 = ct * kNodesCols;
+    const int cols = repro::live_cols(j0, D);
+    __syncthreads();  // the last tile's products are done with sv and sM
+#pragma unroll 8
+    for (int q = threadIdx.x; q < n * cols; q += kNodesBlock) {
+      const int k = cols == kNodesCols ? q / kNodesCols : q / cols;
+      const int c = q - k * cols;
+      const long long at = k * D + j0 + c;
+      float v = x[at];
+      if (with_g) v = __fsub_rn(v, __fmul_rn(gam, g[at]));
+      sv[k * kNodesCols + c] = wire ? wire_bf16(v) : v;
+    }
+    bool first = true;
+    for (int r = blockIdx.y; r < row_tiles; r += gridDim.y) {
+      if (r != staged) {  // uniform over the block
+        if (!first) __syncthreads();  // the last row tile's products
+        repro::stage_rows(M, sM, n, r * kNodesRows);
+        staged = r;
+      }
+      first = false;
+      __syncthreads();
+      const int i = r * kNodesRows + lane;
+      if (j0 + c0 >= D || i >= n) continue;  // past the ragged edges
+      float acc[4] = {};
+      repro::nodes_products(sv, sM, n, lane, c0, acc);
+      const float di = __ldg(d + i);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long j = j0 + c0 + c;
+        if (j >= D) continue;
+        float xi;  // x'_ij before the wire cast
+        if (wire) {
+          xi = x[i * D + j];
+          if (with_g) xi = __fsub_rn(xi, __fmul_rn(gam, g[i * D + j]));
+        } else {
+          xi = sv[i * kNodesCols + c0 + c];
+        }
+        o[i * D + j] = __fadd_rn(acc[c], __fmul_rn(di, xi));
+      }
+    }
+  }
+}
+
+// The generic kernel's residual on the finished o: one thread per column
+// and blocks of the generic kernel's width, so x̄ (the pairwise halving),
+// each column's sum of squares in row order, the per-block tree and hence
+// the partials are the generic instance's, bit for bit.
+__global__ void mix_nodes_residual_kernel(const float* __restrict__ o,
+                                          float* __restrict__ xbar,
+                                          float* __restrict__ partial,
+                                          int n, long long D) {
+  extern __shared__ float smem[];
+  __shared__ float red[kMaxBlock];
+  const int bd = blockDim.x;
+  const int t = threadIdx.x;
+  const long long j = static_cast<long long>(blockIdx.x) * bd + t;
+  float r = 0.f;
+  if (j < D) {
+    for (int i = 0; i < n; ++i) smem[i * bd + t] = o[i * D + j];
+    r = residual_column(smem + t, bd, o + j, D, n, xbar + j);
+  }
+  block_tree(red, r, partial + blockIdx.x);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  `block` must be a power of two
@@ -355,7 +480,7 @@ extern "C" int repro_mix(const void* x, const void* g, const void* gamma,
       (block & (block - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2ull * n * block * sizeof(float);
-  if (smem > 48u * 1024u) {
+  if (smem > kRedDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -432,4 +557,55 @@ extern "C" int repro_mix_vector(const void* x, const void* g,
   }
 #undef REPRO_MIX_NV
   return static_cast<int>(e);
+}
+
+// Plain C entry point of the node-parallel instance (bound with ctypes):
+// the arguments of repro_mix, then the grid, `grid_x` column tiles by
+// `grid_y` row tiles at most (the blocks walk the rest).  `block` is the
+// generic kernel's block width, which the residual pass takes; `partial`
+// holds ceil(D / block) floats.  `o` may be `x` only at grid_y = 1.
+// Returns cudaGetLastError() after the launches (0 = success), or
+// cudaErrorInvalidValue for arguments it refuses.
+extern "C" int repro_mix_nodes(const void* x, const void* g, const void* gamma,
+                               const void* d, const void* M, void* o,
+                               void* xbar, void* partial, void* resid,
+                               long long D, int n, int with_g, int wire,
+                               int with_residual, int block, int grid_x,
+                               int grid_y, void* stream) {
+  if (n < 1 || D < 1 || block < 32 || block > kMaxBlock ||
+      (block & (block - 1)) != 0 || grid_x < 1 || grid_y < 1 ||
+      grid_y > 65535 || (x == o && grid_y != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* of = static_cast<float*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t tile_smem = repro::nodes_smem(n);
+  cudaError_t e = cudaSuccess;
+  if (tile_smem > 48u * 1024u)
+    e = cudaFuncSetAttribute(mix_nodes_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(tile_smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mix_nodes_kernel<<<dim3(static_cast<unsigned>(grid_x),
+                          static_cast<unsigned>(grid_y)),
+                     kNodesBlock, tile_smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(gamma), static_cast<const float*>(d),
+      static_cast<const float*>(M), of, n, D, with_g, wire);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !with_residual) return static_cast<int>(e);
+  const size_t smem = 1ull * n * block * sizeof(float);
+  if (smem > kRedDefaultSmem) {
+    e = cudaFuncSetAttribute(mix_nodes_residual_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long grid = (D + block - 1) / block;
+  mix_nodes_residual_kernel<<<static_cast<unsigned>(grid), block, smem, s>>>(
+      of, static_cast<float*>(xbar), static_cast<float*>(partial), n, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_partials<<<1, kMaxBlock, 0, s>>>(static_cast<const float*>(partial),
+                                       grid, static_cast<float*>(resid));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -33,9 +33,13 @@ ENTRY_POINTS = {
     "mix": ("mix", "repro_mix", [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
     "mix_vector": ("mix", "repro_mix_vector",
                    [_P] * 9 + [_LL] + [_I] * 6 + [_P]),
+    "mix_nodes": ("mix", "repro_mix_nodes",
+                  [_P] * 9 + [_LL] + [_I] * 7 + [_P]),
     "cmix": ("cmix", "repro_cmix", [_P] * 8 + [_U, _LL] + [_I] * 5 + [_P]),
     "cmix_vector": ("cmix", "repro_cmix_vector",
                     [_P] * 8 + [_U, _LL] + [_I] * 4 + [_P]),
+    "cmix_nodes": ("cmix", "repro_cmix_nodes",
+                   [_P] * 8 + [_U, _LL] + [_I] * 6 + [_P]),
     "cmix_absmax": ("cmix", "repro_cmix_absmax",
                     [_P] * 4 + [_LL] + [_I] * 3 + [_P]),
     "collective": ("collective", "repro_collective",

@@ -29,15 +29,21 @@ the kernel's oracle on the card — for a CPU tensor:
   (:func:`compensated_apply`).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  The mix and
-cmix rounds have two instances each, each picked by a rule of its own
-(:func:`mix_vector_width`, :func:`use_vector_cmix`): the register instance
-(the columns in registers; counted in ``mix_flat.vector_launches`` /
-``cmix_flat.vector_launches``) and the generic one (``.launches``); the
-two compute the same bits.  mix.cu's register instance takes n in
+cmix rounds have three instances each, picked by rules of their own
+(:func:`mix_vector_width`, :func:`use_nodes_mix`; :func:`use_vector_cmix`,
+:func:`use_nodes_cmix`): the register instance (the columns in registers;
+counted in ``mix_flat.vector_launches`` / ``cmix_flat.vector_launches``),
+the node-parallel one (the n × n mix spread over its outputs;
+``.nodes_launches``) and the generic one (``.launches``); the three
+compute the same bits.  mix.cu's register instance takes n in
 :data:`MIX_VECTOR_NODES` at any D and alignment, V columns a thread:
 :func:`vector_width` where D is a multiple of it and the rows 16-byte
 aligned, else 1.  cmix.cu's takes n in :data:`CMIX_VECTOR_NODES`, D a
-multiple of its vector width and 16-byte aligned rows only.
+multiple of its vector width and 16-byte aligned rows only.  Where the
+register instance refuses a round, contiguous rows take the node-parallel
+instance at n >= :data:`NODES_MIN_N`, or at n >= 3 on a narrow D
+(:func:`_nodes_rows`; :func:`nodes_plan` sizes its tiles and grid), and
+the generic instance takes the rest.
 :func:`cmix_absmax` counts in ``cmix_flat.absmax_launches``.  The kernels
 are built on first use by :mod:`repro_torch.kernels.cuda_build`;
 importing this module builds nothing.
@@ -88,6 +94,17 @@ CMIX_VECTOR_NODES = (4, 8, 16, 32)
 VECTOR_MAX_GRID = 2048
 # cmix.cu's row maxima: at most this many blocks per row (kAbsmaxMaxChunks)
 ABSMAX_MAX_CHUNKS = 256
+# the node-parallel instances of mix.cu and cmix.cu (csrc/nodes.cuh): blocks
+# of NODES_BLOCK threads on tiles of NODES_COLS columns by NODES_ROWS rows
+NODES_BLOCK = 256
+NODES_COLS = 32
+NODES_ROWS = 32
+# at most this many blocks: they walk the remaining column tiles
+NODES_MAX_GRID = 2048
+# where the node-parallel rule sends a round (_nodes_rows): from this many
+# nodes at any D, below it from n = 3 up to this width
+NODES_MIN_N = 48
+NODES_NARROW_D = 8_192
 
 
 # ---------------------------------------------------------------------------
@@ -337,13 +354,63 @@ def _cmix_rows(n: int, D: int, tensors) -> bool:
             and _aligned_rows(tensors))
 
 
+def _contiguous(tensors) -> bool:
+    return all(t.is_contiguous() for t in tensors)
+
+
+def _nodes_rows(n: int, D: int, tensors) -> bool:
+    """The node-parallel rule of mix.cu and cmix.cu, asked where the
+    register instance refuses the round: contiguous row operands, and
+    n >= :data:`NODES_MIN_N` at any D or n >= 3 at D <=
+    :data:`NODES_NARROW_D`.  Generic otherwise.
+
+    The crossovers, timed in turns on the H100 (PERF.md, rows 1d and 2b):
+    a lane takes one row, so below 32 nodes most lanes idle, while the
+    generic instance's one thread a column fills the card once D is wide.
+    At D = 1,000,003 the node-parallel instance lost up to n = 33
+    (0.25-0.87x), tied at n = 40 (mix 1.03x, cmix 1.00x) and won from
+    n = 48 (1.46x and more; 3.2-4.6x at n = 100).  Up to D = 8,001 it won
+    at every n from 3 (1.10x and more); at 16,001 it lost at n = 3
+    (cmix 0.97x).  At n = 2 the generic instance was as fast or faster at
+    every width (cmix 0.94-0.96x up to D = 8,001, 0.18x at
+    D = 25,165,824)."""
+    return _contiguous(tensors) and (
+        n >= NODES_MIN_N or (n >= 3 and D <= NODES_NARROW_D))
+
+
+def nodes_smem(n: int) -> int:
+    """Bytes of dynamic shared memory a block of the node-parallel
+    instances takes: the column tile's n × NODES_COLS operands and the row
+    tile's M at a pitch of NODES_ROWS + 1 (``nodes_smem`` in
+    csrc/nodes.cuh)."""
+    return 4 * n * (NODES_COLS + NODES_ROWS + 1)
+
+
+def nodes_plan(n: int, D: int, inplace: bool = False) -> dict:
+    """The tiles and grid of a node-parallel launch on an (n, D) round:
+    ``row_tiles`` (of :data:`NODES_ROWS`), ``col_tiles`` (of
+    :data:`NODES_COLS`), ``grid`` ``(x, y)`` (y = every row tile, or 1
+    when the round writes over its input: a block then reads all of its
+    columns before it writes any; x at most :data:`NODES_MAX_GRID` // y,
+    the blocks walk the rest), ``smem`` bytes and ``partials``, the
+    residual pass's blocks (the generic instance's count,
+    ceil(D / :func:`_block_size`)).  Pure; raises where
+    :func:`_block_size` does."""
+    col_tiles = -(-D // NODES_COLS)
+    row_tiles = -(-n // NODES_ROWS)
+    grid_y = 1 if inplace else row_tiles
+    grid_x = min(col_tiles, max(1, NODES_MAX_GRID // grid_y))
+    return {"row_tiles": row_tiles, "col_tiles": col_tiles,
+            "grid": (grid_x, grid_y), "smem": nodes_smem(n),
+            "partials": -(-D // _block_size(n))}
+
+
 def _mix_rows(n: int, D: int, tensors) -> int:
-    """mix.cu's rule: the register instance's V, or 0 for the generic
-    instance.  n outside :data:`MIX_VECTOR_NODES` or a non-contiguous
+    """mix.cu's register rule: the register instance's V, or 0 where it
+    does not run.  n outside :data:`MIX_VECTOR_NODES` or a non-contiguous
     operand: 0; D a multiple of :func:`vector_width` with 16-byte aligned
     rows: that width; else 1."""
-    if n not in MIX_VECTOR_NODES or not all(t.is_contiguous()
-                                            for t in tensors):
+    if n not in MIX_VECTOR_NODES or not _contiguous(tensors):
         return 0
     V = vector_width(n)
     return V if D % V == 0 and _aligned_rows(tensors) else 1
@@ -369,36 +436,58 @@ def use_vector_mix(xf: torch.Tensor,
     return mix_vector_width(xf, gf) > 0
 
 
+def use_nodes_mix(xf: torch.Tensor,
+                  gf: Optional[torch.Tensor] = None) -> bool:
+    """Whether a CUDA round on ``xf`` (n, D) (and ``gf``) launches mix.cu's
+    node-parallel instance: where the register instance does not run
+    (:func:`mix_vector_width` 0) and :func:`_nodes_rows` takes it (the
+    outputs are fresh or ``xf``).  Pure: reads shapes and strides only."""
+    n, D = xf.shape
+    rows = [xf] + ([gf] if gf is not None else [])
+    return not _mix_rows(n, D, rows) and _nodes_rows(n, D, rows)
+
+
 def _launch(xf, gf, gamma, d, M, *, with_g, with_residual, wire, inplace,
-            vector: bool):
+            instance: str):
     n, D = xf.shape
     if xf.device.type != "cuda":
         raise ValueError("mix kernel: CUDA operands expected")
     _check_operands("mix kernel", xf, [d, M] + ([gf, gamma] if with_g
                                                 else []))
-    vec = mix_vector_width(xf, gf if with_g else None) if vector else 0
-    if vector and not vec:
+    g_rule = gf if with_g else None
+    vec = mix_vector_width(xf, g_rule) if instance == "vector" else 0
+    if instance == "vector" and not vec:
         raise ValueError("mix_vector: operands outside mix_vector_width's "
                          "rule")
+    if instance == "nodes" and not _contiguous(
+            [xf] + ([g_rule] if with_g else [])):
+        raise ValueError("mix_nodes: row operands must be contiguous")
     o = xf if inplace else torch.empty_like(xf)
     block = _block_size(n)
+    plan = nodes_plan(n, D, inplace=inplace) if instance == "nodes" else None
     dev = xf.device
     xbar = partial = resid = None
     if with_residual:
         xbar = torch.empty((1, D), dtype=torch.float32, device=dev)
         partial = torch.empty(
-            (VECTOR_MAX_GRID if vector else (D + block - 1) // block,),
-            dtype=torch.float32, device=dev)
+            (VECTOR_MAX_GRID if vec else plan["partials"] if plan
+             else (D + block - 1) // block,), dtype=torch.float32,
+            device=dev)
         resid = torch.empty((), dtype=torch.float32, device=dev)
     args = (_ptr(xf), _ptr(gf), _ptr(gamma), _ptr(d), _ptr(M), _ptr(o),
             _ptr(xbar), _ptr(partial), _ptr(resid), D, n, int(with_g),
             int(wire), int(with_residual))
-    if vector:
+    if vec:
         err = cuda_build.entry("mix_vector")(*args, vec, VECTOR_MAX_GRID,
                                              _stream(dev))
+    elif instance == "nodes":
+        grid_x, grid_y = plan["grid"]
+        err = cuda_build.entry("mix_nodes")(*args, block, grid_x, grid_y,
+                                            _stream(dev))
     else:
         err = cuda_build.entry("mix")(*args, block, _stream(dev))
-    _check_launch(err, f"mix (n={n}, D={D}, vector width={vec})")
+    _check_launch(err, f"mix (n={n}, D={D}, {instance} instance, vector "
+                       f"width={vec})")
     return (o, xbar, resid) if with_residual else o
 
 
@@ -408,7 +497,7 @@ def mix_generic(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
     alignment); counted in ``mix_flat.launches``."""
     out = _launch(xf, gf, gamma, d, M, with_g=with_g,
                   with_residual=with_residual, wire=wire, inplace=inplace,
-                  vector=False)
+                  instance="generic")
     mix_flat.launches += 1
     return out
 
@@ -420,8 +509,22 @@ def mix_vector(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
     otherwise); counted in ``mix_flat.vector_launches``."""
     out = _launch(xf, gf, gamma, d, M, with_g=with_g,
                   with_residual=with_residual, wire=wire, inplace=inplace,
-                  vector=True)
+                  instance="vector")
     mix_flat.vector_launches += 1
+    return out
+
+
+def mix_nodes(xf, gf, gamma, d, M, *, with_g: bool, with_residual: bool,
+              wire: bool, inplace: bool = False):
+    """Launch mix.cu's node-parallel instance on CUDA operands with
+    contiguous rows (raises otherwise; any n and D), tiled by
+    :func:`nodes_plan`; counted in ``mix_flat.nodes_launches``.  With the
+    residual, a second pass at the generic instance's block width gives
+    x̄ and the residual's partials as the generic instance does."""
+    out = _launch(xf, gf, gamma, d, M, with_g=with_g,
+                  with_residual=with_residual, wire=wire, inplace=inplace,
+                  instance="nodes")
+    mix_flat.nodes_launches += 1
     return out
 
 
@@ -451,8 +554,9 @@ def mix_flat(xf: torch.Tensor, gf: Optional[torch.Tensor],
 
     Returns ``o`` or, with ``with_residual``, ``(o, xbar (1, D),
     residual)``.  A CUDA ``xf`` launches the instance of mix.cu that
-    :func:`mix_vector_width` picks (:func:`mix_vector` or
-    :func:`mix_generic`); a CPU ``xf`` takes :func:`mix_flat_plain`.
+    :func:`mix_vector_width` and :func:`use_nodes_mix` pick
+    (:func:`mix_vector`, :func:`mix_nodes` or :func:`mix_generic`); a CPU
+    ``xf`` takes :func:`mix_flat_plain`.
     ``inplace`` lets the kernel write ``o`` into ``xf``: only for a private
     staging buffer that nobody reads again.
     """
@@ -466,14 +570,16 @@ def mix_flat(xf: torch.Tensor, gf: Optional[torch.Tensor],
     if dev.type == "cpu":
         return mix_flat_plain(xf, gf, gamma, d, M, with_g=with_g,
                               with_residual=with_residual, wire=wire)
-    launch = (mix_vector if use_vector_mix(xf, gf if with_g else None)
-              else mix_generic)
+    g_rule = gf if with_g else None
+    launch = (mix_vector if use_vector_mix(xf, g_rule)
+              else mix_nodes if use_nodes_mix(xf, g_rule) else mix_generic)
     return launch(xf, gf, gamma, d, M, with_g=with_g,
                   with_residual=with_residual, wire=wire, inplace=inplace)
 
 
 mix_flat.launches = 0
 mix_flat.vector_launches = 0
+mix_flat.nodes_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -673,6 +779,17 @@ def use_vector_cmix(xf: torch.Tensor, ef: Optional[torch.Tensor] = None,
     return _cmix_rows(n, D, [t for t in (xf, ef, qf) if t is not None])
 
 
+def use_nodes_cmix(xf: torch.Tensor, ef: Optional[torch.Tensor] = None,
+                   qf: Optional[torch.Tensor] = None) -> bool:
+    """Whether a CUDA round on ``xf`` (n, D) (with ``ef`` or ``qf``)
+    launches cmix.cu's node-parallel instance: where the register instance
+    does not run (:func:`use_vector_cmix`) and :func:`_nodes_rows` takes
+    it.  Pure: reads shapes, strides and pointers only."""
+    n, D = xf.shape
+    rows = [t for t in (xf, ef, qf) if t is not None]
+    return not _cmix_rows(n, D, rows) and _nodes_rows(n, D, rows)
+
+
 def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],
               qf: Optional[torch.Tensor], seed: int,
               scale: Optional[torch.Tensor], w: torch.Tensor,
@@ -683,16 +800,17 @@ def cmix_flat(xf: torch.Tensor, ef: Optional[torch.Tensor],
     ``kind``: "int8"/"fp8" make ``q`` in the kernel from ``x (+ ef)``,
     the per-row ``scale`` and the uint32 ``seed``; "precomputed" takes
     ``qf``.  A CUDA ``xf`` launches, into fresh outputs, the instance of
-    cmix.cu that :func:`use_vector_cmix` picks (:func:`cmix_vector` or
-    :func:`cmix_generic`); a CPU ``xf`` takes :func:`cmix_flat_plain`.
+    cmix.cu that :func:`use_vector_cmix` and :func:`use_nodes_cmix` pick
+    (:func:`cmix_vector`, :func:`cmix_nodes` or :func:`cmix_generic`); a
+    CPU ``xf`` takes :func:`cmix_flat_plain`.
     """
     quant, with_ef = _check_cmix(xf, ef, qf, scale, w, M, kind, with_ef)
     if xf.device.type == "cpu":
         return cmix_flat_plain(xf, ef, qf, seed, scale, w, M, kind=kind,
                                with_ef=with_ef, wire=wire)
-    vector = use_vector_cmix(xf, ef if with_ef else None,
-                             None if quant else qf)
-    launch = cmix_vector if vector else cmix_generic
+    rows = (ef if with_ef else None, None if quant else qf)
+    launch = (cmix_vector if use_vector_cmix(xf, *rows)
+              else cmix_nodes if use_nodes_cmix(xf, *rows) else cmix_generic)
     return launch(xf, ef, qf, seed, scale, w, M, kind=kind, with_ef=with_ef,
                   wire=wire)
 
@@ -717,14 +835,17 @@ def _check_cmix(xf, ef, qf, scale, w, M, kind, with_ef):
 
 
 def _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
-                 vector: bool):
+                 instance: str):
     quant, with_ef = _check_cmix(xf, ef, qf, scale, w, M, kind, with_ef)
     if xf.device.type != "cuda":
         raise ValueError("cmix kernel: CUDA operands expected")
-    if vector and not use_vector_cmix(xf, ef if with_ef else None,
-                                      None if quant else qf):
+    rows = (ef if with_ef else None, None if quant else qf)
+    if instance == "vector" and not use_vector_cmix(xf, *rows):
         raise ValueError("cmix_vector: operands outside use_vector_cmix's "
                          "rule")
+    if instance == "nodes" and not _contiguous(
+            [t for t in (xf, *rows) if t is not None]):
+        raise ValueError("cmix_nodes: row operands must be contiguous")
     n, D = xf.shape
     o = torch.empty_like(xf)
     ef_out = torch.empty_like(xf) if with_ef else None
@@ -732,12 +853,18 @@ def _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
             _ptr(None if quant else qf), _ptr(scale if quant else None),
             _ptr(w), _ptr(M), _ptr(o), _ptr(ef_out), int(seed) & 0xFFFFFFFF,
             D, n, CMIX_KINDS[kind], int(with_ef), int(wire))
-    if vector:
+    if instance == "vector":
         err = cuda_build.entry("cmix_vector")(*args, _stream(xf.device))
+    elif instance == "nodes":
+        plan = nodes_plan(n, D)
+        grid_x, grid_y = plan["grid"]
+        err = cuda_build.entry("cmix_nodes")(*args, grid_x, grid_y,
+                                             _stream(xf.device))
     else:
         err = cuda_build.entry("cmix")(*args, _block_size(n),
                                        _stream(xf.device))
-    _check_launch(err, f"cmix (n={n}, D={D}, kind={kind}, vector={vector})")
+    _check_launch(err, f"cmix (n={n}, D={D}, kind={kind}, {instance} "
+                       f"instance)")
     return o, ef_out
 
 
@@ -746,7 +873,7 @@ def cmix_generic(xf, ef, qf, seed, scale, w, M, *, kind: str, with_ef: bool,
     """Launch cmix.cu's generic instance on CUDA operands; counted in
     ``cmix_flat.launches``."""
     out = _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
-                       vector=False)
+                       instance="generic")
     cmix_flat.launches += 1
     return out
 
@@ -757,13 +884,25 @@ def cmix_vector(xf, ef, qf, seed, scale, w, M, *, kind: str, with_ef: bool,
     :func:`use_vector_cmix` accepts (raises otherwise); counted in
     ``cmix_flat.vector_launches``."""
     out = _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
-                       vector=True)
+                       instance="vector")
     cmix_flat.vector_launches += 1
+    return out
+
+
+def cmix_nodes(xf, ef, qf, seed, scale, w, M, *, kind: str, with_ef: bool,
+               wire: bool):
+    """Launch cmix.cu's node-parallel instance on CUDA operands with
+    contiguous rows (raises otherwise; any n and D), tiled by
+    :func:`nodes_plan`; counted in ``cmix_flat.nodes_launches``."""
+    out = _launch_cmix(xf, ef, qf, seed, scale, w, M, kind, with_ef, wire,
+                       instance="nodes")
+    cmix_flat.nodes_launches += 1
     return out
 
 
 cmix_flat.launches = 0
 cmix_flat.vector_launches = 0
+cmix_flat.nodes_launches = 0
 cmix_flat.absmax_launches = 0
 
 

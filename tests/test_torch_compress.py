@@ -572,16 +572,19 @@ def test_scales_of_the_maxima_equal_the_scales(kind):
                 jscale(jnp.asarray(y)))
 
 
-@pytest.mark.parametrize("launcher", ["cmix_generic", "cmix_vector"])
+@pytest.mark.parametrize("launcher", ["cmix_generic", "cmix_vector",
+                                      "cmix_nodes"])
 def test_cmix_direct_launchers_refuse_cpu_operands(launcher):
     x = _rows(8, 1000)
     w, M = (torch.from_numpy(a) for a in tmix.compensated_round_factors(
         "gossip", "ring", 8))
-    before = (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches)
+    before = (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches,
+              tmc.cmix_flat.nodes_launches)
     with pytest.raises(ValueError, match="CUDA"):
         getattr(tmc, launcher)(x, None, None, 3, tq.int8_scale(x), w, M,
                                kind="int8", with_ef=False, wire=False)
-    assert (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches) == before
+    assert (tmc.cmix_flat.launches, tmc.cmix_flat.vector_launches,
+            tmc.cmix_flat.nodes_launches) == before
 
 
 @pytest.mark.parametrize("n,n_pods,tiled,fits", [

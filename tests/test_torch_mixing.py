@@ -350,15 +350,212 @@ def test_use_vector_mix_refuses_strided_rows():
     assert not tmc.use_vector_mix(x.t().contiguous().t())
 
 
-@pytest.mark.parametrize("launcher", ["mix_generic", "mix_vector"])
+@pytest.mark.parametrize("launcher", ["mix_generic", "mix_vector",
+                                      "mix_nodes"])
 def test_mix_direct_launchers_refuse_cpu_operands(launcher):
     """The launchers of one instance (which chip_smoke times and compares
     directly) take CUDA operands only and count nothing on the CPU."""
     x = _rows(8, 1000)
     d, M = (torch.from_numpy(a) for a in tmc.phase_matrices("gossip", "ring",
                                                             8))
-    before = (tmc.mix_flat.launches, tmc.mix_flat.vector_launches)
+    before = (tmc.mix_flat.launches, tmc.mix_flat.vector_launches,
+              tmc.mix_flat.nodes_launches)
     with pytest.raises(ValueError, match="CUDA"):
         getattr(tmc, launcher)(x, None, None, d, M, with_g=False,
                                with_residual=True, wire=False)
-    assert (tmc.mix_flat.launches, tmc.mix_flat.vector_launches) == before
+    assert (tmc.mix_flat.launches, tmc.mix_flat.vector_launches,
+            tmc.mix_flat.nodes_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The node-parallel instances of mix.cu and cmix.cu (csrc/nodes.cuh): the
+# rules that send a round to them and the planner of their tiles and grid
+# ---------------------------------------------------------------------------
+def _mix_instance(x, g=None):
+    if tmc.mix_vector_width(x, g):
+        return "vector"
+    return "nodes" if tmc.use_nodes_mix(x, g) else "generic"
+
+
+def _cmix_instance(x, e=None, q=None):
+    if tmc.use_vector_cmix(x, e, q):
+        return "vector"
+    return "nodes" if tmc.use_nodes_cmix(x, e, q) else "generic"
+
+
+# (n, D, x offset, strided x, want): n outside MIX_VECTOR_NODES with
+# contiguous rows takes the node-parallel instance from n = 48 at any D
+# and from n = 3 up to D = NODES_NARROW_D, at any alignment; strided rows,
+# n = 1 and few nodes on a wider D stay generic; n in the set stays on the
+# register instance
+MIX_NODES_RULE = [
+    (100, 10, 0, False, "nodes"), (100, 20, 0, False, "nodes"),
+    (100, 11, 0, False, "nodes"), (100, 1000, 1, False, "nodes"),
+    (1, 1, 0, False, "generic"), (3, 7, 0, False, "nodes"),
+    (5, 1000, 0, False, "nodes"), (64, 1001, 2, False, "nodes"),
+    (256, 10, 0, False, "nodes"), (892, 3, 0, False, "nodes"),
+    (3, 8_192, 0, False, "nodes"), (3, 8_193, 0, False, "generic"),
+    (47, 8_193, 0, False, "generic"), (48, 8_193, 1, False, "nodes"),
+    (100, 20, 0, True, "generic"), (5, 1000, 0, True, "generic"),
+    (2, 1001, 0, False, "vector"), (8, 1000, 0, False, "vector"),
+    (16, 7, 0, False, "vector"), (32, 10, 1, False, "vector"),
+]
+
+
+@pytest.mark.parametrize("n,D,offset,strided,want", MIX_NODES_RULE)
+def test_mix_instance_rule(n, D, offset, strided, want):
+    x = _rows(n, 2 * D, offset)[:, ::2] if strided else _rows(n, D, offset)
+    assert _mix_instance(x) == want
+    assert _mix_instance(x, torch.zeros(n, D)) == want
+
+
+def test_mix_nodes_rule_reads_every_row_operand():
+    """A strided g keeps the round off the node-parallel instance."""
+    x = _rows(100, 10)
+    assert tmc.use_nodes_mix(x) and tmc.use_nodes_mix(x, _rows(100, 10))
+    assert not tmc.use_nodes_mix(x, _rows(100, 20)[:, ::2])
+    assert not tmc.use_nodes_mix(x.t().contiguous().t())
+
+
+# (n, D, x offset, strided, want): where cmix.cu's register instance
+# refuses the round (n outside CMIX_VECTOR_NODES, a ragged width or a
+# misaligned row), contiguous rows take the node-parallel instance from
+# n = 48 at any D and from n = 3 up to D = NODES_NARROW_D; n = 2, strided
+# rows and few nodes on a wider D stay generic
+CMIX_NODES_RULE = [
+    (2, 10, 0, False, "generic"), (2, 1001, 1, False, "generic"),
+    (100, 10, 0, False, "nodes"), (5, 11, 0, False, "nodes"),
+    (892, 10, 0, False, "nodes"), (100, 10, 0, True, "generic"),
+    (2, 1000, 0, True, "generic"), (4, 1000, 0, False, "vector"),
+    (32, 10, 0, False, "vector"), (8, 1001, 0, False, "nodes"),
+    (16, 1001, 0, False, "nodes"), (8, 1000, 1, False, "nodes"),
+    (8, 8_193, 0, False, "generic"), (48, 8_193, 0, False, "nodes"),
+]
+
+
+@pytest.mark.parametrize("n,D,offset,strided,want", CMIX_NODES_RULE)
+def test_cmix_instance_rule(n, D, offset, strided, want):
+    x = _rows(n, 2 * D, offset)[:, ::2] if strided else _rows(n, D, offset)
+    assert _cmix_instance(x) == want
+    assert _cmix_instance(x, x) == want
+    assert _cmix_instance(x, None, x) == want
+
+
+@pytest.mark.parametrize("n,D,want", [
+    (1, 1, False), (2, 10, False), (2, 25_165_824, False), (3, 10, True),
+    (3, 8_192, True), (3, 8_193, False), (33, 1_000_003, False),
+    (47, 1_000_003, False), (48, 1_000_003, True),
+    (100, 25_165_824, True)])
+def test_nodes_rule_thresholds(n, D, want):
+    """The node-parallel rule's crossovers, as timed on the H100: from
+    NODES_MIN_N nodes at any D; from 3 nodes up to NODES_NARROW_D."""
+    assert (tmc.NODES_MIN_N, tmc.NODES_NARROW_D) == (48, 8_192)
+    assert tmc._nodes_rows(n, D, []) is want
+
+
+def test_cmix_nodes_rule_reads_every_row_operand():
+    x = _rows(100, 10)
+    strided = _rows(100, 20)[:, ::2]
+    assert tmc.use_nodes_cmix(x, _rows(100, 10))
+    assert not tmc.use_nodes_cmix(x, strided)
+    assert not tmc.use_nodes_cmix(x, None, strided)
+
+
+def _generic_nodes():
+    """Every n the generic instances take (``_block_size`` does not
+    raise): 1 .. 892 at 32 threads a block."""
+    out = []
+    for n in range(1, 1025):
+        try:
+            tmc._block_size(n)
+        except ValueError:
+            break
+        out.append(n)
+    return out
+
+
+def _visits(tiles: int, grid: int) -> int:
+    """Tiles a grid-stride loop of ``grid`` blocks visits in all."""
+    b = np.arange(grid)
+    return int(np.maximum(0, -(-(tiles - b) // grid)).sum())
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("D", [1, 10, 11, 20, 1_000_003])
+def test_nodes_plan_covers_every_output(D, inplace):
+    """For every n the generic instance takes: the tiles span every row
+    and column, the grid-stride loops visit each (column tile, row tile)
+    once, the block's shared memory fits the H100, a round written over
+    its input keeps every row of a column in one block (grid y = 1), and
+    the residual pass has the generic instance's partial count."""
+    ns = _generic_nodes()
+    assert ns[-1] == 892
+    for n in ns:
+        plan = tmc.nodes_plan(n, D, inplace=inplace)
+        tile = tmc.NODES_ROWS
+        assert plan["row_tiles"] * tile >= n > (plan["row_tiles"] - 1) * tile
+        cols = plan["col_tiles"]
+        assert cols * tmc.NODES_COLS >= D > (cols - 1) * tmc.NODES_COLS
+        gx, gy = plan["grid"]
+        assert 1 <= gx <= cols and 1 <= gy <= plan["row_tiles"] <= 65535
+        assert gy == (1 if inplace else plan["row_tiles"])
+        assert gx * gy <= tmc.NODES_MAX_GRID or gx == 1
+        assert _visits(cols, gx) == cols
+        assert _visits(plan["row_tiles"], gy) == plan["row_tiles"]
+        assert plan["smem"] == tmc.nodes_smem(n)
+        assert plan["smem"] <= tmc.cuda_build.MAX_SMEM
+        assert plan["partials"] == -(-D // tmc._block_size(n))
+
+
+@pytest.mark.parametrize("n,D,grid", [
+    (100, 10, (1, 4)), (256, 10, (1, 8)), (100, 11, (1, 4)),
+    (100, 20, (1, 4)), (33, 10, (1, 2)), (100, 8_417, (264, 4)),
+    (100, 1_000_003, (512, 4)), (256, 1_000_003, (256, 8)),
+    (892, 1_000_003, (73, 28))])
+def test_nodes_plan_at_the_simulators_and_wide_shapes(n, D, grid):
+    """The grids nodes.cuh's header states: 1 x 4 at (100, 10), 1 x 8 at
+    (256, 10); on a wide D, at most NODES_MAX_GRID blocks over every row
+    tile."""
+    plan = tmc.nodes_plan(n, D)
+    assert plan["grid"] == grid
+
+
+def test_nodes_constants_match_the_header():
+    """NODES_BLOCK, NODES_COLS, NODES_ROWS and the shared memory's formula
+    are csrc/nodes.cuh's."""
+    import re
+
+    src = (tmc.cuda_build.CSRC / "nodes.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (kNodes\w+) = (\d+);", src))
+    assert int(consts["kNodesBlock"]) == tmc.NODES_BLOCK
+    assert int(consts["kNodesCols"]) == tmc.NODES_COLS
+    assert int(consts["kNodesRows"]) == tmc.NODES_ROWS
+    assert "constexpr int kNodesPitch = kNodesRows + 1;" in src
+    assert "(kNodesCols + kNodesPitch)" in src
+    assert tmc.nodes_smem(100) == 4 * 100 * (32 + 33)
+
+
+@pytest.mark.parametrize("name,symbol", [("mix_nodes", "repro_mix_nodes"),
+                                         ("cmix_nodes", "repro_cmix_nodes")])
+def test_nodes_entry_points_are_bound(name, symbol):
+    """The node-parallel instances' C entry points have their rows in
+    ENTRY_POINTS, in the library of their kernel (the rows' argument types
+    are held against the C signatures by test_torch_kernels.py)."""
+    library = name.split("_")[0]
+    assert tmc.cuda_build.ENTRY_POINTS[name][:2] == (library, symbol)
+
+
+def test_mix_flat_on_the_cpu_takes_the_plain_twin_at_any_n():
+    """On CPU tensors the wrapper runs the plain twin whatever instance
+    the rule would pick on the card: no launch is counted."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((100, 10)).astype(np.float32))
+    d, M = (torch.from_numpy(a) for a in tmc.phase_matrices("gossip", "ring",
+                                                            100))
+    before = (tmc.mix_flat.launches, tmc.mix_flat.nodes_launches)
+    out = tmc.mix_flat(x, None, None, d, M, with_g=False,
+                       with_residual=True, wire=False)
+    want = tmc.mix_flat_plain(x, None, None, d, M, with_g=False,
+                              with_residual=True, wire=False)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert (tmc.mix_flat.launches, tmc.mix_flat.nodes_launches) == before
