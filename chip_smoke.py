@@ -23,15 +23,20 @@ line):
    picks (the mix and cmix register and node-parallel instances also
    bitwise against the generic ones: :func:`check_mix_nodes_kernel`,
    :func:`check_cmix_nodes_kernel`; the node-parallel rule's crossovers
-   timed by :func:`nodes_rule_times`), with the tolerances stated in
+   timed by :func:`nodes_rule_times`; shard_cmix.cu's node-parallel
+   instance bitwise its column one, :func:`check_shard_cmix_nodes_kernel`;
+   collective.cu's narrow instance bitwise its untiled and tiled ones,
+   :func:`check_collective_narrow_kernel`), with the tolerances stated in
    :func:`check_mix_kernel`, :func:`check_cmix_kernel` (with the
    compressed round's row maxima, :func:`check_absmax`),
    :func:`check_collective_kernel`, :func:`check_mlstm_kernel`,
    :func:`check_shard_mix_kernel`, :func:`check_shard_cmix_kernel`,
    :func:`check_flash_kernel` and :func:`check_rmsnorm_kernel`; timing by
    CUDA events against the kernel's bound and, where one exists, one
-   PyTorch library call; rows 4d and 3 at the simulators' n = 100
-   (:func:`sim_shape_rows`) (``--kernels-only`` stops here);
+   PyTorch library call; rows 4d and 3 at the simulators' n = 100, each
+   redesign timed in turns against its old instance, and the two
+   dispatch rules' crossovers (:func:`sim_shape_rows`)
+   (``--kernels-only`` stops here);
 3. slice 5's path (``[ops]``, :func:`run_ops_path`): the substrate entry
    points ``repro_torch.kernels.ops`` at full width (pga-lm-100m's and
    gemma2-9b's attention and norm calls, the xlstm-125m mLSTM call, and
@@ -75,7 +80,8 @@ line):
    descent here); ``[simsplit]`` (:func:`sim_split`): gossip's first
    steps under ``torch.profiler``, the device's share of the wall time;
    one compressed run at the same size (int8 gossip + EF, int8
-   collective); then the non-IID crossover of
+   collective on collective.cu's narrow instance, none on the others);
+   then the non-IID crossover of
    ``benchmarks/bench_logistic_transient.py`` with its two gates.
    ``[simx]`` (:func:`run_sim_cross_check`): ``simulate`` on the card
    against the CPU at n = 16 with full gradients, held to the CPU tests'
@@ -113,7 +119,9 @@ line):
    ``[ovround]`` times the overlapped round against ``[round]``'s fused
    one; ``[ovcross]`` the three at a reduced config card vs CPU;
    ``[ovsim]`` ``simulate(overlap=True)`` on ``[sim]``'s problem at
-   n = 100, card vs CPU, its AUC beside the synchronous runs'.  The
+   n = 100 (every apply on shard_cmix.cu's node-parallel instance, none
+   on the column one), card vs CPU, its AUC beside the synchronous
+   runs'.  The
    kernel checks of phase 2 hold shard_cmix at that apply's shape (m = K
    = 8, ``q_self is qs``) at the ragged widths and at 138,431,232
    columns, and time it there.
@@ -317,6 +325,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores
 SPIN_CYCLES = 200_000_000           # ~0.1 s of torch.cuda._sleep
+SHORT_SPIN = 20_000_000             # ~10 ms, past the ~1 ms 20 calls queue in
 MAIN_N, MAIN_D = 8, 25_165_824      # the embedding leaf of pga-lm-100m
 # every launch width of the main path's round: the staging buffer of the
 # norms, the attention projections, the embedding, the MLP matrices
@@ -360,6 +369,22 @@ NODES_RULE_SHAPES = (("mix", 3, 8_001), ("mix", 3, 16_001),
 # half-step fused), GT-PGA's joint tree, [psim]'s (x, w) tree
 SIM_ROUND_CALLS = ((100, 10, True, "ring"), (100, 20, False, "ring"),
                    (100, 11, False, "push"))
+# shard_cmix.cu's node-parallel instance (slice 24) against the column one:
+# shard rows (each at K = m and 2m, and m = 50 over K = 100, a sharded
+# halo), widths (RAGGED_D too at SHARD_NODES_WIDE_M, K = m), and the
+# dispatch rule's timed shapes (K = m and 2m at each)
+SHARD_NODES_M = (3, 8, 33, 48, 100, 256)
+SHARD_NODES_D = (1, 10, 37, 8_001)
+SHARD_NODES_WIDE_M = (3, 100)
+SHARD_RULE_M = (3, 8, 33, 48, 100)
+SHARD_RULE_D = (10, 8_001, RAGGED_D)
+# collective.cu's narrow instance against the untiled (and tiled) ones:
+# node counts and widths (those the rule gives it), and the rule's timed
+# shapes
+COLL_NARROW_N = (1, 2, 16, 32, 100, 256)
+COLL_NARROW_D = (1, 10, 31, 32, 100, 1000, 1024)
+COLL_RULE_N = (16, 32, 100, 256)
+COLL_RULE_D = (1, 10, 100, 1000)
 
 
 def smi() -> str:
@@ -476,7 +501,7 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=20, warmup=3) -> float:
+def device_ms(torch, fn, iters=20, warmup=3, spin=SPIN_CYCLES) -> float:
     """Time per call of ``fn`` on the card, by CUDA events around
     ``iters`` calls that the host queued while a spin kernel
     (``torch.cuda._sleep``) held the stream: the card then runs them back
@@ -487,10 +512,10 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    spin, before, start, end = (torch.cuda.Event(enable_timing=True)
-                                for _ in range(4))
-    spin.record()
-    torch.cuda._sleep(SPIN_CYCLES)
+    spin_start, before, start, end = (torch.cuda.Event(enable_timing=True)
+                                      for _ in range(4))
+    spin_start.record()
+    torch.cuda._sleep(spin)
     before.record()
     t0 = time.perf_counter()
     start.record()
@@ -499,10 +524,10 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
     end.record()
     host_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
-    if not host_ms < spin.elapsed_time(before):
+    if not host_ms < spin_start.elapsed_time(before):
         raise AssertionError(f"device_ms: queueing took {host_ms:.2f} ms, "
-                             f"longer than the {spin.elapsed_time(before):.2f}"
-                             f" ms spin")
+                             f"longer than the "
+                             f"{spin_start.elapsed_time(before):.2f} ms spin")
     return start.elapsed_time(end) / iters
 
 
@@ -514,10 +539,11 @@ def _bound(bytes_moved: float, flops: float):
     return max(b, f), "bytes" if b >= f else "operations"
 
 
-def _turns(torch, old, new, iters=20) -> tuple:
+def _turns(torch, old, new, iters=20, spin=SPIN_CYCLES) -> tuple:
     """``(old ms, new ms)`` by :func:`device_ms`, timed in turns (old, new,
     new, old) and averaged per version."""
-    o1, n1, n2, o2 = (device_ms(torch, f, iters=iters, warmup=min(iters, 3))
+    o1, n1, n2, o2 = (device_ms(torch, f, iters=iters, warmup=min(iters, 3),
+                                spin=spin)
                       for f in (old, new, new, old))
     return (o1 + o2) / 2, (n1 + n2) / 2
 
@@ -1399,14 +1425,245 @@ def nodes_rule_times(torch, mc) -> list:
     return out
 
 
+def check_shard_cmix_nodes_kernel(torch, mc) -> dict:
+    """shard_cmix.cu's node-parallel instance bit for bit against the
+    column instance and within the shard tolerance (1e-5·s, as
+    :func:`check_shard_cmix_kernel`) of the plain twin: m of
+    :data:`SHARD_NODES_M` at K = m and 2m (and m = 50 over K = 100), D of
+    :data:`SHARD_NODES_D` (and RAGGED_D at :data:`SHARD_NODES_WIDE_M`,
+    K = m), ``q_self`` its own rows and, at K = m, ``q_self is qs`` (the
+    stacked apply); dense factors, and at K = m the runtime compensated
+    factors of a ring (and one_peer_exp at powers of two) gossip round.
+    The record's times come from :func:`sim_shape_rows`."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cases, worst = 0, 0.0
+    shapes = [(m, K, D) for m in SHARD_NODES_M for K in (m, 2 * m)
+              for D in SHARD_NODES_D] + [(50, 100, D) for D in SHARD_NODES_D]
+    shapes += [(m, m, RAGGED_D) for m in SHARD_NODES_WIDE_M]
+    for m, K, D in shapes:
+        M = torch.rand(m, K, device="cuda", generator=gen)
+        M = (M / (2 * M.sum(dim=1, keepdim=True))).contiguous()
+        factors = [(torch.rand(m, 1, device="cuda", generator=gen), M)]
+        if K == m:
+            topos = ("ring", "one_peer_exp") if m & (m - 1) == 0 else (
+                "ring",)
+            factors += [mc._device_compensated("gossip", t, m, 1, 1, dev)
+                        for t in topos]
+        x = torch.randn(m, D, device="cuda", generator=gen)
+        qs = torch.randn(K, D, device="cuda", generator=gen)
+        selves = [torch.randn(m, D, device="cuda", generator=gen)]
+        if K == m:
+            selves.append(qs)
+        if mc.use_nodes_shard_cmix(x, qs) != mc._shard_nodes_rows(m, K, D):
+            raise AssertionError(f"shard_cmix m={m} K={K} D={D}: the "
+                                 f"predicate is not the rule")
+        for w, Mf in factors:
+            for q in selves:
+                new = mc.shard_cmix_nodes(x, q, qs, w, Mf)
+                old = mc.shard_cmix_column(x, q, qs, w, Mf)
+                if not _same_bits(torch, new, old):
+                    raise AssertionError(
+                        f"shard_cmix m={m} K={K} D={D} (q_self is qs: "
+                        f"{q is qs}): the node-parallel instance differs "
+                        f"from the column one")
+                ref = mc.shard_comp_mix_block_plain(x, q, qs, w, Mf)
+                s_max = max(float(t.abs().max()) for t in (x, q, qs))
+                err = float((new - ref).abs().max())
+                if err > 1e-5 * s_max:
+                    raise AssertionError(f"shard_cmix m={m} K={K} D={D}: "
+                                         f"{err:.3e} from the plain twin")
+                worst = max(worst, err)
+                cases += 1
+                del new, old, ref
+        del x, qs, selves
+    torch.cuda.empty_cache()
+    print(f"[kernel] shard_cmix_nodes: {cases} cases bitwise the column "
+          f"instance at m {SHARD_NODES_M} x K (m, 2m) x D {SHARD_NODES_D}, "
+          f"m = 50 over K = 100, and m {SHARD_NODES_WIDE_M} = K x "
+          f"{RAGGED_D:,}; q_self its own rows and q_self is qs; dense, ring "
+          f"and one_peer_exp factors; within {worst:.3e} of the plain twin; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"name": "shard_cmix_nodes_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/shard_cmix.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:924",
+            "launches": None, "max_abs_err": worst}
+
+
+def check_collective_narrow_kernel(torch, mc) -> dict:
+    """collective.cu's narrow instance bit for bit against the untiled
+    instance (forced), the tiled one where its tile fits, and the plain
+    twin, o and the new EF: n of :data:`COLL_NARROW_N`, D of
+    :data:`COLL_NARROW_D` that the rule gives it, int8 and fp8, 1, 2 and
+    4 pods, EF on and off; in place (int8 + EF, o over x and EF over e);
+    a constant state returned bitwise.  The record's times come from
+    :func:`sim_shape_rows`."""
+    from repro_torch.compress import collective as ccol
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    s1, s2 = ccol.stage_seeds(7)
+    t0 = time.perf_counter()
+    cases = inplace = const_cases = 0
+
+    def outs_equal(a, b):
+        return _same_bits(torch, a[0], b[0]) and (
+            a[1] is None or _same_bits(torch, a[1], b[1]))
+
+    for n in COLL_NARROW_N:
+        for D in COLL_NARROW_D:
+            pods_all = [p for p in (1, 2, 4) if n % p == 0]
+            pods_in = [p for p in pods_all
+                       if mc.use_narrow_collective(n, p, D, ccol.QBLOCK)]
+            if not pods_in:
+                continue
+            x = torch.randn(n, D, device="cuda", generator=gen)
+            e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+            for pods in pods_in:
+                tiled = mc.collective_smem(n, pods, ccol.QBLOCK, True) <= \
+                    mc.cuda_build.MAX_SMEM
+                for kind in ("int8", "fp8"):
+                    for ef in (None, e):
+                        kw = dict(kind=kind, with_ef=ef is not None,
+                                  n_pods=pods, qblock=ccol.QBLOCK)
+                        new = mc.collective_flat(x, ef, s1, s2,
+                                                 instance="narrow", **kw)
+                        refs = [mc.collective_flat(x, ef, s1, s2,
+                                                   instance="untiled", **kw),
+                                mc.collective_flat_plain(x, ef, s1, s2,
+                                                         **kw)]
+                        if tiled:
+                            refs.append(mc.collective_flat(
+                                x, ef, s1, s2, instance="tiled", **kw))
+                        if not all(outs_equal(new, r) for r in refs):
+                            raise AssertionError(
+                                f"collective n={n} D={D} pods={pods} "
+                                f"{kind} ef={ef is not None}: the narrow "
+                                f"instance differs")
+                        cases += 1
+                        del new, refs
+                kw = dict(kind="int8", with_ef=True, n_pods=pods,
+                          qblock=ccol.QBLOCK)
+                stage, stage_e = x.clone(), e.clone()
+                o, eo = mc.collective_flat(stage, stage_e, s1, s2,
+                                           inplace=True, instance="narrow",
+                                           **kw)
+                if not (o.data_ptr() == stage.data_ptr()
+                        and eo.data_ptr() == stage_e.data_ptr()
+                        and outs_equal((o, eo), mc.collective_flat_plain(
+                            x, e, s1, s2, **kw))):
+                    raise AssertionError(f"collective n={n} D={D} pods="
+                                         f"{pods}: narrow in place differs")
+                inplace += 1
+                const = x[:1].expand(n, D).contiguous()
+                for kind in ("int8", "fp8"):
+                    o, _ = mc.collective_flat(const, None, s1, s2, kind=kind,
+                                              with_ef=False, n_pods=pods,
+                                              qblock=ccol.QBLOCK,
+                                              instance="narrow")
+                    if not torch.equal(o, const):
+                        raise AssertionError(f"collective n={n} D={D} pods="
+                                             f"{pods} {kind}: a constant "
+                                             f"state is not a fixed point")
+                    const_cases += 1
+                del stage, stage_e, o, eo, const
+            del x, e
+    torch.cuda.empty_cache()
+    print(f"[kernel] collective_narrow: {cases} cases bitwise the untiled "
+          f"instance, the plain twin and (where its tile fits) the tiled "
+          f"one, o and EF, at n {COLL_NARROW_N} x D {COLL_NARROW_D} (those "
+          f"the rule takes) x 1, 2, 4 pods, int8 and fp8, EF on and off; "
+          f"{inplace} in place bitwise; {const_cases} constant fixed points; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"name": "collective_narrow_kernel", "route": "cuda",
+            "source": "src/repro_torch/csrc/collective.cu",
+            "replaces": "src/repro/kernels/mixing_pallas.py:765",
+            "launches": None, "max_abs_err": 0.0}
+
+
+def shard_rule_times(torch, mc) -> list:
+    """shard_cmix.cu's dispatch rule (``mixing_cuda._shard_nodes_rows``):
+    the column and the node-parallel instance in turns at m of
+    :data:`SHARD_RULE_M` x K = m and 2m x D of :data:`SHARD_RULE_D`, the
+    shard's q_self a view of qs, each beside the instance the rule
+    picks."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for m in SHARD_RULE_M:
+        for K in (m, 2 * m):
+            M = torch.rand(m, K, device="cuda", generator=gen)
+            M = (M / (2 * M.sum(dim=1, keepdim=True))).contiguous()
+            w = torch.rand(m, 1, device="cuda", generator=gen)
+            for D in SHARD_RULE_D:
+                x = torch.randn(m, D, device="cuda", generator=gen)
+                qs = torch.randn(K, D, device="cuda", generator=gen)
+                q = qs[:m]
+                old_ms, ms = _turns(
+                    torch, lambda: mc.shard_cmix_column(x, q, qs, w, M),
+                    lambda: mc.shard_cmix_nodes(x, q, qs, w, M),
+                    iters=20 if m * D < 2e6 else 5, spin=SHORT_SPIN)
+                picks = mc.use_nodes_shard_cmix(x, qs)
+                print(f"[kernel] shard_cmix rule m={m} K={K} D={D:,}: "
+                      f"node-parallel {ms:.4f} ms, column {old_ms:.4f} ms "
+                      f"(device_ms, in turns; {old_ms / ms:.2f}x); the rule "
+                      f"picks {'node-parallel' if picks else 'column'}",
+                      flush=True)
+                out.append({"shape": [m, K, D], "ms": ms, "old_ms": old_ms,
+                            "nodes": picks})
+                del x, qs, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def collective_rule_times(torch, mc) -> list:
+    """collective.cu's narrow rule (``mixing_cuda.use_narrow_collective``):
+    int8 + EF global rounds at n of :data:`COLL_RULE_N` x D of
+    :data:`COLL_RULE_D`, the narrow instance in turns against the one the
+    other rule takes (tiled while its tile fits, else untiled), each beside
+    the instance the rule picks; shapes whose narrow tile passes the
+    card's shared memory are printed as such."""
+    from repro_torch.compress import collective as ccol
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    s1, s2 = ccol.stage_seeds(7)
+    kw = dict(kind="int8", with_ef=True, n_pods=1, qblock=ccol.QBLOCK)
+    out = []
+    for n in COLL_RULE_N:
+        other = ("tiled" if mc.collective_smem(n, 1, ccol.QBLOCK, True)
+                 <= mc.cuda_build.MAX_SMEM else "untiled")
+        for D in COLL_RULE_D:
+            picks = mc.collective_instance(n, 1, D, ccol.QBLOCK)
+            if mc.collective_narrow_smem(n, 1, D) > mc.cuda_build.MAX_SMEM:
+                print(f"[kernel] collective rule n={n} D={D}: the narrow "
+                      f"tile does not fit; the rule picks {picks}",
+                      flush=True)
+                continue
+            x = torch.randn(n, D, device="cuda", generator=gen)
+            e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
+            old_ms, ms = _turns(
+                torch, lambda: mc.collective_flat(x, e, s1, s2,
+                                                  instance=other, **kw),
+                lambda: mc.collective_flat(x, e, s1, s2, instance="narrow",
+                                           **kw), spin=SHORT_SPIN)
+            print(f"[kernel] collective rule n={n} D={D}: narrow {ms:.4f} "
+                  f"ms, {other} {old_ms:.4f} ms (device_ms, in turns; "
+                  f"{old_ms / ms:.2f}x); the rule picks {picks}", flush=True)
+            out.append({"shape": [n, D], "ms": ms, "old_ms": old_ms,
+                        "other": other, "picks": picks})
+            del x, e
+    return out
+
+
 def sim_shape_rows(torch, mc) -> dict:
-    """Rows 4d and 3's untiled instance at the simulators' n = 100:
-    ``shard_cmix`` as ``compensated_apply`` runs it in [ovsim] (m = K = 100,
-    D = 10, q_self = qs, ring factors) and the compressed collective
-    (int8 + EF, global) at n = 100, D = 10; each by :func:`device_ms` beside
-    a one-element launch of the same kernel, its plain twin, one PyTorch
-    call (``torch.matmul(M, q)``; the exact average ``x.mean(0)``) and
-    the bound."""
+    """Rows 4d and 3 at the simulators' n = 100, each old instance against
+    its redesign in turns: ``shard_cmix`` as ``compensated_apply`` runs it
+    in [ovsim] (m = K = 100, D = 10, q_self = qs, ring factors), column
+    against node-parallel, and the compressed collective (int8 + EF,
+    global) at n = 100, D = 10, untiled against narrow; each beside a
+    one-element launch of the new instance, its plain twin, one PyTorch
+    call (``torch.matmul(M, q)``; the exact average ``x.mean(0)``) and the
+    bound.  Then each dispatch rule's timed crossovers
+    (:func:`shard_rule_times`, :func:`collective_rule_times`)."""
     from repro_torch.compress import collective as ccol
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1415,43 +1672,59 @@ def sim_shape_rows(torch, mc) -> dict:
     q = torch.randn(n, D, device="cuda", generator=gen)
     w, M = mc._device_compensated("gossip", "ring", n, 1, 1,
                                   torch.device("cuda"))
-    ms = device_ms(torch, lambda: mc.shard_comp_mix_block(x, q, q, w, M))
+    if not mc.use_nodes_shard_cmix(x, q):
+        raise AssertionError("row 4d: the rule does not take the "
+                             "node-parallel instance")
+    old_ms, ms = _turns(torch, lambda: mc.shard_cmix_column(x, q, q, w, M),
+                        lambda: mc.shard_cmix_nodes(x, q, q, w, M))
     one = torch.randn(1, 1, device="cuda", generator=gen)
     ones = torch.ones(1, 1, device="cuda")
-    floor_ms = device_ms(torch, lambda: mc.shard_comp_mix_block(
+    floor_ms = device_ms(torch, lambda: mc.shard_cmix_nodes(
         one, one, one, ones, ones))
     plain_ms = cuda_ms(torch, lambda: mc.shard_comp_mix_block_plain(
         x, q, q, w, M))
     library_ms = device_ms(torch, lambda: torch.matmul(M, q))
     bound_ms, bound_by = _bound(4 * 3 * n * D, (2 * n + 4) * n * D)
     print(f"[kernel] shard_cmix row 4d m=K={n} D={D} ([ovsim]'s stacked "
-          f"apply, q_self is qs): {ms:.4f} ms (device_ms), a one-element "
-          f"launch {floor_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"apply, q_self is qs): node-parallel {ms:.4f} ms, column "
+          f"{old_ms:.4f} ms (device_ms, in turns; {old_ms / ms:.1f}x), a "
+          f"one-element launch {floor_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"torch.matmul(M, q) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
           f"by {bound_by}", flush=True)
-    apply = {"shape": [n, n, D], "ms": ms, "floor_ms": floor_ms,
-             "plain_ms": plain_ms, "library_ms": library_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by}
+    apply = {"shape": [n, n, D], "ms": ms, "old_ms": old_ms,
+             "floor_ms": floor_ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by}
     e = 0.01 * torch.randn(n, D, device="cuda", generator=gen)
     s1, s2 = ccol.stage_seeds(7)
     kw = dict(kind="int8", with_ef=True, n_pods=1, qblock=ccol.QBLOCK)
-    c_ms = device_ms(torch, lambda: mc.collective_flat(x, e, s1, s2, **kw))
+    if mc.collective_instance(n, 1, D, ccol.QBLOCK) != "narrow":
+        raise AssertionError("row 3: the rule does not take the narrow "
+                             "instance")
+    c_old, c_ms = _turns(
+        torch, lambda: mc.collective_flat(x, e, s1, s2, instance="untiled",
+                                          **kw),
+        lambda: mc.collective_flat(x, e, s1, s2, instance="narrow", **kw))
     e1 = 0.01 * one
     c_floor = device_ms(torch, lambda: mc.collective_flat(
-        one, e1, s1, s2, tiled=False, **kw))
+        one, e1, s1, s2, instance="narrow", **kw))
     c_plain = cuda_ms(torch, lambda: mc.collective_flat_plain(x, e, s1, s2,
                                                               **kw))
     c_lib = device_ms(torch, lambda: x.mean(dim=0, keepdim=True))
     c_bound, c_by = _bound(4 * 4 * n * D, 60 * n * D)
-    print(f"[kernel] collective row 3 untiled n={n} D={D} int8+EF ([sim]'s "
-          f"global round): {c_ms:.4f} ms (device_ms), a one-element launch "
+    print(f"[kernel] collective row 3 n={n} D={D} int8+EF ([sim]'s global "
+          f"round): narrow {c_ms:.4f} ms, untiled {c_old:.4f} ms (device_ms, "
+          f"in turns; {c_old / c_ms:.1f}x), a one-element launch "
           f"{c_floor:.4f} ms, plain {c_plain:.4f} ms, x.mean(0) (the exact "
           f"average only) {c_lib:.4f} ms, bound {c_bound:.6f} ms by {c_by}",
           flush=True)
-    untiled = {"shape": [n, D], "ms": c_ms, "floor_ms": c_floor,
-               "plain_ms": c_plain, "library_ms": c_lib, "bound_ms": c_bound,
-               "bound_by": c_by}
-    return {"apply": apply, "untiled": untiled}
+    narrow = {"shape": [n, D], "ms": c_ms, "old_ms": c_old,
+              "floor_ms": c_floor, "plain_ms": c_plain, "library_ms": c_lib,
+              "bound_ms": c_bound, "bound_by": c_by}
+    del x, q, e
+    return {"apply": apply, "narrow": narrow,
+            "shard_rule": shard_rule_times(torch, mc),
+            "collective_rule": collective_rule_times(torch, mc)}
 
 
 def check_collective_kernel(torch, mc) -> dict:
@@ -1463,7 +1736,7 @@ def check_collective_kernel(torch, mc) -> dict:
     scales are powers of two, so the tolerance is 1e-6·max|x| (measured
     error expected 0).  A constant state comes back bitwise for every
     kind and phase.  At the simulator's shapes (n = 16, 32 and 100 at
-    D = 10; n = 100 takes the untiled instance) o and the new EF must be
+    D = 10, which the narrow instance takes) o and the new EF must be
     bitwise the twin's, and so must the untiled instance, forced at n = 8,
     against the tiled one and at n = 100 over 98 blocks against the
     twin."""
@@ -1474,11 +1747,11 @@ def check_collective_kernel(torch, mc) -> dict:
     n = MAIN_N
     s1, s2 = ccol.stage_seeds(7)
 
-    def compare(x, e, kind, pods, bitwise=False, tiled=None):
+    def compare(x, e, kind, pods, bitwise=False):
         nonlocal worst, cases
         kw = dict(kind=kind, with_ef=e is not None, n_pods=pods,
                   qblock=ccol.QBLOCK)
-        o, ef = mc.collective_flat(x, e, s1, s2, tiled=tiled, **kw)
+        o, ef = mc.collective_flat(x, e, s1, s2, **kw)
         po, pef = mc.collective_flat_plain(x, e, s1, s2, **kw)
         torch.cuda.synchronize()
         err = float((o - po).abs().max())
@@ -1526,8 +1799,10 @@ def check_collective_kernel(torch, mc) -> dict:
             for ef in (None, e):
                 kw = dict(kind=kind, with_ef=ef is not None, n_pods=pods,
                           qblock=ccol.QBLOCK)
-                a = mc.collective_flat(x, ef, s1, s2, tiled=True, **kw)
-                b = mc.collective_flat(x, ef, s1, s2, tiled=False, **kw)
+                a = mc.collective_flat(x, ef, s1, s2, instance="tiled",
+                                       **kw)
+                b = mc.collective_flat(x, ef, s1, s2, instance="untiled",
+                                       **kw)
                 if not all(u is None and v is None or torch.equal(u, v)
                            for u, v in zip(a, b)):
                     raise AssertionError(f"collective {kind} pods={pods} "
@@ -1538,7 +1813,8 @@ def check_collective_kernel(torch, mc) -> dict:
     del x, e
     torch.cuda.empty_cache()
 
-    # the simulator's shapes, bitwise; n = 100 is past the tile
+    # the simulator's shapes, bitwise (the narrow instance); n = 100 over
+    # 98 blocks is past the tile (the untiled one)
     for n_sim, width in SIM_COMP_SHAPES + ((100, 100_003),):
         x = torch.randn(n_sim, width, device="cuda", generator=gen)
         e = 0.01 * torch.randn(n_sim, width, device="cuda", generator=gen)
@@ -1563,7 +1839,7 @@ def check_collective_kernel(torch, mc) -> dict:
     plain_ms = cuda_ms(torch, lambda: mc.collective_flat_plain(
         x, e, s1, s2, **kw), iters=2, warmup=1)
     untiled_ms = cuda_ms(torch, lambda: mc.collective_flat(
-        x, e, s1, s2, tiled=False, **kw), iters=5, warmup=1)
+        x, e, s1, s2, instance="untiled", **kw), iters=5, warmup=1)
     bytes_moved = 4 * 4 * n * D                 # read x, e; write o, ef
     flops = 60 * n * D                          # two codecs, pod mean
     bound_ms, bound_by = _bound(bytes_moved, flops)
@@ -1574,18 +1850,17 @@ def check_collective_kernel(torch, mc) -> dict:
           f"bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved / (ms * 1e-3) / 1e9:.0f} GB/s achieved)",
           flush=True)
-    # the untiled instance where a path runs it: [sim]'s int8 + EF global
-    # rounds at n = 100, D = 10
+    # the untiled instance at [sim]'s int8 + EF global round, n = 100,
+    # D = 10 (the path runs the narrow one: [kernel] collective row 3)
     n_sim, d_sim = SIM_COMP_SHAPES[-1]
     xs = torch.randn(n_sim, d_sim, device="cuda", generator=gen)
     es = 0.01 * torch.randn(n_sim, d_sim, device="cuda", generator=gen)
-    sim_ms = device_ms(torch, lambda: mc.collective_flat(xs, es, s1, s2,
-                                                         **kw))
+    sim_ms = device_ms(torch, lambda: mc.collective_flat(
+        xs, es, s1, s2, instance="untiled", **kw))
     sim_bound, sim_by = _bound(4 * 4 * n_sim * d_sim, 60 * n_sim * d_sim)
     print(f"[kernel] collective int8+EF n={n_sim} D={d_sim} ([sim]'s "
-          f"shape, the untiled instance): {sim_ms:.4f} ms on the card, "
-          f"bound {sim_bound:.6f} ms by {sim_by} (its launch floor: "
-          f"[kernel] collective row 3)", flush=True)
+          f"shape, the untiled instance forced): {sim_ms:.4f} ms on the "
+          f"card, bound {sim_bound:.6f} ms by {sim_by}", flush=True)
     del xs, es
     print(f"[kernel] collective: {cases} kernel-vs-plain cases within "
           f"tolerance (those at n = 16, 32 and 100 bitwise), max abs err "
@@ -2812,10 +3087,12 @@ def counts() -> dict:
             "cmix_nodes": mc.cmix_flat.nodes_launches,
             "cmix_absmax": mc.cmix_flat.absmax_launches,
             "collective": mc.collective_flat.launches,
+            "collective_narrow": mc.collective_flat.narrow_launches,
             "mlstm": mk.mlstm_chunk.launches,
             "mlstm_wgmma": mk.mlstm_chunk.wgmma_launches,
             "shard_mix": mc.shard_mix_block.launches,
             "shard_cmix": mc.shard_comp_mix_block.launches,
+            "shard_cmix_nodes": mc.shard_comp_mix_block.nodes_launches,
             "flash": fa.flash_attention.launches,
             "flash_wgmma": fa.flash_attention.wgmma_launches,
             "rmsnorm": rn.rmsnorm.launches,
@@ -2841,6 +3118,22 @@ def cmix_key(mc, n: int, D: int) -> str:
     if mc._cmix_rows(n, D, []):
         return "cmix_vector"
     return "cmix_nodes" if mc._nodes_rows(n, D, []) else "cmix"
+
+
+def shard_cmix_key(mc, m: int, K: int, D: int) -> str:
+    """The launch count a shard_cmix.cu call on an (m, D) shard over K
+    halo rows adds to, by the dispatch rule (node-parallel or column
+    instance)."""
+    return ("shard_cmix_nodes" if mc._shard_nodes_rows(m, K, D)
+            else "shard_cmix")
+
+
+def collective_key(mc, n: int, D: int) -> str:
+    """The same for a global collective.cu round on an (n, D) operand
+    (narrow, or the tiled or untiled instance) at the 1024-column scale
+    block."""
+    narrow = mc.use_narrow_collective(n, 1, D, 1024)
+    return "collective_narrow" if narrow else "collective"
 
 
 def gate_no_generic(tag: str, launches: dict) -> None:
@@ -2915,10 +3208,12 @@ def reset_counts() -> None:
     mc.cmix_flat.nodes_launches = 0
     mc.cmix_flat.absmax_launches = 0
     mc.collective_flat.launches = 0
+    mc.collective_flat.narrow_launches = 0
     mk.mlstm_chunk.launches = 0
     mk.mlstm_chunk.wgmma_launches = 0
     mc.shard_mix_block.launches = 0
     mc.shard_comp_mix_block.launches = 0
+    mc.shard_comp_mix_block.nodes_launches = 0
 
 
 def run_main_path(torch, mc, compressed: bool = False,
@@ -3766,13 +4061,14 @@ def sim_round_launches(torch, mc, algorithm: str, phases, n: int, d: int,
     rule takes for the (n, width) operand (:func:`mix_key`: at n = 100
     the node-parallel one); compressed (one leaf), a gossip round is one
     row maxima and one cmix.cu launch, a global round one collective.cu
-    launch."""
+    launch on the instance the rule takes (:func:`collective_key`: the
+    narrow one at d = 10)."""
     kinds = mc.KERNEL_PHASES
     rounds = [ph for ph in phases if ph in kinds]
     if compressed:
         gossip = rounds.count("gossip")
         return only(**{cmix_key(mc, n, d): gossip, "cmix_absmax": gossip,
-                       "collective": len(rounds) - gossip})
+                       collective_key(mc, n, d): len(rounds) - gossip})
     width = 2 * d if algorithm == "gt_pga" else d
     return only(**{mix_key(mc, n, width): len(rounds)})
 
@@ -3823,6 +4119,10 @@ def _sim_checked(torch, mc, prob, algorithm: str, tag: str, *,
                              f"dispatch rule gives {expected}")
     if prob.n not in mc.MIX_VECTOR_NODES:
         gate_no_generic(f"{tag} {algorithm}", launches)
+    if compressed and launches["collective"]:
+        raise AssertionError(f"{tag} {algorithm}: {launches['collective']} "
+                             f"launches of the tiled or untiled collective, "
+                             f"where the rule gives the narrow one")
     if plain.calls:
         raise AssertionError(f"{tag} {algorithm}: {plain.calls} plain-twin "
                              f"calls on the card")
@@ -4625,7 +4925,8 @@ def overlap_expected_launches(mc, tr, state, phases, compressed: bool,
     """The dispatch rule's launches for an overlapped path's steps, stated
     before they run, and the dispatch groups' widths.  Stacked: a gossip
     step's apply is one shard_cmix.cu launch per dispatch group of the
-    params (the whole node stack as one shard, m = K = 8); a global flush
+    params (the whole node stack as one shard, m = K = 8), on the
+    instance :func:`shard_cmix_key` gives its width; a global flush
     is the synchronous round: one mix.cu launch per group on the instance
     ``use_vector_mix`` takes (every operand a fresh contiguous tensor, so
     the rule reads n and the width only) or, compressed, one
@@ -4641,13 +4942,16 @@ def overlap_expected_launches(mc, tr, state, phases, compressed: bool,
     leaves = tree_leaves(state.params)
     groups = mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold)
     widths = [sum(leaves[i][0].numel() for i in g) for g in groups]
-    want = {"shard_cmix": gossip * len(groups)}
-    if compressed:
-        want["collective"] = flushes
-    else:
-        for D in widths:
+    want = {}
+    for D in widths:
+        key = shard_cmix_key(mc, n, n, D)
+        want[key] = want.get(key, 0) + gossip
+        if not compressed:
             key = mix_key(mc, n, D)
             want[key] = want.get(key, 0) + flushes
+    if compressed:
+        key = collective_key(mc, n, sum(widths))
+        want[key] = want.get(key, 0) + flushes
     return only(**want), widths
 
 
@@ -4892,8 +5196,9 @@ def run_overlap_sim_path(torch, mc) -> dict:
     """[ovsim]: ``simulate(overlap=True, backend="pallas")`` on [sim]'s
     §5.1 problem at n = 100 (ring, H = 16, lr 0.2 halved every 1000 steps,
     batch 8, 3000 steps) for gossip_pga and gossip: launches (one
-    shard_cmix launch per gossip step at m = K = 100, one generic mix
-    launch per global flush), no plain twin, consensus after every global
+    shard_cmix launch per gossip step at m = K = 100 on the node-parallel
+    instance and none on the column one, one node-parallel mix launch per
+    global flush), no plain twin, consensus after every global
     flush an eval falls on at most 1e-12 (n = 100 is not a power of two),
     finite losses for gossip_pga, and the suboptimality AUC against
     parallel SGD beside [sim]'s synchronous runs' (printed, not gated: one
@@ -4915,6 +5220,7 @@ def run_overlap_sim_path(torch, mc) -> dict:
     run_kw = dict(steps=SIM["steps"], lr=sim_lr, H=SIM["H"],
                   eval_every=SIM["eval_every"], batch=SIM["batch"])
     flush_key = mix_key(mc, prob.n, prob.d)
+    apply_key = shard_cmix_key(mc, prob.n, prob.n, prob.d)
     for alg in ("gossip_pga", "gossip"):
         torch.cuda.synchronize()
         reset_counts()
@@ -4926,9 +5232,9 @@ def run_overlap_sim_path(torch, mc) -> dict:
         launches = counts()
         phases = replay_phases(alg, SIM["steps"], lambda k: None,
                                H=SIM["H"])
-        expected = only(**{"shard_cmix": phases.count("gossip"),
+        expected = only(**{apply_key: phases.count("gossip"),
                            flush_key: phases.count("global")})
-        if launches != expected or plain.calls:
+        if launches != expected or plain.calls or launches["shard_cmix"]:
             raise AssertionError(f"[ovsim] {alg}: launches {launches} (the "
                                  f"dispatch rule gives {expected}), "
                                  f"{plain.calls} plain-twin calls")
@@ -5084,9 +5390,11 @@ def ckpt_expected_launches(mc, tr, state, phases, tag: str) -> dict:
         return push_expected_launches(mc, tr, state, phases, False, False)[0]
     leaves = tree_leaves(state.params)
     if tag == "[cckpt]":
-        return only(cmix_vector=phases.count("gossip") * len(leaves),
-                    cmix_absmax=phases.count("gossip") * len(leaves),
-                    collective=phases.count("global"))
+        width = sum(leaf[0].numel() for leaf in leaves)
+        return only(**{"cmix_vector": phases.count("gossip") * len(leaves),
+                       "cmix_absmax": phases.count("gossip") * len(leaves),
+                       collective_key(mc, tr.n_nodes, width):
+                           phases.count("global")})
     rounds = sum(ph in mc.KERNEL_PHASES for ph in phases)
     want = {}
     for g in mc._dispatch_groups(leaves, tr.tcfg.dist.pallas_leaf_threshold):
@@ -8395,10 +8703,12 @@ KERNEL_OF_COUNT = {"mix": "mix_vector_kernel",
                    "cmix_nodes": "cmix_nodes_kernel",
                    "cmix_absmax": "cmix_absmax_kernel",
                    "collective": "collective_kernel",
+                   "collective_narrow": "collective_narrow_kernel",
                    "mlstm": "mlstm_kernel",
                    "mlstm_wgmma": "mlstm_wgmma_kernel",
                    "shard_mix": "shard_mix_kernel",
                    "shard_cmix": "shard_cmix_kernel",
+                   "shard_cmix_nodes": "shard_cmix_nodes_kernel",
                    "flash": "flash_attention_kernel",
                    "flash_wgmma": "flash_attention_wgmma_kernel",
                    "rmsnorm": "rmsnorm_kernel",
@@ -9179,6 +9489,8 @@ def main() -> int:
                          ("mix", "mix_nodes_kernel"),
                          ("cmix", "cmix_vector_kernel"),
                          ("cmix", "cmix_nodes_kernel"),
+                         ("shard_cmix", "shard_cmix_nodes_kernel"),
+                         ("collective", "collective_narrow_kernel"),
                          ("mlstm", "mlstm_kernel"),
                          ("mlstm_wgmma", "mlstm_wgmma_kernel"),
                          ("flash_attention", "flash_kernel")):
@@ -9205,18 +9517,28 @@ def main() -> int:
     add(check_cmix_nodes_kernel(torch, mc))
     records["mix_nodes_kernel"]["rule"] = nodes_rule_times(torch, mc)
     add(check_collective_kernel(torch, mc))
+    add(check_collective_narrow_kernel(torch, mc))
     torch.cuda.empty_cache()
     add(*check_mlstm_kernel(torch, mk))
     torch.cuda.empty_cache()
     add(*check_shard_mix_kernel(torch, mc))
     add(*check_shard_cmix_kernel(torch, mc))
+    add(check_shard_cmix_nodes_kernel(torch, mc))
     add(*check_flash_kernel(torch, fa))
     torch.cuda.empty_cache()
     add(check_rmsnorm_kernel(torch, rn))
-    # rows 4d and 3 at the simulators' n = 100
+    # rows 4d and 3 at the simulators' n = 100: each redesign against its
+    # old instance, and the two dispatch rules' crossovers
     sim_rows = sim_shape_rows(torch, mc)
-    records["shard_cmix_kernel"]["sim_apply"] = sim_rows["apply"]
-    records["collective_kernel"]["untiled_sim"] = sim_rows["untiled"]
+    for name, row, rule in (("shard_cmix_nodes_kernel", "apply",
+                             "shard_rule"),
+                            ("collective_narrow_kernel", "narrow",
+                             "collective_rule")):
+        rec = sim_rows[row]
+        records[name].update(
+            {k: rec[k] for k in ("ms", "old_ms", "floor_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+            shape=rec["shape"], rule=sim_rows[rule])
     lap("the build and the kernel checks")
     if args.kernels_only:
         print(json.dumps({"kernels": list(records.values())}))
@@ -9314,6 +9636,7 @@ def main() -> int:
     sim = run_sim_path(torch, mc)
     records["mix_nodes_kernel"]["launches"] = sim["mix_nodes"]
     records["cmix_nodes_kernel"]["launches"] = sim["cmix_nodes"]
+    records["collective_narrow_kernel"]["launches"] = sim["collective_narrow"]
     run_sim_cross_check(torch)
     algos = {k: 0 for k in counts()}
     for algorithm, dist_kw in ALGO_RUNS:
@@ -9364,6 +9687,8 @@ def main() -> int:
         cross_check(torch, compressed=compressed, sharded=sharded,
                     dist_kw=OVERLAP_CROSS, steps=4, tag="[ovcross]")
     overlap["[ovsim]"] = run_overlap_sim_path(torch, mc)
+    records["shard_cmix_nodes_kernel"]["launches"] = \
+        overlap["[ovsim]"]["shard_cmix_nodes"]
     lap("slice 9")
     # slice 10: checkpoints and resume, the occupancy calibration, the
     # simulator's and the server's telemetry
@@ -9457,7 +9782,8 @@ def main() -> int:
                        ("cmix_vector_kernel", ("cmix", "cmix_vector")),
                        ("cmix_nodes_kernel", ("cmix_nodes",)),
                        ("cmix_absmax_kernel", ("cmix_absmax",)),
-                       ("collective_kernel", ("collective",))):
+                       ("collective_kernel", ("collective",)),
+                       ("collective_narrow_kernel", ("collective_narrow",))):
         records[name]["launches_sim_algos"] = {
             path: {k: c[k] for k in keys if c[k]}
             for path, c in (("[sim]", sim), ("[algos]", algos))}
@@ -9473,6 +9799,7 @@ def main() -> int:
     # the overlapped paths' launches (B.4 at the stacked apply's shape,
     # B.1 and B.3 on the flushes)
     for name, keys in (("shard_cmix_kernel", ("shard_cmix",)),
+                       ("shard_cmix_nodes_kernel", ("shard_cmix_nodes",)),
                        ("mix_vector_kernel", ("mix", "mix_vector")),
                        ("mix_nodes_kernel", ("mix_nodes",)),
                        ("collective_kernel", ("collective",))):

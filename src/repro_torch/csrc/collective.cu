@@ -25,13 +25,19 @@
 // bits.  Equal rows give equal q1, the anchored mean returns it bitwise and
 // Q2(m) == Q2(q1), so a constant state is a bitwise fixed point.
 //
-// Two instances.  The tiled one (TILE) keeps q1 in shared memory
+// Three instances.  The tiled one (TILE) keeps q1 in shared memory
 // ([row][column], 4·n·qblock bytes) between the phases; the untiled one
 // keeps only the scales and the warp partials there and recomputes q1 from
 // x, e and its stage-1 scale wherever a phase reads it, with the same
 // operations, so the two agree bitwise.  The wrapper takes the tiled one
 // while its tile fits the 227 KB a block may opt into (n <= 56 at a
-// 1024-column block) and the untiled one above that.
+// 1024-column block) and the untiled one above that.  The narrow one
+// (`collective_narrow_kernel`, below) takes a round whose whole width is
+// one scale block narrower than the wrapper's rule
+// (kernels/mixing_cuda.py `use_narrow_collective`): the simulators' n = 100,
+// D = 10 global round, where the other two spend one block of 256 threads
+// on 1,024 column slots with 10 live, run the n row reductions one after
+// another, and (untiled) recompute every q1 and each pod mean twice.
 //
 // What bounds it on the H100: bytes (x and e read, o and e' written; the
 // codec is some 60 flops per element).  The ragged last block is masked
@@ -112,10 +118,10 @@ __global__ void collective_kernel(const float* x, const float* e, float* o,
     if (lane == 0) red[i * nwarps + warp] = m;
   }
   __syncthreads();
-  if (t < n) {
+  for (int r = t; r < n; r += bd) {  // rows past the block's threads too
     float m = 0.f;
-    for (int k = 0; k < nwarps; ++k) m = fmaxf(m, red[t * nwarps + k]);
-    sc1[t] = repro::pow2_scale(m, shift);
+    for (int k = 0; k < nwarps; ++k) m = fmaxf(m, red[r * nwarps + k]);
+    sc1[r] = repro::pow2_scale(m, shift);
   }
   __syncthreads();
 
@@ -150,10 +156,10 @@ __global__ void collective_kernel(const float* x, const float* e, float* o,
     if (lane == 0) red[(n_pods + i) * nwarps + warp] = m;
   }
   __syncthreads();
-  if (t < n_pods + n) {
+  for (int r = t; r < n_pods + n; r += bd) {
     float m = 0.f;
-    for (int k = 0; k < nwarps; ++k) m = fmaxf(m, red[t * nwarps + k]);
-    sc2[t] = repro::pow2_scale(m, shift);
+    for (int k = 0; k < nwarps; ++k) m = fmaxf(m, red[r * nwarps + k]);
+    sc2[r] = repro::pow2_scale(m, shift);
   }
   __syncthreads();
 
@@ -175,6 +181,110 @@ __global__ void collective_kernel(const float* x, const float* e, float* o,
       }
     }
   }
+}
+
+// The narrow instance: one block over the whole (n, D) round, D at most one
+// scale block.  The q1 tile holds the live columns only ([row][column],
+// n·D floats) and the pod means one row a pod.  The elementwise phases
+// (y, the codes and e', o) give element p = i·D + c to thread p mod
+// blockDim in every phase, so the thread that writes an element is the one
+// that read it (o may alias x, e' may alias e); the reductions take rows
+// over warps and columns over lanes, one warp_max a row; each (pod,
+// column) mean is one thread's chain r = 0 .. per - 1, made once and read
+// from shared memory by the pod maxima and the output.  Columns past D
+// count as zeros in the other instances' maxima and change none of them,
+// so the bits are theirs.
+template <int KIND, bool EF>
+__global__ void collective_narrow_kernel(const float* x, const float* e,
+                                         float* o, float* ef, uint32_t s1,
+                                         uint32_t s2, int n, int n_pods,
+                                         int D) {
+  extern __shared__ float smem[];
+  const int bd = blockDim.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = bd >> 5;
+  const int per = n / n_pods;
+  const int shift = KIND == kInt8 ? 7 : 8;
+  const int size = n * D;
+  float* sq = smem;              // [n][D]: y, then the stage-1 codes
+  float* pm = sq + size;         // [n_pods][D]: the pod means
+  float* sc1 = pm + n_pods * D;  // stage 1: [n]
+  float* sc2 = sc1 + n;          // stage 2: [n_pods + n]
+  auto q1 = [&](int i, int c) -> float { return sq[i * D + c]; };
+
+  // 1. y = x + e into the tile; the rows' absmax -> stage-1 scales
+  for (int p = t; p < size; p += bd) {
+    float y = x[p];
+    if (EF) y = __fadd_rn(y, e[p]);
+    sq[p] = y;
+  }
+  __syncthreads();
+  for (int i = warp; i < n; i += nwarps) {
+    float m = 0.f;
+    for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(sq[i * D + c]));
+    m = repro::warp_max(m);
+    if (lane == 0) sc1[i] = repro::pow2_scale(m, shift);
+  }
+  __syncthreads();
+
+  // 2. stage-1 codes in place; e' = y - q1
+  for (int p = t; p < size; p += bd) {
+    const int i = p / D, c = p - i * D;
+    const float y = sq[p];
+    const float q = quant<KIND>(
+        y, sc1[i], repro::column_bits(s1, static_cast<uint32_t>(c)));
+    if (EF) ef[p] = __fsub_rn(y, q);
+    sq[p] = q;
+  }
+  __syncthreads();
+
+  // 3. the pod means, once each; stage-2 absmax over q1 per row, then over
+  // the means per pod
+  for (int q = t; q < n_pods * D; q += bd) {
+    const int p = q / D, c = q - p * D;
+    pm[q] = pod_mean(q1, p, per, c);
+  }
+  for (int i = warp; i < n; i += nwarps) {
+    float m = 0.f;
+    for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(sq[i * D + c]));
+    m = repro::warp_max(m);
+    if (lane == 0) sc2[n_pods + i] = repro::pow2_scale(m, shift);
+  }
+  __syncthreads();
+  for (int p = warp; p < n_pods; p += nwarps) {
+    float m = 0.f;
+    for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(pm[p * D + c]));
+    m = repro::warp_max(m);
+    if (lane == 0) sc2[p] = repro::pow2_scale(m, shift);
+  }
+  __syncthreads();
+
+  // 4. o = x + (Q2(m)[pod] - Q2(q1))
+  for (int p = t; p < size; p += bd) {
+    const int i = p / D, c = p - i * D;
+    const int pod = i / per;
+    const uint32_t bits = repro::column_bits(s2, static_cast<uint32_t>(c));
+    const float r = quant<KIND>(pm[pod * D + c], sc2[pod], bits);
+    const float rho = quant<KIND>(sq[p], sc2[n_pods + i], bits);
+    o[p] = __fadd_rn(x[p], __fsub_rn(r, rho));
+  }
+}
+
+template <int KIND, bool EF>
+cudaError_t launch_narrow(const float* x, const float* e, float* o,
+                          float* ef, uint32_t s1, uint32_t s2, int n,
+                          int n_pods, int D, int block, cudaStream_t s) {
+  const size_t smem = sizeof(float) *
+                      (static_cast<size_t>(n + n_pods) * D + 2 * n + n_pods);
+  if (smem > 48u * 1024u) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        collective_narrow_kernel<KIND, EF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  collective_narrow_kernel<KIND, EF><<<1, block, smem, s>>>(
+      x, e, o, ef, s1, s2, n, n_pods, D);
+  return cudaGetLastError();
 }
 
 template <int KIND, bool EF, bool TILE>
@@ -245,5 +355,37 @@ extern "C" int repro_collective(const void* x, const void* e, void* o,
                   : launch_kind<kFp8, false>(xf, ef_in, of, ef_out, s1, s2,
                                              n, n_pods, D, qblock, block,
                                              tiled, s);
+  return static_cast<int>(err);
+}
+
+// Plain C entry point of the narrow instance (bound with ctypes): the
+// arguments of repro_collective less `qblock` and `tiled`; D at most
+// 4,096 (the wrapper's rule takes D up to one scale block), `block` a
+// multiple of 32 up to 1024.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_collective_narrow(const void* x, const void* e, void* o,
+                                       void* ef, unsigned int s1,
+                                       unsigned int s2, long long D, int n,
+                                       int n_pods, int kind, int with_ef,
+                                       int block, void* stream) {
+  if (n < 1 || D < 1 || D > 4096 || n_pods < 1 || n % n_pods != 0 ||
+      block < 32 || block > 1024 || block % 32 != 0 || kind < 0 || kind > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* ef_in = static_cast<const float*>(e);
+  float* of = static_cast<float*>(o);
+  float* ef_out = static_cast<float*>(ef);
+  const int d = static_cast<int>(D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (kind == kInt8)
+    err = with_ef ? launch_narrow<kInt8, true>(xf, ef_in, of, ef_out, s1, s2,
+                                               n, n_pods, d, block, s)
+                  : launch_narrow<kInt8, false>(xf, ef_in, of, ef_out, s1,
+                                                s2, n, n_pods, d, block, s);
+  else
+    err = with_ef ? launch_narrow<kFp8, true>(xf, ef_in, of, ef_out, s1, s2,
+                                              n, n_pods, d, block, s)
+                  : launch_narrow<kFp8, false>(xf, ef_in, of, ef_out, s1, s2,
+                                               n, n_pods, d, block, s);
   return static_cast<int>(err);
 }

@@ -418,7 +418,7 @@ __global__ void __launch_bounds__(kNodesBlock)
     for (int r = blockIdx.y; r < row_tiles; r += gridDim.y) {
       if (r != staged) {  // uniform over the block
         if (!first) __syncthreads();  // the last row tile's products
-        repro::stage_rows(M, sM, n, r * kNodesRows);
+        repro::stage_rows(M, sM, n, n, r * kNodesRows);
         staged = r;
       }
       first = false;

@@ -1,7 +1,8 @@
 // Shared pieces of the node-parallel instances of the round kernels
-// (mix.cu, cmix.cu): the instances for node counts that have no register
-// instance, the simulators' n = 100 among them.  They spread the n x n mix
-// over its outputs (i, j), not over the columns alone:
+// (mix.cu, cmix.cu, shard_cmix.cu): the instances for node counts that have
+// no register instance, the simulators' n = 100 among them.  They spread
+// the n x n mix (shard_cmix: the m x K mix over the halo rows) over its
+// outputs (i, j), not over the columns alone:
 //
 // * A block of kNodesBlock threads takes a tile of kNodesCols columns by
 //   kNodesRows rows.  Warp w holds columns 4w .. 4w + 3 of the tile and
@@ -41,22 +42,23 @@ constexpr int kNodesRows = 32;  // one a lane
 constexpr int kNodesPitch = kNodesRows + 1;
 
 // Dynamic shared memory of a block: the column tile's n x kNodesCols
-// operands, then the row tile's M.
+// operands, then the row tile's M (shard_cmix: n = K, the halo rows).
 inline size_t nodes_smem(int n) {
   return 4ull * static_cast<size_t>(n) * (kNodesCols + kNodesPitch);
 }
 
-// Rows i0 .. min(i0 + kNodesRows, n) - 1 of the (n, n) M, transposed into
+// Rows i0 .. min(i0 + kNodesRows, m) - 1 of the (m, K) factor M (row
+// stride K; the round kernels' square M has m = K = n), transposed into
 // sM[k * kNodesPitch + i - i0]; reads coalesced along k, unrolled so that
-// a thread has several loads in flight.  Rows past n are not staged: the
+// a thread has several loads in flight.  Rows past m are not staged: the
 // lanes that would read them store nothing.
 __device__ __forceinline__ void stage_rows(const float* __restrict__ M,
-                                           float* sM, int n, int i0) {
-  const int rows = n - i0 < kNodesRows ? n - i0 : kNodesRows;
+                                           float* sM, int m, int K, int i0) {
+  const int rows = m - i0 < kNodesRows ? m - i0 : kNodesRows;
 #pragma unroll 8
-  for (int q = threadIdx.x; q < rows * n; q += kNodesBlock) {
-    const int i = q / n, k = q - i * n;
-    sM[k * kNodesPitch + i] = M[(i0 + i) * n + k];
+  for (int q = threadIdx.x; q < rows * K; q += kNodesBlock) {
+    const int i = q / K, k = q - i * K;
+    sM[k * kNodesPitch + i] = M[(i0 + i) * K + k];
   }
 }
 

@@ -44,6 +44,8 @@ ENTRY_POINTS = {
                     [_P] * 4 + [_LL] + [_I] * 3 + [_P]),
     "collective": ("collective", "repro_collective",
                    [_P] * 4 + [_U, _U, _LL] + [_I] * 7 + [_P]),
+    "collective_narrow": ("collective", "repro_collective_narrow",
+                          [_P] * 4 + [_U, _U, _LL] + [_I] * 5 + [_P]),
     "mlstm": ("mlstm", "repro_mlstm", [_P] * 10 + [_I] * 8 + [_P]),
     "mlstm_wgmma": ("mlstm_wgmma", "repro_mlstm_wgmma",
                     [_P] * 10 + [_I] * 5 + [_P]),
@@ -51,6 +53,8 @@ ENTRY_POINTS = {
                   [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
     "shard_cmix": ("shard_cmix", "repro_shard_cmix",
                    [_P] * 6 + [_LL] + [_I] * 3 + [_P]),
+    "shard_cmix_nodes": ("shard_cmix", "repro_shard_cmix_nodes",
+                         [_P] * 6 + [_LL] + [_I] * 4 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention",
                         [_P] * 5 + [_I] * 6 + [_F, _I, _F] + [_I] * 4
                         + [_P]),

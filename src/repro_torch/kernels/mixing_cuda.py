@@ -17,7 +17,11 @@ the kernel's oracle on the card — for a CPU tensor:
   :func:`cmix_absmax_plain`;
 * ``collective.cu`` (``_collective_kernel``): the two-stage compressed
   global/pod average per 1024-column block;
-  :func:`collective_flat` / :func:`collective_flat_plain`;
+  :func:`collective_flat` / :func:`collective_flat_plain`; three
+  instances of the same bits, picked by :func:`collective_instance`: the
+  narrow one on a round one narrow scale block wide (the simulators'
+  n = 100, D = 10; ``collective_flat.narrow_launches``), else the tiled
+  or the untiled one (``collective_flat.launches``);
 * ``shard_mix.cu`` (``_shard_mix_kernel``): one node shard's
   ``d ⊙ x + M_r · xs`` over its gathered halo rows, optional column sums;
   :func:`shard_mix_block` / :func:`shard_mix_block_plain`;
@@ -26,7 +30,10 @@ the kernel's oracle on the card — for a CPU tensor:
   :func:`shard_comp_mix_block` / :func:`shard_comp_mix_block_plain`; also
   the stacked apply of an overlapped gossip round, the whole node stack
   as one shard with ``q_self = qs`` the buffer, once per dispatch group
-  (:func:`compensated_apply`).
+  (:func:`compensated_apply`); two instances of the same bits, picked by
+  :func:`use_nodes_shard_cmix`: the node-parallel one (the m × K mix over
+  its outputs, ``shard_comp_mix_block.nodes_launches``; [ovsim]'s m = K =
+  100 apply) and the column one (``shard_comp_mix_block.launches``).
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  The mix and
 cmix rounds have three instances each, picked by rules of their own
@@ -105,6 +112,12 @@ NODES_MAX_GRID = 2048
 # nodes at any D, below it from n = 3 up to this width
 NODES_MIN_N = 48
 NODES_NARROW_D = 8_192
+# where shard_cmix.cu's node-parallel rule sends a shard
+# (_shard_nodes_rows): from this many rows over at least this many halo
+# rows at any D, else from m = 3 up to this width
+SHARD_NODES_MIN_M = 48
+SHARD_NODES_MIN_K = 96
+SHARD_NODES_NARROW_D = 8_192
 
 
 # ---------------------------------------------------------------------------
@@ -396,13 +409,19 @@ def nodes_plan(n: int, D: int, inplace: bool = False) -> dict:
     residual pass's blocks (the generic instance's count,
     ceil(D / :func:`_block_size`)).  Pure; raises where
     :func:`_block_size` does."""
+    return {**_tile_grid(n, D, inplace), "smem": nodes_smem(n),
+            "partials": -(-D // _block_size(n))}
+
+
+def _tile_grid(rows: int, D: int, inplace: bool = False) -> dict:
+    """The node-parallel tiles of ``rows`` output rows by D columns and
+    their grid (:func:`nodes_plan`)."""
     col_tiles = -(-D // NODES_COLS)
-    row_tiles = -(-n // NODES_ROWS)
+    row_tiles = -(-rows // NODES_ROWS)
     grid_y = 1 if inplace else row_tiles
     grid_x = min(col_tiles, max(1, NODES_MAX_GRID // grid_y))
     return {"row_tiles": row_tiles, "col_tiles": col_tiles,
-            "grid": (grid_x, grid_y), "smem": nodes_smem(n),
-            "partials": -(-D // _block_size(n))}
+            "grid": (grid_x, grid_y)}
 
 
 def _mix_rows(n: int, D: int, tensors) -> int:
@@ -735,6 +754,12 @@ def mix_residual(params: PyTree, grads: Optional[PyTree] = None,
 CMIX_KINDS = {"int8": 0, "fp8": 1, "precomputed": 2}
 COLLECTIVE_KINDS = {"int8": 0, "fp8": 1}
 COLLECTIVE_BLOCK = 256      # threads per 1024-column scale block
+# collective.cu's narrow instance (use_narrow_collective): a round whose
+# whole width is one scale block of at most COLLECTIVE_NARROW_D columns,
+# on one block of COLLECTIVE_NARROW_BLOCK threads
+COLLECTIVE_NARROW_D = 1024
+COLLECTIVE_NARROW_BLOCK = 1024
+COLLECTIVE_INSTANCES = ("narrow", "tiled", "untiled")
 
 
 def cmix_flat_plain(xf, ef, qf, seed, scale, w, M, *, kind: str,
@@ -957,19 +982,56 @@ def collective_smem(n: int, n_pods: int, qblock: int, tiled: bool) -> int:
                 + n_pods + 2 * n)
 
 
+def collective_narrow_smem(n: int, n_pods: int, D: int) -> int:
+    """Bytes of shared memory the narrow instance's one block takes: the
+    q1 tile of the live columns (n × D), the pod means (n_pods × D) and
+    both stages' scales (``launch_narrow`` in collective.cu)."""
+    return 4 * ((n + n_pods) * D + 2 * n + n_pods)
+
+
+def use_narrow_collective(n: int, n_pods: int, D: int, qblock: int) -> bool:
+    """collective.cu's narrow rule: the whole width is one scale block (D
+    <= qblock) of at most :data:`COLLECTIVE_NARROW_D` columns, and its
+    tile fits the card's shared memory.
+
+    Timed in turns on the H100 (PERF.md, row 3) against the instance the
+    other rule takes, int8 + EF at n in {16, 32, 100, 256} and D in {1,
+    10, 100, 1,000}: the narrow one won wherever its tile fits, 1.9-2.0x
+    at D = 1,000 (n = 16, 32), 14x at (100, 10), 21-24x at n = 256,
+    D <= 10, on one block of :data:`COLLECTIVE_NARROW_BLOCK` threads."""
+    return (D <= min(COLLECTIVE_NARROW_D, qblock)
+            and collective_narrow_smem(n, n_pods, D) <= cuda_build.MAX_SMEM)
+
+
+def collective_instance(n: int, n_pods: int, D: int, qblock: int) -> str:
+    """The instance of collective.cu a CUDA :func:`collective_flat` on an
+    ``(n, D)`` round launches: "narrow" where
+    :func:`use_narrow_collective` takes it, else "tiled" while the q1 tile
+    of a ``qblock``-column block fits the card's 227 KB, else "untiled".
+    Pure."""
+    if use_narrow_collective(n, n_pods, D, qblock):
+        return "narrow"
+    if collective_smem(n, n_pods, qblock, True) <= cuda_build.MAX_SMEM:
+        return "tiled"
+    return "untiled"
+
+
 def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
                     s2: int, *, kind: str, with_ef: bool, n_pods: int,
                     qblock: int, inplace: bool = False,
-                    tiled: Optional[bool] = None):
+                    instance: Optional[str] = None):
     """Run the compressed collective over the packed ``(n, D)`` fp32 matrix:
     ``(o, ef_out)``.  The kernel masks the ragged last ``qblock`` block, so
     nothing is padded.  ``inplace`` writes ``o`` into ``xf`` and ``ef_out``
     into ``ef``: only for private packed buffers nobody reads again.  A
-    CUDA ``xf`` launches ``collective.cu`` (counted in
-    ``collective_flat.launches``): the instance that keeps the q1 tile in
-    shared memory while it fits the card's 227 KB, else the one that
-    recomputes q1 (bitwise the same; ``tiled`` forces one); a CPU ``xf``
-    takes :func:`collective_flat_plain`."""
+    CUDA ``xf`` launches the instance of ``collective.cu`` that
+    :func:`collective_instance` names (``instance`` forces one; the three
+    give the same bits): the narrow one on a round one narrow scale block
+    wide (counted in ``collective_flat.narrow_launches``), else the one
+    that keeps the q1 tile in shared memory while it fits the card's
+    227 KB, else the one that recomputes q1 (both in
+    ``collective_flat.launches``); a CPU ``xf`` takes
+    :func:`collective_flat_plain`."""
     if kind not in COLLECTIVE_KINDS:
         raise ValueError(f"collective_flat: unsupported kind {kind!r} "
                          f"(expected one of {tuple(COLLECTIVE_KINDS)})")
@@ -979,6 +1041,9 @@ def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
                          f"n={n}")
     if with_ef and ef.shape != xf.shape:
         raise ValueError("collective_flat: ef must match x")
+    if instance not in (None,) + COLLECTIVE_INSTANCES:
+        raise ValueError(f"collective_flat: unknown instance {instance!r} "
+                         f"(expected one of {COLLECTIVE_INSTANCES})")
     dev = _check_operands("collective_flat", xf, [ef] if with_ef else [])
     if dev.type == "cpu":
         return collective_flat_plain(xf, ef, s1, s2, kind=kind,
@@ -987,28 +1052,40 @@ def collective_flat(xf: torch.Tensor, ef: Optional[torch.Tensor], s1: int,
     if qblock % COLLECTIVE_BLOCK:
         raise ValueError(f"collective_flat: qblock={qblock} must be a "
                          f"multiple of {COLLECTIVE_BLOCK} on the card")
-    if tiled is None:
-        tiled = collective_smem(n, n_pods, qblock, True) <= \
-            cuda_build.MAX_SMEM
-    if collective_smem(n, n_pods, qblock, tiled) > cuda_build.MAX_SMEM:
-        raise ValueError(f"collective_flat: n={n} rows of a {qblock}-column "
-                         f"block need more shared memory than the H100's "
-                         f"{cuda_build.MAX_SMEM} bytes")
+    if instance is None:
+        instance = collective_instance(n, n_pods, D, qblock)
+    need = (collective_narrow_smem(n, n_pods, D) if instance == "narrow"
+            else collective_smem(n, n_pods, qblock, instance == "tiled"))
+    if need > cuda_build.MAX_SMEM or (instance == "narrow" and D > qblock):
+        raise ValueError(f"collective_flat: the {instance} instance does not "
+                         f"take n={n} rows of D={D} columns at qblock="
+                         f"{qblock} (shared memory {need} bytes, the H100's "
+                         f"{cuda_build.MAX_SMEM})")
     o = xf if inplace else torch.empty_like(xf)
     ef_out = None
     if with_ef:
         ef_out = ef if inplace else torch.empty_like(ef)
-    err = cuda_build.entry("collective")(
-        _ptr(xf), _ptr(ef if with_ef else None), _ptr(o), _ptr(ef_out),
-        int(s1) & 0xFFFFFFFF, int(s2) & 0xFFFFFFFF, D, n, n_pods, qblock,
-        COLLECTIVE_KINDS[kind], int(with_ef), COLLECTIVE_BLOCK, int(tiled),
-        _stream(dev))
-    _check_launch(err, f"collective (n={n}, D={D}, kind={kind})")
-    collective_flat.launches += 1
+    args = (_ptr(xf), _ptr(ef if with_ef else None), _ptr(o), _ptr(ef_out),
+            int(s1) & 0xFFFFFFFF, int(s2) & 0xFFFFFFFF, D, n, n_pods)
+    if instance == "narrow":
+        err = cuda_build.entry("collective_narrow")(
+            *args, COLLECTIVE_KINDS[kind], int(with_ef),
+            COLLECTIVE_NARROW_BLOCK, _stream(dev))
+    else:
+        err = cuda_build.entry("collective")(
+            *args, qblock, COLLECTIVE_KINDS[kind], int(with_ef),
+            COLLECTIVE_BLOCK, int(instance == "tiled"), _stream(dev))
+    _check_launch(err, f"collective (n={n}, D={D}, kind={kind}, {instance} "
+                       f"instance)")
+    if instance == "narrow":
+        collective_flat.narrow_launches += 1
+    else:
+        collective_flat.launches += 1
     return o, ef_out
 
 
 collective_flat.launches = 0
+collective_flat.narrow_launches = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -1253,16 +1330,45 @@ def shard_comp_mix_block_plain(x, q_self, qs, w, M):
     return x + (torch.matmul(M, qs) - w * q_self)
 
 
-def shard_comp_mix_block(x: torch.Tensor, q_self: torch.Tensor,
-                         qs: torch.Tensor, w: torch.Tensor, M: torch.Tensor,
-                         *, out: Optional[torch.Tensor] = None):
-    """One node shard's compensated compressed round over its ``(m, D)``
-    row-block: ``x + (M_r·qs − w⊙q_self)``, ``qs`` the ``(K, D)`` rebuilt
-    halo estimates, ``q_self`` the shard's own, ``w = 1 − d`` its ``(m,
-    1)`` rows.  ``out`` as in :func:`shard_mix_block`.  A CUDA ``x``
-    launches ``shard_cmix.cu`` (counted in
-    ``shard_comp_mix_block.launches``); a CPU ``x`` takes
-    :func:`shard_comp_mix_block_plain`."""
+def _shard_nodes_rows(m: int, K: int, D: int) -> bool:
+    """shard_cmix.cu's node-parallel rule: the block's tiles fit the
+    card's shared memory (:func:`nodes_smem` of K) and m >=
+    :data:`SHARD_NODES_MIN_M` with K >= :data:`SHARD_NODES_MIN_K` at any
+    D, or m >= 3 at D <= :data:`SHARD_NODES_NARROW_D`; the column
+    instance otherwise.
+
+    The crossovers, timed in turns on the H100 (PERF.md, row 4d): up to
+    D = 8,001 the node-parallel instance won at every m from 3, K = m and
+    2m (1.10x at m = K = 3, D = 8,001, to 43x at m = 100, K = 200,
+    D = 10); at D = 1,000,003 it lost up to m = 33 (0.18-0.43x; 1.02x at
+    m = 33, K = 66) and at m = K = 48 (0.90x), and won at m = 48, K = 96
+    (1.94x) and at m = 100 (1.97x at K = 100, 4.30x at K = 200): one
+    thread a column runs m·K products in series, the node-parallel block
+    K a lane.  m = 2 (the trainers' shards) stays on the column
+    instance."""
+    return nodes_smem(K) <= cuda_build.MAX_SMEM and (
+        (m >= SHARD_NODES_MIN_M and K >= SHARD_NODES_MIN_K)
+        or (m >= 3 and D <= SHARD_NODES_NARROW_D))
+
+
+def use_nodes_shard_cmix(x: torch.Tensor, qs: torch.Tensor) -> bool:
+    """Whether a CUDA :func:`shard_comp_mix_block` on the ``(m, D)`` shard
+    ``x`` and its ``(K, D)`` halo ``qs`` launches shard_cmix.cu's
+    node-parallel instance (:func:`_shard_nodes_rows`).  Pure: reads
+    shapes only (every CUDA operand is contiguous or refused)."""
+    return _shard_nodes_rows(x.shape[0], qs.shape[0], x.shape[1])
+
+
+def shard_nodes_plan(m: int, K: int, D: int) -> dict:
+    """The tiles and grid of a node-parallel shard_cmix launch:
+    ``row_tiles`` over the shard's m rows, ``col_tiles``, ``grid`` ``(x,
+    y)`` (every row tile: the output is always fresh) and ``smem`` bytes,
+    the K halo rows' operands and M's row tile (:func:`nodes_plan`'s)."""
+    return {**_tile_grid(m, D), "smem": nodes_smem(K)}
+
+
+def _check_shard_cmix(x, q_self, qs, w, M, out) -> torch.device:
+    """Operand checks of the shard_cmix wrappers; returns the device."""
     m, D = x.shape
     K = qs.shape[0]
     if q_self.shape != x.shape or qs.dim() != 2 or qs.shape[1] != D \
@@ -1271,20 +1377,78 @@ def shard_comp_mix_block(x: torch.Tensor, q_self: torch.Tensor,
                          "(K, D), w (m, 1) and M (m, K)")
     dev = _check_operands("shard_comp_mix_block", x, [q_self, qs, w, M])
     _check_shard_out("shard_comp_mix_block", out, x, [x, q_self, qs])
-    if dev.type == "cpu":
-        o = shard_comp_mix_block_plain(x, q_self, qs, w, M)
-        return o if out is None else out.copy_(o)
+    return dev
+
+
+def _launch_shard_cmix(x, q_self, qs, w, M, out, instance: str):
+    dev = _check_shard_cmix(x, q_self, qs, w, M, out)
+    if dev.type != "cuda":
+        raise ValueError("shard_cmix kernel: CUDA operands expected")
+    m, D = x.shape
+    K = qs.shape[0]
     o = torch.empty_like(x) if out is None else out
-    block = _shard_block(K)
-    err = cuda_build.entry("shard_cmix")(
-        _ptr(x), _ptr(q_self), _ptr(qs), _ptr(w), _ptr(M), _ptr(o), D, m, K,
-        block, _stream(dev))
-    _check_launch(err, f"shard_cmix (m={m}, K={K}, D={D})")
+    args = (_ptr(x), _ptr(q_self), _ptr(qs), _ptr(w), _ptr(M), _ptr(o), D,
+            m, K)
+    if instance == "nodes":
+        plan = shard_nodes_plan(m, K, D)
+        if plan["smem"] > cuda_build.MAX_SMEM:
+            raise ValueError(f"shard_cmix_nodes: K={K} halo rows need "
+                             f"{plan['smem']} bytes of shared memory per "
+                             f"block, over the H100's {cuda_build.MAX_SMEM}")
+        grid_x, grid_y = plan["grid"]
+        err = cuda_build.entry("shard_cmix_nodes")(*args, grid_x, grid_y,
+                                                   _stream(dev))
+    else:
+        err = cuda_build.entry("shard_cmix")(*args, _shard_block(K),
+                                             _stream(dev))
+    _check_launch(err, f"shard_cmix (m={m}, K={K}, D={D}, {instance} "
+                       f"instance)")
+    return o
+
+
+def shard_cmix_column(x, q_self, qs, w, M, *,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch shard_cmix.cu's column instance (one thread a column) on
+    CUDA operands; counted in ``shard_comp_mix_block.launches``."""
+    o = _launch_shard_cmix(x, q_self, qs, w, M, out, "column")
     shard_comp_mix_block.launches += 1
     return o
 
 
+def shard_cmix_nodes(x, q_self, qs, w, M, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch shard_cmix.cu's node-parallel instance on CUDA operands (any
+    m and D; K while :func:`shard_nodes_plan`'s tiles fit the card),
+    bitwise the column instance; counted in
+    ``shard_comp_mix_block.nodes_launches``."""
+    o = _launch_shard_cmix(x, q_self, qs, w, M, out, "nodes")
+    shard_comp_mix_block.nodes_launches += 1
+    return o
+
+
+def shard_comp_mix_block(x: torch.Tensor, q_self: torch.Tensor,
+                         qs: torch.Tensor, w: torch.Tensor, M: torch.Tensor,
+                         *, out: Optional[torch.Tensor] = None):
+    """One node shard's compensated compressed round over its ``(m, D)``
+    row-block: ``x + (M_r·qs − w⊙q_self)``, ``qs`` the ``(K, D)`` rebuilt
+    halo estimates, ``q_self`` the shard's own, ``w = 1 − d`` its ``(m,
+    1)`` rows.  ``out`` as in :func:`shard_mix_block`.  A CUDA ``x``
+    launches ``shard_cmix.cu``: the node-parallel instance where
+    :func:`use_nodes_shard_cmix` takes the shard (counted in
+    ``shard_comp_mix_block.nodes_launches``), else the column instance
+    (``shard_comp_mix_block.launches``), the same bits; a CPU ``x`` takes
+    :func:`shard_comp_mix_block_plain`."""
+    dev = _check_shard_cmix(x, q_self, qs, w, M, out)
+    if dev.type == "cpu":
+        o = shard_comp_mix_block_plain(x, q_self, qs, w, M)
+        return o if out is None else out.copy_(o)
+    launch = (shard_cmix_nodes if use_nodes_shard_cmix(x, qs)
+              else shard_cmix_column)
+    return launch(x, q_self, qs, w, M, out=out)
+
+
 shard_comp_mix_block.launches = 0
+shard_comp_mix_block.nodes_launches = 0
 
 
 def compensated_apply(params: PyTree, q: PyTree, *, topology: str,

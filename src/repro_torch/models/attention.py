@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (ParamBuilder, apply_rope, make_rope,
-                                       node_matmul, rms_norm, softcap)
+from repro_torch.models.layers import (ParamBuilder, apply_rope, built,
+                                       make_rope, node_matmul, rms_norm,
+                                       softcap)
 
 PyTree = Any
 NEG_INF = -2.3819763e38  # the reference's (XLA's) mask value
@@ -34,7 +35,15 @@ _Q_CHUNK = 512
 LAYER_KINDS = ("attn", "attn_sw")
 
 
-def init_attention(b: ParamBuilder, cfg: ModelConfig) -> None:
+def init_attention(generator: Optional[torch.Generator], cfg: ModelConfig,
+                   param_dtype: torch.dtype, *, device="cuda"
+                   ) -> Tuple[PyTree, PyTree]:
+    """The attention mixer's ``(params, axes)``: MLA's or dense (the
+    reference's call shape)."""
+    return built(_init_attention_into, generator, param_dtype, device, cfg)
+
+
+def _init_attention_into(b: ParamBuilder, cfg: ModelConfig) -> None:
     if cfg.mla is not None:
         m = cfg.mla
         d, nh = cfg.d_model, cfg.n_heads

@@ -35,19 +35,20 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (ParamBuilder, apply_mlp, init_mlp,
-                                       init_rms_norm, rms_norm, stack_inits)
+from repro_torch.models.layers import (ParamBuilder, _init_mlp_into,
+                                       _stack_inits_into, apply_mlp, built,
+                                       init_rms_norm, rms_norm)
 from repro_torch.tree import tree_map
 
 PyTree = Any
 MODES = ("train", "prefill", "decode")
 REMAT_POLICIES = ("none", "default", "dots")
-# the recurrent mixers: (init, forward, decode, init_state) each
-RECURRENT = {"mamba": (ssm_lib.init_mamba, ssm_lib.mamba_forward,
+# the recurrent mixers: (init into a builder, forward, decode, init_state)
+RECURRENT = {"mamba": (ssm_lib._init_mamba_into, ssm_lib.mamba_forward,
                        ssm_lib.mamba_decode, ssm_lib.init_mamba_state),
-             "mlstm": (ssm_lib.init_mlstm, ssm_lib.mlstm_forward,
+             "mlstm": (ssm_lib._init_mlstm_into, ssm_lib.mlstm_forward,
                        ssm_lib.mlstm_decode, ssm_lib.init_mlstm_state),
-             "slstm": (ssm_lib.init_slstm, ssm_lib.slstm_forward,
+             "slstm": (ssm_lib._init_slstm_into, ssm_lib.slstm_forward,
                        ssm_lib.slstm_decode, ssm_lib.init_slstm_state)}
 # their states' logical axes
 STATE_AXES = {"mamba": ssm_lib.mamba_state_axes,
@@ -66,13 +67,21 @@ def check_supported(cfg: ModelConfig) -> None:
             f"full rank); use q_lora_rank=None")
 
 
-def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
+def init_block(generator: Optional[torch.Generator], cfg: ModelConfig,
+               kind: BlockSpec, param_dtype: torch.dtype, *, device="cuda"
+               ) -> Tuple[PyTree, PyTree]:
+    """One block's ``(params, axes)`` (the reference's call shape)."""
+    return built(_init_block_into, generator, param_dtype, device, cfg, kind)
+
+
+def _init_block_into(b: ParamBuilder, cfg: ModelConfig,
+                     kind: BlockSpec) -> None:
     """One block's params and axes into builder ``b``."""
     mixer_kind, ffn_kind = kind
     init_rms_norm(b, "ln1", cfg.d_model)
     mixer = b.child()
     if mixer_kind in attn.LAYER_KINDS:
-        attn.init_attention(mixer, cfg)
+        attn._init_attention_into(mixer, cfg)
     else:
         RECURRENT[mixer_kind][0](mixer, cfg)
     b.attach("mixer", mixer.params, mixer.axes)
@@ -82,9 +91,9 @@ def init_block(b: ParamBuilder, cfg: ModelConfig, kind: BlockSpec) -> None:
         init_rms_norm(b, "ln2", cfg.d_model)
         ffn = b.child()
         if ffn_kind == "moe":
-            moe_lib.init_moe(ffn, cfg)
+            moe_lib._init_moe_into(ffn, cfg)
         else:
-            init_mlp(ffn, cfg.d_model, cfg.d_ff)
+            _init_mlp_into(ffn, cfg.d_model, cfg.d_ff)
         b.attach("ffn", ffn.params, ffn.axes)
         if cfg.post_block_norm:
             init_rms_norm(b, "post_ln2", cfg.d_model)
@@ -239,23 +248,31 @@ def apply_stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, *,
     return x, out_caches, total_lb
 
 
-def init_stack(b: ParamBuilder, cfg: ModelConfig) -> None:
+def init_stack(generator: Optional[torch.Generator], cfg: ModelConfig,
+               param_dtype: torch.dtype, *, device="cuda"
+               ) -> Tuple[PyTree, PyTree]:
+    """The block stack's ``(params, axes)`` (the reference's call
+    shape)."""
+    return built(_init_stack_into, generator, param_dtype, device, cfg)
+
+
+def _init_stack_into(b: ParamBuilder, cfg: ModelConfig) -> None:
     """``{"prefix_<i>": block, "scan": {"entry_<j>": (L, …)}}`` and its
     axes into builder ``b``; blocks are drawn one after another on the
     host and copied to ``b.device``, a scanned layer into its slot of the
-    stacked leaves (:func:`stack_inits`), so the device holds the stack
-    and no per-layer copy (gemma2-9b's 37 GB of fp32 params, not 54 at
-    the peak)."""
+    stacked leaves (:func:`~repro_torch.models.layers._stack_inits_into`),
+    so the device holds the stack and no per-layer copy (gemma2-9b's 37 GB
+    of fp32 params, not 54 at the peak)."""
     host = "meta" if b.abstract else "cpu"
     for i, kind in enumerate(cfg.prefix_pattern):
         one = b.child(host)
-        init_block(one, cfg, kind)
+        _init_block_into(one, cfg, kind)
         b.attach(f"prefix_{i}", tree_map(lambda t: t.to(b.device),
                                          one.params), one.axes)
     scan_p, scan_a = {}, {}
     for j, kind in enumerate(cfg.pattern):
-        scan_p[f"entry_{j}"], scan_a[f"entry_{j}"] = stack_inits(
-            lambda one, kind=kind: init_block(one, cfg, kind), b,
+        scan_p[f"entry_{j}"], scan_a[f"entry_{j}"] = _stack_inits_into(
+            lambda one, kind=kind: _init_block_into(one, cfg, kind), b,
             cfg.n_scan_blocks)
     b.attach("scan", scan_p, scan_a)
 

@@ -166,31 +166,68 @@ class ParamBuilder:
         self.axes[name] = axes
 
 
-def stack_inits(init_fn: Callable[["ParamBuilder"], None],
-                b: "ParamBuilder", n: int) -> Tuple[PyTree, PyTree]:
-    """``n`` structurally identical blocks, each built by ``init_fn`` into
-    a fresh builder, stacked leaf-wise on a new leading "layers" axis:
-    ``(stacked params on b.device, ("layers",) + axes of every leaf)``.
+def built(fill: Callable[..., None], generator: Optional[torch.Generator],
+          param_dtype: torch.dtype, device, *args) -> Tuple[PyTree, PyTree]:
+    """``(params, axes)`` of ``fill(b, *args)`` on a fresh
+    ``ParamBuilder(generator, param_dtype, device)``: the reference's call
+    shape of an init (a key and a dtype in, its subtree and axes out) over
+    the builder form the port's ``Model`` calls."""
+    b = ParamBuilder(generator, param_dtype, device)
+    fill(b, *args)
+    return b.params, b.axes
 
-    Blocks are drawn one after another on the host (on ``b.generator``,
-    in block order) and copied into their slot of the stacked leaves, so
-    the device holds the stack and no per-layer copy.  The shapes-only
-    builder builds one block and stacks its shapes."""
+
+def _stacked(blocks: Callable[[int], Tuple[PyTree, PyTree]], n: int,
+             device, abstract: bool) -> Tuple[PyTree, PyTree]:
+    """Blocks ``blocks(0) .. blocks(n - 1)`` (each ``(params, axes)``, made
+    one after another) stacked leaf-wise on a new leading "layers" axis
+    into tensors allocated once on ``device``, each block copied into its
+    slot as it comes; ``abstract`` makes one block and stacks its
+    shapes."""
     from repro_torch.models.sharding import _map_axes
     from repro_torch.tree import tree_flatten, tree_unflatten
     stacked = axes = None
-    for i in range(n if not b.abstract else 1):
-        one = b.child("meta" if b.abstract else "cpu")
-        init_fn(one)
-        leaves, treedef = tree_flatten(one.params)
+    for i in range(n if not abstract else 1):
+        params, block_axes = blocks(i)
+        leaves, treedef = tree_flatten(params)
         if stacked is None:
-            axes = _map_axes(lambda a: ("layers",) + tuple(a), one.axes)
+            axes = _map_axes(lambda a: ("layers",) + tuple(a), block_axes)
             stacked = [torch.empty((n,) + t.shape, dtype=t.dtype,
-                                   device=b.device) for t in leaves]
-        if not b.abstract:
+                                   device=device) for t in leaves]
+        if not abstract:
             for dst, src in zip(stacked, leaves):
                 dst[i].copy_(src)
     return tree_unflatten(treedef, stacked), axes
+
+
+def stack_inits(init_fn: Callable[[Optional[torch.Generator]],
+                                  Tuple[PyTree, PyTree]],
+                generator: Optional[torch.Generator], n: int, *,
+                device="cuda") -> Tuple[PyTree, PyTree]:
+    """``n`` structurally identical blocks, ``init_fn(generator) ->
+    (params, axes)`` called ``n`` times in order, stacked leaf-wise on a
+    new leading "layers" axis on ``device``: ``(stacked params,
+    ("layers",) + axes of every leaf)`` (the reference's
+    ``stack_inits(init_fn, key, n)``; the blocks draw one after another
+    from the one generator, where the reference splits its key).  On
+    ``device="meta"`` the stack holds shapes only."""
+    return _stacked(lambda i: init_fn(generator), n, device,
+                    torch.device(device).type == "meta")
+
+
+def _stack_inits_into(init_fn: Callable[["ParamBuilder"], None],
+                      b: "ParamBuilder", n: int) -> Tuple[PyTree, PyTree]:
+    """The builder form of :func:`stack_inits`: ``n`` blocks, each built
+    by ``init_fn`` into a fresh builder on ``b``'s generator and dtype.
+    Blocks are drawn one after another on the host (in block order) and
+    copied into their slot of the stacked leaves on ``b.device``, so the
+    device holds the stack and no per-layer copy.  The shapes-only
+    builder builds one block and stacks its shapes."""
+    def block(i: int) -> Tuple[PyTree, PyTree]:
+        one = b.child("meta" if b.abstract else "cpu")
+        init_fn(one)
+        return one.params, one.axes
+    return _stacked(block, n, b.device, b.abstract)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +293,15 @@ def node_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU)
 # ---------------------------------------------------------------------------
-def init_mlp(b: ParamBuilder, d_model: int, d_ff: int) -> None:
+def init_mlp(generator: Optional[torch.Generator], d_model: int, d_ff: int,
+             param_dtype: torch.dtype, *, device="cuda"
+             ) -> Tuple[PyTree, PyTree]:
+    """The gated MLP's ``(params, axes)`` (the reference's call shape)."""
+    return built(_init_mlp_into, generator, param_dtype, device, d_model,
+                 d_ff)
+
+
+def _init_mlp_into(b: ParamBuilder, d_model: int, d_ff: int) -> None:
     b.add("w_gate", (d_model, d_ff), ("embed", "ffn"))
     b.add("w_up", (d_model, d_ff), ("embed", "ffn"))
     b.add("w_down", (d_ff, d_model), ("ffn", "embed"))
@@ -271,8 +316,17 @@ def apply_mlp(params: PyTree, x: torch.Tensor, *, act=F.silu) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
-def init_embedding(b: ParamBuilder, vocab: int, d_model: int,
-                   tie: bool) -> None:
+def init_embedding(generator: Optional[torch.Generator], vocab: int,
+                   d_model: int, param_dtype: torch.dtype, tie: bool, *,
+                   device="cuda") -> Tuple[PyTree, PyTree]:
+    """The embedding (and, untied, the unembedding): ``(params, axes)``
+    (the reference's call shape)."""
+    return built(_init_embedding_into, generator, param_dtype, device, vocab,
+                 d_model, tie)
+
+
+def _init_embedding_into(b: ParamBuilder, vocab: int, d_model: int,
+                         tie: bool) -> None:
     b.add("embedding", (vocab, d_model), ("vocab", "embed"), init="normal",
           scale=0.02)
     if not tie:

@@ -26,8 +26,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.layers import (ParamBuilder, embed_tokens,
-                                       init_embedding, init_rms_norm,
+from repro_torch.models.layers import (ParamBuilder, _init_embedding_into,
+                                       embed_tokens, init_rms_norm,
                                        rms_norm, unembed)
 from repro_torch.tree import tree_map
 
@@ -61,13 +61,13 @@ class Model:
     def _build(self, b: ParamBuilder) -> ParamBuilder:
         cfg = self.cfg
         emb = b.child()
-        init_embedding(emb, cfg.vocab_size, cfg.d_model,
-                       cfg.tie_embeddings)
+        _init_embedding_into(emb, cfg.vocab_size, cfg.d_model,
+                             cfg.tie_embeddings)
         b.attach("embed", emb.params, emb.axes)
         if cfg.family == "encoder":
             b.add("mask_emb", (cfg.d_model,), (None,), init="normal")
         stack = b.child()
-        blocks.init_stack(stack, cfg)
+        blocks._init_stack_into(stack, cfg)
         b.attach("stack", stack.params, stack.axes)
         init_rms_norm(b, "final_norm", cfg.d_model)
         return b

@@ -38,14 +38,22 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import ParamBuilder, apply_mlp, node_matmul
+from repro_torch.models.layers import (ParamBuilder, apply_mlp, built,
+                                       node_matmul)
 
 PyTree = Any
 
 DEFAULT_CAPACITY_FACTOR = 1.25
 
 
-def init_moe(b: ParamBuilder, cfg: ModelConfig) -> None:
+def init_moe(generator: Optional[torch.Generator], cfg: ModelConfig,
+             param_dtype: torch.dtype, *, device="cuda"
+             ) -> Tuple[PyTree, PyTree]:
+    """The MoE FFN's ``(params, axes)`` (the reference's call shape)."""
+    return built(_init_moe_into, generator, param_dtype, device, cfg)
+
+
+def _init_moe_into(b: ParamBuilder, cfg: ModelConfig) -> None:
     m = cfg.moe
     d = cfg.d_model
     b.add("router", (d, m.n_routed), ("embed", None))

@@ -28,14 +28,15 @@ the compute dtype, m in float32; Mamba's conv and h in the compute dtype
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import mlstm_cuda
-from repro_torch.models.layers import ParamBuilder, node_matmul, rms_norm
+from repro_torch.models.layers import (ParamBuilder, built, node_matmul,
+                                       rms_norm)
 
 PyTree = Any
 NEG_BIG = -1e9
@@ -139,7 +140,14 @@ def _mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return d_inner, s.d_state, dt_rank
 
 
-def init_mamba(b: ParamBuilder, cfg: ModelConfig) -> None:
+def init_mamba(generator: Optional[torch.Generator], cfg: ModelConfig,
+               param_dtype: torch.dtype, *, device="cuda"
+               ) -> Tuple[PyTree, PyTree]:
+    """The Mamba mixer's ``(params, axes)`` (the reference's call shape)."""
+    return built(_init_mamba_into, generator, param_dtype, device, cfg)
+
+
+def _init_mamba_into(b: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     di, N, R = _mamba_dims(cfg)
     b.add("in_proj", (d, 2 * di), ("embed", "ffn"))
@@ -245,7 +253,14 @@ def _mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return di, nh, s.mlstm_head_dim
 
 
-def init_mlstm(b: ParamBuilder, cfg: ModelConfig) -> None:
+def init_mlstm(generator: Optional[torch.Generator], cfg: ModelConfig,
+               param_dtype: torch.dtype, *, device="cuda"
+               ) -> Tuple[PyTree, PyTree]:
+    """The mLSTM mixer's ``(params, axes)`` (the reference's call shape)."""
+    return built(_init_mlstm_into, generator, param_dtype, device, cfg)
+
+
+def _init_mlstm_into(b: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     di, nh, dk = _mlstm_dims(cfg)
     b.add("up_proj", (d, 2 * di), ("embed", "ffn"))
@@ -410,7 +425,14 @@ def _slstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
     return nh, cfg.d_model // nh
 
 
-def init_slstm(b: ParamBuilder, cfg: ModelConfig) -> None:
+def init_slstm(generator: Optional[torch.Generator], cfg: ModelConfig,
+               param_dtype: torch.dtype, *, device="cuda"
+               ) -> Tuple[PyTree, PyTree]:
+    """The sLSTM mixer's ``(params, axes)`` (the reference's call shape)."""
+    return built(_init_slstm_into, generator, param_dtype, device, cfg)
+
+
+def _init_slstm_into(b: ParamBuilder, cfg: ModelConfig) -> None:
     d = cfg.d_model
     nh, dh = _slstm_dims(cfg)
     # gate inputs i, f, z, o; a block-diagonal recurrence

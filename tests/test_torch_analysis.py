@@ -479,10 +479,10 @@ def test_rpr006_launch_contract(tmp_path, mutation):
 
 
 def test_rpr006_covers_every_launch_site_of_the_port():
-    """The rule resolves all 13 ``cuda_build.entry(...)`` launch sites of
+    """The rule resolves all 15 ``cuda_build.entry(...)`` launch sites of
     ``kernels/*.py`` — the two that pass the name through ``lib`` to the
-    literals of their callers, the six that pass ``*args`` through their
-    tuple — and between them they reach all 15 entry points."""
+    literals of their callers, the ones that pass ``*args`` through their
+    tuple — and between them they reach all 17 entry points."""
     import ast
 
     from repro_torch.analysis.rules import pallas_contracts as pc
@@ -494,8 +494,8 @@ def test_rpr006_covers_every_launch_site_of_the_port():
         for call in pc.launch_sites(ctx):
             sites += 1
             names |= {name for name, _ in pc.resolve_launch(ctx, call)}
-    assert sites == 13
-    assert names == set(pc.entry_points(REPO)) and len(names) == 15
+    assert sites == 15
+    assert names == set(pc.entry_points(REPO)) and len(names) == 17
 
 
 # ---------------------------------------------------------------------------

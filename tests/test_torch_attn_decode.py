@@ -231,9 +231,7 @@ def test_init_attention_keys_match_reference():
         want = jax.tree.map(lambda a: a.shape, jax.device_get(
             jattn.init_attention(jax.random.PRNGKey(0), jcfg,
                                  jnp.float32)[0]))
-        from repro_torch.models.layers import ParamBuilder
-        b = ParamBuilder(torch.Generator().manual_seed(0), torch.float32,
-                         "cpu")
-        tattn.init_attention(b, tcfg)
-        got = {k: tuple(v.shape) for k, v in b.params.items()}
+        params, _ = tattn.init_attention(torch.Generator().manual_seed(0),
+                                         tcfg, torch.float32, device="cpu")
+        got = {k: tuple(v.shape) for k, v in params.items()}
         assert got == want, variant

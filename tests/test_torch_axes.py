@@ -126,14 +126,15 @@ def test_builder_checks_axes_against_the_shape():
 def test_stack_inits_prefixes_layers():
     from repro_torch.models.layers import ParamBuilder, stack_inits
 
-    def block(b):
-        b.add("w", (2, 3), ("embed", "ffn"))
-        b.add("n", (3,), (None,), init="ones")
-
     for device in ("cpu", "meta"):
-        b = ParamBuilder(torch.Generator().manual_seed(1), torch.float32,
-                         device)
-        params, axes = stack_inits(block, b, 4)
+        def block(generator, device=device):
+            b = ParamBuilder(generator, torch.float32, device)
+            b.add("w", (2, 3), ("embed", "ffn"))
+            b.add("n", (3,), (None,), init="ones")
+            return b.params, b.axes
+
+        gen = torch.Generator().manual_seed(1) if device == "cpu" else None
+        params, axes = stack_inits(block, gen, 4, device=device)
         assert axes == {"w": ("layers", "embed", "ffn"),
                         "n": ("layers", None)}
         assert tuple(params["w"].shape) == (4, 2, 3)

@@ -4,7 +4,13 @@ output on the same inputs.
 
 ``TrainState``'s legacy keywords, ``slow_params``/``slow_u`` and
 ``with_extras``; ``CommSchedule.phase``; ``ParamBuilder.sub``;
-``init_rms_norm(zeros=)`` and ``make_rope(dtype=)``.  Exact wherever both
+``init_rms_norm(zeros=)`` and ``make_rope(dtype=)``.  And ROADMAP C.7: the
+eleven model inits in the reference's form, ``(key, ..., param_dtype) ->
+(params, axes)``, a CPU ``torch.Generator`` for the key: their trees'
+keys, shapes and dtypes and their axes trees equal the reference's at
+reduced configs (values are not compared: the two packages draw other
+numbers), the public form is bitwise the builder form ``Model`` calls,
+and ``device="meta"`` builds shapes without a seed.  Exact wherever both
 sides are exact by construction (slot bookkeeping, schedules, ones and
 zeros inits); ``make_rope``'s tables within 2e-6 at float32 (the two
 packages raise theta to the exponents through different pow routines) and
@@ -224,3 +230,237 @@ def test_make_rope_dtype_matches_reference(dtype, atol):
     # the default stays the fp32 tables
     assert tlayers.make_rope(torch.from_numpy(pos), 16, 1e4)[0].dtype == \
         torch.float32
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C.7: the model inits' call shape
+# ---------------------------------------------------------------------------
+def _cfgs(arch):
+    from repro.configs import get_model_config as jax_config
+    from repro_torch.configs import get_model_config
+    return jax_config(arch, reduced=True), get_model_config(arch,
+                                                           reduced=True)
+
+
+def _call(module, fn, arch, args):
+    """``fn`` of ``module`` in both packages: ``(jax_call, port_call)``,
+    taking the key (the generator and ``device``): the reduced config of
+    ``arch`` (if any) after the key, then ``args(side)``, the
+    reference's remaining arguments in its order (``param_dtype``
+    included)."""
+    import importlib
+    jm = importlib.import_module(f"repro.models.{module}")
+    tm = importlib.import_module(f"repro_torch.models.{module}")
+    jc, tc = _cfgs(arch) if arch else (None, None)
+
+    def jcall(key):
+        """Shapes only: ``jax.eval_shape`` traces the init without
+        compiling a draw; the axes tree comes out of the trace."""
+        import jax
+        box = {}
+
+        def init(k):
+            params, box["axes"] = getattr(jm, fn)(
+                k, *((jc,) if arch else ()), *args("jax"))
+            return params
+        return jax.eval_shape(init, key), box["axes"]
+
+    def tcall(gen, device="cpu"):
+        return getattr(tm, fn)(gen, *((tc,) if arch else ()),
+                               *args("torch"), device=device)
+    return jcall, tcall
+
+
+def _dtype(dt, side):
+    import jax.numpy as jnp
+    return getattr(jnp if side == "jax" else torch, dt)
+
+
+def _mlp(dt, side):
+    return (256, 512, _dtype(dt, side))
+
+
+def _emb(tie):
+    return lambda dt, side: (512, 256, _dtype(dt, side), tie)
+
+
+def _cfg_only(dt, side):
+    return (_dtype(dt, side),)
+
+
+def _block(kind):
+    return lambda dt, side: (kind, _dtype(dt, side))
+
+
+INIT_CASES = {
+    "init_mlp": ("layers", "init_mlp", None, _mlp),
+    "init_embedding tie": ("layers", "init_embedding", None, _emb(True)),
+    "init_embedding untied": ("layers", "init_embedding", None,
+                              _emb(False)),
+    "init_attention pga-lm": ("attention", "init_attention", "pga-lm-100m",
+                              _cfg_only),
+    "init_attention gemma2": ("attention", "init_attention", "gemma2-9b",
+                              _cfg_only),
+    "init_attention qwen2 bias": ("attention", "init_attention",
+                                  "qwen2-0.5b", _cfg_only),
+    "init_attention qwen3 qk-norm": ("attention", "init_attention",
+                                     "qwen3-0.6b", _cfg_only),
+    "init_attention deepseek mla": ("attention", "init_attention",
+                                    "deepseek-v2-lite-16b", _cfg_only),
+    "init_moe deepseek": ("moe", "init_moe", "deepseek-v2-lite-16b",
+                          _cfg_only),
+    "init_mamba jamba": ("ssm", "init_mamba", "jamba-1.5-large-398b",
+                         _cfg_only),
+    "init_mlstm xlstm": ("ssm", "init_mlstm", "xlstm-125m", _cfg_only),
+    "init_slstm xlstm": ("ssm", "init_slstm", "xlstm-125m", _cfg_only),
+    "init_block pga-lm": ("blocks", "init_block", "pga-lm-100m",
+                          _block(("attn", "dense"))),
+    "init_block gemma2 sw post-norms": ("blocks", "init_block", "gemma2-9b",
+                                        _block(("attn_sw", "dense"))),
+    "init_block deepseek mla moe": ("blocks", "init_block",
+                                    "deepseek-v2-lite-16b",
+                                    _block(("attn", "moe"))),
+    "init_block jamba mamba moe": ("blocks", "init_block",
+                                   "jamba-1.5-large-398b",
+                                   _block(("mamba", "moe"))),
+    "init_block xlstm slstm": ("blocks", "init_block", "xlstm-125m",
+                               _block(("slstm", "none"))),
+    "init_block bert": ("blocks", "init_block", "bert-large",
+                        _block(("attn", "dense"))),
+    "init_stack pga-lm": ("blocks", "init_stack", "pga-lm-100m", _cfg_only),
+    "init_stack gemma2": ("blocks", "init_stack", "gemma2-9b", _cfg_only),
+    "init_stack qwen3": ("blocks", "init_stack", "qwen3-0.6b", _cfg_only),
+    "init_stack deepseek": ("blocks", "init_stack", "deepseek-v2-lite-16b",
+                            _cfg_only),
+    "init_stack xlstm": ("blocks", "init_stack", "xlstm-125m", _cfg_only),
+    "init_stack bert": ("blocks", "init_stack", "bert-large", _cfg_only),
+}
+
+
+def _flat(tree, leaf=lambda x: not isinstance(x, dict), path=()):
+    """``{path: leaf}`` of a nested dict (tuples are leaves: axes)."""
+    if leaf(tree):
+        return {path: tree}
+    out = {}
+    for k in tree:
+        out.update(_flat(tree[k], leaf, path + (k,)))
+    return out
+
+
+def _same_tree(jtree, ttree):
+    """Keys, shapes and dtypes of the params; the axes trees equal."""
+    (jp, ja), (tp, ta) = jtree, ttree
+    jl, tl = _flat(jp), _flat(tp)
+    assert sorted(jl) == sorted(tl)
+    for k in jl:
+        assert tuple(jl[k].shape) == tuple(tl[k].shape), k
+        assert str(jl[k].dtype) == str(tl[k].dtype).split(".")[1], k
+    ja = {k: tuple(v) for k, v in _flat(ja).items()}
+    ta = {k: tuple(v) for k, v in _flat(ta).items()}
+    assert ja == ta
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(INIT_CASES))
+def test_model_inits_match_the_reference_call_shape(case, dtype):
+    """C.7: each init takes (generator, the reference's arguments,
+    param_dtype) and returns (params, axes) with the reference's keys,
+    shapes, dtypes and axes."""
+    import jax
+
+    module, fn, arch, args = INIT_CASES[case]
+    jcall, tcall = _call(module, fn, arch, lambda side: args(dtype, side))
+    want = jcall(jax.random.PRNGKey(0))
+    got = tcall(torch.Generator().manual_seed(0))
+    _same_tree(want, got)
+
+
+def _stack_inits_pair(n):
+    """``stack_inits`` of ``init_mlp`` at n blocks, in both packages."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as jlayers
+    box = {}
+
+    def init(key):
+        params, box["axes"] = jlayers.stack_inits(
+            lambda k: jlayers.init_mlp(k, 32, 64, jnp.float32), key, n)
+        return params
+    want = jax.eval_shape(init, jax.random.PRNGKey(0)), box["axes"]
+    got = tlayers.stack_inits(
+        lambda g: tlayers.init_mlp(g, 32, 64, torch.float32, device="cpu"),
+        torch.Generator().manual_seed(0), n, device="cpu")
+    return want, got
+
+
+def test_stack_inits_matches_the_reference_call_shape():
+    """``stack_inits(init_fn, generator, n)`` at n = 3: init_fn(generator)
+    -> (params, axes) called per block, the leaves stacked on a leading
+    axis, every axes tuple prefixed with "layers", each block its own
+    draw."""
+    want, got = _stack_inits_pair(3)
+    _same_tree(want, got)
+    assert got[1]["w_up"] == ("layers", "embed", "ffn")
+    w = got[0]["w_gate"]
+    assert w.shape == (3, 32, 64)
+    assert not torch.equal(w[0], w[1]) and not torch.equal(w[1], w[2])
+    # the blocks are the generator's next three draws, in order
+    gen = torch.Generator().manual_seed(0)
+    blocks = [tlayers.init_mlp(gen, 32, 64, torch.float32, device="cpu")[0]
+              for _ in range(3)]
+    for i, blk in enumerate(blocks):
+        for k in blk:
+            assert torch.equal(got[0][k][i], blk[k])
+
+
+def _builder_form(module, fn, gen, arch, args):
+    """The private builder form behind public ``fn`` (the reference's
+    arguments less ``param_dtype``, which the builder carries), on
+    ``gen`` at float32."""
+    import importlib
+    tm = importlib.import_module(f"repro_torch.models.{module}")
+    b = tlayers.ParamBuilder(gen, torch.float32, "cpu")
+    rest = tuple(a for a in args("float32", "torch")
+                 if not isinstance(a, torch.dtype))
+    getattr(tm, f"_{fn}_into")(b, *((_cfgs(arch)[1],) if arch else ()),
+                               *rest)
+    return b.params, b.axes
+
+
+@pytest.mark.parametrize("case", sorted(INIT_CASES))
+def test_public_init_is_bitwise_the_builder_form(case):
+    """The public form on a generator seeded s draws what the builder form
+    (``Model``'s) draws on the same seed: every leaf bitwise, the same
+    axes."""
+    module, fn, arch, args = INIT_CASES[case]
+    _, tcall = _call(module, fn, arch, lambda side: args("float32", side))
+    got = tcall(torch.Generator().manual_seed(11))
+    want = _builder_form(module, fn, torch.Generator().manual_seed(11),
+                         arch, args)
+    assert got[1] == want[1]
+    gl, wl = _flat(got[0]), _flat(want[0])
+    assert sorted(gl) == sorted(wl)
+    for k in gl:
+        assert gl[k].dtype == wl[k].dtype and torch.equal(gl[k], wl[k]), k
+
+
+@pytest.mark.parametrize("case", sorted(INIT_CASES))
+def test_meta_init_takes_no_seed(case):
+    """``device="meta"`` with ``generator=None`` builds the shapes and the
+    axes of the real init and draws nothing; a generator handed to it
+    is left where it was."""
+    module, fn, arch, args = INIT_CASES[case]
+    _, tcall = _call(module, fn, arch, lambda side: args("float32", side))
+    meta = tcall(None, device="meta")
+    real = tcall(torch.Generator().manual_seed(0))
+    assert meta[1] == real[1]
+    ml, rl = _flat(meta[0]), _flat(real[0])
+    assert sorted(ml) == sorted(rl)
+    for k in ml:
+        assert ml[k].device.type == "meta", k
+        assert ml[k].shape == rl[k].shape and ml[k].dtype == rl[k].dtype
+    gen = torch.Generator().manual_seed(5)
+    state = gen.get_state()
+    tcall(gen, device="meta")
+    assert torch.equal(gen.get_state(), state)

@@ -41,7 +41,6 @@ from repro.models import ssm as jssm
 from repro_torch import interop
 from repro_torch.configs import get_model_config
 from repro_torch.models import ssm as tssm
-from repro_torch.models.layers import ParamBuilder
 
 torch.set_num_threads(2)
 
@@ -145,9 +144,8 @@ def test_scan_matches_sequential():
 def test_init_mamba_matches_reference():
     jc, tc = _cfgs()
     want = _weights()
-    b = ParamBuilder(torch.Generator().manual_seed(0), torch.float32, "cpu")
-    tssm.init_mamba(b, tc)
-    got = b.params
+    got, _ = tssm.init_mamba(torch.Generator().manual_seed(0), tc,
+                             torch.float32, device="cpu")
     assert sorted(got) == sorted(want)
     for name, w in want.items():
         g = got[name].numpy()
@@ -179,13 +177,13 @@ def test_port_init_runs_in_the_reference():
     """``interop``'s other direction: the port's ``init_mamba`` as numpy
     gives the reference the port's forward."""
     jc, tc = _cfgs()
-    b = ParamBuilder(torch.Generator().manual_seed(4), torch.float32, "cpu")
-    tssm.init_mamba(b, tc)
+    params, _ = tssm.init_mamba(torch.Generator().manual_seed(4), tc,
+                                torch.float32, device="cpu")
     x = (0.5 * np.random.default_rng(4).standard_normal((2, 9, 256))
          ).astype(np.float32)
-    jo, _ = jssm.mamba_forward(interop.to_numpy(b.params), jc,
+    jo, _ = jssm.mamba_forward(interop.to_numpy(params), jc,
                                jnp.asarray(x))
-    to, _ = tssm.mamba_forward(_node(b.params), tc,
+    to, _ = tssm.mamba_forward(_node(params), tc,
                                torch.from_numpy(x)[None])
     _close(to[0], jo, 2e-5)
 

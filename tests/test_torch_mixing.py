@@ -559,3 +559,107 @@ def test_mix_flat_on_the_cpu_takes_the_plain_twin_at_any_n():
                               with_residual=True, wire=False)
     assert all(torch.equal(a, b) for a, b in zip(out, want))
     assert (tmc.mix_flat.launches, tmc.mix_flat.nodes_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# collective.cu's narrow instance (a round one narrow scale block wide)
+# ---------------------------------------------------------------------------
+def _narrow_fits(n, n_pods, D):
+    return tmc.collective_narrow_smem(n, n_pods, D) <= \
+        tmc.cuda_build.MAX_SMEM
+
+
+@pytest.mark.parametrize("n,n_pods,D,qblock,want", [
+    (100, 1, 10, 1024, "narrow"), (100, 4, 10, 1024, "narrow"),
+    (16, 1, 10, 1024, "narrow"), (32, 2, 10, 1024, "narrow"),
+    (1, 1, 1, 1024, "narrow"), (256, 1, 1, 1024, "narrow"),
+    (100, 1, 10, 256, "narrow"), (8, 1, 1_000_003, 1024, "tiled"),
+    (8, 1, 138_431_232, 1024, "tiled"), (100, 1, 100_003, 1024, "untiled"),
+    (16, 2, 1025, 1024, "tiled"), (100, 1, 300, 256, "tiled")])
+def test_collective_instance_rule(n, n_pods, D, qblock, want):
+    """The narrow instance takes a round whose whole width is one scale
+    block of at most COLLECTIVE_NARROW_D columns while its tile fits; the
+    tiled and untiled ones keep every other shape ([sim]'s n = 100, D = 10
+    global round, the main path's n = 8 packed width, n = 100 past one
+    block)."""
+    assert tmc.collective_instance(n, n_pods, D, qblock) == want
+    assert tmc.use_narrow_collective(n, n_pods, D, qblock) is (
+        want == "narrow")
+
+
+@pytest.mark.parametrize("n,n_pods", [(1, 1), (16, 2), (32, 1), (100, 4),
+                                      (256, 1)])
+def test_narrow_collective_width_edges(n, n_pods):
+    """At the width rule's edge: D up to min(COLLECTIVE_NARROW_D, qblock)
+    and no wider, and no D whose tile passes the card's shared memory."""
+    edge = tmc.COLLECTIVE_NARROW_D
+    for D in (edge, edge + 1):
+        want = D <= edge and _narrow_fits(n, n_pods, D)
+        assert tmc.use_narrow_collective(n, n_pods, D, 1024) is want
+    assert not tmc.use_narrow_collective(n, n_pods, 257, 256)
+    widest = max(D for D in range(1, edge + 1) if _narrow_fits(n, n_pods, D))
+    assert tmc.use_narrow_collective(n, n_pods, widest, 1024)
+
+
+def test_narrow_collective_smem_matches_the_source():
+    """collective_narrow_smem is collective.cu's launch_narrow formula:
+    the n × D tile, the n_pods × D pod means and both stages' scales."""
+    src = (tmc.cuda_build.CSRC / "collective.cu").read_text()
+    assert ("(static_cast<size_t>(n + n_pods) * D + 2 * n + n_pods)"
+            in src)
+    assert "collective_narrow_kernel<KIND, EF><<<1, block, smem, s>>>" in src
+    assert "D > 4096" in src and tmc.COLLECTIVE_NARROW_D <= 4096
+    assert tmc.collective_narrow_smem(100, 1, 10) == 4 * (101 * 10 + 201)
+    assert tmc.COLLECTIVE_NARROW_BLOCK % 32 == 0
+    assert 32 <= tmc.COLLECTIVE_NARROW_BLOCK <= 1024
+
+
+@pytest.mark.parametrize("name,library,symbol", [
+    ("collective_narrow", "collective", "repro_collective_narrow"),
+    ("shard_cmix_nodes", "shard_cmix", "repro_shard_cmix_nodes")])
+def test_new_instances_entry_points_are_bound(name, library, symbol):
+    """The narrow collective's and the node-parallel shard_cmix's C entry
+    points have their rows in ENTRY_POINTS, in their kernel's library."""
+    assert tmc.cuda_build.ENTRY_POINTS[name][:2] == (library, symbol)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("n_pods", [1, 4])
+@pytest.mark.parametrize("with_ef", [False, True])
+def test_collective_flat_plain_matches_pallas_at_the_simulators_shape(
+        kind, n_pods, with_ef):
+    """[sim]'s compressed global (and a 4-pod) round at n = 100, D = 10,
+    the narrow instance's shape: the plain twin and the CPU wrapper
+    against the Pallas kernel in interpret mode (tolerance above)."""
+    from repro.compress import collective as jcol
+    from repro_torch.compress import collective as tcol
+    rng = np.random.default_rng(36)
+    x = rng.standard_normal((100, 10)).astype(np.float32)
+    e = (0.01 * rng.standard_normal((100, 10))).astype(np.float32)
+    s1, s2 = tcol.stage_seeds(7)
+    j1, j2 = jcol.stage_seeds(jnp.uint32(7))
+    kw = dict(kind=kind, with_ef=with_ef, n_pods=n_pods, qblock=1024)
+    want = jmp._collective_flat(jnp.asarray(x),
+                                jnp.asarray(e) if with_ef else None, j1, j2,
+                                interpret=True, **kw)
+    te = torch.from_numpy(e) if with_ef else None
+    before = (tmc.collective_flat.launches,
+              tmc.collective_flat.narrow_launches)
+    for got in (tmc.collective_flat_plain(torch.from_numpy(x), te, s1, s2,
+                                          **kw),
+                tmc.collective_flat(torch.from_numpy(x), te, s1, s2,
+                                    instance="narrow", **kw)):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   rtol=RTOL, atol=ATOL)
+        if with_ef:
+            np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                       rtol=RTOL, atol=ATOL)
+    assert (tmc.collective_flat.launches,
+            tmc.collective_flat.narrow_launches) == before
+
+
+def test_collective_flat_refuses_an_unknown_instance():
+    x = torch.zeros(4, 10)
+    with pytest.raises(ValueError, match="unknown instance"):
+        tmc.collective_flat(x, None, 1, 2, kind="int8", with_ef=False,
+                            n_pods=1, qblock=1024, instance="tiles")

@@ -86,18 +86,16 @@ def _x(shape, seed):
 
 
 def test_init_attention_keys_and_shapes_match_reference():
-    from repro_torch.models.layers import ParamBuilder
     for variant in VARIANTS:
         jcfg, tcfg = _cfgs(variant)
         want = jax.tree.map(lambda a: a.shape, _weights(jcfg))
-        b = ParamBuilder(torch.Generator().manual_seed(0), torch.float32,
-                         "cpu")
-        tattn.init_attention(b, tcfg)
-        got = {k: tuple(v.shape) for k, v in b.params.items()}
+        params, _ = tattn.init_attention(torch.Generator().manual_seed(0),
+                                         tcfg, torch.float32, device="cpu")
+        got = {k: tuple(v.shape) for k, v in params.items()}
         assert got == want, variant
         assert sorted(got) == ["kv_norm", "w_dkv", "w_kr", "w_o", "w_q",
                                "w_uk", "w_uv"]
-        assert torch.equal(b.params["kv_norm"],
+        assert torch.equal(params["kv_norm"],
                            torch.ones(tcfg.mla.kv_lora_rank))
 
 

@@ -155,6 +155,94 @@ def test_shard_comp_mix_block_matches_pallas(m, halo):
         assert tmc.shard_comp_mix_block.launches == before
 
 
+# shard_cmix.cu's node-parallel instance: the rule's corners (m >= 48 over
+# K >= 96 halo rows at any D, m >= 3 up to D = 8,192).  [ovsim]'s stacked
+# apply (m = K = 100, D = 10) takes it; the trainers' shards (m = 2, K = 4
+# or 2), the stacked apply at m = K = 8 on the packed width and every tile
+# past the card's shared memory keep the column instance
+@pytest.mark.parametrize("m,K,D,want", [
+    (100, 100, 10, True), (100, 100, 1_000_003, True), (50, 100, 37, True),
+    (2, 4, 138_431_232, False), (2, 4, 10, False), (2, 2, 1, False),
+    (8, 8, 138_431_232, False), (8, 8, 37, True), (8, 8, 1, True),
+    (3, 6, 8_192, True), (3, 6, 8_193, False), (47, 94, 8_193, False),
+    (48, 96, 8_193, True), (48, 95, 8_193, False), (48, 48, 8_193, False),
+    (48, 48, 1_000_003, False), (48, 894, 10, True), (48, 895, 10, False),
+    (256, 256, 10, True), (1, 1, 10, False)])
+def test_shard_cmix_instance_rule(m, K, D, want):
+    assert tmc._shard_nodes_rows(m, K, D) is want
+    x, qs = torch.zeros(m, 1).expand(m, D), torch.zeros(K, 1).expand(K, D)
+    assert tmc.use_nodes_shard_cmix(x, qs) is want
+
+
+@pytest.mark.parametrize("m,K,D,grid", [
+    (100, 100, 10, (1, 4)), (50, 100, 37, (2, 2)), (8, 8, 8_192, (256, 1)),
+    (256, 256, 1_000_003, (256, 8)), (3, 6, 1, (1, 1))])
+def test_shard_nodes_plan_covers_every_output(m, K, D, grid):
+    """Every row tile at once (the output is always fresh), the column
+    tiles walked by at most NODES_MAX_GRID blocks, and the shared memory
+    of the K halo rows' tiles (nodes.cuh's nodes_smem(K))."""
+    plan = tmc.shard_nodes_plan(m, K, D)
+    assert plan["grid"] == grid
+    assert plan["row_tiles"] == grid[1] == -(-m // tmc.NODES_ROWS)
+    assert plan["col_tiles"] == -(-D // tmc.NODES_COLS) >= grid[0]
+    assert grid[0] * grid[1] <= tmc.NODES_MAX_GRID or grid[0] == 1
+    assert plan["smem"] == 4 * K * (tmc.NODES_COLS + tmc.NODES_ROWS + 1)
+
+
+def test_shard_cmix_source_stages_an_m_by_k_factor():
+    """The node-parallel instance stages M's rows at stride K
+    (nodes.cuh's stage_rows generalised to an (m, K) factor), and mix.cu
+    and cmix.cu call it with m = K = n."""
+    csrc = tmc.cuda_build.CSRC
+    head = (csrc / "nodes.cuh").read_text()
+    assert "M[(i0 + i) * K + k]" in head
+    assert "stage_rows(M, sM, m, K, r * kNodesRows)" in (
+        csrc / "shard_cmix.cu").read_text()
+    for name in ("mix.cu", "cmix.cu"):
+        assert "stage_rows(M, sM, n, n, r * kNodesRows)" in (
+            csrc / name).read_text()
+    assert "repro::nodes_smem(K)" in (csrc / "shard_cmix.cu").read_text()
+
+
+@pytest.mark.parametrize("same_q", [True, False])
+def test_shard_comp_mix_block_matches_pallas_at_the_stacked_apply(same_q):
+    """[ovsim]'s stacked apply, m = K = 100, D = 10 (q_self the buffer
+    itself, or rows of its own), the node-parallel instance's shape: the
+    plain twin and the CPU wrapper against the Pallas kernel in interpret
+    mode, at the per-shard kernels' 1e-6.  The factors are dense and
+    scaled as a gossip round's are (each M row nonnegative, summing to
+    1/2; w in [0, 1]), so every one of the 100 products a column counts."""
+    x, qs, w, M, q = _shard_inputs(36, 100, 100, 10)
+    M = np.abs(M) / (2 * np.abs(M).sum(axis=1, keepdims=True))
+    w = (np.abs(w) / np.abs(w).max()).astype(np.float32)
+    M = M.astype(np.float32)
+    q = qs if same_q else q
+    want = jmp.shard_comp_mix_block(*_jax([x, q, qs, w, M]), block_d=512,
+                                    interpret=True)
+    args = _torch([x, q, qs, w, M])
+    before = (tmc.shard_comp_mix_block.launches,
+              tmc.shard_comp_mix_block.nodes_launches)
+    for got in (tmc.shard_comp_mix_block_plain(*args),
+                tmc.shard_comp_mix_block(*args)):
+        _close(want, got, atol=1e-6, rtol=1e-6)
+    assert (tmc.shard_comp_mix_block.launches,
+            tmc.shard_comp_mix_block.nodes_launches) == before
+
+
+@pytest.mark.parametrize("launcher", ["shard_cmix_column",
+                                      "shard_cmix_nodes"])
+def test_shard_cmix_direct_launchers_refuse_cpu_operands(launcher):
+    """The launchers that force an instance take CUDA operands only: on
+    the CPU they raise and count nothing."""
+    x, qs, w, M, q = _torch(_shard_inputs(1, 4, 8, 10))
+    before = (tmc.shard_comp_mix_block.launches,
+              tmc.shard_comp_mix_block.nodes_launches)
+    with pytest.raises(ValueError, match="CUDA operands expected"):
+        getattr(tmc, launcher)(x, q, qs, w, M)
+    assert (tmc.shard_comp_mix_block.launches,
+            tmc.shard_comp_mix_block.nodes_launches) == before
+
+
 def test_shard_wrappers_refuse_an_output_over_an_input():
     """A shard's output is a fresh buffer: writing over the round's input
     rows would feed a later shard's halo mixed rows."""
